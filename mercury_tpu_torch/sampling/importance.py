@@ -1,0 +1,121 @@
+"""The Mercury importance-sampling core as plain tensor functions — the
+PyTorch counterpart of ``mercury_tpu/sampling/importance.py``.
+
+Score every candidate of a pool by its per-sample loss, keep an EMA of the
+mean pool loss (the first update bootstraps it), smooth ``score = loss +
+α·EMA``, normalize to ``p``, draw the batch with replacement, and reweight
+the training loss by ``1/(N·p)`` so it stays an unbiased estimate of the
+uniform-sampling loss.
+
+The draw is an inverse-CDF draw from given uniforms — ``idx_b = #{j :
+cdf_j ≤ u_b}``, clamped to ``N − 1`` — the rule of the fused score-and-draw
+kernel, so one set of uniforms gives the same batch in both packages.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+# Floor of the smoothed scores before normalization (the all-zero pool).
+SCORE_FLOOR = 1e-12
+
+
+class EMAState(NamedTuple):
+    """EMA of the mean pool loss, on the device."""
+
+    value: torch.Tensor  # [] float32
+    count: torch.Tensor  # [] int32 — updates so far (0 → bootstrap next)
+
+
+def init_ema(device=None) -> EMAState:
+    return EMAState(value=torch.zeros((), dtype=torch.float32, device=device),
+                    count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def ema_update(state: EMAState, value: torch.Tensor,
+               alpha: float = 0.9) -> EMAState:
+    """``ema ← α·ema + (1−α)·value``; the first update takes ``value``."""
+    value = value.to(torch.float32)
+    new = torch.where(state.count == 0, value,
+                      alpha * state.value + (1.0 - alpha) * value)
+    return EMAState(value=new, count=state.count + 1)
+
+
+def per_sample_loss(logits: torch.Tensor, labels: torch.Tensor,
+                    label_smoothing: float = 0.0) -> torch.Tensor:
+    """Per-sample cross-entropy (``reduction='none'``) in float32."""
+    log_probs = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -log_probs.gather(-1, labels.long()[:, None])[:, 0]
+    if label_smoothing > 0.0:
+        smooth = -log_probs.mean(dim=-1)
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    return nll
+
+
+def smoothed_scores(losses: torch.Tensor, ema_value,
+                    alpha: float = 0.5) -> torch.Tensor:
+    """``score_i = loss_i + α·EMA`` before the floor and normalization."""
+    return losses.to(torch.float32) + alpha * ema_value
+
+
+def importance_probs(losses: torch.Tensor, ema_value,
+                     alpha: float = 0.5) -> torch.Tensor:
+    """Smoothed, floored scores normalized to a distribution."""
+    scores = torch.clamp(smoothed_scores(losses, ema_value, alpha),
+                         min=SCORE_FLOOR)
+    return scores / scores.sum()
+
+
+def draw_with_replacement(probs: torch.Tensor,
+                          uniforms: torch.Tensor) -> torch.Tensor:
+    """One draw per uniform by inverse CDF: ``#{j : cdf_j ≤ u}`` (an upper
+    bound in the cumulative sum), clamped to the last index."""
+    cdf = torch.cumsum(probs, dim=0)
+    idx = torch.searchsorted(cdf, uniforms.reshape(-1).contiguous(),
+                             right=True)
+    return idx.clamp_(max=probs.shape[0] - 1)
+
+
+def reweighted_loss(losses: torch.Tensor,
+                    scaled_probs: torch.Tensor) -> torch.Tensor:
+    """Unbiased estimator ``mean(loss_i / (N·p_i))``."""
+    return (losses / scaled_probs).mean()
+
+
+def pool_mean(pool_losses: torch.Tensor) -> torch.Tensor:
+    """Mean pool loss. At one worker the global mean is the local one."""
+    return pool_losses.to(torch.float32).mean()
+
+
+class SelectionResult(NamedTuple):
+    ema: EMAState
+    selected: torch.Tensor       # [B] int64 — positions in the pool
+    scaled_probs: torch.Tensor   # [B] float32 — p_i·N of the drawn samples
+    avg_pool_loss: torch.Tensor  # [] float32
+
+
+def select_from_pool(pool_losses: torch.Tensor, ema: EMAState,
+                     uniforms: torch.Tensor, is_alpha: float = 0.5,
+                     ema_alpha: float = 0.9) -> SelectionResult:
+    """EMA update, then score → normalize → draw, then ``p·N`` of each
+    drawn candidate."""
+    pool_losses = pool_losses.to(torch.float32)
+    n = pool_losses.shape[0]
+    mean_loss = pool_mean(pool_losses)
+    new_ema = ema_update(ema, mean_loss, ema_alpha)
+    probs = importance_probs(pool_losses, new_ema.value, is_alpha)
+    selected = draw_with_replacement(probs, uniforms)
+    return SelectionResult(ema=new_ema, selected=selected,
+                           scaled_probs=probs[selected] * n,
+                           avg_pool_loss=mean_loss)
+
+
+def uniform_selection(pool_size: int, batch_size: int,
+                      generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniform control arm: uniform draws with unit weights."""
+    selected = torch.randint(0, pool_size, (batch_size,), generator=generator,
+                             device=generator.device)
+    return selected, torch.ones(batch_size, dtype=torch.float32,
+                                device=generator.device)
