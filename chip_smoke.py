@@ -18,10 +18,16 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    counts zeroed just before and read just after; checks the losses are
    finite, the launch counts, that the scoring forward leaves the BN
    running statistics alone, and one step with kernels against the same
-   step with the plain versions.
+   step with the plain versions;
+5. drives the scoretable path the same way: ``sampler="scoretable",
+   fused_input=True`` (a table over the 5000-image shard, a refresh window
+   of 64, batch 32, every ingest through the fused kernel) for 30 steps,
+   with its own launch counts, the cursor's advance and a kernel step
+   against a plain step.
 
-``--profile`` adds a ``torch.profiler`` window over a few main-path steps
-and the uniform-sampling arm's step rate (see :func:`profile_phase`).
+``--profile`` adds a ``torch.profiler`` window over a few steps of each
+path and the step rates of the importance-sampled pool step, the uniform
+arm and the scoretable step, in turns (see :func:`profile_phase`).
 
 Any failed check exits non-zero. The second-to-last line of stdout is the
 ``kernels`` JSON object, the last ``{"ok": true, "device": {...}}``. The
@@ -54,7 +60,12 @@ REPLACES = {
     "nll_fwd": "mercury_tpu/ops/mercury_kernels.py:82",
     "nll_bwd": "mercury_tpu/ops/mercury_kernels.py:127",
     "score_and_draw": "mercury_tpu/ops/mercury_kernels.py:279",
+    "table_refresh_draw": "mercury_tpu/ops/mercury_kernels.py:394",
+    "augment_normalize": "mercury_tpu/ops/mercury_kernels.py:531",
 }
+# The configuration of the scoretable path (phase 5), beside the default.
+SCORETABLE = dict(model="resnet18", dataset="synthetic", world_size=1,
+                  sampler="scoretable", fused_input=True)
 
 
 class SmokeFailure(Exception):
@@ -83,12 +94,21 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     kernels, cases = run_phase("kernels", kernel_phase, torch, card)
-    main_path = run_phase("main path", main_path_phase, torch, card, kernels)
+    main_path = run_phase("main path", main_path_phase, torch, card)
+    table_path = run_phase("scoretable path", scoretable_path_phase, torch, card)
+    for k in kernels:
+        by_path = {"pool": main_path["launches"][k["name"]],
+                   "scoretable": table_path["launches"][k["name"]]}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
+    if "--profile" in sys.argv:
+        run_phase("profile", profile_phase, torch, card, main_path, table_path)
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_s": build_s, "kernels": kernels,
-         "cases": cases, "main_path": main_path}, indent=1))
+        {"card": card, "build_s": build_s, "kernels": kernels, "cases": cases,
+         "main_path": main_path["summary"], "scoretable_path": table_path["summary"]},
+        indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -254,8 +274,21 @@ def kernel_phase(torch, card: str):
     for n, skew in [(320, False), (1000, False), (50000, False), (320, True)]:
         cases.append(draw_case(torch, mk, reference, gen, n, 32, skew))
 
+    # The table over the synthetic shard (5000) and over CIFAR-10's
+    # (50,000), a window of 64, a batch of 32; one case with repeated slots.
+    for n, dup in [(5000, False), (5000, True), (50000, False)]:
+        cases.append(table_case(torch, mk, reference, gen, n, 64, 32, dup))
+
+    # The refresh window (64), the train batch (32) and the fused pool path's
+    # pool (320), at both output types; then all 81 offsets × both flips.
+    for n, dtype in [(64, torch.float32), (32, torch.float32), (320, torch.float32),
+                     (64, torch.bfloat16), (32, torch.bfloat16), (320, torch.bfloat16),
+                     (162, torch.float32), (162, torch.bfloat16)]:
+        cases.append(augment_case(torch, mk, reference, gen, n, dtype,
+                                  every_offset=n == 162))
+
     for c in cases:
-        print(f"{c['kernel']:>14} {str(c['shape']):>12} {c.get('dtype', ''):>8}: "
+        print(f"{c['kernel']:>18} {str(c['shape']):>16} {c.get('dtype', ''):>8}: "
               f"max|err| {c['max_abs_err']:.2e}"
               + (f", {c['in_band']} u in band {c['band']:.1e}, "
                  f"{c['mismatches']} index mismatches" if "band" in c else "")
@@ -264,16 +297,20 @@ def kernel_phase(torch, card: str):
               + (f"{c['library_ms'] * 1e3:.2f} us" if c["library_ms"] else "none")
               + f", bound {c['bound_ms'] * 1e3:.4f} us ({c['bound_by']}) [{card}]")
 
-    # One entry per kernel at the main path's shape: [320, 10] f32 logits
+    # One entry per kernel at its path's shape: [320, 10] f32 logits
     # (scoring; the [32, 10] train forward is the smaller call), [32, 10]
-    # f32 for the backward, a pool of 320 drawn to 32.
+    # f32 for the backward, a pool of 320 drawn to 32, a table of 5000 with
+    # a window of 64 drawn to 32, and the window's 64 images (the train
+    # batch's 32 are the smaller call).
     main_shape = {"nll_fwd": [320, 10], "nll_bwd": [32, 10],
-                  "score_and_draw": [320, 32]}
+                  "score_and_draw": [320, 32], "table_refresh_draw": [5000, 64, 32],
+                  "augment_normalize": [64, 32, 32, 3]}
     kernels = []
     for name in mk.KERNELS:
         c = next(c for c in cases if c["kernel"] == name
                  and c["shape"] == main_shape[name]
-                 and c.get("dtype", "float32") == "float32" and not c.get("skew"))
+                 and c.get("dtype", "float32") == "float32"
+                 and not (c.get("skew") or c.get("dup") or c.get("every_offset")))
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": None,
@@ -305,18 +342,8 @@ def draw_case(torch, mk, reference, gen, n: int, b: int, skew: bool):
     probs, sel, scaled = mk.score_and_draw_kernel(losses, ema1, u, alpha)
     p_ref, s_ref, c_ref = reference.score_and_draw(losses, ema, u, alpha)
     err = within(probs, p_ref, rtol=1e-5, atol=0.0)
-
-    cdf64 = torch.cumsum(probs.double(), 0)
-    cdf32 = torch.cumsum(probs, 0)
-    band = max(1e-6, 4 * float((cdf32.double() - cdf64).abs().max()))
-    dist = (cdf64[None, :] - u.double()[:, None]).abs().min(dim=1).values
-    in_band = int((dist < band).sum())
-    differ = sel != s_ref
-    for k in differ.nonzero().flatten().tolist():
-        a, c = int(sel[k]), int(s_ref[k])
-        check(abs(a - c) == 1 and abs(float(cdf64[min(a, c)]) - float(u[k])) < band,
-              f"score_and_draw N={n}: draw {k} gave {a}, plain {c}, u={float(u[k])!r}")
-    check(int(sel.min()) >= 0 and int(sel.max()) < n, "index out of the pool")
+    band, in_band, differ = check_draws(torch, f"score_and_draw N={n}", probs, u,
+                                        sel, s_ref)
     same = ~differ
     err = max(err, within(scaled[same], c_ref[same], rtol=1e-5, atol=0.0))
     if skew:
@@ -336,24 +363,206 @@ def draw_case(torch, mk, reference, gen, n: int, b: int, skew: bool):
     return case
 
 
-# ------------------------------------------------------------------ phase 4
-def main_path_phase(torch, card: str, kernels):
-    from mercury_tpu_torch import Trainer, TrainConfig
-    from mercury_tpu_torch.ops import mercury_kernels as mk
-    from mercury_tpu_torch.train.step import make_draws, to_nchw
-    from mercury_tpu_torch.data.pipeline import normalize_images
+def check_draws(torch, what: str, probs, u, sel, s_ref):
+    """Draws of the kernel against the plain version's: equal, except that
+    a u within δ of a CDF value may land one index over, δ = max(1e-6,
+    4·max|cdf_f32 − cdf_f64|). Returns (δ, u in the band, mask of draws
+    that differ)."""
+    n = probs.shape[0]
+    cdf64 = torch.cumsum(probs.double(), 0)
+    cdf32 = torch.cumsum(probs, 0)
+    band = max(1e-6, 4 * float((cdf32.double() - cdf64).abs().max()))
+    dist = (cdf64[None, :] - u.double()[:, None]).abs().min(dim=1).values
+    in_band = int((dist < band).sum())
+    differ = sel != s_ref
+    for k in differ.nonzero().flatten().tolist():
+        a, c = int(sel[k]), int(s_ref[k])
+        check(abs(a - c) == 1 and abs(float(cdf64[min(a, c)]) - float(u[k])) < band,
+              f"{what}: draw {k} gave {a}, plain {c}, u={float(u[k])!r}")
+    check(int(sel.min()) >= 0 and int(sel.max()) < n, f"{what}: index out of range")
+    return band, in_band, differ
 
-    config = TrainConfig(model="resnet18", dataset="synthetic", world_size=1)
-    check(config.candidate_pool_size == 320 and config.batch_size == 32
-          and config.compute_dtype == "bfloat16" and config.use_importance_sampling,
-          f"unexpected default config {config}")
+
+def table_case(torch, mk, reference, gen, n: int, r: int, b: int, dup: bool):
+    """table_refresh_draw against decay + index_add_ scatter-mean + cumsum
+    + searchsorted on the card. The table: bit-equal, the same rounded ops
+    in the same order, except that a slot hit three or more times is a sum
+    whose order the plain version's atomics change (rtol 1e-6). probs: the
+    total is summed in another order (rtol 1e-5). Draws: as in draw_case.
+    The window wraps past the table's end, as the round-robin cursor does."""
+    dev = torch.device("cuda")
+    scores = torch.rand(n, generator=gen, device=dev) * 4 + 0.1
+    slots = (n - 20 + torch.arange(r, device=dev)) % n
+    if dup:
+        slots[1] = slots[0]
+        slots[4] = slots[5] = slots[2]
+        slots[10:20] = slots[9]
+    rscores = -torch.log(torch.rand(r, generator=gen, device=dev))
+    ema = torch.tensor(0.9, device=dev)
+    u = torch.rand(b, generator=gen, device=dev)
+    ema1 = ema.reshape(1)
+    new_t, probs, sel, scaled = mk.table_refresh_draw_kernel(
+        scores, slots, rscores, ema1, u, 0.5, 0.98)
+    t_ref, p_ref, s_ref, c_ref = reference.table_refresh_draw(
+        scores, slots, rscores, ema, u, 0.5, 0.98)
+    if not dup:
+        check(torch.equal(new_t, t_ref), f"table_refresh_draw L={n}: table not bit-equal")
+    err = within(new_t, t_ref, rtol=1e-6, atol=0.0)
+    err = max(err, within(probs, p_ref, rtol=1e-5, atol=0.0))
+    band, in_band, differ = check_draws(torch, f"table_refresh_draw L={n}", probs, u,
+                                        sel, s_ref)
+    same = ~differ
+    err = max(err, within(scaled[same], c_ref[same], rtol=1e-5, atol=0.0))
+
+    fn = lambda: mk.table_refresh_draw_kernel(  # noqa: E731
+        scores, slots, rscores, ema1, u, 0.5, 0.98)
+    case = dict(kernel="table_refresh_draw", shape=[n, r, b], dup=dup,
+                max_abs_err=err, band=band, in_band=in_band,
+                mismatches=int(differ.sum()),
+                ms=graph_ms(torch, fn), eager_ms=eager_ms(torch, fn),
+                plain_ms=graph_ms(torch, lambda: reference.table_refresh_draw(
+                    scores, slots, rscores, ema, u, 0.5, 0.98)),
+                library_ms=None)
+    # Read: table, slots (int64), refresh scores, EMA, uniforms. Written:
+    # table, probs, selected, scaled. Operations: decay 3, smooth, floor and
+    # normalize 3, scan 1 per slot; R² slot compares; the B binary searches.
+    search = b * math.ceil(math.log2(n + 1))
+    case["bound_ms"], case["bound_by"] = bound(
+        4 * n + 12 * r + 4 + 4 * b + 8 * n + 8 * b, 7 * n + r * r + 2 * search)
+    return case
+
+
+def augment_case(torch, mk, reference, gen, n: int, dtype, every_offset: bool):
+    """augment_normalize against the plain fma-normalize + pad + gather +
+    flip + cast on the card: bit-equal at float32 (each rounding is spelled
+    out on both sides), within one bf16 ulp at bfloat16."""
+    from mercury_tpu_torch.data.cifar import CIFAR10_MEAN, CIFAR10_STD
+
+    dev = torch.device("cuda")
+    raw = torch.randint(0, 256, (n, 32, 32, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    mean = torch.tensor(CIFAR10_MEAN, device=dev)
+    std = torch.tensor(CIFAR10_STD, device=dev)
+    if every_offset:
+        offs = torch.cartesian_prod(torch.arange(9), torch.arange(9))
+        crop = torch.cat([offs, offs]).to(device=dev, dtype=torch.int32)
+        flip = (torch.arange(2 * len(offs)) >= len(offs)).to(dev)
+        check(crop.shape[0] == n, f"every-offset case needs N={crop.shape[0]}")
+    else:
+        crop = torch.randint(0, 9, (n, 2), generator=gen, device=dev, dtype=torch.int32)
+        flip = torch.rand(n, generator=gen, device=dev) < 0.5
+    check(bool(flip.any()) and not bool(flip.all()), "augment case without both flips")
+    got = mk.augment_normalize_kernel(raw, mean, std, crop, flip, 4, dtype)
+    want = reference.augment_normalize(raw, mean, std, crop, flip, 4, dtype)
+    check(got.dtype == dtype and got.shape == want.shape, "augment_normalize output")
+    if dtype == torch.float32:
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"augment_normalize N={n}: float32 output not bit-equal")
+        err = within(got, want, rtol=0.0, atol=0.0)
+    else:
+        err = within(got, want, rtol=2 ** -8, atol=0.0)
+
+    fn = lambda: mk.augment_normalize_kernel(  # noqa: E731
+        raw, mean, std, crop, flip, 4, dtype)
+    case = dict(kernel="augment_normalize", shape=[n, 32, 32, 3], dtype=str(dtype)[6:],
+                every_offset=every_offset, max_abs_err=err,
+                ms=graph_ms(torch, fn), eager_ms=eager_ms(torch, fn),
+                plain_ms=graph_ms(torch, lambda: reference.augment_normalize(
+                    raw, mean, std, crop, flip, 4, dtype)),
+                library_ms=None)
+    elems = n * 32 * 32 * 3
+    # uint8 in, one output element each, offsets and flips, mean and std;
+    # an fma, a division and the bounds compares per element.
+    case["bound_ms"], case["bound_by"] = bound(
+        elems * (1 + got.element_size()) + 9 * n + 24, 4 * elems)
+    return case
+
+
+# ------------------------------------------------------------------ phase 4
+def timed_steps(torch, mk, trainer):
+    """MAIN_STEPS steps with the launch counts zeroed just before and read
+    just after; host clock around work that ends in a synchronize."""
+    mk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step()["train/loss"] for _ in range(MAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(mk.launch_counts)
+    losses = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite losses {losses.tolist()}")
+    return dt, counts, losses
+
+
+def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3):
+    """One step from the same state and draws, kernels against plain
+    versions on the card. The bf16 forwards are the same calls on the same
+    inputs on both sides; the f32 NLL and draw arithmetic differ in the last
+    bits, so the losses agree to rtol 1e-4 and the draws match. A draw may
+    differ only as :func:`check_draws` allows (a uniform in the boundary
+    band of the CDF, likelier over a table of thousands than over a pool of
+    320); then the losses differ too, and the step is repeated from the same
+    state with fresh draws. One of ``attempts`` must draw the same batch."""
+    from mercury_tpu_torch.train.step import make_draws
+
+    state = trainer.state
+    band_misses = 0
+    try:
+        for _ in range(attempts):
+            draws = make_draws(state, config)
+            results = {}
+            for use_kernels in (True, False):
+                trainer.state = state.clone()
+                results[use_kernels] = trainer.train_step(draws, use_kernels=use_kernels)
+            k_m, p_m = results[True], results[False]
+            _, _, differ = check_draws(torch, "kernel step vs plain step",
+                                       p_m["sampler/probs"], draws.uniforms.reshape(-1),
+                                       k_m["sampler/selected"], p_m["sampler/selected"])
+            if not bool(differ.any()):
+                break
+            band_misses += 1
+        else:
+            raise SmokeFailure(f"kernel and plain steps drew different batches in "
+                               f"{attempts} tries (all within the boundary band)")
+    finally:
+        trainer.state = state
+    step_err = {"band_misses": band_misses}
+    for key in ("train/loss", "train/pool_loss"):
+        a, b = float(k_m[key]), float(p_m[key])
+        step_err[key] = abs(a - b)
+        check(math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b),
+              f"{key}: kernel step {a!r}, plain step {b!r}")
+    print(f"kernel step vs plain step: |d loss| {step_err['train/loss']:.2e}, "
+          f"|d pool_loss| {step_err['train/pool_loss']:.2e}, same draws "
+          f"({band_misses} earlier tries differed inside the boundary band)")
+    return step_err
+
+
+def build_trainer(torch, config):
+    from mercury_tpu_torch import Trainer
+
     t0 = time.perf_counter()
     trainer = Trainer(config)
-    model = trainer.state.model
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in trainer.state.model.parameters())
     check(n_params == 11_173_962, f"ResNet-18 has {n_params} parameters")
     print(f"Trainer built in {time.perf_counter() - t0:.1f} s on "
           f"{trainer.device}: ResNet-18, {n_params} parameters")
+    return trainer
+
+
+def main_path_phase(torch, card: str):
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.data.pipeline import normalize_images
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.train.step import to_nchw
+
+    config = TrainConfig(model="resnet18", dataset="synthetic", world_size=1)
+    check(config.candidate_pool_size == 320 and config.batch_size == 32
+          and config.compute_dtype == "bfloat16" and config.use_importance_sampling
+          and not config.fused_input and config.sampler == "pool",
+          f"unexpected default config {config}")
+    trainer = build_trainer(torch, config)
+    model = trainer.state.model
 
     # The scoring forward (train-mode, keep_stats=False) at the pool's
     # shape leaves the running statistics alone; a train step moves them.
@@ -375,71 +584,83 @@ def main_path_phase(torch, card: str, kernels):
               if k.endswith("running_mean")),
           "train steps left some BN running mean unchanged")
 
-    mk.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses = [trainer.train_step()["train/loss"] for _ in range(MAIN_STEPS)]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = dict(mk.launch_counts)
-    losses = torch.stack(losses).float().cpu()
-    check(bool(torch.isfinite(losses).all()), f"non-finite losses {losses.tolist()}")
+    dt, counts, losses = timed_steps(torch, mk, trainer)
     want = {"nll_fwd": 2 * MAIN_STEPS, "nll_bwd": MAIN_STEPS,
-            "score_and_draw": MAIN_STEPS}
+            "score_and_draw": MAIN_STEPS, "table_refresh_draw": 0,
+            "augment_normalize": 0}
     check(counts == want, f"launch counts {counts}, expected {want}")
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
     steps_s = MAIN_STEPS / dt
     print(f"main path: {MAIN_STEPS} steps in {dt:.3f} s = {steps_s:.2f} steps/s, "
           f"{steps_s * config.batch_size:.1f} trained images/s, "
           f"{steps_s * config.candidate_pool_size:.1f} scored candidates/s [{card}]")
     print(f"losses: first {losses[0].item():.4f}, last {losses[-1].item():.4f}, "
           f"launches {counts}")
-
-    # One step from the same state and draws, kernels against plain
-    # versions on the card. The bf16 forwards are the same calls on the
-    # same inputs on both sides; the f32 NLL and draw arithmetic differ in
-    # the last bits, so the losses agree to rtol 1e-4 and the draws match.
-    draws = make_draws(trainer.state, config)
-    state = trainer.state
-    results = {}
-    for use_kernels in (True, False):
-        trainer.state = state.clone()
-        results[use_kernels] = trainer.train_step(draws, use_kernels=use_kernels)
-    trainer.state = state
-    k_m, p_m = results[True], results[False]
-    check(torch.equal(k_m["sampler/selected"], p_m["sampler/selected"]),
-          "kernel and plain steps drew different batches")
-    step_err = {}
-    for key in ("train/loss", "train/pool_loss"):
-        a, b = float(k_m[key]), float(p_m[key])
-        step_err[key] = abs(a - b)
-        check(math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b),
-              f"{key}: kernel step {a!r}, plain step {b!r}")
-    print(f"kernel step vs plain step: |d loss| {step_err['train/loss']:.2e}, "
-          f"|d pool_loss| {step_err['train/pool_loss']:.2e}, same draws")
-    if "--profile" in sys.argv:
-        profile_phase(torch, card, trainer, config, dt / MAIN_STEPS * 1e6)
-    return {"steps": MAIN_STEPS, "seconds": dt, "steps_per_s": steps_s,
-            "images_per_s": steps_s * config.batch_size,
-            "candidates_per_s": steps_s * config.candidate_pool_size,
-            "launches": counts, "first_loss": losses[0].item(),
-            "last_loss": losses[-1].item(), "kernel_vs_plain": step_err,
-            "card": card}
+    step_err = kernel_vs_plain_step(torch, trainer, config)
+    return {"launches": counts, "trainer": trainer, "config": config,
+            "step_us": dt / MAIN_STEPS * 1e6,
+            "summary": {"steps": MAIN_STEPS, "seconds": dt, "steps_per_s": steps_s,
+                        "images_per_s": steps_s * config.batch_size,
+                        "candidates_per_s": steps_s * config.candidate_pool_size,
+                        "launches": counts, "first_loss": losses[0].item(),
+                        "last_loss": losses[-1].item(), "kernel_vs_plain": step_err,
+                        "card": card}}
 
 
-def profile_phase(torch, card: str, trainer, config, step_us: float) -> None:
-    """``--profile`` only: where a main-path step's time goes
-    (``torch.profiler`` over ten steps: device busy share, kernel
-    launches per step, device time by kernel), and the uniform-sampling
-    arm's step rate beside the importance-sampled one. Written to
-    ``chiprun_out/chip_smoke_profile.json``."""
+# ------------------------------------------------------------------ phase 5
+def scoretable_path_phase(torch, card: str):
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    config = TrainConfig(**SCORETABLE)
+    check(config.use_scoretable and config.fused_input and config.batch_size == 32
+          and config.refresh_size == 64 and config.table_decay == 0.98
+          and config.is_alpha == 0.5 and config.compute_dtype == "bfloat16",
+          f"unexpected scoretable config {config}")
+    trainer = build_trainer(torch, config)
+    length = trainer.dataset.shard_len
+    table = trainer.state.scoretable
+    check(table is not None and table.scores.shape == (length,) and length == 5000,
+          f"score table of {tuple(table.scores.shape)} for a shard of {length}")
+
+    trainer.fit(WARMUP_STEPS)
+    cursor = trainer.state.scoretable.cursor
+    stream_cursor = trainer.state.stream.cursor
+    dt, counts, losses = timed_steps(torch, mk, trainer)
+    # Two nll_fwd a step (the window's scores and the train loss; the
+    # write-back reuses the loss's per-sample values), two fused ingests
+    # (window and batch), one table kernel, no pool selection.
+    want = {"nll_fwd": 2 * MAIN_STEPS, "nll_bwd": MAIN_STEPS, "score_and_draw": 0,
+            "table_refresh_draw": MAIN_STEPS, "augment_normalize": 2 * MAIN_STEPS}
+    check(counts == want, f"launch counts {counts}, expected {want}")
+    table = trainer.state.scoretable
+    want_cursor = (cursor + config.refresh_size * MAIN_STEPS) % length
+    check(table.cursor == want_cursor, f"cursor {table.cursor}, expected {want_cursor}")
+    check(trainer.state.stream.cursor == stream_cursor, "the scoretable step read the stream")
+    check(bool(torch.isfinite(table.scores).all()) and float(table.scores.min()) > 0,
+          "score table not finite and positive")
+    steps_s = MAIN_STEPS / dt
+    print(f"scoretable path: {MAIN_STEPS} steps in {dt:.3f} s = {steps_s:.2f} steps/s, "
+          f"{steps_s * config.batch_size:.1f} trained images/s, "
+          f"{steps_s * config.refresh_size:.1f} rescored slots/s [{card}]")
+    print(f"losses: first {losses[0].item():.4f}, last {losses[-1].item():.4f}, "
+          f"cursor {cursor} -> {table.cursor}, launches {counts}")
+    step_err = kernel_vs_plain_step(torch, trainer, config)
+    return {"launches": counts, "trainer": trainer, "config": config,
+            "step_us": dt / MAIN_STEPS * 1e6,
+            "summary": {"steps": MAIN_STEPS, "seconds": dt, "steps_per_s": steps_s,
+                        "images_per_s": steps_s * config.batch_size,
+                        "rescored_per_s": steps_s * config.refresh_size,
+                        "launches": counts, "first_loss": losses[0].item(),
+                        "last_loss": losses[-1].item(), "kernel_vs_plain": step_err,
+                        "cursor": [cursor, table.cursor], "card": card}}
+
+
+def profile_window(torch, trainer, step_us: float, steps: int = 10):
+    """Device busy share, kernel launches a step and device time by kernel
+    over ``steps`` steps, from ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mercury_tpu_torch import Trainer
-
-    steps = 10
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -457,36 +678,53 @@ def profile_phase(torch, card: str, trainer, config, step_us: float) -> None:
     rows.sort(key=lambda r: -r[2])
     device_us = sum(r[2] for r in rows)
     launches = sum(r[1] for r in rows)
-    print(f"profile: {steps} steps, wall {wall_us / steps:.1f} us/step, device busy "
-          f"{device_us / steps:.1f} us/step ({100 * device_us / wall_us:.1f}% busy), "
-          f"{launches / steps:.1f} kernels/step; against the unprofiled "
-          f"{step_us:.1f} us/step the device is busy "
-          f"{100 * device_us / steps / step_us:.1f}% [{card}]")
-    for key, count, us in rows[:12]:
-        print(f"  {us / steps:9.1f} us/step {count / steps:6.1f}/step  {key[:90]}")
+    return {"steps": steps, "wall_us_per_step": wall_us / steps,
+            "device_us_per_step": device_us / steps, "busy_share": device_us / wall_us,
+            "unprofiled_us_per_step": step_us,
+            "busy_share_unprofiled": device_us / steps / step_us,
+            "kernels_per_step": launches / steps,
+            "by_kernel": [{"key": k, "count": c, "device_us": u} for k, c, u in rows]}
 
-    # The two arms in turns (is, uniform, uniform, is) on one card.
-    arms = {"is": [], "uniform": []}
-    for use_is in (True, False, False, True):
-        arm = Trainer(config.replace(use_importance_sampling=use_is))
+
+def profile_phase(torch, card: str, main_path, table_path) -> None:
+    """``--profile`` only: where a step's time goes on each path
+    (:func:`profile_window`), and the step rates of the importance-sampled
+    pool step, the uniform arm and the scoretable step in turns on one
+    card. Written to ``chiprun_out/chip_smoke_profile.json``."""
+    from mercury_tpu_torch import Trainer
+
+    windows = {}
+    for name, path in (("pool", main_path), ("scoretable", table_path)):
+        w = profile_window(torch, path["trainer"], path["step_us"])
+        windows[name] = w
+        print(f"profile {name}: {w['steps']} steps, wall {w['wall_us_per_step']:.1f} "
+              f"us/step, device busy {w['device_us_per_step']:.1f} us/step "
+              f"({100 * w['busy_share']:.1f}% busy), {w['kernels_per_step']:.1f} "
+              f"kernels/step; against the unprofiled {w['unprofiled_us_per_step']:.1f} "
+              f"us/step the device is busy {100 * w['busy_share_unprofiled']:.1f}% [{card}]")
+        for row in w["by_kernel"][:12]:
+            print(f"  {row['device_us'] / w['steps']:9.1f} us/step "
+                  f"{row['count'] / w['steps']:6.1f}/step  {row['key'][:90]}")
+
+    # The three arms in turns (is, uniform, table, table, uniform, is).
+    base = main_path["config"]
+    arm_configs = {"is": base, "uniform": base.replace(use_importance_sampling=False),
+                   "scoretable": table_path["config"]}
+    arms = {k: [] for k in arm_configs}
+    for name in ("is", "uniform", "scoretable", "scoretable", "uniform", "is"):
+        arm = Trainer(arm_configs[name])
         arm.fit(WARMUP_STEPS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         arm.fit(MAIN_STEPS)
         torch.cuda.synchronize()
-        arms["is" if use_is else "uniform"].append(
-            MAIN_STEPS / (time.perf_counter() - t0))
+        arms[name].append(MAIN_STEPS / (time.perf_counter() - t0))
+        del arm
     print(f"arms (steps/s, in turns): importance sampling {arms['is']}, "
-          f"uniform {arms['uniform']} [{card}]")
+          f"uniform {arms['uniform']}, scoretable+fused {arms['scoretable']} [{card}]")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_profile.json").write_text(json.dumps({
-        "card": card, "steps": steps, "wall_us_per_step": wall_us / steps,
-        "device_us_per_step": device_us / steps, "busy_share": device_us / wall_us,
-        "unprofiled_us_per_step": step_us,
-        "busy_share_unprofiled": device_us / steps / step_us,
-        "kernels_per_step": launches / steps, "arms_steps_per_s": arms,
-        "by_kernel": [{"key": k, "count": c, "device_us": u} for k, c, u in rows],
-    }, indent=1))
+        "card": card, "windows": windows, "arms_steps_per_s": arms}, indent=1))
 
 
 if __name__ == "__main__":

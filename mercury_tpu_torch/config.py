@@ -1,8 +1,8 @@
 """Run configuration of the PyTorch port.
 
 The fields are those of ``mercury_tpu.config.TrainConfig`` that the
-importance-sampled pool step reads, under the same names and with the same
-defaults, so a configuration written for one package means the same run in
+importance-sampled pool and scoretable steps read, under the same names and
+with the same defaults, so a configuration written for one package means the same run in
 the other. A value the port does not implement yet raises ``ValueError``
 naming the field, instead of silently training something else.
 """
@@ -14,6 +14,7 @@ from typing import Optional
 
 _MODELS = ("resnet18", "resnet34", "resnet50")
 _DATASETS = ("cifar10", "synthetic")
+_SAMPLERS = ("pool", "scoretable")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,10 +39,17 @@ class TrainConfig:
 
     # Importance sampling
     use_importance_sampling: bool = True
-    sampler: str = "pool"
+    sampler: str = "pool"             # "pool" | "scoretable"
     presample_batches: int = 10       # candidate pool = 10×batch
     is_alpha: float = 0.5             # score = loss + alpha·EMA
     ema_alpha: float = 0.9
+
+    # Scoretable sampler: a persistent score per shard slot; each step
+    # rescores a round-robin window of refresh_size slots, decays the rest
+    # toward the EMA by table_decay and draws from the whole table.
+    refresh_size: int = 64
+    table_decay: float = 0.98
+    refresh_mode: str = "sync"        # the port runs "sync" only
 
     # Augmentation and partition
     augmentation: str = "noniid"      # pad-4 crop + hflip, or "none"
@@ -58,8 +66,10 @@ class TrainConfig:
     # Precision
     compute_dtype: str = "bfloat16"   # autocast dtype on the card
     param_dtype: str = "float32"
+    scoring_dtype: Optional[str] = None  # not ported: must stay None
 
-    # Kernels: the fused uint8 ingest kernel is not ported yet.
+    # Kernels: uint8 rows → normalized, cropped, flipped images in one
+    # kernel (augment_normalize) instead of the unfused op chain.
     fused_input: bool = False
 
     def __post_init__(self) -> None:
@@ -74,12 +84,24 @@ class TrainConfig:
             bad("dataset", f"the port loads {', '.join(_DATASETS)}")
         if self.world_size != 1:
             bad("world_size", "data parallelism (W>1) is not ported yet")
-        if self.sampler != "pool":
-            bad("sampler", "only the pool sampler is ported")
-        if self.fused_input:
-            bad("fused_input", "the fused ingest kernel is not ported yet")
+        if self.sampler not in _SAMPLERS:
+            bad("sampler", f"the port samples with {', '.join(_SAMPLERS)}")
+        if self.refresh_mode not in ("sync", "async"):
+            bad("refresh_mode", "use 'sync' or 'async'")
+        if self.refresh_mode == "async":
+            bad("refresh_mode", "the async scorer fleet is not ported yet")
+        if self.use_scoretable:
+            if self.refresh_size < 1:
+                bad("refresh_size", "must be >= 1")
+            if not 0.0 <= self.table_decay <= 1.0:
+                bad("table_decay", "must be in [0, 1]")
+        if self.scoring_dtype is not None:
+            bad("scoring_dtype", "a separate scoring precision is not ported yet")
         if self.augmentation not in ("noniid", "none"):
             bad("augmentation", "use 'noniid' or 'none'")
+        if self.fused_input and self.augmentation != "noniid":
+            bad("fused_input", "the fused ingest kernel fuses the noniid "
+                "crop and flip; set augmentation='noniid'")
         if self.optimizer not in ("adam", "adamw", "sgd"):
             bad("optimizer", "use 'adam', 'adamw' or 'sgd'")
         if self.batch_norm not in ("sync", "local"):
@@ -99,6 +121,12 @@ class TrainConfig:
     def lr(self) -> float:
         """Linear-scaling rule: base_lr × world_size."""
         return self.base_lr * self.world_size
+
+    @property
+    def use_scoretable(self) -> bool:
+        """The scoretable step runs only with importance sampling on; with
+        it off the step is the uniform arm whatever the sampler."""
+        return self.use_importance_sampling and self.sampler == "scoretable"
 
     @property
     def candidate_pool_size(self) -> int:

@@ -1,4 +1,4 @@
-"""Weights carried across from the JAX package.
+"""Weights and sampler state carried across from the JAX package.
 
 ``params_from_flax`` maps the Flax ResNet's variables — nested dicts of
 arrays under Flax's automatic names (``Conv_0``, ``BatchNorm_0``,
@@ -15,6 +15,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from mercury_tpu_torch.sampling.scoretable import ScoreTableState
 
 # Flax auto-names inside each block, in creation order, → port module names.
 _BLOCK_NAMES = {
@@ -47,6 +49,14 @@ def _layer(out: Dict[str, torch.Tensor], prefix: str, flax_name: str,
         out[f"{prefix}.running_var"] = _t(stats["var"])
     else:
         raise KeyError(f"no port counterpart for Flax layer {flax_name!r}")
+
+
+def scoretable_from_jax(scores, cursor, device=None) -> ScoreTableState:
+    """The port's score table from the JAX package's ``ScoreTableState``
+    of one worker: ``scores`` ``[L]`` and ``cursor`` as numpy values."""
+    return ScoreTableState(
+        scores=torch.tensor(np.asarray(scores, dtype=np.float32), device=device),
+        cursor=int(np.asarray(cursor)))
 
 
 def params_from_flax(params: Mapping[str, Any],

@@ -33,6 +33,10 @@ SIGNATURES = {
     "mercury_nll_fwd": [_P, _P, _P, _I, _I, _I, _P],
     "mercury_nll_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mercury_score_and_draw": [_P, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
+    "mercury_table_refresh_draw": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I,
+                                   _P, _P, _P, _P, _P, _P],
+    "mercury_augment_normalize": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

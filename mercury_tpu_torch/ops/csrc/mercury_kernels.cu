@@ -31,6 +31,34 @@
 //    matmul prefix, so a u_b within ~1e-6 of a cdf value can land one index
 //    over; tests and chip_smoke.py count such u and require equal indices
 //    outside that band.
+// 4. table_refresh_draw — replaces table_refresh_draw_pallas /
+//    _table_refresh_draw_kernel (:306-423).
+//    t_i = mu + (t_i - mu)·decay for every slot; each refresh slot s then
+//    takes the mean of the R refresh scores aimed at it (duplicates
+//    averaged, summed in index order); then score_and_draw's normalize,
+//    scan and draw over the whole table, with scaled_b = p[idx_b]·L.
+//    One block, for the reason score_and_draw has one: the sum, the scan
+//    and the draws need the whole table, and L = 50,000 floats is 200 KB.
+//    The scatter is R threads each scanning the R slots (R = 64: 4096
+//    compares), with a barrier on each side, so no atomics and no order
+//    that changes from run to run. The true L is used, with no padding (the
+//    TPU wrapper pads awkward L to a multiple of 512 for Mosaic only).
+//    Bound: bytes (L read, 2L written, 12R + 12B more), launch-bound at
+//    L = 5000 and a one-SM scan at L = 50,000.
+// 5. augment_normalize — replaces augment_normalize_pallas /
+//    _augment_norm_kernel (:427-551).
+//    out[n,y,x,c] = (fma(u8, RN(1/255), -mean_c) / std_c) at the source
+//    pixel (y + oy - pad, (flip ? W-1-x : x) + ox - pad), +0.0 outside the
+//    image, cast to f32 or bf16 as the last op. One thread per output
+//    element of the NHWC output, so neighbouring threads write neighbouring
+//    addresses and read neighbouring source bytes (a row of the crop is a
+//    contiguous run of the source row, reversed under a flip). The
+//    arithmetic is the TPU kernel's as XLA compiles it: the division by the
+//    constant 255 is a multiply by its rounded reciprocal fused with the
+//    subtraction of the mean; the division by std is a true division. The
+//    intrinsics spell out each rounding, so nvcc's -fmad contraction cannot
+//    change a bit and the f32 output equals the plain version's exactly.
+//    Bound: bytes (N·H·W·C bytes read, 4 or 2 times that written).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,6 +73,8 @@ constexpr int kRowsPerBlock = 8;
 constexpr int kRowThreads = kRowsPerBlock * kWarp;
 constexpr int kDrawThreads = 1024;
 constexpr int kDrawWarps = kDrawThreads / kWarp;
+constexpr int kPixelThreads = 256;
+constexpr float kInv255 = 0x1.010102p-8f;  // 1/255 rounded to float32
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -124,21 +154,24 @@ __device__ __forceinline__ float score_of(float loss, float a) {
   return fmaxf(__fadd_rn(loss, a), 1e-12f);
 }
 
-__global__ void __launch_bounds__(kDrawThreads)
-score_and_draw_kernel(const float* __restrict__ losses, const float* __restrict__ ema,
-                      const float* __restrict__ uniforms, float alpha, int n, int b,
-                      float* probs, float* cdf, int32_t* __restrict__ selected,
-                      float* __restrict__ scaled) {
+// The block's normalize-and-draw over n values already in memory:
+// p_i = score_of(vals_i, a) / Σ into probs, their inclusive scan into cdf,
+// then for each uniform the upper bound of u in cdf, clamped to n - 1, and
+// scaled_b = p[idx_b]·n. Called by every thread of a kDrawThreads block;
+// vals may have been written by this block before a barrier.
+__device__ __forceinline__ void normalize_and_draw(
+    const float* vals, float a, int n, const float* __restrict__ uniforms, int b,
+    float* probs, float* cdf, int32_t* __restrict__ selected,
+    float* __restrict__ scaled) {
   __shared__ float warp_buf[kDrawWarps];
   __shared__ float total_s;
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
-  const float a = __fmul_rn(alpha, *ema);
 
   // Σ scores: per-thread strided sums, then warp and block reductions.
   float local = 0.f;
-  for (int i = tid; i < n; i += kDrawThreads) local += score_of(losses[i], a);
+  for (int i = tid; i < n; i += kDrawThreads) local += score_of(vals[i], a);
   local = warp_sum(local);
   if (lane == 0) warp_buf[warp] = local;
   __syncthreads();
@@ -155,7 +188,7 @@ score_and_draw_kernel(const float* __restrict__ losses, const float* __restrict_
     const int i = base + tid;
     float p = 0.f;
     if (i < n) {
-      p = score_of(losses[i], a) / total;
+      p = score_of(vals[i], a) / total;
       probs[i] = p;
     }
     float x = p;
@@ -192,6 +225,75 @@ score_and_draw_kernel(const float* __restrict__ losses, const float* __restrict_
     selected[k] = idx;
     scaled[k] = probs[idx] * static_cast<float>(n);
   }
+}
+
+__global__ void __launch_bounds__(kDrawThreads)
+score_and_draw_kernel(const float* __restrict__ losses, const float* __restrict__ ema,
+                      const float* __restrict__ uniforms, float alpha, int n, int b,
+                      float* probs, float* cdf, int32_t* __restrict__ selected,
+                      float* __restrict__ scaled) {
+  normalize_and_draw(losses, __fmul_rn(alpha, *ema), n, uniforms, b, probs, cdf,
+                     selected, scaled);
+}
+
+// new_table is written and then read back by this block, so it is neither
+// const nor __restrict__: its reads must not go through the read-only cache.
+__global__ void __launch_bounds__(kDrawThreads)
+table_refresh_draw_kernel(const float* __restrict__ table, const int64_t* __restrict__ slots,
+                          const float* __restrict__ rscores, const float* __restrict__ ema,
+                          const float* __restrict__ uniforms, float alpha, float decay,
+                          int n, int r, int b, float* new_table, float* probs, float* cdf,
+                          int32_t* __restrict__ selected, float* __restrict__ scaled) {
+  const int tid = threadIdx.x;
+  const float mu = *ema;
+  for (int i = tid; i < n; i += kDrawThreads)
+    new_table[i] = __fadd_rn(mu, __fmul_rn(__fsub_rn(table[i], mu), decay));
+  __syncthreads();
+  // Entry k writes the mean of every refresh score aimed at its slot; the
+  // entries of one slot write the same value. A slot outside [0, L) is
+  // skipped, never used as an address.
+  for (int k = tid; k < r; k += kDrawThreads) {
+    const int64_t s = slots[k];
+    if (s < 0 || s >= n) continue;
+    float sum = 0.f;
+    int count = 0;
+    for (int j = 0; j < r; ++j) {
+      if (slots[j] == s) {
+        sum = __fadd_rn(sum, rscores[j]);
+        ++count;
+      }
+    }
+    new_table[s] = __fdiv_rn(sum, static_cast<float>(count));
+  }
+  __syncthreads();
+  normalize_and_draw(new_table, __fmul_rn(alpha, mu), n, uniforms, b, probs, cdf,
+                     selected, scaled);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kPixelThreads)
+augment_normalize_kernel(const uint8_t* __restrict__ raw, const float* __restrict__ mean,
+                         const float* __restrict__ stdev, const int32_t* __restrict__ crop,
+                         const uint8_t* __restrict__ flip, T* __restrict__ out,
+                         int n, int h, int w, int c, int pad) {
+  const int64_t total = static_cast<int64_t>(n) * h * w * c;
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kPixelThreads + threadIdx.x;
+  if (idx >= total) return;
+  const int ch = static_cast<int>(idx % c);
+  int64_t rest = idx / c;
+  const int x = static_cast<int>(rest % w);
+  rest /= w;
+  const int y = static_cast<int>(rest % h);
+  const int img = static_cast<int>(rest / h);
+  const int sy = y + crop[2 * img] - pad;
+  const int sx = (flip[img] ? w - 1 - x : x) + crop[2 * img + 1] - pad;
+  float v = 0.f;  // the zero padding, +0.0
+  if (sy >= 0 && sy < h && sx >= 0 && sx < w) {
+    const float px = static_cast<float>(
+        raw[((static_cast<int64_t>(img) * h + sy) * w + sx) * c + ch]);
+    v = __fdiv_rn(__fmaf_rn(px, kInv255, -mean[ch]), stdev[ch]);
+  }
+  store_from_f32(out + idx, v);
 }
 
 inline int blocks_for_rows(int n) { return (n + kRowsPerBlock - 1) / kRowsPerBlock; }
@@ -243,6 +345,45 @@ int mercury_score_and_draw(const void* losses, const void* ema, const void* unif
       static_cast<const float*>(uniforms), alpha, n, b, static_cast<float*>(probs),
       static_cast<float*>(cdf), static_cast<int32_t*>(selected),
       static_cast<float*>(scaled));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mercury_table_refresh_draw(const void* table, const void* slots, const void* rscores,
+                               const void* ema, const void* uniforms, float alpha,
+                               float decay, int n, int r, int b, void* new_table,
+                               void* probs, void* cdf, void* selected, void* scaled,
+                               void* stream) {
+  table_refresh_draw_kernel<<<1, kDrawThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(table), static_cast<const int64_t*>(slots),
+      static_cast<const float*>(rscores), static_cast<const float*>(ema),
+      static_cast<const float*>(uniforms), alpha, decay, n, r, b,
+      static_cast<float*>(new_table), static_cast<float*>(probs),
+      static_cast<float*>(cdf), static_cast<int32_t*>(selected),
+      static_cast<float*>(scaled));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype of out: 0 = float32, 1 = bfloat16.
+int mercury_augment_normalize(const void* raw, const void* mean, const void* stdev,
+                              const void* crop, const void* flip, void* out, int n, int h,
+                              int w, int c, int pad, int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  const int64_t total = static_cast<int64_t>(n) * h * w * c;
+  const unsigned blocks = static_cast<unsigned>((total + kPixelThreads - 1) / kPixelThreads);
+  auto u8 = static_cast<const uint8_t*>(raw);
+  auto m = static_cast<const float*>(mean);
+  auto sd = static_cast<const float*>(stdev);
+  auto cr = static_cast<const int32_t*>(crop);
+  auto fl = static_cast<const uint8_t*>(flip);
+  if (dtype == 0) {
+    augment_normalize_kernel<float><<<blocks, kPixelThreads, 0, st>>>(
+        u8, m, sd, cr, fl, static_cast<float*>(out), n, h, w, c, pad);
+  } else if (dtype == 1) {
+    augment_normalize_kernel<__nv_bfloat16><<<blocks, kPixelThreads, 0, st>>>(
+        u8, m, sd, cr, fl, static_cast<__nv_bfloat16*>(out), n, h, w, c, pad);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,6 +5,11 @@
   the ``nll_bwd`` kernel (the TPU package's custom VJP).
 - :func:`score_and_draw` — smoothing, normalization, inverse-CDF draw and
   ``p·N`` gather of the pool selection, in one kernel.
+- :func:`table_refresh_draw` — the scoretable sampler's decay, scatter of
+  the refresh window, normalization and draw over the whole table, in one
+  kernel.
+- :func:`augment_normalize` — the fused uint8 ingest: dequantize,
+  normalize, crop and flip, in one kernel.
 
 Each wrapper dispatches on the device of its tensors: a CUDA tensor goes to
 the kernel (built at first use by ``ops/_build.py``), a CPU tensor to the
@@ -24,7 +29,8 @@ import torch
 
 from mercury_tpu_torch.ops import reference
 
-KERNELS = ("nll_fwd", "nll_bwd", "score_and_draw")
+KERNELS = ("nll_fwd", "nll_bwd", "score_and_draw", "table_refresh_draw",
+           "augment_normalize")
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,6 +56,11 @@ def _launched(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     launch_counts[name] += 1
+
+
+def _check_ema(ema_value: torch.Tensor) -> None:
+    if not ema_value.is_cuda or ema_value.dtype != torch.float32 or ema_value.numel() != 1:
+        raise ValueError("ema_value must be a one-element float32 CUDA tensor")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -118,8 +129,7 @@ def score_and_draw_kernel(losses: torch.Tensor, ema_value: torch.Tensor,
 
     _check("losses", losses, (torch.float32,), 1)
     _check("uniforms", uniforms, (torch.float32,), 1)
-    if not ema_value.is_cuda or ema_value.dtype != torch.float32 or ema_value.numel() != 1:
-        raise ValueError("ema_value must be a one-element float32 CUDA tensor")
+    _check_ema(ema_value)
     n, b = losses.shape[0], uniforms.shape[0]
     if n == 0:
         raise ValueError("score_and_draw needs a non-empty pool")
@@ -137,6 +147,74 @@ def score_and_draw_kernel(losses: torch.Tensor, ema_value: torch.Tensor,
             selected.data_ptr(), scaled.data_ptr(), _stream(losses))
     _launched("score_and_draw", err)
     return probs, selected, scaled
+
+
+def table_refresh_draw_kernel(
+    scores: torch.Tensor, slots: torch.Tensor, rscores: torch.Tensor,
+    ema_value: torch.Tensor, uniforms: torch.Tensor, alpha: float, decay: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``table_refresh_draw`` on a ``[L]`` float32 table, ``[R]``
+    int64 refresh slots and their ``[R]`` float32 scores, a one-element
+    float32 EMA on the device and ``[B]`` float32 uniforms."""
+    from mercury_tpu_torch.ops import _build
+
+    _check("scores", scores, (torch.float32,), 1)
+    _check("slots", slots, (torch.int64,), 1)
+    _check("rscores", rscores, (torch.float32,), 1)
+    _check("uniforms", uniforms, (torch.float32,), 1)
+    _check_ema(ema_value)
+    n, r, b = scores.shape[0], slots.shape[0], uniforms.shape[0]
+    if rscores.shape[0] != r:
+        raise ValueError(f"{r} refresh slots but {rscores.shape[0]} refresh scores")
+    if n == 0:
+        raise ValueError("table_refresh_draw needs a non-empty table")
+    dev = scores.device
+    new_table = torch.empty(n, dtype=torch.float32, device=dev)
+    probs = torch.empty(n, dtype=torch.float32, device=dev)
+    cdf = torch.empty(n, dtype=torch.float32, device=dev)  # scratch
+    selected = torch.empty(b, dtype=torch.int32, device=dev)
+    scaled = torch.empty(b, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load().mercury_table_refresh_draw(
+            scores.data_ptr(), slots.data_ptr(), rscores.data_ptr(),
+            ema_value.data_ptr(), uniforms.data_ptr(), float(alpha), float(decay),
+            n, r, b, new_table.data_ptr(), probs.data_ptr(), cdf.data_ptr(),
+            selected.data_ptr(), scaled.data_ptr(), _stream(scores))
+    _launched("table_refresh_draw", err)
+    return new_table, probs, selected, scaled
+
+
+def augment_normalize_kernel(raw: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
+                             crop: torch.Tensor, flip: torch.Tensor, pad: int,
+                             out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch ``augment_normalize`` on ``[N, H, W, C]`` uint8 rows, ``[C]``
+    float32 mean and std, ``[N, 2]`` int32 crop offsets and ``[N]`` bool
+    flips; returns ``[N, H, W, C]`` in ``out_dtype`` (float32 or bfloat16)."""
+    from mercury_tpu_torch.ops import _build
+
+    _check("raw", raw, (torch.uint8,), 4)
+    _check("mean", mean, (torch.float32,), 1)
+    _check("std", std, (torch.float32,), 1)
+    _check("crop", crop, (torch.int32,), 2)
+    _check("flip", flip, (torch.bool,), 1)
+    if out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"out_dtype {out_dtype} not in {tuple(_DTYPE_CODES)}")
+    n, h, w, c = raw.shape
+    if mean.shape[0] != c or std.shape[0] != c:
+        raise ValueError(f"mean/std need {c} channels, got {mean.shape[0]}/{std.shape[0]}")
+    if tuple(crop.shape) != (n, 2) or flip.shape[0] != n:
+        raise ValueError(f"crop must be ({n}, 2) and flip ({n},), got "
+                         f"{tuple(crop.shape)} and {tuple(flip.shape)}")
+    out = torch.empty((n, h, w, c), dtype=out_dtype, device=raw.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(raw.device):
+        err = _build.load().mercury_augment_normalize(
+            raw.data_ptr(), mean.data_ptr(), std.data_ptr(), crop.data_ptr(),
+            flip.data_ptr(), out.data_ptr(), n, h, w, c, int(pad),
+            _DTYPE_CODES[out_dtype], _stream(raw))
+    _launched("augment_normalize", err)
+    return out
 
 
 class _PerSampleNLL(torch.autograd.Function):
@@ -175,3 +253,33 @@ def score_and_draw(losses: torch.Tensor, ema_value, uniforms: torch.Tensor,
     if _on_cpu(losses, uniforms):
         return reference.score_and_draw(losses, ema_value, uniforms, alpha)
     return score_and_draw_kernel(losses, ema_value.reshape(1), uniforms, alpha)
+
+
+def table_refresh_draw(scores: torch.Tensor, slots: torch.Tensor,
+                       rscores: torch.Tensor, ema_value, uniforms: torch.Tensor,
+                       alpha: float = 0.5, decay: float = 0.98
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One scoretable selection: decay the table toward the EMA, write the
+    refresh window's scores in (duplicates averaged), smooth, normalize and
+    draw over all ``L`` slots. Returns ``(new_table [L], probs [L],
+    selected [B] int32, scaled_probs [B] = p·L)``. ``uniforms`` (``[B]`` or
+    ``[1, B]``) are the draw's U(0,1) variates."""
+    uniforms = uniforms.reshape(-1)
+    ema_value = torch.as_tensor(ema_value, dtype=torch.float32,
+                                device=scores.device)
+    if _on_cpu(scores, slots, rscores, uniforms):
+        return reference.table_refresh_draw(scores, slots, rscores, ema_value,
+                                            uniforms, alpha, decay)
+    return table_refresh_draw_kernel(scores, slots, rscores, ema_value.reshape(1),
+                                     uniforms, alpha, decay)
+
+
+def augment_normalize(raw: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
+                      crop: torch.Tensor, flip: torch.Tensor, pad: int = 4,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The fused uint8 ingest: ``[N, H, W, C]`` uint8 rows → normalized,
+    cropped at ``crop [N, 2]`` (zero padding ``pad``) and flipped where
+    ``flip [N]``, cast to ``out_dtype`` last; NHWC out."""
+    if _on_cpu(raw, mean, std, crop, flip):
+        return reference.augment_normalize(raw, mean, std, crop, flip, pad, out_dtype)
+    return augment_normalize_kernel(raw, mean, std, crop, flip, pad, out_dtype)

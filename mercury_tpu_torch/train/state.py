@@ -1,7 +1,7 @@
 """Training state of the port: the model, its optimizer and learning-rate
-schedule, and the Mercury sampler state (EMA, presampling stream, random
-generator) — the PyTorch counterpart of ``mercury_tpu/train/state.py`` at
-one worker.
+schedule, and the Mercury sampler state (EMA, presampling stream, score
+table, random generator) — the PyTorch counterpart of
+``mercury_tpu/train/state.py`` at one worker.
 
 The optimizers follow optax's: ``optax.adam``/``adamw``/``sgd(momentum=0.9)``
 under ``cosine_decay_schedule(lr, total_steps)`` (optionally after a linear
@@ -15,12 +15,13 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import torch
 
 from mercury_tpu_torch.data.pipeline import ShardStream, init_shard_streams
 from mercury_tpu_torch.sampling.importance import EMAState, init_ema
+from mercury_tpu_torch.sampling.scoretable import ScoreTableState, init_score_table
 
 Schedule = Callable[[int], float]
 
@@ -87,6 +88,8 @@ class MercuryState:
     ema: EMAState                    # on the device
     stream: ShardStream              # perm on the device, cursor on the host
     generator: torch.Generator       # the step's draws, on the device
+    # sampler="scoretable" only: the [L] table on the device, cursor on the host
+    scoretable: Optional[ScoreTableState] = None
 
     def clone(self) -> "MercuryState":
         """An independent copy: the model and its optimizer are copied
@@ -95,19 +98,26 @@ class MercuryState:
         model, optimizer = copy.deepcopy((self.model, self.optimizer))
         gen = torch.Generator(device=self.generator.device)
         gen.set_state(self.generator.get_state())
+        table = self.scoretable
+        if table is not None:
+            table = ScoreTableState(table.scores.clone(), table.cursor)
         return dataclasses.replace(
             self, model=model, optimizer=optimizer, generator=gen,
             ema=EMAState(self.ema.value.clone(), self.ema.count.clone()),
             stream=ShardStream(self.stream.perm.clone(), self.stream.cursor),
+            scoretable=table,
         )
 
 
 def create_state(model: torch.nn.Module, device: torch.device, seed: int,
                  shard_len: int, optimizer: str, lr: float, total_steps: int,
                  weight_decay: float = 0.0,
-                 warmup_steps: int = 0) -> MercuryState:
+                 warmup_steps: int = 0,
+                 with_scoretable: bool = False) -> MercuryState:
     """Move ``model`` to ``device`` and build its optimizer, a fresh EMA,
-    the worker's stream and a generator seeded with ``seed``."""
+    the worker's stream and a generator seeded with ``seed``; with
+    ``with_scoretable`` also a score table of ones over the shard, cursor
+    0."""
     device = torch.device(device)
     model = model.to(device)
     if device.type == "cuda":
@@ -117,6 +127,7 @@ def create_state(model: torch.nn.Module, device: torch.device, seed: int,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     stream = init_shard_streams(gen, 1, shard_len)[0]
+    table = init_score_table(shard_len, device) if with_scoretable else None
     return MercuryState(step=0, model=model, optimizer=opt,
                         lr_schedule=schedule, ema=init_ema(device),
-                        stream=stream, generator=gen)
+                        stream=stream, generator=gen, scoretable=table)

@@ -79,6 +79,7 @@ class Trainer:
             model, self.device, config.seed, self.dataset.shard_len,
             config.optimizer, config.lr, self.total_steps,
             config.weight_decay, config.warmup_steps,
+            with_scoretable=config.use_scoretable,
         )
         self._step_fn = make_train_step(config, self.dataset)
 

@@ -167,7 +167,9 @@ class TestDispatch:
         z, y = _logits((8, 10), 7)
         per_sample_nll(torch.from_numpy(z), torch.from_numpy(y))
         score_and_draw(torch.rand(8), torch.tensor(0.5), torch.rand(1, 4))
-        assert mk.launch_counts == {"nll_fwd": 0, "nll_bwd": 0, "score_and_draw": 0}
+        assert mk.launch_counts == {k: 0 for k in mk.KERNELS}
+        assert mk.KERNELS == ("nll_fwd", "nll_bwd", "score_and_draw",
+                              "table_refresh_draw", "augment_normalize")
 
     def test_ctypes_signatures_match_the_c_entry_points(self):
         """Each ``extern "C"`` entry point of the CUDA source takes the

@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 from mercury_tpu.config import TrainConfig as JConfig  # noqa: E402
 from mercury_tpu_torch import TrainConfig, Trainer  # noqa: E402
 from mercury_tpu_torch.models.resnet import BasicBlock, ResNet, init_weights  # noqa: E402
-from mercury_tpu_torch.ops import launch_counts, reset_launch_counts  # noqa: E402
+from mercury_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mercury_tpu")
@@ -62,15 +62,27 @@ def test_config_fields_match_the_jax_package():
         assert f.default == jfields[f.name], f.name
     cfg = TrainConfig(world_size=1)
     assert cfg.lr == 0.001 and cfg.candidate_pool_size == 320
+    for name in ("refresh_size", "table_decay", "refresh_mode", "scoring_dtype",
+                 "fused_input", "sampler"):
+        assert name in {f.name for f in dataclasses.fields(TrainConfig)}, name
+    assert (cfg.refresh_size, cfg.table_decay, cfg.refresh_mode) == (64, 0.98, "sync")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("sampler", "scoretable"), ("fused_input", True), ("world_size", 2),
-    ("model", "vgg11"), ("augmentation", "iid"), ("dataset", "cifar100"),
+@pytest.mark.parametrize("field,kw", [
+    # The scoretable sampler and the fused ingest are ported; their async
+    # refresh and a fused ingest without the noniid augmentation are not.
+    pytest.param("refresh_mode", dict(sampler="scoretable", refresh_mode="async"),
+                 id="sampler-scoretable"),
+    pytest.param("fused_input", dict(fused_input=True, augmentation="none"),
+                 id="fused_input-True"),
+    pytest.param("world_size", dict(world_size=2), id="world_size-2"),
+    pytest.param("model", dict(model="vgg11"), id="model-vgg11"),
+    pytest.param("augmentation", dict(augmentation="iid"), id="augmentation-iid"),
+    pytest.param("dataset", dict(dataset="cifar100"), id="dataset-cifar100"),
 ])
-def test_config_rejects_what_is_not_ported(field, value):
+def test_config_rejects_what_is_not_ported(field, kw):
     with pytest.raises(ValueError, match=field):
-        TrainConfig(**{"world_size": 1, field: value})
+        TrainConfig(**{"world_size": 1, **kw})
 
 
 def test_trainer_without_a_card_raises(monkeypatch):
@@ -96,7 +108,7 @@ def test_cpu_fit_gives_finite_losses(use_is):
     losses = [float(tr.train_step()["train/loss"]) for _ in range(5)]
     assert all(np.isfinite(losses))
     assert tr.state.step == 5
-    assert launch_counts == {"nll_fwd": 0, "nll_bwd": 0, "score_and_draw": 0}
+    assert launch_counts == {k: 0 for k in KERNELS}
     out = tr.fit(1)
     assert np.isfinite(out["train/loss"]) and tr.state.step == 6
     ev = tr.evaluate(include_train=False)
