@@ -11,7 +11,10 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    with ``ptxas``'s register and spill report);
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes and a few larger ones, and times kernel, plain version
-   and (where one exists) the one-call PyTorch equivalent;
+   and (where one exists) the one-call PyTorch equivalent. The selection
+   kernels run at N = 320 … 1,000,000 and L = 5000 … 1,000,000, each case
+   printed with the cluster size K it launched with, and every draw is
+   held to its interval of the float64 CDF of the kernel's own probs;
 4. drives the main path: ``Trainer(TrainConfig(model="resnet18",
    dataset="synthetic", world_size=1))`` at full width (batch 32, pool 320,
    bf16, importance sampling on) for 30 steps, with the kernels' launch
@@ -271,13 +274,23 @@ def kernel_phase(torch, card: str):
     within(zk.grad, reference.nll_backward(z, y, torch.full((32,), 1 / 32, device=dev)),
            rtol=1e-5, atol=1e-7)
 
-    for n, skew in [(320, False), (1000, False), (50000, False), (320, True)]:
+    # The pool (320) and larger arrays up to a million, across the cluster
+    # sizes (one block up to 8192, then up to the card's limit) and the runs
+    # read from device memory (1,000,000); all mass on the first element
+    # (u -> 1 clamps to n - 1) and, in a cluster, all mass in the last block.
+    print(f"selection kernels: clusters of up to {mk.cluster_limit()} blocks [{card}]")
+    for n, skew in [(320, None), (1000, None), (5000, None), (50000, None),
+                    (50001, None), (1_000_000, None), (320, "first"),
+                    (50000, "first"), (50000, "last")]:
         cases.append(draw_case(torch, mk, reference, gen, n, 32, skew))
 
-    # The table over the synthetic shard (5000) and over CIFAR-10's
-    # (50,000), a window of 64, a batch of 32; one case with repeated slots.
-    for n, dup in [(5000, False), (5000, True), (50000, False)]:
-        cases.append(table_case(torch, mk, reference, gen, n, 64, 32, dup))
+    # The table over the synthetic shard (5000), CIFAR-10's (50,000) and a
+    # million slots, a window of 64, a batch of 32. The window wraps past
+    # the table's end as the round-robin cursor does, or straddles the
+    # boundary of the first two blocks; one case with repeated slots.
+    for n, dup, wrap in [(5000, False, True), (5000, True, True), (50000, False, False),
+                         (50000, False, True), (1_000_000, False, False)]:
+        cases.append(table_case(torch, mk, reference, gen, n, 64, 32, dup, wrap))
 
     # The refresh window (64), the train batch (32) and the fused pool path's
     # pool (320), at both output types; then all 81 offsets × both flips.
@@ -288,8 +301,12 @@ def kernel_phase(torch, card: str):
                                   every_offset=n == 162))
 
     for c in cases:
-        print(f"{c['kernel']:>18} {str(c['shape']):>16} {c.get('dtype', ''):>8}: "
-              f"max|err| {c['max_abs_err']:.2e}"
+        print(f"{c['kernel']:>18} {str(c['shape']):>16} {c.get('dtype', ''):>8}"
+              + (f" K={c['clusters']} run={c['run']}" if "clusters" in c else "")
+              + (f" skew={c['skew']}" if c.get("skew") else "")
+              + (" dup" if c.get("dup") else "")
+              + (" wrap" if c.get("wrap") else "")
+              + f": max|err| {c['max_abs_err']:.2e}"
               + (f", {c['in_band']} u in band {c['band']:.1e}, "
                  f"{c['mismatches']} index mismatches" if "band" in c else "")
               + f"; kernel {c['ms'] * 1e3:.2f} us (eager {c['eager_ms'] * 1e3:.2f} us), "
@@ -318,26 +335,27 @@ def kernel_phase(torch, card: str):
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["shape"], "eager_ms": c["eager_ms"],
+            "clusters": c.get("clusters"),
         })
     return kernels, cases
 
 
-def draw_case(torch, mk, reference, gen, n: int, b: int, skew: bool):
+def draw_case(torch, mk, reference, gen, n: int, b: int, skew):
     """score_and_draw against cumsum + searchsorted(right) + clamp on the
     card. probs: the total is summed in another order (rtol 1e-5 at up to
-    50000 terms). Indices: equal, except that a u within δ of a CDF value
-    may land one index over, δ = max(1e-6, 4·max|cdf_f32 − cdf_f64|)."""
+    a million terms). Draws: as :func:`check_draws` allows. ``skew``: all
+    mass on the first element ("first") or the last ("last"), with u up to
+    1.0: then the draws are 0 and a clamp to n - 1, or all n - 1."""
     dev = torch.device("cuda")
+    u = torch.rand(b, generator=gen, device=dev)
     if skew:
         losses = torch.zeros(n, device=dev)
-        losses[0] = 100.0
+        losses[0 if skew == "first" else n - 1] = 100.0
         ema, alpha = torch.zeros((), device=dev), 0.0
-        u = torch.rand(b, generator=gen, device=dev)
         u[-2], u[-1] = 1.0 - 2 ** -24, 1.0
     else:
         losses = -torch.log(torch.rand(n, generator=gen, device=dev))
         ema, alpha = torch.tensor(0.8, device=dev), 0.5
-        u = torch.rand(b, generator=gen, device=dev)
     ema1 = ema.reshape(1)
     probs, sel, scaled = mk.score_and_draw_kernel(losses, ema1, u, alpha)
     p_ref, s_ref, c_ref = reference.score_and_draw(losses, ema, u, alpha)
@@ -346,12 +364,17 @@ def draw_case(torch, mk, reference, gen, n: int, b: int, skew: bool):
                                         sel, s_ref)
     same = ~differ
     err = max(err, within(scaled[same], c_ref[same], rtol=1e-5, atol=0.0))
-    if skew:
+    if skew == "first":
         check(sel[:-1].eq(0).all().item() and int(sel[-1]) == n - 1,
-              f"skewed pool: expected 0s then the clamp to {n - 1}, got {sel.tolist()}")
+              f"mass on the first: expected 0s then the clamp to {n - 1}, got {sel.tolist()}")
+    elif skew == "last":
+        check(sel.eq(n - 1).all().item(),
+              f"mass on the last: expected only {n - 1}, got {sel.tolist()}")
 
     fn = lambda: mk.score_and_draw_kernel(losses, ema1, u, alpha)  # noqa: E731
+    geo = mk.draw_geometry(n, max_cluster=mk.cluster_limit())
     case = dict(kernel="score_and_draw", shape=[n, b], skew=skew,
+                clusters=geo.clusters, threads=geo.threads, run=geo.run,
                 max_abs_err=err, band=band, in_band=in_band,
                 mismatches=int(differ.sum()),
                 ms=graph_ms(torch, fn), eager_ms=eager_ms(torch, fn),
@@ -364,35 +387,53 @@ def draw_case(torch, mk, reference, gen, n: int, b: int, skew: bool):
 
 
 def check_draws(torch, what: str, probs, u, sel, s_ref):
-    """Draws of the kernel against the plain version's: equal, except that
-    a u within δ of a CDF value may land one index over, δ = max(1e-6,
-    4·max|cdf_f32 − cdf_f64|). Returns (δ, u in the band, mask of draws
-    that differ)."""
+    """Two checks of the kernel's draws, with δ = max(1e-6, 4·max|cdf_f32 −
+    cdf_f64|) over the float64 and float32 cumulative sums of ``probs``.
+    (1) Against the plain version's draws ``s_ref``: equal, except where u
+    lies within δ of every CDF value from the lower of the two draws up to
+    the higher. (2) Size-free: every draw idx satisfies cdf64[idx−1] − δ ≤
+    u < cdf64[idx] + δ (cdf64[−1] = 0; the clamp idx = n − 1 has no upper
+    limit). At n ≈ 10⁶ the CDF spacing falls to δ and (1) checks little;
+    (2) still holds each draw to its own interval. Returns (δ, u in the
+    band, mask of draws that differ)."""
     n = probs.shape[0]
     cdf64 = torch.cumsum(probs.double(), 0)
     cdf32 = torch.cumsum(probs, 0)
     band = max(1e-6, 4 * float((cdf32.double() - cdf64).abs().max()))
-    dist = (cdf64[None, :] - u.double()[:, None]).abs().min(dim=1).values
+    u64 = u.double()
+    pos = torch.searchsorted(cdf64, u64).clamp(max=n - 1)
+    dist = torch.minimum((cdf64[pos] - u64).abs(), (cdf64[(pos - 1).clamp(min=0)] - u64).abs())
     in_band = int((dist < band).sum())
+    check(int(sel.min()) >= 0 and int(sel.max()) < n, f"{what}: index out of range")
     differ = sel != s_ref
     for k in differ.nonzero().flatten().tolist():
         a, c = int(sel[k]), int(s_ref[k])
-        check(abs(a - c) == 1 and abs(float(cdf64[min(a, c)]) - float(u[k])) < band,
+        seg = cdf64[min(a, c):max(a, c)]
+        check(bool(((seg - u64[k]).abs() < band).all()),
               f"{what}: draw {k} gave {a}, plain {c}, u={float(u[k])!r}")
-    check(int(sel.min()) >= 0 and int(sel.max()) < n, f"{what}: index out of range")
+    idx = sel.long()
+    lower = torch.where(idx > 0, cdf64[(idx - 1).clamp(min=0)], torch.zeros_like(u64))
+    upper = torch.where(idx < n - 1, cdf64[idx], torch.full_like(u64, math.inf))
+    bad = ~((lower - band <= u64) & (u64 < upper + band))
+    check(not bool(bad.any()),
+          f"{what}: draws {idx[bad].tolist()} for u={u[bad].tolist()} lie outside "
+          f"their float64 CDF intervals (band {band:.1e})")
     return band, in_band, differ
 
 
-def table_case(torch, mk, reference, gen, n: int, r: int, b: int, dup: bool):
+def table_case(torch, mk, reference, gen, n: int, r: int, b: int, dup: bool, wrap: bool):
     """table_refresh_draw against decay + index_add_ scatter-mean + cumsum
     + searchsorted on the card. The table: bit-equal, the same rounded ops
     in the same order, except that a slot hit three or more times is a sum
     whose order the plain version's atomics change (rtol 1e-6). probs: the
     total is summed in another order (rtol 1e-5). Draws: as in draw_case.
-    The window wraps past the table's end, as the round-robin cursor does."""
+    ``wrap``: the window wraps past the table's end, as the round-robin
+    cursor does; otherwise it straddles the end of the first block's range."""
     dev = torch.device("cuda")
+    geo = mk.draw_geometry(n, refresh=r, max_cluster=mk.cluster_limit())
     scores = torch.rand(n, generator=gen, device=dev) * 4 + 0.1
-    slots = (n - 20 + torch.arange(r, device=dev)) % n
+    start = n - 20 if wrap else geo.per_block - 20
+    slots = (start + torch.arange(r, device=dev)) % n
     if dup:
         slots[1] = slots[0]
         slots[4] = slots[5] = slots[2]
@@ -416,7 +457,8 @@ def table_case(torch, mk, reference, gen, n: int, r: int, b: int, dup: bool):
 
     fn = lambda: mk.table_refresh_draw_kernel(  # noqa: E731
         scores, slots, rscores, ema1, u, 0.5, 0.98)
-    case = dict(kernel="table_refresh_draw", shape=[n, r, b], dup=dup,
+    case = dict(kernel="table_refresh_draw", shape=[n, r, b], dup=dup, wrap=wrap,
+                clusters=geo.clusters, threads=geo.threads, run=geo.run,
                 max_abs_err=err, band=band, in_band=in_band,
                 mismatches=int(differ.sum()),
                 ms=graph_ms(torch, fn), eager_ms=eager_ms(torch, fn),

@@ -32,11 +32,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mercury_nll_fwd": [_P, _P, _P, _I, _I, _I, _P],
     "mercury_nll_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "mercury_score_and_draw": [_P, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
+    "mercury_score_and_draw": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _P, _P],
     "mercury_table_refresh_draw": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I,
-                                   _P, _P, _P, _P, _P, _P],
+                                   _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "mercury_augment_normalize": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _P],
+    "mercury_cluster_limit": [_I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -19,32 +19,64 @@
 //    _inverse_cdf_draw (:146-302).
 //    s = max(loss + a·ema, 1e-12), p = s/Σs, cdf = inclusive scan of p,
 //    idx_b = min(#{j : cdf_j <= u_b}, N-1), scaled_b = p[idx_b]·N.
-//    One block: the sum, the scan and the B searches all need the whole
-//    pool, and a pool of tens of thousands of floats is a few hundred KB —
-//    one SM streams it in microseconds, far below a second launch. The scan
-//    walks the pool in 1024-wide tiles (warp shuffle scan, then a scan of
-//    the 32 warp totals) with a running carry, so any N works and nothing
-//    is padded. Each draw is then a binary search (upper bound) over the
-//    cdf. Bound: bytes (N losses read, N probs written), again launch-bound
-//    at N = 320.
-//    The float sums run in another order than the TPU kernel's chunked
-//    matmul prefix, so a u_b within ~1e-6 of a cdf value can land one index
-//    over; tests and chip_smoke.py count such u and require equal indices
-//    outside that band.
+//    Bound: bytes (N losses read, N probs written, 12B more); at N = 320
+//    that is a nanosecond and the launch sets the time.
 // 4. table_refresh_draw — replaces table_refresh_draw_pallas /
 //    _table_refresh_draw_kernel (:306-423).
 //    t_i = mu + (t_i - mu)·decay for every slot; each refresh slot s then
 //    takes the mean of the R refresh scores aimed at it (duplicates
 //    averaged, summed in index order); then score_and_draw's normalize,
 //    scan and draw over the whole table, with scaled_b = p[idx_b]·L.
-//    One block, for the reason score_and_draw has one: the sum, the scan
-//    and the draws need the whole table, and L = 50,000 floats is 200 KB.
-//    The scatter is R threads each scanning the R slots (R = 64: 4096
-//    compares), with a barrier on each side, so no atomics and no order
-//    that changes from run to run. The true L is used, with no padding (the
-//    TPU wrapper pads awkward L to a multiple of 512 for Mosaic only).
-//    Bound: bytes (L read, 2L written, 12R + 12B more), launch-bound at
-//    L = 5000 and a one-SM scan at L = 50,000.
+//    Bound: bytes (L read, 2L written: the new table and probs; 12R + 12B
+//    more); launch-bound at L = 5000.
+//
+//    Both run on select_kernel, one launch each. The sum, the scan and the
+//    draws need the whole array, so the earlier design was one block of
+//    1024 threads on one SM of 132: it walked the array in 1024-wide tiles
+//    with a running carry (49 tiles in series at 50,000, three barriers
+//    each), read every value twice, wrote the decayed table and read it
+//    back, and wrote the whole cdf to device memory for the B binary
+//    searches to read. That cost ~35 µs at 50,000, no faster than the
+//    plain op chain.
+//    Now the grid is one thread-block cluster of K blocks, so K SMs share
+//    the work and exchange through distributed shared memory. K and the
+//    rest of the geometry come from draw_geometry() in
+//    ops/mercury_kernels.py: one block up to 8192 elements (no cluster
+//    barrier, no distributed shared memory), then about 4096 elements a
+//    block up to K = 16, a non-portable cluster size the card is asked for
+//    first (mercury_cluster_limit; 8 is portable). Block k owns a
+//    contiguous range, thread t of it a contiguous run of 8 elements
+//    (up to 16 where a block would need more than 1024 threads), held in
+//    registers: read once, as float4 where aligned; the table decayed and
+//    refreshed there and written once. Over the registers: the score sum (a
+//    block reduction; each block stores its sum into every block's shared
+//    memory and one cluster barrier publishes them, so each adds the K sums
+//    in rank order and Σs is bit-identical in every block and from run to
+//    run; no atomics), p = s/Σs (probs written once, and staged in shared
+//    memory) with the per-run sums of p, and a block scan of those sums. A
+//    draw needs no cdf in memory: block k's cdf starts at P_{k-1}/Σs, P the
+//    rank-ordered prefix of the block sums, so the owner block comes from
+//    the K - 1 starts every block holds; the owner run from the runs'
+//    inclusive prefix in shared memory; the walk over that run's staged
+//    probs ends it. A u past the last block's end clamps to n - 1. The one
+//    exchange of the block sums replaces a second one of the blocks' totals
+//    of p: the one kept measured 0.8 µs at K = 16 (PERF.md §6). The
+//    division p = s/Σs is one reciprocal and two fmas an element
+//    (quotient()), the correctly rounded quotient by a shorter sequence.
+//    Above 262,144 elements a thread takes several runs of 8, one a tile,
+//    and each pass reads them again from device memory: runs of 8 keep a
+//    warp's float4 loads on 8 lines (a run of 64 put them on 32, and was
+//    slower than the plain chain at 10^6). The prefix over all the block's
+//    runs stays in shared memory; past 32,768 runs a block, runs grow.
+//    The table's refresh entries are staged in shared memory; the entry
+//    whose slot lies in a block's range puts the slot's mean, summed in
+//    index order, where the owner thread picks it up.
+//    The float sums run in another order than the TPU kernel's chunked
+//    matmul prefix and the plain version's cumsum, so a u_b within ~1e-6
+//    of a cdf value can land one index over; tests and chip_smoke.py count
+//    such u and require equal indices outside that band, and every draw to
+//    satisfy cdf64[idx-1] - δ <= u < cdf64[idx] + δ. The true n is used,
+//    with no padding (the TPU wrapper pads awkward sizes for Mosaic only).
 // 5. augment_normalize — replaces augment_normalize_pallas /
 //    _augment_norm_kernel (:427-551).
 //    out[n,y,x,c] = (fma(u8, RN(1/255), -mean_c) / std_c) at the source
@@ -60,10 +92,13 @@
 //    change a bit and the f32 output equals the plain version's exactly.
 //    Bound: bytes (N·H·W·C bytes read, 4 or 2 times that written).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -71,8 +106,14 @@ constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRowsPerBlock = 8;
 constexpr int kRowThreads = kRowsPerBlock * kWarp;
-constexpr int kDrawThreads = 1024;
+constexpr int kDrawThreads = 1024;  // most threads of a selection block
 constexpr int kDrawWarps = kDrawThreads / kWarp;
+constexpr int kRegRun = 16;         // longest run a thread holds in registers
+constexpr int kMaxCluster = 16;     // 8 is portable; 16 needs the non-portable attribute
+// A signaling NaN: no arithmetic result has this bit pattern (NaN results
+// are the canonical quiet NaN), so it marks an element no refresh mean was
+// put at.
+constexpr unsigned kUnset = 0x7fa5a5a5u;
 constexpr int kPixelThreads = 256;
 constexpr float kInv255 = 0x1.010102p-8f;  // 1/255 rounded to float32
 
@@ -154,120 +195,495 @@ __device__ __forceinline__ float score_of(float loss, float a) {
   return fmaxf(__fadd_rn(loss, a), 1e-12f);
 }
 
-// The block's normalize-and-draw over n values already in memory:
-// p_i = score_of(vals_i, a) / Σ into probs, their inclusive scan into cdf,
-// then for each uniform the upper bound of u in cdf, clamped to n - 1, and
-// scaled_b = p[idx_b]·n. Called by every thread of a kDrawThreads block;
-// vals may have been written by this block before a barrier.
-__device__ __forceinline__ void normalize_and_draw(
-    const float* vals, float a, int n, const float* __restrict__ uniforms, int b,
-    float* probs, float* cdf, int32_t* __restrict__ selected,
-    float* __restrict__ scaled) {
-  __shared__ float warp_buf[kDrawWarps];
-  __shared__ float total_s;
+// a/b correctly rounded, from inv = RN(1/b): q = RN(a·inv) is within an ulp,
+// the residual a - b·q is exact in an fma, and one more fma step rounds to
+// RN(a/b) (Markstein) while a, b and the quotient stay normal, as scores in
+// [1e-12, 3e38] over their sum do. It is the result of a true division
+// without its longer instruction sequence per element (a CPU test checks
+// the step with exact rationals).
+__device__ __forceinline__ float quotient(float a, float b, float inv) {
+  const float q = __fmul_rn(a, inv);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), inv, q);
+}
+
+// Decay toward the EMA mean, each rounding spelled out (no fma).
+__device__ __forceinline__ float decayed(float t, float mu, float decay) {
+  return __fadd_rn(mu, __fmul_rn(__fsub_rn(t, mu), decay));
+}
+
+// Arguments of select_kernel. vals is the pool's losses or the table before
+// the decay; slots, rscores and new_table belong to the table only. The
+// geometry (per_block, run; K and the block size are the launch's) comes
+// from draw_geometry() in ops/mercury_kernels.py.
+struct DrawArgs {
+  const float* vals;
+  const float* ema;
+  const float* uniforms;
+  const int64_t* slots;
+  const float* rscores;
+  float alpha, decay;
+  int n, r, b, per_block, run;
+  float* new_table;
+  float* probs;
+  int32_t* selected;
+  float* scaled;
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// A run of cnt <= kRegRun values into registers; as float4 when vec (cnt a
+// multiple of 4, p 16-byte aligned).
+__device__ __forceinline__ void load_run(const float* p, int cnt, bool vec,
+                                         float (&v)[kRegRun]) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < kRegRun / 4; ++q) {
+      if (4 * q < cnt) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(p) + q);
+        v[4 * q] = x.x;
+        v[4 * q + 1] = x.y;
+        v[4 * q + 2] = x.z;
+        v[4 * q + 3] = x.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRegRun; ++j)
+      if (j < cnt) v[j] = __ldg(p + j);
+  }
+}
+
+// A run of cnt <= kRegRun values from shared memory into registers.
+__device__ __forceinline__ void load_shared_run(const float* p, int cnt, bool vec,
+                                                float (&v)[kRegRun]) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < kRegRun / 4; ++q) {
+      if (4 * q < cnt) {
+        const float4 x = reinterpret_cast<const float4*>(p)[q];
+        v[4 * q] = x.x;
+        v[4 * q + 1] = x.y;
+        v[4 * q + 2] = x.z;
+        v[4 * q + 3] = x.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRegRun; ++j)
+      if (j < cnt) v[j] = p[j];
+  }
+}
+
+__device__ __forceinline__ void store_run(float* p, int cnt, bool vec,
+                                          const float (&v)[kRegRun]) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < kRegRun / 4; ++q)
+      if (4 * q < cnt)
+        reinterpret_cast<float4*>(p)[q] =
+            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRegRun; ++j)
+      if (j < cnt) p[j] = v[j];
+  }
+}
+
+// A split cluster barrier: every thread arrives at kernel entry and waits
+// just before the first store into another block's shared memory, which
+// may be made only once that block has started. By then every block has
+// arrived, so the wait costs next to nothing.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// Normalize and draw over the whole array, as one cluster of gridDim.x
+// blocks (kCluster) or one block. kTable: decay and refresh the table first
+// and write it. Block k's range is split into runs of `run` elements, run
+// v (its "virtual thread") starting at blo + v·run; thread t takes runs t,
+// t + blockDim, ... (the tiles). kRegs: one tile of runs of at most kRegRun,
+// held in registers, and the block's probs staged in shared memory for the
+// draws. Otherwise each pass reads the thread's runs again from device
+// memory; runs of 8 keep a warp's loads dense.
+// Dynamic shared memory, in order: incl[tiles·blockDim] (the inclusive
+// prefix of p over the runs); for kRegs sp[per_block] (first the refresh
+// means at their elements, kUnset elsewhere, then the block's probs);
+// wtot[tiles·warps] (each warp's total in each tile); for the table
+// slots[r] (as int, -1 for a slot outside [0, n)) and rscores[r].
+template <bool kTable, bool kCluster, bool kRegs>
+__global__ void __launch_bounds__(kDrawThreads) select_kernel(const DrawArgs a) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  __shared__ float warp_sums[kDrawWarps];
+  __shared__ float sums[kMaxCluster];  // S_k, stored here by block k
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
+  const int nthreads = blockDim.x;
+  const int nwarps = nthreads / kWarp;
+  const int rank = blockIdx.x;  // the grid is one cluster: block rank = blockIdx.x
+  const int nblocks = gridDim.x;
+  const int blo = rank * a.per_block;
+  const int bhi = min(blo + a.per_block, a.n);
+  const int tile = nthreads * a.run;
+  const int ntiles = kRegs ? 1 : (a.per_block + tile - 1) / tile;
+  const int nruns = ntiles * nthreads;
+  const int lo = blo + tid * a.run;  // the first tile's run
+  const int cnt = max(0, min(a.run, bhi - lo));
+  float* incl = reinterpret_cast<float*>(dyn_smem);
+  float* sp = incl + nruns;
+  float* wtot = sp + (kRegs ? a.per_block : 0);
+  int* ss = reinterpret_cast<int*>(wtot + ntiles * nwarps);
+  float* srs = reinterpret_cast<float*>(ss + a.r);
+  // A run starts at a multiple of 4 whenever run is (per_block always is).
+  const bool vec_run = (a.run & 3) == 0;
+  const bool vec_len = (cnt & 3) == 0 && vec_run;
+  if constexpr (kCluster) cluster_arrive_relaxed();
 
-  // Σ scores: per-thread strided sums, then warp and block reductions.
+  // Every load that needs nothing computed goes out first: the run, the
+  // EMA, this thread's first uniform and the refresh window.
+  float v[kRegs ? kRegRun : 1];
+  if constexpr (kRegs) load_run(a.vals + lo, cnt, vec_len && aligned16(a.vals), v);
+  const float mu = __ldg(a.ema);
+  float u_next = tid < a.b ? __ldg(a.uniforms + tid) : 0.f;
+  const float am = __fmul_rn(a.alpha, mu);
+  if constexpr (kTable) {
+    if constexpr (kRegs) {
+      float unset[kRegRun];
+#pragma unroll
+      for (int j = 0; j < kRegRun; ++j) unset[j] = __uint_as_float(kUnset);
+      store_run(sp + (lo - blo), cnt, vec_len, unset);
+    }
+    for (int k = tid; k < a.r; k += nthreads) {
+      const int64_t slot = __ldg(a.slots + k);
+      ss[k] = slot >= 0 && slot < a.n ? static_cast<int>(slot) : -1;  // -1: in no range
+      srs[k] = __ldg(a.rscores + k);
+    }
+    if constexpr (!kRegs) {
+      // Runs in device memory: decay into new_table first; the refresh
+      // means overwrite their slots after the barrier below.
+      for (int i = 0; i < ntiles; ++i) {
+        const int rlo = lo + i * tile;
+        const int rcnt = max(0, min(a.run, bhi - rlo));
+        if ((rcnt & 3) == 0 && vec_run && aligned16(a.vals) && aligned16(a.new_table)) {
+          for (int j = 0; j < rcnt; j += 4) {
+            const float4 x = __ldg(reinterpret_cast<const float4*>(a.vals + rlo + j));
+            *reinterpret_cast<float4*>(a.new_table + rlo + j) =
+                make_float4(decayed(x.x, mu, a.decay), decayed(x.y, mu, a.decay),
+                            decayed(x.z, mu, a.decay), decayed(x.w, mu, a.decay));
+          }
+        } else {
+          for (int j = 0; j < rcnt; ++j)
+            a.new_table[rlo + j] = decayed(__ldg(a.vals + rlo + j), mu, a.decay);
+        }
+      }
+    }
+    __syncthreads();
+    // The refresh window, a thread per entry: an entry whose slot lies in
+    // this block's range takes the mean of every refresh score aimed at the
+    // slot, summed in index order (as the plain version), and puts it at
+    // the slot; the entries of one slot put the same value. A slot outside
+    // [0, L) lies in no block's range and is never an address.
+    for (int k = tid; k < a.r; k += nthreads) {
+      const int s = ss[k];
+      if (s < blo || s >= bhi) continue;
+      // Count the entries of this slot first (no float chain), and sum
+      // their scores in index order only when there are several: a lone
+      // entry's mean (0 + x)/1 is 0 + x.
+      int count = 0;
+#pragma unroll 16
+      for (int j = 0; j < a.r; ++j) count += ss[j] == s;
+      float mean = __fadd_rn(0.f, srs[k]);
+      if (count > 1) {
+        float sum = 0.f;
+        for (int j = 0; j < a.r; ++j)
+          if (ss[j] == s) sum = __fadd_rn(sum, srs[j]);
+        mean = __fdiv_rn(sum, static_cast<float>(count));
+      }
+      if constexpr (kRegs) {
+        sp[s - blo] = mean;
+      } else {
+        a.new_table[s] = mean;
+      }
+    }
+    __syncthreads();
+  }
+
+  // Pass 1: the values (decayed and refreshed for the table, written once)
+  // and the thread's sum of their scores, in index order.
+  const float* src = kTable ? a.new_table : a.vals;  // the runs in device memory
   float local = 0.f;
-  for (int i = tid; i < n; i += kDrawThreads) local += score_of(vals[i], a);
+  if constexpr (kRegs) {
+    if constexpr (kTable) {
+      float put[kRegRun];
+      load_shared_run(sp + (lo - blo), cnt, vec_len, put);
+#pragma unroll
+      for (int j = 0; j < kRegRun; ++j) {
+        if (j < cnt)
+          v[j] = __float_as_uint(put[j]) != kUnset ? put[j] : decayed(v[j], mu, a.decay);
+      }
+      store_run(a.new_table + lo, cnt, vec_len && aligned16(a.new_table), v);
+    }
+#pragma unroll
+    for (int j = 0; j < kRegRun; ++j) {
+      if (j < cnt) {
+        v[j] = score_of(v[j], am);
+        local = __fadd_rn(local, v[j]);
+      }
+    }
+  } else {
+    for (int i = 0; i < ntiles; ++i) {
+      const int rlo = lo + i * tile;
+      const int rcnt = max(0, min(a.run, bhi - rlo));
+      if ((rcnt & 3) == 0 && vec_run && aligned16(src)) {
+        for (int j = 0; j < rcnt; j += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(src + rlo + j);
+          local = __fadd_rn(local, score_of(x.x, am));
+          local = __fadd_rn(local, score_of(x.y, am));
+          local = __fadd_rn(local, score_of(x.z, am));
+          local = __fadd_rn(local, score_of(x.w, am));
+        }
+      } else {
+        for (int j = 0; j < rcnt; ++j) local = __fadd_rn(local, score_of(src[rlo + j], am));
+      }
+    }
+  }
+
+  // Σs: a block reduction whose every warp computes the same block sum
+  // (the xor butterfly leaves the same bits in every lane). In a cluster,
+  // block k stores its sum S_k into sums[k] of every block through
+  // distributed shared memory, and one cluster barrier (release, acquire)
+  // publishes them; each block then adds S_0..S_{K-1} in rank order, so Σs
+  // is bit-identical in every block, and keeps the inclusive prefix P_q in
+  // lane q. No block touches another's shared memory after the barrier,
+  // so none need wait for the others before it exits. The one exchange
+  // replaces a second one of the blocks' totals of p (PERF.md §6).
   local = warp_sum(local);
-  if (lane == 0) warp_buf[warp] = local;
+  if (lane == 0) warp_sums[warp] = local;
   __syncthreads();
-  if (warp == 0) {
-    float w = warp_sum(warp_buf[lane]);
-    if (lane == 0) total_s = w;
-  }
-  __syncthreads();
-  const float total = total_s;
-
-  // probs and their inclusive scan, one 1024-wide tile at a time.
-  float carry = 0.f;
-  for (int base = 0; base < n; base += kDrawThreads) {
-    const int i = base + tid;
-    float p = 0.f;
-    if (i < n) {
-      p = score_of(vals[i], a) / total;
-      probs[i] = p;
+  const float bsum = warp_sum(lane < nwarps ? warp_sums[lane] : 0.f);
+  float total = bsum;
+  float prefix = 0.f;     // P_{rank-1}: Σs of the blocks before this one
+  float lane_cum = bsum;  // lane q: P_q
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster_wait();  // every block has started
+    if (warp == 0 && lane < nblocks) *cluster.map_shared_rank(&sums[rank], lane) = bsum;
+    cluster.sync();
+    const float mine = lane < nblocks ? sums[lane] : 0.f;
+    total = 0.f;
+    for (int k = 0; k < nblocks; ++k) {
+      if (k == rank) prefix = total;
+      total = __fadd_rn(total, __shfl_sync(kFull, mine, k));
+      if (lane == k) lane_cum = total;
     }
-    float x = p;
+  }
+
+  // Pass 2: p = s/Σs, written once (and staged in shared memory for the
+  // draws), the sum of p over each of the thread's runs, and its warp scan
+  // (the run's prefix within its warp) into incl, each warp's total into
+  // wtot.
+  const float inv = __frcp_rn(total);
+  auto warp_scan_run = [&](int i, float mass) {
     for (int o = 1; o < kWarp; o <<= 1) {
-      const float y = __shfl_up_sync(kFull, x, o);
-      if (lane >= o) x += y;
+      const float y = __shfl_up_sync(kFull, mass, o);
+      if (lane >= o) mass += y;
     }
-    if (lane == kWarp - 1) warp_buf[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      float w = warp_buf[lane];
-      for (int o = 1; o < kWarp; o <<= 1) {
-        const float y = __shfl_up_sync(kFull, w, o);
-        if (lane >= o) w += y;
+    incl[i * nthreads + tid] = mass;
+    if (lane == kWarp - 1) wtot[i * nwarps + warp] = mass;
+  };
+  if constexpr (kRegs) {
+    float mass = 0.f;
+#pragma unroll
+    for (int j = 0; j < kRegRun; ++j) {
+      if (j < cnt) {
+        v[j] = quotient(v[j], total, inv);
+        mass = __fadd_rn(mass, v[j]);
       }
-      warp_buf[lane] = w;
     }
-    __syncthreads();
-    const float before = (warp > 0) ? warp_buf[warp - 1] : 0.f;
-    if (i < n) cdf[i] = carry + (before + x);
-    carry += warp_buf[kDrawWarps - 1];
-    __syncthreads();  // warp_buf is rewritten by the next tile
+    store_run(a.probs + lo, cnt, vec_len && aligned16(a.probs), v);
+    store_run(sp + (lo - blo), cnt, vec_len, v);
+    warp_scan_run(0, mass);
+  } else {
+    for (int i = 0; i < ntiles; ++i) {
+      const int rlo = lo + i * tile;
+      const int rcnt = max(0, min(a.run, bhi - rlo));
+      float mass = 0.f;
+      if ((rcnt & 3) == 0 && vec_run && aligned16(src) && aligned16(a.probs)) {
+        for (int j = 0; j < rcnt; j += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(src + rlo + j);
+          const float4 p = make_float4(
+              quotient(score_of(x.x, am), total, inv), quotient(score_of(x.y, am), total, inv),
+              quotient(score_of(x.z, am), total, inv), quotient(score_of(x.w, am), total, inv));
+          *reinterpret_cast<float4*>(a.probs + rlo + j) = p;
+          mass = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(mass, p.x), p.y), p.z), p.w);
+        }
+      } else {
+        for (int j = 0; j < rcnt; ++j) {
+          const float p = quotient(score_of(src[rlo + j], am), total, inv);
+          a.probs[rlo + j] = p;
+          mass = __fadd_rn(mass, p);
+        }
+      }
+      warp_scan_run(i, mass);
+    }
   }
-  // The barrier above also makes every thread's probs/cdf writes visible.
+  __syncthreads();
 
-  for (int k = tid; k < b; k += kDrawThreads) {
-    const float u = uniforms[k];
-    int lo = 0, hi = n;  // first j with cdf_j > u
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (cdf[mid] <= u) lo = mid + 1; else hi = mid;
+  // The prefix over all runs of the block, tile after tile: each warp scans
+  // the tile's warp totals, adds the one before it to its runs' in-warp
+  // prefixes, and the tile's offset. A tile's mass is its last run's prefix,
+  // formed the same way, so the block's mass equals the last prefix bit for
+  // bit and the block and run levels of the draw agree on it.
+  float bmass = 0.f;
+  for (int i = 0; i < ntiles; ++i) {
+    float w = lane < nwarps ? wtot[i * nwarps + lane] : 0.f;
+    const float last_warp = __shfl_sync(kFull, w, nwarps - 1);
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const float y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += y;
     }
-    const int idx = min(lo, n - 1);
-    selected[k] = idx;
-    scaled[k] = probs[idx] * static_cast<float>(n);
+    const float before = __shfl_sync(kFull, w, max(warp - 1, 0));
+    const float before_last = __shfl_sync(kFull, w, max(nwarps - 2, 0));
+    const float x = incl[i * nthreads + tid];
+    const float in_tile = warp > 0 ? __fadd_rn(before, x) : x;
+    const float tile_mass = nwarps > 1 ? __fadd_rn(before_last, last_warp) : last_warp;
+    incl[i * nthreads + tid] = i > 0 ? __fadd_rn(bmass, in_tile) : in_tile;
+    bmass = i > 0 ? __fadd_rn(bmass, tile_mass) : tile_mass;
+  }
+
+  // The block boundaries of the cdf: block k starts at off_k = P_{k-1}/Σs
+  // (lane q holds C_q = P_q/Σs, the start of block q + 1), and within it
+  // the cdf is off_k + the prefix of p. The two agree to rounding, so a u
+  // that falls between a block's last running sum and the next block's
+  // start, within ~1e-7, draws the block's last element.
+  const float off = quotient(prefix, total, inv);
+  const float cum = quotient(lane_cum, total, inv);
+  const float end = __fadd_rn(off, bmass);  // where this block's cdf ends
+  __syncthreads();  // incl[], sp and probs are complete
+
+  // The draws; thread tid takes uniforms tid, tid + blockDim, ... The owner
+  // block is the number of block starts C_0..C_{K-2} at or below u; its
+  // owner run the first r with off + incl[r] > u; the index in that run is
+  // the number of its running sums <= u (the sums rise, so this is the
+  // first one above u), at most the run's last. A u at or past the last
+  // block's end clamps to n - 1.
+  for (int base = warp * kWarp; base < a.b; base += nthreads) {
+    const int k = base + lane;
+    const float u = u_next;
+    if (base + nthreads < a.b) u_next = k + nthreads < a.b ? __ldg(a.uniforms + k + nthreads) : 0.f;
+    int owner = 0;
+    for (int q = 0; q + 1 < nblocks; ++q) owner += __shfl_sync(kFull, cum, q) <= u ? 1 : 0;
+    if (k >= a.b || owner != rank) continue;
+    int idx;
+    if (rank == nblocks - 1 && u >= end) {
+      idx = a.n - 1;
+    } else {
+      int l = 0, h = nruns;
+      while (l < h) {
+        const int mid = (l + h) >> 1;
+        if (__fadd_rn(off, incl[mid]) <= u) l = mid + 1; else h = mid;
+      }
+      const int run = min(l, nruns - 1);
+      const int rlo = blo + run * a.run;
+      const int rcnt = max(0, min(a.run, bhi - rlo));
+      const float* rp = kRegs ? sp + (rlo - blo) : a.probs + rlo;
+      float c = run > 0 ? __fadd_rn(off, incl[run - 1]) : off;
+      int below = 0;
+      if (!kRegs && (rcnt & 3) == 0 && vec_run && aligned16(rp)) {
+        for (int j = 0; j < rcnt; j += 4) {
+          const float4 p = *reinterpret_cast<const float4*>(rp + j);
+          c = __fadd_rn(c, p.x);
+          below += c <= u;
+          c = __fadd_rn(c, p.y);
+          below += c <= u;
+          c = __fadd_rn(c, p.z);
+          below += c <= u;
+          c = __fadd_rn(c, p.w);
+          below += c <= u;
+        }
+      } else if (kRegs) {
+#pragma unroll
+        for (int j = 0; j < kRegRun; ++j) {
+          if (j < rcnt) {
+            c = __fadd_rn(c, rp[j]);
+            below += c <= u;
+          }
+        }
+      } else {
+        for (int j = 0; j < rcnt; ++j) {
+          c = __fadd_rn(c, rp[j]);
+          below += c <= u;
+        }
+      }
+      idx = max(min(rlo + min(below, rcnt - 1), bhi - 1), blo);
+    }
+    a.selected[k] = idx;
+    a.scaled[k] = __fmul_rn(kRegs ? sp[idx - blo] : a.probs[idx], static_cast<float>(a.n));
   }
 }
 
-__global__ void __launch_bounds__(kDrawThreads)
-score_and_draw_kernel(const float* __restrict__ losses, const float* __restrict__ ema,
-                      const float* __restrict__ uniforms, float alpha, int n, int b,
-                      float* probs, float* cdf, int32_t* __restrict__ selected,
-                      float* __restrict__ scaled) {
-  normalize_and_draw(losses, __fmul_rn(alpha, *ema), n, uniforms, b, probs, cdf,
-                     selected, scaled);
+using SelectFn = void (*)(DrawArgs);
+
+template <bool kTable>
+SelectFn select_fn(bool cluster, bool regs) {
+  if (cluster) return regs ? &select_kernel<kTable, true, true> : &select_kernel<kTable, true, false>;
+  return regs ? &select_kernel<kTable, false, true> : &select_kernel<kTable, false, false>;
 }
 
-// new_table is written and then read back by this block, so it is neither
-// const nor __restrict__: its reads must not go through the read-only cache.
-__global__ void __launch_bounds__(kDrawThreads)
-table_refresh_draw_kernel(const float* __restrict__ table, const int64_t* __restrict__ slots,
-                          const float* __restrict__ rscores, const float* __restrict__ ema,
-                          const float* __restrict__ uniforms, float alpha, float decay,
-                          int n, int r, int b, float* new_table, float* probs, float* cdf,
-                          int32_t* __restrict__ selected, float* __restrict__ scaled) {
-  const int tid = threadIdx.x;
-  const float mu = *ema;
-  for (int i = tid; i < n; i += kDrawThreads)
-    new_table[i] = __fadd_rn(mu, __fmul_rn(__fsub_rn(table[i], mu), decay));
-  __syncthreads();
-  // Entry k writes the mean of every refresh score aimed at its slot; the
-  // entries of one slot write the same value. A slot outside [0, L) is
-  // skipped, never used as an address.
-  for (int k = tid; k < r; k += kDrawThreads) {
-    const int64_t s = slots[k];
-    if (s < 0 || s >= n) continue;
-    float sum = 0.f;
-    int count = 0;
-    for (int j = 0; j < r; ++j) {
-      if (slots[j] == s) {
-        sum = __fadd_rn(sum, rscores[j]);
-        ++count;
-      }
-    }
-    new_table[s] = __fdiv_rn(sum, static_cast<float>(count));
+// Launches select_kernel as one cluster of `clusters` blocks of `threads`
+// (clusters = 1: a plain one-block launch). A geometry that leaves part of
+// [0, n) unowned, a last block empty or too little shared memory is
+// refused; so is a launch the card refuses. Nothing is allocated and
+// nothing synchronized, so the launch can be captured in a CUDA graph.
+template <bool kTable>
+int launch_select(const DrawArgs& a, int clusters, int threads, int smem, cudaStream_t st) {
+  if (threads < kWarp || threads > kDrawThreads || threads % kWarp != 0 || a.run < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles = (a.per_block + static_cast<int64_t>(threads) * a.run - 1) /
+                        (static_cast<int64_t>(threads) * a.run);
+  const bool regs = tiles == 1 && a.run <= kRegRun;
+  const int64_t need = 4 * tiles * threads + 4 * tiles * (threads / kWarp) +
+                       (regs ? 4LL * a.per_block : 0) + (kTable ? 8LL * a.r : 0);
+  const bool ok = clusters >= 1 && clusters <= kMaxCluster && (clusters & (clusters - 1)) == 0 &&
+                  a.n >= 1 && a.per_block >= 4 && a.per_block % 4 == 0 &&
+                  static_cast<int64_t>(clusters) * a.per_block >= a.n &&
+                  static_cast<int64_t>(clusters - 1) * a.per_block < a.n && a.r >= 0 &&
+                  a.b >= 0 && smem >= need;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const SelectFn fn = select_fn<kTable>(clusters > 1, regs);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  __syncthreads();
-  normalize_and_draw(new_table, __fmul_rn(alpha, mu), n, uniforms, b, probs, cdf,
-                     selected, scaled);
+  if (clusters > 8) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = clusters;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = clusters > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, a);
+  if (e != cudaSuccess) {
+    (void)cudaGetLastError();  // do not leave it to the next launch's check
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -337,30 +753,82 @@ int mercury_nll_bwd(const void* logits, const void* labels, const void* g, void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// The largest cluster size, up to kMaxCluster, that the card can schedule
+// for a selection block of `threads` threads and `smem` bytes of dynamic
+// shared memory (cudaOccupancyMaxActiveClusters); 1 if no cluster fits.
+// The wrappers ask once and hand it to draw_geometry().
+int mercury_cluster_limit(int threads, int smem) {
+  const SelectFn fn = select_fn<true>(true, true);
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) !=
+          cudaSuccess) {
+    (void)cudaGetLastError();
+    return 1;
+  }
+  for (int k = kMaxCluster; k > 1; k /= 2) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = k;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(k);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int count = 0;
+    if (cudaOccupancyMaxActiveClusters(&count, fn, &cfg) == cudaSuccess && count > 0) return k;
+    (void)cudaGetLastError();
+  }
+  return 1;
+}
+
+// The geometry (clusters, threads, per_block, run, smem bytes) is
+// draw_geometry() of ops/mercury_kernels.py.
 int mercury_score_and_draw(const void* losses, const void* ema, const void* uniforms,
-                           float alpha, int n, int b, void* probs, void* cdf,
-                           void* selected, void* scaled, void* stream) {
-  score_and_draw_kernel<<<1, kDrawThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(losses), static_cast<const float*>(ema),
-      static_cast<const float*>(uniforms), alpha, n, b, static_cast<float*>(probs),
-      static_cast<float*>(cdf), static_cast<int32_t*>(selected),
-      static_cast<float*>(scaled));
-  return static_cast<int>(cudaGetLastError());
+                           float alpha, int n, int b, int clusters, int threads,
+                           int per_block, int run, int smem, void* probs, void* selected,
+                           void* scaled, void* stream) {
+  DrawArgs a{};
+  a.vals = static_cast<const float*>(losses);
+  a.ema = static_cast<const float*>(ema);
+  a.uniforms = static_cast<const float*>(uniforms);
+  a.alpha = alpha;
+  a.n = n;
+  a.b = b;
+  a.per_block = per_block;
+  a.run = run;
+  a.probs = static_cast<float*>(probs);
+  a.selected = static_cast<int32_t*>(selected);
+  a.scaled = static_cast<float*>(scaled);
+  return launch_select<false>(a, clusters, threads, smem, static_cast<cudaStream_t>(stream));
 }
 
 int mercury_table_refresh_draw(const void* table, const void* slots, const void* rscores,
                                const void* ema, const void* uniforms, float alpha,
-                               float decay, int n, int r, int b, void* new_table,
-                               void* probs, void* cdf, void* selected, void* scaled,
-                               void* stream) {
-  table_refresh_draw_kernel<<<1, kDrawThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int64_t*>(slots),
-      static_cast<const float*>(rscores), static_cast<const float*>(ema),
-      static_cast<const float*>(uniforms), alpha, decay, n, r, b,
-      static_cast<float*>(new_table), static_cast<float*>(probs),
-      static_cast<float*>(cdf), static_cast<int32_t*>(selected),
-      static_cast<float*>(scaled));
-  return static_cast<int>(cudaGetLastError());
+                               float decay, int n, int r, int b, int clusters, int threads,
+                               int per_block, int run, int smem, void* new_table,
+                               void* probs, void* selected, void* scaled, void* stream) {
+  DrawArgs a{};
+  a.vals = static_cast<const float*>(table);
+  a.slots = static_cast<const int64_t*>(slots);
+  a.rscores = static_cast<const float*>(rscores);
+  a.ema = static_cast<const float*>(ema);
+  a.uniforms = static_cast<const float*>(uniforms);
+  a.alpha = alpha;
+  a.decay = decay;
+  a.n = n;
+  a.r = r;
+  a.b = b;
+  a.per_block = per_block;
+  a.run = run;
+  a.new_table = static_cast<float*>(new_table);
+  a.probs = static_cast<float*>(probs);
+  a.selected = static_cast<int32_t*>(selected);
+  a.scaled = static_cast<float*>(scaled);
+  return launch_select<true>(a, clusters, threads, smem, static_cast<cudaStream_t>(stream));
 }
 
 // dtype of out: 0 = float32, 1 = bfloat16.

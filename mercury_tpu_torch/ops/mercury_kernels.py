@@ -11,6 +11,9 @@
 - :func:`augment_normalize` — the fused uint8 ingest: dequantize,
   normalize, crop and flip, in one kernel.
 
+The two selections launch as one thread-block cluster (sm_90a), with the
+geometry of :func:`draw_geometry`; they need no scratch tensor.
+
 Each wrapper dispatches on the device of its tensors: a CUDA tensor goes to
 the kernel (built at first use by ``ops/_build.py``), a CPU tensor to the
 plain version in ``ops/reference.py``. There is no fallback: a CUDA tensor
@@ -23,7 +26,7 @@ kernels; :func:`reset_launch_counts` zeroes it.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +37,108 @@ KERNELS = ("nll_fwd", "nll_bwd", "score_and_draw", "table_refresh_draw",
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The selection kernels' geometry (select_kernel in csrc/mercury_kernels.cu),
+# from a sweep on the H100 (PERF.md §6).
+RUN = 8                  # elements a thread holds, unless a block would need more threads
+MAX_THREADS = 1024
+ONE_BLOCK = RUN * MAX_THREADS  # n up to this is one block: no cluster
+CLUSTER_SHARE = 4096     # elements a block of a cluster takes before K doubles
+MAX_CLUSTER = 16         # the most the kernel takes; 8 is portable, 16 the card may refuse
+REG_RUN = 16             # the longest run a thread holds in registers
+MAX_RUNS = 32_768        # runs a block keeps prefixes of in shared memory
+MAX_SMEM = 232_448       # dynamic shared memory a block can have on Hopper
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, m: int) -> int:
+    return _ceil_div(a, m) * m
+
+
+class DrawGeometry(NamedTuple):
+    clusters: int    # K blocks, one cluster
+    threads: int     # threads a block
+    per_block: int   # elements a block owns, a multiple of 4 (the last block fewer)
+    run: int         # contiguous elements a run holds; thread t takes runs t, t + threads, ...
+    smem: int        # dynamic shared memory bytes a block
+
+    @property
+    def tiles(self) -> int:
+        """Runs a thread takes: one while its run is held in registers."""
+        return _ceil_div(self.per_block, self.threads * self.run)
+
+    @property
+    def in_registers(self) -> bool:
+        return self.tiles == 1 and self.run <= REG_RUN
+
+
+def draw_geometry(n: int, refresh: Optional[int] = None,
+                  max_cluster: int = MAX_CLUSTER) -> DrawGeometry:
+    """Launch geometry of ``score_and_draw`` (``refresh=None``) or of
+    ``table_refresh_draw`` with a window of ``refresh`` slots, over ``n``
+    elements, with at most ``max_cluster`` blocks (what the card can
+    schedule: :func:`cluster_limit`). Block k owns ``[k·per_block,
+    (k+1)·per_block) ∩ [0, n)``, cut into runs of ``run`` elements; thread
+    t takes runs t, t + threads, ... (``tiles`` of them).
+
+    Up to 8192 elements (1024 threads of 8) are one block, with no
+    cluster. Above, K is the power of two that gives each block at most
+    about 4096 elements, up to ``max_cluster``. A run is 8, or up to 16 (a
+    multiple of 4) where a block would need more than 1024 threads, held
+    in registers. Past that, runs of 8 in several tiles are read from
+    device memory, longer only where a block would have more than 32,768
+    runs."""
+    if n < 1:
+        raise ValueError(f"the selection needs n >= 1, got {n}")
+    clusters = 1
+    if n > ONE_BLOCK:
+        while 2 * clusters <= max_cluster and clusters * CLUSTER_SHARE < n:
+            clusters *= 2
+    per_block = _round_up(_ceil_div(n, clusters), 4)
+    run = RUN
+    if per_block > MAX_THREADS * RUN:
+        run = _round_up(_ceil_div(per_block, MAX_THREADS), 4)
+        if run > REG_RUN:
+            run = max(RUN, _round_up(_ceil_div(per_block, MAX_RUNS), 4))
+    threads = min(MAX_THREADS, _round_up(_ceil_div(per_block, run), 32))
+    smem = draw_smem(threads, per_block, run, refresh)
+    if smem > MAX_SMEM:
+        raise ValueError(f"a refresh window of {refresh} needs {smem} bytes of shared "
+                         f"memory, more than {MAX_SMEM}")
+    return DrawGeometry(clusters, threads, per_block, run, smem)
+
+
+def draw_smem(threads: int, per_block: int, run: int, refresh: Optional[int]) -> int:
+    """Dynamic shared memory bytes of a selection block: the inclusive
+    prefix over its runs and each warp's total in each tile; the block's
+    staged probs (and first the refresh means) where runs are held in
+    registers; the table's window."""
+    tiles = _ceil_div(per_block, threads * run)
+    smem = 4 * tiles * threads + 4 * tiles * (threads // 32)
+    if tiles == 1 and run <= REG_RUN:
+        smem += 4 * per_block
+    if refresh is not None:
+        smem += 8 * refresh  # the window's slots (as int) and scores
+    return smem
+
+
+_cluster_limit: Optional[int] = None
+
+
+def cluster_limit() -> int:
+    """The largest cluster (≤ 16) the card can schedule for the biggest
+    selection block draw_geometry makes, asked once of the card."""
+    global _cluster_limit
+    if _cluster_limit is None:
+        from mercury_tpu_torch.ops import _build
+
+        smem = max(draw_smem(MAX_THREADS, MAX_THREADS * REG_RUN, REG_RUN, refresh=64),
+                   draw_smem(MAX_THREADS, MAX_RUNS * RUN, RUN, refresh=64))
+        _cluster_limit = int(_build.load().mercury_cluster_limit(MAX_THREADS, smem))
+    return _cluster_limit
 
 
 def reset_launch_counts() -> None:
@@ -135,15 +240,15 @@ def score_and_draw_kernel(losses: torch.Tensor, ema_value: torch.Tensor,
         raise ValueError("score_and_draw needs a non-empty pool")
     dev = losses.device
     probs = torch.empty(n, dtype=torch.float32, device=dev)
-    cdf = torch.empty(n, dtype=torch.float32, device=dev)  # scratch
     selected = torch.empty(b, dtype=torch.int32, device=dev)
     scaled = torch.empty(b, dtype=torch.float32, device=dev)
     if b == 0:
         return probs, selected, scaled
     with torch.cuda.device(dev):
+        geo = draw_geometry(n, max_cluster=cluster_limit())
         err = _build.load().mercury_score_and_draw(
             losses.data_ptr(), ema_value.data_ptr(), uniforms.data_ptr(),
-            float(alpha), n, b, probs.data_ptr(), cdf.data_ptr(),
+            float(alpha), n, b, *geo, probs.data_ptr(),
             selected.data_ptr(), scaled.data_ptr(), _stream(losses))
     _launched("score_and_draw", err)
     return probs, selected, scaled
@@ -171,14 +276,14 @@ def table_refresh_draw_kernel(
     dev = scores.device
     new_table = torch.empty(n, dtype=torch.float32, device=dev)
     probs = torch.empty(n, dtype=torch.float32, device=dev)
-    cdf = torch.empty(n, dtype=torch.float32, device=dev)  # scratch
     selected = torch.empty(b, dtype=torch.int32, device=dev)
     scaled = torch.empty(b, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        geo = draw_geometry(n, refresh=r, max_cluster=cluster_limit())
         err = _build.load().mercury_table_refresh_draw(
             scores.data_ptr(), slots.data_ptr(), rscores.data_ptr(),
             ema_value.data_ptr(), uniforms.data_ptr(), float(alpha), float(decay),
-            n, r, b, new_table.data_ptr(), probs.data_ptr(), cdf.data_ptr(),
+            n, r, b, *geo, new_table.data_ptr(), probs.data_ptr(),
             selected.data_ptr(), scaled.data_ptr(), _stream(scores))
     _launched("table_refresh_draw", err)
     return new_table, probs, selected, scaled
