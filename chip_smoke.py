@@ -14,7 +14,10 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    and (where one exists) the one-call PyTorch equivalent. The selection
    kernels run at N = 320 … 1,000,000 and L = 5000 … 1,000,000, each case
    printed with the cluster size K it launched with, and every draw is
-   held to its interval of the float64 CDF of the kernel's own probs;
+   held to its interval of the float64 CDF of the kernel's own probs. The
+   ingest runs at [32], [64] and [320], at every crop offset, gathering
+   its rows from the 5000-image shard, and at shapes that stage by bytes,
+   in float32 and bfloat16, each bit-equal to the plain version;
 4. drives the main path: ``Trainer(TrainConfig(model="resnet18",
    dataset="synthetic", world_size=1))`` at full width (batch 32, pool 320,
    bf16, importance sampling on) for 30 steps, with the kernels' launch
@@ -293,12 +296,19 @@ def kernel_phase(torch, card: str):
         cases.append(table_case(torch, mk, reference, gen, n, 64, 32, dup, wrap))
 
     # The refresh window (64), the train batch (32) and the fused pool path's
-    # pool (320), at both output types; then all 81 offsets × both flips.
+    # pool (320), at both output types; all 81 offsets × both flips; the
+    # window and the pool gathered by rows from the 5000-image shard, as the
+    # step calls it; 30×30 images and misaligned images, staged by bytes.
     for n, dtype in [(64, torch.float32), (32, torch.float32), (320, torch.float32),
                      (64, torch.bfloat16), (32, torch.bfloat16), (320, torch.bfloat16),
                      (162, torch.float32), (162, torch.bfloat16)]:
         cases.append(augment_case(torch, mk, reference, gen, n, dtype,
                                   every_offset=n == 162))
+    for n, dtype in [(64, torch.float32), (64, torch.bfloat16), (320, torch.float32)]:
+        cases.append(augment_case(torch, mk, reference, gen, n, dtype, rows=True))
+    for n, dtype in [(64, torch.float32), (64, torch.bfloat16)]:
+        cases.append(augment_case(torch, mk, reference, gen, n, dtype, hw=30))
+        cases.append(augment_case(torch, mk, reference, gen, n, dtype, misaligned=True))
 
     for c in cases:
         print(f"{c['kernel']:>18} {str(c['shape']):>16} {c.get('dtype', ''):>8}"
@@ -306,11 +316,17 @@ def kernel_phase(torch, card: str):
               + (f" skew={c['skew']}" if c.get("skew") else "")
               + (" dup" if c.get("dup") else "")
               + (" wrap" if c.get("wrap") else "")
+              + (" rows" if c.get("rows") else "")
+              + (" misaligned" if c.get("misaligned") else "")
+              + (f" threads={c['threads']} rows/block={c['band_rows']} copy={c['copy']}"
+                 if "band_rows" in c else "")
               + f": max|err| {c['max_abs_err']:.2e}"
               + (f", {c['in_band']} u in band {c['band']:.1e}, "
                  f"{c['mismatches']} index mismatches" if "band" in c else "")
               + f"; kernel {c['ms'] * 1e3:.2f} us (eager {c['eager_ms'] * 1e3:.2f} us), "
-              f"plain {c['plain_ms'] * 1e3:.2f} us, library "
+              + (f"gather + kernel {c['gather_and_kernel_ms'] * 1e3:.2f} us, "
+                 if "gather_and_kernel_ms" in c else "")
+              + f"plain {c['plain_ms'] * 1e3:.2f} us, library "
               + (f"{c['library_ms'] * 1e3:.2f} us" if c["library_ms"] else "none")
               + f", bound {c['bound_ms'] * 1e3:.4f} us ({c['bound_by']}) [{card}]")
 
@@ -327,7 +343,8 @@ def kernel_phase(torch, card: str):
         c = next(c for c in cases if c["kernel"] == name
                  and c["shape"] == main_shape[name]
                  and c.get("dtype", "float32") == "float32"
-                 and not (c.get("skew") or c.get("dup") or c.get("every_offset")))
+                 and not (c.get("skew") or c.get("dup") or c.get("every_offset")
+                         or c.get("rows") or c.get("misaligned")))
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": None,
@@ -474,15 +491,34 @@ def table_case(torch, mk, reference, gen, n: int, r: int, b: int, dup: bool, wra
     return case
 
 
-def augment_case(torch, mk, reference, gen, n: int, dtype, every_offset: bool):
+def augment_case(torch, mk, reference, gen, n: int, dtype, every_offset: bool = False,
+                 rows: bool = False, hw: int = 32, misaligned: bool = False):
     """augment_normalize against the plain fma-normalize + pad + gather +
-    flip + cast on the card: bit-equal at float32 (each rounding is spelled
-    out on both sides), within one bf16 ulp at bfloat16."""
+    flip + cast on the card: bit-equal at float32 and at bfloat16 (each
+    rounding is spelled out on both sides, and the bf16 cast is one
+    round-to-nearest-even of the same float32 value). ``rows``: the kernel
+    gathers ``n`` random rows (one repeated) of a 5000-image tensor, held
+    against the plain version on ``raw[rows]``, and also timed against that
+    gather followed by the kernel. ``hw``: the image side (30 takes the
+    byte-load staging and the per-pixel stores). ``misaligned``: CIFAR
+    images one byte off a 16-byte boundary (byte-load staging, 16-byte
+    stores)."""
     from mercury_tpu_torch.data.cifar import CIFAR10_MEAN, CIFAR10_STD
 
     dev = torch.device("cuda")
-    raw = torch.randint(0, 256, (n, 32, 32, 3), generator=gen, device=dev,
-                        dtype=torch.uint8)
+    m = 5000 if rows else n
+    shape = (m, hw, hw, 3)
+    if misaligned:
+        flat = torch.randint(0, 256, (math.prod(shape) + 1,), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        raw = flat[1:].view(shape)
+        check(raw.data_ptr() % 16 != 0, "the misaligned case is aligned")
+    else:
+        raw = torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+    idx = None
+    if rows:
+        idx = torch.randint(0, m, (n,), generator=gen, device=dev)
+        idx[1] = idx[0]
     mean = torch.tensor(CIFAR10_MEAN, device=dev)
     std = torch.tensor(CIFAR10_STD, device=dev)
     if every_offset:
@@ -494,29 +530,37 @@ def augment_case(torch, mk, reference, gen, n: int, dtype, every_offset: bool):
         crop = torch.randint(0, 9, (n, 2), generator=gen, device=dev, dtype=torch.int32)
         flip = torch.rand(n, generator=gen, device=dev) < 0.5
     check(bool(flip.any()) and not bool(flip.all()), "augment case without both flips")
-    got = mk.augment_normalize_kernel(raw, mean, std, crop, flip, 4, dtype)
-    want = reference.augment_normalize(raw, mean, std, crop, flip, 4, dtype)
+    got = mk.augment_normalize_kernel(raw, mean, std, crop, flip, 4, dtype, rows=idx)
+    src = raw if idx is None else raw[idx]
+    want = reference.augment_normalize(src, mean, std, crop, flip, 4, dtype)
     check(got.dtype == dtype and got.shape == want.shape, "augment_normalize output")
-    if dtype == torch.float32:
-        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-              f"augment_normalize N={n}: float32 output not bit-equal")
-        err = within(got, want, rtol=0.0, atol=0.0)
-    else:
-        err = within(got, want, rtol=2 ** -8, atol=0.0)
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    check(torch.equal(got.view(ints), want.view(ints)),
+          f"augment_normalize N={n} {dtype} rows={rows} hw={hw} misaligned={misaligned}: "
+          f"output not bit-equal")
+    err = within(got, want, rtol=0.0, atol=0.0)
 
     fn = lambda: mk.augment_normalize_kernel(  # noqa: E731
-        raw, mean, std, crop, flip, 4, dtype)
-    case = dict(kernel="augment_normalize", shape=[n, 32, 32, 3], dtype=str(dtype)[6:],
-                every_offset=every_offset, max_abs_err=err,
+        raw, mean, std, crop, flip, 4, dtype, rows=idx)
+    geo = mk.ingest_geometry(n, hw, hw, 3, got.element_size(), 4,
+                             aligned=raw.data_ptr() % 16 == 0)
+    case = dict(kernel="augment_normalize", shape=[n, hw, hw, 3], dtype=str(dtype)[6:],
+                every_offset=every_offset, rows=rows, misaligned=misaligned,
+                threads=geo.threads, band_rows=geo.band, copy=geo.copy, max_abs_err=err,
                 ms=graph_ms(torch, fn), eager_ms=eager_ms(torch, fn),
                 plain_ms=graph_ms(torch, lambda: reference.augment_normalize(
-                    raw, mean, std, crop, flip, 4, dtype)),
+                    raw if idx is None else raw[idx], mean, std, crop, flip, 4, dtype)),
                 library_ms=None)
-    elems = n * 32 * 32 * 3
-    # uint8 in, one output element each, offsets and flips, mean and std;
-    # an fma, a division and the bounds compares per element.
+    if rows:
+        case["gather_and_kernel_ms"] = graph_ms(torch, lambda: mk.augment_normalize_kernel(
+            raw[idx], mean, std, crop, flip, 4, dtype))
+    elems = n * hw * hw * 3
+    # uint8 in (the gathered images), one output element each, offsets,
+    # flips and rows, mean and std; a lookup and the bounds compares per
+    # element, an fma and a division per table entry.
     case["bound_ms"], case["bound_by"] = bound(
-        elems * (1 + got.element_size()) + 9 * n + 24, 4 * elems)
+        elems * (1 + got.element_size()) + (17 if rows else 9) * n + 24,
+        2 * elems + 2 * 256 * 3)
     return case
 
 

@@ -36,8 +36,8 @@ SIGNATURES = {
                                _P, _P, _P, _P],
     "mercury_table_refresh_draw": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "mercury_augment_normalize": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _P],
+    "mercury_augment_normalize": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _P],
     "mercury_cluster_limit": [_I, _I],
 }
 

@@ -79,24 +79,44 @@
 //    with no padding (the TPU wrapper pads awkward sizes for Mosaic only).
 // 5. augment_normalize — replaces augment_normalize_pallas /
 //    _augment_norm_kernel (:427-551).
-//    out[n,y,x,c] = (fma(u8, RN(1/255), -mean_c) / std_c) at the source
-//    pixel (y + oy - pad, (flip ? W-1-x : x) + ox - pad), +0.0 outside the
-//    image, cast to f32 or bf16 as the last op. One thread per output
-//    element of the NHWC output, so neighbouring threads write neighbouring
-//    addresses and read neighbouring source bytes (a row of the crop is a
-//    contiguous run of the source row, reversed under a flip). The
-//    arithmetic is the TPU kernel's as XLA compiles it: the division by the
-//    constant 255 is a multiply by its rounded reciprocal fused with the
-//    subtraction of the mean; the division by std is a true division. The
-//    intrinsics spell out each rounding, so nvcc's -fmad contraction cannot
-//    change a bit and the f32 output equals the plain version's exactly.
-//    Bound: bytes (N·H·W·C bytes read, 4 or 2 times that written).
+//    out[i,y,x,c] = (fma(u8, RN(1/255), -mean_c) / std_c) at the source
+//    pixel (y + oy - pad, (flip ? W-1-x : x) + ox - pad) of image rows[i]
+//    (image i without rows), +0.0 outside the image, cast to f32 or bf16
+//    as the last op. The arithmetic is the TPU kernel's as XLA compiles
+//    it: the division by the constant 255 is a multiply by its rounded
+//    reciprocal fused with the subtraction of the mean; the division by
+//    std is a true division. The intrinsics spell out each rounding, so
+//    nvcc's -fmad contraction cannot change a bit and the output equals
+//    the plain version's exactly.
+//    Bound: bytes (N·H·W·C bytes read, 4 or 2 times that written). The
+//    earlier design, a thread per output element with four 64-bit
+//    divisions and a true division each, was bound by instructions
+//    (7.8 µs at [320] against a 1.5 µs bound). Now a block takes a band
+//    of output rows of one image (ingest_geometry() in
+//    ops/mercury_kernels.py; the whole image by default). It stages the
+//    source rows any offset in [0, 2·pad] can reach, band ± pad, in
+//    shared memory once: one bulk async copy completing on an mbarrier
+//    where a row is a multiple of 16 bytes (16-byte loads measured no
+//    faster), byte loads otherwise. While the bytes are in flight it
+//    builds a table of the C·256 normalized values T[c][v] with the
+//    arithmetic above, so every output element is a lookup, bit-equal by
+//    construction, and the only divisions are the table's. H = W = 32,
+//    C = 3 is a template specialization: a thread looks up whole pixels,
+//    so channels and table rows are constants, into the band's output in
+//    shared memory, which the block then writes with 16-byte stores,
+//    neighbouring threads on neighbouring addresses; an output row whose
+//    source row lies in the padding is zeros without lookups. Any other
+//    shape is written a pixel a thread. With rows the launch gathers the
+//    images itself (no separate x[rows] launch); a row outside [0, M) or
+//    an offset outside [0, 2·pad] traps.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace cg = cooperative_groups;
 
@@ -114,8 +134,14 @@ constexpr int kMaxCluster = 16;     // 8 is portable; 16 needs the non-portable 
 // are the canonical quiet NaN), so it marks an element no refresh mean was
 // put at.
 constexpr unsigned kUnset = 0x7fa5a5a5u;
-constexpr int kPixelThreads = 256;
 constexpr float kInv255 = 0x1.010102p-8f;  // 1/255 rounded to float32
+constexpr int kIngestThreads = 1024;       // most threads of an ingest block
+constexpr int kLevels = 256;               // table entries of a channel: every uint8 value
+constexpr int kByteLoads = 16;             // byte loads a thread keeps in flight
+// How an ingest block stages its source rows (the geometry's `copy`).
+constexpr int kCopyBytes = 0;  // byte loads: any shape
+constexpr int kCopyBulk = 1;   // one bulk async copy on an mbarrier: rows of a multiple of
+                               // 16 bytes, raw 16-byte aligned
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -229,7 +255,7 @@ struct DrawArgs {
   float* scaled;
 };
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
@@ -686,30 +712,241 @@ int launch_select(const DrawArgs& a, int clusters, int threads, int smem, cudaSt
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kPixelThreads)
-augment_normalize_kernel(const uint8_t* __restrict__ raw, const float* __restrict__ mean,
-                         const float* __restrict__ stdev, const int32_t* __restrict__ crop,
-                         const uint8_t* __restrict__ flip, T* __restrict__ out,
-                         int n, int h, int w, int c, int pad) {
-  const int64_t total = static_cast<int64_t>(n) * h * w * c;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kPixelThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int ch = static_cast<int>(idx % c);
-  int64_t rest = idx / c;
-  const int x = static_cast<int>(rest % w);
-  rest /= w;
-  const int y = static_cast<int>(rest % h);
-  const int img = static_cast<int>(rest / h);
-  const int sy = y + crop[2 * img] - pad;
-  const int sx = (flip[img] ? w - 1 - x : x) + crop[2 * img + 1] - pad;
-  float v = 0.f;  // the zero padding, +0.0
-  if (sy >= 0 && sy < h && sx >= 0 && sx < w) {
-    const float px = static_cast<float>(
-        raw[((static_cast<int64_t>(img) * h + sy) * w + sx) * c + ch]);
-    v = __fdiv_rn(__fmaf_rn(px, kInv255, -mean[ch]), stdev[ch]);
+// Arguments of augment_normalize_kernel; the geometry (band; threads and
+// shared memory are the launch's) comes from ingest_geometry() in
+// ops/mercury_kernels.py.
+struct IngestArgs {
+  const uint8_t* raw;   // [M, H, W, C]
+  const int64_t* rows;  // [N] images of raw to take, or null: image i
+  const float* mean;    // [C]
+  const float* stdev;   // [C]
+  const int32_t* crop;  // [N, 2]: (oy, ox) in [0, 2·pad]
+  const uint8_t* flip;  // [N]
+  void* out;            // [N, H, W, C] float32 or bfloat16
+  int m, h, w, c, pad, band;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread: `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from device memory into shared memory as one bulk async copy that
+// completes on the mbarrier `bar`, which it initializes for one arrival.
+// Other threads wait on `bar` only after a __syncthreads() that follows.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  const uint32_t b = smem_addr(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(b), "r"(1) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// Waits for the first phase of `bar` to complete: the bulk copy has landed.
+__device__ __forceinline__ void bulk_wait(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "BULK_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\n"
+      "@!P1 bra BULK_WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x, the lower address, is lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16 bytes of output: 4 f32, or 8 bf16 each rounded to nearest even.
+__device__ __forceinline__ uint4 pack16(const float* v, float) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                    __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float* v, __nv_bfloat16) {
+  return make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
+                    pack_bf16x2(v[6], v[7]));
+}
+
+// The shapes with a specialization of augment_normalize_kernel, and its
+// output staged in shared memory (ingest_geometry() knows the same list).
+__host__ __device__ constexpr bool ingest_specialized(int h, int w, int c) {
+  return h == 32 && w == 32 && c == 3;
+}
+
+__host__ __device__ constexpr int gcd_int(int a, int b) {
+  return b == 0 ? a : gcd_int(b, a % b);
+}
+
+// Block (i, k) of the grid (n, bands) writes output rows [k·band, (k+1)·band)
+// ∩ [0, H) of image i. kH, kW, kC: the shape at compile time, or 0 to read
+// it from the arguments. Dynamic shared memory: the table T[c][v] (C·256
+// floats), then the staged source rows.
+template <typename T, int kH, int kW, int kC, int kCopy>
+__global__ void __launch_bounds__(kIngestThreads) augment_normalize_kernel(const IngestArgs a) {
+  extern __shared__ __align__(16) unsigned char ingest_smem[];
+  __shared__ uint64_t bar;
+  const int h = kH ? kH : a.h;
+  const int w = kW ? kW : a.w;
+  const int c = kC ? kC : a.c;
+  const int row = w * c;  // elements of an image row, and source bytes
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int img = blockIdx.x;
+  const int y0 = blockIdx.y * a.band;
+  const int y1 = min(y0 + a.band, h);
+  // The source rows an offset in [0, 2·pad] can reach from the band.
+  const int s0 = max(y0 - a.pad, 0);
+  const int s1 = min(y1 + a.pad, h);
+
+  // Every load goes out first: the row (with rows), the offsets, the flip,
+  // mean and std; then the source bytes (after the row); the table is built
+  // while they fly.
+  const int64_t src_img = a.rows != nullptr ? __ldg(a.rows + img) : img;
+  const int oy = __ldg(a.crop + 2 * img);
+  const int ox = __ldg(a.crop + 2 * img + 1);
+  const bool flip = __ldg(a.flip + img) != 0;
+  float mu[kC ? kC : 1], sd[kC ? kC : 1];  // the specialized shape's mean and std
+  if constexpr (kC != 0) {
+#pragma unroll
+    for (int ch = 0; ch < kC; ++ch) {
+      mu[ch] = __ldg(a.mean + ch);
+      sd[ch] = __ldg(a.stdev + ch);
+    }
   }
-  store_from_f32(out + idx, v);
+  if (src_img < 0 || src_img >= a.m) __trap();
+  const uint8_t* src = a.raw + (src_img * h + s0) * row;
+  const int nbytes = (s1 - s0) * row;
+  float* table = reinterpret_cast<float*>(ingest_smem);
+  uint8_t* stage = ingest_smem + sizeof(float) * kLevels * c;
+  if constexpr (kCopy == kCopyBulk) {
+    if (tid == 0) bulk_copy(stage, src, nbytes, &bar);
+  }
+  if constexpr (kC != 0) {
+    // Entry v of every channel a thread: C independent divisions.
+    for (int v = tid; v < kLevels; v += nthreads) {
+#pragma unroll
+      for (int ch = 0; ch < kC; ++ch)
+        table[ch * kLevels + v] =
+            __fdiv_rn(__fmaf_rn(static_cast<float>(v), kInv255, -mu[ch]), sd[ch]);
+    }
+  } else {
+    for (int k = tid; k < c * kLevels; k += nthreads) {
+      const int ch = k / kLevels;
+      const float v = static_cast<float>(k % kLevels);
+      table[k] = __fdiv_rn(__fmaf_rn(v, kInv255, -__ldg(a.mean + ch)), __ldg(a.stdev + ch));
+    }
+  }
+  if constexpr (kCopy == kCopyBytes) {
+    for (int k0 = tid; k0 < nbytes; k0 += kByteLoads * nthreads) {
+      uint8_t b[kByteLoads];
+#pragma unroll
+      for (int j = 0; j < kByteLoads; ++j) {
+        const int k = k0 + j * nthreads;
+        if (k < nbytes) b[j] = __ldg(src + k);
+      }
+#pragma unroll
+      for (int j = 0; j < kByteLoads; ++j) {
+        const int k = k0 + j * nthreads;
+        if (k < nbytes) stage[k] = b[j];
+      }
+    }
+  }
+  // The sync also keeps every thread off the mbarrier until it is set up.
+  __syncthreads();
+  if (oy < 0 || oy > 2 * a.pad || ox < 0 || ox > 2 * a.pad) __trap();
+  if constexpr (kCopy == kCopyBulk) bulk_wait(&bar);
+
+  // The staged source row of output row y; null for a row of the padding.
+  auto source_row = [&](int y) -> const uint8_t* {
+    const int sy = y + oy - a.pad;
+    return sy >= 0 && sy < h ? stage + (sy - s0) * row : nullptr;
+  };
+  // Output element (x, ch) of the source row staged at srow, +0.0 outside
+  // the image. Without a branch, so a thread's lookups go out together.
+  auto value = [&](const uint8_t* srow, int x, int ch) {
+    const int sx = (flip ? w - 1 - x : x) + ox - a.pad;
+    const float t = table[ch * kLevels + srow[min(max(sx, 0), w - 1) * c + ch]];
+    return sx >= 0 && sx < w ? t : 0.f;
+  };
+  T* out = static_cast<T*>(a.out) + (static_cast<int64_t>(img) * h + y0) * row;
+  // The specialized shape: a thread takes kUnit whole pixels, kUnit·C values
+  // that fill a whole number of 16-byte pieces, so each value's channel and
+  // table row are constants and the bounds are tested once a pixel. The
+  // pieces go to shared memory in the output's layout, then the block
+  // copies its band out with 16-byte stores, neighbouring threads on
+  // neighbouring pieces (a thread's own three pieces, 48 bytes apart from
+  // the next thread's, were measured slower straight to device memory).
+  if constexpr (kH != 0 && ingest_specialized(kH, kW, kC)) {
+    constexpr int kVec = 16 / sizeof(T);  // values a 16-byte piece
+    constexpr int kUnit = kVec / gcd_int(kC, kVec);
+    static_assert(kW % kUnit == 0, "a unit must not straddle a row");
+    constexpr int kUnits = kW / kUnit;  // units an output row
+    constexpr int kPer = kUnit * kC;
+    if (aligned16(a.out)) {
+      const int stage_cap = (min(h, a.band + 2 * a.pad) * row + 15) / 16 * 16;
+      uint4* obuf = reinterpret_cast<uint4*>(stage + stage_cap);
+      const int units = (y1 - y0) * kUnits;
+      for (int q = tid; q < units; q += nthreads) {
+        const int y = q / kUnits;
+        const int x0 = (q - y * kUnits) * kUnit;
+        const uint8_t* srow = source_row(y0 + y);
+        float v[kPer];
+        if (srow == nullptr) {
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) v[j] = 0.f;
+        } else {
+#pragma unroll
+          for (int d = 0; d < kUnit; ++d) {
+            const int x = x0 + d;
+            const int sx = (flip ? kW - 1 - x : x) + ox - a.pad;
+            const uint8_t* px = srow + min(max(sx, 0), kW - 1) * kC;
+#pragma unroll
+            for (int ch = 0; ch < kC; ++ch) {
+              const float t = table[ch * kLevels + px[ch]];
+              v[d * kC + ch] = sx >= 0 && sx < kW ? t : 0.f;
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kPer / kVec; ++j)
+          obuf[q * (kPer / kVec) + j] = pack16(v + j * kVec, T{});
+      }
+      __syncthreads();
+      const int pieces = (y1 - y0) * row / kVec;
+      for (int k = tid; k < pieces; k += nthreads)
+        __stcg(reinterpret_cast<uint4*>(out) + k, obuf[k]);
+      return;
+    }
+  }
+  // Any other shape: a pixel (its C values) a thread.
+  const int pixels = (y1 - y0) * w;
+  for (int p = tid; p < pixels; p += nthreads) {
+    const int y = p / w;
+    const int x = p - y * w;
+    const uint8_t* srow = source_row(y0 + y);
+    for (int ch = 0; ch < c; ++ch)
+      store_from_f32(out + p * c + ch, srow != nullptr ? value(srow, x, ch) : 0.f);
+  }
+}
+
+using IngestFn = void (*)(IngestArgs);
+
+template <typename T, int kH, int kW, int kC>
+IngestFn ingest_copy_fn(int copy) {
+  return copy == kCopyBulk ? &augment_normalize_kernel<T, kH, kW, kC, kCopyBulk>
+                           : &augment_normalize_kernel<T, kH, kW, kC, kCopyBytes>;
+}
+
+template <typename T>
+IngestFn ingest_fn(bool special, int copy) {
+  return special ? ingest_copy_fn<T, 32, 32, 3>(copy) : ingest_copy_fn<T, 0, 0, 0>(copy);
 }
 
 inline int blocks_for_rows(int n) { return (n + kRowsPerBlock - 1) / kRowsPerBlock; }
@@ -831,27 +1068,42 @@ int mercury_table_refresh_draw(const void* table, const void* slots, const void*
   return launch_select<true>(a, clusters, threads, smem, static_cast<cudaStream_t>(stream));
 }
 
-// dtype of out: 0 = float32, 1 = bfloat16.
-int mercury_augment_normalize(const void* raw, const void* mean, const void* stdev,
-                              const void* crop, const void* flip, void* out, int n, int h,
-                              int w, int c, int pad, int dtype, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  const int64_t total = static_cast<int64_t>(n) * h * w * c;
-  const unsigned blocks = static_cast<unsigned>((total + kPixelThreads - 1) / kPixelThreads);
-  auto u8 = static_cast<const uint8_t*>(raw);
-  auto m = static_cast<const float*>(mean);
-  auto sd = static_cast<const float*>(stdev);
-  auto cr = static_cast<const int32_t*>(crop);
-  auto fl = static_cast<const uint8_t*>(flip);
-  if (dtype == 0) {
-    augment_normalize_kernel<float><<<blocks, kPixelThreads, 0, st>>>(
-        u8, m, sd, cr, fl, static_cast<float*>(out), n, h, w, c, pad);
-  } else if (dtype == 1) {
-    augment_normalize_kernel<__nv_bfloat16><<<blocks, kPixelThreads, 0, st>>>(
-        u8, m, sd, cr, fl, static_cast<__nv_bfloat16*>(out), n, h, w, c, pad);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+// [N, H, W, C] out from N images of the [M, H, W, C] uint8 raw: images
+// rows[i] (an [N] int64 array), or with rows null the first N (M = N).
+// dtype of out: 0 = float32, 1 = bfloat16. The geometry (threads, band,
+// copy, smem bytes) is ingest_geometry() of ops/mercury_kernels.py; one
+// that leaves the table or the staged rows without room, or a copy mode
+// the shape or raw's alignment does not allow, is refused.
+int mercury_augment_normalize(const void* raw, const void* rows, const void* mean,
+                              const void* stdev, const void* crop, const void* flip, void* out,
+                              int n, int m, int h, int w, int c, int pad, int threads, int band,
+                              int copy, int smem, int dtype, void* stream) {
+  const int64_t row = static_cast<int64_t>(w) * c;
+  const bool shape_ok = n >= 1 && m >= 1 && h >= 1 && w >= 1 && c >= 1 && pad >= 0 &&
+                        band >= 1 && band <= h;
+  if (!shape_ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t staged = std::min<int64_t>(h, band + 2LL * pad) * row;
+  const int64_t need = 4LL * kLevels * c + (staged + 15) / 16 * 16 +
+                       (ingest_specialized(h, w, c) ? (dtype == 0 ? 4LL : 2LL) * band * row : 0);
+  const int bands = (h + band - 1) / band;
+  const bool ok = threads >= kWarp && threads <= kIngestThreads && threads % kWarp == 0 &&
+                  (copy == kCopyBytes || (copy == kCopyBulk && row % 16 == 0 && aligned16(raw))) &&
+                  smem >= need && bands <= 65535 &&
+                  static_cast<int64_t>(h) * row <= INT32_MAX && (dtype == 0 || dtype == 1);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const IngestArgs a{static_cast<const uint8_t*>(raw), static_cast<const int64_t*>(rows),
+                     static_cast<const float*>(mean), static_cast<const float*>(stdev),
+                     static_cast<const int32_t*>(crop), static_cast<const uint8_t*>(flip),
+                     out, m, h, w, c, pad, band};
+  const bool special = ingest_specialized(h, w, c);
+  const IngestFn fn = dtype == 0 ? ingest_fn<float>(special, copy)
+                                 : ingest_fn<__nv_bfloat16>(special, copy);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  fn<<<dim3(n, bands), threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,11 +8,12 @@
 - :func:`table_refresh_draw` — the scoretable sampler's decay, scatter of
   the refresh window, normalization and draw over the whole table, in one
   kernel.
-- :func:`augment_normalize` — the fused uint8 ingest: dequantize,
-  normalize, crop and flip, in one kernel.
+- :func:`augment_normalize` — the fused uint8 ingest: gather (``rows``),
+  dequantize, normalize, crop and flip, in one kernel.
 
 The two selections launch as one thread-block cluster (sm_90a), with the
-geometry of :func:`draw_geometry`; they need no scratch tensor.
+geometry of :func:`draw_geometry`; they need no scratch tensor. The ingest
+launches a block per image, with the geometry of :func:`ingest_geometry`.
 
 Each wrapper dispatches on the device of its tensors: a CUDA tensor goes to
 the kernel (built at first use by ``ops/_build.py``), a CPU tensor to the
@@ -123,6 +124,63 @@ def draw_smem(threads: int, per_block: int, run: int, refresh: Optional[int]) ->
     if refresh is not None:
         smem += 8 * refresh  # the window's slots (as int) and scores
     return smem
+
+
+# The ingest kernel's geometry (augment_normalize_kernel), from a sweep on
+# the H100 (PERF.md §6).
+INGEST_THREADS = 256     # threads a block
+LEVELS = 256             # table entries a channel: every uint8 value
+COPY_BYTES, COPY_BULK = 0, 1  # how a block stages its source rows
+INGEST_MAX_SMEM = MAX_SMEM - 8  # less the block's static mbarrier
+# Shapes (h, w, c) the kernel is specialized for; it stages their output
+# in shared memory (ingest_specialized() in the CUDA source).
+INGEST_SPECIALIZED = ((32, 32, 3),)
+
+
+class IngestGeometry(NamedTuple):
+    threads: int  # threads a block
+    band: int     # output rows a block, of one image: block (i, k) writes rows k·band, ...
+    copy: int     # COPY_BYTES or COPY_BULK
+    smem: int     # dynamic shared memory bytes a block
+
+
+def ingest_smem(h: int, w: int, c: int, band: int, pad: int, out_itemsize: int) -> int:
+    """Dynamic shared memory bytes of an ingest block: the table of ``C·256``
+    float32 values, the staged source rows ``band ± pad`` (within the
+    image) rounded up to 16, and for a specialized shape the band's
+    output."""
+    smem = 4 * LEVELS * c + _round_up(min(h, band + 2 * pad) * w * c, 16)
+    if (h, w, c) in INGEST_SPECIALIZED:
+        smem += band * w * c * out_itemsize
+    return smem
+
+
+def ingest_geometry(n: int, h: int, w: int, c: int, out_itemsize: int, pad: int = 4,
+                    aligned: bool = True) -> IngestGeometry:
+    """Launch geometry of ``augment_normalize`` for ``n`` images of ``[h, w,
+    c]`` into a dtype of ``out_itemsize`` bytes: a grid of ``(n, ⌈h /
+    band⌉)`` blocks of ``threads``, block (i, k) writing output rows
+    ``[k·band, (k+1)·band)`` of image i.
+
+    A block takes a whole image, unless its shared memory would not fit:
+    then the band is the most rows that fit. The source rows are staged by
+    one bulk async copy where a row is a multiple of 16 bytes and ``raw``
+    is 16-byte ``aligned``, by byte loads otherwise. A block has
+    ``INGEST_THREADS`` threads, or one a 16-byte piece of its output where
+    it has fewer."""
+    if min(n, h, w, c) < 1 or pad < 0:
+        raise ValueError(f"the ingest needs n, h, w, c >= 1 and pad >= 0, got "
+                         f"{(n, h, w, c, pad)}")
+    band = h
+    while band > 1 and ingest_smem(h, w, c, band, pad, out_itemsize) > INGEST_MAX_SMEM:
+        band -= 1
+    smem = ingest_smem(h, w, c, band, pad, out_itemsize)
+    if smem > INGEST_MAX_SMEM:
+        raise ValueError(f"an ingest block of [{w}, {c}] rows needs {smem} bytes of shared "
+                         f"memory, more than {INGEST_MAX_SMEM}")
+    copy = COPY_BULK if (w * c) % 16 == 0 and aligned else COPY_BYTES
+    pieces = _ceil_div(band * w * c * out_itemsize, 16)
+    return IngestGeometry(min(INGEST_THREADS, _round_up(pieces, 32)), band, copy, smem)
 
 
 _cluster_limit: Optional[int] = None
@@ -291,10 +349,14 @@ def table_refresh_draw_kernel(
 
 def augment_normalize_kernel(raw: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                              crop: torch.Tensor, flip: torch.Tensor, pad: int,
-                             out_dtype: torch.dtype) -> torch.Tensor:
-    """Launch ``augment_normalize`` on ``[N, H, W, C]`` uint8 rows, ``[C]``
-    float32 mean and std, ``[N, 2]`` int32 crop offsets and ``[N]`` bool
-    flips; returns ``[N, H, W, C]`` in ``out_dtype`` (float32 or bfloat16)."""
+                             out_dtype: torch.dtype,
+                             rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch ``augment_normalize`` on ``[M, H, W, C]`` uint8 images, ``[C]``
+    float32 mean and std, ``[N, 2]`` int32 crop offsets in ``[0, 2·pad]``
+    and ``[N]`` bool flips; returns ``[N, H, W, C]`` in ``out_dtype``
+    (float32 or bfloat16) from images ``rows`` (``[N]`` int64), or from
+    all ``M = N`` images without ``rows``. A row outside ``[0, M)`` or an
+    offset outside ``[0, 2·pad]`` traps on the card."""
     from mercury_tpu_torch.ops import _build
 
     _check("raw", raw, (torch.uint8,), 4)
@@ -304,7 +366,11 @@ def augment_normalize_kernel(raw: torch.Tensor, mean: torch.Tensor, std: torch.T
     _check("flip", flip, (torch.bool,), 1)
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"out_dtype {out_dtype} not in {tuple(_DTYPE_CODES)}")
-    n, h, w, c = raw.shape
+    m, h, w, c = raw.shape
+    n = m
+    if rows is not None:
+        _check("rows", rows, (torch.int64,), 1)
+        n = rows.shape[0]
     if mean.shape[0] != c or std.shape[0] != c:
         raise ValueError(f"mean/std need {c} channels, got {mean.shape[0]}/{std.shape[0]}")
     if tuple(crop.shape) != (n, 2) or flip.shape[0] != n:
@@ -313,11 +379,15 @@ def augment_normalize_kernel(raw: torch.Tensor, mean: torch.Tensor, std: torch.T
     out = torch.empty((n, h, w, c), dtype=out_dtype, device=raw.device)
     if out.numel() == 0:
         return out
+    if m == 0:
+        raise ValueError("rows index an empty raw tensor")
+    geo = ingest_geometry(n, h, w, c, out.element_size(), int(pad),
+                          aligned=raw.data_ptr() % 16 == 0)
     with torch.cuda.device(raw.device):
         err = _build.load().mercury_augment_normalize(
-            raw.data_ptr(), mean.data_ptr(), std.data_ptr(), crop.data_ptr(),
-            flip.data_ptr(), out.data_ptr(), n, h, w, c, int(pad),
-            _DTYPE_CODES[out_dtype], _stream(raw))
+            raw.data_ptr(), None if rows is None else rows.data_ptr(), mean.data_ptr(),
+            std.data_ptr(), crop.data_ptr(), flip.data_ptr(), out.data_ptr(), n, m, h, w,
+            c, int(pad), *geo, _DTYPE_CODES[out_dtype], _stream(raw))
     _launched("augment_normalize", err)
     return out
 
@@ -381,10 +451,21 @@ def table_refresh_draw(scores: torch.Tensor, slots: torch.Tensor,
 
 def augment_normalize(raw: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                       crop: torch.Tensor, flip: torch.Tensor, pad: int = 4,
-                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The fused uint8 ingest: ``[N, H, W, C]`` uint8 rows → normalized,
+                      out_dtype: torch.dtype = torch.float32,
+                      rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fused uint8 ingest: ``[M, H, W, C]`` uint8 images → images
+    ``rows`` (``[N]`` int64; all of them without ``rows``), normalized,
     cropped at ``crop [N, 2]`` (zero padding ``pad``) and flipped where
-    ``flip [N]``, cast to ``out_dtype`` last; NHWC out."""
-    if _on_cpu(raw, mean, std, crop, flip):
-        return reference.augment_normalize(raw, mean, std, crop, flip, pad, out_dtype)
-    return augment_normalize_kernel(raw, mean, std, crop, flip, pad, out_dtype)
+    ``flip [N]``, cast to ``out_dtype`` last; NHWC out. On the card the
+    gather of ``rows`` happens inside the one launch."""
+    if rows is None:
+        tensors = (raw, mean, std, crop, flip)
+    else:
+        if rows.dtype != torch.int64 or rows.dim() != 1:
+            raise TypeError(f"rows must be a 1-d int64 tensor, got {rows.dtype} "
+                            f"of shape {tuple(rows.shape)}")
+        tensors = (raw, mean, std, crop, flip, rows)
+    if _on_cpu(*tensors):
+        src = raw if rows is None else raw[rows]
+        return reference.augment_normalize(src, mean, std, crop, flip, pad, out_dtype)
+    return augment_normalize_kernel(raw, mean, std, crop, flip, pad, out_dtype, rows)

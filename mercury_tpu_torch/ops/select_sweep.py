@@ -1,21 +1,32 @@
 """Measurements of the selection kernels (``score_and_draw``,
-``table_refresh_draw``) on the card, beside ``chip_smoke.py``.
+``table_refresh_draw``) and of the ingest (``augment_normalize``) on the
+card, beside ``chip_smoke.py``.
 
-    python3 -m mercury_tpu_torch.ops.select_sweep geometry
-    python3 -m mercury_tpu_torch.ops.select_sweep ablate
-    python3 -m mercury_tpu_torch.ops.select_sweep compare --parent DIR
+    python3 -m mercury_tpu_torch.ops.select_sweep geometry [--kernels select|ingest]
+    python3 -m mercury_tpu_torch.ops.select_sweep ablate [--kernels select|ingest]
+    python3 -m mercury_tpu_torch.ops.select_sweep compare --parent DIR [--kernels ...]
 
-- ``geometry``: the kernels at chosen (K, threads, run) splits through the
-  C entry points, each checked against the plain version, then timed: the
-  sweep that chose ``draw_geometry``'s rule.
-- ``ablate``: copies of ``csrc/mercury_kernels.cu`` with one part left out
-  (the draws; the cluster exchange), built beside the real one and timed
-  at ``draw_geometry``'s splits. Their outputs are wrong by design; only
-  their times are read, to see what each part costs.
+- ``geometry``: the selections at chosen (K, threads, run) splits and the
+  ingest at chosen (threads, band, copy) splits, at [32], [64] and [320]
+  in f32 and bf16, through the C entry points, each checked against the
+  plain version, then timed: the sweeps that chose ``draw_geometry``'s
+  and ``ingest_geometry``'s rules. Then the ingest's ``rows`` form
+  against the ``x[rows]`` gather followed by the kernel.
+- ``ablate``: copies of ``csrc/mercury_kernels.cu`` with one part left
+  out (of the selections: the draws, the cluster exchange; of the
+  ingest: the table, the copy, the lookups, the stores, a barrier, all
+  past a point), built beside the real one and timed at
+  ``draw_geometry``'s splits and the ingest's default one. Their outputs
+  are wrong by design; only their times are read, to see what each part
+  costs.
 - ``compare``: the wrappers of another checkout (``--parent``, e.g. an
-  unpacked ``git archive`` of the parent commit) and of this one at the
-  two paths' shapes and at 50,000, in turns parent, this, this, parent,
-  each in its own process that builds its own kernels.
+  unpacked ``git archive`` of the parent commit) and of this one, the
+  selections at the two paths' shapes and at 50,000 and the ingest at
+  [32], [64] and [320] in f32 and bf16 (without ``rows``, which older
+  checkouts lack), and the step's ingest of shard rows (``step_ingest``:
+  the kernel's own gather where the checkout has ``rows``, else the
+  ``x[rows]`` gather and the kernel), in turns parent, this, this,
+  parent, each in its own process that builds its own kernels.
 
 Needs one CUDA card and ``nvcc``. Times are CUDA-graph replays (the median
 of 20 replays of 50 captured calls), printed with the card's name and
@@ -26,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import statistics
 import subprocess
@@ -35,14 +47,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 OUT_DIR = ROOT / "chiprun_out"
 SIZES = (320, 5000, 50000)
-# (n, K, threads, run) splits of the geometry sweep.
+INGEST_SIZES = (32, 64, 320)  # the batch, the window, the fused pool
+INGEST_ROWS = 5000            # images the ingest's rows index (the synthetic shard)
+# (n, K, threads, run) splits of the selections' geometry sweep.
 SPLITS = [(320, 1, 64, 8), (320, 1, 96, 4), (320, 1, 320, 1), (1000, 1, 128, 8),
           (1000, 1, 1024, 1), (5000, 1, 640, 8), (5000, 1, 320, 16), (8192, 1, 1024, 8),
           (8192, 2, 512, 8), (16384, 2, 1024, 8), (16384, 4, 512, 8), (50000, 8, 800, 8),
           (50000, 8, 416, 16), (50000, 4, 800, 16), (50000, 16, 416, 8),
           (1_000_000, 16, 1024, 8), (1_000_000, 8, 1024, 8), (1_000_000, 16, 1024, 64),
           (2_000_001, 16, 1024, 8), (5_000_000, 16, 1024, 12)]
-# Text left out of the source for each ablation.
+# (threads, band, copy) splits of the ingest's geometry sweep; copy 0 byte
+# loads, 1 one bulk async copy.
+INGEST_SPLITS = [(256, 32, 1), (256, 32, 0), (128, 32, 1), (384, 32, 1), (512, 32, 1),
+                 (256, 16, 1), (384, 16, 1), (256, 8, 1), (128, 8, 1)]
+# Text left out of the source for each ablation of the selections.
 ABLATIONS = {
     "no_draws": [("for (int base = warp * kWarp; base < a.b; base += nthreads) {",
                   "for (int base = warp * kWarp; base < 0; base += nthreads) {")],
@@ -51,6 +69,29 @@ ABLATIONS = {
                     ("    if (warp == 0 && lane < nblocks) *cluster.map_shared_rank(&sums[rank], lane) = bsum;\n", ""),
                     ("    cluster.sync();\n", "")],
 }
+
+# ... and of the ingest, the specialized 32×32×3 kernel: all of it (empty,
+# it returns at entry); the table's arithmetic; the staging copy; the
+# lookups; the stores; the first barrier; all after that barrier
+# (stop_after_sync) or after the copy's wait (stop_after_wait).
+RETURN = "  if (a.m > 0) return;\n"  # always taken; the compiler cannot tell
+SYNC = "  __syncthreads();\n  if (oy < 0"
+WAIT = "  if constexpr (kCopy == kCopyBulk) bulk_wait(&bar);\n"
+INGEST_ABLATIONS = {
+    "empty": [("  __shared__ uint64_t bar;\n", "  __shared__ uint64_t bar;\n" + RETURN)],
+    "no_table": [("            __fdiv_rn(__fmaf_rn(static_cast<float>(v), kInv255, -mu[ch]), "
+                  "sd[ch]);", "            v + ch;")],
+    "no_copy": [("    if (tid == 0) bulk_copy(stage, src, nbytes, &bar);\n", ""), (WAIT, "")],
+    "no_lookup": [("              const float t = table[ch * kLevels + px[ch]];",
+                   "              const float t = static_cast<float>(sx + ch);")],
+    "no_stores": [("        __stcg(reinterpret_cast<uint4*>(out) + k, obuf[k]);",
+                   "        if (obuf[k].x == 12345u) __stcg(reinterpret_cast<uint4*>(out) + k, "
+                   "obuf[k]);")],
+    "no_sync": [(SYNC, "  if (oy < 0")],
+    "stop_after_sync": [(SYNC, "  __syncthreads();\n" + RETURN + "  if (oy < 0")],
+    "stop_after_wait": [(WAIT, WAIT + RETURN)],
+}
+INGEST_ABLATION_SPLITS = [(256, 32, 1)]
 
 
 def card_name() -> str:
@@ -150,15 +191,96 @@ def geometry_mode(torch, card: str):
     return rows
 
 
-def ablate_mode(torch, card: str):
+def ingest_inputs(torch, n: int, seed: int = 0):
+    """INGEST_ROWS uint8 CIFAR-shaped images, CIFAR-10's mean and std, ``n``
+    crop offsets, flips and rows (int64, into the images), on the card."""
+    from mercury_tpu_torch.data.cifar import CIFAR10_MEAN, CIFAR10_STD
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    raw = torch.randint(0, 256, (INGEST_ROWS, 32, 32, 3), generator=g, device=dev,
+                        dtype=torch.uint8)
+    crop = torch.randint(0, 9, (n, 2), generator=g, device=dev, dtype=torch.int32)
+    flip = torch.rand(n, generator=g, device=dev) < 0.5
+    rows = torch.randint(0, INGEST_ROWS, (n,), generator=g, device=dev)
+    return (raw, torch.tensor(CIFAR10_MEAN, device=dev), torch.tensor(CIFAR10_STD, device=dev),
+            crop, flip, rows)
+
+
+def bits(t):
+    """The bit patterns of a float32 or bfloat16 tensor, for exact equality."""
+    import torch
+
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def ingest_launcher(torch, lib, raw, mean, std, crop, flip, out, geo):
+    """A call of ``lib``'s ingest entry point at geometry ``geo`` (threads,
+    band, copy, smem) on ``raw`` (no rows) into ``out``."""
+    n, h, w, c = raw.shape
+    dtype = 0 if out.dtype == torch.float32 else 1
+
+    def call():
+        err = lib.mercury_augment_normalize(
+            raw.data_ptr(), None, mean.data_ptr(), std.data_ptr(), crop.data_ptr(),
+            flip.data_ptr(), out.data_ptr(), n, n, h, w, c, 4, *geo, dtype,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"launch refused: cudaError {err} at {geo}")
+
+    return call
+
+
+def ingest_geometry_mode(torch, card: str):
+    from mercury_tpu_torch.ops import _build, reference
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    lib = _build.load()
+    rows = []
+    for n in INGEST_SIZES:
+        raw_all, mean, std, crop, flip, idx = ingest_inputs(torch, n)
+        raw = raw_all[:n]
+        for dtype in (torch.float32, torch.bfloat16):
+            want = reference.augment_normalize(raw, mean, std, crop, flip, 4, dtype)
+            out = torch.empty_like(want)
+            for threads, band, copy in INGEST_SPLITS:
+                geo = mk.IngestGeometry(threads, band, copy, mk.ingest_smem(
+                    32, 32, 3, band, 4, out.element_size()))
+                call = ingest_launcher(torch, lib, raw, mean, std, crop, flip, out, geo)
+                out.zero_()
+                call()
+                torch.cuda.synchronize()
+                assert torch.equal(bits(out), bits(want)), f"ingest [{n}] {dtype} at {geo}"
+                us = graph_us(torch, call)
+                name = str(dtype)[6:]
+                print(f"augment_normalize [{n}] {name} threads={threads} band={band} "
+                      f"copy={copy}: {us:.3f} us [{card}]", flush=True)
+                rows.append(dict(kernel="augment_normalize", n=n, dtype=name, threads=threads,
+                                 band=band, copy=copy, us=us))
+        # The rows form against the x[rows] gather and the kernel.
+        fused = lambda: mk.augment_normalize_kernel(  # noqa: E731
+            raw_all, mean, std, crop, flip, 4, torch.float32, rows=idx)
+        pair = lambda: mk.augment_normalize_kernel(  # noqa: E731
+            raw_all[idx], mean, std, crop, flip, 4, torch.float32)
+        assert torch.equal(bits(fused()), bits(pair())), f"rows form at [{n}]"
+        row = dict(kernel="augment_normalize_rows", n=n, dtype="float32",
+                   us=graph_us(torch, fused), pair_us=graph_us(torch, pair))
+        print(f"augment_normalize [{n}] float32 rows: {row['us']:.3f} us, gather + kernel "
+              f"{row['pair_us']:.3f} us [{card}]", flush=True)
+        rows.append(row)
+    return rows
+
+
+def build_variants(cuts_by_name):
+    """Copies of ``csrc/mercury_kernels.cu``, the full one and one with each
+    entry's cuts made, built side by side with ``nvcc``; their libraries."""
     from mercury_tpu_torch.ops import _build
-    from mercury_tpu_torch.ops.mercury_kernels import cluster_limit, draw_geometry
 
     src = (_build.CSRC / "mercury_kernels.cu").read_text()
     build = _build.BUILD_DIR / "ablate"
     build.mkdir(parents=True, exist_ok=True)
     variants = {"full": src}
-    for name, cuts in ABLATIONS.items():
+    for name, cuts in cuts_by_name.items():
         text = src
         for old, new in cuts:
             if old not in text:
@@ -180,27 +302,52 @@ def ablate_mode(torch, card: str):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
-    rows = []
-    for n in SIZES:
-        for table in (False, True):
-            geo = draw_geometry(n, 64 if table else None, max_cluster=cluster_limit())
-            for name, lib in libs.items():
-                if name == "no_exchange" and geo.clusters == 1:
-                    continue
-                us = graph_us(torch, launcher(torch, lib, n, geo, table)[0])
-                kernel = "table_refresh_draw" if table else "score_and_draw"
-                print(f"{kernel} n={n} K={geo.clusters} {name}: {us:.3f} us [{card}]", flush=True)
-                rows.append(dict(kernel=kernel, n=n, clusters=geo.clusters, variant=name, us=us))
-    return rows
+    return libs
 
 
-def wrappers_mode(torch, card: str):
-    """This process's checkout's wrappers (the same API in every version of
-    the port) at the paths' shapes and at 50,000."""
+def ablate_mode(torch, card: str, kernels: str):
     from mercury_tpu_torch.ops import mercury_kernels as mk
 
     rows = []
-    for n in SIZES:
+    if kernels in ("all", "select"):
+        libs = build_variants(ABLATIONS)
+        for n in SIZES:
+            for table in (False, True):
+                geo = mk.draw_geometry(n, 64 if table else None, max_cluster=mk.cluster_limit())
+                for name, lib in libs.items():
+                    if name == "no_exchange" and geo.clusters == 1:
+                        continue
+                    us = graph_us(torch, launcher(torch, lib, n, geo, table)[0])
+                    kernel = "table_refresh_draw" if table else "score_and_draw"
+                    print(f"{kernel} n={n} K={geo.clusters} {name}: {us:.3f} us [{card}]",
+                          flush=True)
+                    rows.append(dict(kernel=kernel, n=n, clusters=geo.clusters, variant=name,
+                                     us=us))
+    if kernels in ("all", "ingest"):
+        libs = build_variants(INGEST_ABLATIONS)
+        for n in INGEST_SIZES:
+            raw, mean, std, crop, flip, _ = ingest_inputs(torch, n)
+            raw = raw[:n]
+            out = torch.empty((n, 32, 32, 3), device=raw.device)
+            for threads, band, copy in INGEST_ABLATION_SPLITS:
+                geo = mk.IngestGeometry(threads, band, copy, mk.ingest_smem(32, 32, 3, band, 4, 4))
+                for name, lib in libs.items():
+                    call = ingest_launcher(torch, lib, raw, mean, std, crop, flip, out, geo)
+                    us = graph_us(torch, call)
+                    print(f"augment_normalize [{n}] float32 threads={threads} band={band} "
+                          f"copy={copy} {name}: {us:.3f} us [{card}]", flush=True)
+                    rows.append(dict(kernel="augment_normalize", n=n, threads=threads,
+                                     band=band, copy=copy, variant=name, us=us))
+    return rows
+
+
+def wrappers_mode(torch, card: str, kernels: str):
+    """This process's checkout's wrappers (the same API in every version of
+    the port) at the paths' shapes, the selections also at 50,000."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    rows = []
+    for n in SIZES if kernels in ("all", "select") else ():
         vals, slots, rscores, ema, u = inputs(torch, n)
         for name in ("score_and_draw", "table_refresh_draw"):
             if name == "score_and_draw":
@@ -209,21 +356,41 @@ def wrappers_mode(torch, card: str):
                 fn = lambda: mk.table_refresh_draw_kernel(  # noqa: E731
                     vals, slots, rscores, ema, u, 0.5, 0.98)
             rows.append(dict(kernel=name, n=n, us=graph_us(torch, fn)))
+    fused_gather = "rows" in inspect.signature(mk.augment_normalize_kernel).parameters
+    for n in INGEST_SIZES if kernels in ("all", "ingest") else ():
+        raw_all, mean, std, crop, flip, idx = ingest_inputs(torch, n)
+        raw = raw_all[:n]
+        for dtype in (torch.float32, torch.bfloat16):
+            fn = lambda: mk.augment_normalize_kernel(  # noqa: E731
+                raw, mean, std, crop, flip, 4, dtype)
+            rows.append(dict(kernel="augment_normalize", n=n, dtype=str(dtype)[6:],
+                             us=graph_us(torch, fn)))
+        # The step's ingest of n shard rows: the kernel's own gather where
+        # the checkout has it, the x[rows] gather and the kernel otherwise.
+        if fused_gather:
+            fn = lambda: mk.augment_normalize_kernel(  # noqa: E731
+                raw_all, mean, std, crop, flip, 4, torch.float32, rows=idx)
+        else:
+            fn = lambda: mk.augment_normalize_kernel(  # noqa: E731
+                raw_all[idx], mean, std, crop, flip, 4, torch.float32)
+        rows.append(dict(kernel="step_ingest", n=n, dtype="float32", us=graph_us(torch, fn)))
     return rows
 
 
-def compare_mode(parent: Path, card: str):
+def compare_mode(parent: Path, card: str, kernels: str):
     """Parent, this, this, parent: each run in its own process from its own
     checkout, so each builds and loads its own kernels."""
     runs = []
     for label, tree in (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)):
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "wrappers",
-                              "--tree", str(tree)], capture_output=True, text=True, cwd=tree)
+                              "--tree", str(tree), "--kernels", kernels],
+                             capture_output=True, text=True, cwd=tree)
         if out.returncode != 0:
             raise RuntimeError(f"{label} run failed:\n{out.stderr[-4000:]}")
         rows = json.loads(out.stdout.strip().splitlines()[-1])
         for row in rows:
-            print(f"{label:>6} {row['kernel']} n={row['n']}: {row['us']:.3f} us [{card}]", flush=True)
+            print(f"{label:>6} {row['kernel']} n={row['n']} {row.get('dtype', '')}: "
+                  f"{row['us']:.3f} us [{card}]", flush=True)
         runs.append(dict(label=label, rows=rows))
     return runs
 
@@ -233,6 +400,8 @@ def main() -> int:
     ap.add_argument("mode", choices=("geometry", "ablate", "compare", "wrappers"))
     ap.add_argument("--parent", type=Path, help="compare: the other checkout's root")
     ap.add_argument("--tree", type=Path, help="wrappers: import the port from this root")
+    ap.add_argument("--kernels", choices=("all", "select", "ingest"), default="all",
+                    help="which kernels to measure")
     args = ap.parse_args()
     import torch
 
@@ -241,16 +410,22 @@ def main() -> int:
         return 1
     if args.mode == "wrappers":
         sys.path.insert(0, str(args.tree or ROOT))
-        print(json.dumps(wrappers_mode(torch, "")))
+        print(json.dumps(wrappers_mode(torch, "", args.kernels)))
         return 0
     sys.path.insert(0, str(ROOT))
     card = card_name()
     if args.mode == "compare":
         if args.parent is None:
             ap.error("compare needs --parent")
-        result = compare_mode(args.parent.resolve(), card)
+        result = compare_mode(args.parent.resolve(), card, args.kernels)
+    elif args.mode == "geometry":
+        result = []
+        if args.kernels in ("all", "select"):
+            result += geometry_mode(torch, card)
+        if args.kernels in ("all", "ingest"):
+            result += ingest_geometry_mode(torch, card)
     else:
-        result = {"geometry": geometry_mode, "ablate": ablate_mode}[args.mode](torch, card)
+        result = ablate_mode(torch, card, args.kernels)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / f"select_sweep_{args.mode}.json").write_text(
         json.dumps({"card": card, "result": result}, indent=1))

@@ -31,7 +31,8 @@ of the shard instead of a stream:
    launch), and the cursor advances by ``R``. The stream is not read.
 
 With ``fused_input`` every ingest is one ``augment_normalize`` kernel
-launch from the uint8 rows. At one worker the gradient and BN-statistic
+launch that gathers the uint8 rows itself (its ``rows``): no separate
+gather of the images. At one worker the gradient and BN-statistic
 means over workers are the identity, so there are no collectives. With
 ``use_importance_sampling=False`` the step is the uniform control arm: the
 streamed batch itself, weight 1.
@@ -157,18 +158,23 @@ def make_train_step(
     std_t = torch.as_tensor(dataset.std, dtype=torch.float32, device=data_dev)
 
     def gather(slots: torch.Tensor):
+        """The dataset rows of shard ``slots`` and their labels."""
         gidx = dataset.shard_indices[0][slots]
-        return dataset.x_train[gidx], dataset.y_train[gidx]
+        return gidx, dataset.y_train[gidx]
 
-    def ingest(raw: torch.Tensor, crop: torch.Tensor, flip: torch.Tensor,
+    def ingest(gidx: torch.Tensor, crop: torch.Tensor, flip: torch.Tensor,
                use_kernels: bool) -> torch.Tensor:
-        """uint8 rows → augmented, normalized float32 NHWC images: one
-        ``augment_normalize`` launch with ``fused_input``, the op chain
+        """Dataset rows ``gidx`` → augmented, normalized float32 NHWC
+        images: with ``fused_input`` one ``augment_normalize`` launch that
+        gathers the uint8 rows itself, the gather and the op chain
         otherwise."""
         if config.fused_input:
-            fused = augment_normalize if use_kernels else reference.augment_normalize
-            return fused(raw, mean_t, std_t, crop, flip, CROP_PAD)
-        images = normalize_images(raw, dataset.mean, dataset.std)
+            if use_kernels:
+                return augment_normalize(dataset.x_train, mean_t, std_t, crop, flip,
+                                         CROP_PAD, rows=gidx)
+            return reference.augment_normalize(dataset.x_train[gidx], mean_t, std_t,
+                                               crop, flip, CROP_PAD)
+        images = normalize_images(dataset.x_train[gidx], dataset.mean, dataset.std)
         if config.augmentation == "noniid":
             images = augment_batch(images, crop, flip, CROP_PAD)
         return images
@@ -193,8 +199,8 @@ def make_train_step(
         stream, ema, table = state.stream, state.ema, state.scoretable
         if use_table:
             r_slots = refresh_window(table, refresh_size)
-            r_raw, r_labels = gather(r_slots)
-            r_scores = score(ingest(r_raw, draws.crop, draws.flip, use_kernels),
+            r_rows, r_labels = gather(r_slots)
+            r_scores = score(ingest(r_rows, draws.crop, draws.flip, use_kernels),
                              r_labels)
             avg_pool_loss = pool_mean(r_scores)
             ema = ema_update(ema, avg_pool_loss, config.ema_alpha)
@@ -204,8 +210,8 @@ def make_train_step(
                 table.scores, r_slots, r_scores, ema.value, draws.uniforms,
                 config.is_alpha, config.table_decay)
             selected = selected.long()
-            sel_raw, sel_labels = gather(selected)
-            sel_images = ingest(sel_raw, draws.crop2, draws.flip2, use_kernels)
+            sel_rows, sel_labels = gather(selected)
+            sel_images = ingest(sel_rows, draws.crop2, draws.flip2, use_kernels)
         else:
             def need_perm() -> torch.Tensor:
                 if draws.perm is None:
@@ -213,8 +219,8 @@ def make_train_step(
                 return draws.perm
 
             stream, slots = next_pool(stream, p_size, need_perm)
-            raw, labels = gather(slots)
-            images = ingest(raw, draws.crop, draws.flip, use_kernels)  # [P, H, W, C]
+            rows, labels = gather(slots)
+            images = ingest(rows, draws.crop, draws.flip, use_kernels)  # [P, H, W, C]
             if use_is:
                 pool_losses = score(images, labels)
                 avg_pool_loss = pool_mean(pool_losses)

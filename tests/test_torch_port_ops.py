@@ -192,6 +192,11 @@ class TestDispatch:
                 want = kind[t]
                 assert (want in param) if want == "*" else param.startswith(want + " "), \
                     f"{name}: {param!r} is not passed as {t.__name__}"
+        # The ingest takes the rows it gathers and their count M, then the
+        # geometry of ingest_geometry() in the order the wrapper passes it.
+        names = [p.split()[-1].lstrip("*") for p in decls["mercury_augment_normalize"].split(",")]
+        assert names == ["raw", "rows", "mean", "stdev", "crop", "flip", "out", "n", "m", "h",
+                         "w", "c", "pad", *mk.IngestGeometry._fields, "dtype", "stream"]
 
     def test_kernel_entry_points_refuse_cpu_tensors(self):
         z, y = _logits((8, 10), 8)
