@@ -228,15 +228,19 @@ def kernel_phase(torch, card: str):
         return z, y
 
     # nll_fwd: expf/logf against ATen's exp/log, reductions in another
-    # order; losses are O(10).
+    # order; losses are O(10). The pool's scores [320, 10], the train batch
+    # [32, 10], the scoretable window [64, 10], and a CIFAR-100-sized call.
     fwd_tol = dict(rtol=1e-5, atol=1e-5)
     for n, c, dtype in [(320, 10, torch.float32), (32, 10, torch.float32),
-                        (4096, 100, torch.float32), (320, 10, torch.bfloat16),
-                        (32, 10, torch.bfloat16), (4096, 100, torch.bfloat16)]:
+                        (64, 10, torch.float32), (4096, 100, torch.float32),
+                        (320, 10, torch.bfloat16), (32, 10, torch.bfloat16),
+                        (64, 10, torch.bfloat16), (4096, 100, torch.bfloat16)]:
         z, y = logits_case(n, c, dtype)
         err = within(mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y), **fwd_tol)
         y64 = y.long()
+        geo = mk.nll_geometry(n, c, z.element_size())
         case = dict(kernel="nll_fwd", shape=[n, c], dtype=str(dtype)[6:],
+                    lanes=geo.lanes, threads=geo.threads, vec=geo.vec,
                     max_abs_err=err, tol=fwd_tol,
                     ms=graph_ms(torch, lambda: mk.nll_fwd_kernel(z, y)),
                     eager_ms=eager_ms(torch, lambda: mk.nll_fwd_kernel(z, y)),
@@ -247,6 +251,28 @@ def kernel_phase(torch, card: str):
         case["bound_ms"], case["bound_by"] = bound(n * c * esize + 8 * n,
                                                    5 * n * c + 2 * n)
         cases.append(case)
+
+    # Untimed: non-finite rows; shapes that take one value a load (C odd, a
+    # pointer one element off), the widest loads, many lanes a row, and rows
+    # too long for a lane's registers (walked in chunks).
+    nll_checks = [nonfinite_case(torch, mk, reference, dtype, c, fwd_tol)
+                  for dtype in (torch.float32, torch.bfloat16) for c in (10, 100)]
+    for n, c, dtype, off in [(33, 1, torch.float32, 0), (31, 3, torch.bfloat16, 0),
+                             (64, 33, torch.float32, 0), (64, 10, torch.float32, 1),
+                             (64, 10, torch.bfloat16, 1), (64, 1000, torch.bfloat16, 0),
+                             (300, 1000, torch.float32, 0), (16, 2053, torch.float32, 0),
+                             (8, 40000, torch.bfloat16, 0)]:
+        flat = (torch.randn(n * c + off, generator=gen, device=dev) * 3).to(dtype)
+        z = flat[off:].view(n, c)
+        y = torch.randint(-1, c + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+        err = within(mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y), **fwd_tol)
+        geo = mk.nll_geometry(n, c, z.element_size(), mk._alignment(z))
+        print(f"nll_fwd [{n},{c}] {str(dtype)[6:]} pointer +{off * z.element_size()} B, labels "
+              f"in [-1, C]: lanes={geo.lanes} threads={geo.threads} vec={geo.vec}, "
+              f"max|err| {err:.2e}")
+        nll_checks.append(dict(kernel="nll_fwd", shape=[n, c], dtype=str(dtype)[6:],
+                               offset=off, lanes=geo.lanes, threads=geo.threads, vec=geo.vec,
+                               max_abs_err=err))
 
     # nll_bwd: f32 to ~1 ulp of softmax; bf16 output rounds once more
     # (one bf16 ulp, 2^-8 relative).
@@ -320,6 +346,8 @@ def kernel_phase(torch, card: str):
               + (" misaligned" if c.get("misaligned") else "")
               + (f" threads={c['threads']} rows/block={c['band_rows']} copy={c['copy']}"
                  if "band_rows" in c else "")
+              + (f" lanes={c['lanes']} threads={c['threads']} vec={c['vec']}"
+                 if "lanes" in c else "")
               + f": max|err| {c['max_abs_err']:.2e}"
               + (f", {c['in_band']} u in band {c['band']:.1e}, "
                  f"{c['mismatches']} index mismatches" if "band" in c else "")
@@ -354,7 +382,44 @@ def kernel_phase(torch, card: str):
             "shape": c["shape"], "eager_ms": c["eager_ms"],
             "clusters": c.get("clusters"),
         })
-    return kernels, cases
+    return kernels, cases + nll_checks
+
+
+def nonfinite_case(torch, mk, reference, dtype, c: int, tol):
+    """nll_fwd on rows with non-finite logits against the plain version,
+    NaN-aware: −inf off the label (a finite loss), −inf on the label
+    (+inf), +inf (NaN), NaN (NaN), an all −inf row (NaN), a label outside
+    [0, C) (the logsumexp), then finite rows. NaN must fall on NaN and an
+    infinity on the same infinity; finite losses within ``tol``."""
+    dev = torch.device("cuda")
+    n = 40
+    gen = torch.Generator(device=dev).manual_seed(c)
+    z = torch.randn(n, c, generator=gen, device=dev) * 3
+    y = torch.randint(0, c, (n,), generator=gen, device=dev, dtype=torch.int32)
+    y[:6] = torch.tensor([1, 2, 0, 3, 1, c], dtype=torch.int32)
+    z[0, c - 1] = -math.inf
+    z[1, 2] = -math.inf
+    z[2, 1] = math.inf
+    z[3, 0] = math.nan
+    z[4] = -math.inf
+    z = z.to(dtype)
+    got, want = mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y)
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan),
+          f"nll_fwd non-finite {dtype} C={c}: NaN at {torch.isnan(got).nonzero().tolist()}, "
+          f"plain at {nan.nonzero().tolist()}")
+    inf = torch.isinf(want)
+    check(torch.equal(got[inf], want[inf]) and not bool(torch.isinf(got[~inf]).any()),
+          f"nll_fwd non-finite {dtype} C={c}: infinities differ")
+    check(bool(torch.isinf(got[1])) and bool(torch.isfinite(got[0])) and bool(nan[2:5].all()),
+          f"nll_fwd non-finite {dtype} C={c}: {got[:6].tolist()}")
+    fin = ~(nan | inf)
+    err = within(got[fin], want[fin], **tol)
+    print(f"nll_fwd non-finite rows, {str(dtype)[6:]} C={c}: NaN at {nan.nonzero().flatten().tolist()}, "
+          f"inf at {inf.nonzero().flatten().tolist()} on both sides; finite max|err| {err:.2e}")
+    return dict(kernel="nll_fwd", shape=[n, c], dtype=str(dtype)[6:], nonfinite=True,
+                max_abs_err=err, nan_rows=nan.nonzero().flatten().tolist(),
+                inf_rows=inf.nonzero().flatten().tolist())
 
 
 def draw_case(torch, mk, reference, gen, n: int, b: int, skew):

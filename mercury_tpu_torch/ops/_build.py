@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # (and the stream) as c_void_p, so ctypes does not cut it to 32 bits.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "mercury_nll_fwd": [_P, _P, _P, _I, _I, _I, _P],
+    "mercury_nll_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mercury_nll_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mercury_score_and_draw": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I,
                                _P, _P, _P, _P],

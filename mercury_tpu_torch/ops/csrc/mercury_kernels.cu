@@ -9,12 +9,33 @@
 //               (mercury_tpu/ops/mercury_kernels.py:66-91).
 //    nll_i = logsumexp(z_i) - z_i[y_i], float32 out, bf16 or f32 logits.
 //    Bound: bytes (N·C logits read once, N labels, N losses written). At the
-//    step's [320,10] and [32,10] that is ~15 KB and ~1.5 KB: the launch, not
-//    the memory, sets the time. One warp per row, shuffle reductions, no
-//    shared memory; 8 rows per 256-thread block.
+//    step's [320,10] and [32,10] that is ~15 KB and ~1.5 KB, so latency sets
+//    the time: the launch and the chain of dependent steps in a row. The
+//    earlier design gave a row a warp (22 of 32 lanes idle at C = 10) and
+//    read it three times (max, Σexp, the label's logit), each pass ending in
+//    a 5-step shuffle reduction. Now a row has G lanes, a power of two up to
+//    32 chosen from C by nll_geometry() in ops/mercury_kernels.py: the
+//    fewest that leave a lane at most two loads (G = 4 at C = 10, 16 at
+//    C = 100), 128 threads a block, from a sweep on the card (PERF.md §6;
+//    one lane a row was 0.2 µs slower at C = 10, and staging a block's rows
+//    in shared memory with 16-byte loads slower at every shape). Lane g of
+//    a row takes the row's vectors g, g + G, ... of V values each, the
+//    widest load the row stride and the pointer allow (float2 for 40-byte
+//    f32 rows, bf16 pairs for 20-byte bf16 rows), and holds them in
+//    registers: the row is read once, in one round trip that overlaps the
+//    label's load. Over the registers the lane takes its max and,
+//    after log2(G) shuffle steps for the row max (none at G = 1), its sum of
+//    exp(z - max) and the label's logit; one more set of log2(G) steps sums
+//    both. The label is compared with the column index, never used as an
+//    address. The row's first lane writes its loss, so neighbouring rows'
+//    losses leave from neighbouring lanes. A lane holds up to 8 vectors; a
+//    longer share of the row (C above 256·V) is walked in chunks of 8 twice,
+//    once for the max and once for the sum. expf and logf keep their
+//    precise forms.
 // 2. nll_bwd  — replaces _vjp_bwd / _nll_bwd_kernel (:94-139).
 //    grad_ij = (softmax(z_i)_j - [j == y_i])·g_i, written in the logits'
-//    dtype. Same layout and bound as nll_fwd.
+//    dtype. One warp a row, 8 rows a 256-thread block, shuffle reductions
+//    (row_stats: a pass for the max, one for the sum); the same bound.
 // 3. score_and_draw — replaces score_and_draw_pallas / _score_draw_kernel /
 //    _inverse_cdf_draw (:146-302).
 //    s = max(loss + a·ema, 1e-12), p = s/Σs, cdf = inclusive scan of p,
@@ -115,6 +136,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <algorithm>
 
@@ -124,8 +146,10 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRowsPerBlock = 8;
+constexpr int kRowsPerBlock = 8;  // nll_bwd: a warp a row
 constexpr int kRowThreads = kRowsPerBlock * kWarp;
+constexpr int kNllChunk = 8;       // most vectors an nll_fwd lane holds in registers
+constexpr int kNllThreads = 256;   // most threads of an nll_fwd block
 constexpr int kDrawThreads = 1024;  // most threads of a selection block
 constexpr int kDrawWarps = kDrawThreads / kWarp;
 constexpr int kRegRun = 16;         // longest run a thread holds in registers
@@ -175,24 +199,126 @@ __device__ __forceinline__ void row_stats(const T* z, int c, int lane,
   *s_out = warp_sum(s);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
+// An unsigned type of kBytes bytes, for one load of a vector.
+template <int kBytes> struct Raw;
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<4> { using type = unsigned; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// V values of type T at p (aligned to their size) as float32, in one load
+// through the read-only path.
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float* v) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  using R = typename Raw<kBytes>::type;
+  const R r = __ldg(reinterpret_cast<const R*>(p));
+  if constexpr (kBytes == 2) {
+    v[0] = __uint_as_float(static_cast<unsigned>(r) << 16);
+  } else {
+    unsigned w[kBytes / 4];
+    memcpy(w, &r, kBytes);
+#pragma unroll
+    for (int i = 0; i < kBytes / 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        v[i] = __uint_as_float(w[i]);
+      } else {  // two bf16, the first in the low half
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+  }
+}
+
+// The K vectors first, first + lanes, ... of a row of nvec vectors; -inf
+// past its end (no term of the max).
+template <typename T, int V, int K>
+__device__ __forceinline__ void load_vectors(const T* z, int first, int lanes, int nvec,
+                                             float* v) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = first + k * lanes;
+    if (j < nvec) {
+      load_vec<T, V>(z + j * V, v + k * V);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[k * V + e] = -INFINITY;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ float max_of(const float* v, float m) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) m = fmaxf(m, v[i]);
+  return m;
+}
+
+// s += exp(v - m) over the K vectors from vector `first` (stride lanes)
+// that lie in the row, and the logit of column y where one of them holds it.
+template <int V, int K>
+__device__ __forceinline__ void add_exps(const float* v, float m, int first, int lanes, int nvec,
+                                         int y, float* s, float* picked) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = first + k * lanes;
+    if (j < nvec) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float x = v[k * V + e];
+        *s += expf(x - m);
+        if (j * V + e == y) *picked = x;
+      }
+    }
+  }
+}
+
+// Rows of [N, C] logits, G = lanes a row (a power of two ≤ 32), blockDim.x / G
+// rows a block. V values a load; kHeld vectors a lane holds in registers
+// (1, 2, 4 or 8), or 0: the lane's share is walked in chunks of kNllChunk,
+// twice.
+template <typename T, int V, int kHeld>
+__global__ void __launch_bounds__(kNllThreads)
 nll_fwd_kernel(const T* __restrict__ logits, const int32_t* __restrict__ labels,
-               float* __restrict__ out, int n, int c) {
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (row >= n) return;  // uniform across the warp
-  const T* z = logits + static_cast<size_t>(row) * c;
-  const int y = labels[row];
-  float m, s;
-  row_stats(z, c, lane, &m, &s);
+               float* __restrict__ out, int n, int c, int lanes) {
+  const int shift = __ffs(lanes) - 1;
+  const int rows = blockDim.x >> shift;
+  const int row = blockIdx.x * rows + (threadIdx.x >> shift);
+  const int g = threadIdx.x & (lanes - 1);
+  const bool live = row < n;  // dead lanes still take part in the shuffles
   // The label is compared with the column index, never used as an address:
   // a label outside [0, C) picks nothing and the loss is the logsumexp.
-  float picked = 0.f;
-  for (int j = lane; j < c; j += kWarp)
-    if (j == y) picked = load_f32(z + j);
-  picked = warp_sum(picked);
-  if (lane == 0) out[row] = (logf(s) + m) - picked;
+  int y = live ? __ldg(labels + row) : -1;
+  if (y >= c) y = -1;
+  const int nvec = live ? c / V : 0;
+  const T* z = logits + static_cast<size_t>(row) * c;
+  float m = -INFINITY, s = 0.f, picked = 0.f;
+  if constexpr (kHeld > 0) {
+    float v[kHeld * V];
+    load_vectors<T, V, kHeld>(z, g, lanes, nvec, v);
+    m = max_of<kHeld * V>(v, m);
+    for (int o = lanes >> 1; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o, lanes));
+    add_exps<V, kHeld>(v, m, g, lanes, nvec, y, &s, &picked);
+  } else {
+    float v[kNllChunk * V];
+    const int step = kNllChunk * lanes;
+    for (int first = g; first < nvec; first += step) {
+      load_vectors<T, V, kNllChunk>(z, first, lanes, nvec, v);
+      m = max_of<kNllChunk * V>(v, m);
+    }
+    for (int o = lanes >> 1; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o, lanes));
+    for (int first = g; first < nvec; first += step) {
+      load_vectors<T, V, kNllChunk>(z, first, lanes, nvec, v);
+      add_exps<V, kNllChunk>(v, m, first, lanes, nvec, y, &s, &picked);
+    }
+  }
+  // One combine: the picked logit rides in the sum's shuffle rounds (only
+  // one lane holds it; the others add 0).
+  for (int o = lanes >> 1; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(kFull, s, o, lanes);
+    picked += __shfl_xor_sync(kFull, picked, o, lanes);
+  }
+  if (live && g == 0) out[row] = (logf(s) + m) - picked;
 }
 
 template <typename T>
@@ -949,28 +1075,74 @@ IngestFn ingest_fn(bool special, int copy) {
   return special ? ingest_copy_fn<T, 32, 32, 3>(copy) : ingest_copy_fn<T, 0, 0, 0>(copy);
 }
 
+template <typename T>
+using NllFn = void (*)(const T*, const int32_t*, float*, int, int, int);
+
+template <typename T, int V>
+NllFn<T> nll_held_fn(int held) {
+  switch (held) {
+    case 1: return &nll_fwd_kernel<T, V, 1>;
+    case 2: return &nll_fwd_kernel<T, V, 2>;
+    case 4: return &nll_fwd_kernel<T, V, 4>;
+    case 8: return &nll_fwd_kernel<T, V, 8>;
+    default: return &nll_fwd_kernel<T, V, 0>;
+  }
+}
+
+// The kernel for V values a load (a vector of at most 16 bytes), or null.
+template <typename T>
+NllFn<T> nll_fn(int vec, int held) {
+  switch (vec) {
+    case 1: return nll_held_fn<T, 1>(held);
+    case 2: return nll_held_fn<T, 2>(held);
+    case 4: return nll_held_fn<T, 4>(held);
+    case 8:
+      if constexpr (sizeof(T) == 2) return nll_held_fn<T, 8>(held);
+      return nullptr;
+    default: return nullptr;
+  }
+}
+
+template <typename T>
+int launch_nll_fwd(const void* logits, const void* labels, void* out, int n, int c, int lanes,
+                   int threads, int vec, cudaStream_t st) {
+  // Vectors a lane holds: the fewest of 1, 2, 4, 8 that take its share, or
+  // 0 (a walk in chunks of kNllChunk) past 8.
+  const int share = (c / vec + lanes - 1) / lanes;
+  const int held = share <= 1 ? 1 : share <= 2 ? 2 : share <= 4 ? 4 : share <= kNllChunk ? 8 : 0;
+  const NllFn<T> fn = nll_fn<T>(vec, held);
+  if (fn == nullptr || c % vec != 0 ||
+      (reinterpret_cast<uintptr_t>(logits) & (vec * sizeof(T) - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = threads / lanes;
+  fn<<<(n + rows - 1) / rows, threads, 0, st>>>(static_cast<const T*>(logits),
+                                     static_cast<const int32_t*>(labels),
+                                     static_cast<float*>(out), n, c, lanes);
+  return static_cast<int>(cudaGetLastError());
+}
+
 inline int blocks_for_rows(int n) { return (n + kRowsPerBlock - 1) / kRowsPerBlock; }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16. The geometry (lanes, threads, vec) is
+// nll_geometry() of ops/mercury_kernels.py: G lanes a row, a power of two
+// up to 32; threads a block, a multiple of 32 up to 256; vec values a load,
+// a power of two dividing C, of at most 16 bytes and an alignment logits
+// has. Any other geometry is refused.
 int mercury_nll_fwd(const void* logits, const void* labels, void* out, int n, int c,
-                    int dtype, void* stream) {
+                    int lanes, int threads, int vec, int dtype, void* stream) {
+  const bool ok = n >= 1 && c >= 1 && lanes >= 1 && lanes <= kWarp &&
+                  (lanes & (lanes - 1)) == 0 && threads >= kWarp && threads <= kNllThreads &&
+                  threads % kWarp == 0 && vec >= 1 && (vec & (vec - 1)) == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    nll_fwd_kernel<float><<<blocks_for_rows(n), kRowThreads, 0, st>>>(
-        static_cast<const float*>(logits), static_cast<const int32_t*>(labels),
-        static_cast<float*>(out), n, c);
-  } else if (dtype == 1) {
-    nll_fwd_kernel<__nv_bfloat16><<<blocks_for_rows(n), kRowThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(logits), static_cast<const int32_t*>(labels),
-        static_cast<float*>(out), n, c);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return launch_nll_fwd<float>(logits, labels, out, n, c, lanes, threads, vec, st);
+  if (dtype == 1)
+    return launch_nll_fwd<__nv_bfloat16>(logits, labels, out, n, c, lanes, threads, vec, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int mercury_nll_bwd(const void* logits, const void* labels, const void* g, void* grad,

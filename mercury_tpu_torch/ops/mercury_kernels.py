@@ -14,6 +14,7 @@
 The two selections launch as one thread-block cluster (sm_90a), with the
 geometry of :func:`draw_geometry`; they need no scratch tensor. The ingest
 launches a block per image, with the geometry of :func:`ingest_geometry`.
+The forward NLL gives a row the lanes :func:`nll_geometry` chooses.
 
 Each wrapper dispatches on the device of its tensors: a CUDA tensor goes to
 the kernel (built at first use by ``ops/_build.py``), a CPU tensor to the
@@ -183,6 +184,54 @@ def ingest_geometry(n: int, h: int, w: int, c: int, out_itemsize: int, pad: int 
     return IngestGeometry(min(INGEST_THREADS, _round_up(pieces, 32)), band, copy, smem)
 
 
+# The forward NLL kernel's geometry (nll_fwd_kernel), from a sweep on the
+# H100 (PERF.md §6).
+NLL_LANE_VECTORS = 2     # most loads a lane issues before a row gets twice the lanes
+NLL_MAX_LANES = 32       # a warp
+NLL_THREADS = 128        # threads a block, unless the rows need fewer (the kernel takes 256)
+
+
+class NllGeometry(NamedTuple):
+    lanes: int    # G lanes a row, a power of two: lane g takes vectors g, g + G, ...
+    threads: int  # threads a block: threads // lanes rows
+    vec: int      # values a load (a vector of at most 16 bytes)
+
+    @property
+    def rows(self) -> int:
+        return self.threads // self.lanes
+
+
+def nll_vec(c: int, itemsize: int, align: int = 16) -> int:
+    """The most values one load can take: a power of two dividing ``c``,
+    of at most 16 bytes and of no more than ``align``, the byte alignment
+    of the logits' pointer."""
+    vec = 1
+    while c % (2 * vec) == 0 and 2 * vec * itemsize <= min(16, align):
+        vec *= 2
+    return vec
+
+
+def nll_geometry(n: int, c: int, itemsize: int, align: int = 16) -> NllGeometry:
+    """Launch geometry of ``nll_fwd`` over ``[n, c]`` logits of ``itemsize``
+    bytes whose pointer is aligned to ``align`` bytes: a grid of ``⌈n /
+    rows⌉`` blocks of ``threads``, row ``b·rows + t // lanes`` to the
+    ``lanes`` threads ``t`` of block ``b`` that share it.
+
+    A load takes :func:`nll_vec` values. A row gets the fewest lanes (a
+    power of two, at most a warp) that leave a lane at most
+    ``NLL_LANE_VECTORS`` loads: 4 at C = 10, 16 at C = 100. A block has
+    ``NLL_THREADS`` threads, or the whole warps that ``n`` rows need where
+    that is fewer."""
+    if n < 1 or c < 1 or itemsize not in (2, 4):
+        raise ValueError(f"nll_fwd needs n, c >= 1 and a 2- or 4-byte dtype, got "
+                         f"{(n, c, itemsize)}")
+    vec = nll_vec(c, itemsize, align)
+    lanes = 1
+    while lanes < NLL_MAX_LANES and _ceil_div(c // vec, lanes) > NLL_LANE_VECTORS:
+        lanes *= 2
+    return NllGeometry(lanes, min(NLL_THREADS, _round_up(n * lanes, 32)), vec)
+
+
 _cluster_limit: Optional[int] = None
 
 
@@ -239,9 +288,19 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors on {sorted(devices)}: expected all CPU or all CUDA")
 
 
+def _alignment(t: torch.Tensor) -> int:
+    """The largest power of two, up to 16, that divides ``t``'s address."""
+    ptr = t.data_ptr()
+    return min(16, ptr & -ptr) if ptr else 16
+
+
 def nll_fwd_kernel(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Launch ``nll_fwd``: ``[N, C]`` f32/bf16 logits, ``[N]`` int32 labels
-    → ``[N]`` float32."""
+    → ``[N]`` float32, with the geometry of :func:`nll_geometry`: ``G``
+    lanes a row, each row read once into registers with the widest load
+    the row stride and the pointer's alignment allow, one combine across
+    the ``G`` lanes. A label outside ``[0, C)`` picks no logit: the loss
+    is the logsumexp."""
     from mercury_tpu_torch.ops import _build
 
     _check("logits", logits, tuple(_DTYPE_CODES), 2)
@@ -252,9 +311,10 @@ def nll_fwd_kernel(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.float32, device=logits.device)
     if n == 0:
         return out
+    geo = nll_geometry(n, c, logits.element_size(), _alignment(logits))
     with torch.cuda.device(logits.device):
         err = _build.load().mercury_nll_fwd(
-            logits.data_ptr(), labels.data_ptr(), out.data_ptr(), n, c,
+            logits.data_ptr(), labels.data_ptr(), out.data_ptr(), n, c, *geo,
             _DTYPE_CODES[logits.dtype], _stream(logits))
     _launched("nll_fwd", err)
     return out

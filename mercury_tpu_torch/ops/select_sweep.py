@@ -1,32 +1,37 @@
 """Measurements of the selection kernels (``score_and_draw``,
-``table_refresh_draw``) and of the ingest (``augment_normalize``) on the
-card, beside ``chip_smoke.py``.
+``table_refresh_draw``), the ingest (``augment_normalize``) and the forward
+NLL (``nll_fwd``) on the card, beside ``chip_smoke.py``.
 
-    python3 -m mercury_tpu_torch.ops.select_sweep geometry [--kernels select|ingest]
-    python3 -m mercury_tpu_torch.ops.select_sweep ablate [--kernels select|ingest]
+    python3 -m mercury_tpu_torch.ops.select_sweep geometry [--kernels select|ingest|nll]
+    python3 -m mercury_tpu_torch.ops.select_sweep ablate [--kernels select|ingest|nll]
     python3 -m mercury_tpu_torch.ops.select_sweep compare --parent DIR [--kernels ...]
 
-- ``geometry``: the selections at chosen (K, threads, run) splits and the
+- ``geometry``: the selections at chosen (K, threads, run) splits, the
   ingest at chosen (threads, band, copy) splits, at [32], [64] and [320]
-  in f32 and bf16, through the C entry points, each checked against the
-  plain version, then timed: the sweeps that chose ``draw_geometry``'s
-  and ``ingest_geometry``'s rules. Then the ingest's ``rows`` form
-  against the ``x[rows]`` gather followed by the kernel.
+  in f32 and bf16, and ``nll_fwd`` at every (lanes, threads, vec) split
+  (vec the widest load or one value) at [32,10], [64,10], [320,10] and
+  [4096,100] in f32 and bf16, through the C entry points, each checked
+  against the plain version, then timed: the sweeps that chose
+  ``draw_geometry``'s, ``ingest_geometry``'s and ``nll_geometry``'s
+  rules. Then the ingest's ``rows`` form against the ``x[rows]`` gather
+  followed by the kernel.
 - ``ablate``: copies of ``csrc/mercury_kernels.cu`` with one part left
   out (of the selections: the draws, the cluster exchange; of the
   ingest: the table, the copy, the lookups, the stores, a barrier, all
-  past a point), built beside the real one and timed at
-  ``draw_geometry``'s splits and the ingest's default one. Their outputs
-  are wrong by design; only their times are read, to see what each part
-  costs.
+  past a point; of ``nll_fwd``: all of it, all after the loads, the
+  exponentials), built beside the real one and timed at the default
+  geometries. Their outputs are wrong by design; only their times are
+  read, to see what each part costs.
 - ``compare``: the wrappers of another checkout (``--parent``, e.g. an
   unpacked ``git archive`` of the parent commit) and of this one, the
-  selections at the two paths' shapes and at 50,000 and the ingest at
+  selections at the two paths' shapes and at 50,000, the ingest at
   [32], [64] and [320] in f32 and bf16 (without ``rows``, which older
-  checkouts lack), and the step's ingest of shard rows (``step_ingest``:
+  checkouts lack), the step's ingest of shard rows (``step_ingest``:
   the kernel's own gather where the checkout has ``rows``, else the
-  ``x[rows]`` gather and the kernel), in turns parent, this, this,
-  parent, each in its own process that builds its own kernels.
+  ``x[rows]`` gather and the kernel), and ``nll_fwd`` at the sweep's
+  four shapes in f32 and bf16 beside ``F.cross_entropy(reduction="none")``,
+  in turns parent, this, this, parent, each in its own process that
+  builds its own kernels.
 
 Needs one CUDA card and ``nvcc``. Times are CUDA-graph replays (the median
 of 20 replays of 50 captured calls), printed with the card's name and
@@ -92,6 +97,25 @@ INGEST_ABLATIONS = {
     "stop_after_wait": [(WAIT, WAIT + RETURN)],
 }
 INGEST_ABLATION_SPLITS = [(256, 32, 1)]
+
+# nll_fwd: the step's scoring and train forwards ([320,10], [32,10]), the
+# scoretable window ([64,10]) and a CIFAR-100-sized call ([4096,100]).
+NLL_SHAPES = ((32, 10), (64, 10), (320, 10), (4096, 100))
+NLL_LANES = (1, 2, 4, 8, 16, 32)
+NLL_THREADS = (32, 64, 128, 256)
+# ... and its ablations at the default geometry: all of it (it returns at
+# entry); all after the row's loads (their values kept alive); the
+# exponentials (a subtraction in their place).
+NLL_LOADED = "    load_vectors<T, V, kHeld>(z, g, lanes, nvec, v);\n"
+NLL_ABLATIONS = {
+    "empty": [("  const bool live = row < n;  // dead lanes still take part in the shuffles\n",
+               "  const bool live = row < n;  // dead lanes still take part in the shuffles\n"
+               "  if (n > 0) return;\n")],
+    "stop_after_loads": [(NLL_LOADED, NLL_LOADED + "    if (n > 0) {\n      float t = y;\n"
+                          "      for (int i = 0; i < kHeld * V; ++i) t += v[i];\n"
+                          "      if (t == 1234.5f) out[row] = t;\n      return;\n    }\n")],
+    "no_exp": [("        *s += expf(x - m);\n", "        *s += x - m;\n")],
+}
 
 
 def card_name() -> str:
@@ -271,6 +295,61 @@ def ingest_geometry_mode(torch, card: str):
     return rows
 
 
+def nll_inputs(torch, n: int, c: int, dtype, seed: int = 0):
+    """``[n, c]`` logits of N(0, 3²) in ``dtype`` and ``[n]`` int32 labels
+    in ``[0, c)``, on the card."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = (torch.randn(n, c, generator=g, device=dev) * 3).to(dtype)
+    y = torch.randint(0, c, (n,), generator=g, device=dev, dtype=torch.int32)
+    return z, y
+
+
+def nll_launcher(torch, lib, z, y, out, geo):
+    """A call of ``lib``'s ``nll_fwd`` entry point at geometry ``geo``
+    (lanes, threads, vec) into ``out``."""
+    n, c = z.shape
+    dtype = 0 if z.dtype == torch.float32 else 1
+
+    def call():
+        err = lib.mercury_nll_fwd(z.data_ptr(), y.data_ptr(), out.data_ptr(), n, c, *geo,
+                                  dtype, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"launch refused: cudaError {err} at {geo}")
+
+    return call
+
+
+def nll_geometry_mode(torch, card: str):
+    from mercury_tpu_torch.ops import _build, reference
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    lib = _build.load()
+    rows = []
+    for n, c in NLL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            z, y = nll_inputs(torch, n, c, dtype)
+            want = reference.nll_forward(z, y)
+            out = torch.empty_like(want)
+            for vec in sorted({1, mk.nll_vec(c, z.element_size())}):
+                for lanes in NLL_LANES:
+                    for threads in NLL_THREADS:
+                        geo = mk.NllGeometry(lanes, threads, vec)
+                        call = nll_launcher(torch, lib, z, y, out, geo)
+                        out.fill_(float("nan"))
+                        call()
+                        torch.cuda.synchronize()
+                        assert torch.allclose(out, want, rtol=1e-5, atol=1e-5), \
+                            f"nll_fwd [{n},{c}] {dtype} at {geo}"
+                        us = graph_us(torch, call)
+                        name = str(dtype)[6:]
+                        print(f"nll_fwd [{n},{c}] {name} lanes={lanes} threads={threads} "
+                              f"vec={vec}: {us:.3f} us [{card}]", flush=True)
+                        rows.append(dict(kernel="nll_fwd", n=n, c=c, dtype=name, lanes=lanes,
+                                         threads=threads, vec=vec, us=us))
+    return rows
+
+
 def build_variants(cuts_by_name):
     """Copies of ``csrc/mercury_kernels.cu``, the full one and one with each
     entry's cuts made, built side by side with ``nvcc``; their libraries."""
@@ -338,6 +417,21 @@ def ablate_mode(torch, card: str, kernels: str):
                           f"copy={copy} {name}: {us:.3f} us [{card}]", flush=True)
                     rows.append(dict(kernel="augment_normalize", n=n, threads=threads,
                                      band=band, copy=copy, variant=name, us=us))
+    if kernels in ("all", "nll"):
+        libs = build_variants(NLL_ABLATIONS)
+        for n, c in NLL_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                z, y = nll_inputs(torch, n, c, dtype)
+                out = torch.empty(n, device=z.device)
+                geo = mk.nll_geometry(n, c, z.element_size())
+                for name, lib in libs.items():
+                    us = graph_us(torch, nll_launcher(torch, lib, z, y, out, geo))
+                    print(f"nll_fwd [{n},{c}] {str(dtype)[6:]} lanes={geo.lanes} "
+                          f"threads={geo.threads} vec={geo.vec} {name}: {us:.3f} us [{card}]",
+                          flush=True)
+                    rows.append(dict(kernel="nll_fwd", n=n, c=c, dtype=str(dtype)[6:],
+                                     lanes=geo.lanes, threads=geo.threads, vec=geo.vec,
+                                     variant=name, us=us))
     return rows
 
 
@@ -374,6 +468,15 @@ def wrappers_mode(torch, card: str, kernels: str):
             fn = lambda: mk.augment_normalize_kernel(  # noqa: E731
                 raw_all[idx], mean, std, crop, flip, 4, torch.float32)
         rows.append(dict(kernel="step_ingest", n=n, dtype="float32", us=graph_us(torch, fn)))
+    for n, c in NLL_SHAPES if kernels in ("all", "nll") else ():
+        for dtype in (torch.float32, torch.bfloat16):
+            z, y = nll_inputs(torch, n, c, dtype)
+            y64 = y.long()
+            rows.append(dict(
+                kernel="nll_fwd", n=n, c=c, dtype=str(dtype)[6:],
+                us=graph_us(torch, lambda: mk.nll_fwd_kernel(z, y)),
+                library_us=graph_us(torch, lambda: torch.nn.functional.cross_entropy(
+                    z, y64, reduction="none"))))
     return rows
 
 
@@ -389,8 +492,11 @@ def compare_mode(parent: Path, card: str, kernels: str):
             raise RuntimeError(f"{label} run failed:\n{out.stderr[-4000:]}")
         rows = json.loads(out.stdout.strip().splitlines()[-1])
         for row in rows:
-            print(f"{label:>6} {row['kernel']} n={row['n']} {row.get('dtype', '')}: "
-                  f"{row['us']:.3f} us [{card}]", flush=True)
+            print(f"{label:>6} {row['kernel']} n={row['n']}"
+                  + (f" c={row['c']}" if "c" in row else "")
+                  + f" {row.get('dtype', '')}: {row['us']:.3f} us"
+                  + (f", library {row['library_us']:.3f} us" if "library_us" in row else "")
+                  + f" [{card}]", flush=True)
         runs.append(dict(label=label, rows=rows))
     return runs
 
@@ -400,7 +506,7 @@ def main() -> int:
     ap.add_argument("mode", choices=("geometry", "ablate", "compare", "wrappers"))
     ap.add_argument("--parent", type=Path, help="compare: the other checkout's root")
     ap.add_argument("--tree", type=Path, help="wrappers: import the port from this root")
-    ap.add_argument("--kernels", choices=("all", "select", "ingest"), default="all",
+    ap.add_argument("--kernels", choices=("all", "select", "ingest", "nll"), default="all",
                     help="which kernels to measure")
     args = ap.parse_args()
     import torch
@@ -424,6 +530,8 @@ def main() -> int:
             result += geometry_mode(torch, card)
         if args.kernels in ("all", "ingest"):
             result += ingest_geometry_mode(torch, card)
+        if args.kernels in ("all", "nll"):
+            result += nll_geometry_mode(torch, card)
     else:
         result = ablate_mode(torch, card, args.kernels)
     OUT_DIR.mkdir(exist_ok=True)

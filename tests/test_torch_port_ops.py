@@ -64,6 +64,49 @@ class TestNLLForward:
         np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-6)
 
 
+    @staticmethod
+    def _non_finite_rows():
+        """−inf off the label, −inf on the label, +inf, NaN, then finite rows."""
+        z, y = _logits((8, 10), 9)
+        y[:4] = [1, 2, 0, 3]
+        z[0, 9] = -np.inf
+        z[1, 2] = -np.inf
+        z[2, 1] = np.inf
+        z[3, 0] = np.nan
+        return z, y
+
+    def test_non_finite_rows_match_pallas(self):
+        """XLA folds the TPU kernel's multiply by the one-hot into a select,
+        so a −inf off the label gives a finite loss there too: both give a
+        finite loss, +inf, NaN, NaN, then the finite rows."""
+        z, y = self._non_finite_rows()
+        ref = np.asarray(per_sample_nll_pallas(jnp.asarray(z), jnp.asarray(y)))
+        ours = per_sample_nll(torch.from_numpy(z), torch.from_numpy(y)).numpy()
+        np.testing.assert_array_equal(np.isnan(ours), np.isnan(ref))
+        assert np.isnan(ours).tolist() == [False, False, True, True] + [False] * 4
+        assert ours[1] == ref[1] == np.inf
+        fin = np.isfinite(ref)
+        assert fin.tolist() == [True, False, False, False] + [True] * 4
+        np.testing.assert_allclose(ours[fin], ref[fin], rtol=1e-5, atol=1e-6)
+
+    def test_non_finite_rows_vjp_match_pallas(self):
+        """The gradients: NaN rows in the same places (the +inf and the NaN
+        rows); both −inf rows keep a finite softmax − onehot, equal on
+        both sides."""
+        z, y = self._non_finite_rows()
+        g = np.linspace(0.5, 1.5, 8).astype(np.float32)
+        _, vjp = jax.vjp(lambda lg: per_sample_nll_pallas(lg, jnp.asarray(y)), jnp.asarray(z))
+        ref = np.asarray(vjp(jnp.asarray(g))[0])
+        zt = torch.from_numpy(z).requires_grad_()
+        per_sample_nll(zt, torch.from_numpy(y)).backward(torch.from_numpy(g))
+        ours = zt.grad.numpy()
+        np.testing.assert_array_equal(np.isnan(ours), np.isnan(ref))
+        assert np.isnan(ours).all(1).tolist() == [False, False, True, True] + [False] * 4
+        np.testing.assert_array_equal(np.isinf(ours), np.isinf(ref))
+        fin = np.isfinite(ref)
+        np.testing.assert_allclose(ours[fin], ref[fin], rtol=1e-5, atol=1e-6)
+
+
 class TestNLLBackward:
     @pytest.mark.parametrize("shape", [(32, 10), (64, 100)])
     def test_matches_pallas_vjp(self, shape):
@@ -192,6 +235,10 @@ class TestDispatch:
                 want = kind[t]
                 assert (want in param) if want == "*" else param.startswith(want + " "), \
                     f"{name}: {param!r} is not passed as {t.__name__}"
+        # nll_fwd takes the geometry of nll_geometry() after the shape.
+        names = [p.split()[-1].lstrip("*") for p in decls["mercury_nll_fwd"].split(",")]
+        assert names == ["logits", "labels", "out", "n", "c", *mk.NllGeometry._fields,
+                         "dtype", "stream"]
         # The ingest takes the rows it gathers and their count M, then the
         # geometry of ingest_geometry() in the order the wrapper passes it.
         names = [p.split()[-1].lstrip("*") for p in decls["mercury_augment_normalize"].split(",")]
