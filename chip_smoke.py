@@ -11,7 +11,10 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    with ``ptxas``'s register and spill report);
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes and a few larger ones, and times kernel, plain version
-   and (where one exists) the one-call PyTorch equivalent. The selection
+   and (where one exists) the one-call PyTorch equivalent (for nll_bwd the
+   2 ATen calls of ``F.cross_entropy``'s gradient). Both NLL kernels also
+   run untimed at odd and wide C, pointers off 16 bytes, labels in
+   [−1, C] and non-finite rows (NaN-aware). The selection
    kernels run at N = 320 … 1,000,000 and L = 5000 … 1,000,000, each case
    printed with the cluster size K it launched with, and every draw is
    held to its interval of the float64 CDF of the kernel's own probs. The
@@ -68,6 +71,11 @@ REPLACES = {
     "score_and_draw": "mercury_tpu/ops/mercury_kernels.py:279",
     "table_refresh_draw": "mercury_tpu/ops/mercury_kernels.py:394",
     "augment_normalize": "mercury_tpu/ops/mercury_kernels.py:531",
+}
+# The one PyTorch computation of each kernel's function timed as library_ms.
+LIBRARY_CALLS = {
+    "nll_fwd": 'F.cross_entropy(reduction="none")',
+    "nll_bwd": "2 ATen calls: nll_loss_backward, _log_softmax_backward_data",
 }
 # The configuration of the scoretable path (phase 5), beside the default.
 SCORETABLE = dict(model="resnet18", dataset="synthetic", world_size=1,
@@ -217,20 +225,29 @@ def kernel_phase(torch, card: str):
 
     from mercury_tpu_torch.ops import mercury_kernels as mk
     from mercury_tpu_torch.ops import reference
+    from mercury_tpu_torch.ops.select_sweep import aten_nll_backward
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    # The nll_bwd cases beyond the first four draw from a generator of their
+    # own, so every other case keeps its inputs.
+    bwd_gen = torch.Generator(device=dev).manual_seed(7)
     cases = []
 
-    def logits_case(n, c, dtype):
-        z = (torch.randn(n, c, generator=gen, device=dev) * 3).to(dtype)
-        y = torch.randint(0, c, (n,), generator=gen, device=dev, dtype=torch.int32)
+    def logits_case(n, c, dtype, rng=gen):
+        z = (torch.randn(n, c, generator=rng, device=dev) * 3).to(dtype)
+        y = torch.randint(0, c, (n,), generator=rng, device=dev, dtype=torch.int32)
         return z, y
 
     # nll_fwd: expf/logf against ATen's exp/log, reductions in another
     # order; losses are O(10). The pool's scores [320, 10], the train batch
     # [32, 10], the scoretable window [64, 10], and a CIFAR-100-sized call.
     fwd_tol = dict(rtol=1e-5, atol=1e-5)
+    # nll_bwd: f32 to ~1 ulp of softmax; bf16 output rounds once more
+    # (2^-8 relative: one bf16 ulp at the top of a binade, half of one at
+    # its bottom).
+    bwd_tol = {torch.float32: dict(rtol=1e-5, atol=1e-6),
+               torch.bfloat16: dict(rtol=2 ** -8, atol=1e-6)}
     for n, c, dtype in [(320, 10, torch.float32), (32, 10, torch.float32),
                         (64, 10, torch.float32), (4096, 100, torch.float32),
                         (320, 10, torch.bfloat16), (32, 10, torch.bfloat16),
@@ -252,49 +269,74 @@ def kernel_phase(torch, card: str):
                                                    5 * n * c + 2 * n)
         cases.append(case)
 
+    def odd_case(kernel, rng, n, c, dtype, off):
+        """Untimed: logits a pointer ``off`` elements past 16-byte aligned,
+        labels in [-1, C]."""
+        flat = (torch.randn(n * c + off, generator=rng, device=dev) * 3).to(dtype)
+        z = flat[off:].view(n, c)
+        y = torch.randint(-1, c + 1, (n,), generator=rng, device=dev, dtype=torch.int32)
+        if kernel == "nll_fwd":
+            err = within(mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y), **fwd_tol)
+        else:
+            g = torch.rand(n, generator=rng, device=dev) + 0.1
+            err = within(mk.nll_bwd_kernel(z, y, g), reference.nll_backward(z, y, g),
+                         **bwd_tol[dtype])
+        geo = mk.nll_geometry(n, c, z.element_size(), mk._alignment(z))
+        print(f"{kernel} [{n},{c}] {str(dtype)[6:]} pointer +{off * z.element_size()} B, labels "
+              f"in [-1, C]: lanes={geo.lanes} threads={geo.threads} vec={geo.vec}, "
+              f"max|err| {err:.2e}")
+        return dict(kernel=kernel, shape=[n, c], dtype=str(dtype)[6:], offset=off,
+                    lanes=geo.lanes, threads=geo.threads, vec=geo.vec, max_abs_err=err)
+
     # Untimed: non-finite rows; shapes that take one value a load (C odd, a
     # pointer one element off), the widest loads, many lanes a row, and rows
     # too long for a lane's registers (walked in chunks).
-    nll_checks = [nonfinite_case(torch, mk, reference, dtype, c, fwd_tol)
+    nll_checks = [check_nonfinite(torch, mk, reference, "nll_fwd", dtype, c, fwd_tol)
                   for dtype in (torch.float32, torch.bfloat16) for c in (10, 100)]
-    for n, c, dtype, off in [(33, 1, torch.float32, 0), (31, 3, torch.bfloat16, 0),
-                             (64, 33, torch.float32, 0), (64, 10, torch.float32, 1),
-                             (64, 10, torch.bfloat16, 1), (64, 1000, torch.bfloat16, 0),
-                             (300, 1000, torch.float32, 0), (16, 2053, torch.float32, 0),
-                             (8, 40000, torch.bfloat16, 0)]:
-        flat = (torch.randn(n * c + off, generator=gen, device=dev) * 3).to(dtype)
-        z = flat[off:].view(n, c)
-        y = torch.randint(-1, c + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
-        err = within(mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y), **fwd_tol)
-        geo = mk.nll_geometry(n, c, z.element_size(), mk._alignment(z))
-        print(f"nll_fwd [{n},{c}] {str(dtype)[6:]} pointer +{off * z.element_size()} B, labels "
-              f"in [-1, C]: lanes={geo.lanes} threads={geo.threads} vec={geo.vec}, "
-              f"max|err| {err:.2e}")
-        nll_checks.append(dict(kernel="nll_fwd", shape=[n, c], dtype=str(dtype)[6:],
-                               offset=off, lanes=geo.lanes, threads=geo.threads, vec=geo.vec,
-                               max_abs_err=err))
+    odd_shapes = [(33, 1, torch.float32, 0), (31, 3, torch.bfloat16, 0),
+                  (64, 33, torch.float32, 0), (64, 10, torch.float32, 1),
+                  (64, 10, torch.bfloat16, 1), (64, 1000, torch.bfloat16, 0),
+                  (300, 1000, torch.float32, 0), (16, 2053, torch.float32, 0),
+                  (8, 40000, torch.bfloat16, 0)]
+    nll_checks += [odd_case("nll_fwd", gen, *shape) for shape in odd_shapes]
 
-    # nll_bwd: f32 to ~1 ulp of softmax; bf16 output rounds once more
-    # (one bf16 ulp, 2^-8 relative).
-    for n, c, dtype in [(32, 10, torch.float32), (4096, 100, torch.float32),
-                        (32, 10, torch.bfloat16), (4096, 100, torch.bfloat16)]:
-        z, y = logits_case(n, c, dtype)
-        g = torch.rand(n, generator=gen, device=dev) + 0.1
-        tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
-               else dict(rtol=2 ** -8, atol=1e-6))
+    # nll_bwd: the train batch [32, 10] (the step's one call) and a
+    # CIFAR-100-sized call, then (from bwd_gen) the scoretable window and
+    # pool widths; the library is the 2 ATen calls of F.cross_entropy's
+    # gradient.
+    for rng, n, c, dtype in [(gen, 32, 10, torch.float32), (gen, 4096, 100, torch.float32),
+                             (gen, 32, 10, torch.bfloat16), (gen, 4096, 100, torch.bfloat16),
+                             (bwd_gen, 64, 10, torch.float32), (bwd_gen, 64, 10, torch.bfloat16),
+                             (bwd_gen, 320, 10, torch.float32),
+                             (bwd_gen, 320, 10, torch.bfloat16)]:
+        z, y = logits_case(n, c, dtype, rng)
+        g = torch.rand(n, generator=rng, device=dev) + 0.1
+        tol = bwd_tol[dtype]
         got = mk.nll_bwd_kernel(z, y, g)
         check(got.dtype == dtype, f"nll_bwd returned {got.dtype}, not {dtype}")
         err = within(got, reference.nll_backward(z, y, g), **tol)
+        geo = mk.nll_geometry(n, c, z.element_size())
         case = dict(kernel="nll_bwd", shape=[n, c], dtype=str(dtype)[6:],
+                    lanes=geo.lanes, threads=geo.threads, vec=geo.vec,
                     max_abs_err=err, tol=tol,
                     ms=graph_ms(torch, lambda: mk.nll_bwd_kernel(z, y, g)),
                     eager_ms=eager_ms(torch, lambda: mk.nll_bwd_kernel(z, y, g)),
                     plain_ms=graph_ms(torch, lambda: reference.nll_backward(z, y, g)),
-                    library_ms=None)
+                    library_ms=graph_ms(torch, aten_nll_backward(torch, z, y.long(), g)))
         esize = z.element_size()
         case["bound_ms"], case["bound_by"] = bound(2 * n * c * esize + 8 * n,
                                                    7 * n * c + 2 * n)
         cases.append(case)
+
+    # Untimed nll_bwd, from bwd_gen: non-finite rows, the forward's odd
+    # shapes, the logits' pointer 4 bytes off in bf16 and a [64, 100] row
+    # of single loads (the stores narrow too; the fresh gradient is
+    # aligned, so the two kernels take one geometry).
+    nll_checks += [check_nonfinite(torch, mk, reference, "nll_bwd", dtype, c, bwd_tol[dtype])
+                   for dtype in (torch.float32, torch.bfloat16) for c in (10, 100)]
+    nll_checks += [odd_case("nll_bwd", bwd_gen, *shape)
+                   for shape in odd_shapes + [(64, 10, torch.bfloat16, 2),
+                                              (64, 100, torch.float32, 1)]]
 
     # The autograd route: per_sample_nll(...).backward runs the bwd kernel.
     z, y = logits_case(32, 10, torch.float32)
@@ -355,7 +397,8 @@ def kernel_phase(torch, card: str):
               + (f"gather + kernel {c['gather_and_kernel_ms'] * 1e3:.2f} us, "
                  if "gather_and_kernel_ms" in c else "")
               + f"plain {c['plain_ms'] * 1e3:.2f} us, library "
-              + (f"{c['library_ms'] * 1e3:.2f} us" if c["library_ms"] else "none")
+              + (f"{c['library_ms'] * 1e3:.2f} us ({LIBRARY_CALLS[c['kernel']]})"
+                 if c["library_ms"] else "none")
               + f", bound {c['bound_ms'] * 1e3:.4f} us ({c['bound_by']}) [{card}]")
 
     # One entry per kernel at its path's shape: [320, 10] f32 logits
@@ -379,23 +422,26 @@ def kernel_phase(torch, card: str):
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "library_call": LIBRARY_CALLS.get(name),
             "shape": c["shape"], "eager_ms": c["eager_ms"],
             "clusters": c.get("clusters"),
         })
     return kernels, cases + nll_checks
 
 
-def nonfinite_case(torch, mk, reference, dtype, c: int, tol):
-    """nll_fwd on rows with non-finite logits against the plain version,
-    NaN-aware: −inf off the label (a finite loss), −inf on the label
-    (+inf), +inf (NaN), NaN (NaN), an all −inf row (NaN), a label outside
-    [0, C) (the logsumexp), then finite rows. NaN must fall on NaN and an
-    infinity on the same infinity; finite losses within ``tol``."""
+def check_nonfinite(torch, mk, reference, kernel: str, dtype, c: int, tol):
+    """``kernel`` (nll_fwd or nll_bwd) on rows with non-finite logits
+    against the plain version, NaN-aware: −inf off the label (a finite loss;
+    a finite gradient row), −inf on the label (+inf; −g_i there), +inf and
+    NaN (NaN; NaN rows), an all −inf row (NaN), a label outside [0, C) (the
+    logsumexp; nothing subtracted), then finite rows. NaN must fall on NaN
+    and an infinity on the same infinity; finite values within ``tol``."""
     dev = torch.device("cuda")
     n = 40
     gen = torch.Generator(device=dev).manual_seed(c)
     z = torch.randn(n, c, generator=gen, device=dev) * 3
     y = torch.randint(0, c, (n,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.rand(n, generator=gen, device=dev) + 0.1
     y[:6] = torch.tensor([1, 2, 0, 3, 1, c], dtype=torch.int32)
     z[0, c - 1] = -math.inf
     z[1, 2] = -math.inf
@@ -403,23 +449,33 @@ def nonfinite_case(torch, mk, reference, dtype, c: int, tol):
     z[3, 0] = math.nan
     z[4] = -math.inf
     z = z.to(dtype)
-    got, want = mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y)
-    nan = torch.isnan(want)
+    if kernel == "nll_fwd":
+        got, want = mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y)
+    else:
+        got, want = mk.nll_bwd_kernel(z, y, g), reference.nll_backward(z, y, g)
+    what = f"{kernel} non-finite {dtype} C={c}"
+    nan, inf = torch.isnan(want), torch.isinf(want)
     check(torch.equal(torch.isnan(got), nan),
-          f"nll_fwd non-finite {dtype} C={c}: NaN at {torch.isnan(got).nonzero().tolist()}, "
-          f"plain at {nan.nonzero().tolist()}")
-    inf = torch.isinf(want)
-    check(torch.equal(got[inf], want[inf]) and not bool(torch.isinf(got[~inf]).any()),
-          f"nll_fwd non-finite {dtype} C={c}: infinities differ")
-    check(bool(torch.isinf(got[1])) and bool(torch.isfinite(got[0])) and bool(nan[2:5].all()),
-          f"nll_fwd non-finite {dtype} C={c}: {got[:6].tolist()}")
+          f"{what}: NaN at {torch.isnan(got).nonzero().tolist()}, plain at "
+          f"{nan.nonzero().tolist()}")
+    check(torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf]),
+          f"{what}: infinities differ")
+    # Rows: those with a NaN, and those with an infinity.
+    nan_rows = (nan if nan.dim() == 1 else nan.any(1)).nonzero().flatten().tolist()
+    inf_rows = (inf if inf.dim() == 1 else inf.any(1)).nonzero().flatten().tolist()
+    check(nan_rows == [2, 3, 4], f"{what}: NaN rows {nan_rows}")
+    if kernel == "nll_fwd":
+        check(inf_rows == [1], f"{what}: inf rows {inf_rows}")
+    else:
+        check(bool(nan[2:5].all()) and inf_rows == []
+              and float(got[1, 2]) == -float(g[1].to(dtype)),
+              f"{what}: rows 2-4 not all NaN, or row 1 at its label {float(got[1, 2])}")
     fin = ~(nan | inf)
     err = within(got[fin], want[fin], **tol)
-    print(f"nll_fwd non-finite rows, {str(dtype)[6:]} C={c}: NaN at {nan.nonzero().flatten().tolist()}, "
-          f"inf at {inf.nonzero().flatten().tolist()} on both sides; finite max|err| {err:.2e}")
-    return dict(kernel="nll_fwd", shape=[n, c], dtype=str(dtype)[6:], nonfinite=True,
-                max_abs_err=err, nan_rows=nan.nonzero().flatten().tolist(),
-                inf_rows=inf.nonzero().flatten().tolist())
+    print(f"{kernel} non-finite rows, {str(dtype)[6:]} C={c}: NaN rows {nan_rows}, inf rows "
+          f"{inf_rows} on both sides; finite max|err| {err:.2e}")
+    return dict(kernel=kernel, shape=[n, c], dtype=str(dtype)[6:], nonfinite=True,
+                max_abs_err=err, nan_rows=nan_rows, inf_rows=inf_rows)
 
 
 def draw_case(torch, mk, reference, gen, n: int, b: int, skew):

@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mercury_nll_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mercury_nll_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "mercury_nll_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mercury_score_and_draw": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I,
                                _P, _P, _P, _P],
     "mercury_table_refresh_draw": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I,

@@ -33,9 +33,30 @@
 //    once for the max and once for the sum. expf and logf keep their
 //    precise forms.
 // 2. nll_bwd  — replaces _vjp_bwd / _nll_bwd_kernel (:94-139).
-//    grad_ij = (softmax(z_i)_j - [j == y_i])·g_i, written in the logits'
-//    dtype. One warp a row, 8 rows a 256-thread block, shuffle reductions
-//    (row_stats: a pass for the max, one for the sum); the same bound.
+//    grad_ij = (softmax(z_i)_j - [j == y_i])·g_i, computed in float32 and
+//    rounded once into the logits' dtype.
+//    Bound: bytes (N·C logits read, N·C gradients written, N labels and
+//    N g_i read): ~3 KB at the step's [32,10], so latency sets the time, as
+//    for nll_fwd, and the layout keeps the chain of dependent steps short:
+//    one read of the row, one exp, two short butterflies. It has
+//    nll_fwd's layout: G lanes a row, threads and vec from nll_geometry()
+//    (G = 4 at C = 10, 16 at C = 100, 128 threads a block), with vec the
+//    widest load that both the logits' and the gradient's pointers allow.
+//    At entry a lane loads the label, g_i and its vectors g, g + G, ...
+//    into registers, all in one round trip. It takes its max, log2(G)
+//    shuffle steps give the row max, and each held value becomes
+//    e = exp(z - max) in place: expf once an element. Its sum of e and
+//    log2(G) more steps give the row's Σe, in float64 and rounded once:
+//    the correctly rounded sum, the same for every G and order of adds.
+//    (The plain version's float32 sum, in ATen's order, can be an ulp off
+//    it in some rows; a bf16 gradient near a rounding midpoint then rounds
+//    the other way, one bf16 ulp.) The gradient comes from the
+//    registers, (e / Σe - [col == y])·g_i with a true division, and each
+//    lane writes its vectors at the width of its loads (__stcg, one
+//    STG.E.64 / STG.E.128), neighbouring lanes on neighbouring addresses.
+//    A lane holds up to 8 vectors; a longer share of the row is walked in
+//    chunks of 8 three times (max, sum, then the gradient with the
+//    exponentials computed again).
 // 3. score_and_draw — replaces score_and_draw_pallas / _score_draw_kernel /
 //    _inverse_cdf_draw (:146-302).
 //    s = max(loss + a·ema, 1e-12), p = s/Σs, cdf = inclusive scan of p,
@@ -146,10 +167,8 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRowsPerBlock = 8;  // nll_bwd: a warp a row
-constexpr int kRowThreads = kRowsPerBlock * kWarp;
-constexpr int kNllChunk = 8;       // most vectors an nll_fwd lane holds in registers
-constexpr int kNllThreads = 256;   // most threads of an nll_fwd block
+constexpr int kNllChunk = 8;       // most vectors an NLL lane holds in registers
+constexpr int kNllThreads = 256;   // most threads of an NLL block
 constexpr int kDrawThreads = 1024;  // most threads of a selection block
 constexpr int kDrawWarps = kDrawThreads / kWarp;
 constexpr int kRegRun = 16;         // longest run a thread holds in registers
@@ -167,18 +186,9 @@ constexpr int kCopyBytes = 0;  // byte loads: any shape
 constexpr int kCopyBulk = 1;   // one bulk async copy on an mbarrier: rows of a multiple of
                                // 16 bytes, raw 16-byte aligned
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = kWarp / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -186,20 +196,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Row max and sum of exp(z - max) of one row, spread over a warp's lanes.
-template <typename T>
-__device__ __forceinline__ void row_stats(const T* z, int c, int lane,
-                                          float* m_out, float* s_out) {
-  float m = -INFINITY;
-  for (int j = lane; j < c; j += kWarp) m = fmaxf(m, load_f32(z + j));
-  m = warp_max(m);
-  float s = 0.f;
-  for (int j = lane; j < c; j += kWarp) s += expf(load_f32(z + j) - m);
-  *m_out = m;
-  *s_out = warp_sum(s);
-}
-
-// An unsigned type of kBytes bytes, for one load of a vector.
+// An unsigned type of kBytes bytes, for one load or store of a vector.
 template <int kBytes> struct Raw;
 template <> struct Raw<2> { using type = unsigned short; };
 template <> struct Raw<4> { using type = unsigned; };
@@ -230,6 +227,22 @@ __device__ __forceinline__ void load_vec(const T* p, float* v) {
   }
 }
 
+// V float32 values at p (aligned to their size), each rounded once into T
+// by store_from_f32, in one store through L2: __stcg on the raw vector
+// compiles to one STG.E.64 / STG.E.128, where a plain float4 store was four
+// STG.E in the ingest kernel.
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float* v) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  using R = typename Raw<kBytes>::type;
+  T t[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) store_from_f32(t + e, v[e]);
+  R r;
+  memcpy(&r, t, kBytes);
+  __stcg(reinterpret_cast<R*>(p), r);
+}
+
 // The K vectors first, first + lanes, ... of a row of nvec vectors; -inf
 // past its end (no term of the max).
 template <typename T, int V, int K>
@@ -252,6 +265,20 @@ __device__ __forceinline__ float max_of(const float* v, float m) {
 #pragma unroll
   for (int i = 0; i < N; ++i) m = fmaxf(m, v[i]);
   return m;
+}
+
+// The max and the sum across the G lanes of a row: log2(G) xor-shuffle
+// steps (none at G = 1). Every lane of the warp takes part, those of rows
+// past N too.
+__device__ __forceinline__ float lanes_max(float m, int lanes) {
+  for (int o = lanes >> 1; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o, lanes));
+  return m;
+}
+
+template <typename F>
+__device__ __forceinline__ F lanes_sum(F s, int lanes) {
+  for (int o = lanes >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o, lanes);
+  return s;
 }
 
 // s += exp(v - m) over the K vectors from vector `first` (stride lanes)
@@ -296,8 +323,7 @@ nll_fwd_kernel(const T* __restrict__ logits, const int32_t* __restrict__ labels,
   if constexpr (kHeld > 0) {
     float v[kHeld * V];
     load_vectors<T, V, kHeld>(z, g, lanes, nvec, v);
-    m = max_of<kHeld * V>(v, m);
-    for (int o = lanes >> 1; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o, lanes));
+    m = lanes_max(max_of<kHeld * V>(v, m), lanes);
     add_exps<V, kHeld>(v, m, g, lanes, nvec, y, &s, &picked);
   } else {
     float v[kNllChunk * V];
@@ -306,7 +332,7 @@ nll_fwd_kernel(const T* __restrict__ logits, const int32_t* __restrict__ labels,
       load_vectors<T, V, kNllChunk>(z, first, lanes, nvec, v);
       m = max_of<kNllChunk * V>(v, m);
     }
-    for (int o = lanes >> 1; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o, lanes));
+    m = lanes_max(m, lanes);
     for (int first = g; first < nvec; first += step) {
       load_vectors<T, V, kNllChunk>(z, first, lanes, nvec, v);
       add_exps<V, kNllChunk>(v, m, first, lanes, nvec, y, &s, &picked);
@@ -321,23 +347,92 @@ nll_fwd_kernel(const T* __restrict__ logits, const int32_t* __restrict__ labels,
   if (live && g == 0) out[row] = (logf(s) + m) - picked;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
+// e = exp(v - m) in place over the K vectors from vector `first` (stride
+// lanes) that lie in the row; with kSum, each e also added to the float64
+// *s in register order.
+template <int V, int K, bool kSum>
+__device__ __forceinline__ void exps_in_place(float* v, float m, int first, int lanes,
+                                              int nvec, double* s) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (first + k * lanes < nvec) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        v[k * V + e] = expf(v[k * V + e] - m);
+        if constexpr (kSum) *s += v[k * V + e];
+      }
+    }
+  }
+}
+
+// The gradient (e / s - [col == y])·gi of the K vectors from vector `first`
+// (stride lanes) that lie in the row, e held in registers; one store of V
+// values each.
+template <typename T, int V, int K>
+__device__ __forceinline__ void store_grads(T* out, const float* e, float s, int y, float gi,
+                                            int first, int lanes, int nvec) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = first + k * lanes;
+    if (j < nvec) {
+      float r[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) r[i] = (e[k * V + i] / s - (j * V + i == y ? 1.f : 0.f)) * gi;
+      store_vec<T, V>(out + j * V, r);
+    }
+  }
+}
+
+// The gradient of the per-sample NLL (kernel 2 of the header) with
+// nll_fwd_kernel's layout: G lanes a row, V values a load and a store,
+// kHeld vectors a lane (1, 2, 4 or 8) held in registers, or 0: the share
+// walked in chunks of kNllChunk three times. Σe is summed in float64 and
+// rounded once: the correctly rounded sum in any order of adds, so the
+// gradient does not depend on G.
+template <typename T, int V, int kHeld>
+__global__ void __launch_bounds__(kNllThreads)
 nll_bwd_kernel(const T* __restrict__ logits, const int32_t* __restrict__ labels,
-               const float* __restrict__ g, T* __restrict__ grad, int n, int c) {
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (row >= n) return;
+               const float* __restrict__ g, T* __restrict__ grad, int n, int c, int lanes) {
+  const int shift = __ffs(lanes) - 1;
+  const int row = blockIdx.x * (blockDim.x >> shift) + (threadIdx.x >> shift);
+  const int lane = threadIdx.x & (lanes - 1);
+  const bool in_rows = row < n;  // lanes past N run on: only memory is guarded
+  // As in nll_fwd_kernel, a label outside [0, C) matches no column: it
+  // subtracts nothing.
+  int y = in_rows ? __ldg(labels + row) : -1;
+  if (y >= c) y = -1;
+  const float gi = in_rows ? __ldg(g + row) : 0.f;
+  const int nvec = in_rows ? c / V : 0;
   const size_t off = static_cast<size_t>(row) * c;
   const T* z = logits + off;
-  const int y = labels[row];
-  float m, s;
-  row_stats(z, c, lane, &m, &s);
-  const float gi = g[row];
-  for (int j = lane; j < c; j += kWarp) {
-    const float p = expf(load_f32(z + j) - m) / s;
-    const float onehot = (j == y) ? 1.f : 0.f;
-    store_from_f32(grad + off + j, (p - onehot) * gi);
+  T* out = grad + off;
+  float m = -INFINITY;
+  double s = 0.0;
+  if constexpr (kHeld > 0) {
+    float v[kHeld * V];
+    load_vectors<T, V, kHeld>(z, lane, lanes, nvec, v);
+    m = lanes_max(max_of<kHeld * V>(v, m), lanes);
+    exps_in_place<V, kHeld, true>(v, m, lane, lanes, nvec, &s);
+    const float sum = static_cast<float>(lanes_sum(s, lanes));
+    store_grads<T, V, kHeld>(out, v, sum, y, gi, lane, lanes, nvec);
+  } else {
+    float v[kNllChunk * V];
+    const int step = kNllChunk * lanes;
+    for (int first = lane; first < nvec; first += step) {
+      load_vectors<T, V, kNllChunk>(z, first, lanes, nvec, v);
+      m = max_of<kNllChunk * V>(v, m);
+    }
+    m = lanes_max(m, lanes);
+    for (int first = lane; first < nvec; first += step) {
+      load_vectors<T, V, kNllChunk>(z, first, lanes, nvec, v);
+      exps_in_place<V, kNllChunk, true>(v, m, first, lanes, nvec, &s);
+    }
+    const float sum = static_cast<float>(lanes_sum(s, lanes));
+    for (int first = lane; first < nvec; first += step) {
+      load_vectors<T, V, kNllChunk>(z, first, lanes, nvec, v);
+      exps_in_place<V, kNllChunk, false>(v, m, first, lanes, nvec, nullptr);
+      store_grads<T, V, kNllChunk>(out, v, sum, y, gi, first, lanes, nvec);
+    }
   }
 }
 
@@ -1075,44 +1170,72 @@ IngestFn ingest_fn(bool special, int copy) {
   return special ? ingest_copy_fn<T, 32, 32, 3>(copy) : ingest_copy_fn<T, 0, 0, 0>(copy);
 }
 
+// The two NLL kernels' instantiations: get<V, kHeld>() of each family.
 template <typename T>
-using NllFn = void (*)(const T*, const int32_t*, float*, int, int, int);
+struct NllFwd {
+  using Value = T;
+  using Fn = void (*)(const T*, const int32_t*, float*, int, int, int);
+  template <int V, int kHeld>
+  static Fn get() { return &nll_fwd_kernel<T, V, kHeld>; }
+};
 
-template <typename T, int V>
-NllFn<T> nll_held_fn(int held) {
+template <typename T>
+struct NllBwd {
+  using Value = T;
+  using Fn = void (*)(const T*, const int32_t*, const float*, T*, int, int, int);
+  template <int V, int kHeld>
+  static Fn get() { return &nll_bwd_kernel<T, V, kHeld>; }
+};
+
+template <class K, int V>
+typename K::Fn nll_held_fn(int held) {
   switch (held) {
-    case 1: return &nll_fwd_kernel<T, V, 1>;
-    case 2: return &nll_fwd_kernel<T, V, 2>;
-    case 4: return &nll_fwd_kernel<T, V, 4>;
-    case 8: return &nll_fwd_kernel<T, V, 8>;
-    default: return &nll_fwd_kernel<T, V, 0>;
+    case 1: return K::template get<V, 1>();
+    case 2: return K::template get<V, 2>();
+    case 4: return K::template get<V, 4>();
+    case 8: return K::template get<V, 8>();
+    default: return K::template get<V, 0>();
   }
 }
 
-// The kernel for V values a load (a vector of at most 16 bytes), or null.
-template <typename T>
-NllFn<T> nll_fn(int vec, int held) {
+// The kernel of family K for C values a row, G lanes a row and V values a
+// load (a vector of at most 16 bytes dividing C), or null. A lane holds the
+// fewest of 1, 2, 4, 8 vectors that take its share, or walks it in chunks of
+// kNllChunk (0) past 8.
+template <class K>
+typename K::Fn nll_fn(int c, int lanes, int vec) {
+  if (c % vec != 0) return nullptr;
+  const int share = (c / vec + lanes - 1) / lanes;
+  const int held = share <= 1 ? 1 : share <= 2 ? 2 : share <= 4 ? 4 : share <= kNllChunk ? 8 : 0;
   switch (vec) {
-    case 1: return nll_held_fn<T, 1>(held);
-    case 2: return nll_held_fn<T, 2>(held);
-    case 4: return nll_held_fn<T, 4>(held);
+    case 1: return nll_held_fn<K, 1>(held);
+    case 2: return nll_held_fn<K, 2>(held);
+    case 4: return nll_held_fn<K, 4>(held);
     case 8:
-      if constexpr (sizeof(T) == 2) return nll_held_fn<T, 8>(held);
+      if constexpr (sizeof(typename K::Value) == 2) return nll_held_fn<K, 8>(held);
       return nullptr;
     default: return nullptr;
   }
 }
 
+// Whether (lanes, threads, vec) is a geometry the NLL kernels take for
+// [n, c] rows: see mercury_nll_fwd.
+bool nll_geometry_ok(int n, int c, int lanes, int threads, int vec) {
+  return n >= 1 && c >= 1 && lanes >= 1 && lanes <= kWarp && (lanes & (lanes - 1)) == 0 &&
+         threads >= kWarp && threads <= kNllThreads && threads % kWarp == 0 && vec >= 1 &&
+         (vec & (vec - 1)) == 0;
+}
+
+template <typename T>
+bool vec_aligned(const void* p, int vec) {
+  return (reinterpret_cast<uintptr_t>(p) & (vec * sizeof(T) - 1)) == 0;
+}
+
 template <typename T>
 int launch_nll_fwd(const void* logits, const void* labels, void* out, int n, int c, int lanes,
                    int threads, int vec, cudaStream_t st) {
-  // Vectors a lane holds: the fewest of 1, 2, 4, 8 that take its share, or
-  // 0 (a walk in chunks of kNllChunk) past 8.
-  const int share = (c / vec + lanes - 1) / lanes;
-  const int held = share <= 1 ? 1 : share <= 2 ? 2 : share <= 4 ? 4 : share <= kNllChunk ? 8 : 0;
-  const NllFn<T> fn = nll_fn<T>(vec, held);
-  if (fn == nullptr || c % vec != 0 ||
-      (reinterpret_cast<uintptr_t>(logits) & (vec * sizeof(T) - 1)) != 0)
+  const auto fn = nll_fn<NllFwd<T>>(c, lanes, vec);
+  if (fn == nullptr || !vec_aligned<T>(logits, vec))
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = threads / lanes;
   fn<<<(n + rows - 1) / rows, threads, 0, st>>>(static_cast<const T*>(logits),
@@ -1121,7 +1244,18 @@ int launch_nll_fwd(const void* logits, const void* labels, void* out, int n, int
   return static_cast<int>(cudaGetLastError());
 }
 
-inline int blocks_for_rows(int n) { return (n + kRowsPerBlock - 1) / kRowsPerBlock; }
+template <typename T>
+int launch_nll_bwd(const void* logits, const void* labels, const void* g, void* grad, int n,
+                   int c, int lanes, int threads, int vec, cudaStream_t st) {
+  const auto fn = nll_fn<NllBwd<T>>(c, lanes, vec);
+  if (fn == nullptr || !vec_aligned<T>(logits, vec) || !vec_aligned<T>(grad, vec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = threads / lanes;
+  fn<<<(n + rows - 1) / rows, threads, 0, st>>>(
+      static_cast<const T*>(logits), static_cast<const int32_t*>(labels),
+      static_cast<const float*>(g), static_cast<T*>(grad), n, c, lanes);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -1134,10 +1268,7 @@ extern "C" {
 // has. Any other geometry is refused.
 int mercury_nll_fwd(const void* logits, const void* labels, void* out, int n, int c,
                     int lanes, int threads, int vec, int dtype, void* stream) {
-  const bool ok = n >= 1 && c >= 1 && lanes >= 1 && lanes <= kWarp &&
-                  (lanes & (lanes - 1)) == 0 && threads >= kWarp && threads <= kNllThreads &&
-                  threads % kWarp == 0 && vec >= 1 && (vec & (vec - 1)) == 0;
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!nll_geometry_ok(n, c, lanes, threads, vec)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_nll_fwd<float>(logits, labels, out, n, c, lanes, threads, vec, st);
   if (dtype == 1)
@@ -1145,21 +1276,19 @@ int mercury_nll_fwd(const void* logits, const void* labels, void* out, int n, in
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int mercury_nll_bwd(const void* logits, const void* labels, const void* g, void* grad,
-                    int n, int c, int dtype, void* stream) {
+// grad = (softmax(logits) - onehot(labels))·g in the logits' dtype; g is
+// float32. dtype and the geometry as for mercury_nll_fwd, with vec a width
+// both logits and grad are aligned to: the stores are as wide as the loads.
+int mercury_nll_bwd(const void* logits, const void* labels, const void* g, void* grad, int n,
+                    int c, int lanes, int threads, int vec, int dtype, void* stream) {
+  if (!nll_geometry_ok(n, c, lanes, threads, vec)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    nll_bwd_kernel<float><<<blocks_for_rows(n), kRowThreads, 0, st>>>(
-        static_cast<const float*>(logits), static_cast<const int32_t*>(labels),
-        static_cast<const float*>(g), static_cast<float*>(grad), n, c);
-  } else if (dtype == 1) {
-    nll_bwd_kernel<__nv_bfloat16><<<blocks_for_rows(n), kRowThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(logits), static_cast<const int32_t*>(labels),
-        static_cast<const float*>(g), static_cast<__nv_bfloat16*>(grad), n, c);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch_nll_bwd<float>(logits, labels, g, grad, n, c, lanes, threads, vec, st);
+  if (dtype == 1)
+    return launch_nll_bwd<__nv_bfloat16>(logits, labels, g, grad, n, c, lanes, threads, vec,
+                                         st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The largest cluster size, up to kMaxCluster, that the card can schedule

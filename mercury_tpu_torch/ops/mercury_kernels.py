@@ -14,7 +14,7 @@
 The two selections launch as one thread-block cluster (sm_90a), with the
 geometry of :func:`draw_geometry`; they need no scratch tensor. The ingest
 launches a block per image, with the geometry of :func:`ingest_geometry`.
-The forward NLL gives a row the lanes :func:`nll_geometry` chooses.
+Both NLL kernels give a row the lanes :func:`nll_geometry` chooses.
 
 Each wrapper dispatches on the device of its tensors: a CUDA tensor goes to
 the kernel (built at first use by ``ops/_build.py``), a CPU tensor to the
@@ -184,8 +184,8 @@ def ingest_geometry(n: int, h: int, w: int, c: int, out_itemsize: int, pad: int 
     return IngestGeometry(min(INGEST_THREADS, _round_up(pieces, 32)), band, copy, smem)
 
 
-# The forward NLL kernel's geometry (nll_fwd_kernel), from a sweep on the
-# H100 (PERF.md §6).
+# The NLL kernels' geometry (nll_fwd_kernel, nll_bwd_kernel), from sweeps
+# on the H100 (PERF.md §6).
 NLL_LANE_VECTORS = 2     # most loads a lane issues before a row gets twice the lanes
 NLL_MAX_LANES = 32       # a warp
 NLL_THREADS = 128        # threads a block, unless the rows need fewer (the kernel takes 256)
@@ -212,10 +212,11 @@ def nll_vec(c: int, itemsize: int, align: int = 16) -> int:
 
 
 def nll_geometry(n: int, c: int, itemsize: int, align: int = 16) -> NllGeometry:
-    """Launch geometry of ``nll_fwd`` over ``[n, c]`` logits of ``itemsize``
-    bytes whose pointer is aligned to ``align`` bytes: a grid of ``⌈n /
-    rows⌉`` blocks of ``threads``, row ``b·rows + t // lanes`` to the
-    ``lanes`` threads ``t`` of block ``b`` that share it.
+    """Launch geometry of ``nll_fwd`` and ``nll_bwd`` over ``[n, c]``
+    logits of ``itemsize`` bytes whose pointer (and, for ``nll_bwd``, the
+    gradient's) is aligned to ``align`` bytes: a grid of ``⌈n / rows⌉``
+    blocks of ``threads``, row ``b·rows + t // lanes`` to the ``lanes``
+    threads ``t`` of block ``b`` that share it.
 
     A load takes :func:`nll_vec` values. A row gets the fewest lanes (a
     power of two, at most a warp) that leave a lane at most
@@ -223,7 +224,7 @@ def nll_geometry(n: int, c: int, itemsize: int, align: int = 16) -> NllGeometry:
     ``NLL_THREADS`` threads, or the whole warps that ``n`` rows need where
     that is fewer."""
     if n < 1 or c < 1 or itemsize not in (2, 4):
-        raise ValueError(f"nll_fwd needs n, c >= 1 and a 2- or 4-byte dtype, got "
+        raise ValueError(f"the NLL kernels need n, c >= 1 and a 2- or 4-byte dtype, got "
                          f"{(n, c, itemsize)}")
     vec = nll_vec(c, itemsize, align)
     lanes = 1
@@ -322,7 +323,15 @@ def nll_fwd_kernel(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def nll_bwd_kernel(logits: torch.Tensor, labels: torch.Tensor,
                    g: torch.Tensor) -> torch.Tensor:
-    """Launch ``nll_bwd``: ``(softmax − onehot)·g`` in the logits' dtype."""
+    """Launch ``nll_bwd``: ``(softmax(z_i) − onehot(y_i))·g_i`` of ``[N, C]``
+    f32/bf16 logits, ``[N]`` int32 labels and ``[N]`` float32 ``g``,
+    computed in float32 (``Σexp`` in float64, rounded once: the same for
+    any lane count) and rounded once into the logits' dtype. It has
+    ``nll_fwd``'s geometry (:func:`nll_geometry`), with the widest load both
+    the logits' and the gradient's pointers allow: each row read once into
+    registers, ``exp`` once an element, the gradient written from the
+    registers in stores as wide as the loads. A label outside ``[0, C)``
+    subtracts nothing."""
     from mercury_tpu_torch.ops import _build
 
     _check("logits", logits, tuple(_DTYPE_CODES), 2)
@@ -334,10 +343,12 @@ def nll_bwd_kernel(logits: torch.Tensor, labels: torch.Tensor,
     grad = torch.empty_like(logits)
     if n == 0:
         return grad
+    geo = nll_geometry(n, c, logits.element_size(),
+                       min(_alignment(logits), _alignment(grad)))
     with torch.cuda.device(logits.device):
         err = _build.load().mercury_nll_bwd(
             logits.data_ptr(), labels.data_ptr(), g.data_ptr(), grad.data_ptr(),
-            n, c, _DTYPE_CODES[logits.dtype], _stream(logits))
+            n, c, *geo, _DTYPE_CODES[logits.dtype], _stream(logits))
     _launched("nll_bwd", err)
     return grad
 

@@ -1,6 +1,6 @@
 """Measurements of the selection kernels (``score_and_draw``,
-``table_refresh_draw``), the ingest (``augment_normalize``) and the forward
-NLL (``nll_fwd``) on the card, beside ``chip_smoke.py``.
+``table_refresh_draw``), the ingest (``augment_normalize``) and the NLL
+kernels (``nll_fwd``, ``nll_bwd``) on the card, beside ``chip_smoke.py``.
 
     python3 -m mercury_tpu_torch.ops.select_sweep geometry [--kernels select|ingest|nll]
     python3 -m mercury_tpu_torch.ops.select_sweep ablate [--kernels select|ingest|nll]
@@ -8,18 +8,19 @@ NLL (``nll_fwd``) on the card, beside ``chip_smoke.py``.
 
 - ``geometry``: the selections at chosen (K, threads, run) splits, the
   ingest at chosen (threads, band, copy) splits, at [32], [64] and [320]
-  in f32 and bf16, and ``nll_fwd`` at every (lanes, threads, vec) split
-  (vec the widest load or one value) at [32,10], [64,10], [320,10] and
-  [4096,100] in f32 and bf16, through the C entry points, each checked
-  against the plain version, then timed: the sweeps that chose
-  ``draw_geometry``'s, ``ingest_geometry``'s and ``nll_geometry``'s
-  rules. Then the ingest's ``rows`` form against the ``x[rows]`` gather
+  in f32 and bf16, and ``nll_fwd`` and ``nll_bwd`` at every (lanes,
+  threads, vec) split (vec the widest load or one value) at [32,10],
+  [64,10], [320,10] and [4096,100] in f32 and bf16, through the C entry
+  points, each checked against the plain version, then timed: the sweeps
+  that chose ``draw_geometry``'s, ``ingest_geometry``'s and
+  ``nll_geometry``'s rules. Then the ingest's ``rows`` form against the ``x[rows]`` gather
   followed by the kernel.
 - ``ablate``: copies of ``csrc/mercury_kernels.cu`` with one part left
   out (of the selections: the draws, the cluster exchange; of the
   ingest: the table, the copy, the lookups, the stores, a barrier, all
   past a point; of ``nll_fwd``: all of it, all after the loads, the
-  exponentials), built beside the real one and timed at the default
+  exponentials; of ``nll_bwd``: all of it, all after the loads, the
+  divisions, the float64 sum), built beside the real one and timed at the default
   geometries. Their outputs are wrong by design; only their times are
   read, to see what each part costs.
 - ``compare``: the wrappers of another checkout (``--parent``, e.g. an
@@ -28,10 +29,14 @@ NLL (``nll_fwd``) on the card, beside ``chip_smoke.py``.
   [32], [64] and [320] in f32 and bf16 (without ``rows``, which older
   checkouts lack), the step's ingest of shard rows (``step_ingest``:
   the kernel's own gather where the checkout has ``rows``, else the
-  ``x[rows]`` gather and the kernel), and ``nll_fwd`` at the sweep's
-  four shapes in f32 and bf16 beside ``F.cross_entropy(reduction="none")``,
-  in turns parent, this, this, parent, each in its own process that
-  builds its own kernels.
+  ``x[rows]`` gather and the kernel), and ``nll_fwd`` and ``nll_bwd`` at
+  the sweep's four shapes in f32 and bf16, beside
+  ``F.cross_entropy(reduction="none")`` and the 2 ATen calls of its
+  gradient (:func:`aten_nll_backward`), in turns parent, this, this,
+  parent, each in its own process that builds its own kernels. For
+  ``nll_bwd`` it also counts the gradients outside ``chip_smoke.py``'s
+  tolerance of the plain version over several inputs
+  (:func:`nll_bwd_misses`).
 
 Needs one CUDA card and ``nvcc``. Times are CUDA-graph replays (the median
 of 20 replays of 50 captured calls), printed with the card's name and
@@ -115,6 +120,22 @@ NLL_ABLATIONS = {
                           "      for (int i = 0; i < kHeld * V; ++i) t += v[i];\n"
                           "      if (t == 1234.5f) out[row] = t;\n      return;\n    }\n")],
     "no_exp": [("        *s += expf(x - m);\n", "        *s += x - m;\n")],
+}
+# ... and of nll_bwd: all of it (it returns at entry); all after the row's
+# loads (their values kept alive); the divisions (e·s in place of e / s);
+# the float64 sum of the exponentials (a float32 sum in the lanes' order
+# in its place: what the correctly rounded sum costs).
+NLL_BWD_IN_ROWS = "  const bool in_rows = row < n;  // lanes past N run on: only memory is guarded\n"
+NLL_BWD_LOADED = "    load_vectors<T, V, kHeld>(z, lane, lanes, nvec, v);\n"
+NLL_BWD_ABLATIONS = {
+    "empty": [(NLL_BWD_IN_ROWS, NLL_BWD_IN_ROWS + "  if (n > 0) return;\n")],
+    "stop_after_loads": [(NLL_BWD_LOADED, NLL_BWD_LOADED + "    if (n > 0) {\n"
+                          "      float t = y + gi;\n"
+                          "      for (int i = 0; i < kHeld * V; ++i) t += v[i];\n"
+                          "      if (t == 1234.5f) store_from_f32(out, t);\n      return;\n    }\n")],
+    "no_division": [("r[i] = (e[k * V + i] / s - ", "r[i] = (e[k * V + i] * s - ")],
+    "float32_sum": [("int nvec, double* s) {", "int nvec, float* s) {"),
+                    ("  double s = 0.0;\n", "  float s = 0.f;\n")],
 }
 
 
@@ -305,17 +326,87 @@ def nll_inputs(torch, n: int, c: int, dtype, seed: int = 0):
     return z, y
 
 
-def nll_launcher(torch, lib, z, y, out, geo):
+def nll_launcher(torch, lib, z, y, out, geo, g=None):
     """A call of ``lib``'s ``nll_fwd`` entry point at geometry ``geo``
-    (lanes, threads, vec) into ``out``."""
+    (lanes, threads, vec) into ``out``; of ``nll_bwd`` with ``g``."""
     n, c = z.shape
     dtype = 0 if z.dtype == torch.float32 else 1
 
     def call():
-        err = lib.mercury_nll_fwd(z.data_ptr(), y.data_ptr(), out.data_ptr(), n, c, *geo,
-                                  dtype, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if g is None:
+            err = lib.mercury_nll_fwd(z.data_ptr(), y.data_ptr(), out.data_ptr(), n, c, *geo,
+                                      dtype, stream)
+        else:
+            err = lib.mercury_nll_bwd(z.data_ptr(), y.data_ptr(), g.data_ptr(), out.data_ptr(),
+                                      n, c, *geo, dtype, stream)
         if err != 0:
             raise RuntimeError(f"launch refused: cudaError {err} at {geo}")
+
+    return call
+
+
+def nll_bwd_inputs(torch, n: int, seed: int = 1):
+    """``[n]`` float32 g_i in [0.1, 1.1) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand(n, generator=g, device="cuda") + 0.1
+
+
+def nll_bwd_tol(dtype) -> dict:
+    """nll_bwd against the plain version, as ``chip_smoke.py`` holds it: f32
+    to ~1 ulp of softmax; bf16 output rounds once more (2^-8 relative: one
+    bf16 ulp at the top of a binade, half of one at its bottom)."""
+    import torch
+
+    return (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
+            else dict(rtol=2 ** -8, atol=1e-6))
+
+
+def bf16_ulps(torch, got, want):
+    """|got − want| in bf16 ulps of ``want`` (float32), for a bf16 ``got``."""
+    _, e = torch.frexp(want.abs())
+    return (got.float() - want).abs() / torch.ldexp(torch.ones_like(want), e - 8)
+
+
+# Inputs over which `compare` counts nll_bwd's gradients outside
+# nll_bwd_tol() of the plain version, at each shape and dtype.
+NLL_MISS_SEEDS = 16
+
+
+def nll_bwd_misses(torch, mk, reference, n: int, c: int, dtype) -> int:
+    """Gradients of ``mk.nll_bwd_kernel`` outside :func:`nll_bwd_tol` of
+    ``reference.nll_backward``, summed over ``NLL_MISS_SEEDS`` inputs drawn
+    as ``chip_smoke.py`` draws them. In bf16, a gradient whose float32
+    value lies near a rounding midpoint rounds the other way when the
+    kernel's Σexp and the plain version's differ by an ulp: one bf16 ulp,
+    outside 2^-8 relative in the lower half of a binade."""
+    misses = 0
+    for seed in range(NLL_MISS_SEEDS):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        z = (torch.randn(n, c, generator=gen, device="cuda") * 3).to(dtype)
+        y = torch.randint(0, c, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        g = torch.rand(n, generator=gen, device="cuda") + 0.1
+        got = mk.nll_bwd_kernel(z, y, g).float()
+        want = reference.nll_backward(z, y, g).float()
+        misses += int((~torch.isclose(got, want, **nll_bwd_tol(dtype))).sum())
+    return misses
+
+
+def aten_nll_backward(torch, z, y64, g):
+    """The 2 ATen calls that PyTorch's autograd of ``F.cross_entropy(z, y,
+    reduction="none")`` runs for the gradient of ``[N, C]`` logits ``z``
+    (``nll_loss_backward``, then ``_log_softmax_backward_data``), as one
+    call. ``log_softmax(z)`` and the forward's total weight are made here,
+    outside the call: the yardstick of ``nll_bwd``, used nowhere in the
+    port."""
+    logp = torch.nn.functional.log_softmax(z, 1)
+    gz = g.to(z.dtype)
+    total = torch.ops.aten.nll_loss_forward(logp, y64, None, 0, -100)[1]
+
+    def call():
+        return torch.ops.aten._log_softmax_backward_data(
+            torch.ops.aten.nll_loss_backward(gz, logp, y64, None, 0, -100, total),
+            logp, 1, z.dtype)
 
     return call
 
@@ -326,37 +417,60 @@ def nll_geometry_mode(torch, card: str):
 
     lib = _build.load()
     rows = []
-    for n, c in NLL_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            z, y = nll_inputs(torch, n, c, dtype)
-            want = reference.nll_forward(z, y)
-            out = torch.empty_like(want)
-            for vec in sorted({1, mk.nll_vec(c, z.element_size())}):
-                for lanes in NLL_LANES:
-                    for threads in NLL_THREADS:
-                        geo = mk.NllGeometry(lanes, threads, vec)
-                        call = nll_launcher(torch, lib, z, y, out, geo)
-                        out.fill_(float("nan"))
-                        call()
-                        torch.cuda.synchronize()
-                        assert torch.allclose(out, want, rtol=1e-5, atol=1e-5), \
-                            f"nll_fwd [{n},{c}] {dtype} at {geo}"
-                        us = graph_us(torch, call)
-                        name = str(dtype)[6:]
-                        print(f"nll_fwd [{n},{c}] {name} lanes={lanes} threads={threads} "
-                              f"vec={vec}: {us:.3f} us [{card}]", flush=True)
-                        rows.append(dict(kernel="nll_fwd", n=n, c=c, dtype=name, lanes=lanes,
-                                         threads=threads, vec=vec, us=us))
+    for kernel in ("nll_fwd", "nll_bwd"):
+        for n, c in NLL_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                z, y = nll_inputs(torch, n, c, dtype)
+                if kernel == "nll_fwd":
+                    g = None
+                    want = reference.nll_forward(z, y)
+                else:
+                    # Held against the plain version's float32 gradient: in
+                    # bf16 a split that sums in another order may round a
+                    # value the other way, one ulp (counted as `flips`).
+                    g = nll_bwd_inputs(torch, n)
+                    want = reference.nll_backward(z.float(), y, g)
+                out = torch.empty(want.shape, dtype=z.dtype if g is not None else want.dtype,
+                                  device=z.device)
+                for vec in sorted({1, mk.nll_vec(c, z.element_size())}):
+                    for lanes in NLL_LANES:
+                        for threads in NLL_THREADS:
+                            geo = mk.NllGeometry(lanes, threads, vec)
+                            call = nll_launcher(torch, lib, z, y, out, geo, g)
+                            out.fill_(float("nan"))
+                            call()
+                            torch.cuda.synchronize()
+                            flips = 0
+                            if g is not None and dtype == torch.bfloat16:
+                                ulps = bf16_ulps(torch, out, want)
+                                assert bool((ulps <= 1).all()), f"{kernel} [{n},{c}] at {geo}"
+                                tol = nll_bwd_tol(dtype)
+                                flips = int((~torch.isclose(out.float(), want.to(dtype).float(),
+                                                            **tol)).sum())
+                            else:
+                                tol = (nll_bwd_tol(dtype) if g is not None
+                                       else dict(rtol=1e-5, atol=1e-5))
+                                assert torch.allclose(out, want, **tol), \
+                                    f"{kernel} [{n},{c}] {dtype} at {geo}"
+                            us = graph_us(torch, call)
+                            name = str(dtype)[6:]
+                            print(f"{kernel} [{n},{c}] {name} lanes={lanes} threads={threads} "
+                                  f"vec={vec}: {us:.3f} us [{card}]"
+                                  + (f" ({flips} bf16 flips)" if flips else ""), flush=True)
+                            rows.append(dict(kernel=kernel, n=n, c=c, dtype=name, lanes=lanes,
+                                             threads=threads, vec=vec, us=us, flips=flips))
     return rows
 
 
-def build_variants(cuts_by_name):
+def build_variants(table: str, cuts_by_name):
     """Copies of ``csrc/mercury_kernels.cu``, the full one and one with each
-    entry's cuts made, built side by side with ``nvcc``; their libraries."""
+    entry's cuts made, built side by side with ``nvcc`` in a directory of
+    their ``table``'s own; their libraries. (Tables share variant names, and
+    ``dlopen`` of a path already loaded returns the library loaded first.)"""
     from mercury_tpu_torch.ops import _build
 
     src = (_build.CSRC / "mercury_kernels.cu").read_text()
-    build = _build.BUILD_DIR / "ablate"
+    build = _build.BUILD_DIR / "ablate" / table
     build.mkdir(parents=True, exist_ok=True)
     variants = {"full": src}
     for name, cuts in cuts_by_name.items():
@@ -389,7 +503,7 @@ def ablate_mode(torch, card: str, kernels: str):
 
     rows = []
     if kernels in ("all", "select"):
-        libs = build_variants(ABLATIONS)
+        libs = build_variants("select", ABLATIONS)
         for n in SIZES:
             for table in (False, True):
                 geo = mk.draw_geometry(n, 64 if table else None, max_cluster=mk.cluster_limit())
@@ -403,7 +517,7 @@ def ablate_mode(torch, card: str, kernels: str):
                     rows.append(dict(kernel=kernel, n=n, clusters=geo.clusters, variant=name,
                                      us=us))
     if kernels in ("all", "ingest"):
-        libs = build_variants(INGEST_ABLATIONS)
+        libs = build_variants("ingest", INGEST_ABLATIONS)
         for n in INGEST_SIZES:
             raw, mean, std, crop, flip, _ = ingest_inputs(torch, n)
             raw = raw[:n]
@@ -418,20 +532,22 @@ def ablate_mode(torch, card: str, kernels: str):
                     rows.append(dict(kernel="augment_normalize", n=n, threads=threads,
                                      band=band, copy=copy, variant=name, us=us))
     if kernels in ("all", "nll"):
-        libs = build_variants(NLL_ABLATIONS)
-        for n, c in NLL_SHAPES:
-            for dtype in (torch.float32, torch.bfloat16):
-                z, y = nll_inputs(torch, n, c, dtype)
-                out = torch.empty(n, device=z.device)
-                geo = mk.nll_geometry(n, c, z.element_size())
-                for name, lib in libs.items():
-                    us = graph_us(torch, nll_launcher(torch, lib, z, y, out, geo))
-                    print(f"nll_fwd [{n},{c}] {str(dtype)[6:]} lanes={geo.lanes} "
-                          f"threads={geo.threads} vec={geo.vec} {name}: {us:.3f} us [{card}]",
-                          flush=True)
-                    rows.append(dict(kernel="nll_fwd", n=n, c=c, dtype=str(dtype)[6:],
-                                     lanes=geo.lanes, threads=geo.threads, vec=geo.vec,
-                                     variant=name, us=us))
+        for kernel, cuts in (("nll_fwd", NLL_ABLATIONS), ("nll_bwd", NLL_BWD_ABLATIONS)):
+            libs = build_variants(kernel, cuts)
+            for n, c in NLL_SHAPES:
+                for dtype in (torch.float32, torch.bfloat16):
+                    z, y = nll_inputs(torch, n, c, dtype)
+                    g = nll_bwd_inputs(torch, n) if kernel == "nll_bwd" else None
+                    out = torch.empty(n, device=z.device) if g is None else torch.empty_like(z)
+                    geo = mk.nll_geometry(n, c, z.element_size())
+                    for name, lib in libs.items():
+                        us = graph_us(torch, nll_launcher(torch, lib, z, y, out, geo, g))
+                        print(f"{kernel} [{n},{c}] {str(dtype)[6:]} lanes={geo.lanes} "
+                              f"threads={geo.threads} vec={geo.vec} {name}: {us:.3f} us "
+                              f"[{card}]", flush=True)
+                        rows.append(dict(kernel=kernel, n=n, c=c, dtype=str(dtype)[6:],
+                                         lanes=geo.lanes, threads=geo.threads, vec=geo.vec,
+                                         variant=name, us=us))
     return rows
 
 
@@ -439,6 +555,7 @@ def wrappers_mode(torch, card: str, kernels: str):
     """This process's checkout's wrappers (the same API in every version of
     the port) at the paths' shapes, the selections also at 50,000."""
     from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.ops import reference
 
     rows = []
     for n in SIZES if kernels in ("all", "select") else ():
@@ -472,11 +589,18 @@ def wrappers_mode(torch, card: str, kernels: str):
         for dtype in (torch.float32, torch.bfloat16):
             z, y = nll_inputs(torch, n, c, dtype)
             y64 = y.long()
+            g = nll_bwd_inputs(torch, n)
             rows.append(dict(
                 kernel="nll_fwd", n=n, c=c, dtype=str(dtype)[6:],
                 us=graph_us(torch, lambda: mk.nll_fwd_kernel(z, y)),
                 library_us=graph_us(torch, lambda: torch.nn.functional.cross_entropy(
-                    z, y64, reduction="none"))))
+                    z, y64, reduction="none")), library='F.cross_entropy(reduction="none")'))
+            rows.append(dict(
+                kernel="nll_bwd", n=n, c=c, dtype=str(dtype)[6:],
+                us=graph_us(torch, lambda: mk.nll_bwd_kernel(z, y, g)),
+                library_us=graph_us(torch, aten_nll_backward(torch, z, y64, g)),
+                library="2 ATen calls",
+                misses=nll_bwd_misses(torch, mk, reference, n, c, dtype)))
     return rows
 
 
@@ -495,7 +619,10 @@ def compare_mode(parent: Path, card: str, kernels: str):
             print(f"{label:>6} {row['kernel']} n={row['n']}"
                   + (f" c={row['c']}" if "c" in row else "")
                   + f" {row.get('dtype', '')}: {row['us']:.3f} us"
-                  + (f", library {row['library_us']:.3f} us" if "library_us" in row else "")
+                  + (f", library {row['library_us']:.3f} us ({row['library']})"
+                     if "library_us" in row else "")
+                  + (f", {row['misses']} gradients outside the smoke's tolerance over "
+                     f"{NLL_MISS_SEEDS} inputs" if "misses" in row else "")
                   + f" [{card}]", flush=True)
         runs.append(dict(label=label, rows=rows))
     return runs

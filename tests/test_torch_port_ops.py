@@ -239,6 +239,10 @@ class TestDispatch:
         names = [p.split()[-1].lstrip("*") for p in decls["mercury_nll_fwd"].split(",")]
         assert names == ["logits", "labels", "out", "n", "c", *mk.NllGeometry._fields,
                          "dtype", "stream"]
+        # ... and so does nll_bwd, after g and the gradient it writes.
+        names = [p.split()[-1].lstrip("*") for p in decls["mercury_nll_bwd"].split(",")]
+        assert names == ["logits", "labels", "g", "grad", "n", "c", *mk.NllGeometry._fields,
+                         "dtype", "stream"]
         # The ingest takes the rows it gathers and their count M, then the
         # geometry of ingest_geometry() in the order the wrapper passes it.
         names = [p.split()[-1].lstrip("*") for p in decls["mercury_augment_normalize"].split(",")]
