@@ -32,7 +32,16 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    fused_input=True`` (a table over the 5000-image shard, a refresh window
    of 64, batch 32, every ingest through the fused kernel) for 30 steps,
    with its own launch counts, the cursor's advance and a kernel step
-   against a plain step.
+   against a plain step;
+6. drives the default pool configuration at ``world_size=2``: two ranks,
+   one process each, in a gloo process group, both on card 0
+   (``parallel.distributed.spawn``), batch 32 and a pool of 320 a rank,
+   synced BN, 3 + 10 steps. Each rank must launch the kernels as often a
+   step as phase 4 did and issue 3·20 + 4 all-reduces a step, and match a
+   plain step with a kernel step; after the steps the two replicas'
+   parameters, Adam state and BN running statistics must be bit-equal.
+   Each rank's steps/s is printed: two ranks sharing one card over gloo,
+   not a data-parallel rate.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -62,6 +71,8 @@ FP32_OPS_PER_S = 67e12
 
 MAIN_STEPS = 30
 WARMUP_STEPS = 3
+TWO_RANKS = 2
+TWO_RANK_STEPS = 10   # timed steps a rank in phase 6
 TIMED_CALLS = 50      # kernel calls captured in one CUDA graph
 TIMED_REPLAYS = 20    # replays of that graph, median taken
 SOURCE = "mercury_tpu_torch/ops/csrc/mercury_kernels.cu"
@@ -110,9 +121,11 @@ def main() -> int:
     kernels, cases = run_phase("kernels", kernel_phase, torch, card)
     main_path = run_phase("main path", main_path_phase, torch, card)
     table_path = run_phase("scoretable path", scoretable_path_phase, torch, card)
+    two_ranks = run_phase("two ranks", two_rank_phase, torch, card, main_path)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
-                   "scoretable": table_path["launches"][k["name"]]}
+                   "scoretable": table_path["launches"][k["name"]],
+                   "two_ranks": two_ranks["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -121,7 +134,8 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": kernels, "cases": cases,
-         "main_path": main_path["summary"], "scoretable_path": table_path["summary"]},
+         "main_path": main_path["summary"], "scoretable_path": table_path["summary"],
+         "two_ranks": two_ranks["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -243,11 +257,11 @@ def kernel_phase(torch, card: str):
     # order; losses are O(10). The pool's scores [320, 10], the train batch
     # [32, 10], the scoretable window [64, 10], and a CIFAR-100-sized call.
     fwd_tol = dict(rtol=1e-5, atol=1e-5)
-    # nll_bwd: f32 to ~1 ulp of softmax; bf16 output rounds once more
-    # (2^-8 relative: one bf16 ulp at the top of a binade, half of one at
-    # its bottom).
-    bwd_tol = {torch.float32: dict(rtol=1e-5, atol=1e-6),
-               torch.bfloat16: dict(rtol=2 ** -8, atol=1e-6)}
+    # nll_bwd (check_bwd): f32 to ~1 ulp of softmax, rtol 1e-5, atol 1e-6;
+    # bf16 to one bf16 ulp of the plain version's float32 gradient before
+    # its cast. The kernel sums Σexp in float64, the plain version in
+    # float32, so a value near a rounding midpoint may round the other way:
+    # one ulp from the plain bf16 gradient, counted as `one_ulp`.
     for n, c, dtype in [(320, 10, torch.float32), (32, 10, torch.float32),
                         (64, 10, torch.float32), (4096, 100, torch.float32),
                         (320, 10, torch.bfloat16), (32, 10, torch.bfloat16),
@@ -275,18 +289,20 @@ def kernel_phase(torch, card: str):
         flat = (torch.randn(n * c + off, generator=rng, device=dev) * 3).to(dtype)
         z = flat[off:].view(n, c)
         y = torch.randint(-1, c + 1, (n,), generator=rng, device=dev, dtype=torch.int32)
+        one_ulp = None
         if kernel == "nll_fwd":
             err = within(mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y), **fwd_tol)
         else:
             g = torch.rand(n, generator=rng, device=dev) + 0.1
-            err = within(mk.nll_bwd_kernel(z, y, g), reference.nll_backward(z, y, g),
-                         **bwd_tol[dtype])
+            err, one_ulp = check_bwd(torch, reference, f"nll_bwd odd [{n},{c}]",
+                                     mk.nll_bwd_kernel(z, y, g), z, y, g)
         geo = mk.nll_geometry(n, c, z.element_size(), mk._alignment(z))
         print(f"{kernel} [{n},{c}] {str(dtype)[6:]} pointer +{off * z.element_size()} B, labels "
               f"in [-1, C]: lanes={geo.lanes} threads={geo.threads} vec={geo.vec}, "
-              f"max|err| {err:.2e}")
+              f"max|err| {err:.2e}" + ("" if one_ulp is None else f", {one_ulp} one-ulp"))
         return dict(kernel=kernel, shape=[n, c], dtype=str(dtype)[6:], offset=off,
-                    lanes=geo.lanes, threads=geo.threads, vec=geo.vec, max_abs_err=err)
+                    lanes=geo.lanes, threads=geo.threads, vec=geo.vec, max_abs_err=err,
+                    one_ulp=one_ulp)
 
     # Untimed: non-finite rows; shapes that take one value a load (C odd, a
     # pointer one element off), the widest loads, many lanes a row, and rows
@@ -311,14 +327,15 @@ def kernel_phase(torch, card: str):
                              (bwd_gen, 320, 10, torch.bfloat16)]:
         z, y = logits_case(n, c, dtype, rng)
         g = torch.rand(n, generator=rng, device=dev) + 0.1
-        tol = bwd_tol[dtype]
         got = mk.nll_bwd_kernel(z, y, g)
         check(got.dtype == dtype, f"nll_bwd returned {got.dtype}, not {dtype}")
-        err = within(got, reference.nll_backward(z, y, g), **tol)
+        err, one_ulp = check_bwd(torch, reference, f"nll_bwd [{n},{c}]", got, z, y, g)
         geo = mk.nll_geometry(n, c, z.element_size())
         case = dict(kernel="nll_bwd", shape=[n, c], dtype=str(dtype)[6:],
                     lanes=geo.lanes, threads=geo.threads, vec=geo.vec,
-                    max_abs_err=err, tol=tol,
+                    max_abs_err=err, one_ulp=one_ulp,
+                    tol="rtol 1e-5, atol 1e-6" if dtype == torch.float32
+                    else "one bf16 ulp of the plain float32 gradient",
                     ms=graph_ms(torch, lambda: mk.nll_bwd_kernel(z, y, g)),
                     eager_ms=eager_ms(torch, lambda: mk.nll_bwd_kernel(z, y, g)),
                     plain_ms=graph_ms(torch, lambda: reference.nll_backward(z, y, g)),
@@ -332,7 +349,7 @@ def kernel_phase(torch, card: str):
     # shapes, the logits' pointer 4 bytes off in bf16 and a [64, 100] row
     # of single loads (the stores narrow too; the fresh gradient is
     # aligned, so the two kernels take one geometry).
-    nll_checks += [check_nonfinite(torch, mk, reference, "nll_bwd", dtype, c, bwd_tol[dtype])
+    nll_checks += [check_nonfinite(torch, mk, reference, "nll_bwd", dtype, c, None)
                    for dtype in (torch.float32, torch.bfloat16) for c in (10, 100)]
     nll_checks += [odd_case("nll_bwd", bwd_gen, *shape)
                    for shape in odd_shapes + [(64, 10, torch.bfloat16, 2),
@@ -391,6 +408,7 @@ def kernel_phase(torch, card: str):
               + (f" lanes={c['lanes']} threads={c['threads']} vec={c['vec']}"
                  if "lanes" in c else "")
               + f": max|err| {c['max_abs_err']:.2e}"
+              + (f", {c['one_ulp']} one-ulp" if c.get("one_ulp") is not None else "")
               + (f", {c['in_band']} u in band {c['band']:.1e}, "
                  f"{c['mismatches']} index mismatches" if "band" in c else "")
               + f"; kernel {c['ms'] * 1e3:.2f} us (eager {c['eager_ms'] * 1e3:.2f} us), "
@@ -435,7 +453,8 @@ def check_nonfinite(torch, mk, reference, kernel: str, dtype, c: int, tol):
     a finite gradient row), −inf on the label (+inf; −g_i there), +inf and
     NaN (NaN; NaN rows), an all −inf row (NaN), a label outside [0, C) (the
     logsumexp; nothing subtracted), then finite rows. NaN must fall on NaN
-    and an infinity on the same infinity; finite values within ``tol``."""
+    and an infinity on the same infinity; finite values within ``tol``
+    (nll_fwd) or as :func:`check_bwd` holds them (nll_bwd)."""
     dev = torch.device("cuda")
     n = 40
     gen = torch.Generator(device=dev).manual_seed(c)
@@ -471,11 +490,35 @@ def check_nonfinite(torch, mk, reference, kernel: str, dtype, c: int, tol):
               and float(got[1, 2]) == -float(g[1].to(dtype)),
               f"{what}: rows 2-4 not all NaN, or row 1 at its label {float(got[1, 2])}")
     fin = ~(nan | inf)
-    err = within(got[fin], want[fin], **tol)
+    one_ulp = None
+    if kernel == "nll_fwd":
+        err = within(got[fin], want[fin], **tol)
+    else:
+        err, one_ulp = check_bwd(torch, reference, what, got[fin], z, y, g, fin)
     print(f"{kernel} non-finite rows, {str(dtype)[6:]} C={c}: NaN rows {nan_rows}, inf rows "
-          f"{inf_rows} on both sides; finite max|err| {err:.2e}")
+          f"{inf_rows} on both sides; finite max|err| {err:.2e}"
+          + ("" if one_ulp is None else f", {one_ulp} one-ulp"))
     return dict(kernel=kernel, shape=[n, c], dtype=str(dtype)[6:], nonfinite=True,
-                max_abs_err=err, nan_rows=nan_rows, inf_rows=inf_rows)
+                max_abs_err=err, nan_rows=nan_rows, inf_rows=inf_rows, one_ulp=one_ulp)
+
+
+def check_bwd(torch, reference, what: str, got, z, y, g, mask=None):
+    """nll_bwd's gradient ``got`` of ``(z, y, g)`` (its elements at
+    ``mask``) against the plain version (``select_sweep.nll_bwd_misfits``):
+    f32 within rtol 1e-5, atol 1e-6; bf16 within one bf16 ulp of the plain
+    version's float32 gradient before its cast. Returns the max |err| and,
+    for bf16, the count of elements one ulp from the plain bf16 gradient."""
+    from mercury_tpu_torch.ops.select_sweep import nll_bwd_misfits
+
+    want = reference.nll_backward(z, y, g)
+    want32 = None if z.dtype == torch.float32 else reference.nll_backward(z.float(), y, g)
+    if mask is not None:
+        want = want[mask]
+        want32 = None if want32 is None else want32[mask]
+    misfits, one_ulp, err = nll_bwd_misfits(torch, got, want, want32)
+    check(misfits == 0, f"{what} {z.dtype}: {misfits} gradients outside the limit "
+          f"(max|err| {err:.3e})")
+    return err, (None if want32 is None else one_ulp)
 
 
 def draw_case(torch, mk, reference, gen, n: int, b: int, skew):
@@ -686,13 +729,13 @@ def augment_case(torch, mk, reference, gen, n: int, dtype, every_offset: bool = 
 
 
 # ------------------------------------------------------------------ phase 4
-def timed_steps(torch, mk, trainer):
-    """MAIN_STEPS steps with the launch counts zeroed just before and read
+def timed_steps(torch, mk, trainer, steps: int = MAIN_STEPS):
+    """``steps`` steps with the launch counts zeroed just before and read
     just after; host clock around work that ends in a synchronize."""
     mk.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses = [trainer.train_step()["train/loss"] for _ in range(MAIN_STEPS)]
+    losses = [trainer.train_step()["train/loss"] for _ in range(steps)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(mk.launch_counts)
@@ -701,7 +744,8 @@ def timed_steps(torch, mk, trainer):
     return dt, counts, losses
 
 
-def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3):
+def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3,
+                         any_rank=bool, quiet: bool = False):
     """One step from the same state and draws, kernels against plain
     versions on the card. The bf16 forwards are the same calls on the same
     inputs on both sides; the f32 NLL and draw arithmetic differ in the last
@@ -709,7 +753,9 @@ def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3):
     differ only as :func:`check_draws` allows (a uniform in the boundary
     band of the CDF, likelier over a table of thousands than over a pool of
     320); then the losses differ too, and the step is repeated from the same
-    state with fresh draws. One of ``attempts`` must draw the same batch."""
+    state with fresh draws. One of ``attempts`` must draw the same batch.
+    At two ranks ``any_rank`` tells whether a draw differed on any rank, so
+    the ranks repeat (and issue their collectives) together."""
     from mercury_tpu_torch.train.step import make_draws
 
     state = trainer.state
@@ -725,7 +771,7 @@ def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3):
             _, _, differ = check_draws(torch, "kernel step vs plain step",
                                        p_m["sampler/probs"], draws.uniforms.reshape(-1),
                                        k_m["sampler/selected"], p_m["sampler/selected"])
-            if not bool(differ.any()):
+            if not any_rank(bool(differ.any())):
                 break
             band_misses += 1
         else:
@@ -739,21 +785,23 @@ def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3):
         step_err[key] = abs(a - b)
         check(math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b),
               f"{key}: kernel step {a!r}, plain step {b!r}")
-    print(f"kernel step vs plain step: |d loss| {step_err['train/loss']:.2e}, "
-          f"|d pool_loss| {step_err['train/pool_loss']:.2e}, same draws "
-          f"({band_misses} earlier tries differed inside the boundary band)")
+    if not quiet:
+        print(f"kernel step vs plain step: |d loss| {step_err['train/loss']:.2e}, "
+              f"|d pool_loss| {step_err['train/pool_loss']:.2e}, same draws "
+              f"({band_misses} earlier tries differed inside the boundary band)")
     return step_err
 
 
-def build_trainer(torch, config):
+def build_trainer(torch, config, quiet: bool = False):
     from mercury_tpu_torch import Trainer
 
     t0 = time.perf_counter()
     trainer = Trainer(config)
     n_params = sum(p.numel() for p in trainer.state.model.parameters())
     check(n_params == 11_173_962, f"ResNet-18 has {n_params} parameters")
-    print(f"Trainer built in {time.perf_counter() - t0:.1f} s on "
-          f"{trainer.device}: ResNet-18, {n_params} parameters")
+    if not quiet:
+        print(f"Trainer built in {time.perf_counter() - t0:.1f} s on "
+              f"{trainer.device}: ResNet-18, {n_params} parameters")
     return trainer
 
 
@@ -860,6 +908,122 @@ def scoretable_path_phase(torch, card: str):
                         "launches": counts, "first_loss": losses[0].item(),
                         "last_loss": losses[-1].item(), "kernel_vs_plain": step_err,
                         "cursor": [cursor, table.cursor], "card": card}}
+
+
+# ------------------------------------------------------------------ phase 6
+def two_rank_phase(torch, card: str, main_path):
+    """The default pool configuration at ``world_size=2``: two gloo ranks,
+    both on card 0 (NCCL refuses two ranks on one card), started by
+    ``parallel.distributed.spawn``; :func:`two_rank_body` is each rank's
+    part. Checks that each rank launches the main path's kernels as often
+    a step as phase 4 did, that a kernel step matches a plain step on each
+    rank, and that the two replicas (parameters, Adam state, BN running
+    statistics) are bit-equal after the steps."""
+    from mercury_tpu_torch.parallel.distributed import spawn
+
+    per_step = {k: v // MAIN_STEPS for k, v in main_path["launches"].items()}
+    ranks = spawn(two_rank_body, TWO_RANKS, "gloo", per_step,
+                  devices=[0] * TWO_RANKS, timeout_s=600)
+    r0, r1 = ranks
+    for key in ("params", "adam", "running_stats"):
+        differ = sorted(k for k in r0[key] if r0[key][k] != r1[key].get(k))
+        check(r0[key].keys() == r1[key].keys() and not differ,
+              f"two ranks: {key} not bit-equal after the steps: {differ[:5]}")
+    for r in ranks:
+        e = r["kernel_vs_plain"]
+        print(f"rank {r['rank']}: {TWO_RANK_STEPS} steps in {r['seconds']:.3f} s = "
+              f"{r['steps_per_s']:.2f} steps/s, two ranks sharing one card over gloo "
+              f"(not a data-parallel rate) [{card}]")
+        print(f"  losses: first {r['losses'][0]:.4f}, last {r['losses'][-1]:.4f}; launches "
+              f"{r['launches']}; {r['all_reduces_per_step']} all-reduces a step taking "
+              f"{r['all_reduce_ms_per_step']:.2f} ms of host time, "
+              f"{r['gradient_bucket_ms_per_step']:.2f} ms of it the gradient bucket "
+              f"({r['gradient_bucket_elements']} floats); kernel step vs plain step "
+              f"|d loss| {e['train/loss']:.2e}, |d pool_loss| {e['train/pool_loss']:.2e} "
+              f"({e['band_misses']} band retries)")
+    print(f"replicas bit-equal after the steps: {len(r0['params'])} parameters, "
+          f"{len(r0['adam'])} Adam tensors, {len(r0['running_stats'])} running statistics")
+    launches = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+    return {"launches": launches,
+            "summary": {"ranks": TWO_RANKS, "backend": "gloo", "steps": TWO_RANK_STEPS,
+                        "card": card, "per_rank": [
+                            {k: r[k] for k in ("rank", "seconds", "steps_per_s", "launches",
+                                               "losses", "all_reduces_per_step",
+                                               "all_reduce_ms_per_step",
+                                               "gradient_bucket_ms_per_step",
+                                               "kernel_vs_plain")} for r in ranks]}}
+
+
+def two_rank_body(per_step):
+    """One rank of phase 6 (run by ``spawn``; prints nothing): the default
+    pool config at W=2 on this rank's shard, WARMUP_STEPS then
+    TWO_RANK_STEPS timed steps with the launch counts and all-reduces
+    counted, one kernel step against a plain step, and digests of the
+    replica."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.models.resnet import BatchNorm
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.collectives import allreduce_sum
+
+    config = TrainConfig(model="resnet18", dataset="synthetic", world_size=TWO_RANKS)
+    check(config.batch_norm == "sync" and config.candidate_pool_size == 320
+          and config.batch_size == 32 and config.compute_dtype == "bfloat16"
+          and config.sampler == "pool" and config.data_placement == "replicated",
+          f"unexpected two-rank config {config}")
+    trainer = build_trainer(torch, config, quiet=True)
+    rank = trainer.rank
+    trainer.fit(WARMUP_STEPS)
+    calls = []  # (elements, host seconds) of each all-reduce: gloo returns when done
+    all_reduce = dist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = all_reduce(tensor, *args, **kwargs)
+        calls.append((tensor.numel(), time.perf_counter() - t0))
+        return out
+
+    dist.all_reduce = counted
+    try:
+        dt, counts, losses = timed_steps(torch, mk, trainer, TWO_RANK_STEPS)
+    finally:
+        dist.all_reduce = all_reduce
+    want = {k: v * TWO_RANK_STEPS for k, v in per_step.items()}
+    check(counts == want, f"rank {rank}: launch counts {counts}, expected {want}")
+    n_bn = sum(isinstance(m, BatchNorm) for m in trainer.state.model.modules())
+    per_step_calls = len(calls) / TWO_RANK_STEPS
+    check(per_step_calls == 3 * n_bn + 4,
+          f"rank {rank}: {per_step_calls} all-reduces a step, expected 3·{n_bn} + 4")
+
+    def any_rank(flag: bool) -> bool:
+        return bool(allreduce_sum(torch.tensor(float(flag), device=trainer.device)) > 0)
+
+    step_err = kernel_vs_plain_step(torch, trainer, config, any_rank=any_rank, quiet=True)
+    torch.cuda.synchronize()
+
+    def digest(t) -> str:
+        return hashlib.sha256(t.detach().reshape(-1).cpu().view(torch.uint8)
+                              .numpy().tobytes()).hexdigest()
+
+    model = trainer.state.model
+    adam = {f"{i}.{k}": digest(v)
+            for i, st in trainer.state.optimizer.state_dict()["state"].items()
+            for k, v in st.items() if torch.is_tensor(v)}
+    biggest = max(n for n, _ in calls)
+    return {"rank": rank, "seconds": dt, "steps_per_s": TWO_RANK_STEPS / dt,
+            "launches": counts, "losses": losses.tolist(),
+            "all_reduces_per_step": per_step_calls, "kernel_vs_plain": step_err,
+            "all_reduce_ms_per_step": sum(t for _, t in calls) / TWO_RANK_STEPS * 1e3,
+            "gradient_bucket_ms_per_step": sum(t for n, t in calls if n == biggest)
+            / TWO_RANK_STEPS * 1e3, "gradient_bucket_elements": biggest,
+            "params": {k: digest(v) for k, v in model.named_parameters()},
+            "adam": adam,
+            "running_stats": {k: digest(v) for k, v in model.named_buffers()
+                              if "running_" in k}}
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):

@@ -26,7 +26,11 @@ class TrainConfig:
     # Model / data
     model: str = "resnet18"
     dataset: str = "cifar10"          # real files if present, else synthetic
-    world_size: int = 4               # the port runs world_size=1 only
+    world_size: int = 4               # data-parallel ranks, one process each
+    # "replicated": every rank holds the whole train split on its device and
+    # gathers its shard's rows by global index; "sharded": a rank holds only
+    # its own shard's rows. ("host_stream" is not ported.)
+    data_placement: str = "replicated"
 
     # Optimization
     batch_size: int = 32
@@ -43,6 +47,9 @@ class TrainConfig:
     presample_batches: int = 10       # candidate pool = 10×batch
     is_alpha: float = 0.5             # score = loss + alpha·EMA
     ema_alpha: float = 0.9
+    # At W>1 the pool mean feeding the EMA is the global one (a sum and a
+    # count all-reduced), so every rank keeps the same EMA.
+    sync_importance_stats: bool = True
 
     # Scoretable sampler: a persistent score per shard slot; each step
     # rescores a round-robin window of refresh_size slots, decays the rest
@@ -56,7 +63,9 @@ class TrainConfig:
     noniid: bool = True
     dirichlet_alpha: float = 0.5
     min_shard_size: int = 10
-    batch_norm: str = "sync"          # "sync" | "local": the same at W=1
+    # "sync": batch statistics averaged over the ranks; "local": each rank's
+    # own. The same at W=1. The running statistics are averaged either way.
+    batch_norm: str = "sync"
 
     # Bookkeeping
     seed: int = 102
@@ -82,8 +91,12 @@ class TrainConfig:
             bad("model", f"the port builds {', '.join(_MODELS)}")
         if self.dataset not in _DATASETS:
             bad("dataset", f"the port loads {', '.join(_DATASETS)}")
-        if self.world_size != 1:
-            bad("world_size", "data parallelism (W>1) is not ported yet")
+        if self.world_size < 1:
+            bad("world_size", "must be >= 1")
+        if self.data_placement == "host_stream":
+            bad("data_placement", "host_stream is not ported yet")
+        if self.data_placement not in ("replicated", "sharded"):
+            bad("data_placement", "use 'replicated' or 'sharded'")
         if self.sampler not in _SAMPLERS:
             bad("sampler", f"the port samples with {', '.join(_SAMPLERS)}")
         if self.refresh_mode not in ("sync", "async"):

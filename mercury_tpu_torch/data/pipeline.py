@@ -16,7 +16,7 @@ JAX's threefry never give the same numbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,7 +105,12 @@ def next_pool(
 @dataclasses.dataclass
 class ShardedDataset:
     """Device-resident dataset with per-worker shards; shards of unequal
-    length are tiled cyclically to the longest, as in the JAX package."""
+    length are tiled cyclically to the longest, as in the JAX package.
+
+    ``rank`` is the worker whose shard this process trains on. With
+    ``data_placement="sharded"`` only that shard's rows are on the device
+    (``x_shard``/``y_shard``, indexed by slot), and ``x_train``/``y_train``
+    stay on the host for evaluation."""
 
     x_train: torch.Tensor        # [N, H, W, C] uint8
     y_train: torch.Tensor        # [N] int32
@@ -117,6 +122,9 @@ class ShardedDataset:
     std: np.ndarray
     num_classes: int
     synthetic: bool = True
+    rank: int = 0
+    x_shard: Optional[torch.Tensor] = None  # [L, H, W, C] uint8 (sharded placement)
+    y_shard: Optional[torch.Tensor] = None  # [L] int32 (sharded placement)
 
     @property
     def n_train(self) -> int:
@@ -140,26 +148,41 @@ def make_sharded_dataset(
     num_classes: int,
     device: torch.device,
     synthetic: bool = True,
+    rank: int = 0,
+    placement: str = "replicated",
 ) -> ShardedDataset:
     """Put the host arrays on ``device`` and build the ``[W, L]`` shard
-    index matrix."""
+    index matrix, for worker ``rank``. ``placement="sharded"`` puts only
+    that worker's ``L`` rows and labels on the device (the JAX package's
+    ``worker_shard_global_arrays`` row) and leaves the train split on the
+    host."""
+    if placement not in ("replicated", "sharded"):
+        raise ValueError(f"unknown placement {placement!r}")
+    if not 0 <= rank < len(shards):
+        raise ValueError(f"rank {rank} of {len(shards)} shards")
     max_len = max(len(s) for s in shards)
-    rows = [np.tile(s, int(np.ceil(max_len / len(s))))[:max_len] for s in shards]
+    rows = np.stack([np.tile(s, int(np.ceil(max_len / len(s))))[:max_len]
+                     for s in shards])
 
-    def put(a, dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
+    def put(a, dtype, dev=device):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
+    sharded = placement == "sharded"
+    train_dev = torch.device("cpu") if sharded else device
     return ShardedDataset(
-        x_train=put(train[0], torch.uint8),
-        y_train=put(train[1], torch.int32),
+        x_train=put(train[0], torch.uint8, train_dev),
+        y_train=put(train[1], torch.int32, train_dev),
         x_test=put(test[0], torch.uint8),
         y_test=put(test[1], torch.int32),
-        shard_indices=put(np.stack(rows), torch.long),
+        shard_indices=put(rows, torch.long),
         shard_sizes=put([len(s) for s in shards], torch.long),
         mean=mean,
         std=std,
         num_classes=num_classes,
         synthetic=synthetic,
+        rank=rank,
+        x_shard=put(np.asarray(train[0])[rows[rank]], torch.uint8) if sharded else None,
+        y_shard=put(np.asarray(train[1])[rows[rank]], torch.int32) if sharded else None,
     )
 
 

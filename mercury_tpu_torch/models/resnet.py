@@ -15,6 +15,9 @@ get wrong:
   ``F.batch_norm`` and updates its running statistics itself. It also
   takes ``keep_stats=False``: normalize with batch statistics and leave the
   running ones untouched, as the candidate-scoring forward must.
+- **Synced statistics.** With ``sync`` set and more than one rank, the
+  batch statistics are the ranks' mean, as Flax's ``BatchNorm(axis_name=
+  ...)`` computes them (:meth:`BatchNorm.synced`).
 
 The forward takes NCHW (or its channels_last view) and returns float32
 logits; on the card the step runs it under bf16 autocast.
@@ -29,6 +32,8 @@ from typing import Optional, Sequence, Type
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mercury_tpu_torch.parallel.collectives import all_reduce_mean
 
 
 def _same_pads(size: int, k: int, s: int):
@@ -57,13 +62,17 @@ class SameConv2d(nn.Conv2d):
 
 class BatchNorm(nn.Module):
     """Flax-semantics batch norm over NCHW channels (momentum 0.9 on the
-    running average, biased variance, eps 1e-5)."""
+    running average, biased variance, eps 1e-5). ``sync`` (the Flax
+    model's ``bn_axis_name``) averages the batch statistics over the ranks;
+    whoever builds the model sets it only at more than one rank
+    (:func:`set_sync_batch_norm`), so one rank keeps ``F.batch_norm``."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, sync: bool = False):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.sync = sync
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -74,15 +83,40 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.sync:
+            return self.synced(x, keep_stats)
         if keep_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                            correction=0)
-                m = self.momentum
-                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+                self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
+
+    def synced(self, x: torch.Tensor, keep_stats: bool) -> torch.Tensor:
+        """Train-mode batch norm with the ranks' mean statistics: Flax
+        0.12's ``_compute_stats`` with ``use_fast_variance`` and float32
+        reductions. Each rank's float32 ``E[x]`` and ``E[x²]`` over (N, H,
+        W) are averaged by one all-reduce of the stacked ``[2, C]`` tensor
+        (whose backward all-reduces the gradient, as ``pmean``'s transpose
+        does), ``var = max(E[x²] − E[x]², 0)``, and the output is cast to
+        the input's dtype."""
+        xf = x.float()
+        local = torch.stack([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
+        mean, mean_sq = all_reduce_mean(local)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        if keep_stats:
+            self._update_running(mean.detach(), var.detach())
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+        self.running_var.mul_(m).add_(var, alpha=1.0 - m)
 
 
 class BasicBlock(nn.Module):
@@ -168,6 +202,16 @@ class ResNet(nn.Module):
         for block in self.blocks:
             x = block(x, train, keep_stats)
         return self.fc(x.mean(dim=(2, 3))).float()
+
+
+def set_sync_batch_norm(model: nn.Module, sync: bool) -> nn.Module:
+    """Set ``sync`` on every :class:`BatchNorm` of ``model``: the Flax
+    model's ``bn_axis_name``, which the trainer sets for
+    ``batch_norm="sync"`` at more than one rank."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.sync = sync
+    return model
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

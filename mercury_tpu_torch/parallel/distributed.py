@@ -1,0 +1,144 @@
+"""One process a rank: the process group, the rank's card and a launcher —
+the PyTorch counterpart of ``mercury_tpu/parallel/distributed.py`` and
+``parallel/mesh.py``.
+
+Two ways to run ``world_size=W``:
+
+- ``torchrun --nproc_per_node=W script.py``, where the script calls
+  ``init_distributed(W, "nccl")`` (a card a rank) before it builds its
+  ``Trainer``; ``init_distributed`` reads
+  ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the rendezvous address from
+  the environment torchrun sets.
+- :func:`spawn`, which starts W processes on this host, joined through a
+  ``FileStore`` in a temporary directory, runs ``fn(*args)`` in each and
+  returns each rank's result. The tests run two gloo ranks on the CPU
+  with it; ``chip_smoke.py`` two gloo ranks that share one card.
+
+The backend is always the caller's choice; nothing falls back from one
+backend to another. A rank that fails fails the whole launch: every
+collective has a timeout, and :func:`spawn` raises when any child exits
+non-zero (and stops the others).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import shutil
+import tempfile
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from mercury_tpu_torch.parallel.collectives import rank, world
+
+__all__ = ["init_distributed", "rank", "world", "require_world", "device", "spawn"]
+
+DEFAULT_TIMEOUT_S = 300.0
+
+
+def init_distributed(world_size: Optional[int], backend: str,
+                     init_method: Optional[str] = None,
+                     rank: Optional[int] = None,
+                     device_index: Optional[int] = None,
+                     timeout_s: float = DEFAULT_TIMEOUT_S,
+                     store: Optional[dist.Store] = None) -> int:
+    """Join the process group with ``backend`` (``"nccl"`` or ``"gloo"``,
+    always the caller's choice) and return this process's rank.
+
+    Under torchrun, ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` come from
+    the environment and ``init_method`` defaults to ``"env://"``; a
+    ``world_size`` that disagrees with ``WORLD_SIZE`` raises. Elsewhere
+    pass ``world_size``, ``rank`` and ``init_method`` (or ``store``).
+    With CUDA available the rank's card is ``cuda:{device_index}``
+    (default ``LOCAL_RANK``), made current with ``torch.cuda.set_device``.
+    ``timeout_s`` bounds the rendezvous and every collective."""
+    env_world = os.environ.get("WORLD_SIZE")
+    if env_world is not None:
+        if world_size is not None and world_size != int(env_world):
+            raise ValueError(f"world_size={world_size} but the launcher's "
+                             f"WORLD_SIZE={env_world}")
+        world_size = int(env_world)
+        rank = int(os.environ["RANK"]) if rank is None else rank
+        if init_method is None and store is None:
+            init_method = "env://"
+    if world_size is None or rank is None:
+        raise ValueError("init_distributed needs world_size and rank, or the "
+                         "environment torchrun sets")
+    if device_index is None:
+        device_index = int(os.environ.get("LOCAL_RANK", rank))
+    if torch.cuda.is_available():
+        torch.cuda.set_device(device_index)
+    dist.init_process_group(backend, init_method=init_method, store=store,
+                            world_size=world_size, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    return rank
+
+
+def require_world(world_size: int) -> int:
+    """This process's rank, once the process group is known to have
+    ``world_size`` ranks. ``world_size=1`` needs no process group; W>1
+    needs one of W ranks, and its absence raises instead of training at
+    one rank."""
+    initialized = dist.is_available() and dist.is_initialized()
+    if not initialized:
+        if world_size == 1:
+            return 0
+        raise ValueError(
+            f"TrainConfig.world_size={world_size} needs a process group of "
+            f"{world_size} ranks, one process each: launch with `torchrun "
+            f"--nproc_per_node={world_size}` and call "
+            "mercury_tpu_torch.parallel.distributed.init_distributed, or run "
+            "under mercury_tpu_torch.parallel.distributed.spawn")
+    if world() != world_size:
+        raise ValueError(f"TrainConfig.world_size={world_size} but the process "
+                         f"group has {world()} ranks")
+    return rank()
+
+
+def device() -> torch.device:
+    """This rank's card: the current CUDA device, which
+    :func:`init_distributed` set."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port trains on the GPU. Pass "
+                           "device='cpu' to run on the CPU deliberately.")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _rank_main(rank_: int, fn: Callable, world_size: int, backend: str,
+               workdir: str, devices: Optional[Sequence[int]],
+               timeout_s: float, args: tuple) -> None:
+    store = dist.FileStore(os.path.join(workdir, "store"), world_size)
+    init_distributed(world_size, backend, rank=rank_, store=store,
+                     device_index=rank_ if devices is None else devices[rank_],
+                     timeout_s=timeout_s)
+    try:
+        result = fn(*args)
+        torch.save(result, os.path.join(workdir, f"result{rank_}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world_size: int, backend: str, *args: Any,
+          devices: Optional[Sequence[int]] = None,
+          timeout_s: float = DEFAULT_TIMEOUT_S) -> List[Any]:
+    """Run ``fn(*args)`` in ``world_size`` new processes, one a rank, in one
+    ``backend`` process group; return the ranks' results in rank order.
+
+    ``fn`` and ``args`` are pickled (``fn`` by its import path: a
+    module-level function), and so is each result, which comes back through
+    a file. ``devices`` gives each rank's card index (default: its rank);
+    ``[0] * world_size`` puts every rank on card 0, which only gloo allows.
+    Raises if any rank raises or exits non-zero; the others are stopped."""
+    if devices is not None and len(devices) != world_size:
+        raise ValueError(f"devices {list(devices)} for {world_size} ranks")
+    workdir = tempfile.mkdtemp(prefix="mercury_spawn_")
+    try:
+        torch.multiprocessing.spawn(
+            _rank_main, nprocs=world_size, join=True,
+            args=(fn, world_size, backend, workdir, devices, timeout_s, args))
+        return [torch.load(os.path.join(workdir, f"result{r}.pt"), weights_only=False)
+                for r in range(world_size)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)

@@ -18,6 +18,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from mercury_tpu_torch.parallel.collectives import psum_stats, world
+
 # Floor of the smoothed scores before normalization (the all-zero pool).
 SCORE_FLOOR = 1e-12
 
@@ -84,9 +86,17 @@ def reweighted_loss(losses: torch.Tensor,
     return (losses / scaled_probs).mean()
 
 
-def pool_mean(pool_losses: torch.Tensor) -> torch.Tensor:
-    """Mean pool loss. At one worker the global mean is the local one."""
-    return pool_losses.to(torch.float32).mean()
+def pool_mean(pool_losses: torch.Tensor, sync: bool = False) -> torch.Tensor:
+    """Mean pool loss. With ``sync`` and more than one rank, the **global**
+    mean: the sum and the count all-reduced over the ranks
+    (``psum(sum)/psum(count)``), so every rank's EMA stays the same. At one
+    rank the global mean is the local one."""
+    pool_losses = pool_losses.to(torch.float32)
+    if sync and world() > 1:
+        total, count = psum_stats(pool_losses.sum(),
+                                  pool_losses.new_full((), pool_losses.shape[0]))
+        return total / count
+    return pool_losses.mean()
 
 
 class SelectionResult(NamedTuple):

@@ -1,7 +1,8 @@
 """Training state of the port: the model, its optimizer and learning-rate
 schedule, and the Mercury sampler state (EMA, presampling stream, score
 table, random generator) — the PyTorch counterpart of
-``mercury_tpu/train/state.py`` at one worker.
+``mercury_tpu/train/state.py``. A process holds one worker's state: the
+model and optimizer are replicas, the sampler state is the rank's own.
 
 The optimizers follow optax's: ``optax.adam``/``adamw``/``sgd(momentum=0.9)``
 under ``cosine_decay_schedule(lr, total_steps)`` (optionally after a linear
@@ -17,6 +18,7 @@ import dataclasses
 import math
 from typing import Callable, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from mercury_tpu_torch.data.pipeline import ShardStream, init_shard_streams
@@ -109,15 +111,27 @@ class MercuryState:
         )
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s generator: ``seed`` itself at rank 0, a
+    number drawn from ``(seed, rank)`` at every other rank, so ranks draw
+    different crops, flips, uniforms and reshuffles (the JAX package's
+    per-worker keys)."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)[0] >> 1)
+
+
 def create_state(model: torch.nn.Module, device: torch.device, seed: int,
                  shard_len: int, optimizer: str, lr: float, total_steps: int,
                  weight_decay: float = 0.0,
                  warmup_steps: int = 0,
-                 with_scoretable: bool = False) -> MercuryState:
+                 with_scoretable: bool = False,
+                 rank: int = 0) -> MercuryState:
     """Move ``model`` to ``device`` and build its optimizer, a fresh EMA,
-    the worker's stream and a generator seeded with ``seed``; with
-    ``with_scoretable`` also a score table of ones over the shard, cursor
-    0."""
+    the worker's stream and a generator seeded with ``rank_seed(seed,
+    rank)``; with ``with_scoretable`` also a score table of ones over the
+    shard, cursor 0. The model arrives with its weights: the same on every
+    rank."""
     device = torch.device(device)
     model = model.to(device)
     if device.type == "cuda":
@@ -125,7 +139,7 @@ def create_state(model: torch.nn.Module, device: torch.device, seed: int,
     opt, schedule = make_optimizer(optimizer, model.parameters(), lr,
                                    total_steps, weight_decay, warmup_steps)
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen.manual_seed(rank_seed(seed, rank))
     stream = init_shard_streams(gen, 1, shard_len)[0]
     table = init_score_table(shard_len, device) if with_scoretable else None
     return MercuryState(step=0, model=model, optimizer=opt,

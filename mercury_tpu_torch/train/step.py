@@ -1,4 +1,4 @@
-"""The Mercury step of the port, at one worker.
+"""The Mercury step of the port: one rank's share of a data-parallel step.
 
 The PyTorch counterpart of the pool and sync-scoretable branches of
 ``mercury_tpu.train.step.make_train_step`` and of its ``train_update``.
@@ -32,10 +32,25 @@ of the shard instead of a stream:
 
 With ``fused_input`` every ingest is one ``augment_normalize`` kernel
 launch that gathers the uint8 rows itself (its ``rows``): no separate
-gather of the images. At one worker the gradient and BN-statistic
-means over workers are the identity, so there are no collectives. With
-``use_importance_sampling=False`` the step is the uniform control arm: the
-streamed batch itself, weight 1.
+gather of the images. With ``use_importance_sampling=False`` the step is
+the uniform control arm: the streamed batch itself, weight 1.
+
+At ``world_size=W>1`` each rank runs this step on its own shard (row
+``dataset.rank`` of the partition) with its own draws, in a process group
+of W ranks, and these cross the ranks (``parallel/collectives.py``):
+
+- with ``batch_norm="sync"``, every BN layer's batch statistics, in the
+  scoring forward, the train forward and the backward (one all-reduce a
+  layer in each);
+- with ``sync_importance_stats``, the pool mean feeding the EMA (a sum and
+  a count);
+- the gradients, as one bucket before the optimizer step;
+- the BN running statistics, as one bucket after it (under ``"local"``
+  too);
+- the metrics: ``train/loss`` and ``train/pool_loss`` as means over the
+  ranks, ``train/acc`` as the global correct count over the global count.
+
+At W=1 the step issues no collective and needs no process group.
 
 The step's random numbers are one :class:`Draws`: by default made from the
 state's generator on the device; tests pass the JAX package's draws instead.
@@ -63,6 +78,8 @@ from mercury_tpu_torch.ops.mercury_kernels import (
     score_and_draw,
     table_refresh_draw,
 )
+from mercury_tpu_torch.parallel.collectives import allreduce_mean_, allreduce_sum
+from mercury_tpu_torch.parallel.distributed import require_world
 from mercury_tpu_torch.sampling.importance import (
     ema_update,
     pool_mean,
@@ -146,35 +163,45 @@ def make_train_step(
     distribution they were drawn from — so a caller that does not read
     them never waits for the device.
     ``use_kernels=False`` swaps the kernels for their plain versions on the
-    same device — for holding one against the other, not for training."""
+    same device — for holding one against the other, not for training.
+    At W>1 the process group must have ``config.world_size`` ranks."""
+    require_world(config.world_size)
+    world_size = config.world_size
     use_is = config.use_importance_sampling
     use_table = config.use_scoretable
+    sync_stats = use_is and config.sync_importance_stats and world_size > 1
     p_size = pool_size(config)
     batch_size = config.batch_size
     refresh_size = config.refresh_size
     bf16 = config.compute_dtype == "bfloat16"
-    data_dev = dataset.x_train.device
-    mean_t = torch.as_tensor(dataset.mean, dtype=torch.float32, device=data_dev)
-    std_t = torch.as_tensor(dataset.std, dtype=torch.float32, device=data_dev)
+    if dataset.x_shard is not None:
+        # Sharded placement: the rank's own rows, indexed by slot.
+        x_rows, y_rows, shard_row = dataset.x_shard, dataset.y_shard, None
+    else:
+        x_rows, y_rows = dataset.x_train, dataset.y_train
+        shard_row = dataset.shard_indices[dataset.rank]
+    mean_t = torch.as_tensor(dataset.mean, dtype=torch.float32, device=x_rows.device)
+    std_t = torch.as_tensor(dataset.std, dtype=torch.float32, device=x_rows.device)
 
     def gather(slots: torch.Tensor):
-        """The dataset rows of shard ``slots`` and their labels."""
-        gidx = dataset.shard_indices[0][slots]
-        return gidx, dataset.y_train[gidx]
+        """The rows of ``x_rows`` that hold shard ``slots``, and their
+        labels."""
+        rows = slots if shard_row is None else shard_row[slots]
+        return rows, y_rows[rows]
 
     def ingest(gidx: torch.Tensor, crop: torch.Tensor, flip: torch.Tensor,
                use_kernels: bool) -> torch.Tensor:
-        """Dataset rows ``gidx`` → augmented, normalized float32 NHWC
+        """Rows ``gidx`` of ``x_rows`` → augmented, normalized float32 NHWC
         images: with ``fused_input`` one ``augment_normalize`` launch that
         gathers the uint8 rows itself, the gather and the op chain
         otherwise."""
         if config.fused_input:
             if use_kernels:
-                return augment_normalize(dataset.x_train, mean_t, std_t, crop, flip,
+                return augment_normalize(x_rows, mean_t, std_t, crop, flip,
                                          CROP_PAD, rows=gidx)
-            return reference.augment_normalize(dataset.x_train[gidx], mean_t, std_t,
+            return reference.augment_normalize(x_rows[gidx], mean_t, std_t,
                                                crop, flip, CROP_PAD)
-        images = normalize_images(dataset.x_train[gidx], dataset.mean, dataset.std)
+        images = normalize_images(x_rows[gidx], dataset.mean, dataset.std)
         if config.augmentation == "noniid":
             images = augment_batch(images, crop, flip, CROP_PAD)
         return images
@@ -202,7 +229,7 @@ def make_train_step(
             r_rows, r_labels = gather(r_slots)
             r_scores = score(ingest(r_rows, draws.crop, draws.flip, use_kernels),
                              r_labels)
-            avg_pool_loss = pool_mean(r_scores)
+            avg_pool_loss = pool_mean(r_scores, sync_stats)
             ema = ema_update(ema, avg_pool_loss, config.ema_alpha)
             refresh_draw = (table_refresh_draw if use_kernels
                             else reference.table_refresh_draw)
@@ -223,7 +250,7 @@ def make_train_step(
             images = ingest(rows, draws.crop, draws.flip, use_kernels)  # [P, H, W, C]
             if use_is:
                 pool_losses = score(images, labels)
-                avg_pool_loss = pool_mean(pool_losses)
+                avg_pool_loss = pool_mean(pool_losses, sync_stats)
                 ema = ema_update(ema, avg_pool_loss, config.ema_alpha)
                 select = score_and_draw if use_kernels else reference.score_and_draw
                 probs, selected, scaled_probs = select(
@@ -248,7 +275,14 @@ def make_train_step(
         train_losses = nll(logits, sel_labels)
         loss = reweighted_loss(train_losses, scaled_probs)
         loss.backward()
+        if world_size > 1:
+            allreduce_mean_([p.grad for p in model.parameters() if p.grad is not None])
         state.optimizer.step()
+        if world_size > 1:
+            # Averaged under "sync" (already equal) and "local" alike, as
+            # the JAX step averages batch_stats.
+            allreduce_mean_([b for name, b in model.named_buffers()
+                             if name.endswith(("running_mean", "running_var"))])
 
         if use_table:
             # Write-back: the trained slots' fresh scores are the loss's own
@@ -262,9 +296,19 @@ def make_train_step(
         state.stream = stream
         state.scoretable = table
         with torch.no_grad():
-            acc = (logits.argmax(dim=-1) == sel_labels).float().mean()
+            hits = logits.argmax(dim=-1) == sel_labels
+            loss = loss.detach()
+            if world_size == 1:
+                acc = hits.float().mean()
+            else:
+                # One all-reduce: [Σ loss, Σ pool loss, Σ correct, Σ count].
+                sums = allreduce_sum(torch.stack([
+                    loss, avg_pool_loss, hits.float().sum(),
+                    loss.new_full((), hits.numel())]))
+                loss, avg_pool_loss = sums[0] / world_size, sums[1] / world_size
+                acc = sums[2] / sums[3]
         metrics = {
-            "train/loss": loss.detach(),
+            "train/loss": loss,
             "train/acc": acc,
             "train/pool_loss": avg_pool_loss,
             # [B] pool positions, or table slots, trained on

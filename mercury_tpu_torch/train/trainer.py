@@ -1,10 +1,19 @@
 """A minimal trainer for the port: build the dataset on the device, build
 the model and state, step, fit and evaluate.
 
-The PyTorch counterpart of the core of ``mercury_tpu/train/trainer.py`` at
-one worker. It runs on the card: ``device=None`` means ``"cuda"``, and a
-machine without CUDA raises rather than training somewhere else, unless the
-caller asked for the CPU (``device="cpu"``, as the tests do).
+The PyTorch counterpart of the core of ``mercury_tpu/train/trainer.py``.
+It runs on the card: ``device=None`` means this rank's card (the current
+CUDA device), and a machine without CUDA raises rather than training
+somewhere else, unless the caller asked for the CPU (``device="cpu"``, as
+the tests do).
+
+At ``world_size=W>1`` every rank builds its own ``Trainer`` inside a
+process group of W ranks (``torchrun --nproc_per_node=W`` with
+``parallel.distributed.init_distributed``, or
+``parallel.distributed.spawn``); without one the constructor raises
+``ValueError``. The ranks start from the same weights (the model is seeded
+by ``config.seed``), train on their own shards with their own draws and
+keep their parameters equal through the step's collectives.
 """
 
 from __future__ import annotations
@@ -25,7 +34,9 @@ from mercury_tpu_torch.data.pipeline import (
     normalize_images,
 )
 from mercury_tpu_torch.models import create_model
+from mercury_tpu_torch.models.resnet import set_sync_batch_norm
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
+from mercury_tpu_torch.parallel import distributed
 from mercury_tpu_torch.train.state import MercuryState, create_state
 from mercury_tpu_torch.train.step import Draws, make_train_step, to_nchw
 
@@ -34,19 +45,15 @@ EVAL_BATCH = 256
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` → the card; no card and no explicit device raises."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port trains on the GPU. Pass "
-                "device='cpu' to run on the CPU deliberately.")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` → this rank's card; no card and no explicit device
+    raises."""
+    return distributed.device() if device is None else torch.device(device)
 
 
-def build_dataset(config: TrainConfig, device) -> ShardedDataset:
-    """Load, partition and place the dataset, as the JAX package's
-    ``build_dataset`` does from the same config."""
+def build_dataset(config: TrainConfig, device, rank: int = 0) -> ShardedDataset:
+    """Load, partition and place the dataset for worker ``rank``, as the JAX
+    package's ``build_dataset`` does from the same config: every rank
+    partitions the same way from the seed."""
     train, test, info = cifar.load_dataset(config.dataset, seed=config.seed)
     shards = partition_data(
         train[1], config.world_size,
@@ -57,21 +64,27 @@ def build_dataset(config: TrainConfig, device) -> ShardedDataset:
     return make_sharded_dataset(
         train, test, shards, info["mean"], info["std"], info["num_classes"],
         device=torch.device(device), synthetic=info["synthetic"],
+        rank=rank, placement=config.data_placement,
     )
 
 
 class Trainer:
     """``Trainer(config)`` builds everything on the card; ``model`` may be
-    passed in (the tests pass a small one)."""
+    passed in (the tests pass a small one), with the same weights on every
+    rank."""
 
     def __init__(self, config: TrainConfig, device=None,
                  model: Optional[torch.nn.Module] = None) -> None:
         self.config = config
+        self.rank = distributed.rank()
         self.device = resolve_device(device)
-        self.dataset = build_dataset(config, self.device)
+        self.dataset = build_dataset(config, self.device, self.rank)
+        # Refuses a world_size that the process group does not have.
+        self._step_fn = make_train_step(config, self.dataset)
         if model is None:
             gen = torch.Generator().manual_seed(config.seed)
             model = create_model(config.model, self.dataset.num_classes, gen)
+        set_sync_batch_norm(model, config.batch_norm == "sync" and config.world_size > 1)
         self.steps_per_epoch = config.steps_per_epoch or max(
             self.dataset.n_train // config.batch_size, 1)
         self.total_steps = self.steps_per_epoch * config.num_epochs
@@ -79,9 +92,8 @@ class Trainer:
             model, self.device, config.seed, self.dataset.shard_len,
             config.optimizer, config.lr, self.total_steps,
             config.weight_decay, config.warmup_steps,
-            with_scoretable=config.use_scoretable,
+            with_scoretable=config.use_scoretable, rank=self.rank,
         )
-        self._step_fn = make_train_step(config, self.dataset)
 
     def train_step(self, draws: Optional[Draws] = None,
                    use_kernels: bool = True) -> Dict[str, torch.Tensor]:
@@ -107,6 +119,9 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_split(self, train: bool) -> Dict[str, float]:
+        """Every rank evaluates the whole split with the same parameters
+        and running statistics, and so reports the same numbers. Under
+        sharded placement the train split is read from the host."""
         ds = self.dataset
         x, y = (ds.x_train, ds.y_train) if train else (ds.x_test, ds.y_test)
         n = int(x.shape[0])
@@ -114,16 +129,17 @@ class Trainer:
         correct = torch.zeros((), dtype=torch.float32, device=self.device)
         bf16 = self.config.compute_dtype == "bfloat16"
         for idx_np, valid in eval_batches(n, EVAL_BATCH):
-            idx = torch.as_tensor(idx_np, device=self.device)
+            idx = torch.as_tensor(idx_np, device=x.device)
             mask = torch.as_tensor(np.arange(EVAL_BATCH) < valid,
                                    device=self.device)
-            images = normalize_images(x[idx], ds.mean, ds.std)
+            labels = y[idx].to(self.device)
+            images = normalize_images(x[idx].to(self.device), ds.mean, ds.std)
             with torch.autocast(device_type=self.device.type,
                                 dtype=torch.bfloat16,
                                 enabled=bf16 and self.device.type == "cuda"):
                 logits = self.state.model(to_nchw(images), train=False)
-            loss_sum += torch.where(mask, per_sample_nll(logits, y[idx]), 0.0).sum()
-            correct += ((logits.argmax(-1) == y[idx]) & mask).sum()
+            loss_sum += torch.where(mask, per_sample_nll(logits, labels), 0.0).sum()
+            correct += ((logits.argmax(-1) == labels) & mask).sum()
         prefix = "train" if train else "test"
         return {f"{prefix}/eval_loss": float(loss_sum) / n,
                 f"{prefix}/eval_acc": float(correct) / n}

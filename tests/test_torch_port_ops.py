@@ -145,6 +145,35 @@ class TestNLLBackward:
         expect[torch.arange(16), torch.from_numpy(y).long()] -= 1.0
         np.testing.assert_allclose(zt.grad.numpy(), expect.numpy() / 16, atol=1e-7)
 
+    @pytest.mark.parametrize("shape", [(32, 10), (4096, 100)])
+    def test_bf16_yardstick_is_the_jax_kernels(self, shape):
+        """``chip_smoke.py`` holds nll_bwd's bf16 gradient to one bf16 ulp of
+        ``reference.nll_backward``'s float32 gradient before its cast. The
+        JAX package's own ``_vjp_bwd`` (interpret mode) keeps within that
+        limit, and its bf16 gradient is the plain version's: bit for bit at
+        [32, 10]; at [4096, 100] but for a few values whose two float32
+        sums (XLA's order and ATen's) straddle a rounding midpoint, each
+        one bf16 ulp apart."""
+        from mercury_tpu_torch.ops import reference
+        from mercury_tpu_torch.ops.select_sweep import bf16_ulps
+
+        z, y = _logits(shape, 7)
+        g = np.random.default_rng(8).uniform(0.1, 1.1, shape[0]).astype(np.float32)
+        zb = _jax_logits(z, jnp.bfloat16)
+        _, vjp = jax.vjp(lambda lg: per_sample_nll_pallas(lg, jnp.asarray(y)), zb)
+        jax_bf16 = torch.tensor(np.asarray(vjp(jnp.asarray(g))[0].astype(jnp.float32)))
+        zt = torch.tensor(np.asarray(zb.astype(jnp.float32))).to(torch.bfloat16)
+        yt, gt = torch.from_numpy(y), torch.from_numpy(g)
+        plain = reference.nll_backward(zt, yt, gt).float()
+        plain32 = reference.nll_backward(zt.float(), yt, gt)
+        assert bool((bf16_ulps(torch, jax_bf16, plain32) <= 1).all())
+        differ = plain != jax_bf16
+        if shape == (32, 10):
+            assert not bool(differ.any())
+        else:
+            assert int(differ.sum()) <= 1e-4 * differ.numel()
+            assert bool((bf16_ulps(torch, plain[differ], jax_bf16[differ]) <= 1).all())
+
 
 def _draw_both(n, b, seed, ema=0.8, alpha=0.5, losses=None):
     if losses is None:

@@ -1,0 +1,179 @@
+"""Rank bodies of the port's two-rank CPU tests (``test_torch_port_parallel``
+and ``test_torch_port_dist_step``); this file holds no tests.
+
+``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
+process of its own, one a rank, in a gloo process group, and pickles the
+body by its import path. So the bodies live at module level in a module
+that imports torch and the port only, not JAX: a rank then starts in a
+couple of seconds. Every input arrives as an argument, made with numpy
+(and the JAX package) by the test process; every result goes back as CPU
+tensors and numbers.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.distributed as dist
+
+from mercury_tpu_torch import TrainConfig, Trainer
+from mercury_tpu_torch.data.pipeline import ShardStream, make_sharded_dataset
+from mercury_tpu_torch.models.convert import scoretable_from_jax
+from mercury_tpu_torch.models.resnet import (
+    BasicBlock,
+    BatchNorm,
+    ResNet,
+    init_weights,
+    set_sync_batch_norm,
+)
+from mercury_tpu_torch.parallel import collectives
+from mercury_tpu_torch.sampling.importance import EMAState
+from mercury_tpu_torch.train.state import create_state
+from mercury_tpu_torch.train.step import make_train_step
+
+
+@contextlib.contextmanager
+def counting_all_reduces():
+    """Count the ``torch.distributed.all_reduce`` calls made inside."""
+    calls = []
+    original = dist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        calls.append(tuple(tensor.shape))
+        return original(tensor, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = original
+
+
+def tiny_resnet(seed=None) -> ResNet:
+    """The tests' [1, 1]-stage ResNet of width 8 (6 BN layers)."""
+    model = ResNet([1, 1], BasicBlock, num_classes=10, num_filters=8)
+    if seed is not None:
+        init_weights(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+def collectives_rank(tensors, dtypes, pair, x):
+    """``allreduce_mean_`` on this rank's ``tensors[rank]`` (numpy arrays,
+    cast to ``dtypes``), ``psum_stats`` on ``pair[rank]``, and
+    ``all_reduce_mean`` of ``x[rank]`` with the gradient of ``Σ c·y`` for
+    ``c = rank + 1``, with the all-reduces each made."""
+    torch.set_num_threads(1)
+    r = dist.get_rank()
+    ts = [torch.tensor(a).to(getattr(torch, d)) for a, d in zip(tensors[r], dtypes)]
+    with counting_all_reduces() as mean_calls:
+        collectives.allreduce_mean_(ts)
+    with counting_all_reduces() as stat_calls:
+        total, count = collectives.psum_stats(torch.tensor(pair[r][0]),
+                                              torch.tensor(pair[r][1]))
+    xt = torch.tensor(x[r], requires_grad=True)
+    with counting_all_reduces() as grad_calls:
+        y = collectives.all_reduce_mean(xt)
+        (y * (r + 1.0)).sum().backward()
+    return dict(means=[t.float() for t in ts], dtypes=[str(t.dtype) for t in ts],
+                mean_calls=mean_calls, total=float(total), count=float(count),
+                stat_calls=stat_calls, y=y.detach(), x_grad=xt.grad,
+                grad_calls=grad_calls)
+
+
+def batch_norm_rank(x_nchw, cotangent, weight, bias, bf16):
+    """A synced ``BatchNorm`` (train mode, running statistics kept) on this
+    rank's ``x_nchw[rank]``, and the gradients of ``Σ y·cotangent[rank]``
+    for the input, the weight and the bias."""
+    torch.set_num_threads(1)
+    r = dist.get_rank()
+    bn = BatchNorm(x_nchw.shape[2], sync=True)
+    with torch.no_grad():
+        bn.weight.copy_(torch.tensor(weight))
+        bn.bias.copy_(torch.tensor(bias))
+    x = torch.tensor(x_nchw[r])
+    if bf16:
+        x = x.to(torch.bfloat16)
+    x.requires_grad_()
+    with counting_all_reduces() as calls:
+        y = bn(x, train=True, keep_stats=True)
+        (y.float() * torch.tensor(cotangent[r])).sum().backward()
+    return dict(y=y.detach().float(), y_dtype=str(y.dtype), x_grad=x.grad.float(),
+                weight_grad=bn.weight.grad, bias_grad=bn.bias.grad,
+                running_mean=bn.running_mean.clone(), running_var=bn.running_var.clone(),
+                calls=calls)
+
+
+def step_rank(jobs):
+    """One port step at W ranks for each job, from the JAX worker's state
+    and draws: ``job = (config, state_dict, data, ranks, steps)`` with
+    ``data = (x, y, xt, yt, shards, mean, std)`` and ``ranks[rank]`` this rank's
+    stream permutation, EMA, score table and ``Draws``."""
+    torch.set_num_threads(1)
+    r = dist.get_rank()
+    out = []
+    for config, state_dict, data, ranks, steps in jobs:
+        x, y, xt, yt, shards, mean, std = data
+        mine = ranks[r]
+        model = tiny_resnet()
+        model.load_state_dict(state_dict)
+        set_sync_batch_norm(model, config.batch_norm == "sync")
+        dataset = make_sharded_dataset((x, y), (xt, yt), shards, mean, std,
+                                       10, device=torch.device("cpu"), rank=r,
+                                       placement=config.data_placement)
+        state = create_state(model, "cpu", config.seed, dataset.shard_len, "adam",
+                             config.lr, steps, with_scoretable=config.use_scoretable,
+                             rank=r)
+        state.stream = ShardStream(perm=torch.tensor(mine["perm"], dtype=torch.long),
+                                   cursor=0)
+        state.ema = EMAState(torch.tensor(mine["ema"]), torch.tensor(0, dtype=torch.int32))
+        if config.use_scoretable:
+            state.scoretable = scoretable_from_jax(mine["scores"], mine["cursor"])
+        step_fn = make_train_step(config, dataset)
+        with counting_all_reduces() as calls:
+            metrics = step_fn(state, mine["draws"])
+        out.append(dict(
+            metrics={k: v.detach().clone() for k, v in metrics.items()},
+            state_dict={k: v.detach().clone() for k, v in state.model.state_dict().items()},
+            # After optimizer.step(): the gradient averaged over the ranks.
+            grads={k: p.grad.detach().clone() for k, p in state.model.named_parameters()},
+            ema=float(state.ema.value), ema_count=int(state.ema.count),
+            table=None if state.scoretable is None else state.scoretable.scores.clone(),
+            cursor=None if state.scoretable is None else state.scoretable.cursor,
+            stream_cursor=state.stream.cursor, calls=calls,
+            x_shard=None if dataset.x_shard is None else dataset.x_shard.clone()))
+    return out
+
+
+def trainer_rank(config_kw, steps):
+    """``Trainer`` at W ranks on the CPU with the tiny model, the same
+    weights on every rank: ``steps`` steps of ``fit``, then the
+    parameters, buffers, Adam state, an evaluation and the rank's first
+    draws."""
+    torch.set_num_threads(1)
+    trainer = Trainer(TrainConfig(**config_kw), device="cpu", model=tiny_resnet(seed=0))
+    first = torch.rand(4, generator=_copy_generator(trainer.state.generator))
+    losses = [float(trainer.train_step()["train/loss"]) for _ in range(steps)]
+    opt = trainer.state.optimizer.state_dict()["state"]
+    return dict(
+        rank=trainer.rank, losses=losses, first_draws=first, ema=float(trainer.state.ema.value),
+        state_dict={k: v.clone() for k, v in trainer.state.model.state_dict().items()},
+        adam={i: {k: v.clone() for k, v in s.items() if torch.is_tensor(v)}
+              for i, s in opt.items()},
+        evaluate=trainer.evaluate(),
+        shard_row=trainer.dataset.shard_indices[trainer.rank].clone(),
+        sync=[m.sync for m in trainer.state.model.modules() if isinstance(m, BatchNorm)])
+
+
+def _copy_generator(gen: torch.Generator) -> torch.Generator:
+    copy = torch.Generator(device=gen.device)
+    copy.set_state(gen.get_state())
+    return copy
+
+
+def failing_rank():
+    """Rank 1 raises before the all-reduce that rank 0 then waits in."""
+    if dist.get_rank() == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    dist.all_reduce(torch.ones(1))
+    return "unreachable"

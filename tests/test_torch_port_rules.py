@@ -75,7 +75,8 @@ def test_config_fields_match_the_jax_package():
                  id="sampler-scoretable"),
     pytest.param("fused_input", dict(fused_input=True, augmentation="none"),
                  id="fused_input-True"),
-    pytest.param("world_size", dict(world_size=2), id="world_size-2"),
+    pytest.param("data_placement", dict(data_placement="host_stream"),
+                 id="data_placement-host_stream"),
     pytest.param("model", dict(model="vgg11"), id="model-vgg11"),
     pytest.param("augmentation", dict(augmentation="iid"), id="augmentation-iid"),
     pytest.param("dataset", dict(dataset="cifar100"), id="dataset-cifar100"),
@@ -83,6 +84,22 @@ def test_config_fields_match_the_jax_package():
 def test_config_rejects_what_is_not_ported(field, kw):
     with pytest.raises(ValueError, match=field):
         TrainConfig(**{"world_size": 1, **kw})
+
+
+def test_default_config_constructs_at_four_ranks():
+    cfg = TrainConfig()
+    assert cfg.world_size == 4 and cfg.lr == 0.004
+    assert (cfg.data_placement, cfg.sync_importance_stats, cfg.batch_norm) == (
+        "replicated", True, "sync")
+
+
+def test_trainer_at_two_ranks_without_a_process_group_raises():
+    """No silent fall back to one rank: the message names the field and
+    says how to launch."""
+    with pytest.raises(ValueError, match="world_size") as err:
+        Trainer(TrainConfig(dataset="synthetic", world_size=2), device="cpu")
+    assert "torchrun --nproc_per_node=2" in str(err.value)
+    assert "spawn" in str(err.value)
 
 
 def test_trainer_without_a_card_raises(monkeypatch):
