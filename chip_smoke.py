@@ -41,7 +41,18 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    plain step with a kernel step; after the steps the two replicas'
    parameters, Adam state and BN running statistics must be bit-equal.
    Each rank's steps/s is printed: two ranks sharing one card over gloo,
-   not a data-parallel rate.
+   not a data-parallel rate;
+7. resume and accumulate: the default pool configuration with
+   ``grad_accum_steps=2`` under deterministic cuDNN. Three microsteps (the
+   parameters bit-unchanged across the first of a window, changed across
+   the second; 2 nll_fwd, 1 nll_bwd and 1 score_and_draw a microstep), a
+   ``save`` (bytes and time printed), four more microsteps; then a fresh
+   ``Trainer`` that ``restore``s the file (time printed; every tensor equal
+   to the saved one by sha256) and runs the same four, bit-equal to the
+   first. ``predict`` on the test split gives ``evaluate``'s accuracy
+   exactly, and uint8 input equals the same images as float / 255. The
+   microstep rate (10 microsteps a turn: live, restored, restored, live)
+   is printed beside phase 4's step rate.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -91,6 +102,12 @@ LIBRARY_CALLS = {
 # The configuration of the scoretable path (phase 5), beside the default.
 SCORETABLE = dict(model="resnet18", dataset="synthetic", world_size=1,
                   sampler="scoretable", fused_input=True)
+# The configuration of phase 7: the default pool step, two microsteps an
+# update.
+ACCUM = dict(model="resnet18", dataset="synthetic", world_size=1, grad_accum_steps=2)
+ACCUM_FIRST = 3  # microsteps before the save: the middle of the second window
+ACCUM_RUN = 4    # microsteps after it, on the live and on the restored trainer
+ACCUM_RATE = 10  # microsteps a turn of the rate (live, restored, restored, live)
 
 
 class SmokeFailure(Exception):
@@ -122,10 +139,12 @@ def main() -> int:
     main_path = run_phase("main path", main_path_phase, torch, card)
     table_path = run_phase("scoretable path", scoretable_path_phase, torch, card)
     two_ranks = run_phase("two ranks", two_rank_phase, torch, card, main_path)
+    accum = run_phase("resume and accumulate", accum_resume_phase, torch, card, main_path)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
-                   "two_ranks": two_ranks["launches"][k["name"]]}
+                   "two_ranks": two_ranks["launches"][k["name"]],
+                   "accum_resume": accum["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -135,7 +154,7 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": kernels, "cases": cases,
          "main_path": main_path["summary"], "scoretable_path": table_path["summary"],
-         "two_ranks": two_ranks["summary"]},
+         "two_ranks": two_ranks["summary"], "accum_resume": accum["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -960,8 +979,6 @@ def two_rank_body(per_step):
     TWO_RANK_STEPS timed steps with the launch counts and all-reduces
     counted, one kernel step against a plain step, and digests of the
     replica."""
-    import hashlib
-
     import torch
     import torch.distributed as dist
 
@@ -1005,10 +1022,6 @@ def two_rank_body(per_step):
     step_err = kernel_vs_plain_step(torch, trainer, config, any_rank=any_rank, quiet=True)
     torch.cuda.synchronize()
 
-    def digest(t) -> str:
-        return hashlib.sha256(t.detach().reshape(-1).cpu().view(torch.uint8)
-                              .numpy().tobytes()).hexdigest()
-
     model = trainer.state.model
     adam = {f"{i}.{k}": digest(v)
             for i, st in trainer.state.optimizer.state_dict()["state"].items()
@@ -1024,6 +1037,176 @@ def two_rank_body(per_step):
             "adam": adam,
             "running_stats": {k: digest(v) for k, v in model.named_buffers()
                               if "running_" in k}}
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's bytes, in its logical order."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.detach().reshape(-1).cpu().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+# ------------------------------------------------------------------ phase 7
+def state_digests(state) -> dict:
+    """sha256 of everything a resumed run carries over: parameters and BN
+    running statistics, Adam's moments and counts, the accumulator, the
+    EMA, the stream permutation, the generator's state, and the counters
+    and cursors."""
+    out = {f"model.{k}": digest(v) for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": digest(v) for k, v in st.items()})
+    out.update({f"accum.{i}": digest(a) for i, a in enumerate(state.accum)})
+    out.update({"ema.value": digest(state.ema.value), "ema.count": digest(state.ema.count),
+                "stream.perm": digest(state.stream.perm),
+                "generator": digest(state.generator.get_state())})
+    out.update({k: str(getattr(state, k)) for k in ("step", "updates", "mini_step")})
+    out["stream.cursor"] = str(state.stream.cursor)
+    return out
+
+
+def accum_resume_phase(torch, card: str, main_path):
+    """The default pool configuration with ``grad_accum_steps=2``, under
+    deterministic cuDNN (the previous settings restored after): launches
+    and parameters across three microsteps, a save in the middle of a
+    window, four more microsteps on the live trainer (run A) and the same
+    four on a fresh trainer restored from the file (run B), bit-equal; then
+    ``predict`` against ``evaluate``."""
+    import shutil
+    import tempfile
+
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    config = TrainConfig(**ACCUM)
+    check(config.candidate_pool_size == 320 and config.batch_size == 32
+          and config.compute_dtype == "bfloat16" and config.sampler == "pool"
+          and config.grad_accum_steps == 2, f"unexpected accumulation config {config}")
+    per_step = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 1, "table_refresh_draw": 0,
+                "augment_normalize": 0}
+    check({k: v // MAIN_STEPS for k, v in main_path["launches"].items()} == per_step,
+          f"phase 4 launched {main_path['launches']} in {MAIN_STEPS} steps")
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    directory = tempfile.mkdtemp(prefix="mercury_ckpt_")
+    try:
+        return _accum_resume(torch, mk, card, config, per_step, directory, main_path)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def _accum_resume(torch, mk, card, config, per_step, directory, main_path):
+    def times(n):
+        return {k: v * n for k, v in per_step.items()}
+
+    def run(trainer, steps):
+        """``steps`` microsteps, each timed on the host clock to a
+        synchronize; returns the times and the losses."""
+        times_s, losses = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step()["train/loss"])
+            torch.cuda.synchronize()
+            times_s.append(time.perf_counter() - t0)
+        losses = torch.stack(losses).float().cpu()
+        check(bool(torch.isfinite(losses).all()), f"non-finite losses {losses.tolist()}")
+        return times_s, losses
+
+    live = build_trainer(torch, config)
+    mk.reset_launch_counts()
+    changed = []
+    for _ in range(ACCUM_FIRST):
+        before = [p.detach().clone() for p in live.state.model.parameters()]
+        live.train_step()
+        changed.append(not all(torch.equal(a, p) for a, p in
+                               zip(before, live.state.model.parameters())))
+    check(changed == [False, True, False],
+          f"parameters changed across microsteps 1-3: {changed}, expected only across the 2nd")
+    check(dict(mk.launch_counts) == times(ACCUM_FIRST),
+          f"launch counts {dict(mk.launch_counts)} in {ACCUM_FIRST} microsteps, "
+          f"expected {times(ACCUM_FIRST)}")
+    check((live.state.step, live.state.updates, live.state.mini_step) == (ACCUM_FIRST, 1, 1),
+          f"counters {live.state.step, live.state.updates, live.state.mini_step}")
+
+    saved = state_digests(live.state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = live.save(directory)
+    save_s = time.perf_counter() - t0
+    nbytes = Path(path).stat().st_size
+    print(f"save: {Path(path).name}, {nbytes} bytes in {save_s * 1e3:.1f} ms "
+          f"(step {live.state.step}, mini_step {live.state.mini_step}) [{card}]")
+
+    dt_a, losses_a = run(live, ACCUM_RUN)
+    after_a = state_digests(live.state)
+
+    fresh = build_trainer(torch, config, quiet=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = fresh.restore(directory)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(step == ACCUM_FIRST, f"restored step {step}")
+    restored = state_digests(fresh.state)
+    differ = sorted(k for k in saved if restored.get(k) != saved[k])
+    check(restored.keys() == saved.keys() and not differ,
+          f"restored state differs from the saved one: {differ[:5]}")
+    print(f"restore: {restore_s * 1e3:.1f} ms; {len(saved)} tensors and counters equal "
+          f"to the saved ones by sha256 [{card}]")
+
+    dt_b, losses_b = run(fresh, ACCUM_RUN)
+    after_b = state_digests(fresh.state)
+    differ = sorted(k for k in after_a if after_b.get(k) != after_a[k])
+    check(after_a.keys() == after_b.keys() and not differ,
+          f"run B (restored) differs from run A (live): {differ[:5]}")
+    check(torch.equal(losses_a, losses_b), f"losses A {losses_a.tolist()}, B {losses_b.tolist()}")
+    print(f"runs A and B bit-equal after {ACCUM_RUN} microsteps: {len(after_a)} tensors and "
+          f"counters; losses {losses_a.tolist()}")
+    print(f"microstep ms, run A {[round(t * 1e3, 2) for t in dt_a]}, run B (restored) "
+          f"{[round(t * 1e3, 2) for t in dt_b]} [{card}]")
+
+    # The rate, the live and the restored trainer in turns.
+    rates = {"live": [], "restored": []}
+    for name in ("live", "restored", "restored", "live"):
+        dt, _ = run(live if name == "live" else fresh, ACCUM_RATE)
+        rates[name].append(ACCUM_RATE / sum(dt))
+    counts = dict(mk.launch_counts)
+    want = times(ACCUM_FIRST + 2 * ACCUM_RUN + 4 * ACCUM_RATE)
+    check(counts == want, f"launch counts {counts}, expected {want}")
+
+    ev = fresh.evaluate(include_train=False)
+    ds = fresh.dataset
+    logits = fresh.predict(ds.x_test)
+    n = int(ds.x_test.shape[0])
+    check(tuple(logits.shape) == (n, ds.num_classes) and bool(torch.isfinite(logits).all()),
+          f"predict gave {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    acc = int((logits.argmax(-1) == ds.y_test.cpu().long()).sum()) / n
+    check(acc == ev["test/eval_acc"], f"predict accuracy {acc}, evaluate {ev['test/eval_acc']}")
+    check(torch.equal(logits, fresh.predict(ds.x_test.float() / 255)),
+          "predict(uint8) differs from predict(float / 255)")
+    per_class = fresh.per_class_accuracy()
+    print(f"predict: {n} test images, accuracy {acc} = evaluate's; uint8 and float / 255 "
+          f"bit-equal; per-class accuracy {[round(v, 4) for v in per_class.tolist()]}")
+
+    print(f"accumulation, microsteps/s in turns of {ACCUM_RATE}: live {rates['live']}, "
+          f"restored {rates['restored']}; phase 4's W=1 step in this call "
+          f"{main_path['summary']['steps_per_s']:.2f} steps/s [{card}]")
+    return {"launches": counts,
+            "summary": {"grad_accum_steps": config.grad_accum_steps, "card": card,
+                        "checkpoint_bytes": nbytes, "save_ms": save_s * 1e3,
+                        "restore_ms": restore_s * 1e3, "tensors_and_counters": len(saved),
+                        "microstep_ms": {"A": [t * 1e3 for t in dt_a],
+                                         "B": [t * 1e3 for t in dt_b]},
+                        "microsteps_per_s": rates,
+                        "w1_steps_per_s": main_path["summary"]["steps_per_s"],
+                        "losses": losses_a.tolist(), "launches": counts,
+                        "predict_acc": acc, "eval_acc": ev["test/eval_acc"],
+                        "per_class_accuracy": per_class.tolist()}}
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):

@@ -40,6 +40,10 @@ class TrainConfig:
     steps_per_epoch: Optional[int] = None  # None → n_train // batch_size
     weight_decay: float = 0.0
     warmup_steps: int = 0             # linear warmup, then cosine
+    # Gradient accumulation (optax.MultiSteps): each step folds its gradient
+    # into a running mean and every A-th step applies the update. The log,
+    # eval and checkpoint cadences still count steps (microsteps).
+    grad_accum_steps: int = 1
 
     # Importance sampling
     use_importance_sampling: bool = True
@@ -71,6 +75,14 @@ class TrainConfig:
     seed: int = 102
     eval_every: int = 200
     log_every: int = 100
+    # Checkpoints (train/checkpoint.py): fit saves every checkpoint_every
+    # steps (0: never) and at its end when checkpoint_dir is set, keeping the
+    # newest checkpoint_keep files (0: all); auto_resume restores the newest
+    # checkpoint in checkpoint_dir when the Trainer is built.
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 1000
+    checkpoint_keep: int = 3
+    auto_resume: bool = False
 
     # Precision
     compute_dtype: str = "bfloat16"   # autocast dtype on the card
@@ -129,6 +141,8 @@ class TrainConfig:
             bad("presample_batches", "must be >= 1")
         if self.warmup_steps < 0:
             bad("warmup_steps", "must be >= 0")
+        if self.grad_accum_steps < 1:
+            bad("grad_accum_steps", "must be >= 1")
 
     @property
     def lr(self) -> float:

@@ -1,0 +1,175 @@
+"""Checkpoints of the port: the whole training state of a run as one file,
+``<directory>/ckpt_<step>.pt``, from which the run resumes bit for bit.
+
+The PyTorch counterpart of ``save_checkpoint``, ``_prune_old``,
+``all_steps``, ``latest_step`` and ``restore_checkpoint`` of
+``mercury_tpu/train/checkpoint.py``, in a format of its own (``torch.save``
+of a dict of tensors and numbers). Not ported: the sha256 manifest and its
+verification, the fall back to an older file, async writes, write retries
+and elastic restore (a different world size).
+
+The file holds the replicated state once (the model's parameters and BN
+buffers, the optimizer's state, the step counters and the gradient
+accumulator) and a row of sampler state for each rank (the EMA, the stream
+permutation and cursor, the generator's state and, with
+``sampler="scoretable"``, the table and its cursor). At W>1 every rank sends
+its row to rank 0, rank 0 alone writes, and a barrier follows, so no rank
+reads before the file exists; a restore reads the file on every rank, and
+each rank takes its own row.
+
+A file is written to ``ckpt_<step>.pt.tmp``, flushed to disk and renamed,
+so a torn write never carries a checkpoint's name.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from mercury_tpu_torch.config import TrainConfig
+from mercury_tpu_torch.data.pipeline import ShardStream
+from mercury_tpu_torch.parallel.collectives import rank, world
+from mercury_tpu_torch.sampling.importance import EMAState
+from mercury_tpu_torch.sampling.scoretable import ScoreTableState
+from mercury_tpu_torch.train.state import MercuryState
+
+FORMAT = 1
+_NAME = re.compile(r"ckpt_(\d+)\.pt")
+
+
+def checkpoint_path(directory: str, step: int) -> str:
+    return os.path.join(directory, f"ckpt_{step}.pt")
+
+
+def all_steps(directory: str) -> List[int]:
+    """The steps of the checkpoints in ``directory``, ascending (a
+    ``.tmp`` file is not a checkpoint)."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for m in map(_NAME.fullmatch, os.listdir(directory))
+                  if m)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """The newest checkpoint's step in ``directory``, or None."""
+    steps = all_steps(directory)
+    return steps[-1] if steps else None
+
+
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu()
+
+
+def _rank_row(state: MercuryState) -> Dict[str, Any]:
+    """This rank's sampler state, on the host."""
+    table = state.scoretable
+    return {
+        "ema_value": _cpu(state.ema.value), "ema_count": _cpu(state.ema.count),
+        "perm": _cpu(state.stream.perm), "cursor": state.stream.cursor,
+        "generator": state.generator.get_state(),
+        "table": None if table is None else _cpu(table.scores),
+        "table_cursor": None if table is None else table.cursor,
+    }
+
+
+def _gather_rows(state: MercuryState) -> Optional[List[Dict[str, Any]]]:
+    """Every rank's row on rank 0 (``gather_object``, on gloo and NCCL);
+    None on the other ranks."""
+    row = _rank_row(state)
+    if world() == 1:
+        return [row]
+    rows = [None] * world() if rank() == 0 else None
+    dist.gather_object(row, rows, dst=0)
+    return rows
+
+
+def _write(path: str, payload: Dict[str, Any]) -> None:
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def prune(directory: str, keep: int) -> None:
+    """Keep the newest ``keep`` checkpoints (``keep <= 0`` keeps all)."""
+    if keep <= 0:
+        return
+    for step in all_steps(directory)[:-keep]:
+        os.unlink(checkpoint_path(directory, step))
+
+
+def save_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
+                    keep: int = 0) -> str:
+    """Write ``state`` to ``directory/ckpt_<state.step>.pt`` and prune to
+    the newest ``keep``; return the path. Called by every rank at W>1:
+    rank 0 writes, and every rank returns once the file exists."""
+    rows = _gather_rows(state)
+    path = checkpoint_path(directory, state.step)
+    if rank() == 0:
+        os.makedirs(directory, exist_ok=True)
+        _write(path, {
+            "format": FORMAT,
+            "step": state.step, "updates": state.updates, "mini_step": state.mini_step,
+            "world_size": config.world_size, "grad_accum_steps": config.grad_accum_steps,
+            "device": state.stream.perm.device.type,
+            "model": {k: _cpu(v) for k, v in state.model.state_dict().items()},
+            "optimizer": state.optimizer.state_dict(),
+            "accum": None if state.accum is None else [_cpu(a) for a in state.accum],
+            "ranks": rows,
+        })
+        prune(directory, keep)
+    if world() > 1:
+        dist.barrier()
+    return path
+
+
+def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
+                       step: Optional[int] = None) -> int:
+    """Load ``directory/ckpt_<step>.pt`` (default: the newest) into
+    ``state`` in place, this rank's row of sampler state included; return
+    the step. A checkpoint saved at another ``world_size``, another
+    ``grad_accum_steps`` or on another device type raises ``ValueError``
+    naming the field."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(
+                f"no checkpoint ckpt_<step>.pt in {directory!r} (TrainConfig.checkpoint_dir)")
+    path = checkpoint_path(directory, step)
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    device = state.stream.perm.device
+    for field, have in (("format", FORMAT), ("world_size", config.world_size),
+                        ("grad_accum_steps", config.grad_accum_steps),
+                        ("device", device.type)):
+        if ckpt[field] != have:
+            raise ValueError(
+                f"{path} was saved with {field}={ckpt[field]!r}, this run has "
+                f"{field}={have!r}: the port restores only into the same one")
+    row = ckpt["ranks"][rank()]
+    if (row["table"] is None) != (state.scoretable is None):
+        raise ValueError(f"{path} and this run differ in sampler: one keeps a "
+                         "score table, the other does not")
+    state.model.load_state_dict(ckpt["model"])
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    if state.accum is not None:
+        for acc, saved in zip(state.accum, ckpt["accum"]):
+            acc.copy_(saved)
+    state.step, state.updates, state.mini_step = (
+        ckpt["step"], ckpt["updates"], ckpt["mini_step"])
+    state.ema = EMAState(row["ema_value"].to(device), row["ema_count"].to(device))
+    state.stream = ShardStream(row["perm"].to(device), row["cursor"])
+    state.generator.set_state(row["generator"])
+    if state.scoretable is not None:
+        state.scoretable = ScoreTableState(row["table"].to(device), row["table_cursor"])
+    return step

@@ -5,10 +5,14 @@ table, random generator) — the PyTorch counterpart of
 model and optimizer are replicas, the sampler state is the rank's own.
 
 The optimizers follow optax's: ``optax.adam``/``adamw``/``sgd(momentum=0.9)``
-under ``cosine_decay_schedule(lr, total_steps)`` (optionally after a linear
+under ``cosine_decay_schedule(lr, updates)`` (optionally after a linear
 warmup). optax's update count starts at 0, so the first update uses the
 full ``lr``; here the step sets the learning rate of update ``k`` to
 ``lr_schedule(k)`` before ``optimizer.step()``.
+
+With ``grad_accum_steps=A > 1`` the state also carries optax.MultiSteps'
+accumulator: each step (a microstep) folds its gradient into ``accum``, and
+every A-th applies the update, so ``updates = ceil(total_steps / A)``.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,18 +55,26 @@ def warmup_cosine_decay_schedule(lr: float, warmup_steps: int,
 
 def make_optimizer(name: str, params: Iterable[torch.nn.Parameter], lr: float,
                    total_steps: int, weight_decay: float = 0.0,
-                   warmup_steps: int = 0
+                   warmup_steps: int = 0, grad_accum_steps: int = 1
                    ) -> Tuple[torch.optim.Optimizer, Schedule]:
     """Optimizer and its per-update learning rate, as
     ``mercury_tpu.train.state.make_optimizer`` builds them: Adam (L2 decay
     added to the gradient, as ``optax.add_decayed_weights`` before Adam),
-    AdamW (decoupled decay) or SGD with momentum 0.9."""
-    updates = max(total_steps, 1)
+    AdamW (decoupled decay) or SGD with momentum 0.9. With
+    ``grad_accum_steps=A`` the schedule runs over ``ceil(total_steps/A)``
+    updates and its warmup over ``ceil(warmup_steps/A)``; warmup updates
+    that leave no decay raise."""
+    if grad_accum_steps < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+    updates = max(-(-total_steps // grad_accum_steps), 1)
     if warmup_steps > 0:
-        if warmup_steps >= updates:
+        w_updates = -(-warmup_steps // grad_accum_steps)
+        if w_updates >= updates:
             raise ValueError(
-                f"warmup_steps ({warmup_steps}) must be < total steps ({updates})")
-        schedule = warmup_cosine_decay_schedule(lr, warmup_steps, updates)
+                f"warmup_steps ({warmup_steps}) must leave decay room after "
+                f"accumulation: warmup updates ({w_updates}) >= total "
+                f"updates ({updates})")
+        schedule = warmup_cosine_decay_schedule(lr, w_updates, updates)
     else:
         schedule = cosine_decay_schedule(lr, updates)
     params = list(params)
@@ -83,7 +95,7 @@ def make_optimizer(name: str, params: Iterable[torch.nn.Parameter], lr: float,
 class MercuryState:
     """Everything one step reads and advances."""
 
-    step: int                        # updates applied so far
+    step: int                        # steps (microsteps) taken so far
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     lr_schedule: Schedule
@@ -92,6 +104,11 @@ class MercuryState:
     generator: torch.Generator       # the step's draws, on the device
     # sampler="scoretable" only: the [L] table on the device, cursor on the host
     scoretable: Optional[ScoreTableState] = None
+    updates: int = 0                 # optimizer updates applied (= step at A=1)
+    mini_step: int = 0               # microsteps folded into accum since the last update
+    # grad_accum_steps > 1 only: the float32 running mean of this window's
+    # gradients, one tensor a parameter in model.parameters() order
+    accum: Optional[List[torch.Tensor]] = None
 
     def clone(self) -> "MercuryState":
         """An independent copy: the model and its optimizer are copied
@@ -108,6 +125,7 @@ class MercuryState:
             ema=EMAState(self.ema.value.clone(), self.ema.count.clone()),
             stream=ShardStream(self.stream.perm.clone(), self.stream.cursor),
             scoretable=table,
+            accum=None if self.accum is None else [a.clone() for a in self.accum],
         )
 
 
@@ -126,22 +144,28 @@ def create_state(model: torch.nn.Module, device: torch.device, seed: int,
                  weight_decay: float = 0.0,
                  warmup_steps: int = 0,
                  with_scoretable: bool = False,
-                 rank: int = 0) -> MercuryState:
+                 rank: int = 0,
+                 grad_accum_steps: int = 1) -> MercuryState:
     """Move ``model`` to ``device`` and build its optimizer, a fresh EMA,
     the worker's stream and a generator seeded with ``rank_seed(seed,
     rank)``; with ``with_scoretable`` also a score table of ones over the
-    shard, cursor 0. The model arrives with its weights: the same on every
-    rank."""
+    shard, cursor 0; with ``grad_accum_steps > 1`` a zero accumulator. The
+    model arrives with its weights: the same on every rank."""
     device = torch.device(device)
     model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     opt, schedule = make_optimizer(optimizer, model.parameters(), lr,
-                                   total_steps, weight_decay, warmup_steps)
+                                   total_steps, weight_decay, warmup_steps,
+                                   grad_accum_steps)
     gen = torch.Generator(device=device)
     gen.manual_seed(rank_seed(seed, rank))
     stream = init_shard_streams(gen, 1, shard_len)[0]
     table = init_score_table(shard_len, device) if with_scoretable else None
+    accum = None
+    if grad_accum_steps > 1:
+        accum = [torch.zeros_like(p, dtype=torch.float32) for p in model.parameters()]
     return MercuryState(step=0, model=model, optimizer=opt,
                         lr_schedule=schedule, ema=init_ema(device),
-                        stream=stream, generator=gen, scoretable=table)
+                        stream=stream, generator=gen, scoretable=table,
+                        accum=accum)

@@ -14,7 +14,11 @@ A pool step (``sampler="pool"``):
 5. updates the EMA of the mean pool loss, then smooths, normalizes and
    draws the batch by inverse CDF (``score_and_draw`` kernel);
 6. trains on the drawn batch with the reweighted loss ``mean(loss/(N·p))``
-   (``nll_fwd`` forward, ``nll_bwd`` backward) and applies the optimizer.
+   (``nll_fwd`` forward, ``nll_bwd`` backward) and applies the optimizer;
+   at ``grad_accum_steps=A > 1`` it folds the gradient into the
+   accumulator instead and applies the update every A-th step
+   (:func:`accumulate`). The BN running statistics, the EMA and the stream
+   or score table advance every step either way.
 
 A scoretable step (``sampler="scoretable"``) keeps a score for every slot
 of the shard instead of a stream:
@@ -152,13 +156,46 @@ def make_draws(state: MercuryState, config: TrainConfig) -> Draws:
                  uniforms=uniforms() if config.use_importance_sampling else None)
 
 
+def set_lr(state: MercuryState) -> None:
+    """The learning rate of the next update, ``lr_schedule(updates)``."""
+    lr = state.lr_schedule(state.updates)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+
+
+@torch.no_grad()
+def accumulate(state: MercuryState, accum_steps: int) -> None:
+    """optax.MultiSteps for one microstep: fold the gradients into the
+    running mean ``acc + (g − acc) / (mini_step + 1)`` (its ``_acc_update``;
+    a sum divided at the end would round otherwise), and on the
+    ``accum_steps``-th microstep apply the mean as the gradient at
+    ``lr_schedule(updates)`` and zero the accumulator. Between updates the
+    parameters and the optimizer state do not change."""
+    params = list(state.model.parameters())
+    diff = torch._foreach_sub([p.grad for p in params], state.accum)
+    torch._foreach_div_(diff, float(state.mini_step + 1))
+    torch._foreach_add_(state.accum, diff)
+    state.mini_step += 1
+    if state.mini_step < accum_steps:
+        return
+    for p, acc in zip(params, state.accum):
+        p.grad = acc
+    set_lr(state)
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    torch._foreach_zero_(state.accum)
+    state.mini_step = 0
+    state.updates += 1
+
+
 def make_train_step(
     config: TrainConfig, dataset: ShardedDataset,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build ``step_fn(state, draws=None, use_kernels=True) → metrics``.
 
     ``step_fn`` advances ``state`` in place (model, optimizer, EMA, stream
-    or score table, step) and returns the step's metrics as device tensors
+    or score table, step, and the accumulator at ``grad_accum_steps > 1``)
+    and returns the step's metrics as device tensors
     — scalars, the ``[B]`` pool positions or table slots drawn and the
     distribution they were drawn from — so a caller that does not read
     them never waits for the device.
@@ -174,6 +211,7 @@ def make_train_step(
     batch_size = config.batch_size
     refresh_size = config.refresh_size
     bf16 = config.compute_dtype == "bfloat16"
+    accum_steps = config.grad_accum_steps
     if dataset.x_shard is not None:
         # Sharded placement: the rank's own rows, indexed by slot.
         x_rows, y_rows, shard_row = dataset.x_shard, dataset.y_shard, None
@@ -264,10 +302,11 @@ def make_train_step(
                 scaled_probs = torch.ones(batch_size, dtype=torch.float32, device=dev)
                 avg_pool_loss = torch.zeros((), dtype=torch.float32, device=dev)
 
-        # --- train update: reweighted forward/backward, optimizer step.
-        lr = state.lr_schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        # --- train update: reweighted forward/backward, optimizer step (at
+        # A > 1 the gradient is folded into the accumulator instead, and
+        # every A-th microstep applies it).
+        if state.accum is None:
+            set_lr(state)
         state.optimizer.zero_grad(set_to_none=True)
         with autocast:
             logits = model(to_nchw(sel_images), train=True,
@@ -277,7 +316,11 @@ def make_train_step(
         loss.backward()
         if world_size > 1:
             allreduce_mean_([p.grad for p in model.parameters() if p.grad is not None])
-        state.optimizer.step()
+        if state.accum is None:
+            state.optimizer.step()
+            state.updates += 1
+        else:
+            accumulate(state, accum_steps)
         if world_size > 1:
             # Averaged under "sync" (already equal) and "local" alike, as
             # the JAX step averages batch_stats.

@@ -14,11 +14,18 @@ process group of W ranks (``torchrun --nproc_per_node=W`` with
 ``ValueError``. The ranks start from the same weights (the model is seeded
 by ``config.seed``), train on their own shards with their own draws and
 keep their parameters equal through the step's collectives.
+
+Beyond training: ``save``/``restore`` (``train/checkpoint.py``; ``fit``
+saves every ``checkpoint_every`` steps and at its end when
+``checkpoint_dir`` is set, and ``auto_resume`` restores the newest
+checkpoint there at construction), ``predict`` (logits of raw images) and
+``per_class_accuracy``.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -37,6 +44,7 @@ from mercury_tpu_torch.models import create_model
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
 from mercury_tpu_torch.parallel import distributed
+from mercury_tpu_torch.train import checkpoint
 from mercury_tpu_torch.train.state import MercuryState, create_state
 from mercury_tpu_torch.train.step import Draws, make_train_step, to_nchw
 
@@ -93,7 +101,14 @@ class Trainer:
             config.optimizer, config.lr, self.total_steps,
             config.weight_decay, config.warmup_steps,
             with_scoretable=config.use_scoretable, rank=self.rank,
+            grad_accum_steps=config.grad_accum_steps,
         )
+        # Crash or preemption recovery: the newest checkpoint, sampler state
+        # included; fit() then runs on to the original total_steps.
+        if (config.auto_resume and config.checkpoint_dir
+                and checkpoint.latest_step(config.checkpoint_dir) is not None):
+            step = self.restore()
+            _log.info("auto-resumed from the checkpoint at step %d", step)
 
     def train_step(self, draws: Optional[Draws] = None,
                    use_kernels: bool = True) -> Dict[str, torch.Tensor]:
@@ -101,21 +116,89 @@ class Trainer:
         return self._step_fn(self.state, draws, use_kernels)
 
     def fit(self, steps: Optional[int] = None) -> Dict[str, float]:
-        """Run ``steps`` steps (default: the whole schedule), logging every
-        ``log_every`` and evaluating every ``eval_every`` steps. Returns the
-        last step's scalar metrics and the last evaluation."""
+        """Run ``steps`` steps (default: to the end of the schedule), logging
+        every ``log_every``, evaluating every ``eval_every`` and, with a
+        ``checkpoint_dir``, saving every ``checkpoint_every`` steps and at
+        the end. Returns the last step's scalar metrics and the last
+        evaluation."""
+        cfg = self.config
         steps = self.total_steps - self.state.step if steps is None else steps
         out: Dict[str, float] = {}
         metrics: Dict[str, torch.Tensor] = {}
+        saved = None
         for _ in range(steps):
             metrics = self.train_step()
             step = self.state.step
-            if self.config.log_every and step % self.config.log_every == 0:
+            if cfg.log_every and step % cfg.log_every == 0:
                 _log.info("step %d: %s", step, _scalars(metrics))
-            if self.config.eval_every and step % self.config.eval_every == 0:
+            if cfg.eval_every and step % cfg.eval_every == 0:
                 out.update(self.evaluate())
+            if cfg.checkpoint_dir and cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
+                self.save()
+                saved = step
+        if cfg.checkpoint_dir and saved != self.state.step:
+            self.save()
         out.update(_scalars(metrics))
         return out
+
+    def _directory(self, directory: Optional[str]) -> str:
+        directory = directory or self.config.checkpoint_dir
+        if not directory:
+            raise ValueError("TrainConfig.checkpoint_dir is None: set it or pass "
+                             "a directory")
+        return directory
+
+    def save(self, directory: Optional[str] = None) -> str:
+        """Save the whole state to ``directory`` (default
+        ``checkpoint_dir``) as ``ckpt_<step>.pt``, keeping the newest
+        ``checkpoint_keep``; return its path. At W>1 every rank calls it."""
+        return checkpoint.save_checkpoint(self._directory(directory), self.state,
+                                          self.config, keep=self.config.checkpoint_keep)
+
+    def restore(self, directory: Optional[str] = None, step: Optional[int] = None) -> int:
+        """Restore the checkpoint at ``step`` (default: the newest) from
+        ``directory`` (default ``checkpoint_dir``); return its step."""
+        return checkpoint.restore_checkpoint(self._directory(directory), self.state,
+                                             self.config, step)
+
+    def _logits(self, raw: torch.Tensor) -> torch.Tensor:
+        """Inference-mode logits of raw NHWC images on this device,
+        normalized with the dataset's statistics (``/255`` for uint8
+        only), under the step's autocast."""
+        ds = self.dataset
+        images = normalize_images(raw.to(self.device), ds.mean, ds.std)
+        with torch.autocast(device_type=self.device.type, dtype=torch.bfloat16,
+                            enabled=(self.config.compute_dtype == "bfloat16"
+                                     and self.device.type == "cuda")):
+            return self.state.model(to_nchw(images), train=False)
+
+    @torch.no_grad()
+    def predict(self, inputs) -> torch.Tensor:
+        """Float32 logits ``[N, num_classes]`` on the host of ``[N, H, W, C]``
+        images (uint8 or float; a numpy array or a tensor; a single
+        ``[H, W, C]`` image is one of one), in ``evaluate``'s batches of
+        ``EVAL_BATCH`` (the last padded by wrapping, as there)."""
+        x = torch.as_tensor(inputs)
+        if x.dim() == self.dataset.x_test.dim() - 1:
+            x = x[None]
+        n = int(x.shape[0])
+        out = torch.empty((n, self.dataset.num_classes), dtype=torch.float32)
+        for idx_np, valid in eval_batches(n, EVAL_BATCH):
+            logits = self._logits(x[torch.as_tensor(idx_np, device=x.device)])
+            out[torch.as_tensor(idx_np[:valid])] = logits[:valid].float().cpu()
+        return out
+
+    def per_class_accuracy(self, train: bool = False) -> torch.Tensor:
+        """Accuracy of each class over the test (or train) split, float64
+        ``[num_classes]`` on the host; NaN for a class absent from the
+        split."""
+        ds = self.dataset
+        x, y = (ds.x_train, ds.y_train) if train else (ds.x_test, ds.y_test)
+        labels = y.cpu().long()
+        hits = labels[self.predict(x).argmax(-1) == labels]
+        totals = torch.bincount(labels, minlength=ds.num_classes).double()
+        right = torch.bincount(hits, minlength=ds.num_classes).double()
+        return torch.where(totals > 0, right / totals.clamp(min=1), math.nan)
 
     @torch.no_grad()
     def _eval_split(self, train: bool) -> Dict[str, float]:
@@ -127,17 +210,12 @@ class Trainer:
         n = int(x.shape[0])
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         correct = torch.zeros((), dtype=torch.float32, device=self.device)
-        bf16 = self.config.compute_dtype == "bfloat16"
         for idx_np, valid in eval_batches(n, EVAL_BATCH):
             idx = torch.as_tensor(idx_np, device=x.device)
             mask = torch.as_tensor(np.arange(EVAL_BATCH) < valid,
                                    device=self.device)
             labels = y[idx].to(self.device)
-            images = normalize_images(x[idx].to(self.device), ds.mean, ds.std)
-            with torch.autocast(device_type=self.device.type,
-                                dtype=torch.bfloat16,
-                                enabled=bf16 and self.device.type == "cuda"):
-                logits = self.state.model(to_nchw(images), train=False)
+            logits = self._logits(x[idx])
             loss_sum += torch.where(mask, per_sample_nll(logits, labels), 0.0).sum()
             correct += ((logits.argmax(-1) == labels) & mask).sum()
         prefix = "train" if train else "test"

@@ -1,5 +1,6 @@
-"""Rank bodies of the port's two-rank CPU tests (``test_torch_port_parallel``
-and ``test_torch_port_dist_step``); this file holds no tests.
+"""Rank bodies of the port's two-rank CPU tests (``test_torch_port_parallel``,
+``test_torch_port_dist_step`` and ``test_torch_port_checkpoint``); this file
+holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
 process of its own, one a rank, in a gloo process group, and pickles the
@@ -163,6 +164,64 @@ def trainer_rank(config_kw, steps):
         evaluate=trainer.evaluate(),
         shard_row=trainer.dataset.shard_indices[trainer.rank].clone(),
         sync=[m.sync for m in trainer.state.model.modules() if isinstance(m, BatchNorm)])
+
+
+def state_tensors(state) -> dict:
+    """Everything a resumed run must carry over, as named CPU tensors: the
+    model's parameters and BN buffers, the optimizer's state, the
+    accumulator, the counters, the EMA, the stream, the generator's state
+    and the score table."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"optimizer.{i}.{k}": v for k, v in st.items()})
+    for i, acc in enumerate(state.accum or []):
+        out[f"accum.{i}"] = acc
+    counters = dict(step=state.step, updates=state.updates, mini_step=state.mini_step,
+                    cursor=state.stream.cursor)
+    out.update({k: torch.tensor(v) for k, v in counters.items()})
+    out.update({"ema.value": state.ema.value, "ema.count": state.ema.count,
+                "stream.perm": state.stream.perm, "generator": state.generator.get_state()})
+    if state.scoretable is not None:
+        out["table.scores"] = state.scoretable.scores
+        out["table.cursor"] = torch.tensor(state.scoretable.cursor)
+    return {k: v.detach().cpu().clone() for k, v in out.items()}
+
+
+def checkpoint_rank(config_kw, directory, before, after):
+    """A ``Trainer`` at W ranks: ``before`` steps, a save into
+    ``directory``, ``after`` more steps; then a fresh ``Trainer`` (other
+    weights) restored from the file and the same ``after`` steps. Returns
+    the states saved, restored and reached by both runs, and the files this
+    rank wrote."""
+    torch.set_num_threads(1)
+    config = TrainConfig(**config_kw)
+    live = Trainer(config, device="cpu", model=tiny_resnet(seed=0))
+    for _ in range(before):
+        live.train_step()
+    writes = []
+    save = torch.save
+
+    def counted(obj, f, *args, **kwargs):
+        if hasattr(f, "name"):  # a file; gather_object pickles to buffers
+            writes.append(f.name)
+        return save(obj, f, *args, **kwargs)
+
+    torch.save = counted
+    try:
+        path = live.save(directory)
+    finally:
+        torch.save = save
+    saved = state_tensors(live.state)
+    for _ in range(after):
+        live.train_step()
+    fresh = Trainer(config, device="cpu", model=tiny_resnet(seed=1))
+    step = fresh.restore(directory)
+    restored = state_tensors(fresh.state)
+    for _ in range(after):
+        fresh.train_step()
+    return dict(rank=live.rank, path=path, step=step, writes=writes, saved=saved,
+                restored=restored, live=state_tensors(live.state),
+                resumed=state_tensors(fresh.state))
 
 
 def _copy_generator(gen: torch.Generator) -> torch.Generator:

@@ -63,9 +63,12 @@ def test_config_fields_match_the_jax_package():
     cfg = TrainConfig(world_size=1)
     assert cfg.lr == 0.001 and cfg.candidate_pool_size == 320
     for name in ("refresh_size", "table_decay", "refresh_mode", "scoring_dtype",
-                 "fused_input", "sampler"):
+                 "fused_input", "sampler", "grad_accum_steps", "checkpoint_dir",
+                 "checkpoint_every", "checkpoint_keep", "auto_resume"):
         assert name in {f.name for f in dataclasses.fields(TrainConfig)}, name
     assert (cfg.refresh_size, cfg.table_decay, cfg.refresh_mode) == (64, 0.98, "sync")
+    assert (cfg.grad_accum_steps, cfg.checkpoint_dir, cfg.checkpoint_every,
+            cfg.checkpoint_keep, cfg.auto_resume) == (1, None, 1000, 3, False)
 
 
 @pytest.mark.parametrize("field,kw", [
@@ -80,6 +83,7 @@ def test_config_fields_match_the_jax_package():
     pytest.param("model", dict(model="vgg11"), id="model-vgg11"),
     pytest.param("augmentation", dict(augmentation="iid"), id="augmentation-iid"),
     pytest.param("dataset", dict(dataset="cifar100"), id="dataset-cifar100"),
+    pytest.param("grad_accum_steps", dict(grad_accum_steps=0), id="grad_accum_steps-0"),
 ])
 def test_config_rejects_what_is_not_ported(field, kw):
     with pytest.raises(ValueError, match=field):
