@@ -23,23 +23,30 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    in float32 and bfloat16, each bit-equal to the plain version;
 4. drives the main path: ``Trainer(TrainConfig(model="resnet18",
    dataset="synthetic", world_size=1))`` at full width (batch 32, pool 320,
-   bf16, importance sampling on) for 30 steps, with the kernels' launch
-   counts zeroed just before and read just after; checks the losses are
-   finite, the launch counts, that the scoring forward leaves the BN
-   running statistics alone, and one step with kernels against the same
-   step with the plain versions;
+   bf16, importance sampling and telemetry on) for 30 steps, with the
+   kernels' launch counts zeroed just before and read just after; checks
+   the losses are finite, the launch counts, that the scoring forward
+   leaves the BN running statistics alone, every step's telemetry (the JAX
+   step's metric keys, ESS in (0, 1], clip share in [0, 1], the gradient's
+   norm finite and positive, the IS-weight histogram summing to the
+   batch), and one step with kernels against the same step with the plain
+   versions, its telemetry included;
 5. drives the scoretable path the same way: ``sampler="scoretable",
    fused_input=True`` (a table over the 5000-image shard, a refresh window
    of 64, batch 32, every ingest through the fused kernel) for 30 steps,
-   with its own launch counts, the cursor's advance and a kernel step
-   against a plain step;
+   with its own launch counts, the cursor's advance, the telemetry as in
+   phase 4 plus the table's histogram (summing to L), its ages (against
+   the closed form) and the ledger (grown by 30·32, equal to the count of
+   the drawn slots), and a kernel step against a plain step;
 6. drives the default pool configuration at ``world_size=2``: two ranks,
    one process each, in a gloo process group, both on card 0
    (``parallel.distributed.spawn``), batch 32 and a pool of 320 a rank,
    synced BN, 3 + 10 steps. Each rank must launch the kernels as often a
-   step as phase 4 did and issue 3·20 + 4 all-reduces a step, and match a
-   plain step with a kernel step; after the steps the two replicas'
-   parameters, Adam state and BN running statistics must be bit-equal.
+   step as phase 4 did and issue 3·20 + 4 all-reduces a step (telemetry
+   on: its values ride in the metrics' all-reduce), and match a plain step
+   with a kernel step; after the steps the two replicas' parameters, Adam
+   state and BN running statistics, and the two ranks' ESS, clip share,
+   drift and gradient norm, must be bit-equal.
    Each rank's steps/s is printed: two ranks sharing one card over gloo,
    not a data-parallel rate;
 7. resume and accumulate: the default pool configuration with
@@ -52,7 +59,14 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    first. ``predict`` on the test split gives ``evaluate``'s accuracy
    exactly, and uint8 input equals the same images as float / 255. The
    microstep rate (10 microsteps a turn: live, restored, restored, live)
-   is printed beside phase 4's step rate.
+   is printed beside phase 4's step rate;
+8. telemetry: the pool and the scoretable path with ``telemetry=False``
+   and ``True`` in turns (10 steps a turn, 4 turns each), steps/s of each;
+   CUDA kernels a step each way (``torch.profiler``); the synchronizing
+   calls a step each way (``torch.cuda.set_sync_debug_mode("warn")``),
+   which must be equal; ``variance_probe_every=2`` for 6 steps (a finite,
+   positive ``var_ratio`` on even steps, −1.0 on odd ones); and the
+   scoretable Trainer's seven sampler-health keys at a log tick.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -84,6 +98,9 @@ MAIN_STEPS = 30
 WARMUP_STEPS = 3
 TWO_RANKS = 2
 TWO_RANK_STEPS = 10   # timed steps a rank in phase 6
+TELEMETRY_TURN = 10   # steps a turn of phase 8's rates
+TELEMETRY_TURNS = ("off", "on", "on", "off", "off", "on", "on", "off")
+PROBE_STEPS = 6       # steps of phase 8 with variance_probe_every=2
 TIMED_CALLS = 50      # kernel calls captured in one CUDA graph
 TIMED_REPLAYS = 20    # replays of that graph, median taken
 SOURCE = "mercury_tpu_torch/ops/csrc/mercury_kernels.cu"
@@ -108,6 +125,31 @@ ACCUM = dict(model="resnet18", dataset="synthetic", world_size=1, grad_accum_ste
 ACCUM_FIRST = 3  # microsteps before the save: the middle of the second window
 ACCUM_RUN = 4    # microsteps after it, on the live and on the restored trainer
 ACCUM_RATE = 10  # microsteps a turn of the rate (live, restored, restored, live)
+
+# The metric keys of the JAX package's default step (pool) and its
+# scoretable step, with telemetry on (its default): a CPU test holds this
+# literal to the JAX step's own keys.
+_W_HIST = [f"sampler_dist/w_hist/b{i:02d}" for i in range(16)]
+_SCORE_HIST = [f"sampler_dist/score_hist/b{i:02d}" for i in range(16)]
+JAX_STEP_KEYS = {
+    "pool": {"train/loss", "train/acc", "train/pool_loss", "train/sparse_rate",
+             "train/moe_aux", "sampler/ess", "sampler/clip_frac", "sampler/ema_drift",
+             "train/grad_norm", *_W_HIST},
+    "scoretable": {"train/loss", "train/acc", "train/pool_loss", "train/sparse_rate",
+                   "train/moe_aux", "sampler/ess", "sampler/clip_frac",
+                   "sampler/ema_drift", "train/grad_norm", "sampler/table_age_min",
+                   "sampler/table_age_mean", "sampler/table_age_max", *_W_HIST,
+                   *_SCORE_HIST},
+}
+# The JAX keys of options the port does not implement (gradient
+# compression, mixture of experts), and the port's own keys: the draws.
+JAX_ONLY_KEYS = {"train/sparse_rate", "train/moe_aux"}
+PORT_ONLY_KEYS = {"sampler/selected", "sampler/probs"}
+# The seven keys of the scoretable Trainer's sampler-health monitor.
+MONITOR_KEYS = {"sampler_dist/frac_never_selected", "sampler_dist/gini",
+                "sampler_dist/class_share_min", "sampler_dist/class_share_max",
+                "sampler_dist/class_starved", "sampler_dist/bias_chi2",
+                "sampler_dist/bias_ok"}
 
 
 class SmokeFailure(Exception):
@@ -140,6 +182,7 @@ def main() -> int:
     table_path = run_phase("scoretable path", scoretable_path_phase, torch, card)
     two_ranks = run_phase("two ranks", two_rank_phase, torch, card, main_path)
     accum = run_phase("resume and accumulate", accum_resume_phase, torch, card, main_path)
+    telemetry = run_phase("telemetry", telemetry_phase, torch, card, main_path, table_path)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -154,7 +197,8 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": kernels, "cases": cases,
          "main_path": main_path["summary"], "scoretable_path": table_path["summary"],
-         "two_ranks": two_ranks["summary"], "accum_resume": accum["summary"]},
+         "two_ranks": two_ranks["summary"], "accum_resume": accum["summary"],
+         "telemetry": telemetry},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -750,17 +794,18 @@ def augment_case(torch, mk, reference, gen, n: int, dtype, every_offset: bool = 
 # ------------------------------------------------------------------ phase 4
 def timed_steps(torch, mk, trainer, steps: int = MAIN_STEPS):
     """``steps`` steps with the launch counts zeroed just before and read
-    just after; host clock around work that ends in a synchronize."""
+    just after; host clock around work that ends in a synchronize. Returns
+    the time, the counts, the losses and every step's metrics."""
     mk.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses = [trainer.train_step()["train/loss"] for _ in range(steps)]
+    metrics = [trainer.train_step() for _ in range(steps)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(mk.launch_counts)
-    losses = torch.stack(losses).float().cpu()
+    losses = torch.stack([m["train/loss"] for m in metrics]).float().cpu()
     check(bool(torch.isfinite(losses).all()), f"non-finite losses {losses.tolist()}")
-    return dt, counts, losses
+    return dt, counts, losses, metrics
 
 
 def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3,
@@ -782,10 +827,11 @@ def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3,
     try:
         for _ in range(attempts):
             draws = make_draws(state, config)
-            results = {}
+            results, tables = {}, {}
             for use_kernels in (True, False):
                 trainer.state = state.clone()
                 results[use_kernels] = trainer.train_step(draws, use_kernels=use_kernels)
+                tables[use_kernels] = trainer.state.scoretable
             k_m, p_m = results[True], results[False]
             _, _, differ = check_draws(torch, "kernel step vs plain step",
                                        p_m["sampler/probs"], draws.uniforms.reshape(-1),
@@ -804,10 +850,14 @@ def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3,
         step_err[key] = abs(a - b)
         check(math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b),
               f"{key}: kernel step {a!r}, plain step {b!r}")
+    if config.telemetry:
+        p_table = None if tables[False] is None else tables[False].scores
+        step_err["telemetry"] = telemetry_agree(torch, k_m, p_m, p_table)
     if not quiet:
         print(f"kernel step vs plain step: |d loss| {step_err['train/loss']:.2e}, "
               f"|d pool_loss| {step_err['train/pool_loss']:.2e}, same draws "
-              f"({band_misses} earlier tries differed inside the boundary band)")
+              f"({band_misses} earlier tries differed inside the boundary band); "
+              f"telemetry {step_err.get('telemetry')}")
     return step_err
 
 
@@ -822,6 +872,94 @@ def build_trainer(torch, config, quiet: bool = False):
         print(f"Trainer built in {time.perf_counter() - t0:.1f} s on "
               f"{trainer.device}: ResNet-18, {n_params} parameters")
     return trainer
+
+
+def telemetry_rows(torch, metrics, keys):
+    """``[steps, len(keys)]`` float32 on the host: each step's values of
+    ``keys`` (read after the timing)."""
+    return torch.stack([torch.stack([m[k].float().cpu() for k in keys]) for m in metrics])
+
+
+def check_telemetry(torch, metrics, path: str, batch: int):
+    """Every step's telemetry on ``path`` ("pool" or "scoretable"): the
+    JAX step's metric keys (``JAX_STEP_KEYS``, less the options the port
+    does not implement, plus the port's draws), ESS in (0, 1], clip share
+    in [0, 1], the gradient's norm finite and positive, the IS-weight
+    histogram summing to the batch and the table's to its length."""
+    want = JAX_STEP_KEYS[path] - JAX_ONLY_KEYS
+    for m in metrics:
+        got = set(m) - PORT_ONLY_KEYS
+        check(got == want, f"{path}: metric keys differ from the JAX step's: "
+              f"{sorted(got ^ want)}")
+    ess, clip, gnorm = telemetry_rows(
+        torch, metrics, ("sampler/ess", "sampler/clip_frac", "train/grad_norm")).T
+    check(bool(((ess > 0) & (ess <= 1)).all()), f"{path}: ESS outside (0, 1]: {ess.tolist()}")
+    check(bool(((clip >= 0) & (clip <= 1)).all()), f"{path}: clip share {clip.tolist()}")
+    check(bool((torch.isfinite(gnorm) & (gnorm > 0)).all()),
+          f"{path}: gradient norms {gnorm.tolist()}")
+    w_sums = telemetry_rows(torch, metrics, _W_HIST).sum(1)
+    check(bool((w_sums == batch).all()), f"{path}: w_hist sums {w_sums.tolist()}, not {batch}")
+    out = {"ess": [ess.min().item(), ess.max().item()],
+           "clip_frac": [clip.min().item(), clip.max().item()],
+           "grad_norm": [gnorm.min().item(), gnorm.max().item()]}
+    if path == "scoretable":
+        length = metrics[0]["sampler/probs"].numel()
+        s_sums = telemetry_rows(torch, metrics, _SCORE_HIST).sum(1)
+        check(bool((s_sums == length).all()),
+              f"{path}: score_hist sums {s_sums.tolist()}, not {length}")
+    print(f"telemetry ({path}, {len(metrics)} steps): the JAX step's {len(want)} keys "
+          f"(+ {sorted(PORT_ONLY_KEYS)}); ESS {out['ess']}, clip {out['clip_frac']}, "
+          f"grad norm {out['grad_norm']}")
+    return out
+
+
+def near_edges(torch, values, lo: float, hi: float, rel: float = 1e-5) -> int:
+    """How many ``values`` lie within ``rel`` (relative) of an edge of the
+    log-spaced histogram bins over ``[lo, hi)``."""
+    from mercury_tpu_torch.obs.sampler_health import hist_bin_edges
+
+    edges = torch.as_tensor(hist_bin_edges(lo, hi), device=values.device)
+    v = values.detach().double().reshape(-1, 1)
+    return int(((v / edges - 1).abs() <= rel).any(1).sum())
+
+
+def telemetry_agree(torch, k_m, p_m, p_table=None) -> dict:
+    """A kernel step's telemetry against the plain step's (same state and
+    draws): ESS and clip share rtol 1e-5, the drift within 1e-5 of the pool
+    mean it is taken from (the EMA before the step is the same on both
+    sides), the gradient's norm rtol 1e-4; the histograms equal, except
+    that a value within 1e-5 of a bin edge may move one bin (the f32 NLL
+    and draw arithmetic differ in the last bits)."""
+    from mercury_tpu_torch.obs.sampler_health import (
+        SCORE_HIST_HI,
+        SCORE_HIST_LO,
+        WEIGHT_HIST_HI,
+        WEIGHT_HIST_LO,
+    )
+
+    err = {}
+    for key, rtol in (("sampler/ess", 1e-5), ("sampler/clip_frac", 1e-5),
+                      ("train/grad_norm", 1e-4)):
+        a, b = float(k_m[key]), float(p_m[key])
+        err[key] = abs(a - b)
+        check(math.isfinite(a) and abs(a - b) <= rtol * abs(b),
+              f"{key}: kernel step {a!r}, plain step {b!r}")
+    a, b = float(k_m["sampler/ema_drift"]), float(p_m["sampler/ema_drift"])
+    err["sampler/ema_drift"] = abs(a - b)
+    check(abs(a - b) <= 1e-5 * abs(float(p_m["train/pool_loss"])),
+          f"sampler/ema_drift: kernel step {a!r}, plain step {b!r}")
+    probs = p_m["sampler/probs"]
+    hists = [(_W_HIST, probs[p_m["sampler/selected"]] * probs.numel(), WEIGHT_HIST_LO,
+              WEIGHT_HIST_HI)]
+    if p_table is not None:
+        hists.append((_SCORE_HIST, p_table, SCORE_HIST_LO, SCORE_HIST_HI))
+    for keys, values, lo, hi in hists:
+        moved = sum(abs(int(k_m[k]) - int(p_m[k])) for k in keys)
+        near = near_edges(torch, values, lo, hi)
+        check(moved <= 2 * near, f"{keys[0][:-4]}: {moved} counts differ between the "
+              f"kernel and plain steps, {near} values near an edge")
+        err[keys[0][:-4] + " moved"] = moved
+    return err
 
 
 def main_path_phase(torch, card: str):
@@ -858,11 +996,13 @@ def main_path_phase(torch, card: str):
               if k.endswith("running_mean")),
           "train steps left some BN running mean unchanged")
 
-    dt, counts, losses = timed_steps(torch, mk, trainer)
+    dt, counts, losses, metrics = timed_steps(torch, mk, trainer)
     want = {"nll_fwd": 2 * MAIN_STEPS, "nll_bwd": MAIN_STEPS,
             "score_and_draw": MAIN_STEPS, "table_refresh_draw": 0,
             "augment_normalize": 0}
     check(counts == want, f"launch counts {counts}, expected {want}")
+    check(config.telemetry, "telemetry is off in the default config")
+    telemetry = check_telemetry(torch, metrics, "pool", config.batch_size)
     steps_s = MAIN_STEPS / dt
     print(f"main path: {MAIN_STEPS} steps in {dt:.3f} s = {steps_s:.2f} steps/s, "
           f"{steps_s * config.batch_size:.1f} trained images/s, "
@@ -877,7 +1017,7 @@ def main_path_phase(torch, card: str):
                         "candidates_per_s": steps_s * config.candidate_pool_size,
                         "launches": counts, "first_loss": losses[0].item(),
                         "last_loss": losses[-1].item(), "kernel_vs_plain": step_err,
-                        "card": card}}
+                        "telemetry": telemetry, "card": card}}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -899,7 +1039,8 @@ def scoretable_path_phase(torch, card: str):
     trainer.fit(WARMUP_STEPS)
     cursor = trainer.state.scoretable.cursor
     stream_cursor = trainer.state.stream.cursor
-    dt, counts, losses = timed_steps(torch, mk, trainer)
+    ledger = trainer.state.sel_counts.clone()
+    dt, counts, losses, metrics = timed_steps(torch, mk, trainer)
     # Two nll_fwd a step (the window's scores and the train loss; the
     # write-back reuses the loss's per-sample values), two fused ingests
     # (window and batch), one table kernel, no pool selection.
@@ -912,6 +1053,8 @@ def scoretable_path_phase(torch, card: str):
     check(trainer.state.stream.cursor == stream_cursor, "the scoretable step read the stream")
     check(bool(torch.isfinite(table.scores).all()) and float(table.scores.min()) > 0,
           "score table not finite and positive")
+    telemetry = check_telemetry(torch, metrics, "scoretable", config.batch_size)
+    telemetry.update(check_ledger_and_ages(torch, trainer, metrics, ledger, cursor))
     steps_s = MAIN_STEPS / dt
     print(f"scoretable path: {MAIN_STEPS} steps in {dt:.3f} s = {steps_s:.2f} steps/s, "
           f"{steps_s * config.batch_size:.1f} trained images/s, "
@@ -926,7 +1069,36 @@ def scoretable_path_phase(torch, card: str):
                         "rescored_per_s": steps_s * config.refresh_size,
                         "launches": counts, "first_loss": losses[0].item(),
                         "last_loss": losses[-1].item(), "kernel_vs_plain": step_err,
-                        "cursor": [cursor, table.cursor], "card": card}}
+                        "cursor": [cursor, table.cursor], "telemetry": telemetry,
+                        "card": card}}
+
+
+def check_ledger_and_ages(torch, trainer, metrics, ledger_before, cursor: int) -> dict:
+    """The ledger grew by one count for each drawn slot of the run (30·32,
+    duplicates counted each time: the histogram of ``sampler/selected``),
+    and each step's table ages equal the ages of its window's cursor
+    (``obs.diagnostics.table_ages`` on the card): min and max exactly, the
+    float32 mean to rtol 1e-6 of the float64 mean."""
+    from mercury_tpu_torch.obs.diagnostics import table_ages
+
+    config = trainer.config
+    length, r = trainer.dataset.shard_len, config.refresh_size
+    grown = (trainer.state.sel_counts - ledger_before).cpu()
+    drawn = torch.cat([m["sampler/selected"] for m in metrics]).cpu()
+    check(int(grown.sum()) == len(metrics) * config.batch_size,
+          f"ledger grew by {int(grown.sum())}, expected {len(metrics) * config.batch_size}")
+    check(torch.equal(grown.long(), torch.bincount(drawn, minlength=length)),
+          "the ledger differs from the count of the drawn slots")
+    for i, m in enumerate(metrics):
+        ages = table_ages((cursor + i * r) % length, length, r, device=trainer.device)
+        got = [float(m[f"sampler/table_age_{k}"]) for k in ("min", "mean", "max")]
+        lo, mean, hi = float(ages.min()), float(ages.double().mean()), float(ages.max())
+        check(got[0] == lo and got[2] == hi and abs(got[1] - mean) <= 1e-6 * mean,
+              f"step {i}: table ages {got}, closed form {[lo, mean, hi]}")
+    print(f"ledger: +{int(grown.sum())} counts over {len(metrics)} steps, equal to the "
+          f"drawn slots' histogram ({int((grown > 1).sum())} slots drawn more than once); "
+          f"table ages {got} = the closed form at every step")
+    return {"ledger_growth": int(grown.sum()), "table_ages": got}
 
 
 # ------------------------------------------------------------------ phase 6
@@ -944,6 +1116,8 @@ def two_rank_phase(torch, card: str, main_path):
     ranks = spawn(two_rank_body, TWO_RANKS, "gloo", per_step,
                   devices=[0] * TWO_RANKS, timeout_s=600)
     r0, r1 = ranks
+    check(r0["telemetry"] == r1["telemetry"],
+          f"two ranks: telemetry differs: {r0['telemetry']} and {r1['telemetry']}")
     for key in ("params", "adam", "running_stats"):
         differ = sorted(k for k in r0[key] if r0[key][k] != r1[key].get(k))
         check(r0[key].keys() == r1[key].keys() and not differ,
@@ -961,7 +1135,8 @@ def two_rank_phase(torch, card: str, main_path):
               f"|d loss| {e['train/loss']:.2e}, |d pool_loss| {e['train/pool_loss']:.2e} "
               f"({e['band_misses']} band retries)")
     print(f"replicas bit-equal after the steps: {len(r0['params'])} parameters, "
-          f"{len(r0['adam'])} Adam tensors, {len(r0['running_stats'])} running statistics")
+          f"{len(r0['adam'])} Adam tensors, {len(r0['running_stats'])} running statistics; "
+          f"the last step's telemetry equal on both ranks: {r0['telemetry']}")
     launches = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
     return {"launches": launches,
             "summary": {"ranks": TWO_RANKS, "backend": "gloo", "steps": TWO_RANK_STEPS,
@@ -970,7 +1145,8 @@ def two_rank_phase(torch, card: str, main_path):
                                                "losses", "all_reduces_per_step",
                                                "all_reduce_ms_per_step",
                                                "gradient_bucket_ms_per_step",
-                                               "kernel_vs_plain")} for r in ranks]}}
+                                               "kernel_vs_plain", "telemetry")}
+                            for r in ranks]}}
 
 
 def two_rank_body(per_step):
@@ -1006,9 +1182,12 @@ def two_rank_body(per_step):
 
     dist.all_reduce = counted
     try:
-        dt, counts, losses = timed_steps(torch, mk, trainer, TWO_RANK_STEPS)
+        dt, counts, losses, metrics = timed_steps(torch, mk, trainer, TWO_RANK_STEPS)
     finally:
         dist.all_reduce = all_reduce
+    check(config.telemetry, "telemetry is off in the two-rank config")
+    telemetry = {k: float(metrics[-1][k]) for k in ("sampler/ess", "sampler/clip_frac",
+                                                    "sampler/ema_drift", "train/grad_norm")}
     want = {k: v * TWO_RANK_STEPS for k, v in per_step.items()}
     check(counts == want, f"rank {rank}: launch counts {counts}, expected {want}")
     n_bn = sum(isinstance(m, BatchNorm) for m in trainer.state.model.modules())
@@ -1030,6 +1209,7 @@ def two_rank_body(per_step):
     return {"rank": rank, "seconds": dt, "steps_per_s": TWO_RANK_STEPS / dt,
             "launches": counts, "losses": losses.tolist(),
             "all_reduces_per_step": per_step_calls, "kernel_vs_plain": step_err,
+            "telemetry": telemetry,
             "all_reduce_ms_per_step": sum(t for _, t in calls) / TWO_RANK_STEPS * 1e3,
             "gradient_bucket_ms_per_step": sum(t for n, t in calls if n == biggest)
             / TWO_RANK_STEPS * 1e3, "gradient_bucket_elements": biggest,
@@ -1064,6 +1244,8 @@ def state_digests(state) -> dict:
                 "generator": digest(state.generator.get_state())})
     out.update({k: str(getattr(state, k)) for k in ("step", "updates", "mini_step")})
     out["stream.cursor"] = str(state.stream.cursor)
+    if state.sel_counts is not None:
+        out["sel_counts"] = digest(state.sel_counts)
     return out
 
 
@@ -1207,6 +1389,92 @@ def _accum_resume(torch, mk, card, config, per_step, directory, main_path):
                         "losses": losses_a.tolist(), "launches": counts,
                         "predict_acc": acc, "eval_acc": ev["test/eval_acc"],
                         "per_class_accuracy": per_class.tolist()}}
+
+
+# ------------------------------------------------------------------ phase 8
+def sync_calls(torch, trainer) -> list:
+    """The synchronizing CUDA calls of one step, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.train_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def telemetry_phase(torch, card: str, main_path, table_path) -> dict:
+    """Telemetry off against on, on the pool and the scoretable path: the
+    rate in turns, the CUDA kernels a step (``torch.profiler``) and the
+    synchronizing calls a step (equal both ways); the grad-variance probe
+    on its cadence; and the scoretable Trainer's monitor at a log tick."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    out = {"card": card}
+    for path, config in (("pool", main_path["config"]), ("scoretable", table_path["config"])):
+        arms = {arm: build_trainer(torch, config.replace(telemetry=arm == "on", log_every=10),
+                                   quiet=True) for arm in ("off", "on")}
+        for trainer in arms.values():
+            trainer.fit(WARMUP_STEPS)
+        rates = {"off": [], "on": []}
+        for arm in TELEMETRY_TURNS:
+            dt, _, _, _ = timed_steps(torch, mk, arms[arm], TELEMETRY_TURN)
+            rates[arm].append(TELEMETRY_TURN / dt)
+        syncs = {arm: sync_calls(torch, arms[arm]) for arm in arms}
+        check(len(syncs["on"]) == len(syncs["off"]),
+              f"{path}: telemetry adds synchronizing calls: on {syncs['on']}, off {syncs['off']}")
+        kernels = {arm: profile_window(torch, arms[arm],
+                                       1e6 / statistics.mean(rates[arm]), steps=5)
+                   for arm in arms}
+        row = {"steps_per_s": rates,
+               "kernels_per_step": {a: kernels[a]["kernels_per_step"] for a in arms},
+               "device_us_per_step": {a: kernels[a]["device_us_per_step"] for a in arms},
+               "sync_calls_per_step": {a: len(syncs[a]) for a in arms},
+               "sync_calls": syncs["on"]}
+        print(f"telemetry {path}: steps/s in turns of {TELEMETRY_TURN}, off "
+              f"{[round(r, 2) for r in rates['off']]}, on {[round(r, 2) for r in rates['on']]} "
+              f"(means {statistics.mean(rates['off']):.2f} and {statistics.mean(rates['on']):.2f})"
+              f"; CUDA kernels a step off {row['kernels_per_step']['off']:.1f}, on "
+              f"{row['kernels_per_step']['on']:.1f}; device us a step off "
+              f"{row['device_us_per_step']['off']:.1f}, on {row['device_us_per_step']['on']:.1f}; "
+              f"synchronizing calls a step off {len(syncs['off'])}, on {len(syncs['on'])} [{card}]")
+        if path == "scoretable":
+            trainer = arms["on"]
+            every = trainer.config.log_every
+            health = trainer.fit(every - trainer.state.step % every)
+            check(trainer.state.step % every == 0 and MONITOR_KEYS <= set(health),
+                  f"no sampler-health keys at the log tick of step {trainer.state.step}")
+            health = {k: health[k] for k in sorted(MONITOR_KEYS)}
+            check(0.0 <= health["sampler_dist/gini"] <= 1.0
+                  and 0.0 <= health["sampler_dist/frac_never_selected"] <= 1.0
+                  and health["sampler_dist/bias_ok"] in (0.0, 1.0)
+                  and all(math.isfinite(v) for v in health.values()),
+                  f"sampler-health keys {health}")
+            print(f"sampler health at the log tick of step {trainer.state.step}: {health}")
+            row["monitor"] = health
+        out[path] = row
+        del arms
+
+    probe = build_trainer(torch, main_path["config"].replace(variance_probe_every=2),
+                          quiet=True)
+    ratios = []
+    for _ in range(PROBE_STEPS):
+        ratios.append((probe.train_step()["sampler_dist/var_ratio"], probe.state.step))
+    ratios = [(float(r), step) for r, step in ratios]
+    for r, step in ratios:
+        check((r == -1.0) if step % 2 else (math.isfinite(r) and r > 0),
+              f"var_ratio {r} at step {step}")
+    print(f"variance probe every 2 steps: {[(step, round(r, 5)) for r, step in ratios]} "
+          f"(step, var_ratio) [{card}]")
+    out["var_ratio"] = ratios
+    return out
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):

@@ -83,6 +83,17 @@ class TrainConfig:
     checkpoint_every: int = 1000
     checkpoint_keep: int = 3
     auto_resume: bool = False
+    # Telemetry (obs/diagnostics.py, obs/sampler_health.py): the step also
+    # returns the sampler-health scalars (ESS of the importance weights,
+    # score-clip fraction, EMA drift, the gradient's norm and, on the
+    # scoretable path, the table's ages), the IS-weight histogram and, on
+    # the scoretable path, the table's histogram and the selection-count
+    # ledger. With telemetry=False none of it is computed.
+    telemetry: bool = True
+    # Every K-th step one extra no-grad forward of the trained batch gives
+    # sampler_dist/var_ratio, the IS-vs-uniform gradient second-moment
+    # ratio (< 1: importance sampling wins); other steps carry -1.0. 0 off.
+    variance_probe_every: int = 0
 
     # Precision
     compute_dtype: str = "bfloat16"   # autocast dtype on the card
@@ -143,6 +154,8 @@ class TrainConfig:
             bad("warmup_steps", "must be >= 0")
         if self.grad_accum_steps < 1:
             bad("grad_accum_steps", "must be >= 1")
+        if self.variance_probe_every < 0:
+            bad("variance_probe_every", "must be >= 0")
 
     @property
     def lr(self) -> float:
@@ -154,6 +167,19 @@ class TrainConfig:
         """The scoretable step runs only with importance sampling on; with
         it off the step is the uniform arm whatever the sampler."""
         return self.use_importance_sampling and self.sampler == "scoretable"
+
+    @property
+    def use_ledger(self) -> bool:
+        """The selection-count ledger rides with the score table, under
+        telemetry."""
+        return self.use_scoretable and self.telemetry
+
+    @property
+    def use_probe(self) -> bool:
+        """The grad-variance probe needs telemetry and importance
+        weights."""
+        return (self.telemetry and self.variance_probe_every > 0
+                and self.use_importance_sampling)
 
     @property
     def candidate_pool_size(self) -> int:

@@ -11,7 +11,7 @@ as they do when they run the same step.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -64,6 +64,18 @@ def allreduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """A summed copy of ``x`` over the ranks (not differentiable); ``x``
     itself at one rank."""
     return x if world(group) == 1 else _summed(x, group)
+
+
+def gather_to_rank0(obj: Any, group=None) -> Optional[List[Any]]:
+    """Every rank's picklable ``obj`` on the group's first rank, in rank
+    order (``gather_object``, on gloo and NCCL); None on the other ranks;
+    ``[obj]`` at one rank."""
+    if world(group) == 1:
+        return [obj]
+    objs = [None] * world(group) if rank(group) == 0 else None
+    dst = 0 if group is None else dist.get_global_rank(group, 0)
+    dist.gather_object(obj, objs, dst=dst, group=group)
+    return objs
 
 
 def psum_stats(sum_value: torch.Tensor, count: torch.Tensor, group=None

@@ -56,6 +56,25 @@ def per_sample_loss(logits: torch.Tensor, labels: torch.Tensor,
     return nll
 
 
+def per_sample_grad_norm_bound(logits: torch.Tensor, labels: torch.Tensor,
+                               label_smoothing: float = 0.0) -> torch.Tensor:
+    """``‖softmax(z_i) − target(y_i)‖₂`` in float32, the exact norm of the
+    cross-entropy gradient with respect to the logits, with the target
+    ``(1−ls)·onehot + ls/C``: the Katharopoulos-Fleuret importance score
+    (arXiv:1803.00942) and the grad-variance probe's ``g_i``. A label
+    outside ``[0, C)`` has an all-zero one-hot row, as ``jax.nn.one_hot``
+    gives; the one-hot is a compare, which reads nothing back to the
+    host."""
+    logits = logits.to(torch.float32)
+    k = logits.shape[-1]
+    p = torch.softmax(logits, dim=-1)
+    classes = torch.arange(k, device=logits.device)
+    target = (labels.long()[:, None] == classes).to(torch.float32)
+    if label_smoothing > 0.0:
+        target = (1.0 - label_smoothing) * target + label_smoothing / k
+    return torch.linalg.vector_norm(p - target, dim=-1)
+
+
 def smoothed_scores(losses: torch.Tensor, ema_value,
                     alpha: float = 0.5) -> torch.Tensor:
     """``score_i = loss_i + α·EMA`` before the floor and normalization."""

@@ -12,10 +12,12 @@ The file holds the replicated state once (the model's parameters and BN
 buffers, the optimizer's state, the step counters and the gradient
 accumulator) and a row of sampler state for each rank (the EMA, the stream
 permutation and cursor, the generator's state and, with
-``sampler="scoretable"``, the table and its cursor). At W>1 every rank sends
-its row to rank 0, rank 0 alone writes, and a barrier follows, so no rank
-reads before the file exists; a restore reads the file on every rank, and
-each rank takes its own row.
+``sampler="scoretable"``, the table and its cursor and, under telemetry, the
+selection-count ledger). At W>1 every rank sends its row to rank 0, rank 0
+alone writes, and a barrier follows, so no rank reads before the file
+exists; a restore reads the file on every rank, and each rank takes its own
+row. A file without a ledger (saved with ``telemetry=False``) restores into
+a zero ledger; a ledger restored into a run without telemetry is dropped.
 
 A file is written to ``ckpt_<step>.pt.tmp``, flushed to disk and renamed,
 so a torn write never carries a checkpoint's name.
@@ -32,7 +34,7 @@ import torch.distributed as dist
 
 from mercury_tpu_torch.config import TrainConfig
 from mercury_tpu_torch.data.pipeline import ShardStream
-from mercury_tpu_torch.parallel.collectives import rank, world
+from mercury_tpu_torch.parallel.collectives import gather_to_rank0, rank, world
 from mercury_tpu_torch.sampling.importance import EMAState
 from mercury_tpu_torch.sampling.scoretable import ScoreTableState
 from mercury_tpu_torch.train.state import MercuryState
@@ -73,18 +75,8 @@ def _rank_row(state: MercuryState) -> Dict[str, Any]:
         "generator": state.generator.get_state(),
         "table": None if table is None else _cpu(table.scores),
         "table_cursor": None if table is None else table.cursor,
+        "sel_counts": None if state.sel_counts is None else _cpu(state.sel_counts),
     }
-
-
-def _gather_rows(state: MercuryState) -> Optional[List[Dict[str, Any]]]:
-    """Every rank's row on rank 0 (``gather_object``, on gloo and NCCL);
-    None on the other ranks."""
-    row = _rank_row(state)
-    if world() == 1:
-        return [row]
-    rows = [None] * world() if rank() == 0 else None
-    dist.gather_object(row, rows, dst=0)
-    return rows
 
 
 def _write(path: str, payload: Dict[str, Any]) -> None:
@@ -114,7 +106,7 @@ def save_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
     """Write ``state`` to ``directory/ckpt_<state.step>.pt`` and prune to
     the newest ``keep``; return the path. Called by every rank at W>1:
     rank 0 writes, and every rank returns once the file exists."""
-    rows = _gather_rows(state)
+    rows = gather_to_rank0(_rank_row(state))
     path = checkpoint_path(directory, state.step)
     if rank() == 0:
         os.makedirs(directory, exist_ok=True)
@@ -172,4 +164,8 @@ def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
     state.generator.set_state(row["generator"])
     if state.scoretable is not None:
         state.scoretable = ScoreTableState(row["table"].to(device), row["table_cursor"])
+    if state.sel_counts is not None:
+        saved = row.get("sel_counts")
+        state.sel_counts = (torch.zeros_like(state.sel_counts) if saved is None
+                            else saved.to(device))
     return step

@@ -13,6 +13,10 @@ full ``lr``; here the step sets the learning rate of update ``k`` to
 With ``grad_accum_steps=A > 1`` the state also carries optax.MultiSteps'
 accumulator: each step (a microstep) folds its gradient into ``accum``, and
 every A-th applies the update, so ``updates = ceil(total_steps / A)``.
+
+With the score table and ``telemetry`` the state also carries the
+selection-count ledger ``sel_counts``: how often each slot of this rank's
+shard has been trained on.
 """
 
 from __future__ import annotations
@@ -109,6 +113,9 @@ class MercuryState:
     # grad_accum_steps > 1 only: the float32 running mean of this window's
     # gradients, one tensor a parameter in model.parameters() order
     accum: Optional[List[torch.Tensor]] = None
+    # sampler="scoretable" with telemetry only: this rank's [L] int32 ledger
+    # of trained slots on the device, one count an occurrence
+    sel_counts: Optional[torch.Tensor] = None
 
     def clone(self) -> "MercuryState":
         """An independent copy: the model and its optimizer are copied
@@ -126,6 +133,7 @@ class MercuryState:
             stream=ShardStream(self.stream.perm.clone(), self.stream.cursor),
             scoretable=table,
             accum=None if self.accum is None else [a.clone() for a in self.accum],
+            sel_counts=None if self.sel_counts is None else self.sel_counts.clone(),
         )
 
 
@@ -145,12 +153,14 @@ def create_state(model: torch.nn.Module, device: torch.device, seed: int,
                  warmup_steps: int = 0,
                  with_scoretable: bool = False,
                  rank: int = 0,
-                 grad_accum_steps: int = 1) -> MercuryState:
+                 grad_accum_steps: int = 1,
+                 with_sel_counts: bool = False) -> MercuryState:
     """Move ``model`` to ``device`` and build its optimizer, a fresh EMA,
     the worker's stream and a generator seeded with ``rank_seed(seed,
     rank)``; with ``with_scoretable`` also a score table of ones over the
-    shard, cursor 0; with ``grad_accum_steps > 1`` a zero accumulator. The
-    model arrives with its weights: the same on every rank."""
+    shard, cursor 0; with ``grad_accum_steps > 1`` a zero accumulator; with
+    ``with_sel_counts`` a zero ledger over the shard. The model arrives with
+    its weights: the same on every rank."""
     device = torch.device(device)
     model = model.to(device)
     if device.type == "cuda":
@@ -165,7 +175,10 @@ def create_state(model: torch.nn.Module, device: torch.device, seed: int,
     accum = None
     if grad_accum_steps > 1:
         accum = [torch.zeros_like(p, dtype=torch.float32) for p in model.parameters()]
+    sel_counts = None
+    if with_sel_counts:
+        sel_counts = torch.zeros(shard_len, dtype=torch.int32, device=device)
     return MercuryState(step=0, model=model, optimizer=opt,
                         lr_schedule=schedule, ema=init_ema(device),
                         stream=stream, generator=gen, scoretable=table,
-                        accum=accum)
+                        accum=accum, sel_counts=sel_counts)

@@ -56,6 +56,20 @@ of W ranks, and these cross the ranks (``parallel/collectives.py``):
 
 At W=1 the step issues no collective and needs no process group.
 
+With ``config.telemetry`` (the default, as in the JAX package) the step
+also returns the sampler's health (``obs/``): ``sampler/ess``,
+``sampler/clip_frac``, ``sampler/ema_drift``, ``train/grad_norm`` (after the
+all-reduce, before the optimizer or the accumulator) and, with importance
+sampling, the IS weights' histogram ``sampler_dist/w_hist/b00..b15``; on the
+scoretable path also ``sampler/table_age_{min,mean,max}``, the refreshed
+table's histogram ``sampler_dist/score_hist/b00..b15``, and it adds each
+trained slot to the ledger ``state.sel_counts``. With
+``variance_probe_every=K > 0`` every K-th step runs one more no-grad forward
+of the drawn batch through the pre-update model for
+``sampler_dist/var_ratio`` (−1.0 on the other steps). At W>1 the scalars are
+means over the ranks and the histograms sums, carried by the metrics'
+all-reduce. With ``telemetry=False`` none of this is computed.
+
 The step's random numbers are one :class:`Draws`: by default made from the
 state's generator on the device; tests pass the JAX package's draws instead.
 On the card, with ``compute_dtype="bfloat16"``, forwards run under bf16
@@ -75,6 +89,23 @@ from mercury_tpu_torch.data.pipeline import (
     next_pool,
     normalize_images,
 )
+from mercury_tpu_torch.obs.diagnostics import (
+    clip_fraction,
+    ema_drift,
+    ess_fraction,
+    global_grad_norm,
+    table_age_summary,
+)
+from mercury_tpu_torch.obs.sampler_health import (
+    HIST_BINS,
+    SCORE_HIST_HI,
+    SCORE_HIST_LO,
+    WEIGHT_HIST_HI,
+    WEIGHT_HIST_LO,
+    hist_keys,
+    log_bin_histogram,
+    variance_probe_ratio,
+)
 from mercury_tpu_torch.ops import reference
 from mercury_tpu_torch.ops.mercury_kernels import (
     augment_normalize,
@@ -86,6 +117,7 @@ from mercury_tpu_torch.parallel.collectives import allreduce_mean_, allreduce_su
 from mercury_tpu_torch.parallel.distributed import require_world
 from mercury_tpu_torch.sampling.importance import (
     ema_update,
+    per_sample_grad_norm_bound,
     pool_mean,
     reweighted_loss,
 )
@@ -198,7 +230,8 @@ def make_train_step(
     and returns the step's metrics as device tensors
     — scalars, the ``[B]`` pool positions or table slots drawn and the
     distribution they were drawn from — so a caller that does not read
-    them never waits for the device.
+    them never waits for the device. The three table ages, which the host
+    knows from the cursor, are float32 CPU scalars.
     ``use_kernels=False`` swaps the kernels for their plain versions on the
     same device — for holding one against the other, not for training.
     At W>1 the process group must have ``config.world_size`` ranks."""
@@ -212,6 +245,12 @@ def make_train_step(
     refresh_size = config.refresh_size
     bf16 = config.compute_dtype == "bfloat16"
     accum_steps = config.grad_accum_steps
+    telemetry = config.telemetry
+    if telemetry and use_table:
+        # The ages are a rotation of the same L values at every cursor.
+        ages = {f"sampler/table_age_{name}": torch.tensor(value, dtype=torch.float32)
+                for name, value in zip(("min", "mean", "max"),
+                                       table_age_summary(dataset.shard_len, refresh_size))}
     if dataset.x_shard is not None:
         # Sharded placement: the rank's own rows, indexed by slot.
         x_rows, y_rows, shard_row = dataset.x_shard, dataset.y_shard, None
@@ -261,6 +300,19 @@ def make_train_step(
                 logits = model(to_nchw(images), train=True, keep_stats=False)
                 return nll(logits, labels)
 
+        def probe_var_ratio(images: torch.Tensor, labels: torch.Tensor,
+                            scaled_probs: torch.Tensor) -> torch.Tensor:
+            """The grad-variance probe: the drawn batch through the
+            pre-update model (train mode, running statistics left alone,
+            no gradients), the gradient-norm bounds of its logits and
+            their two moments, pooled over the ranks before the ratio."""
+            with torch.no_grad():
+                with autocast:
+                    logits = model(to_nchw(images), train=True, keep_stats=False)
+                g = per_sample_grad_norm_bound(logits.float(), labels)
+                return variance_probe_ratio(
+                    g, scaled_probs, mean=lambda v: pool_mean(v, sync_stats))
+
         stream, ema, table = state.stream, state.ema, state.scoretable
         if use_table:
             r_slots = refresh_window(table, refresh_size)
@@ -268,6 +320,7 @@ def make_train_step(
             r_scores = score(ingest(r_rows, draws.crop, draws.flip, use_kernels),
                              r_labels)
             avg_pool_loss = pool_mean(r_scores, sync_stats)
+            ema_prev = ema.value
             ema = ema_update(ema, avg_pool_loss, config.ema_alpha)
             refresh_draw = (table_refresh_draw if use_kernels
                             else reference.table_refresh_draw)
@@ -275,6 +328,11 @@ def make_train_step(
                 table.scores, r_slots, r_scores, ema.value, draws.uniforms,
                 config.is_alpha, config.table_decay)
             selected = selected.long()
+            if telemetry:
+                # Over the whole refreshed table, before the write-back:
+                # what the draw normalized.
+                clip = clip_fraction(new_scores, ema.value, config.is_alpha)
+                drift = ema_drift(avg_pool_loss, ema_prev)
             sel_rows, sel_labels = gather(selected)
             sel_images = ingest(sel_rows, draws.crop2, draws.flip2, use_kernels)
         else:
@@ -289,18 +347,31 @@ def make_train_step(
             if use_is:
                 pool_losses = score(images, labels)
                 avg_pool_loss = pool_mean(pool_losses, sync_stats)
+                ema_prev = ema.value
                 ema = ema_update(ema, avg_pool_loss, config.ema_alpha)
                 select = score_and_draw if use_kernels else reference.score_and_draw
                 probs, selected, scaled_probs = select(
                     pool_losses, ema.value, draws.uniforms, config.is_alpha)
                 selected = selected.long()
                 sel_images, sel_labels = images[selected], labels[selected]
+                if telemetry:
+                    clip = clip_fraction(pool_losses, ema.value, config.is_alpha)
+                    drift = ema_drift(avg_pool_loss, ema_prev)
             else:
                 probs = None
                 selected = torch.arange(batch_size, device=dev)
                 sel_images, sel_labels = images[:batch_size], labels[:batch_size]
                 scaled_probs = torch.ones(batch_size, dtype=torch.float32, device=dev)
                 avg_pool_loss = torch.zeros((), dtype=torch.float32, device=dev)
+                if telemetry:
+                    # Nothing scored: nothing clips or drifts.
+                    clip = drift = torch.zeros((), dtype=torch.float32, device=dev)
+
+        # The probe's cadence counts the steps after this one, as the JAX
+        # step's metric records do.
+        probe = config.use_probe and (state.step + 1) % config.variance_probe_every == 0
+        if probe:
+            var_ratio = probe_var_ratio(sel_images, sel_labels, scaled_probs)
 
         # --- train update: reweighted forward/backward, optimizer step (at
         # A > 1 the gradient is folded into the accumulator instead, and
@@ -314,8 +385,12 @@ def make_train_step(
         train_losses = nll(logits, sel_labels)
         loss = reweighted_loss(train_losses, scaled_probs)
         loss.backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
         if world_size > 1:
-            allreduce_mean_([p.grad for p in model.parameters() if p.grad is not None])
+            allreduce_mean_(grads)
+        if telemetry:
+            # This (micro)step's gradient, equal on every rank.
+            grad_norm = global_grad_norm(grads)
         if state.accum is None:
             state.optimizer.step()
             state.updates += 1
@@ -333,23 +408,54 @@ def make_train_step(
             # step recomputes from the same logits — duplicates averaged.
             with torch.no_grad():
                 scores = scatter_mean(new_scores, selected, train_losses.detach())
+                if config.use_ledger:
+                    if state.sel_counts is None:  # a state built without one
+                        state.sel_counts = torch.zeros_like(scores, dtype=torch.int32)
+                    # One count an occurrence: a slot drawn twice counts twice.
+                    state.sel_counts.index_add_(
+                        0, selected, torch.ones_like(selected, dtype=torch.int32))
             table = ScoreTableState(scores, advance_cursor(table, refresh_size))
         state.step += 1
         state.ema = ema
         state.stream = stream
         state.scoretable = table
+        means: Dict[str, torch.Tensor] = {}  # telemetry scalars, averaged at W>1
+        hists: Dict[str, torch.Tensor] = {}  # telemetry histograms, summed at W>1
         with torch.no_grad():
+            if telemetry:
+                means = {"sampler/ess": ess_fraction(scaled_probs),
+                         "sampler/clip_frac": clip, "sampler/ema_drift": drift}
+                if probe:
+                    means["sampler_dist/var_ratio"] = var_ratio
+                if use_is:
+                    hists["w_hist"] = log_bin_histogram(scaled_probs, WEIGHT_HIST_LO,
+                                                        WEIGHT_HIST_HI)
+                if use_table:
+                    # The table after the write-back: what the next draw reads.
+                    hists["score_hist"] = log_bin_histogram(table.scores, SCORE_HIST_LO,
+                                                            SCORE_HIST_HI)
             hits = logits.argmax(dim=-1) == sel_labels
             loss = loss.detach()
             if world_size == 1:
                 acc = hits.float().mean()
             else:
-                # One all-reduce: [Σ loss, Σ pool loss, Σ correct, Σ count].
-                sums = allreduce_sum(torch.stack([
-                    loss, avg_pool_loss, hits.float().sum(),
-                    loss.new_full((), hits.numel())]))
+                # One all-reduce: [Σ loss, Σ pool loss, Σ correct, Σ count],
+                # then the telemetry's scalars and its histograms' counts in
+                # float32 (exact below 2²⁴).
+                flat = torch.stack([loss, avg_pool_loss, hits.float().sum(),
+                                    loss.new_full((), hits.numel()), *means.values()])
+                if hists:
+                    flat = torch.cat([flat, *(h.float() for h in hists.values())])
+                sums = allreduce_sum(flat)
                 loss, avg_pool_loss = sums[0] / world_size, sums[1] / world_size
                 acc = sums[2] / sums[3]
+                at = 4
+                for key in means:
+                    means[key] = sums[at] / world_size
+                    at += 1
+                for key in hists:
+                    hists[key] = sums[at:at + HIST_BINS].to(torch.int32)
+                    at += HIST_BINS
         metrics = {
             "train/loss": loss,
             "train/acc": acc,
@@ -359,6 +465,16 @@ def make_train_step(
         }
         if probs is not None:
             metrics["sampler/probs"] = probs  # [P] or [L]: what the batch was drawn from
+        if telemetry:
+            metrics.update(means)
+            metrics["train/grad_norm"] = grad_norm
+            if use_table:
+                metrics.update(ages)
+            for family, counts in hists.items():
+                metrics.update(zip(hist_keys(family), counts))
+            if config.use_probe and not probe:
+                metrics["sampler_dist/var_ratio"] = torch.full(
+                    (), -1.0, dtype=torch.float32, device=dev)
         return metrics
 
     return step_fn

@@ -20,6 +20,13 @@ saves every ``checkpoint_every`` steps and at its end when
 ``checkpoint_dir`` is set, and ``auto_resume`` restores the newest
 checkpoint there at construction), ``predict`` (logits of raw images) and
 ``per_class_accuracy``.
+
+With the scoretable sampler and ``telemetry`` the Trainer keeps a
+``SamplerHealthMonitor`` (``obs/sampler_health.py``): at every
+``log_every`` tick ``fit`` merges its seven ledger-derived keys into the
+logged record (:meth:`Trainer.sampler_health`), and into its returned
+dict when its last step is a tick. At W>1 rank 0 gathers every rank's
+ledger, table and EMA for them at the tick; the other ranks log without.
 """
 
 from __future__ import annotations
@@ -42,8 +49,10 @@ from mercury_tpu_torch.data.pipeline import (
 )
 from mercury_tpu_torch.models import create_model
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
+from mercury_tpu_torch.obs.sampler_health import SamplerHealthMonitor
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
 from mercury_tpu_torch.parallel import distributed
+from mercury_tpu_torch.parallel.collectives import gather_to_rank0
 from mercury_tpu_torch.train import checkpoint
 from mercury_tpu_torch.train.state import MercuryState, create_state
 from mercury_tpu_torch.train.step import Draws, make_train_step, to_nchw
@@ -102,7 +111,16 @@ class Trainer:
             config.weight_decay, config.warmup_steps,
             with_scoretable=config.use_scoretable, rank=self.rank,
             grad_accum_steps=config.grad_accum_steps,
+            with_sel_counts=config.use_ledger,
         )
+        self.sampler_monitor: Optional[SamplerHealthMonitor] = None
+        if config.use_ledger:
+            # The JAX Trainer's starvation share, until the SLO fields are
+            # ported.
+            self.sampler_monitor = SamplerHealthMonitor(
+                self.dataset.shard_indices.cpu().numpy(),
+                self.dataset.y_train.cpu().numpy(), self.dataset.num_classes,
+                config.is_alpha, starvation_share=0.2)
         # Crash or preemption recovery: the newest checkpoint, sampler state
         # included; fit() then runs on to the original total_steps.
         if (config.auto_resume and config.checkpoint_dir
@@ -119,18 +137,22 @@ class Trainer:
         """Run ``steps`` steps (default: to the end of the schedule), logging
         every ``log_every``, evaluating every ``eval_every`` and, with a
         ``checkpoint_dir``, saving every ``checkpoint_every`` steps and at
-        the end. Returns the last step's scalar metrics and the last
-        evaluation."""
+        the end. Returns the last step's scalar metrics, the last
+        evaluation and, when the last step is a log tick, the sampler-health
+        keys."""
         cfg = self.config
         steps = self.total_steps - self.state.step if steps is None else steps
         out: Dict[str, float] = {}
         metrics: Dict[str, torch.Tensor] = {}
+        health: Dict[str, float] = {}
         saved = None
         for _ in range(steps):
             metrics = self.train_step()
             step = self.state.step
+            health = {}
             if cfg.log_every and step % cfg.log_every == 0:
-                _log.info("step %d: %s", step, _scalars(metrics))
+                health = self.sampler_health()
+                _log.info("step %d: %s", step, {**_scalars(metrics), **health})
             if cfg.eval_every and step % cfg.eval_every == 0:
                 out.update(self.evaluate())
             if cfg.checkpoint_dir and cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
@@ -139,7 +161,23 @@ class Trainer:
         if cfg.checkpoint_dir and saved != self.state.step:
             self.save()
         out.update(_scalars(metrics))
+        out.update(health)
         return out
+
+    def sampler_health(self) -> Dict[str, float]:
+        """The sampler-health monitor's keys of the ledger so far (none
+        without a ledger). At W>1 every rank must call it at the same step:
+        rank 0 gathers the rows and returns the keys of the ``[W, L]``
+        ledger, the other ranks return none."""
+        if self.sampler_monitor is None:
+            return {}
+        st = self.state
+        rows = gather_to_rank0(tuple(t.cpu().numpy() for t in (
+            st.sel_counts, st.scoretable.scores, st.ema.value)))
+        if rows is None:
+            return {}
+        counts, scores, ema = (np.stack(col) for col in zip(*rows))
+        return self.sampler_monitor.stats_of(counts, scores, ema)
 
     def _directory(self, directory: Optional[str]) -> str:
         directory = directory or self.config.checkpoint_dir

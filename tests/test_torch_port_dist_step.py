@@ -16,7 +16,10 @@ package's own functions under ``shard_map``.
 
 Three configurations: the pool step with synced BN and replicated data;
 the pool step with local BN and sharded data; the scoretable step with the
-fused ingest and synced BN. Tiny sizes: a [1, 1]-stage ResNet of width 8,
+fused ingest and synced BN. The port runs each with its telemetry on (the
+default); the JAX step of the scoretable configuration too, so its
+telemetry is held to the JAX workers' (ESS, clip share and drift means over
+the workers, the histograms sums, the gradient's norm equal on both). Tiny sizes: a [1, 1]-stage ResNet of width 8,
 batch 4, a pool of 16 (or a window of 8) a worker, 64 images split into
 two Dirichlet shards.
 
@@ -27,7 +30,9 @@ ATen); parameters after Adam to 2·lr (its first update is ≈ lr·sign(g),
 so a last-bit difference in a g near 0 flips it: this one holds the
 optimizer, the gradient test the gradient), the BN running statistics and
 the score table to rtol 1e-5, atol 1e-6; the selections and the accuracy
-equal; the two ranks' replicas bit-equal.
+equal; the two ranks' replicas bit-equal; the telemetry as in
+``test_torch_port_telemetry_step`` (ESS, clip and drift rtol 1e-5, the
+gradient's norm rtol 1e-4, histograms and ages exactly).
 """
 
 import numpy as np
@@ -43,6 +48,7 @@ from mercury_tpu.compat import shard_map  # noqa: E402
 from mercury_tpu.config import TrainConfig as JConfig  # noqa: E402
 from mercury_tpu.data import pipeline as jpipe  # noqa: E402
 from mercury_tpu.models import resnet as jres  # noqa: E402
+from mercury_tpu.obs import sampler_health as jsh  # noqa: E402
 from mercury_tpu.ops import (  # noqa: E402
     augment_normalize_pallas,
     per_sample_nll_pallas,
@@ -70,6 +76,9 @@ POOL = B * PRESAMPLE
 # whether it is the global count over the global count.
 HIT_CLASS, HIT_BIAS = 7, 3.0
 BN_LAYERS = 6  # the [1, 1]-stage ResNet
+# The configuration whose JAX step runs with telemetry=True.
+TELEMETRY_CONFIG = "scoretable-fused-sync"
+MEANS = ("sampler/ess", "sampler/clip_frac", "sampler/ema_drift")
 MEAN, STD = cifar.CIFAR10_MEAN, cifar.CIFAR10_STD
 CONFIGS = {
     "pool-sync-replicated": dict(batch_norm="sync", data_placement="replicated"),
@@ -181,7 +190,7 @@ def run(request):
                                 device=torch.device("cpu")).shard_indices.numpy()
     length = sidx.shape[1]
     tcfg = TrainConfig(**COMMON, **CONFIGS[name])
-    jcfg = JConfig(model="resnet18", use_pallas=True, telemetry=False,
+    jcfg = JConfig(model="resnet18", use_pallas=True, telemetry=name == TELEMETRY_CONFIG,
                    **COMMON, **CONFIGS[name])
     table = tcfg.use_scoretable
     jm = jres.ResNet(stage_sizes=[1, 1], block_cls=jres.BasicBlock, num_classes=10,
@@ -190,7 +199,8 @@ def run(request):
     tx = jstate.make_optimizer("adam", jcfg.lr, STEPS)
     js = jstate.create_state(jax.random.key(0), jm, tx,
                              jnp.zeros((1, 32, 32, 3), jnp.float32), W, length,
-                             with_scoretable=table)
+                             with_scoretable=table,
+                             with_sel_counts=table and jcfg.telemetry)
     params = _np_tree(js.params)
     params["Dense_0"]["bias"][HIT_CLASS] = HIT_BIAS
     js = js.replace(params=jax.tree_util.tree_map(jnp.asarray, params))
@@ -331,6 +341,44 @@ def test_collectives_a_step(run):
     for port in run["ports"]:
         calls = port["calls"]
         assert len(calls) == (3 * BN_LAYERS if sync else 0) + 4
-        assert calls.count((2,)) == 1 and calls.count((4,)) == 1  # pool mean, metrics
+        # The pool mean, and the metrics: four, then the telemetry's three
+        # means and its histograms' counts (telemetry is on by default).
+        hists = 2 if run["tcfg"].use_scoretable else 1
+        assert calls.count((2,)) == 1 and calls.count((4 + 3 + 16 * hists,)) == 1
         if sync:
             assert sum(shape[0] == 2 and len(shape) == 2 for shape in calls) == 3 * BN_LAYERS
+
+
+def test_telemetry_per_rank(run):
+    """ESS, clip share and drift are means over the ranks, the histograms
+    sums, the gradient's norm the all-reduced gradient's: equal on both
+    ranks; against the JAX workers' where its step has telemetry."""
+    ports = [p["metrics"] for p in run["ports"]]
+    table = run["tcfg"].use_scoretable
+    families = ("w_hist", "score_hist") if table else ("w_hist",)
+    for key in (*MEANS, "train/grad_norm"):
+        assert float(ports[0][key]) == float(ports[1][key]), key
+    assert float(ports[0]["train/grad_norm"]) > 0
+    for family in families:
+        keys = jsh.hist_keys(family)
+        for m in ports:
+            assert [int(m[k]) for k in keys] == [int(ports[0][k]) for k in keys]
+        assert sum(int(ports[0][k]) for k in keys) == W * (run["sidx"].shape[1] if
+                                                            family == "score_hist" else B)
+    if run["name"] != TELEMETRY_CONFIG:
+        return
+    jm = run["jmetrics"]
+    for m in ports:
+        for key in MEANS:
+            np.testing.assert_allclose(float(m[key]), jm[key], rtol=1e-5, err_msg=key)
+        np.testing.assert_allclose(float(m["train/grad_norm"]), jm["train/grad_norm"],
+                                   rtol=1e-4)
+        for family in families:
+            for key in jsh.hist_keys(family):
+                assert int(m[key]) == jm[key], key
+        for key in ("sampler/table_age_min", "sampler/table_age_mean", "sampler/table_age_max"):
+            assert float(m[key]) == jm[key], key
+    for w, port in enumerate(run["ports"]):
+        np.testing.assert_array_equal(port["sel_counts"].numpy(),
+                                      np.asarray(run["js"].sel_counts[w]))
+        assert int(port["sel_counts"].sum()) == B

@@ -1,6 +1,6 @@
 """Rank bodies of the port's two-rank CPU tests (``test_torch_port_parallel``,
-``test_torch_port_dist_step`` and ``test_torch_port_checkpoint``); this file
-holds no tests.
+``test_torch_port_dist_step``, ``test_torch_port_checkpoint`` and
+``test_torch_port_telemetry_step``); this file holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
 process of its own, one a rank, in a gloo process group, and pickles the
@@ -142,6 +142,7 @@ def step_rank(jobs):
             table=None if state.scoretable is None else state.scoretable.scores.clone(),
             cursor=None if state.scoretable is None else state.scoretable.cursor,
             stream_cursor=state.stream.cursor, calls=calls,
+            sel_counts=None if state.sel_counts is None else state.sel_counts.clone(),
             x_shard=None if dataset.x_shard is None else dataset.x_shard.clone()))
     return out
 
@@ -166,11 +167,24 @@ def trainer_rank(config_kw, steps):
         sync=[m.sync for m in trainer.state.model.modules() if isinstance(m, BatchNorm)])
 
 
+def monitor_rank(config_kw, steps):
+    """``Trainer.fit(steps)`` at W ranks ending on a log tick: what it
+    returned, and this rank's ledger, score table and EMA."""
+    torch.set_num_threads(1)
+    trainer = Trainer(TrainConfig(**config_kw), device="cpu", model=tiny_resnet(seed=0))
+    out = trainer.fit(steps)
+    st = trainer.state
+    return dict(rank=trainer.rank, out=out, sel_counts=st.sel_counts.clone(),
+                scores=st.scoretable.scores.clone(), ema=st.ema.value.clone(),
+                shard_indices=trainer.dataset.shard_indices.clone(),
+                labels=trainer.dataset.y_train.clone())
+
+
 def state_tensors(state) -> dict:
     """Everything a resumed run must carry over, as named CPU tensors: the
     model's parameters and BN buffers, the optimizer's state, the
-    accumulator, the counters, the EMA, the stream, the generator's state
-    and the score table."""
+    accumulator, the counters, the EMA, the stream, the generator's state,
+    the score table and the selection-count ledger."""
     out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
     for i, st in state.optimizer.state_dict()["state"].items():
         out.update({f"optimizer.{i}.{k}": v for k, v in st.items()})
@@ -184,6 +198,8 @@ def state_tensors(state) -> dict:
     if state.scoretable is not None:
         out["table.scores"] = state.scoretable.scores
         out["table.cursor"] = torch.tensor(state.scoretable.cursor)
+    if state.sel_counts is not None:
+        out["sel_counts"] = state.sel_counts
     return {k: v.detach().cpu().clone() for k, v in out.items()}
 
 
