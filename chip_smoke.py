@@ -20,7 +20,9 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    held to its interval of the float64 CDF of the kernel's own probs. The
    ingest runs at [32], [64] and [320], at every crop offset, gathering
    its rows from the 5000-image shard, and at shapes that stage by bytes,
-   in float32 and bfloat16, each bit-equal to the plain version;
+   in float32 and bfloat16, each bit-equal to the plain version. The NLL
+   kernels also run at phase 9's CIFAR-100 shapes ([320, 100], [32, 100],
+   [64, 100]), timed beside their library calls;
 4. drives the main path: ``Trainer(TrainConfig(model="resnet18",
    dataset="synthetic", world_size=1))`` at full width (batch 32, pool 320,
    bf16, importance sampling and telemetry on) for 30 steps, with the
@@ -66,7 +68,23 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    calls a step each way (``torch.cuda.set_sync_debug_mode("warn")``),
    which must be equal; ``variance_probe_every=2`` for 6 steps (a finite,
    positive ``var_ratio`` on even steps, −1.0 on odd ones); and the
-   scoretable Trainer's seven sampler-health keys at a log tick.
+   scoretable Trainer's seven sampler-health keys at a log tick;
+9. the config surface: (a) ``model="resnet152", dataset="cifar100",
+   importance_score="grad_norm", augmentation="iid"`` at full width, 3 +
+   20 steps (steps/s, peak memory, 2 nll_fwd at [320, 100] and [32, 100],
+   1 nll_bwd and 1 score_and_draw a step, a kernel step against a plain
+   step, kernels and device time a step from ``torch.profiler``) and its
+   IID evaluation; (b) ``model="resnet101"`` on the
+   scoretable path with ``cutout=True``, 3 + 10 steps (nll_fwd at
+   [64, 100] and [32, 100], 1 table_refresh_draw a step), then fused
+   without cutout, 3 + 5 steps (2 augment_normalize a step with
+   CIFAR-100's statistics), each with a kernel step against a plain step;
+   (c) ``label_smoothing=0.1`` refused with the kernels and, with
+   ``use_pallas=False``, 3 steps launching none; (d) ``fit()`` under
+   ``step_budget=3`` with 4 steps an epoch stops at step 4 and returns the
+   evaluation. Every configuration of the phase reads CIFAR-100 from an
+   empty ``data_dir``, so each trains on the synthetic 100-class set
+   (checked), whatever lies in the loader's default directories.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -84,6 +102,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -125,6 +144,25 @@ ACCUM = dict(model="resnet18", dataset="synthetic", world_size=1, grad_accum_ste
 ACCUM_FIRST = 3  # microsteps before the save: the middle of the second window
 ACCUM_RUN = 4    # microsteps after it, on the live and on the restored trainer
 ACCUM_RATE = 10  # microsteps a turn of the rate (live, restored, restored, live)
+# Phase 9, the config surface: (a) the pool path at full width and depth
+# 152 on 100 classes, with gradient-norm scores and the IID augmentation;
+# (b) the scoretable path at depth 101 with cutout, then fused without it;
+# (c) label smoothing on the plain route; (d) fit's step budget.
+SURFACE_POOL = dict(model="resnet152", dataset="cifar100", world_size=1,
+                    importance_score="grad_norm", augmentation="iid")
+SURFACE_TABLE = dict(model="resnet101", dataset="cifar100", world_size=1,
+                     sampler="scoretable", cutout=True)
+SURFACE_POOL_STEPS = 20
+SURFACE_TABLE_STEPS = 10
+SURFACE_FUSED_STEPS = 5
+SMOOTH_STEPS = 3
+# CIFAR-100's normalization (float32 in the dataset).
+CIFAR100_MEAN = (0.5071, 0.4865, 0.4409)
+CIFAR100_STD = (0.2673, 0.2564, 0.2762)
+# Parameter counts at full width, by model and class count (a CPU test holds
+# them to the JAX package's models).
+PARAMETERS = {("resnet18", 10): 11_173_962, ("resnet18", 100): 11_220_132,
+              ("resnet101", 100): 42_697_380, ("resnet152", 100): 58_341_028}
 
 # The metric keys of the JAX package's default step (pool) and its
 # scoretable step, with telemetry on (its default): a CPU test holds this
@@ -183,11 +221,13 @@ def main() -> int:
     two_ranks = run_phase("two ranks", two_rank_phase, torch, card, main_path)
     accum = run_phase("resume and accumulate", accum_resume_phase, torch, card, main_path)
     telemetry = run_phase("telemetry", telemetry_phase, torch, card, main_path, table_path)
+    surface = run_phase("config surface", config_surface_phase, torch, card)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
                    "two_ranks": two_ranks["launches"][k["name"]],
-                   "accum_resume": accum["launches"][k["name"]]}
+                   "accum_resume": accum["launches"][k["name"]],
+                   "config_surface": surface["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -198,7 +238,7 @@ def main() -> int:
         {"card": card, "build_s": build_s, "kernels": kernels, "cases": cases,
          "main_path": main_path["summary"], "scoretable_path": table_path["summary"],
          "two_ranks": two_ranks["summary"], "accum_resume": accum["summary"],
-         "telemetry": telemetry},
+         "telemetry": telemetry, "config_surface": surface["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -325,11 +365,18 @@ def kernel_phase(torch, card: str):
     # its cast. The kernel sums Σexp in float64, the plain version in
     # float32, so a value near a rounding midpoint may round the other way:
     # one ulp from the plain bf16 gradient, counted as `one_ulp`.
-    for n, c, dtype in [(320, 10, torch.float32), (32, 10, torch.float32),
-                        (64, 10, torch.float32), (4096, 100, torch.float32),
-                        (320, 10, torch.bfloat16), (32, 10, torch.bfloat16),
-                        (64, 10, torch.bfloat16), (4096, 100, torch.bfloat16)]:
-        z, y = logits_case(n, c, dtype)
+    # Phase 9's CIFAR-100 calls — the pool [320, 100], the train batch
+    # [32, 100] and the scoretable window [64, 100] — draw from a generator
+    # of their own, so every other case keeps its inputs.
+    c100_gen = torch.Generator(device=dev).manual_seed(11)
+    for rng, n, c, dtype in [(gen, 320, 10, torch.float32), (gen, 32, 10, torch.float32),
+                             (gen, 64, 10, torch.float32), (gen, 4096, 100, torch.float32),
+                             (gen, 320, 10, torch.bfloat16), (gen, 32, 10, torch.bfloat16),
+                             (gen, 64, 10, torch.bfloat16), (gen, 4096, 100, torch.bfloat16),
+                             (c100_gen, 320, 100, torch.float32),
+                             (c100_gen, 32, 100, torch.float32),
+                             (c100_gen, 64, 100, torch.float32)]:
+        z, y = logits_case(n, c, dtype, rng)
         err = within(mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y), **fwd_tol)
         y64 = y.long()
         geo = mk.nll_geometry(n, c, z.element_size())
@@ -381,13 +428,14 @@ def kernel_phase(torch, card: str):
 
     # nll_bwd: the train batch [32, 10] (the step's one call) and a
     # CIFAR-100-sized call, then (from bwd_gen) the scoretable window and
-    # pool widths; the library is the 2 ATen calls of F.cross_entropy's
-    # gradient.
+    # pool widths and phase 9's train batch [32, 100]; the library is the
+    # 2 ATen calls of F.cross_entropy's gradient.
     for rng, n, c, dtype in [(gen, 32, 10, torch.float32), (gen, 4096, 100, torch.float32),
                              (gen, 32, 10, torch.bfloat16), (gen, 4096, 100, torch.bfloat16),
                              (bwd_gen, 64, 10, torch.float32), (bwd_gen, 64, 10, torch.bfloat16),
                              (bwd_gen, 320, 10, torch.float32),
-                             (bwd_gen, 320, 10, torch.bfloat16)]:
+                             (bwd_gen, 320, 10, torch.bfloat16),
+                             (c100_gen, 32, 100, torch.float32)]:
         z, y = logits_case(n, c, dtype, rng)
         g = torch.rand(n, generator=rng, device=dev) + 0.1
         got = mk.nll_bwd_kernel(z, y, g)
@@ -792,6 +840,12 @@ def augment_case(torch, mk, reference, gen, n: int, dtype, every_offset: bool = 
 
 
 # ------------------------------------------------------------------ phase 4
+def warm(trainer, steps: int = WARMUP_STEPS) -> None:
+    """Untimed, uncounted steps: the first calls' cuDNN plans and caches."""
+    for _ in range(steps):
+        trainer.train_step()
+
+
 def timed_steps(torch, mk, trainer, steps: int = MAIN_STEPS):
     """``steps`` steps with the launch counts zeroed just before and read
     just after; host clock around work that ends in a synchronize. Returns
@@ -867,10 +921,13 @@ def build_trainer(torch, config, quiet: bool = False):
     t0 = time.perf_counter()
     trainer = Trainer(config)
     n_params = sum(p.numel() for p in trainer.state.model.parameters())
-    check(n_params == 11_173_962, f"ResNet-18 has {n_params} parameters")
+    classes = trainer.dataset.num_classes
+    want = PARAMETERS[config.model, classes]
+    check(n_params == want, f"{config.model} with {classes} classes has {n_params} "
+          f"parameters, not {want}")
     if not quiet:
         print(f"Trainer built in {time.perf_counter() - t0:.1f} s on "
-              f"{trainer.device}: ResNet-18, {n_params} parameters")
+              f"{trainer.device}: {config.model}, {classes} classes, {n_params} parameters")
     return trainer
 
 
@@ -990,7 +1047,7 @@ def main_path_phase(torch, card: str):
     check(all(torch.equal(v, before[k]) for k, v in running_stats().items()),
           "the scoring forward changed BN running statistics")
 
-    trainer.fit(WARMUP_STEPS)
+    warm(trainer)
     after = running_stats()
     check(all(not torch.equal(v, before[k]) for k, v in after.items()
               if k.endswith("running_mean")),
@@ -1036,7 +1093,7 @@ def scoretable_path_phase(torch, card: str):
     check(table is not None and table.scores.shape == (length,) and length == 5000,
           f"score table of {tuple(table.scores.shape)} for a shard of {length}")
 
-    trainer.fit(WARMUP_STEPS)
+    warm(trainer)
     cursor = trainer.state.scoretable.cursor
     stream_cursor = trainer.state.stream.cursor
     ledger = trainer.state.sel_counts.clone()
@@ -1170,7 +1227,7 @@ def two_rank_body(per_step):
           f"unexpected two-rank config {config}")
     trainer = build_trainer(torch, config, quiet=True)
     rank = trainer.rank
-    trainer.fit(WARMUP_STEPS)
+    warm(trainer)
     calls = []  # (elements, host seconds) of each all-reduce: gloo returns when done
     all_reduce = dist.all_reduce
 
@@ -1422,7 +1479,7 @@ def telemetry_phase(torch, card: str, main_path, table_path) -> dict:
         arms = {arm: build_trainer(torch, config.replace(telemetry=arm == "on", log_every=10),
                                    quiet=True) for arm in ("off", "on")}
         for trainer in arms.values():
-            trainer.fit(WARMUP_STEPS)
+            warm(trainer)
         rates = {"off": [], "on": []}
         for arm in TELEMETRY_TURNS:
             dt, _, _, _ = timed_steps(torch, mk, arms[arm], TELEMETRY_TURN)
@@ -1448,7 +1505,7 @@ def telemetry_phase(torch, card: str, main_path, table_path) -> dict:
         if path == "scoretable":
             trainer = arms["on"]
             every = trainer.config.log_every
-            health = trainer.fit(every - trainer.state.step % every)
+            health = trainer.fit(steps=every - trainer.state.step % every)
             check(trainer.state.step % every == 0 and MONITOR_KEYS <= set(health),
                   f"no sampler-health keys at the log tick of step {trainer.state.step}")
             health = {k: health[k] for k in sorted(MONITOR_KEYS)}
@@ -1475,6 +1532,168 @@ def telemetry_phase(torch, card: str, main_path, table_path) -> dict:
           f"(step, var_ratio) [{card}]")
     out["var_ratio"] = ratios
     return out
+
+
+# ------------------------------------------------------------------ phase 9
+def record_nll_shapes(mk):
+    """Wrap ``nll_fwd_kernel`` to record the logits' shape of each launch
+    (the wrapper still counts it); returns the list and the undo."""
+    launch = mk.nll_fwd_kernel
+    shapes = []
+
+    def recorded(logits, labels):
+        shapes.append(tuple(logits.shape))
+        return launch(logits, labels)
+
+    mk.nll_fwd_kernel = recorded
+
+    def undo():
+        mk.nll_fwd_kernel = launch
+
+    return shapes, undo
+
+
+def surface_path(torch, mk, card: str, name: str, config, steps: int, per_step: dict):
+    """``steps`` timed steps of ``config`` with the launch counts (``per_step``
+    a step) and the NLL kernel's shapes recorded, its telemetry checked, a
+    kernel step against a plain step, the peak memory, and the CUDA kernels
+    and device time a step (``torch.profiler``, five steps)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = build_trainer(torch, config)
+    ds = trainer.dataset
+    check(ds.synthetic and ds.num_classes == 100
+          and ds.mean.tolist() == torch.tensor(CIFAR100_MEAN).tolist()
+          and ds.std.tolist() == torch.tensor(CIFAR100_STD).tolist(),
+          f"{name}: synthetic {ds.synthetic}, {ds.num_classes} classes, mean {ds.mean}, "
+          f"std {ds.std}")
+    warm(trainer)
+    shapes, undo = record_nll_shapes(mk)
+    try:
+        dt, counts, losses, metrics = timed_steps(torch, mk, trainer, steps)
+    finally:
+        undo()
+    want = {k: v * steps for k, v in per_step.items()}
+    check(counts == want, f"{name}: launch counts {counts}, expected {want}")
+    path = "scoretable" if config.use_scoretable else "pool"
+    telemetry = check_telemetry(torch, metrics, path, config.batch_size)
+    peak = torch.cuda.max_memory_allocated()
+    steps_s = steps / dt
+    print(f"{name}: {config.model}, {ds.num_classes} classes "
+          f"({'synthetic' if ds.synthetic else 'real'} data), {steps} steps in {dt:.3f} s = "
+          f"{steps_s:.2f} steps/s, {steps_s * config.batch_size:.1f} trained images/s, "
+          f"peak memory {peak / 2**30:.2f} GiB [{card}]")
+    print(f"  losses: first {losses[0].item():.4f}, last {losses[-1].item():.4f}; launches "
+          f"{counts}; nll_fwd shapes a step {shapes[:len(shapes) // steps]}")
+    step_err = kernel_vs_plain_step(torch, trainer, config)
+    window = profile_window(torch, trainer, dt / steps * 1e6, steps=5)
+    print(f"  torch.profiler over 5 steps: {window['kernels_per_step']:.1f} CUDA kernels and "
+          f"{window['device_us_per_step']:.1f} us of device time a step; the device busy "
+          f"{100 * window['busy_share_unprofiled']:.1f}% of the unprofiled step [{card}]")
+    window.pop("by_kernel")
+    return trainer, counts, {
+        "config": {k: getattr(config, k) for k in (
+            "model", "dataset", "sampler", "importance_score", "augmentation", "cutout",
+            "fused_input")},
+        "steps": steps, "seconds": dt, "steps_per_s": steps_s, "peak_bytes": peak,
+        "synthetic": ds.synthetic, "launches": counts,
+        "nll_fwd_shapes": [list(x) for x in shapes[:len(shapes) // steps]],
+        "first_loss": losses[0].item(), "last_loss": losses[-1].item(),
+        "kernel_vs_plain": step_err, "telemetry": telemetry, "profile": window, "card": card}
+
+
+def config_surface_phase(torch, card: str) -> dict:
+    """Phase 9: the configuration fields beyond the default run, on the
+    card. (a) ResNet-152 on 100 classes with gradient-norm scores and the
+    IID augmentation (and its evaluation); (b) ResNet-101 on the scoretable
+    path with cutout, then with the fused ingest; (c) label smoothing,
+    refused with the kernels and run on the plain versions with none;
+    (d) ``fit`` under a step budget."""
+    from mercury_tpu_torch import TrainConfig, Trainer
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    out, launches = {"card": card}, {k: 0 for k in mk.KERNELS}
+    # Every configuration reads CIFAR-100 from an empty data_dir: the loader
+    # then searches no default directory and gives the synthetic set.
+    empty = tempfile.TemporaryDirectory()
+
+    def surface(**fields):
+        return TrainConfig(**fields, data_dir=empty.name)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) Two nll_fwd a step: the pool's mean loss (the scores are gradient
+    # norms) and the train loss.
+    config = surface(**SURFACE_POOL)
+    pool_step = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 1, "table_refresh_draw": 0,
+                 "augment_normalize": 0}
+    trainer, counts, out["pool"] = surface_path(
+        torch, mk, card, "config surface (a) pool, grad_norm, iid", config,
+        SURFACE_POOL_STEPS, pool_step)
+    add(counts)
+    check(out["pool"]["nll_fwd_shapes"] == [[320, 100], [32, 100]],
+          f"nll_fwd shapes {out['pool']['nll_fwd_shapes']}")
+    ev = trainer.evaluate(include_train=False)
+    check(math.isfinite(ev["test/eval_loss"]) and 0.0 <= ev["test/eval_acc"] <= 1.0,
+          f"IID evaluation {ev}")
+    print(f"  IID evaluation (resize 33, crop 32): {ev}")
+    out["pool"]["evaluation"] = ev
+    del trainer
+
+    # (b) The window's and the batch's nll_fwd, one table draw; unfused
+    # with cutout, then fused (CIFAR-100's statistics in the kernel).
+    table_step = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 0, "table_refresh_draw": 1,
+                  "augment_normalize": 0}
+    config = surface(**SURFACE_TABLE)
+    trainer, counts, out["scoretable"] = surface_path(
+        torch, mk, card, "config surface (b) scoretable, cutout", config,
+        SURFACE_TABLE_STEPS, table_step)
+    add(counts)
+    check(out["scoretable"]["nll_fwd_shapes"] == [[64, 100], [32, 100]],
+          f"nll_fwd shapes {out['scoretable']['nll_fwd_shapes']}")
+    del trainer
+    config = surface(**{**SURFACE_TABLE, "cutout": False, "fused_input": True})
+    trainer, counts, out["scoretable_fused"] = surface_path(
+        torch, mk, card, "config surface (b) scoretable, fused", config,
+        SURFACE_FUSED_STEPS, {**table_step, "augment_normalize": 2})
+    add(counts)
+    del trainer
+
+    # (c) The NLL kernels compute the plain NLL: smoothing with them is
+    # refused; on the plain route nothing launches.
+    smooth = dict(model="resnet18", dataset="cifar100", world_size=1, label_smoothing=0.1)
+    try:
+        Trainer(surface(**smooth))
+    except ValueError as e:
+        check("label_smoothing" in str(e), f"label smoothing refused with {e}")
+    else:
+        raise SmokeFailure("label_smoothing=0.1 with the kernels did not raise")
+    trainer = build_trainer(torch, surface(**smooth, use_pallas=False), quiet=True)
+    _, counts, losses, _ = timed_steps(torch, mk, trainer, SMOOTH_STEPS)
+    check(set(counts.values()) == {0}, f"use_pallas=False launched {counts}")
+    print(f"config surface (c) label_smoothing=0.1: refused with the kernels; with "
+          f"use_pallas=False {SMOOTH_STEPS} steps, losses {losses.tolist()}, launches {counts} "
+          f"[{card}]")
+    out["smoothing"] = {"losses": losses.tolist(), "launches": counts}
+    del trainer
+
+    # (d) fit stops after the first step at which step × world_size
+    # exceeds the budget, and returns the final evaluation.
+    trainer = build_trainer(torch, surface(
+        model="resnet18", dataset="cifar100", world_size=1, steps_per_epoch=4,
+        num_epochs=2, step_budget=3, eval_every=0, log_every=0), quiet=True)
+    result = trainer.fit()
+    check(trainer.state.step == 4 and "test/eval_acc" in result,
+          f"fit under step_budget=3 stopped at step {trainer.state.step}: {sorted(result)}")
+    print(f"config surface (d) fit, 4 steps an epoch, 2 epochs, step_budget 3: stopped at "
+          f"step {trainer.state.step}, test/eval_acc {result['test/eval_acc']} [{card}]")
+    out["fit_budget"] = {"step": trainer.state.step, "eval_acc": result["test/eval_acc"]}
+    del trainer
+    empty.cleanup()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "summary": out}
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):
@@ -1514,6 +1733,7 @@ def profile_phase(torch, card: str, main_path, table_path) -> None:
     pool step, the uniform arm and the scoretable step in turns on one
     card. Written to ``chiprun_out/chip_smoke_profile.json``."""
     from mercury_tpu_torch import Trainer
+    from mercury_tpu_torch.ops import mercury_kernels as mk
 
     windows = {}
     for name, path in (("pool", main_path), ("scoretable", table_path)):
@@ -1535,12 +1755,9 @@ def profile_phase(torch, card: str, main_path, table_path) -> None:
     arms = {k: [] for k in arm_configs}
     for name in ("is", "uniform", "scoretable", "scoretable", "uniform", "is"):
         arm = Trainer(arm_configs[name])
-        arm.fit(WARMUP_STEPS)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        arm.fit(MAIN_STEPS)
-        torch.cuda.synchronize()
-        arms[name].append(MAIN_STEPS / (time.perf_counter() - t0))
+        warm(arm)
+        dt, _, _, _ = timed_steps(torch, mk, arm)
+        arms[name].append(MAIN_STEPS / dt)
         del arm
     print(f"arms (steps/s, in turns): importance sampling {arms['is']}, "
           f"uniform {arms['uniform']}, scoretable+fused {arms['scoretable']} [{card}]")

@@ -12,8 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-_MODELS = ("resnet18", "resnet34", "resnet50")
-_DATASETS = ("cifar10", "synthetic")
+_MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
+_DATASETS = ("cifar10", "cifar100", "synthetic")
 _SAMPLERS = ("pool", "scoretable")
 
 
@@ -25,7 +25,8 @@ class TrainConfig:
 
     # Model / data
     model: str = "resnet18"
-    dataset: str = "cifar10"          # real files if present, else synthetic
+    dataset: str = "cifar10"          # or "cifar100": real files if present, else synthetic
+    num_classes: Optional[int] = None  # None: the dataset's; set: must equal it
     world_size: int = 4               # data-parallel ranks, one process each
     # "replicated": every rank holds the whole train split on its device and
     # gathers its shard's rows by global index; "sharded": a rank holds only
@@ -40,6 +41,11 @@ class TrainConfig:
     steps_per_epoch: Optional[int] = None  # None → n_train // batch_size
     weight_decay: float = 0.0
     warmup_steps: int = 0             # linear warmup, then cosine
+    # fit stops after the first step at which step×world_size exceeds this.
+    step_budget: float = 1e7
+    # Cross-entropy against (1−ls)·onehot + ls/C. The NLL kernels compute
+    # the plain NLL, so a nonzero value needs use_pallas=False on the card.
+    label_smoothing: float = 0.0
     # Gradient accumulation (optax.MultiSteps): each step folds its gradient
     # into a running mean and every A-th step applies the update. The log,
     # eval and checkpoint cadences still count steps (microsteps).
@@ -50,6 +56,11 @@ class TrainConfig:
     sampler: str = "pool"             # "pool" | "scoretable"
     presample_batches: int = 10       # candidate pool = 10×batch
     is_alpha: float = 0.5             # score = loss + alpha·EMA
+    # The candidates' score: "loss" (the per-sample loss) or "grad_norm",
+    # ‖softmax − target‖₂, the norm of the loss's gradient with respect to
+    # the logits (Katharopoulos & Fleuret). The EMA smooths the mean score;
+    # train/pool_loss stays the mean loss either way.
+    importance_score: str = "loss"
     ema_alpha: float = 0.9
     # At W>1 the pool mean feeding the EMA is the global one (a sum and a
     # count all-reduced), so every rank keeps the same EMA.
@@ -63,7 +74,10 @@ class TrainConfig:
     refresh_mode: str = "sync"        # the port runs "sync" only
 
     # Augmentation and partition
-    augmentation: str = "noniid"      # pad-4 crop + hflip, or "none"
+    # "noniid": pad-4 crop + hflip; "iid": resize 35, crop 32, hflip and a
+    # random rotation and scale (evaluation: resize 33, crop 32); "none".
+    augmentation: str = "noniid"
+    cutout: bool = False              # a 16×16 zeroed square, noniid only
     noniid: bool = True
     dirichlet_alpha: float = 0.5
     min_shard_size: int = 10
@@ -103,6 +117,13 @@ class TrainConfig:
     # Kernels: uint8 rows → normalized, cropped, flipped images in one
     # kernel (augment_normalize) instead of the unfused op chain.
     fused_input: bool = False
+    # None: the kernels when the step runs on the card, their plain
+    # versions on the CPU; False: the plain versions on the card too; True:
+    # the kernels. The kernels need label_smoothing == 0.
+    use_pallas: Optional[bool] = None
+
+    # Data
+    data_dir: Optional[str] = None    # CIFAR files; None: the search path
 
     def __post_init__(self) -> None:
         def bad(field: str, why: str) -> None:
@@ -133,11 +154,16 @@ class TrainConfig:
                 bad("table_decay", "must be in [0, 1]")
         if self.scoring_dtype is not None:
             bad("scoring_dtype", "a separate scoring precision is not ported yet")
-        if self.augmentation not in ("noniid", "none"):
-            bad("augmentation", "use 'noniid' or 'none'")
+        if self.augmentation not in ("noniid", "iid", "none"):
+            bad("augmentation", "use 'noniid', 'iid' or 'none'")
         if self.fused_input and self.augmentation != "noniid":
             bad("fused_input", "the fused ingest kernel fuses the noniid "
                 "crop and flip; set augmentation='noniid'")
+        if self.fused_input and self.cutout:
+            bad("fused_input", "the fused ingest kernel does not fuse "
+                "cutout; set cutout=False")
+        if self.importance_score not in ("loss", "grad_norm"):
+            bad("importance_score", "use 'loss' or 'grad_norm'")
         if self.optimizer not in ("adam", "adamw", "sgd"):
             bad("optimizer", "use 'adam', 'adamw' or 'sgd'")
         if self.batch_norm not in ("sync", "local"):

@@ -1,9 +1,11 @@
-"""CIFAR-10 ingest to host arrays, and the deterministic synthetic stand-in.
+"""CIFAR-10 and CIFAR-100 ingest to host arrays, and the deterministic
+synthetic stand-in.
 
-A copy of the ``synthetic`` and ``cifar10`` branches of
+A copy of the ``synthetic``, ``cifar10`` and ``cifar100`` branches of
 ``mercury_tpu/data/cifar.py``: the port imports nothing from the JAX
-package, and the two must produce the same bytes from the same seed
-(test-enforced). Images are uint8 NHWC, labels int32.
+package, and the two must produce the same bytes from the same seed and
+search the same directories (test-enforced). Images are uint8 NHWC, labels
+int32.
 """
 
 from __future__ import annotations
@@ -18,6 +20,12 @@ import numpy as np
 
 CIFAR10_MEAN = np.array([0.49139968, 0.48215827, 0.44653124], np.float32)
 CIFAR10_STD = np.array([0.24703233, 0.24348505, 0.26158768], np.float32)
+CIFAR100_MEAN = np.array([0.5071, 0.4865, 0.4409], np.float32)
+CIFAR100_STD = np.array([0.2673, 0.2564, 0.2762], np.float32)
+
+# Searched after an explicit directory and $MERCURY_TPU_DATA. An archive is
+# unpacked only under those two, never under a shared default such as /tmp.
+_SEARCH_DIRS = ("data", os.path.expanduser("~/.cache/mercury_tpu"), "/tmp/mercury_tpu_data")
 
 Split = Tuple[np.ndarray, np.ndarray]
 
@@ -33,24 +41,37 @@ def _load_pickle_batches(batch_dir: str, files, label_key: str) -> Split:
     return np.ascontiguousarray(x, np.uint8), np.concatenate(ys)
 
 
-def _try_load_cifar10(root: str) -> Optional[Tuple[Split, Split]]:
-    bdir = os.path.join(root, "cifar-10-batches-py")
-    if not os.path.isdir(bdir):
-        tgz = os.path.join(root, "cifar-10-python.tar.gz")
+def _try_load(root: str, extract: bool, batch_dir: str, archive: str, train_files,
+              test_files, label_key: str, npz_name: str) -> Optional[Tuple[Split, Split]]:
+    """The pickled batches under ``root/batch_dir`` (extracted from
+    ``archive`` first if only that is there and ``extract``), else
+    ``root/npz_name``."""
+    bdir = os.path.join(root, batch_dir)
+    if extract and not os.path.isdir(bdir):
+        tgz = os.path.join(root, archive)
         if os.path.isfile(tgz):
             with tarfile.open(tgz) as tf:
-                tf.extractall(root)
+                tf.extractall(root, filter="data")
     if os.path.isdir(bdir):
-        train = _load_pickle_batches(
-            bdir, [f"data_batch_{i}" for i in range(1, 6)], "labels")
-        test = _load_pickle_batches(bdir, ["test_batch"], "labels")
-        return train, test
-    npz = os.path.join(root, "cifar10.npz")
+        return (_load_pickle_batches(bdir, train_files, label_key),
+                _load_pickle_batches(bdir, test_files, label_key))
+    npz = os.path.join(root, npz_name)
     if os.path.isfile(npz):
         d = np.load(npz)
         return ((d["x_train"], d["y_train"].astype(np.int32)),
                 (d["x_test"], d["y_test"].astype(np.int32)))
     return None
+
+
+def _try_load_cifar10(root: str, extract: bool) -> Optional[Tuple[Split, Split]]:
+    return _try_load(root, extract, "cifar-10-batches-py", "cifar-10-python.tar.gz",
+                     [f"data_batch_{i}" for i in range(1, 6)], ["test_batch"],
+                     "labels", "cifar10.npz")
+
+
+def _try_load_cifar100(root: str, extract: bool) -> Optional[Tuple[Split, Split]]:
+    return _try_load(root, extract, "cifar-100-python", "cifar-100-python.tar.gz",
+                     ["train"], ["test"], "fine_labels", "cifar100.npz")
 
 
 def synthetic_cifar(
@@ -84,8 +105,9 @@ def synthetic_cifar(
 
 def find_data_dir(explicit: Optional[str] = None) -> Optional[str]:
     """Resolve the dataset root: explicit argument, then
-    ``$MERCURY_TPU_DATA``, then ``./data``."""
-    for c in (explicit, os.environ.get("MERCURY_TPU_DATA"), "data"):
+    ``$MERCURY_TPU_DATA``, then the first of ``_SEARCH_DIRS`` that
+    exists."""
+    for c in (explicit, os.environ.get("MERCURY_TPU_DATA"), *_SEARCH_DIRS):
         if c and os.path.isdir(c):
             return c
     return None
@@ -108,26 +130,29 @@ def load_dataset(
             10, synthetic_train_size, synthetic_test_size, seed=seed)
         return train, test, {"num_classes": 10, "mean": CIFAR10_MEAN,
                              "std": CIFAR10_STD, "synthetic": True}
-    if name != "cifar10":
+    if name not in ("cifar10", "cifar100"):
         raise ValueError(f"unknown dataset {name!r}")
+    num_classes, mean, std, loader = (
+        (10, CIFAR10_MEAN, CIFAR10_STD, _try_load_cifar10) if name == "cifar10"
+        else (100, CIFAR100_MEAN, CIFAR100_STD, _try_load_cifar100))
+    info = {"num_classes": num_classes, "mean": mean, "std": std}
     root = find_data_dir(data_dir)
-    loaded = _try_load_cifar10(root) if root is not None else None
+    named = root in (data_dir, os.environ.get("MERCURY_TPU_DATA"))
+    loaded = loader(root, named) if root is not None else None
     if loaded is not None:
         train, test = loaded
-        return train, test, {"num_classes": 10, "mean": CIFAR10_MEAN,
-                             "std": CIFAR10_STD, "synthetic": False}
+        return train, test, {**info, "synthetic": False}
     if not allow_synthetic:
         raise FileNotFoundError(
-            f"no cifar10 data found under {root or 'data'}; "
+            f"no {name} data found under {root or _SEARCH_DIRS}; "
             "set MERCURY_TPU_DATA")
     warnings.warn(
-        "no cifar10 data found on disk — substituting the deterministic "
+        f"no {name} data found on disk — substituting the deterministic "
         "synthetic dataset. Set MERCURY_TPU_DATA (or pass data_dir) to "
         "train on real data, or allow_synthetic=False to make this an "
         "error.",
         stacklevel=2,
     )
     train, test = synthetic_cifar(
-        10, synthetic_train_size, synthetic_test_size, seed=seed)
-    return train, test, {"num_classes": 10, "mean": CIFAR10_MEAN,
-                         "std": CIFAR10_STD, "synthetic": True}
+        num_classes, synthetic_train_size, synthetic_test_size, seed=seed)
+    return train, test, {**info, "synthetic": True}

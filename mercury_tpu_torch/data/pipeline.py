@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+CUTOUT_LENGTH = 16  # the side of the cutout square
+
 
 def normalize_images(images: torch.Tensor, mean, std) -> torch.Tensor:
     """uint8 NHWC → normalized float32 (``ToTensor`` + ``Normalize``); mean
@@ -57,18 +59,44 @@ def random_crop_batch(images: torch.Tensor, offsets: torch.Tensor,
     return _take_crops(padded, offsets[:, 0], offsets[:, 1], h, w)
 
 
+def random_crop_to_batch(images: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+                         out: int) -> torch.Tensor:
+    """Crop ``[N, H, W, C]`` down to ``out×out`` at the per-image offsets
+    ``oy``, ``ox`` in ``[0, H − out]``, without padding (the IID path crops
+    a larger resized image)."""
+    return _take_crops(images, oy.to(torch.long), ox.to(torch.long), out, out)
+
+
 def hflip_batch(images: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
     """Flip image ``i`` horizontally where ``flip[i]`` is set."""
     flip = flip.to(torch.bool)[:, None, None, None]
     return torch.where(flip, images.flip(2), images)
 
 
+def cutout_batch(images: torch.Tensor, centres: torch.Tensor,
+                 length: int = CUTOUT_LENGTH) -> torch.Tensor:
+    """Zero a ``length×length`` square of image ``i`` centred on
+    ``centres[i] = (cy, cx)`` (rows ``[cy − length/2, cy + length/2)``),
+    clipped at the borders (``Cutout``)."""
+    _, h, w, _ = images.shape
+    dev = images.device
+    half = length // 2
+    cy, cx = (centres[:, k].to(torch.long)[:, None, None] for k in (0, 1))
+    ys = torch.arange(h, device=dev)[None, :, None]
+    xs = torch.arange(w, device=dev)[None, None, :]
+    mask = (ys >= cy - half) & (ys < cy + half) & (xs >= cx - half) & (xs < cx + half)
+    return torch.where(mask[..., None], 0.0, images)
+
+
 def augment_batch(images: torch.Tensor, offsets: torch.Tensor,
-                  flip: torch.Tensor, pad: int = 4) -> torch.Tensor:
-    """Train-time augmentation: random crop (pad 4), then horizontal flip —
-    bit-identical at float32 to ``mercury_tpu.data.pipeline.augment_batch``
-    given the offsets and flips that function draws."""
-    return hflip_batch(random_crop_batch(images, offsets, pad), flip)
+                  flip: torch.Tensor, pad: int = 4,
+                  cut: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Train-time augmentation: random crop (pad 4), then horizontal flip,
+    then, given cutout centres ``cut``, cutout — bit-identical at float32 to
+    ``mercury_tpu.data.pipeline.augment_batch`` given the offsets, flips and
+    centres that function draws."""
+    out = hflip_batch(random_crop_batch(images, offsets, pad), flip)
+    return out if cut is None else cutout_batch(out, cut)
 
 
 class ShardStream(NamedTuple):

@@ -11,10 +11,13 @@ from mercury_tpu_torch.models.resnet import (
     ResNet18,
     ResNet34,
     ResNet50,
+    ResNet101,
+    ResNet152,
     init_weights,
 )
 
-_RESNETS = {"resnet18": ResNet18, "resnet34": ResNet34, "resnet50": ResNet50}
+_RESNETS = {"resnet18": ResNet18, "resnet34": ResNet34, "resnet50": ResNet50,
+            "resnet101": ResNet101, "resnet152": ResNet152}
 
 
 def create_model(name: str, num_classes: int = 10,
@@ -30,4 +33,5 @@ def create_model(name: str, num_classes: int = 10,
     return model
 
 
-__all__ = ["ResNet", "ResNet18", "ResNet34", "ResNet50", "create_model"]
+__all__ = ["ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
+           "create_model"]

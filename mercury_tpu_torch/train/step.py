@@ -7,11 +7,16 @@ A pool step (``sampler="pool"``):
 1. takes the next ``P = presample_batches × batch_size`` slots of the
    worker's shuffled stream (``next_pool``);
 2. gathers their uint8 rows from the device-resident dataset and ingests
-   them (:func:`ingest`: normalize, crop with pad 4, horizontal flip);
+   them (:func:`ingest`: normalize, then under ``augmentation="noniid"``
+   crop with pad 4, horizontal flip and, with ``cutout``, cutout; under
+   ``"iid"`` the IID transform of ``data/transforms.py``);
 3. runs a train-mode scoring forward over the pool — batch statistics, the
    running statistics left as they were — without gradients;
-4. scores every candidate by its per-sample NLL (``nll_fwd`` kernel);
-5. updates the EMA of the mean pool loss, then smooths, normalizes and
+4. scores every candidate by its per-sample NLL (``nll_fwd`` kernel), or
+   under ``importance_score="grad_norm"`` by the norm of the loss's
+   gradient with respect to its logits (then ``train/pool_loss`` takes one
+   more ``nll_fwd`` over the same logits);
+5. updates the EMA of the mean score, then smooths, normalizes and
    draws the batch by inverse CDF (``score_and_draw`` kernel);
 6. trains on the drawn batch with the reweighted loss ``mean(loss/(N·p))``
    (``nll_fwd`` forward, ``nll_bwd`` backward) and applies the optimizer;
@@ -32,7 +37,8 @@ of the shard instead of a stream:
    (``p·L`` in place of ``p·N``);
 5. the write-back: the trained batch's per-sample losses, already computed
    for the loss, are scatter-averaged into the table (no third ``nll_fwd``
-   launch), and the cursor advances by ``R``. The stream is not read.
+   launch; under ``"grad_norm"`` their gradient norms), and the cursor
+   advances by ``R``. The stream is not read.
 
 With ``fused_input`` every ingest is one ``augment_normalize`` kernel
 launch that gathers the uint8 rows itself (its ``rows``): no separate
@@ -70,6 +76,9 @@ of the drawn batch through the pre-update model for
 means over the ranks and the histograms sums, carried by the metrics'
 all-reduce. With ``telemetry=False`` none of this is computed.
 
+With ``label_smoothing`` the per-sample loss is the smoothed cross-entropy
+of the plain PyTorch ops: the step needs ``use_pallas=False`` on the card.
+
 The step's random numbers are one :class:`Draws`: by default made from the
 state's generator on the device; tests pass the JAX package's draws instead.
 On the card, with ``compute_dtype="bfloat16"``, forwards run under bf16
@@ -88,6 +97,13 @@ from mercury_tpu_torch.data.pipeline import (
     augment_batch,
     next_pool,
     normalize_images,
+)
+from mercury_tpu_torch.data.transforms import (
+    IID_CROP,
+    IID_RESIZE,
+    MAX_ROTATE_DEG,
+    SCALE_RANGE,
+    augment_batch_iid,
 )
 from mercury_tpu_torch.obs.diagnostics import (
     clip_fraction,
@@ -118,6 +134,7 @@ from mercury_tpu_torch.parallel.distributed import require_world
 from mercury_tpu_torch.sampling.importance import (
     ema_update,
     per_sample_grad_norm_bound,
+    per_sample_loss,
     pool_mean,
     reweighted_loss,
 )
@@ -130,6 +147,7 @@ from mercury_tpu_torch.sampling.scoretable import (
 from mercury_tpu_torch.train.state import MercuryState
 
 CROP_PAD = 4
+IMAGE_SIZE = 32  # CIFAR's side: the range of the cutout centres
 
 
 def to_nchw(images: torch.Tensor) -> torch.Tensor:
@@ -141,18 +159,26 @@ def to_nchw(images: torch.Tensor) -> torch.Tensor:
     return x if x.is_cuda else x.contiguous()
 
 
+class Augment(NamedTuple):
+    """The random numbers of one ingest of ``n`` images."""
+
+    crop: torch.Tensor                    # [n, 2] int32 offsets in [0, 2·pad] (iid: [0, 3])
+    flip: torch.Tensor                    # [n] bool horizontal flips
+    theta: Optional[torch.Tensor] = None  # [n] float32 radians (iid only)
+    scale: Optional[torch.Tensor] = None  # [n] float32 (iid only)
+    cut: Optional[torch.Tensor] = None    # [n, 2] int32 cutout centres (noniid cutout only)
+
+
 class Draws(NamedTuple):
-    """The random numbers of one step. ``crop``/``flip`` augment the rows
-    scored first — the pool, or the scoretable's refresh window (the JAX
-    step's ``k_aug``); ``crop2``/``flip2`` augment the drawn train batch of
-    the scoretable step, which gathers its rows anew (``k_aug2``)."""
+    """The random numbers of one step. ``aug`` augments the rows scored
+    first — the pool, or the scoretable's refresh window (the JAX step's
+    ``k_aug``); ``aug2`` the drawn train batch of the scoretable step,
+    which gathers its rows anew (``k_aug2``)."""
 
     perm: Optional[torch.Tensor]  # [L] reshuffle permutation; read only if the stream wraps
-    crop: torch.Tensor            # [P or R, 2] int32 crop offsets in [0, 2·pad]
-    flip: torch.Tensor            # [P or R] bool horizontal flips
+    aug: Augment                  # P or R images
     uniforms: Optional[torch.Tensor]  # [1, B] float32 U(0,1) of the draw (IS only)
-    crop2: Optional[torch.Tensor] = None  # [B, 2] int32 (scoretable only)
-    flip2: Optional[torch.Tensor] = None  # [B] bool (scoretable only)
+    aug2: Optional[Augment] = None    # B images (scoretable only)
 
 
 def pool_size(config: TrainConfig) -> int:
@@ -165,26 +191,40 @@ def make_draws(state: MercuryState, config: TrainConfig) -> Draws:
     gen = state.generator
     dev = gen.device
 
-    def augment_draws(n: int):
-        crop = torch.randint(0, 2 * CROP_PAD + 1, (n, 2), generator=gen,
-                             device=dev, dtype=torch.int32)
-        return crop, torch.rand(n, generator=gen, device=dev) < 0.5
+    iid = config.augmentation == "iid"
+
+    def uniform(n: int, lo: float, hi: float) -> torch.Tensor:
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+
+    def augment_draws(n: int) -> Augment:
+        """The crop offsets and flips of ``n`` images, then the IID
+        transform's angles and scales, or the cutout centres."""
+        hi = IID_RESIZE - IID_CROP if iid else 2 * CROP_PAD
+        aug = Augment(torch.randint(0, hi + 1, (n, 2), generator=gen, device=dev,
+                                    dtype=torch.int32),
+                      torch.rand(n, generator=gen, device=dev) < 0.5)
+        if iid:
+            theta = torch.deg2rad(uniform(n, -MAX_ROTATE_DEG, MAX_ROTATE_DEG))
+            return aug._replace(theta=theta, scale=uniform(n, *SCALE_RANGE))
+        if config.cutout and config.augmentation == "noniid":
+            return aug._replace(cut=torch.randint(0, IMAGE_SIZE, (n, 2), generator=gen,
+                                                  device=dev, dtype=torch.int32))
+        return aug
 
     def uniforms():
         return torch.rand((1, config.batch_size), generator=gen, device=dev)
 
     if config.use_scoretable:
-        crop, flip = augment_draws(config.refresh_size)
-        crop2, flip2 = augment_draws(config.batch_size)
-        return Draws(perm=None, crop=crop, flip=flip, uniforms=uniforms(),
-                     crop2=crop2, flip2=flip2)
+        aug = augment_draws(config.refresh_size)
+        return Draws(perm=None, aug=aug, uniforms=uniforms(),
+                     aug2=augment_draws(config.batch_size))
     p = pool_size(config)
     length = state.stream.perm.shape[0]
     perm = None
     if state.stream.cursor + p > length:
         perm = torch.randperm(length, generator=gen, device=dev)
-    crop, flip = augment_draws(p)
-    return Draws(perm=perm, crop=crop, flip=flip,
+    aug = augment_draws(p)
+    return Draws(perm=perm, aug=aug,
                  uniforms=uniforms() if config.use_importance_sampling else None)
 
 
@@ -233,8 +273,13 @@ def make_train_step(
     them never waits for the device. The three table ages, which the host
     knows from the cursor, are float32 CPU scalars.
     ``use_kernels=False`` swaps the kernels for their plain versions on the
-    same device — for holding one against the other, not for training.
-    At W>1 the process group must have ``config.world_size`` ranks."""
+    same device — for holding one against the other, not for training;
+    ``config.use_pallas=False`` does so for every step.
+    At W>1 the process group must have ``config.world_size`` ranks.
+
+    ``config.label_smoothing`` needs the plain versions (the NLL kernels
+    compute the plain NLL): it raises ``ValueError`` where the kernels
+    would run, that is with ``use_pallas=True``, or ``None`` on the card."""
     require_world(config.world_size)
     world_size = config.world_size
     use_is = config.use_importance_sampling
@@ -257,6 +302,15 @@ def make_train_step(
     else:
         x_rows, y_rows = dataset.x_train, dataset.y_train
         shard_row = dataset.shard_indices[dataset.rank]
+    smoothing = config.label_smoothing
+    # use_pallas, resolved once: False is the plain versions, on the card
+    # too; True or None the wrappers, which launch the kernels on CUDA
+    # tensors and run the plain versions on CPU ones. Smoothing is refused
+    # wherever a kernel would launch (the kernels compute the plain NLL).
+    kernels = config.use_pallas is not False
+    if smoothing != 0.0 and kernels and (config.use_pallas or x_rows.device.type == "cuda"):
+        raise ValueError("use_pallas requires label_smoothing == 0")
+    grad_norm_scores = config.importance_score == "grad_norm"
     mean_t = torch.as_tensor(dataset.mean, dtype=torch.float32, device=x_rows.device)
     std_t = torch.as_tensor(dataset.std, dtype=torch.float32, device=x_rows.device)
 
@@ -266,39 +320,67 @@ def make_train_step(
         rows = slots if shard_row is None else shard_row[slots]
         return rows, y_rows[rows]
 
-    def ingest(gidx: torch.Tensor, crop: torch.Tensor, flip: torch.Tensor,
-               use_kernels: bool) -> torch.Tensor:
+    def ingest(gidx: torch.Tensor, use_kernels: bool, aug: Augment) -> torch.Tensor:
         """Rows ``gidx`` of ``x_rows`` → augmented, normalized float32 NHWC
         images: with ``fused_input`` one ``augment_normalize`` launch that
         gathers the uint8 rows itself, the gather and the op chain
         otherwise."""
         if config.fused_input:
             if use_kernels:
-                return augment_normalize(x_rows, mean_t, std_t, crop, flip,
+                return augment_normalize(x_rows, mean_t, std_t, aug.crop, aug.flip,
                                          CROP_PAD, rows=gidx)
             return reference.augment_normalize(x_rows[gidx], mean_t, std_t,
-                                               crop, flip, CROP_PAD)
+                                               aug.crop, aug.flip, CROP_PAD)
         images = normalize_images(x_rows[gidx], dataset.mean, dataset.std)
+        # As the JAX step's _augment: cutout rides on the noniid crop and
+        # flip only; under "iid" and "none" the flag is ignored.
         if config.augmentation == "noniid":
-            images = augment_batch(images, crop, flip, CROP_PAD)
+            images = augment_batch(images, aug.crop, aug.flip, CROP_PAD,
+                                   _need(aug.cut, "cut") if config.cutout else None)
+        elif config.augmentation == "iid":
+            images = augment_batch_iid(images, aug.crop, aug.flip, _need(aug.theta, "theta"),
+                                       _need(aug.scale, "scale"))
         return images
 
     def step_fn(state: MercuryState, draws: Optional[Draws] = None,
                 use_kernels: bool = True) -> Dict[str, torch.Tensor]:
         if draws is None:
             draws = make_draws(state, config)
-        nll = per_sample_nll if use_kernels else reference.nll_forward
+        use_kernels = use_kernels and kernels
+        if smoothing != 0.0:
+            def loss_of(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+                return per_sample_loss(logits, labels, smoothing)
+        else:
+            loss_of = per_sample_nll if use_kernels else reference.nll_forward
+
+        def score_of(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+            """The candidates' scores: the JAX step's ``_score_per_sample``."""
+            if grad_norm_scores:
+                return per_sample_grad_norm_bound(logits.float(), labels, smoothing)
+            return loss_of(logits, labels)
+
         model = state.model
         dev = state.stream.perm.device
         autocast = torch.autocast(device_type=dev.type, dtype=torch.bfloat16,
                                   enabled=bf16 and dev.type == "cuda")
 
-        def score(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        def score(images: torch.Tensor, labels: torch.Tensor):
             """Train-mode scoring forward (running statistics left alone)
-            and per-sample NLL, without gradients."""
+            and the per-sample scores, without gradients; returns the
+            scores and the logits."""
             with torch.no_grad(), autocast:
                 logits = model(to_nchw(images), train=True, keep_stats=False)
-                return nll(logits, labels)
+                return score_of(logits, labels), logits
+
+        def pool_loss(logits: torch.Tensor, labels: torch.Tensor,
+                      score_avg: torch.Tensor) -> torch.Tensor:
+            """``train/pool_loss``: the mean loss of the scored rows, the
+            scores' mean unless the scores are gradient norms (the JAX
+            step's ``_pool_loss_metric``)."""
+            if not grad_norm_scores:
+                return score_avg
+            with torch.no_grad():
+                return pool_mean(loss_of(logits, labels), sync_stats)
 
         def probe_var_ratio(images: torch.Tensor, labels: torch.Tensor,
                             scaled_probs: torch.Tensor) -> torch.Tensor:
@@ -309,7 +391,7 @@ def make_train_step(
             with torch.no_grad():
                 with autocast:
                     logits = model(to_nchw(images), train=True, keep_stats=False)
-                g = per_sample_grad_norm_bound(logits.float(), labels)
+                g = per_sample_grad_norm_bound(logits.float(), labels, smoothing)
                 return variance_probe_ratio(
                     g, scaled_probs, mean=lambda v: pool_mean(v, sync_stats))
 
@@ -317,11 +399,11 @@ def make_train_step(
         if use_table:
             r_slots = refresh_window(table, refresh_size)
             r_rows, r_labels = gather(r_slots)
-            r_scores = score(ingest(r_rows, draws.crop, draws.flip, use_kernels),
-                             r_labels)
-            avg_pool_loss = pool_mean(r_scores, sync_stats)
+            r_scores, r_logits = score(
+                ingest(r_rows, use_kernels, draws.aug), r_labels)
+            score_avg = pool_mean(r_scores, sync_stats)
             ema_prev = ema.value
-            ema = ema_update(ema, avg_pool_loss, config.ema_alpha)
+            ema = ema_update(ema, score_avg, config.ema_alpha)
             refresh_draw = (table_refresh_draw if use_kernels
                             else reference.table_refresh_draw)
             new_scores, probs, selected, scaled_probs = refresh_draw(
@@ -332,9 +414,10 @@ def make_train_step(
                 # Over the whole refreshed table, before the write-back:
                 # what the draw normalized.
                 clip = clip_fraction(new_scores, ema.value, config.is_alpha)
-                drift = ema_drift(avg_pool_loss, ema_prev)
+                drift = ema_drift(score_avg, ema_prev)
+            avg_pool_loss = pool_loss(r_logits, r_labels, score_avg)
             sel_rows, sel_labels = gather(selected)
-            sel_images = ingest(sel_rows, draws.crop2, draws.flip2, use_kernels)
+            sel_images = ingest(sel_rows, use_kernels, draws.aug2)
         else:
             def need_perm() -> torch.Tensor:
                 if draws.perm is None:
@@ -343,20 +426,21 @@ def make_train_step(
 
             stream, slots = next_pool(stream, p_size, need_perm)
             rows, labels = gather(slots)
-            images = ingest(rows, draws.crop, draws.flip, use_kernels)  # [P, H, W, C]
+            images = ingest(rows, use_kernels, draws.aug)  # [P, H, W, C]
             if use_is:
-                pool_losses = score(images, labels)
-                avg_pool_loss = pool_mean(pool_losses, sync_stats)
+                pool_scores, pool_logits = score(images, labels)
+                score_avg = pool_mean(pool_scores, sync_stats)
                 ema_prev = ema.value
-                ema = ema_update(ema, avg_pool_loss, config.ema_alpha)
+                ema = ema_update(ema, score_avg, config.ema_alpha)
                 select = score_and_draw if use_kernels else reference.score_and_draw
                 probs, selected, scaled_probs = select(
-                    pool_losses, ema.value, draws.uniforms, config.is_alpha)
+                    pool_scores, ema.value, draws.uniforms, config.is_alpha)
                 selected = selected.long()
                 sel_images, sel_labels = images[selected], labels[selected]
                 if telemetry:
-                    clip = clip_fraction(pool_losses, ema.value, config.is_alpha)
-                    drift = ema_drift(avg_pool_loss, ema_prev)
+                    clip = clip_fraction(pool_scores, ema.value, config.is_alpha)
+                    drift = ema_drift(score_avg, ema_prev)
+                avg_pool_loss = pool_loss(pool_logits, labels, score_avg)
             else:
                 probs = None
                 selected = torch.arange(batch_size, device=dev)
@@ -382,7 +466,7 @@ def make_train_step(
         with autocast:
             logits = model(to_nchw(sel_images), train=True,
                            keep_stats=True)
-        train_losses = nll(logits, sel_labels)
+        train_losses = loss_of(logits, sel_labels)
         loss = reweighted_loss(train_losses, scaled_probs)
         loss.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -403,11 +487,14 @@ def make_train_step(
                              if name.endswith(("running_mean", "running_var"))])
 
         if use_table:
-            # Write-back: the trained slots' fresh scores are the loss's own
-            # per-sample NLLs of the float32 logits — the numbers the JAX
-            # step recomputes from the same logits — duplicates averaged.
+            # Write-back: the trained slots' fresh scores, duplicates
+            # averaged — under "loss" the loss's own per-sample values of
+            # the float32 logits (the numbers the JAX step recomputes from
+            # the same logits, no third NLL), under "grad_norm" the norms.
             with torch.no_grad():
-                scores = scatter_mean(new_scores, selected, train_losses.detach())
+                fresh = (score_of(logits.detach(), sel_labels) if grad_norm_scores
+                         else train_losses.detach())
+                scores = scatter_mean(new_scores, selected, fresh)
                 if config.use_ledger:
                     if state.sel_counts is None:  # a state built without one
                         state.sel_counts = torch.zeros_like(scores, dtype=torch.int32)
@@ -478,3 +565,9 @@ def make_train_step(
         return metrics
 
     return step_fn
+
+
+def _need(value: Optional[torch.Tensor], name: str) -> torch.Tensor:
+    if value is None:
+        raise ValueError(f"this configuration's step needs the draws' {name}")
+    return value

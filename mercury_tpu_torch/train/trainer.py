@@ -47,6 +47,7 @@ from mercury_tpu_torch.data.pipeline import (
     make_sharded_dataset,
     normalize_images,
 )
+from mercury_tpu_torch.data.transforms import EVAL_RESIZE, IID_CROP, eval_transform_iid
 from mercury_tpu_torch.models import create_model
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
 from mercury_tpu_torch.obs.sampler_health import SamplerHealthMonitor
@@ -71,7 +72,8 @@ def build_dataset(config: TrainConfig, device, rank: int = 0) -> ShardedDataset:
     """Load, partition and place the dataset for worker ``rank``, as the JAX
     package's ``build_dataset`` does from the same config: every rank
     partitions the same way from the seed."""
-    train, test, info = cifar.load_dataset(config.dataset, seed=config.seed)
+    train, test, info = cifar.load_dataset(config.dataset, data_dir=config.data_dir,
+                                           seed=config.seed)
     shards = partition_data(
         train[1], config.world_size,
         mode="hetero" if config.noniid else "homo",
@@ -96,8 +98,19 @@ class Trainer:
         self.rank = distributed.rank()
         self.device = resolve_device(device)
         self.dataset = build_dataset(config, self.device, self.rank)
-        # Refuses a world_size that the process group does not have.
+        if config.num_classes is not None and config.num_classes != self.dataset.num_classes:
+            raise ValueError(
+                f"config.num_classes={config.num_classes} but dataset "
+                f"{config.dataset!r} has {self.dataset.num_classes} classes")
+        # Refuses a world_size that the process group does not have, and
+        # label smoothing where the kernels would run.
         self._step_fn = make_train_step(config, self.dataset)
+        # The IID evaluation's crop offsets, the same for every batch, as
+        # the JAX package crops every batch with one fixed key (its offsets
+        # differ from these: threefry is not Philox).
+        self.eval_crop = torch.randint(
+            0, EVAL_RESIZE - IID_CROP + 1, (EVAL_BATCH, 2),
+            generator=torch.Generator().manual_seed(0), dtype=torch.int32).to(self.device)
         if model is None:
             gen = torch.Generator().manual_seed(config.seed)
             model = create_model(config.model, self.dataset.num_classes, gen)
@@ -122,10 +135,13 @@ class Trainer:
                 self.dataset.y_train.cpu().numpy(), self.dataset.num_classes,
                 config.is_alpha, starvation_share=0.2)
         # Crash or preemption recovery: the newest checkpoint, sampler state
-        # included; fit() then runs on to the original total_steps.
+        # included; the first fit() then runs on to the original
+        # total_steps.
+        self._auto_resumed = False
         if (config.auto_resume and config.checkpoint_dir
                 and checkpoint.latest_step(config.checkpoint_dir) is not None):
             step = self.restore()
+            self._auto_resumed = True
             _log.info("auto-resumed from the checkpoint at step %d", step)
 
     def train_step(self, draws: Optional[Draws] = None,
@@ -133,20 +149,37 @@ class Trainer:
         """One step; metrics stay on the device."""
         return self._step_fn(self.state, draws, use_kernels)
 
-    def fit(self, steps: Optional[int] = None) -> Dict[str, float]:
-        """Run ``steps`` steps (default: to the end of the schedule), logging
-        every ``log_every``, evaluating every ``eval_every`` and, with a
-        ``checkpoint_dir``, saving every ``checkpoint_every`` steps and at
-        the end. Returns the last step's scalar metrics, the last
-        evaluation and, when the last step is a log tick, the sampler-health
-        keys."""
+    def fit(self, num_epochs: Optional[int] = None, *,
+            steps: Optional[int] = None) -> Dict[str, float]:
+        """Train ``num_epochs`` (default ``config.num_epochs``) epochs of
+        ``steps_per_epoch`` steps from the current step, as the JAX
+        package's ``fit`` does: the first call after an actual
+        ``auto_resume`` runs to the absolute end of the schedule instead,
+        and every call stops after the first step at which
+        ``step × world_size`` exceeds ``step_budget``. ``steps=k`` runs
+        ``k`` steps from here (under the same budget).
+
+        Logs every ``log_every``, evaluates every ``eval_every`` and, with a
+        ``checkpoint_dir``, saves every ``checkpoint_every`` steps and at
+        the end. Returns the final evaluation (the last eval tick's, else a
+        fresh :meth:`evaluate`), the last step's scalar metrics and, when
+        the last step is a log tick, the sampler-health keys."""
         cfg = self.config
-        steps = self.total_steps - self.state.step if steps is None else steps
-        out: Dict[str, float] = {}
+        start = self.state.step
+        if steps is not None:
+            target = start + steps
+        elif self._auto_resumed:
+            target = self.steps_per_epoch * (num_epochs or cfg.num_epochs)
+        else:
+            target = start + self.steps_per_epoch * (num_epochs or cfg.num_epochs)
+        # The absolute horizon is the first call's only.
+        self._auto_resumed = False
+        end = min(target, int(cfg.step_budget // cfg.world_size) + 1)
+        evaluation: Dict[str, float] = {}
         metrics: Dict[str, torch.Tensor] = {}
         health: Dict[str, float] = {}
         saved = None
-        for _ in range(steps):
+        while self.state.step < end:
             metrics = self.train_step()
             step = self.state.step
             health = {}
@@ -154,15 +187,15 @@ class Trainer:
                 health = self.sampler_health()
                 _log.info("step %d: %s", step, {**_scalars(metrics), **health})
             if cfg.eval_every and step % cfg.eval_every == 0:
-                out.update(self.evaluate())
+                evaluation = self.evaluate()
             if cfg.checkpoint_dir and cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
                 self.save()
                 saved = step
         if cfg.checkpoint_dir and saved != self.state.step:
             self.save()
-        out.update(_scalars(metrics))
-        out.update(health)
-        return out
+        if not evaluation:
+            evaluation = self.evaluate()
+        return {**evaluation, **_scalars(metrics), **health}
 
     def sampler_health(self) -> Dict[str, float]:
         """The sampler-health monitor's keys of the ledger so far (none
@@ -200,11 +233,14 @@ class Trainer:
                                              self.config, step)
 
     def _logits(self, raw: torch.Tensor) -> torch.Tensor:
-        """Inference-mode logits of raw NHWC images on this device,
-        normalized with the dataset's statistics (``/255`` for uint8
-        only), under the step's autocast."""
+        """Inference-mode logits of ``EVAL_BATCH`` raw NHWC images on this
+        device, normalized with the dataset's statistics (``/255`` for
+        uint8 only) and, under ``augmentation="iid"``, resized to 33 and
+        cropped at ``eval_crop``; under the step's autocast."""
         ds = self.dataset
         images = normalize_images(raw.to(self.device), ds.mean, ds.std)
+        if self.config.augmentation == "iid":
+            images = eval_transform_iid(images, self.eval_crop)
         with torch.autocast(device_type=self.device.type, dtype=torch.bfloat16,
                             enabled=(self.config.compute_dtype == "bfloat16"
                                      and self.device.type == "cuda")):

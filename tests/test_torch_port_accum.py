@@ -41,7 +41,7 @@ from mercury_tpu_torch.models import resnet as tres  # noqa: E402
 from mercury_tpu_torch.models.convert import params_from_flax  # noqa: E402
 from mercury_tpu_torch.sampling.importance import EMAState  # noqa: E402
 from mercury_tpu_torch.train.state import create_state, make_optimizer  # noqa: E402
-from mercury_tpu_torch.train.step import Draws, accumulate, make_train_step  # noqa: E402
+from mercury_tpu_torch.train.step import Augment, Draws, accumulate, make_train_step  # noqa: E402
 
 B, PRESAMPLE, N_TRAIN, STEPS, A, MICROSTEPS = 4, 4, 64, 10, 2, 4
 POOL = B * PRESAMPLE
@@ -61,8 +61,9 @@ def _draws(rng) -> Draws:
     k_crop, k_flip, _ = jax.random.split(k_aug, 3)
     return Draws(
         perm=None,  # 4 pools of 16 read the 64-slot stream once: no reshuffle
-        crop=torch.tensor(np.array(jax.random.randint(k_crop, (POOL, 2), 0, 9), np.int32)),
-        flip=torch.tensor(np.array(jax.random.bernoulli(k_flip, shape=(POOL,)))),
+        aug=Augment(
+            crop=torch.tensor(np.array(jax.random.randint(k_crop, (POOL, 2), 0, 9), np.int32)),
+            flip=torch.tensor(np.array(jax.random.bernoulli(k_flip, shape=(POOL,))))),
         uniforms=torch.tensor(np.array(jax.random.uniform(k_sel, (1, B), jnp.float32))))
 
 

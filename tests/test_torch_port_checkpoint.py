@@ -59,13 +59,13 @@ def test_resume_mid_window_is_bit_exact(tmp_path, path):
 
 
 def test_cadence_keep_and_auto_resume(tmp_path):
-    """checkpoint_every=2, checkpoint_keep=2: fit(5) saves at 2 and 4 and
+    """checkpoint_every=2, checkpoint_keep=2: fit(steps=5) saves at 2 and 4 and
     at its end, and keeps the newest two; a Trainer with auto_resume starts
     from step 5, and fit() ends at total_steps (6) with a final save."""
     d = str(tmp_path)
     kw = dict(checkpoint_dir=d, checkpoint_every=2, checkpoint_keep=2)
     first = _trainer(**kw)
-    first.fit(5)
+    first.fit(steps=5)
     assert checkpoint.all_steps(d) == [4, 5]
     assert sorted(os.listdir(d)) == ["ckpt_4.pt", "ckpt_5.pt"]
     resumed = _trainer(auto_resume=True, **kw)
@@ -80,8 +80,8 @@ def test_cadence_keep_and_auto_resume(tmp_path):
 
 def test_checkpoint_every_zero_saves_only_at_the_end(tmp_path):
     tr = _trainer(checkpoint_dir=str(tmp_path), checkpoint_every=0, checkpoint_keep=0)
-    tr.fit(3)
-    tr.fit(2)
+    tr.fit(steps=3)
+    tr.fit(steps=2)
     assert checkpoint.all_steps(str(tmp_path)) == [3, 5]
 
 

@@ -65,7 +65,7 @@ from mercury_tpu_torch.data.partition import partition_data  # noqa: E402
 from mercury_tpu_torch.data.pipeline import make_sharded_dataset  # noqa: E402
 from mercury_tpu_torch.models.convert import params_from_flax  # noqa: E402
 from mercury_tpu_torch.parallel.distributed import spawn  # noqa: E402
-from mercury_tpu_torch.train.step import Draws  # noqa: E402
+from mercury_tpu_torch.train.step import Augment, Draws  # noqa: E402
 from test_torch_port_ranks import step_rank  # noqa: E402
 
 W, B, PRESAMPLE, R, N_TRAIN, STEPS = 2, 4, 4, 8, 64, 10
@@ -104,12 +104,11 @@ def _augment_draws(key, n):
 def _worker_draws(rng, table: bool) -> Draws:
     """Worker ``rng``'s draws as the JAX step makes them."""
     _, k_aug, k_sel, k_aug2 = jax.random.split(rng, 8)[:4]
-    crop, flip = _augment_draws(k_aug, R if table else POOL)
-    crop2, flip2 = _augment_draws(k_aug2, B) if table else (None, None)
+    aug = Augment(*_augment_draws(k_aug, R if table else POOL))
+    aug2 = Augment(*_augment_draws(k_aug2, B)) if table else None
     uniforms = torch.tensor(np.array(jax.random.uniform(k_sel, (1, B), jnp.float32)))
     # cursor 0 + a pool of 16 <= L: the stream does not wrap this step.
-    return Draws(perm=None, crop=crop, flip=flip, uniforms=uniforms,
-                 crop2=crop2, flip2=flip2)
+    return Draws(perm=None, aug=aug, uniforms=uniforms, aug2=aug2)
 
 
 def _jax_worker_step(jm, jcfg, snap, x, y, sidx, mesh):

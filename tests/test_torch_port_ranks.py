@@ -168,11 +168,11 @@ def trainer_rank(config_kw, steps):
 
 
 def monitor_rank(config_kw, steps):
-    """``Trainer.fit(steps)`` at W ranks ending on a log tick: what it
+    """``Trainer.fit(steps=steps)`` at W ranks ending on a log tick: what it
     returned, and this rank's ledger, score table and EMA."""
     torch.set_num_threads(1)
     trainer = Trainer(TrainConfig(**config_kw), device="cpu", model=tiny_resnet(seed=0))
-    out = trainer.fit(steps)
+    out = trainer.fit(steps=steps)
     st = trainer.state
     return dict(rank=trainer.rank, out=out, sel_counts=st.sel_counts.clone(),
                 scores=st.scoretable.scores.clone(), ema=st.ema.value.clone(),

@@ -81,8 +81,8 @@ def test_config_fields_match_the_jax_package():
     pytest.param("data_placement", dict(data_placement="host_stream"),
                  id="data_placement-host_stream"),
     pytest.param("model", dict(model="vgg11"), id="model-vgg11"),
-    pytest.param("augmentation", dict(augmentation="iid"), id="augmentation-iid"),
-    pytest.param("dataset", dict(dataset="cifar100"), id="dataset-cifar100"),
+    pytest.param("dataset", dict(dataset="imagefolder"), id="dataset-imagefolder"),
+    pytest.param("scoring_dtype", dict(scoring_dtype="bfloat16"), id="scoring_dtype-bfloat16"),
     pytest.param("grad_accum_steps", dict(grad_accum_steps=0), id="grad_accum_steps-0"),
 ])
 def test_config_rejects_what_is_not_ported(field, kw):
@@ -130,7 +130,7 @@ def test_cpu_fit_gives_finite_losses(use_is):
     assert all(np.isfinite(losses))
     assert tr.state.step == 5
     assert launch_counts == {k: 0 for k in KERNELS}
-    out = tr.fit(1)
+    out = tr.fit(steps=1)
     assert np.isfinite(out["train/loss"]) and tr.state.step == 6
     ev = tr.evaluate(include_train=False)
     assert set(ev) == {"test/eval_loss", "test/eval_acc"}

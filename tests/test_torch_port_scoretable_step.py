@@ -36,7 +36,7 @@ from mercury_tpu_torch.models.convert import params_from_flax, scoretable_from_j
 from mercury_tpu_torch.ops import launch_counts, reset_launch_counts  # noqa: E402
 from mercury_tpu_torch.sampling.importance import EMAState  # noqa: E402
 from mercury_tpu_torch.train.state import create_state  # noqa: E402
-from mercury_tpu_torch.train.step import Draws, make_draws, make_train_step  # noqa: E402
+from mercury_tpu_torch.train.step import Augment, Draws, make_draws, make_train_step  # noqa: E402
 
 B, R, N_TRAIN, STEPS = 4, 8, 64, 10
 MEAN, STD = cifar.CIFAR10_MEAN, cifar.CIFAR10_STD
@@ -70,9 +70,8 @@ def steps():
                 ema=float(js.ema.value[0]), scores=np.array(js.scoretable.scores[0]),
                 cursor=np.array(js.scoretable.cursor[0]), rng=js.rng[0])
     _, k_aug, k_sel, k_aug2 = jax.random.split(snap["rng"], 8)[:4]
-    crop, flip = _augment_draws(k_aug, R)
-    crop2, flip2 = _augment_draws(k_aug2, B)
-    draws = Draws(perm=None, crop=crop, flip=flip, crop2=crop2, flip2=flip2,
+    draws = Draws(perm=None, aug=Augment(*_augment_draws(k_aug, R)),
+                  aug2=Augment(*_augment_draws(k_aug2, B)),
                   uniforms=torch.tensor(np.array(jax.random.uniform(k_sel, (1, B),
                                                                     jnp.float32))))
 
@@ -156,7 +155,7 @@ def test_cpu_fit_with_fused_ingest(sampler):
     assert (tr.state.scoretable is not None) == (sampler == "scoretable")
     losses = [float(tr.train_step()["train/loss"]) for _ in range(4)]
     assert all(np.isfinite(losses))
-    out = tr.fit(1)
+    out = tr.fit(steps=1)
     assert np.isfinite(out["train/loss"]) and tr.state.step == 5
     if sampler == "scoretable":
         assert tr.state.scoretable.cursor == 5 * R
@@ -166,9 +165,10 @@ def test_cpu_fit_with_fused_ingest(sampler):
 def test_draws_and_clone_carry_the_table():
     tr = _tiny()
     d = make_draws(tr.state, tr.config)
-    assert d.perm is None and d.crop.shape == (R, 2) and d.flip.shape == (R,)
-    assert d.crop2.shape == (B, 2) and d.flip2.shape == (B,) and d.uniforms.shape == (1, B)
-    assert d.crop.dtype == torch.int32 and d.flip.dtype == torch.bool
+    assert d.perm is None and d.aug.crop.shape == (R, 2) and d.aug.flip.shape == (R,)
+    assert (d.aug2.crop.shape == (B, 2) and d.aug2.flip.shape == (B,)
+            and d.uniforms.shape == (1, B))
+    assert d.aug.crop.dtype == torch.int32 and d.aug.flip.dtype == torch.bool
     copy = tr.state.clone()
     tr.train_step()
     assert copy.scoretable.cursor == 0 and tr.state.scoretable.cursor == R

@@ -32,7 +32,7 @@ from mercury_tpu_torch.models import resnet as tres  # noqa: E402
 from mercury_tpu_torch.models.convert import params_from_flax  # noqa: E402
 from mercury_tpu_torch.sampling.importance import EMAState  # noqa: E402
 from mercury_tpu_torch.train.state import create_state  # noqa: E402
-from mercury_tpu_torch.train.step import Draws, make_train_step  # noqa: E402
+from mercury_tpu_torch.train.step import Augment, Draws, make_train_step  # noqa: E402
 
 B, PRESAMPLE, N_TRAIN, STEPS = 4, 4, 64, 10
 POOL = B * PRESAMPLE
@@ -75,8 +75,8 @@ def setup():
     k_crop, k_flip, _ = jax.random.split(k_aug, 3)
     draws = Draws(
         perm=None,  # cursor 0 + pool 16 <= 64: no reshuffle this step
-        crop=torch.tensor(np.array(jax.random.randint(k_crop, (POOL, 2), 0, 9))),
-        flip=torch.tensor(np.array(jax.random.bernoulli(k_flip, shape=(POOL,)))),
+        aug=Augment(crop=torch.tensor(np.array(jax.random.randint(k_crop, (POOL, 2), 0, 9))),
+                    flip=torch.tensor(np.array(jax.random.bernoulli(k_flip, shape=(POOL,))))),
         uniforms=torch.tensor(np.array(jax.random.uniform(k_sel, (1, B), jnp.float32))),
     )
 

@@ -44,7 +44,7 @@ from mercury_tpu_torch.obs.diagnostics import table_ages  # noqa: E402
 from mercury_tpu_torch.parallel.distributed import spawn  # noqa: E402
 from mercury_tpu_torch.sampling.importance import EMAState  # noqa: E402
 from mercury_tpu_torch.train.state import create_state  # noqa: E402
-from mercury_tpu_torch.train.step import Draws, make_train_step  # noqa: E402
+from mercury_tpu_torch.train.step import Augment, Draws, make_train_step  # noqa: E402
 from test_torch_port_ranks import monitor_rank  # noqa: E402
 
 B, PRESAMPLE, R, N_TRAIN, STEPS, TABLE_STEPS = 4, 4, 8, 64, 10, 3
@@ -72,11 +72,10 @@ def _augment_draws(key, n):
 def _draws(rng, table):
     """The JAX step's draws from its key ``rng``."""
     _, k_aug, k_sel, k_aug2 = jax.random.split(rng, 8)[:4]
-    crop, flip = _augment_draws(k_aug, R if table else POOL)
-    crop2, flip2 = _augment_draws(k_aug2, B) if table else (None, None)
+    aug = Augment(*_augment_draws(k_aug, R if table else POOL))
+    aug2 = Augment(*_augment_draws(k_aug2, B)) if table else None
     uniforms = torch.tensor(np.array(jax.random.uniform(k_sel, (1, B), jnp.float32)))
-    return Draws(perm=None, crop=crop, flip=flip, uniforms=uniforms, crop2=crop2,
-                 flip2=flip2)
+    return Draws(perm=None, aug=aug, uniforms=uniforms, aug2=aug2)
 
 
 def _host(metrics):
@@ -280,7 +279,7 @@ def test_trainer_log_record_carries_the_monitor(caplog):
     other steps."""
     tr = _tiny(log_every=3, **TABLE)
     with caplog.at_level("INFO", logger="mercury_tpu_torch.train.trainer"):
-        out = tr.fit(3)
+        out = tr.fit(steps=3)
     assert chip_smoke.MONITOR_KEYS <= set(out)
     assert "sampler_dist/gini" in caplog.text
     st = tr.state
@@ -295,7 +294,7 @@ def test_trainer_log_record_carries_the_monitor(caplog):
     for k, v in want.items():
         assert out[k] == pytest.approx(v, rel=1e-12), k
     assert 0.0 <= out["sampler_dist/gini"] <= 1.0
-    assert not chip_smoke.MONITOR_KEYS & set(tr.fit(1))  # step 4: no tick
+    assert not chip_smoke.MONITOR_KEYS & set(tr.fit(steps=1))  # step 4: no tick
 
 
 def test_ledger_counts_each_duplicate():
