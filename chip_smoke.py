@@ -84,7 +84,26 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    ``step_budget=3`` with 4 steps an epoch stops at step 4 and returns the
    evaluation. Every configuration of the phase reads CIFAR-100 from an
    empty ``data_dir``, so each trains on the synthetic 100-class set
-   (checked), whatever lies in the loader's default directories.
+   (checked), whatever lies in the loader's default directories;
+10. the host stream (``data_placement="host_stream"``): (a) the default
+   pool path with its train pixels in host memory against the replicated
+   placement: the dataset's device bytes in each (15,360,000 more
+   replicated), 3 + 20 steps of each bit-equal under deterministic cuDNN
+   with 2 nll_fwd, 1 nll_bwd and 1 score_and_draw a step, then steps/s
+   in turns (replicated, host_stream, host_stream, replicated) with the
+   stall share and 983,040 bytes sent a step, and a host-stream kernel
+   step against a plain step; (b) the streamed scoretable at CIFAR-10's
+   train size: a 153,600,000-byte ``np.memmap`` of 50,000 random rows,
+   L=50,000, ``fused_input`` and ``scoring_dtype="bfloat16"``, 3 + 20
+   steps launching 2 nll_fwd, 1 nll_bwd, 1 score_and_draw at N=50,000,
+   2 augment_normalize without ``rows`` (bf16 [64], f32 [32]) and no
+   table_refresh_draw a step, its steps/s and stall share, and a kernel
+   step against a plain step; (c) (a)'s host_stream configuration under
+   deterministic cuDNN saved with its ring in flight, 4 steps live and 4
+   restored, bit-equal; (d) ``scoring_dtype="bfloat16"`` against None on
+   the replicated pool path with float32 training: steps/s in turns and
+   the scoring forward's device time a step (``torch.profiler``) and
+   alone at [320] (CUDA events).
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -156,6 +175,20 @@ SURFACE_POOL_STEPS = 20
 SURFACE_TABLE_STEPS = 10
 SURFACE_FUSED_STEPS = 5
 SMOOTH_STEPS = 3
+# Phase 10, the host stream: (a) the default pool path with its pixels in
+# host memory, against the replicated placement; (b) the streamed
+# scoretable at CIFAR-10's train size, a 50,000-row np.memmap, with a bf16
+# scorer; (c) a resume with the ring in flight; (d) the bf16 scorer on the
+# replicated pool path with float32 training.
+STREAM = dict(model="resnet18", dataset="synthetic", world_size=1)
+STREAM_TABLE = dict(model="resnet18", dataset="synthetic", world_size=1,
+                    sampler="scoretable", fused_input=True, scoring_dtype="bfloat16",
+                    data_placement="host_stream")
+STREAM_STEPS = 20
+STREAM_ROWS = 50_000      # CIFAR-10's train split
+STREAM_TEST_ROWS = 1000
+STREAM_RESUME = 4         # steps live and restored in (c)
+SCORING_TURNS = ("bfloat16", None, None, "bfloat16")
 # CIFAR-100's normalization (float32 in the dataset).
 CIFAR100_MEAN = (0.5071, 0.4865, 0.4409)
 CIFAR100_STD = (0.2673, 0.2564, 0.2762)
@@ -222,12 +255,14 @@ def main() -> int:
     accum = run_phase("resume and accumulate", accum_resume_phase, torch, card, main_path)
     telemetry = run_phase("telemetry", telemetry_phase, torch, card, main_path, table_path)
     surface = run_phase("config surface", config_surface_phase, torch, card)
+    stream = run_phase("host stream", host_stream_phase, torch, card)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
                    "two_ranks": two_ranks["launches"][k["name"]],
                    "accum_resume": accum["launches"][k["name"]],
-                   "config_surface": surface["launches"][k["name"]]}
+                   "config_surface": surface["launches"][k["name"]],
+                   "host_stream": stream["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -238,7 +273,8 @@ def main() -> int:
         {"card": card, "build_s": build_s, "kernels": kernels, "cases": cases,
          "main_path": main_path["summary"], "scoretable_path": table_path["summary"],
          "two_ranks": two_ranks["summary"], "accum_resume": accum["summary"],
-         "telemetry": telemetry, "config_surface": surface["summary"]},
+         "telemetry": telemetry, "config_surface": surface["summary"],
+         "host_stream": stream["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -915,11 +951,11 @@ def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3,
     return step_err
 
 
-def build_trainer(torch, config, quiet: bool = False):
+def build_trainer(torch, config, quiet: bool = False, dataset=None):
     from mercury_tpu_torch import Trainer
 
     t0 = time.perf_counter()
-    trainer = Trainer(config)
+    trainer = Trainer(config, dataset=dataset)
     n_params = sum(p.numel() for p in trainer.state.model.parameters())
     classes = trainer.dataset.num_classes
     want = PARAMETERS[config.model, classes]
@@ -980,13 +1016,14 @@ def near_edges(torch, values, lo: float, hi: float, rel: float = 1e-5) -> int:
     return int(((v / edges - 1).abs() <= rel).any(1).sum())
 
 
-def telemetry_agree(torch, k_m, p_m, p_table=None) -> dict:
+def telemetry_agree(torch, k_m, p_m, p_table=None, weights=None) -> dict:
     """A kernel step's telemetry against the plain step's (same state and
     draws): ESS and clip share rtol 1e-5, the drift within 1e-5 of the pool
     mean it is taken from (the EMA before the step is the same on both
     sides), the gradient's norm rtol 1e-4; the histograms equal, except
     that a value within 1e-5 of a bin edge may move one bin (the f32 NLL
-    and draw arithmetic differ in the last bits)."""
+    and draw arithmetic differ in the last bits). ``weights``, the batch's
+    IS weights, default to the plain step's ``p·N`` of its draw."""
     from mercury_tpu_torch.obs.sampler_health import (
         SCORE_HIST_HI,
         SCORE_HIST_LO,
@@ -1006,8 +1043,9 @@ def telemetry_agree(torch, k_m, p_m, p_table=None) -> dict:
     check(abs(a - b) <= 1e-5 * abs(float(p_m["train/pool_loss"])),
           f"sampler/ema_drift: kernel step {a!r}, plain step {b!r}")
     probs = p_m["sampler/probs"]
-    hists = [(_W_HIST, probs[p_m["sampler/selected"]] * probs.numel(), WEIGHT_HIST_LO,
-              WEIGHT_HIST_HI)]
+    if weights is None:
+        weights = probs[p_m["sampler/selected"]] * probs.numel()
+    hists = [(_W_HIST, weights, WEIGHT_HIST_LO, WEIGHT_HIST_HI)]
     if p_table is not None:
         hists.append((_SCORE_HIST, p_table, SCORE_HIST_LO, SCORE_HIST_HI))
     for keys, values, lo, hi in hists:
@@ -1306,6 +1344,18 @@ def state_digests(state) -> dict:
     return out
 
 
+def deterministic_cudnn(torch):
+    """Deterministic cuDNN, as phase 7 runs; returns the undo."""
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+
+    def undo():
+        cudnn.deterministic, cudnn.benchmark = flags
+
+    return undo
+
+
 def accum_resume_phase(torch, card: str, main_path):
     """The default pool configuration with ``grad_accum_steps=2``, under
     deterministic cuDNN (the previous settings restored after): launches
@@ -1327,14 +1377,12 @@ def accum_resume_phase(torch, card: str, main_path):
                 "augment_normalize": 0}
     check({k: v // MAIN_STEPS for k, v in main_path["launches"].items()} == per_step,
           f"phase 4 launched {main_path['launches']} in {MAIN_STEPS} steps")
-    cudnn = torch.backends.cudnn
-    flags = cudnn.deterministic, cudnn.benchmark
-    cudnn.deterministic, cudnn.benchmark = True, False
+    undo = deterministic_cudnn(torch)
     directory = tempfile.mkdtemp(prefix="mercury_ckpt_")
     try:
         return _accum_resume(torch, mk, card, config, per_step, directory, main_path)
     finally:
-        cudnn.deterministic, cudnn.benchmark = flags
+        undo()
         shutil.rmtree(directory, ignore_errors=True)
 
 
@@ -1693,6 +1741,396 @@ def config_surface_phase(torch, card: str) -> dict:
     del trainer
     empty.cleanup()
     torch.cuda.empty_cache()
+    return {"launches": launches, "summary": out}
+
+
+# ----------------------------------------------------------------- phase 10
+def stream_dataset(torch, config, rows: int, directory: str, seed: int = 0):
+    """This rank's dataset with its train pixels an ``np.memmap`` of ``rows``
+    random CIFAR-shaped uint8 rows written to ``directory`` (labels from the
+    same seed), partitioned as ``build_dataset`` partitions, and a random
+    test split of ``STREAM_TEST_ROWS`` in memory. Returns the dataset and
+    the file's size."""
+    import numpy as np
+
+    from mercury_tpu_torch.data import cifar
+    from mercury_tpu_torch.data.partition import partition_data
+    from mercury_tpu_torch.data.pipeline import make_sharded_dataset
+    from mercury_tpu_torch.train.trainer import resolve_device
+
+    rng = np.random.default_rng(seed)
+    path = Path(directory) / "train_pixels.u8"
+    shape = (rows, 32, 32, 3)
+    out = np.memmap(path, dtype=np.uint8, mode="w+", shape=shape)
+    for lo in range(0, rows, 5000):
+        hi = min(lo + 5000, rows)
+        out[lo:hi] = rng.integers(0, 256, (hi - lo,) + shape[1:], dtype=np.uint8)
+    out.flush()
+    del out
+    x = np.memmap(path, dtype=np.uint8, mode="r", shape=shape)
+    y = rng.integers(0, 10, rows).astype(np.int32)
+    xt = rng.integers(0, 256, (STREAM_TEST_ROWS,) + shape[1:], dtype=np.uint8)
+    yt = rng.integers(0, 10, STREAM_TEST_ROWS).astype(np.int32)
+    shards = partition_data(y, config.world_size, mode="hetero" if config.noniid else "homo",
+                            alpha=config.dirichlet_alpha, seed=config.seed,
+                            min_size=config.min_shard_size)
+    ds = make_sharded_dataset((x, y), (xt, yt), shards, cifar.CIFAR10_MEAN, cifar.CIFAR10_STD,
+                              10, device=resolve_device(), synthetic=True,
+                              placement=config.data_placement)
+    return ds, path.stat().st_size
+
+
+def stream_kernel_vs_plain_step(torch, trainer, config, attempts: int = 3):
+    """One host-stream step from the same state, popped rows and draws,
+    kernels against plain versions on the card, as
+    :func:`kernel_vs_plain_step` holds the replicated step: the losses to
+    rtol 1e-4, the same draws (pool: the pool's draw; scoretable: the
+    lookahead's draw over the table), the telemetry and the emitted rows.
+    The kernel step is kept: its state goes on and its rows are pushed."""
+    from mercury_tpu_torch.train.step import make_draws
+
+    state = trainer.state
+    batch = trainer._stream_pipe.pop()
+    band_misses = 0
+    for _ in range(attempts):
+        draws = make_draws(state, config)
+        results, states = {}, {}
+        for use_kernels in (True, False):
+            states[use_kernels] = state.clone()
+            results[use_kernels] = trainer._step_fn(states[use_kernels], batch, draws,
+                                                    use_kernels)
+        (k_m, k_next), (p_m, p_next) = results[True], results[False]
+        if config.use_scoretable:
+            r = config.refresh_size
+            u = draws.uniforms
+            k_sel, p_sel = (states[x].pending.slots[-1][r:] for x in (True, False))
+        else:
+            u = state.pending.draws[0].uniforms
+            k_sel, p_sel = k_m["sampler/selected"], p_m["sampler/selected"]
+        _, _, differ = check_draws(torch, "host-stream kernel step vs plain step",
+                                   p_m["sampler/probs"], u.reshape(-1), k_sel, p_sel)
+        if not bool(differ.any()):
+            break
+        band_misses += 1
+    else:
+        raise SmokeFailure(f"host-stream kernel and plain steps drew different batches in "
+                           f"{attempts} tries (all within the boundary band)")
+    check(torch.equal(k_next, p_next), "host-stream kernel and plain steps emitted other rows")
+    step_err = {"band_misses": band_misses}
+    for key in ("train/loss", "train/pool_loss"):
+        a, b = float(k_m[key]), float(p_m[key])
+        step_err[key] = abs(a - b)
+        check(math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b),
+              f"host stream {key}: kernel step {a!r}, plain step {b!r}")
+    if config.use_scoretable:
+        # The weights are the ring front's (the same on both sides); the
+        # table after the write-back may differ in the last bits.
+        weights = state.pending.scaled_probs[0]
+        step_err["telemetry"] = telemetry_agree(torch, k_m, p_m,
+                                                states[False].scoretable.scores, weights)
+    else:
+        step_err["telemetry"] = telemetry_agree(torch, k_m, p_m)
+    trainer.state = states[True]
+    trainer._stream_pipe.push(k_next)
+    print(f"host-stream kernel step vs plain step: |d loss| {step_err['train/loss']:.2e}, "
+          f"|d pool_loss| {step_err['train/pool_loss']:.2e}, same draws and rows "
+          f"({band_misses} earlier tries differed inside the boundary band); telemetry "
+          f"{step_err['telemetry']}")
+    return step_err
+
+
+def stream_pool(torch, mk, card: str) -> dict:
+    """(a) The default pool path, replicated and host_stream: the device
+    bytes each dataset holds, 3 + 20 steps of each bit-equal under
+    deterministic cuDNN, then the rates in turns under the default
+    settings with the stall share and the bytes sent a step."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.train.trainer import build_dataset, resolve_device
+
+    configs = {"replicated": TrainConfig(**STREAM),
+               "host_stream": TrainConfig(**STREAM, data_placement="host_stream")}
+    check(configs["host_stream"].prefetch_depth == 2
+          and configs["host_stream"].stream_rows == 320, f"{configs['host_stream']}")
+    datasets, held = {}, {}
+    for name, config in configs.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        datasets[name] = build_dataset(config, resolve_device())
+        torch.cuda.synchronize()
+        held[name] = torch.cuda.memory_allocated() - before
+    pixels = datasets["replicated"].x_train.numel()
+    check(pixels == 15_360_000 and held["replicated"] - held["host_stream"] == pixels,
+          f"device bytes of the datasets {held}, pixels {pixels}")
+    print(f"dataset device bytes: replicated {held['replicated']}, host_stream "
+          f"{held['host_stream']} (the 5000 x 3072 train pixels stay in host memory)")
+
+    undo = deterministic_cudnn(torch)
+    try:
+        trainers = {name: build_trainer(torch, config, dataset=datasets[name], quiet=True)
+                    for name, config in configs.items()}
+        losses, counts = {}, {}
+        for name, trainer in trainers.items():
+            mk.reset_launch_counts()
+            steps = WARMUP_STEPS + STREAM_STEPS
+            losses[name] = torch.stack([trainer.train_step()["train/loss"]
+                                        for _ in range(steps)]).float().cpu()
+            counts[name] = dict(mk.launch_counts)
+        per_step = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 1,
+                    "table_refresh_draw": 0, "augment_normalize": 0}
+        want = {k: v * (WARMUP_STEPS + STREAM_STEPS) for k, v in per_step.items()}
+        check(counts["replicated"] == counts["host_stream"] == want,
+              f"launch counts {counts}, expected {want} each")
+        check(bool(torch.isfinite(losses["host_stream"]).all())
+              and torch.equal(losses["replicated"], losses["host_stream"]),
+              f"losses replicated {losses['replicated'].tolist()}, host_stream "
+              f"{losses['host_stream'].tolist()}")
+        print(f"pool path, deterministic cuDNN: {WARMUP_STEPS + STREAM_STEPS} steps of "
+              f"host_stream bit-equal to replicated; losses first "
+              f"{losses['host_stream'][0].item():.4f}, last {losses['host_stream'][-1].item():.4f}")
+    finally:
+        undo()
+
+    hs = trainers["host_stream"]
+    rates = {"replicated": [], "host_stream": []}
+    stall_share, h2d, launches = [], [], {k: 0 for k in mk.KERNELS}
+    for name in ("replicated", "host_stream", "host_stream", "replicated"):
+        trainer = trainers[name]
+        warm(trainer)
+        trainer.stream_stats()
+        dt, window, _, metrics = timed_steps(torch, mk, trainer, STREAM_STEPS)
+        rates[name].append(STREAM_STEPS / dt)
+        if name == "host_stream":
+            stats = trainer.stream_stats()
+            stall_share.append(stats["data/stall_s"] / dt)
+            h2d.append(stats["data/h2d_bytes"])
+            for k, v in window.items():
+                launches[k] += v
+            check_telemetry(torch, metrics, "pool", configs[name].batch_size)
+    slab = configs["host_stream"].stream_rows * 32 * 32 * 3
+    depth = configs["host_stream"].prefetch_depth
+    check(slab == 983_040 and all(b % slab == 0 and abs(b / slab - STREAM_STEPS) <= depth
+                                  for b in h2d),
+          f"H2D bytes of the windows {h2d}, a slab {slab}")
+    step_err = stream_kernel_vs_plain_step(torch, hs, configs["host_stream"])
+    print(f"pool path steps/s in turns: replicated {rates['replicated']}, host_stream "
+          f"{rates['host_stream']}; stall share {stall_share}; H2D {slab} bytes a step "
+          f"(windows {h2d}) [{card}]")
+    for trainer in trainers.values():
+        trainer.close()
+    return {"launches": launches,
+            "summary": {"dataset_device_bytes": held, "losses_bit_equal": True,
+                        "steps_per_s": rates, "stall_share": stall_share,
+                        "h2d_bytes_per_step": slab, "h2d_window_bytes": h2d,
+                        "kernel_vs_plain": step_err, "card": card}}
+
+
+def stream_table(torch, mk, card: str) -> dict:
+    """(b) The streamed scoretable at CIFAR-10's train size: a 50,000-row
+    np.memmap, a bf16 scorer, 3 + 20 steps with the launches' shapes."""
+    from mercury_tpu_torch import TrainConfig
+
+    config = TrainConfig(**STREAM_TABLE)
+    check(config.refresh_size == 64 and config.batch_size == 32
+          and config.stream_rows == 96, f"unexpected streamed scoretable config {config}")
+    with tempfile.TemporaryDirectory() as directory:
+        t0 = time.perf_counter()
+        ds, nbytes = stream_dataset(torch, config, STREAM_ROWS, directory)
+        check(nbytes == STREAM_ROWS * 3072 == 153_600_000, f"memmap of {nbytes} bytes")
+        trainer = build_trainer(torch, config, dataset=ds, quiet=True)
+        length = trainer.state.scoretable.scores.shape[0]
+        check(length == STREAM_ROWS, f"a table of {length} slots")
+        print(f"streamed scoretable: {nbytes} bytes of pixels in an np.memmap, a table of "
+              f"{length} slots, built in {time.perf_counter() - t0:.1f} s")
+        warm(trainer)
+        draw_n, ingests = [], []
+        select, ingest = mk.score_and_draw_kernel, mk.augment_normalize_kernel
+
+        def select_recorded(losses, *a, **k):
+            draw_n.append(int(losses.shape[0]))
+            return select(losses, *a, **k)
+
+        def ingest_recorded(raw, *a, **k):
+            out = ingest(raw, *a, **k)
+            rows = k.get("rows", a[6] if len(a) > 6 else None)
+            ingests.append((int(out.shape[0]), rows is None, str(out.dtype)))
+            return out
+
+        mk.score_and_draw_kernel, mk.augment_normalize_kernel = select_recorded, ingest_recorded
+        try:
+            trainer.stream_stats()
+            dt, counts, losses, metrics = timed_steps(torch, mk, trainer, STREAM_STEPS)
+            stats = trainer.stream_stats()
+        finally:
+            mk.score_and_draw_kernel, mk.augment_normalize_kernel = select, ingest
+        per_step = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 1,
+                    "table_refresh_draw": 0, "augment_normalize": 2}
+        want = {k: v * STREAM_STEPS for k, v in per_step.items()}
+        check(counts == want, f"launch counts {counts}, expected {want}")
+        check(draw_n == [STREAM_ROWS] * STREAM_STEPS, f"score_and_draw sizes {set(draw_n)}")
+        want_ingest = [(64, True, "torch.bfloat16"), (32, True, "torch.float32")]
+        check(ingests == want_ingest * STREAM_STEPS,
+              f"augment_normalize launches {sorted(set(ingests))}, expected {want_ingest} a step")
+        telemetry = check_telemetry(torch, metrics, "scoretable", config.batch_size)
+        steps_s = STREAM_STEPS / dt
+        stall = stats["data/stall_s"] / dt
+        print(f"streamed scoretable: {STREAM_STEPS} steps in {dt:.3f} s = {steps_s:.2f} "
+              f"steps/s, stall share {stall:.4f}, H2D {stats['data/h2d_bytes']:.0f} bytes "
+              f"in the window; a step: 2 nll_fwd, 1 nll_bwd, 1 score_and_draw at N={length}, "
+              f"augment_normalize without rows at [64] bf16 and [32] f32 [{card}]")
+        print(f"  losses: first {losses[0].item():.4f}, last {losses[-1].item():.4f}")
+        step_err = stream_kernel_vs_plain_step(torch, trainer, config)
+        trainer.close()
+        del trainer, ds
+    torch.cuda.empty_cache()
+    return {"launches": counts,
+            "summary": {"memmap_bytes": nbytes, "table_slots": length, "steps": STREAM_STEPS,
+                        "seconds": dt, "steps_per_s": steps_s, "stall_share": stall,
+                        "h2d_window_bytes": stats["data/h2d_bytes"], "launches": counts,
+                        "telemetry": telemetry, "kernel_vs_plain": step_err, "card": card}}
+
+
+def stream_resume(torch, mk, card: str) -> dict:
+    """(c) (a)'s host_stream configuration under deterministic cuDNN: a save
+    with the ring in flight after 3 steps, 4 steps on the live trainer and 4
+    on a fresh one restored from the file, bit-equal."""
+    import shutil
+
+    from mercury_tpu_torch import TrainConfig
+
+    config = TrainConfig(**STREAM, data_placement="host_stream")
+    undo = deterministic_cudnn(torch)
+    directory = tempfile.mkdtemp(prefix="mercury_stream_ckpt_")
+    try:
+        mk.reset_launch_counts()
+        live = build_trainer(torch, config, quiet=True)
+        for _ in range(3):
+            live.train_step()
+        ring = live.state.pending.slots.clone()
+        path = live.save(directory)
+        a = torch.stack([live.train_step()["train/loss"] for _ in range(STREAM_RESUME)])
+        fresh = build_trainer(torch, config, quiet=True)
+        check(fresh.restore(directory) == 3, "restored step")
+        check(torch.equal(fresh.state.pending.slots, ring), "the restored ring differs")
+        b = torch.stack([fresh.train_step()["train/loss"] for _ in range(STREAM_RESUME)])
+        counts = dict(mk.launch_counts)
+        check(torch.equal(a, b), f"losses live {a.tolist()}, restored {b.tolist()}")
+        params = [digest(p) for p in live.state.model.parameters()]
+        check(params == [digest(p) for p in fresh.state.model.parameters()],
+              "parameters differ after the resumed steps")
+        print(f"host-stream resume: saved at step 3 with {config.prefetch_depth} selections "
+              f"in flight ({Path(path).stat().st_size} bytes); {STREAM_RESUME} steps live and "
+              f"restored bit-equal, losses {a.tolist()} [{card}]")
+        live.close()
+        fresh.close()
+    finally:
+        undo()
+        shutil.rmtree(directory, ignore_errors=True)
+    return {"launches": counts, "summary": {"losses": a.tolist(), "card": card}}
+
+
+def scoring_device_us(torch, trainer, steps: int = 5) -> float:
+    """Device time a step of the scoring forward, from a ``torch.profiler``
+    window with the forward under a ``record_function`` range."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mercury_tpu_torch.train import step as step_module
+
+    forward = step_module.scoring_forward
+
+    def annotated(*args, **kwargs):
+        with record_function("mercury_scoring"):
+            return forward(*args, **kwargs)
+
+    step_module.scoring_forward = annotated
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                trainer.train_step()
+            torch.cuda.synchronize()
+    finally:
+        step_module.scoring_forward = forward
+    rows = [e for e in prof.key_averages()
+            if e.key == "mercury_scoring" and e.device_type == DeviceType.CPU]
+    total = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) for e in rows)
+    return total / steps
+
+
+def forward_ms(torch, model, images, config, calls: int = 20) -> float:
+    """The scoring forward of ``images`` alone, CUDA events over ``calls``."""
+    from mercury_tpu_torch.train.step import scoring_forward
+
+    for _ in range(3):
+        scoring_forward(model, images, config)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        scoring_forward(model, images, config)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def scoring_dtype_turns(torch, mk, card: str) -> dict:
+    """(d) The replicated pool path with float32 training, a bf16 scorer
+    against the float32 one: steps/s in turns, the scoring forward's device
+    time a step (profiler window) and its time alone at the pool's shape
+    (CUDA events)."""
+    from mercury_tpu_torch import TrainConfig
+
+    base = TrainConfig(**STREAM, compute_dtype="float32")
+    trainers = {dt: build_trainer(torch, base.replace(scoring_dtype=dt), quiet=True)
+                for dt in ("bfloat16", None)}
+    per_step = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 1, "table_refresh_draw": 0,
+                "augment_normalize": 0}
+    rates = {"bfloat16": [], None: []}
+    launches = {k: 0 for k in mk.KERNELS}
+    for dt in SCORING_TURNS:
+        trainer = trainers[dt]
+        warm(trainer)
+        seconds, counts, _, _ = timed_steps(torch, mk, trainer, STREAM_STEPS)
+        check(counts == {k: v * STREAM_STEPS for k, v in per_step.items()},
+              f"scoring_dtype={dt}: launch counts {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        rates[dt].append(STREAM_STEPS / seconds)
+    device_us = {dt: scoring_device_us(torch, trainers[dt]) for dt in rates}
+    device = trainers[None].device
+    gen = torch.Generator(device=device).manual_seed(0)
+    images = torch.randn((base.candidate_pool_size, 32, 32, 3), generator=gen, device=device)
+    alone = {dt: forward_ms(torch, trainers[dt].state.model, images, trainers[dt].config)
+             for dt in rates}
+    check(all(v > 0 for v in alone.values()), f"scoring forward times {alone}")
+    print(f"scoring_dtype (float32 training, pool path) steps/s in turns: bfloat16 "
+          f"{rates['bfloat16']}, float32 scorer {rates[None]}; scoring forward device time a "
+          f"step (profiler): bfloat16 {device_us['bfloat16']:.1f} us, float32 "
+          f"{device_us[None]:.1f} us; the forward alone at [320] (CUDA events): bfloat16 "
+          f"{alone['bfloat16']:.3f} ms, float32 {alone[None]:.3f} ms [{card}]")
+    return {"launches": launches,
+            "summary": {"steps_per_s": {"bfloat16": rates["bfloat16"], "float32": rates[None]},
+                        "scoring_device_us_per_step": {"bfloat16": device_us["bfloat16"],
+                                                       "float32": device_us[None]},
+                        "scoring_forward_ms": {"bfloat16": alone["bfloat16"],
+                                               "float32": alone[None]},
+                        "card": card}}
+
+
+def host_stream_phase(torch, card: str) -> dict:
+    """Phase 10: (a) the pool path streamed from host memory against the
+    replicated one; (b) the streamed scoretable at CIFAR-10's size with a
+    bf16 scorer; (c) a resume with the ring in flight; (d) the bf16 scorer
+    on the replicated pool path."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    out, launches = {"card": card}, {k: 0 for k in mk.KERNELS}
+    for name, part in (("pool", stream_pool), ("scoretable", stream_table),
+                       ("resume", stream_resume), ("scoring_dtype", scoring_dtype_turns)):
+        result = part(torch, mk, card)
+        out[name] = result["summary"]
+        for k, v in result["launches"].items():
+            launches[k] += v
     return {"launches": launches, "summary": out}
 
 

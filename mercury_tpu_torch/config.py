@@ -13,7 +13,7 @@ import dataclasses
 from typing import Optional
 
 _MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
-_DATASETS = ("cifar10", "cifar100", "synthetic")
+_DATASETS = ("cifar10", "cifar100", "synthetic", "imagefolder")
 _SAMPLERS = ("pool", "scoretable")
 
 
@@ -25,13 +25,32 @@ class TrainConfig:
 
     # Model / data
     model: str = "resnet18"
-    dataset: str = "cifar10"          # or "cifar100": real files if present, else synthetic
+    # "cifar10" or "cifar100": real files if present, else synthetic;
+    # "imagefolder": data_dir/<class>/<image> (or data_dir/train/... and
+    # data_dir/test/...), decoded with PIL and resized to image_size.
+    dataset: str = "cifar10"
     num_classes: Optional[int] = None  # None: the dataset's; set: must equal it
+    image_size: int = 32              # the imagefolder resize
     world_size: int = 4               # data-parallel ranks, one process each
     # "replicated": every rank holds the whole train split on its device and
     # gathers its shard's rows by global index; "sharded": a rank holds only
-    # its own shard's rows. ("host_stream" is not ported.)
+    # its own shard's rows; "host_stream": the pixels stay in host memory
+    # (numpy or np.memmap) and a prefetch pipeline (data/stream.py) sends
+    # each step's rows to the device while the steps before it run: the
+    # step draws its selection prefetch_depth steps ahead.
     data_placement: str = "replicated"
+    # host_stream: batches in flight (the lookahead of the draw); the first
+    # prefetch_depth are primed (pool and uniform: the draws the replicated
+    # run makes; scoretable: uniform draws).
+    prefetch_depth: int = 2
+    # host_stream: threads that split each gather (0: the prefetch thread
+    # gathers alone).
+    decode_workers: int = 0
+    # host_stream: "local" (each rank's pipeline gathers its own rows),
+    # "replicated" (one pipeline gathers the whole [W, S] slab: one process,
+    # so W=1 here) or "auto" (local at W>1, replicated at W=1). Every rank
+    # is its own process in the port, so the two gather the same rows.
+    stream_shard_mode: str = "auto"
 
     # Optimization
     batch_size: int = 32
@@ -112,7 +131,11 @@ class TrainConfig:
     # Precision
     compute_dtype: str = "bfloat16"   # autocast dtype on the card
     param_dtype: str = "float32"
-    scoring_dtype: Optional[str] = None  # not ported: must stay None
+    # The candidate-scoring forward's precision: None scores with
+    # compute_dtype; "bfloat16" scores in bf16 (on the CPU too) even when
+    # training runs in float32, and the scorer-only ingest (the scoretable's
+    # refresh window) emits bf16. Needs importance sampling.
+    scoring_dtype: Optional[str] = None
 
     # Kernels: uint8 rows → normalized, cropped, flipped images in one
     # kernel (augment_normalize) instead of the unfused op chain.
@@ -123,7 +146,7 @@ class TrainConfig:
     use_pallas: Optional[bool] = None
 
     # Data
-    data_dir: Optional[str] = None    # CIFAR files; None: the search path
+    data_dir: Optional[str] = None    # CIFAR files (None: the search path); the image folder
 
     def __post_init__(self) -> None:
         def bad(field: str, why: str) -> None:
@@ -137,10 +160,21 @@ class TrainConfig:
             bad("dataset", f"the port loads {', '.join(_DATASETS)}")
         if self.world_size < 1:
             bad("world_size", "must be >= 1")
-        if self.data_placement == "host_stream":
-            bad("data_placement", "host_stream is not ported yet")
-        if self.data_placement not in ("replicated", "sharded"):
-            bad("data_placement", "use 'replicated' or 'sharded'")
+        if self.dataset == "imagefolder" and not self.data_dir:
+            bad("dataset", "dataset='imagefolder' requires data_dir")
+        if self.image_size < 1:
+            bad("image_size", "must be >= 1")
+        if self.data_placement not in ("replicated", "sharded", "host_stream"):
+            bad("data_placement", "use 'replicated', 'sharded' or 'host_stream'")
+        if self.data_placement == "host_stream" and self.prefetch_depth < 1:
+            bad("prefetch_depth", "host_stream needs prefetch_depth >= 1")
+        if self.decode_workers < 0:
+            bad("decode_workers", "must be >= 0")
+        if self.stream_shard_mode not in ("auto", "local", "replicated"):
+            bad("stream_shard_mode", "use 'auto', 'local' or 'replicated'")
+        if self.stream_shard_mode == "replicated" and self.world_size > 1:
+            bad("stream_shard_mode", "'replicated' is one process only: each "
+                "rank is a process, so use 'local' (the W>1 default)")
         if self.sampler not in _SAMPLERS:
             bad("sampler", f"the port samples with {', '.join(_SAMPLERS)}")
         if self.refresh_mode not in ("sync", "async"):
@@ -152,8 +186,11 @@ class TrainConfig:
                 bad("refresh_size", "must be >= 1")
             if not 0.0 <= self.table_decay <= 1.0:
                 bad("table_decay", "must be in [0, 1]")
-        if self.scoring_dtype is not None:
-            bad("scoring_dtype", "a separate scoring precision is not ported yet")
+        if self.scoring_dtype not in (None, "bfloat16", "float32"):
+            bad("scoring_dtype", "use None, 'bfloat16' or 'float32'")
+        if self.scoring_dtype is not None and not self.use_importance_sampling:
+            bad("scoring_dtype", "scoring_dtype only affects the candidate-scoring "
+                "forward; set use_importance_sampling=True (or drop scoring_dtype)")
         if self.augmentation not in ("noniid", "iid", "none"):
             bad("augmentation", "use 'noniid', 'iid' or 'none'")
         if self.fused_input and self.augmentation != "noniid":
@@ -206,6 +243,26 @@ class TrainConfig:
         weights."""
         return (self.telemetry and self.variance_probe_every > 0
                 and self.use_importance_sampling)
+
+    @property
+    def host_stream(self) -> bool:
+        return self.data_placement == "host_stream"
+
+    @property
+    def resolved_stream_shard_mode(self) -> str:
+        """``"auto"`` resolved by process count, as the JAX package
+        resolves it: a rank a process, so ``"local"`` at W>1."""
+        if self.stream_shard_mode != "auto":
+            return self.stream_shard_mode
+        return "local" if self.world_size > 1 else "replicated"
+
+    @property
+    def stream_rows(self) -> int:
+        """Rows a host-stream step receives: the pool, or the refresh
+        window and the drawn batch, or the batch (uniform)."""
+        if self.use_scoretable:
+            return self.refresh_size + self.batch_size
+        return self.candidate_pool_size if self.use_importance_sampling else self.batch_size
 
     @property
     def candidate_pool_size(self) -> int:

@@ -16,7 +16,7 @@ JAX's threefry never give the same numbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -138,9 +138,11 @@ class ShardedDataset:
     ``rank`` is the worker whose shard this process trains on. With
     ``data_placement="sharded"`` only that shard's rows are on the device
     (``x_shard``/``y_shard``, indexed by slot), and ``x_train``/``y_train``
-    stay on the host for evaluation."""
+    stay on the host for evaluation. With ``"host_stream"`` ``x_train`` is
+    the host array itself (numpy or ``np.memmap``, never copied to the
+    device), and the labels and shard indices are on the device."""
 
-    x_train: torch.Tensor        # [N, H, W, C] uint8
+    x_train: Union[torch.Tensor, np.ndarray]  # [N, H, W, C] uint8
     y_train: torch.Tensor        # [N] int32
     x_test: torch.Tensor         # [Nt, H, W, C] uint8
     y_test: torch.Tensor         # [Nt] int32
@@ -153,6 +155,11 @@ class ShardedDataset:
     rank: int = 0
     x_shard: Optional[torch.Tensor] = None  # [L, H, W, C] uint8 (sharded placement)
     y_shard: Optional[torch.Tensor] = None  # [L] int32 (sharded placement)
+
+    @property
+    def host_pixels(self) -> bool:
+        """The train pixels are a host numpy array (host_stream)."""
+        return isinstance(self.x_train, np.ndarray)
 
     @property
     def n_train(self) -> int:
@@ -183,8 +190,10 @@ def make_sharded_dataset(
     index matrix, for worker ``rank``. ``placement="sharded"`` puts only
     that worker's ``L`` rows and labels on the device (the JAX package's
     ``worker_shard_global_arrays`` row) and leaves the train split on the
-    host."""
-    if placement not in ("replicated", "sharded"):
+    host; ``"host_stream"`` leaves the train pixels where they are, a host
+    array (an ``np.memmap`` stays one), and puts the labels on the
+    device."""
+    if placement not in ("replicated", "sharded", "host_stream"):
         raise ValueError(f"unknown placement {placement!r}")
     if not 0 <= rank < len(shards):
         raise ValueError(f"rank {rank} of {len(shards)} shards")
@@ -197,8 +206,14 @@ def make_sharded_dataset(
 
     sharded = placement == "sharded"
     train_dev = torch.device("cpu") if sharded else device
+    if placement == "host_stream":
+        x_train = train[0] if isinstance(train[0], np.ndarray) else np.asarray(train[0])
+        if x_train.dtype != np.uint8:
+            raise ValueError(f"host_stream streams uint8 rows, got {x_train.dtype}")
+    else:
+        x_train = put(train[0], torch.uint8, train_dev)
     return ShardedDataset(
-        x_train=put(train[0], torch.uint8, train_dev),
+        x_train=x_train,
         y_train=put(train[1], torch.int32, train_dev),
         x_test=put(test[0], torch.uint8),
         y_test=put(test[1], torch.int32),

@@ -28,10 +28,12 @@ from mercury_tpu_torch.sampling.importance import SCORE_FLOOR, smoothed_scores
 def ess_fraction(scaled_probs: torch.Tensor) -> torch.Tensor:
     """``(Σw)² / (B·Σw² + 1e-30)`` with ``w_i = 1/(N·p_i)``, the reweight
     the loss applies: a float32 scalar in ``(0, 1]``, exactly 1.0 for unit
-    weights."""
-    w = 1.0 / scaled_probs.to(torch.float32)
+    weights. The ratio is taken in float64 from the float32 weights and
+    rounded once: in float32 a batch of weights equal to within an ulp
+    (a nearly flat score table) gives 1 + 2⁻²³."""
+    w = (1.0 / scaled_probs.to(torch.float32)).double()
     b = scaled_probs.shape[0]
-    return w.sum().square() / (b * w.square().sum() + 1e-30)
+    return (w.sum().square() / (b * w.square().sum() + 1e-30)).to(torch.float32)
 
 
 def clip_fraction(scores: torch.Tensor, ema_value, alpha: float = 0.5) -> torch.Tensor:

@@ -13,11 +13,16 @@ buffers, the optimizer's state, the step counters and the gradient
 accumulator) and a row of sampler state for each rank (the EMA, the stream
 permutation and cursor, the generator's state and, with
 ``sampler="scoretable"``, the table and its cursor and, under telemetry, the
-selection-count ledger). At W>1 every rank sends its row to rank 0, rank 0
+selection-count ledger; under ``host_stream``, the ring of selections in
+flight with its draws). At W>1 every rank sends its row to rank 0, rank 0
 alone writes, and a barrier follows, so no rank reads before the file
 exists; a restore reads the file on every rank, and each rank takes its own
 row. A file without a ledger (saved with ``telemetry=False``) restores into
 a zero ledger; a ledger restored into a run without telemetry is dropped.
+A file without a ring (saved by a replicated run) restores into a
+host_stream run without one, and the Trainer primes the ring anew from the
+restored generator and stream, as the JAX package's ``_upgrade_v1_to_v2``
+drops the ring; a ring does not restore into a run of another placement.
 
 A file is written to ``ckpt_<step>.pt.tmp``, flushed to disk and renamed,
 so a torn write never carries a checkpoint's name.
@@ -37,7 +42,7 @@ from mercury_tpu_torch.data.pipeline import ShardStream
 from mercury_tpu_torch.parallel.collectives import gather_to_rank0, rank, world
 from mercury_tpu_torch.sampling.importance import EMAState
 from mercury_tpu_torch.sampling.scoretable import ScoreTableState
-from mercury_tpu_torch.train.state import MercuryState
+from mercury_tpu_torch.train.state import MercuryState, pending_from_host, pending_to_host
 
 FORMAT = 1
 _NAME = re.compile(r"ckpt_(\d+)\.pt")
@@ -76,6 +81,7 @@ def _rank_row(state: MercuryState) -> Dict[str, Any]:
         "table": None if table is None else _cpu(table.scores),
         "table_cursor": None if table is None else table.cursor,
         "sel_counts": None if state.sel_counts is None else _cpu(state.sel_counts),
+        "pending": None if state.pending is None else pending_to_host(state.pending),
     }
 
 
@@ -152,6 +158,9 @@ def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
     if (row["table"] is None) != (state.scoretable is None):
         raise ValueError(f"{path} and this run differ in sampler: one keeps a "
                          "score table, the other does not")
+    if row.get("pending") is not None and not config.host_stream:
+        raise ValueError(f"{path} was saved by a data_placement='host_stream' run (its "
+                         "stream and generator are depth steps ahead): restore it into one")
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     if state.accum is not None:
@@ -168,4 +177,9 @@ def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
         saved = row.get("sel_counts")
         state.sel_counts = (torch.zeros_like(state.sel_counts) if saved is None
                             else saved.to(device))
+    saved = row.get("pending")
+    if saved is not None and len(saved["draws"]) != config.prefetch_depth:
+        raise ValueError(f"{path} was saved with prefetch_depth={len(saved['draws'])}, "
+                         f"this run has prefetch_depth={config.prefetch_depth}")
+    state.pending = None if saved is None else pending_from_host(saved, device)
     return step

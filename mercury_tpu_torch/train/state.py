@@ -17,6 +17,10 @@ every A-th applies the update, so ``updates = ceil(total_steps / A)``.
 With the score table and ``telemetry`` the state also carries the
 selection-count ledger ``sel_counts``: how often each slot of this rank's
 shard has been trained on.
+
+Under ``data_placement="host_stream"`` it carries the ring of selections in
+flight, :class:`PendingSelection`: the slots and weights of steps
+t … t+depth−1, drawn ``depth`` steps ahead, and those steps' random draws.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +38,86 @@ from mercury_tpu_torch.sampling.importance import EMAState, init_ema
 from mercury_tpu_torch.sampling.scoretable import ScoreTableState, init_score_table
 
 Schedule = Callable[[int], float]
+
+
+class Augment(NamedTuple):
+    """The random numbers of one ingest of ``n`` images."""
+
+    crop: torch.Tensor                    # [n, 2] int32 offsets in [0, 2·pad] (iid: [0, 3])
+    flip: torch.Tensor                    # [n] bool horizontal flips
+    theta: Optional[torch.Tensor] = None  # [n] float32 radians (iid only)
+    scale: Optional[torch.Tensor] = None  # [n] float32 (iid only)
+    cut: Optional[torch.Tensor] = None    # [n, 2] int32 cutout centres (noniid cutout only)
+
+
+class Draws(NamedTuple):
+    """The random numbers of one step. ``aug`` augments the rows scored
+    first — the pool, or the scoretable's refresh window (the JAX step's
+    ``k_aug``); ``aug2`` the drawn train batch of the scoretable step,
+    which gathers its rows anew (``k_aug2``)."""
+
+    perm: Optional[torch.Tensor]  # [L] reshuffle permutation; read only if the stream wraps
+    aug: Augment                  # P or R images
+    uniforms: Optional[torch.Tensor]  # [1, B] float32 U(0,1) of the draw (IS only)
+    aug2: Optional[Augment] = None    # B images (scoretable only)
+
+
+class PendingSelection(NamedTuple):
+    """The ring of selections in flight under ``host_stream`` (the JAX
+    package's ``PendingSelection``): step t trains on ``slots[0]``, whose
+    rows the prefetch pipeline gathered, and appends the selection it draws
+    for step t+depth. In place of the JAX ring's key of step t+depth it
+    carries ``draws``, the whole :class:`Draws` of steps t … t+depth−1,
+    drawn in step order from the one generator, so the generator's sequence
+    is the replicated run's."""
+
+    slots: torch.Tensor         # [depth, S] int64 shard slots (scoretable: window ‖ batch)
+    scaled_probs: torch.Tensor  # [depth, B] float32 p·L at draw time (ones: pool, uniform)
+    draws: Tuple[Draws, ...]    # depth Draws of steps t … t+depth−1
+
+
+def _map_tensors(fn: Callable[[torch.Tensor], Any], tree):
+    """``fn`` applied to every tensor of nested named tuples and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_tensors(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def clone_pending(pending: Optional[PendingSelection]) -> Optional[PendingSelection]:
+    return None if pending is None else _map_tensors(torch.clone, pending)
+
+
+def _plain(tree):
+    """Named tuples → dicts (with a ``None`` kept), for ``torch.load``'s
+    ``weights_only`` reader."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {k: _plain(v) for k, v in tree._asdict().items()}
+    if isinstance(tree, (tuple, list)):
+        return [_plain(v) for v in tree]
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def pending_to_host(pending: PendingSelection) -> Dict[str, Any]:
+    """The ring as plain dicts and lists of host tensors."""
+    return _plain(pending)
+
+
+def pending_from_host(saved: Dict[str, Any], device) -> PendingSelection:
+    """The inverse of :func:`pending_to_host`, on ``device``."""
+    def put(t):
+        return None if t is None else t.to(device)
+
+    def augment(d):
+        return None if d is None else Augment(**{k: put(v) for k, v in d.items()})
+
+    draws = tuple(Draws(perm=put(d["perm"]), aug=augment(d["aug"]),
+                        uniforms=put(d["uniforms"]), aug2=augment(d["aug2"]))
+                  for d in saved["draws"])
+    return PendingSelection(put(saved["slots"]), put(saved["scaled_probs"]), draws)
 
 
 def cosine_decay_schedule(lr: float, decay_steps: int) -> Schedule:
@@ -116,6 +200,10 @@ class MercuryState:
     # sampler="scoretable" with telemetry only: this rank's [L] int32 ledger
     # of trained slots on the device, one count an occurrence
     sel_counts: Optional[torch.Tensor] = None
+    # data_placement="host_stream" only, once primed: the selections in
+    # flight. The stream (pool, uniform) is then the lookahead's, depth
+    # pools ahead of the step.
+    pending: Optional[PendingSelection] = None
 
     def clone(self) -> "MercuryState":
         """An independent copy: the model and its optimizer are copied
@@ -134,6 +222,7 @@ class MercuryState:
             scoretable=table,
             accum=None if self.accum is None else [a.clone() for a in self.accum],
             sel_counts=None if self.sel_counts is None else self.sel_counts.clone(),
+            pending=clone_pending(self.pending),
         )
 
 

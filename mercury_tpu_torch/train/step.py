@@ -79,6 +79,35 @@ all-reduce. With ``telemetry=False`` none of this is computed.
 With ``label_smoothing`` the per-sample loss is the smoothed cross-entropy
 of the plain PyTorch ops: the step needs ``use_pallas=False`` on the card.
 
+Under ``data_placement="host_stream"`` (the JAX step's ``hs_body``) the
+step takes the rows a prefetch pipeline gathered for it, ``x_stream``, and
+returns the global row ids of the selection it draws for step t+depth.
+The state's ring (``state.pending``) holds the slots, weights and draws of
+steps t … t+depth−1:
+
+- pool: the streamed rows are the pool the lookahead drew; they are
+  ingested without a gather (``augment_normalize`` without ``rows`` under
+  ``fused_input``), scored, drawn from and trained on as above; the
+  lookahead takes the next pool of the stream, which runs depth pools
+  ahead of the step. Uniform: the rows themselves. Both are bit-equal to
+  the replicated step;
+- scoretable: rows ``0:R`` are this step's window, scored as above, the
+  EMA updated and the table decayed and the window scattered in with
+  plain ops; rows ``R:`` the batch drawn depth steps ago, trained with its
+  weights from the ring; after the write-back one ``score_and_draw`` over
+  the ``L`` slots draws step t+depth's batch (``p·L`` its weights), after
+  that step's window, ``depth`` windows on. The ledger counts at train
+  time.
+
+The draws of step t+depth are drawn at step t from the one generator, so
+its sequence is the replicated run's. :func:`prime_host_stream` fills the
+ring of a fresh state.
+
+With ``scoring_dtype`` the scoring forward and the probe run in that
+precision (:func:`scoring_forward`): ``"bfloat16"`` under bf16 autocast
+wherever the step runs, and the scoretable's refresh window is ingested
+straight to bf16.
+
 The step's random numbers are one :class:`Draws`: by default made from the
 state's generator on the device; tests pass the JAX package's draws instead.
 On the card, with ``compute_dtype="bfloat16"``, forwards run under bf16
@@ -87,7 +116,7 @@ autocast and the logits come back in float32.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -141,10 +170,11 @@ from mercury_tpu_torch.sampling.importance import (
 from mercury_tpu_torch.sampling.scoretable import (
     ScoreTableState,
     advance_cursor,
+    decay_scores,
     refresh_window,
     scatter_mean,
 )
-from mercury_tpu_torch.train.state import MercuryState
+from mercury_tpu_torch.train.state import Augment, Draws, MercuryState, PendingSelection
 
 CROP_PAD = 4
 IMAGE_SIZE = 32  # CIFAR's side: the range of the cutout centres
@@ -157,28 +187,6 @@ def to_nchw(images: torch.Tensor) -> torch.Tensor:
     (torch 2.13.0+cpu)."""
     x = images.permute(0, 3, 1, 2)
     return x if x.is_cuda else x.contiguous()
-
-
-class Augment(NamedTuple):
-    """The random numbers of one ingest of ``n`` images."""
-
-    crop: torch.Tensor                    # [n, 2] int32 offsets in [0, 2·pad] (iid: [0, 3])
-    flip: torch.Tensor                    # [n] bool horizontal flips
-    theta: Optional[torch.Tensor] = None  # [n] float32 radians (iid only)
-    scale: Optional[torch.Tensor] = None  # [n] float32 (iid only)
-    cut: Optional[torch.Tensor] = None    # [n, 2] int32 cutout centres (noniid cutout only)
-
-
-class Draws(NamedTuple):
-    """The random numbers of one step. ``aug`` augments the rows scored
-    first — the pool, or the scoretable's refresh window (the JAX step's
-    ``k_aug``); ``aug2`` the drawn train batch of the scoretable step,
-    which gathers its rows anew (``k_aug2``)."""
-
-    perm: Optional[torch.Tensor]  # [L] reshuffle permutation; read only if the stream wraps
-    aug: Augment                  # P or R images
-    uniforms: Optional[torch.Tensor]  # [1, B] float32 U(0,1) of the draw (IS only)
-    aug2: Optional[Augment] = None    # B images (scoretable only)
 
 
 def pool_size(config: TrainConfig) -> int:
@@ -226,6 +234,27 @@ def make_draws(state: MercuryState, config: TrainConfig) -> Draws:
     aug = augment_draws(p)
     return Draws(perm=perm, aug=aug,
                  uniforms=uniforms() if config.use_importance_sampling else None)
+
+
+def scoring_forward(model: torch.nn.Module, images: torch.Tensor,
+                    config: TrainConfig) -> torch.Tensor:
+    """The candidate-scoring forward: train mode with the running
+    statistics left alone, no gradients, float32 logits. Its precision is
+    ``config.scoring_dtype``'s: ``"bfloat16"`` casts the input to bf16 and
+    runs under bf16 autocast on any device (the caller asked for it, as the
+    JAX package's bf16 ``scoring_model``); ``"float32"`` runs without
+    autocast; ``None`` in the training precision (bf16 autocast on the card
+    under ``compute_dtype="bfloat16"``)."""
+    dev = images.device
+    if config.scoring_dtype is None:
+        enabled = config.compute_dtype == "bfloat16" and dev.type == "cuda"
+    else:
+        enabled = config.scoring_dtype == "bfloat16"
+    with torch.no_grad(), torch.autocast(device_type=dev.type, dtype=torch.bfloat16,
+                                         enabled=enabled):
+        if config.scoring_dtype == "bfloat16":
+            images = images.to(torch.bfloat16)
+        return model(to_nchw(images), train=True, keep_stats=False)
 
 
 def set_lr(state: MercuryState) -> None:
@@ -277,6 +306,10 @@ def make_train_step(
     ``config.use_pallas=False`` does so for every step.
     At W>1 the process group must have ``config.world_size`` ranks.
 
+    Under ``data_placement="host_stream"`` it builds the host-stream step
+    instead, ``step_fn(state, x_stream, draws=None, use_kernels=True) →
+    (metrics, next_gidx)`` (:func:`make_host_stream_step` has the details).
+
     ``config.label_smoothing`` needs the plain versions (the NLL kernels
     compute the plain NLL): it raises ``ValueError`` where the kernels
     would run, that is with ``use_pallas=True``, or ``None`` on the card."""
@@ -284,6 +317,8 @@ def make_train_step(
     world_size = config.world_size
     use_is = config.use_importance_sampling
     use_table = config.use_scoretable
+    host_stream = config.host_stream
+    depth = config.prefetch_depth
     sync_stats = use_is and config.sync_importance_stats and world_size > 1
     p_size = pool_size(config)
     batch_size = config.batch_size
@@ -296,54 +331,83 @@ def make_train_step(
         ages = {f"sampler/table_age_{name}": torch.tensor(value, dtype=torch.float32)
                 for name, value in zip(("min", "mean", "max"),
                                        table_age_summary(dataset.shard_len, refresh_size))}
-    if dataset.x_shard is not None:
+    if host_stream:
+        # The pixels arrive as the step's x_stream; only the labels are here.
+        x_rows, y_rows = None, dataset.y_train
+        shard_row = dataset.shard_indices[dataset.rank]
+    elif dataset.x_shard is not None:
         # Sharded placement: the rank's own rows, indexed by slot.
         x_rows, y_rows, shard_row = dataset.x_shard, dataset.y_shard, None
     else:
         x_rows, y_rows = dataset.x_train, dataset.y_train
         shard_row = dataset.shard_indices[dataset.rank]
+    if host_stream and dataset.x_shard is not None:
+        raise ValueError("a sharded dataset under data_placement='host_stream'")
+    data_dev = y_rows.device
     smoothing = config.label_smoothing
     # use_pallas, resolved once: False is the plain versions, on the card
     # too; True or None the wrappers, which launch the kernels on CUDA
     # tensors and run the plain versions on CPU ones. Smoothing is refused
     # wherever a kernel would launch (the kernels compute the plain NLL).
     kernels = config.use_pallas is not False
-    if smoothing != 0.0 and kernels and (config.use_pallas or x_rows.device.type == "cuda"):
+    if smoothing != 0.0 and kernels and (config.use_pallas or data_dev.type == "cuda"):
         raise ValueError("use_pallas requires label_smoothing == 0")
     grad_norm_scores = config.importance_score == "grad_norm"
-    mean_t = torch.as_tensor(dataset.mean, dtype=torch.float32, device=x_rows.device)
-    std_t = torch.as_tensor(dataset.std, dtype=torch.float32, device=x_rows.device)
+    # scoring_dtype="bfloat16": the scorer-only ingest (the refresh window,
+    # whose images are never trained on) emits bf16 directly.
+    scorer_in_dtype = torch.bfloat16 if config.scoring_dtype == "bfloat16" else None
+    mean_t = torch.as_tensor(dataset.mean, dtype=torch.float32, device=data_dev)
+    std_t = torch.as_tensor(dataset.std, dtype=torch.float32, device=data_dev)
 
     def gather(slots: torch.Tensor):
-        """The rows of ``x_rows`` that hold shard ``slots``, and their
+        """The rows of the train split that hold shard ``slots``, and their
         labels."""
         rows = slots if shard_row is None else shard_row[slots]
         return rows, y_rows[rows]
 
-    def ingest(gidx: torch.Tensor, use_kernels: bool, aug: Augment) -> torch.Tensor:
-        """Rows ``gidx`` of ``x_rows`` → augmented, normalized float32 NHWC
-        images: with ``fused_input`` one ``augment_normalize`` launch that
-        gathers the uint8 rows itself, the gather and the op chain
-        otherwise."""
-        if config.fused_input:
-            if use_kernels:
-                return augment_normalize(x_rows, mean_t, std_t, aug.crop, aug.flip,
-                                         CROP_PAD, rows=gidx)
-            return reference.augment_normalize(x_rows[gidx], mean_t, std_t,
-                                               aug.crop, aug.flip, CROP_PAD)
-        images = normalize_images(x_rows[gidx], dataset.mean, dataset.std)
-        # As the JAX step's _augment: cutout rides on the noniid crop and
-        # flip only; under "iid" and "none" the flag is ignored.
+    def augment(images: torch.Tensor, aug: Augment) -> torch.Tensor:
+        """The unfused augmentation of normalized images. As the JAX step's
+        _augment: cutout rides on the noniid crop and flip only; under
+        "iid" and "none" the flag is ignored."""
         if config.augmentation == "noniid":
-            images = augment_batch(images, aug.crop, aug.flip, CROP_PAD,
-                                   _need(aug.cut, "cut") if config.cutout else None)
-        elif config.augmentation == "iid":
-            images = augment_batch_iid(images, aug.crop, aug.flip, _need(aug.theta, "theta"),
-                                       _need(aug.scale, "scale"))
+            return augment_batch(images, aug.crop, aug.flip, CROP_PAD,
+                                 _need(aug.cut, "cut") if config.cutout else None)
+        if config.augmentation == "iid":
+            return augment_batch_iid(images, aug.crop, aug.flip, _need(aug.theta, "theta"),
+                                     _need(aug.scale, "scale"))
         return images
 
+    def ingest(gidx: Optional[torch.Tensor], use_kernels: bool, aug: Augment,
+               out_dtype: Optional[torch.dtype] = None,
+               raw: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """uint8 rows → augmented, normalized NHWC images in float32 (or
+        ``out_dtype``, cast last): rows ``gidx`` of the train split, or the
+        rows ``raw`` already gathered (the host stream's slab). With
+        ``fused_input`` one ``augment_normalize`` launch (that gathers the
+        rows ``gidx`` itself), the gather and the op chain otherwise."""
+        dtype = out_dtype or torch.float32
+        if config.fused_input:
+            if use_kernels:
+                if raw is not None:
+                    return augment_normalize(raw, mean_t, std_t, aug.crop, aug.flip,
+                                             CROP_PAD, out_dtype=dtype)
+                return augment_normalize(x_rows, mean_t, std_t, aug.crop, aug.flip,
+                                         CROP_PAD, out_dtype=dtype, rows=gidx)
+            return reference.augment_normalize(x_rows[gidx] if raw is None else raw,
+                                               mean_t, std_t, aug.crop, aug.flip,
+                                               CROP_PAD, dtype)
+        raw = x_rows[gidx] if raw is None else raw
+        images = augment(normalize_images(raw, dataset.mean, dataset.std), aug)
+        return images if out_dtype is None else images.to(out_dtype)
+
     def step_fn(state: MercuryState, draws: Optional[Draws] = None,
-                use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+                use_kernels: bool = True, x_stream: Optional[torch.Tensor] = None):
+        if host_stream:
+            if x_stream is None:
+                raise ValueError("the host-stream step takes the popped rows, x_stream")
+            if state.pending is None:
+                raise ValueError("the host-stream step needs the primed ring "
+                                 "(prime_host_stream)")
         if draws is None:
             draws = make_draws(state, config)
         use_kernels = use_kernels and kernels
@@ -360,16 +424,15 @@ def make_train_step(
             return loss_of(logits, labels)
 
         model = state.model
-        dev = state.stream.perm.device
+        dev = data_dev
         autocast = torch.autocast(device_type=dev.type, dtype=torch.bfloat16,
                                   enabled=bf16 and dev.type == "cuda")
 
         def score(images: torch.Tensor, labels: torch.Tensor):
-            """Train-mode scoring forward (running statistics left alone)
-            and the per-sample scores, without gradients; returns the
+            """The scoring forward and the per-sample scores; returns the
             scores and the logits."""
-            with torch.no_grad(), autocast:
-                logits = model(to_nchw(images), train=True, keep_stats=False)
+            logits = scoring_forward(model, images, config)
+            with torch.no_grad():
                 return score_of(logits, labels), logits
 
         def pool_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -385,22 +448,81 @@ def make_train_step(
         def probe_var_ratio(images: torch.Tensor, labels: torch.Tensor,
                             scaled_probs: torch.Tensor) -> torch.Tensor:
             """The grad-variance probe: the drawn batch through the
-            pre-update model (train mode, running statistics left alone,
-            no gradients), the gradient-norm bounds of its logits and
-            their two moments, pooled over the ranks before the ratio."""
+            pre-update model in the scoring precision, the gradient-norm
+            bounds of its logits and their two moments, pooled over the
+            ranks before the ratio."""
+            logits = scoring_forward(model, images, config)
             with torch.no_grad():
-                with autocast:
-                    logits = model(to_nchw(images), train=True, keep_stats=False)
                 g = per_sample_grad_norm_bound(logits.float(), labels, smoothing)
                 return variance_probe_ratio(
                     g, scaled_probs, mean=lambda v: pool_mean(v, sync_stats))
 
+        def select_from(images: torch.Tensor, labels: torch.Tensor, ema, uniforms):
+            """Score a pool, update the EMA and draw the batch: the selected
+            positions, the batch, its ``p·P``, the pool's distribution, the
+            new EMA, the pool loss and the clip share and drift."""
+            pool_scores, pool_logits = score(images, labels)
+            score_avg = pool_mean(pool_scores, sync_stats)
+            ema_prev = ema.value
+            ema = ema_update(ema, score_avg, config.ema_alpha)
+            select = score_and_draw if use_kernels else reference.score_and_draw
+            probs, selected, scaled_probs = select(
+                pool_scores, ema.value, uniforms, config.is_alpha)
+            selected = selected.long()
+            clip = drift = None
+            if telemetry:
+                clip = clip_fraction(pool_scores, ema.value, config.is_alpha)
+                drift = ema_drift(score_avg, ema_prev)
+            return (selected, images[selected], labels[selected], scaled_probs, probs, ema,
+                    pool_loss(pool_logits, labels, score_avg), clip, drift)
+
+        def uniform_batch(images: torch.Tensor, labels: torch.Tensor):
+            """The uniform arm: the first B rows, weight 1."""
+            selected = torch.arange(batch_size, device=dev)
+            sel_images, sel_labels = images[:batch_size], labels[:batch_size]
+            scaled_probs = torch.ones(batch_size, dtype=torch.float32, device=dev)
+            avg_pool_loss = torch.zeros((), dtype=torch.float32, device=dev)
+            clip = drift = None
+            if telemetry:
+                # Nothing scored: nothing clips or drifts.
+                clip = drift = torch.zeros((), dtype=torch.float32, device=dev)
+            return (selected, sel_images, sel_labels, scaled_probs, None, avg_pool_loss,
+                    clip, drift)
+
         stream, ema, table = state.stream, state.ema, state.scoretable
-        if use_table:
+        if host_stream:
+            pending = state.pending
+            front, front_draws = pending.slots[0], pending.draws[0]
+        clip = drift = None
+        if use_table and host_stream:
+            # Rows 0:R of x_stream are this step's refresh window, rows R:
+            # the batch drawn depth steps ago (the JAX hs_body): decay and
+            # scatter with plain ops; the draw is the lookahead's, below.
+            r_slots, t_slots = front[:refresh_size], front[refresh_size:]
+            r_labels = gather(r_slots)[1]
+            r_scores, r_logits = score(
+                ingest(None, use_kernels, front_draws.aug, scorer_in_dtype,
+                       raw=x_stream[:refresh_size]), r_labels)
+            score_avg = pool_mean(r_scores, sync_stats)
+            ema_prev = ema.value
+            ema = ema_update(ema, score_avg, config.ema_alpha)
+            new_scores = scatter_mean(
+                decay_scores(table.scores.to(torch.float32), ema.value, config.table_decay),
+                r_slots, r_scores)
+            probs = None
+            selected = t_slots
+            scaled_probs = pending.scaled_probs[0]
+            sel_labels = gather(t_slots)[1]
+            sel_images = ingest(None, use_kernels, front_draws.aug2,
+                                raw=x_stream[refresh_size:])
+            avg_pool_loss = pool_loss(r_logits, r_labels, score_avg)
+            if telemetry:
+                drift = ema_drift(score_avg, ema_prev)
+        elif use_table:
             r_slots = refresh_window(table, refresh_size)
             r_rows, r_labels = gather(r_slots)
             r_scores, r_logits = score(
-                ingest(r_rows, use_kernels, draws.aug), r_labels)
+                ingest(r_rows, use_kernels, draws.aug, scorer_in_dtype), r_labels)
             score_avg = pool_mean(r_scores, sync_stats)
             ema_prev = ema.value
             ema = ema_update(ema, score_avg, config.ema_alpha)
@@ -419,37 +541,23 @@ def make_train_step(
             sel_rows, sel_labels = gather(selected)
             sel_images = ingest(sel_rows, use_kernels, draws.aug2)
         else:
-            def need_perm() -> torch.Tensor:
-                if draws.perm is None:
-                    raise ValueError("the stream wraps this step: draws.perm is required")
-                return draws.perm
-
-            stream, slots = next_pool(stream, p_size, need_perm)
-            rows, labels = gather(slots)
-            images = ingest(rows, use_kernels, draws.aug)  # [P, H, W, C]
-            if use_is:
-                pool_scores, pool_logits = score(images, labels)
-                score_avg = pool_mean(pool_scores, sync_stats)
-                ema_prev = ema.value
-                ema = ema_update(ema, score_avg, config.ema_alpha)
-                select = score_and_draw if use_kernels else reference.score_and_draw
-                probs, selected, scaled_probs = select(
-                    pool_scores, ema.value, draws.uniforms, config.is_alpha)
-                selected = selected.long()
-                sel_images, sel_labels = images[selected], labels[selected]
-                if telemetry:
-                    clip = clip_fraction(pool_scores, ema.value, config.is_alpha)
-                    drift = ema_drift(score_avg, ema_prev)
-                avg_pool_loss = pool_loss(pool_logits, labels, score_avg)
+            if host_stream:
+                # The streamed rows are the pool the lookahead drew, with
+                # this step's draws: the replicated step's exactly.
+                labels = gather(front)[1]
+                images = ingest(None, use_kernels, front_draws.aug, raw=x_stream)
+                uniforms = front_draws.uniforms
             else:
-                probs = None
-                selected = torch.arange(batch_size, device=dev)
-                sel_images, sel_labels = images[:batch_size], labels[:batch_size]
-                scaled_probs = torch.ones(batch_size, dtype=torch.float32, device=dev)
-                avg_pool_loss = torch.zeros((), dtype=torch.float32, device=dev)
-                if telemetry:
-                    # Nothing scored: nothing clips or drifts.
-                    clip = drift = torch.zeros((), dtype=torch.float32, device=dev)
+                stream, slots = next_pool(stream, p_size, lambda: _perm(draws))
+                rows, labels = gather(slots)
+                images = ingest(rows, use_kernels, draws.aug)  # [P, H, W, C]
+                uniforms = draws.uniforms
+            if use_is:
+                (selected, sel_images, sel_labels, scaled_probs, probs, ema,
+                 avg_pool_loss, clip, drift) = select_from(images, labels, ema, uniforms)
+            else:
+                (selected, sel_images, sel_labels, scaled_probs, probs,
+                 avg_pool_loss, clip, drift) = uniform_batch(images, labels)
 
         # The probe's cadence counts the steps after this one, as the JAX
         # step's metric records do.
@@ -498,10 +606,41 @@ def make_train_step(
                 if config.use_ledger:
                     if state.sel_counts is None:  # a state built without one
                         state.sel_counts = torch.zeros_like(scores, dtype=torch.int32)
-                    # One count an occurrence: a slot drawn twice counts twice.
+                    # One count an occurrence, at train time: a slot drawn
+                    # twice counts twice; the ring in flight is not counted.
                     state.sel_counts.index_add_(
                         0, selected, torch.ones_like(selected, dtype=torch.int32))
+            cursor = table.cursor
             table = ScoreTableState(scores, advance_cursor(table, refresh_size))
+
+        next_gidx = None
+        if host_stream:
+            # The lookahead: the selection of step t+depth, with that step's
+            # draws (drawn now, in step order).
+            if use_table:
+                # One score_and_draw over the L slots of the table after the
+                # write-back: the JAX step's table_probs, draw and
+                # probs_next[next_sel]·L.
+                n_slots = table.scores.shape[0]
+                select = score_and_draw if use_kernels else reference.score_and_draw
+                probs, next_sel, next_scaled = select(
+                    table.scores, ema.value, draws.uniforms, config.is_alpha)
+                # The window of step t+depth is depth R-sized advances on.
+                window = (cursor + depth * refresh_size
+                          + torch.arange(refresh_size, device=dev)) % n_slots
+                next_slots = torch.cat([window, next_sel.long()])
+                if telemetry:
+                    # Over the table the next draw normalizes.
+                    clip = clip_fraction(table.scores, ema.value, config.is_alpha)
+            else:
+                stream, next_slots = next_pool(stream, p_size,
+                                               lambda: _perm(draws))
+                next_scaled = torch.ones(batch_size, dtype=torch.float32, device=dev)
+            state.pending = PendingSelection(
+                slots=torch.cat([pending.slots[1:], next_slots[None]]),
+                scaled_probs=torch.cat([pending.scaled_probs[1:], next_scaled[None]]),
+                draws=pending.draws[1:] + (draws._replace(perm=None),))
+            next_gidx = shard_row[next_slots]
         state.step += 1
         state.ema = ema
         state.stream = stream
@@ -551,7 +690,9 @@ def make_train_step(
             "sampler/selected": selected,
         }
         if probs is not None:
-            metrics["sampler/probs"] = probs  # [P] or [L]: what the batch was drawn from
+            # [P] or [L]: what the batch was drawn from (host-stream
+            # scoretable: what step t+depth's batch was drawn from)
+            metrics["sampler/probs"] = probs
         if telemetry:
             metrics.update(means)
             metrics["train/grad_norm"] = grad_norm
@@ -562,9 +703,67 @@ def make_train_step(
             if config.use_probe and not probe:
                 metrics["sampler_dist/var_ratio"] = torch.full(
                     (), -1.0, dtype=torch.float32, device=dev)
+        if host_stream:
+            return metrics, next_gidx
         return metrics
 
-    return step_fn
+    if not host_stream:
+        return step_fn
+
+    def hs_step_fn(state: MercuryState, x_stream: torch.Tensor,
+                   draws: Optional[Draws] = None, use_kernels: bool = True):
+        return step_fn(state, draws, use_kernels, x_stream=x_stream)
+
+    return hs_step_fn
+
+
+def uniform_slots(uniforms: torch.Tensor, n: int) -> torch.Tensor:
+    """Uniform draws with replacement from ``[0, n)``: ``⌊u·n⌋`` of each
+    uniform, the inverse CDF of the flat distribution."""
+    return (uniforms.reshape(-1) * n).long().clamp_(max=n - 1)
+
+
+def prime_host_stream(state: MercuryState, config: TrainConfig, dataset: ShardedDataset,
+                      draws: Optional[Sequence[Draws]] = None) -> torch.Tensor:
+    """Fill the ring of a fresh host-stream state with the selections of
+    steps 0 … depth−1 (the JAX package's ``make_host_stream_prime``) and
+    return their ``[depth, S]`` global row ids, one prefetch push a row.
+
+    Pool and uniform: the pools the replicated run takes at those steps,
+    with their draws (``draws``, or drawn from the state's generator in
+    step order), so the run matches the replicated one from step 0; the
+    stream advances through them. Scoretable: uniform draws with
+    replacement (the table knows nothing yet) from each step's uniforms,
+    after the round-robin windows; every ``scaled_probs`` is 1."""
+    depth = config.prefetch_depth
+    dev = state.stream.perm.device
+    shard_row = dataset.shard_indices[dataset.rank]
+    slots_steps, kept = [], []
+    for i in range(depth):
+        d = draws[i] if draws is not None else make_draws(state, config)
+        if config.use_scoretable:
+            table = state.scoretable
+            n = table.scores.shape[0]
+            window = (table.cursor + i * config.refresh_size
+                      + torch.arange(config.refresh_size, device=dev)) % n
+            slots_i = torch.cat([window, uniform_slots(d.uniforms, n).to(dev)])
+        else:
+            state.stream, slots_i = next_pool(state.stream, pool_size(config),
+                                              lambda: _perm(d))
+        slots_steps.append(slots_i)
+        kept.append(d._replace(perm=None))
+    slots = torch.stack(slots_steps)
+    state.pending = PendingSelection(
+        slots=slots,
+        scaled_probs=torch.ones((depth, config.batch_size), dtype=torch.float32, device=dev),
+        draws=tuple(kept))
+    return shard_row[slots]
+
+
+def _perm(draws: Draws) -> torch.Tensor:
+    if draws.perm is None:
+        raise ValueError("the stream wraps this step: draws.perm is required")
+    return draws.perm
 
 
 def _need(value: Optional[torch.Tensor], name: str) -> torch.Tensor:

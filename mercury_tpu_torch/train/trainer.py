@@ -21,6 +21,15 @@ saves every ``checkpoint_every`` steps and at its end when
 checkpoint there at construction), ``predict`` (logits of raw images) and
 ``per_class_accuracy``.
 
+Under ``data_placement="host_stream"`` the train pixels stay a host array
+(``dataset``, when passed, may hold an ``np.memmap``): the Trainer primes
+the state's ring of selections in flight, keeps a
+:class:`~mercury_tpu_torch.data.stream.PrefetchPipeline` ``prefetch_depth``
+batches ahead, and each step is pop → step → push (:meth:`train_step`).
+``fit`` adds the pipeline's ``data/*`` counters to its log records, a
+restore refills the pipeline from the restored ring (or primes it anew
+from a checkpoint without one), and :meth:`close` stops the worker.
+
 With the scoretable sampler and ``telemetry`` the Trainer keeps a
 ``SamplerHealthMonitor`` (``obs/sampler_health.py``): at every
 ``log_every`` tick ``fit`` merges its seven ledger-derived keys into the
@@ -47,6 +56,7 @@ from mercury_tpu_torch.data.pipeline import (
     make_sharded_dataset,
     normalize_images,
 )
+from mercury_tpu_torch.data.stream import HostStreamSource, PrefetchPipeline
 from mercury_tpu_torch.data.transforms import EVAL_RESIZE, IID_CROP, eval_transform_iid
 from mercury_tpu_torch.models import create_model
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
@@ -56,7 +66,7 @@ from mercury_tpu_torch.parallel import distributed
 from mercury_tpu_torch.parallel.collectives import gather_to_rank0
 from mercury_tpu_torch.train import checkpoint
 from mercury_tpu_torch.train.state import MercuryState, create_state
-from mercury_tpu_torch.train.step import Draws, make_train_step, to_nchw
+from mercury_tpu_torch.train.step import Draws, make_train_step, prime_host_stream, to_nchw
 
 _log = logging.getLogger(__name__)
 EVAL_BATCH = 256
@@ -71,9 +81,16 @@ def resolve_device(device=None) -> torch.device:
 def build_dataset(config: TrainConfig, device, rank: int = 0) -> ShardedDataset:
     """Load, partition and place the dataset for worker ``rank``, as the JAX
     package's ``build_dataset`` does from the same config: every rank
-    partitions the same way from the seed."""
-    train, test, info = cifar.load_dataset(config.dataset, data_dir=config.data_dir,
-                                           seed=config.seed)
+    partitions the same way from the seed. ``dataset="imagefolder"``
+    decodes ``data_dir`` once, resized to ``image_size``."""
+    if config.dataset == "imagefolder":
+        from mercury_tpu_torch.data.imagefolder import load_imagefolder_dataset
+
+        train, test, info = load_imagefolder_dataset(
+            config.data_dir, image_size=config.image_size, seed=config.seed)
+    else:
+        train, test, info = cifar.load_dataset(config.dataset, data_dir=config.data_dir,
+                                               seed=config.seed)
     shards = partition_data(
         train[1], config.world_size,
         mode="hetero" if config.noniid else "homo",
@@ -88,16 +105,24 @@ def build_dataset(config: TrainConfig, device, rank: int = 0) -> ShardedDataset:
 
 
 class Trainer:
-    """``Trainer(config)`` builds everything on the card; ``model`` may be
-    passed in (the tests pass a small one), with the same weights on every
-    rank."""
+    """``Trainer(config)`` builds everything on the card; ``dataset`` (a
+    :class:`ShardedDataset` of this rank, placed as ``config.data_placement``
+    says) and ``model`` may be passed in (the tests pass a small model),
+    with the same weights on every rank."""
 
-    def __init__(self, config: TrainConfig, device=None,
-                 model: Optional[torch.nn.Module] = None) -> None:
+    def __init__(self, config: TrainConfig, dataset: Optional[ShardedDataset] = None,
+                 device=None, model: Optional[torch.nn.Module] = None) -> None:
         self.config = config
         self.rank = distributed.rank()
         self.device = resolve_device(device)
-        self.dataset = build_dataset(config, self.device, self.rank)
+        if dataset is None:
+            dataset = build_dataset(config, self.device, self.rank)
+        elif dataset.host_pixels != config.host_stream:
+            raise ValueError(
+                f"data_placement={config.data_placement!r} but the dataset's train "
+                f"pixels are {'a host array' if dataset.host_pixels else 'a tensor'}: "
+                "build it with make_sharded_dataset(..., placement=data_placement)")
+        self.dataset = dataset
         if config.num_classes is not None and config.num_classes != self.dataset.num_classes:
             raise ValueError(
                 f"config.num_classes={config.num_classes} but dataset "
@@ -134,6 +159,18 @@ class Trainer:
                 self.dataset.shard_indices.cpu().numpy(),
                 self.dataset.y_train.cpu().numpy(), self.dataset.num_classes,
                 config.is_alpha, starvation_share=0.2)
+        # host_stream: prime the ring with steps 0 … depth−1 and put their
+        # gathers in flight. Built before auto_resume: a restore refills it.
+        self._stream_pipe: Optional[PrefetchPipeline] = None
+        if config.host_stream:
+            # One pipeline a rank, over this rank's own rows: every rank is
+            # a process, so stream_shard_mode "local" and "replicated" (W=1)
+            # gather the same rows.
+            self._stream_pipe = PrefetchPipeline(
+                HostStreamSource(self.dataset.x_train, config.decode_workers),
+                config.stream_rows, self.device, depth=config.prefetch_depth)
+            self._seed_stream_pipe(
+                prime_host_stream(self.state, config, self.dataset))
         # Crash or preemption recovery: the newest checkpoint, sampler state
         # included; the first fit() then runs on to the original
         # total_steps.
@@ -146,8 +183,51 @@ class Trainer:
 
     def train_step(self, draws: Optional[Draws] = None,
                    use_kernels: bool = True) -> Dict[str, torch.Tensor]:
-        """One step; metrics stay on the device."""
+        """One step; metrics stay on the device. Under host_stream ``draws``
+        are those of step t+depth, whose selection the step draws."""
+        if self._stream_pipe is not None:
+            return self._host_stream_step(draws, use_kernels)
         return self._step_fn(self.state, draws, use_kernels)
+
+    def _host_stream_step(self, draws: Optional[Draws] = None,
+                          use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+        """Pop → step → push: train on the oldest prefetched rows and hand
+        the selection of step t+depth, a device tensor still being
+        computed, to the pipeline. A dead worker raises here."""
+        batch = self._stream_pipe.pop()
+        metrics, next_gidx = self._step_fn(self.state, batch, draws, use_kernels)
+        self._stream_pipe.push(next_gidx)
+        return metrics
+
+    def _seed_stream_pipe(self, gidx: torch.Tensor) -> None:
+        """Drop what the pipeline holds and push the ``[depth, S]``
+        selections ``gidx`` (the ring's, in step order)."""
+        self._stream_pipe.reset()
+        for row in gidx:
+            self._stream_pipe.push(row)
+
+    def _refill_stream_pipe(self) -> None:
+        """After a restore: the restored ring's selections are those of
+        steps t … t+depth−1, so push their rows; a checkpoint without a
+        ring (a replicated run's) primes the ring anew from the restored
+        generator and stream, as the replicated run would draw on."""
+        if self._stream_pipe is None:
+            return
+        if self.state.pending is None:
+            gidx = prime_host_stream(self.state, self.config, self.dataset)
+        else:
+            gidx = self.dataset.shard_indices[self.dataset.rank][self.state.pending.slots]
+        self._seed_stream_pipe(gidx)
+
+    def stream_stats(self) -> Dict[str, float]:
+        """The prefetch pipeline's ``data/*`` counters since the previous
+        call (none without host_stream)."""
+        return {} if self._stream_pipe is None else self._stream_pipe.stats()
+
+    def close(self) -> None:
+        """Stop the prefetch worker; a second call does nothing."""
+        if self._stream_pipe is not None:
+            self._stream_pipe.close()
 
     def fit(self, num_epochs: Optional[int] = None, *,
             steps: Optional[int] = None) -> Dict[str, float]:
@@ -163,7 +243,8 @@ class Trainer:
         ``checkpoint_dir``, saves every ``checkpoint_every`` steps and at
         the end. Returns the final evaluation (the last eval tick's, else a
         fresh :meth:`evaluate`), the last step's scalar metrics and, when
-        the last step is a log tick, the sampler-health keys."""
+        the last step is a log tick, the sampler-health keys and (under
+        host_stream) the pipeline's ``data/*`` counters."""
         cfg = self.config
         start = self.state.step
         if steps is not None:
@@ -184,7 +265,7 @@ class Trainer:
             step = self.state.step
             health = {}
             if cfg.log_every and step % cfg.log_every == 0:
-                health = self.sampler_health()
+                health = {**self.sampler_health(), **self.stream_stats()}
                 _log.info("step %d: %s", step, {**_scalars(metrics), **health})
             if cfg.eval_every and step % cfg.eval_every == 0:
                 evaluation = self.evaluate()
@@ -228,9 +309,13 @@ class Trainer:
 
     def restore(self, directory: Optional[str] = None, step: Optional[int] = None) -> int:
         """Restore the checkpoint at ``step`` (default: the newest) from
-        ``directory`` (default ``checkpoint_dir``); return its step."""
-        return checkpoint.restore_checkpoint(self._directory(directory), self.state,
+        ``directory`` (default ``checkpoint_dir``); return its step. Under
+        host_stream the prefetch pipeline is refilled from the restored
+        ring."""
+        step = checkpoint.restore_checkpoint(self._directory(directory), self.state,
                                              self.config, step)
+        self._refill_stream_pipe()
+        return step
 
     def _logits(self, raw: torch.Tensor) -> torch.Tensor:
         """Inference-mode logits of ``EVAL_BATCH`` raw NHWC images on this
@@ -252,13 +337,13 @@ class Trainer:
         images (uint8 or float; a numpy array or a tensor; a single
         ``[H, W, C]`` image is one of one), in ``evaluate``'s batches of
         ``EVAL_BATCH`` (the last padded by wrapping, as there)."""
-        x = torch.as_tensor(inputs)
-        if x.dim() == self.dataset.x_test.dim() - 1:
+        x = inputs if isinstance(inputs, np.ndarray) else torch.as_tensor(inputs)
+        if x.ndim == self.dataset.x_test.dim() - 1:
             x = x[None]
         n = int(x.shape[0])
         out = torch.empty((n, self.dataset.num_classes), dtype=torch.float32)
         for idx_np, valid in eval_batches(n, EVAL_BATCH):
-            logits = self._logits(x[torch.as_tensor(idx_np, device=x.device)])
+            logits = self._logits(_rows(x, idx_np))
             out[torch.as_tensor(idx_np[:valid])] = logits[:valid].float().cpu()
         return out
 
@@ -285,11 +370,10 @@ class Trainer:
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         correct = torch.zeros((), dtype=torch.float32, device=self.device)
         for idx_np, valid in eval_batches(n, EVAL_BATCH):
-            idx = torch.as_tensor(idx_np, device=x.device)
             mask = torch.as_tensor(np.arange(EVAL_BATCH) < valid,
                                    device=self.device)
-            labels = y[idx].to(self.device)
-            logits = self._logits(x[idx])
+            labels = _rows(y, idx_np).to(self.device)
+            logits = self._logits(_rows(x, idx_np))
             loss_sum += torch.where(mask, per_sample_nll(logits, labels), 0.0).sum()
             correct += ((logits.argmax(-1) == labels) & mask).sum()
         prefix = "train" if train else "test"
@@ -303,6 +387,14 @@ class Trainer:
             out.update(self._eval_split(train=True))
         out.update(self._eval_split(train=False))
         return out
+
+
+def _rows(x, idx_np: np.ndarray) -> torch.Tensor:
+    """Rows ``idx_np`` of a tensor (on its device) or of a host array (the
+    host_stream train pixels, read on the host)."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(x[idx_np]))
+    return x[torch.as_tensor(idx_np, device=x.device)]
 
 
 def _scalars(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:

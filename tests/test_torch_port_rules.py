@@ -64,11 +64,14 @@ def test_config_fields_match_the_jax_package():
     assert cfg.lr == 0.001 and cfg.candidate_pool_size == 320
     for name in ("refresh_size", "table_decay", "refresh_mode", "scoring_dtype",
                  "fused_input", "sampler", "grad_accum_steps", "checkpoint_dir",
-                 "checkpoint_every", "checkpoint_keep", "auto_resume"):
+                 "checkpoint_every", "checkpoint_keep", "auto_resume", "prefetch_depth",
+                 "decode_workers", "stream_shard_mode", "image_size"):
         assert name in {f.name for f in dataclasses.fields(TrainConfig)}, name
     assert (cfg.refresh_size, cfg.table_decay, cfg.refresh_mode) == (64, 0.98, "sync")
     assert (cfg.grad_accum_steps, cfg.checkpoint_dir, cfg.checkpoint_every,
             cfg.checkpoint_keep, cfg.auto_resume) == (1, None, 1000, 3, False)
+    assert (cfg.prefetch_depth, cfg.decode_workers, cfg.stream_shard_mode,
+            cfg.image_size) == (2, 0, "auto", 32)
 
 
 @pytest.mark.parametrize("field,kw", [
@@ -78,12 +81,21 @@ def test_config_fields_match_the_jax_package():
                  id="sampler-scoretable"),
     pytest.param("fused_input", dict(fused_input=True, augmentation="none"),
                  id="fused_input-True"),
-    pytest.param("data_placement", dict(data_placement="host_stream"),
+    # host_stream, imagefolder and scoring_dtype are ported: what the JAX
+    # package refuses of them is refused.
+    pytest.param("prefetch_depth", dict(data_placement="host_stream", prefetch_depth=0),
                  id="data_placement-host_stream"),
     pytest.param("model", dict(model="vgg11"), id="model-vgg11"),
-    pytest.param("dataset", dict(dataset="imagefolder"), id="dataset-imagefolder"),
-    pytest.param("scoring_dtype", dict(scoring_dtype="bfloat16"), id="scoring_dtype-bfloat16"),
+    pytest.param("data_dir", dict(dataset="imagefolder"), id="dataset-imagefolder"),
+    pytest.param("scoring_dtype", dict(scoring_dtype="bfloat16",
+                                       use_importance_sampling=False),
+                 id="scoring_dtype-bfloat16"),
     pytest.param("grad_accum_steps", dict(grad_accum_steps=0), id="grad_accum_steps-0"),
+    pytest.param("stream_shard_mode", dict(data_placement="host_stream",
+                                           stream_shard_mode="global"),
+                 id="stream_shard_mode-global"),
+    pytest.param("stream_shard_mode", dict(world_size=2, stream_shard_mode="replicated"),
+                 id="stream_shard_mode-replicated-two-ranks"),
 ])
 def test_config_rejects_what_is_not_ported(field, kw):
     with pytest.raises(ValueError, match=field):

@@ -197,7 +197,7 @@ def test_kernel_and_plain_steps_agree_on_cpu():
     (dict(fused_input=True, augmentation="none"), "fused_input"),
     (dict(refresh_size=0), "refresh_size"),
     (dict(table_decay=1.5), "table_decay"),
-    (dict(scoring_dtype="bfloat16"), "scoring_dtype"),
+    (dict(scoring_dtype="bfloat16", use_importance_sampling=False), "scoring_dtype"),
     (dict(sampler="groupwise"), "sampler"),
 ])
 def test_config_rejections(kw, field):

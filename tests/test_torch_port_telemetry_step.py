@@ -253,7 +253,7 @@ def _aten_ops(trainer):
 
 
 @pytest.mark.parametrize("kw,n_off,n_added", [
-    ({}, 455, 32), (TABLE, 512, 48), (dict(use_importance_sampling=False), 389, 13),
+    ({}, 455, 34), (TABLE, 512, 50), (dict(use_importance_sampling=False), 389, 15),
 ], ids=["pool", "scoretable", "uniform"])
 def test_telemetry_only_adds_ops(kw, n_off, n_added):
     """With telemetry off the step runs the ops of the step before
