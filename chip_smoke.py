@@ -103,7 +103,19 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    restored, bit-equal; (d) ``scoring_dtype="bfloat16"`` against None on
    the replicated pool path with float32 training: steps/s in turns and
    the scoring forward's device time a step (``torch.profiler``) and
-   alone at [320] (CUDA events).
+   alone at [320] (CUDA events);
+11. the pool sampler's step modes on the main path's config: (a)
+   ``pipelined_scoring=True``, (b) ``score_refresh_every=8``, (c)
+   ``sampler="groupwise", fused_input=True``, each 3 warm steps and then
+   20 a turn in 2 turns with the default pool step (steps/s), every
+   window's launches held to :func:`mode_launches` (pipelined 2 nll_fwd,
+   1 nll_bwd and 1 score_and_draw a step, 3/1/2 at step 0; cadence 1
+   nll_fwd and 1 nll_bwd, one more nll_fwd on a refresh step; groupwise 2
+   nll_fwd, 1 nll_bwd and 2 augment_normalize), a kernel step against a
+   plain step in each (the cadence at a refresh and at a reuse step),
+   every groupwise weight finite and positive, and a save with each
+   mode's state in flight, then 4 steps live and 4 restored, bit-equal
+   under deterministic cuDNN.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -116,6 +128,7 @@ per-case details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -189,6 +202,16 @@ STREAM_ROWS = 50_000      # CIFAR-10's train split
 STREAM_TEST_ROWS = 1000
 STREAM_RESUME = 4         # steps live and restored in (c)
 SCORING_TURNS = ("bfloat16", None, None, "bfloat16")
+# Phase 11, the pool sampler's step modes on the main path's config: (a)
+# pipelined scoring, (b) a score refresh every 8 steps, (c) the groupwise
+# sampler with the fused ingest; each against the default pool step in turns.
+MODES = {"pipelined": dict(pipelined_scoring=True),
+         "cadence": dict(score_refresh_every=8),
+         "groupwise": dict(sampler="groupwise", fused_input=True)}
+MODE_STEPS = 20
+MODE_TURNS = ("pool", "pipelined", "cadence", "groupwise",
+              "groupwise", "cadence", "pipelined", "pool")
+MODE_RESUME = 4           # steps live and restored after a save
 # CIFAR-100's normalization (float32 in the dataset).
 CIFAR100_MEAN = (0.5071, 0.4865, 0.4409)
 CIFAR100_STD = (0.2673, 0.2564, 0.2762)
@@ -256,13 +279,15 @@ def main() -> int:
     telemetry = run_phase("telemetry", telemetry_phase, torch, card, main_path, table_path)
     surface = run_phase("config surface", config_surface_phase, torch, card)
     stream = run_phase("host stream", host_stream_phase, torch, card)
+    modes = run_phase("sampler modes", sampler_modes_phase, torch, card)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
                    "two_ranks": two_ranks["launches"][k["name"]],
                    "accum_resume": accum["launches"][k["name"]],
                    "config_surface": surface["launches"][k["name"]],
-                   "host_stream": stream["launches"][k["name"]]}
+                   "host_stream": stream["launches"][k["name"]],
+                   "sampler_modes": modes["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -274,7 +299,7 @@ def main() -> int:
          "main_path": main_path["summary"], "scoretable_path": table_path["summary"],
          "two_ranks": two_ranks["summary"], "accum_resume": accum["summary"],
          "telemetry": telemetry, "config_surface": surface["summary"],
-         "host_stream": stream["summary"]},
+         "host_stream": stream["summary"], "sampler_modes": modes["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -942,13 +967,27 @@ def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3,
               f"{key}: kernel step {a!r}, plain step {b!r}")
     if config.telemetry:
         p_table = None if tables[False] is None else tables[False].scores
-        step_err["telemetry"] = telemetry_agree(torch, k_m, p_m, p_table)
+        step_err["telemetry"] = telemetry_agree(torch, k_m, p_m, p_table,
+                                                trained_weights(state, config, p_m))
     if not quiet:
         print(f"kernel step vs plain step: |d loss| {step_err['train/loss']:.2e}, "
               f"|d pool_loss| {step_err['train/pool_loss']:.2e}, same draws "
               f"({band_misses} earlier tries differed inside the boundary band); "
               f"telemetry {step_err.get('telemetry')}")
     return step_err
+
+
+def trained_weights(state, config, metrics):
+    """The IS weights of the batch a step trained on, where they are not
+    ``probs[selected]·N`` of its metrics: under ``pipelined_scoring`` the
+    carried batch's (the state's before the step), under the groupwise
+    sampler ``p·M`` with M the group's size. None elsewhere."""
+    if config.use_pipelined:
+        return state.pending_batch.scaled_probs
+    if config.use_groupwise:
+        probs = metrics["sampler/probs"]
+        return probs[metrics["sampler/selected"]] * (probs > 0).sum()
+    return None
 
 
 def build_trainer(torch, config, quiet: bool = False, dataset=None):
@@ -2132,6 +2171,181 @@ def host_stream_phase(torch, card: str) -> dict:
         for k, v in result["launches"].items():
             launches[k] += v
     return {"launches": launches, "summary": out}
+
+
+# ----------------------------------------------------------------- phase 11
+def mode_launches(kernels, name: str, first: int, n: int) -> dict:
+    """The launches of ``n`` steps of ``name`` (a ``MODES`` key or "pool")
+    from ``state.step == first``, with ``importance_score="loss"``: the
+    pool step 2 nll_fwd (pool and batch), 1 nll_bwd, 1 score_and_draw;
+    pipelined the same, and at step 0 one more nll_fwd and score_and_draw
+    (the boot pool); the cadence 1 nll_fwd and 1 nll_bwd, and one more
+    nll_fwd on a refresh step (``step % 8 == 0``), no draw kernel (its draw
+    is plain torch); groupwise (fused) 2 nll_fwd, 1 nll_bwd and 2
+    augment_normalize (window and batch), its draw plain torch."""
+    steps = range(first, first + n)
+    out = {k: 0 for k in kernels}
+    out.update(nll_fwd=2 * n, nll_bwd=n)
+    if name in ("pool", "pipelined"):
+        boot = int(name == "pipelined" and 0 in steps)
+        out.update(nll_fwd=2 * n + boot, score_and_draw=n + boot)
+    elif name == "cadence":
+        every = MODES["cadence"]["score_refresh_every"]
+        out.update(nll_fwd=n + sum(s % every == 0 for s in steps))
+    else:
+        out.update(augment_normalize=2 * n)
+    return out
+
+
+def carried_digests(state) -> dict:
+    """:func:`state_digests` plus the step mode's carried state: the
+    pending batch, the cached pool or the groupwise importance, tags,
+    cursor and generation."""
+    out = state_digests(dataclasses.replace(state, accum=state.accum or []))
+    for name in ("pending_batch", "cached_pool", "groupwise"):
+        value = getattr(state, name)
+        if value is not None:
+            for k, v in value._asdict().items():
+                out[f"{name}.{k}"] = digest(v) if hasattr(v, "dtype") else str(v)
+    return out
+
+
+def mode_resume(torch, mk, card: str, trainer, name: str) -> dict:
+    """A save of ``trainer`` with its mode's state in flight (the cadence
+    two steps before a refresh), then ``MODE_RESUME`` steps live and on a
+    fresh trainer restored from the file, under deterministic cuDNN: the
+    losses and every digest of the state bit-equal."""
+    import shutil
+
+    config = trainer.config
+    if config.use_cadence:
+        every = config.score_refresh_every
+        while trainer.state.step % every != every - 2:
+            trainer.train_step()
+    undo = deterministic_cudnn(torch)
+    directory = tempfile.mkdtemp(prefix="mercury_modes_ckpt_")
+    try:
+        at = trainer.state.step
+        trainer.save(directory)
+        saved = carried_digests(trainer.state)
+        mk.reset_launch_counts()
+        a = torch.stack([trainer.train_step()["train/loss"] for _ in range(MODE_RESUME)])
+        counts = dict(mk.launch_counts)
+        after = carried_digests(trainer.state)
+        fresh = build_trainer(torch, config, quiet=True)
+        check(fresh.restore(directory) == at, f"{name}: restored step")
+        restored = carried_digests(fresh.state)
+        differ = sorted(k for k in saved if restored.get(k) != saved[k])
+        check(restored.keys() == saved.keys() and not differ,
+              f"{name}: the restored state differs from the saved one: {differ[:5]}")
+        b = torch.stack([fresh.train_step()["train/loss"] for _ in range(MODE_RESUME)])
+        check(torch.equal(a, b), f"{name}: losses live {a.tolist()}, restored {b.tolist()}")
+        again = carried_digests(fresh.state)
+        differ = sorted(k for k in after if again.get(k) != after[k])
+        check(again.keys() == after.keys() and not differ,
+              f"{name}: the restored run's state differs from the live one's: {differ[:5]}")
+        check(counts == mode_launches(mk.KERNELS, name, at, MODE_RESUME),
+              f"{name}: launch counts {counts} in the resumed steps from step {at}")
+        print(f"{name} resume: saved at step {at}, {MODE_RESUME} steps live and restored "
+              f"bit-equal ({len(saved)} tensors and counters, the mode's carried state "
+              f"among them), losses {a.tolist()} [{card}]")
+        del fresh
+    finally:
+        undo()
+        shutil.rmtree(directory, ignore_errors=True)
+    return {"saved_at": at, "losses": a.tolist()}
+
+
+def sampler_modes_phase(torch, card: str) -> dict:
+    """Phase 11: the pool sampler's step modes on the main path's config
+    (full-width ResNet-18, batch 32, pool 320, 5000 synthetic images, bf16
+    autocast): (a) ``pipelined_scoring``, (b) ``score_refresh_every=8``,
+    (c) ``sampler="groupwise", fused_input=True``. Each runs 3 warm steps,
+    then ``MODE_STEPS`` timed steps a turn in turns with the default pool
+    step, its launches counted in every window against
+    :func:`mode_launches`; a kernel step against a plain step (the cadence
+    at a refresh and at a reuse step); the groupwise weights finite and
+    positive; and a save and resume, bit-equal."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    configs = {"pool": TrainConfig(**STREAM)}
+    configs.update({name: TrainConfig(**STREAM, **kw) for name, kw in MODES.items()})
+    check(configs["pipelined"].use_pipelined and configs["cadence"].use_cadence
+          and configs["groupwise"].use_groupwise and configs["groupwise"].fused_input
+          and all(c.candidate_pool_size == 320 and c.batch_size == 32 for c in configs.values()),
+          f"unexpected sampler-mode configs {configs}")
+    trainers = {name: build_trainer(torch, config, quiet=True)
+                for name, config in configs.items()}
+    launches = {k: 0 for k in mk.KERNELS}
+    rates = {name: [] for name in configs}
+    summary = {"card": card}
+
+    def window(name, steps, timed=False):
+        if steps == 0:
+            return {k: 0 for k in mk.KERNELS}, None, []
+        trainer = trainers[name]
+        first = trainer.state.step
+        dt, counts, losses, metrics = timed_steps(torch, mk, trainer, steps)
+        want = mode_launches(mk.KERNELS, name, first, steps)
+        check(counts == want, f"{name}: launch counts {counts} in steps {first}-"
+              f"{first + steps - 1}, expected {want}")
+        if name != "pool":
+            for k, v in counts.items():
+                launches[k] += v
+        if timed:
+            rates[name].append(steps / dt)
+        return counts, losses, metrics
+
+    # Step 0 of each mode alone: the pipelined boot (3 nll_fwd, 2
+    # score_and_draw), the cadence's first refresh.
+    first = {name: window(name, 1)[0] for name in MODES}
+    for name in configs:
+        window(name, WARMUP_STEPS - (name != "pool"))
+    per_step = {}
+    for name in MODE_TURNS:
+        counts, losses, metrics = window(name, MODE_STEPS, timed=True)
+        check_telemetry(torch, metrics, "pool", configs[name].batch_size)
+        per_step[name] = {k: v / MODE_STEPS for k, v in counts.items() if v}
+        if name == "groupwise":
+            for m in metrics:
+                w = trained_weights(None, configs[name], m)
+                check(bool(torch.isfinite(w).all()) and bool((w > 0).all()),
+                      f"groupwise: drawn weights {w.tolist()}")
+    for name in MODES:
+        print(f"{name}: step 0 launched {first[name]}; a step then {per_step[name]} "
+              f"(as mode_launches expects)")
+    print(f"sampler modes, steps/s in turns of {MODE_STEPS}: " + ", ".join(
+        f"{name} {[round(r, 2) for r in rates[name]]}" for name in configs) + f" [{card}]")
+    gw = trainers["groupwise"].state.groupwise
+    check(gw.generation == trainers["groupwise"].state.step and gw.generation > 5000 // 320,
+          f"groupwise generation {gw.generation} after {trainers['groupwise'].state.step} steps")
+    check(trainers["groupwise"].state.stream.cursor == 0, "the groupwise step read the stream")
+
+    for name in MODES:
+        trainer, config = trainers[name], configs[name]
+        if name == "cadence":
+            # Up to a refresh step, compared; that step, then the reuse
+            # step after it, compared.
+            every = config.score_refresh_every
+            window(name, -trainer.state.step % every)
+            refresh = kernel_vs_plain_step(torch, trainer, config, quiet=True)
+            window(name, 1)
+            reuse = kernel_vs_plain_step(torch, trainer, config, quiet=True)
+            step_err = {"refresh": refresh, "reuse": reuse}
+        else:
+            step_err = kernel_vs_plain_step(torch, trainer, config, quiet=True)
+        print(f"{name} kernel step vs plain step: {step_err}")
+        summary[name] = {"steps_per_s": rates[name], "launches_step0": first[name],
+                         "launches_per_step": per_step[name], "kernel_vs_plain": step_err}
+    summary["pool"] = {"steps_per_s": rates["pool"], "launches_per_step": per_step["pool"]}
+    for name in MODES:
+        summary[name]["resume"] = mode_resume(torch, mk, card, trainers[name], name)
+    for trainer in trainers.values():
+        trainer.close()
+    del trainers
+    torch.cuda.empty_cache()
+    return {"launches": launches, "summary": summary}
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):

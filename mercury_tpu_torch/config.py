@@ -1,9 +1,9 @@
 """Run configuration of the PyTorch port.
 
 The fields are those of ``mercury_tpu.config.TrainConfig`` that the
-importance-sampled pool and scoretable steps read, under the same names and
-with the same defaults, so a configuration written for one package means the same run in
-the other. A value the port does not implement yet raises ``ValueError``
+importance-sampled pool (with its step modes), groupwise and scoretable
+steps read, under the same names and with the same defaults, so a
+configuration written for one package means the same run in the other. A value the port does not implement yet raises ``ValueError``
 naming the field, instead of silently training something else.
 """
 
@@ -14,7 +14,7 @@ from typing import Optional
 
 _MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
 _DATASETS = ("cifar10", "cifar100", "synthetic", "imagefolder")
-_SAMPLERS = ("pool", "scoretable")
+_SAMPLERS = ("pool", "scoretable", "groupwise")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +72,11 @@ class TrainConfig:
 
     # Importance sampling
     use_importance_sampling: bool = True
-    sampler: str = "pool"             # "pool" | "scoretable"
+    # "pool": score a fresh candidate pool each step and draw from it;
+    # "scoretable": see below; "groupwise": a score for every slot of the
+    # shard, rescored by a sliding window of the pool's size a step, the
+    # batch drawn from the newest window only (sampling/groupwise.py).
+    sampler: str = "pool"
     presample_batches: int = 10       # candidate pool = 10×batch
     is_alpha: float = 0.5             # score = loss + alpha·EMA
     # The candidates' score: "loss" (the per-sample loss) or "grad_norm",
@@ -84,6 +88,11 @@ class TrainConfig:
     # At W>1 the pool mean feeding the EMA is the global one (a sum and a
     # count all-reduced), so every rank keeps the same EMA.
     sync_importance_stats: bool = True
+    # Score-refresh cadence (pool sampler): score a fresh pool every K-th
+    # step and cache its distribution; the K−1 steps between redraw their
+    # batch from the cache (fresh draws and augmentation, the same probs),
+    # weighted by the cached p. 1: a fresh pool every step.
+    score_refresh_every: int = 1
 
     # Scoretable sampler: a persistent score per shard slot; each step
     # rescores a round-robin window of refresh_size slots, decays the rest
@@ -127,6 +136,12 @@ class TrainConfig:
     # sampler_dist/var_ratio, the IS-vs-uniform gradient second-moment
     # ratio (< 1: importance sampling wins); other steps carry -1.0. 0 off.
     variance_probe_every: int = 0
+
+    # Pool sampler: train on the batch selected the step before and score
+    # the next pool with the same, pre-update weights (the reference's
+    # update_samples runs before optimizer.step). Step 0 scores a boot pool
+    # first.
+    pipelined_scoring: bool = False
 
     # Precision
     compute_dtype: str = "bfloat16"   # autocast dtype on the card
@@ -219,6 +234,27 @@ class TrainConfig:
             bad("grad_accum_steps", "must be >= 1")
         if self.variance_probe_every < 0:
             bad("variance_probe_every", "must be >= 0")
+        # The pool sampler's step modes, refused where the JAX step
+        # refuses them; without importance sampling both flags are ignored.
+        if self.score_refresh_every < 1:
+            bad("score_refresh_every", "must be >= 1")
+        if self.use_pipelined and self.sampler != "pool":
+            bad("pipelined_scoring", f"requires sampler='pool', got {self.sampler!r}")
+        if self.use_cadence and self.sampler != "pool":
+            bad("score_refresh_every", f"> 1 requires sampler='pool' (the {self.sampler!r} "
+                "sampler already keeps scores across steps)")
+        if self.use_cadence and self.use_pipelined:
+            bad("score_refresh_every", "> 1 does not compose with pipelined_scoring: the "
+                "cadence already removes the scoring forward the pipeline moves")
+        if self.host_stream and self.use_pipelined:
+            bad("pipelined_scoring", "data_placement='host_stream' already draws ahead "
+                "(its lookahead); the two do not compose")
+        if self.host_stream and self.use_cadence:
+            bad("score_refresh_every", "data_placement='host_stream' requires 1: the "
+                "cached pool redraws slots whose rows were never streamed")
+        if self.host_stream and self.use_groupwise:
+            bad("sampler", "data_placement='host_stream' takes 'pool' or 'scoretable': the "
+                "groupwise draw reads scores of this step and cannot be drawn ahead")
 
     @property
     def lr(self) -> float:
@@ -230,6 +266,20 @@ class TrainConfig:
         """The scoretable step runs only with importance sampling on; with
         it off the step is the uniform arm whatever the sampler."""
         return self.use_importance_sampling and self.sampler == "scoretable"
+
+    @property
+    def use_groupwise(self) -> bool:
+        return self.use_importance_sampling and self.sampler == "groupwise"
+
+    @property
+    def use_pipelined(self) -> bool:
+        return self.use_importance_sampling and self.pipelined_scoring
+
+    @property
+    def use_cadence(self) -> bool:
+        """The cached-pool cadence: importance sampling with
+        ``score_refresh_every > 1``."""
+        return self.use_importance_sampling and self.score_refresh_every > 1
 
     @property
     def use_ledger(self) -> bool:

@@ -16,6 +16,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from mercury_tpu_torch.sampling.groupwise import GroupwiseState
 from mercury_tpu_torch.sampling.scoretable import ScoreTableState
 
 # Flax auto-names inside each block, in creation order, → port module names.
@@ -57,6 +58,17 @@ def scoretable_from_jax(scores, cursor, device=None) -> ScoreTableState:
     return ScoreTableState(
         scores=torch.tensor(np.asarray(scores, dtype=np.float32), device=device),
         cursor=int(np.asarray(cursor)))
+
+
+def groupwise_from_jax(importance, group, cursor, generation,
+                       device=None) -> GroupwiseState:
+    """The port's groupwise state from the JAX package's ``GroupwiseState``
+    of one worker: ``importance`` ``[L]``, ``group`` ``[L]``, ``cursor``
+    and ``generation`` as numpy values."""
+    return GroupwiseState(
+        importance=torch.tensor(np.asarray(importance, dtype=np.float32), device=device),
+        group=torch.tensor(np.asarray(group, dtype=np.int32), device=device),
+        cursor=int(np.asarray(cursor)), generation=int(np.asarray(generation)))
 
 
 def params_from_flax(params: Mapping[str, Any],

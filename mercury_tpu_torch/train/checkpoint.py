@@ -14,7 +14,8 @@ accumulator) and a row of sampler state for each rank (the EMA, the stream
 permutation and cursor, the generator's state and, with
 ``sampler="scoretable"``, the table and its cursor and, under telemetry, the
 selection-count ledger; under ``host_stream``, the ring of selections in
-flight with its draws). At W>1 every rank sends its row to rank 0, rank 0
+flight with its draws; the pool sampler's step modes' carried state: the
+pipelined batch in flight, the cached pool, the groupwise importance). At W>1 every rank sends its row to rank 0, rank 0
 alone writes, and a barrier follows, so no rank reads before the file
 exists; a restore reads the file on every rank, and each rank takes its own
 row. A file without a ledger (saved with ``telemetry=False``) restores into
@@ -23,6 +24,9 @@ A file without a ring (saved by a replicated run) restores into a
 host_stream run without one, and the Trainer primes the ring anew from the
 restored generator and stream, as the JAX package's ``_upgrade_v1_to_v2``
 drops the ring; a ring does not restore into a run of another placement.
+
+A file restores only into a run of the same step mode: one with a pending
+batch, a cached pool or a groupwise state into a run that keeps the same.
 
 A file is written to ``ckpt_<step>.pt.tmp``, flushed to disk and renamed,
 so a torn write never carries a checkpoint's name.
@@ -42,7 +46,21 @@ from mercury_tpu_torch.data.pipeline import ShardStream
 from mercury_tpu_torch.parallel.collectives import gather_to_rank0, rank, world
 from mercury_tpu_torch.sampling.importance import EMAState
 from mercury_tpu_torch.sampling.scoretable import ScoreTableState
-from mercury_tpu_torch.train.state import MercuryState, pending_from_host, pending_to_host
+from mercury_tpu_torch.sampling.groupwise import GroupwiseState
+from mercury_tpu_torch.train.state import (
+    CachedPool,
+    MercuryState,
+    PendingBatch,
+    carried_from_host,
+    pending_from_host,
+    pending_to_host,
+)
+
+# The step modes' carried state: the row's key, the state's field, its
+# type and the config field that turns it on.
+_CARRIED = (("pending_batch", PendingBatch, "pipelined_scoring"),
+            ("cached_pool", CachedPool, "score_refresh_every"),
+            ("groupwise", GroupwiseState, "sampler"))
 
 FORMAT = 1
 _NAME = re.compile(r"ckpt_(\d+)\.pt")
@@ -82,6 +100,8 @@ def _rank_row(state: MercuryState) -> Dict[str, Any]:
         "table_cursor": None if table is None else table.cursor,
         "sel_counts": None if state.sel_counts is None else _cpu(state.sel_counts),
         "pending": None if state.pending is None else pending_to_host(state.pending),
+        **{key: None if getattr(state, key) is None else pending_to_host(getattr(state, key))
+           for key, _, _ in _CARRIED},
     }
 
 
@@ -158,6 +178,10 @@ def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
     if (row["table"] is None) != (state.scoretable is None):
         raise ValueError(f"{path} and this run differ in sampler: one keeps a "
                          "score table, the other does not")
+    for key, _, field in _CARRIED:
+        if (row.get(key) is None) != (getattr(state, key) is None):
+            raise ValueError(f"{path} and this run differ in {field}: one carries "
+                             f"a {key}, the other does not")
     if row.get("pending") is not None and not config.host_stream:
         raise ValueError(f"{path} was saved by a data_placement='host_stream' run (its "
                          "stream and generator are depth steps ahead): restore it into one")
@@ -182,4 +206,6 @@ def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
         raise ValueError(f"{path} was saved with prefetch_depth={len(saved['draws'])}, "
                          f"this run has prefetch_depth={config.prefetch_depth}")
     state.pending = None if saved is None else pending_from_host(saved, device)
+    for key, cls, _ in _CARRIED:
+        setattr(state, key, carried_from_host(cls, row.get(key), device))
     return step

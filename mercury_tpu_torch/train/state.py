@@ -21,6 +21,12 @@ shard has been trained on.
 Under ``data_placement="host_stream"`` it carries the ring of selections in
 flight, :class:`PendingSelection`: the slots and weights of steps
 t … t+depth−1, drawn ``depth`` steps ahead, and those steps' random draws.
+
+The pool sampler's step modes carry their own: ``pipelined_scoring`` the
+batch selected for the next step (:class:`PendingBatch`),
+``score_refresh_every > 1`` the scored pool it redraws from
+(:class:`CachedPool`), and ``sampler="groupwise"`` the shard's importance
+and group tags (``sampling/groupwise.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from mercury_tpu_torch.data.pipeline import ShardStream, init_shard_streams
+from mercury_tpu_torch.sampling.groupwise import GroupwiseState, init_groupwise
 from mercury_tpu_torch.sampling.importance import EMAState, init_ema
 from mercury_tpu_torch.sampling.scoretable import ScoreTableState, init_score_table
 
@@ -53,13 +60,36 @@ class Augment(NamedTuple):
 class Draws(NamedTuple):
     """The random numbers of one step. ``aug`` augments the rows scored
     first — the pool, or the scoretable's refresh window (the JAX step's
-    ``k_aug``); ``aug2`` the drawn train batch of the scoretable step,
-    which gathers its rows anew (``k_aug2``)."""
+    ``k_aug``); ``aug2`` the drawn train batch of the steps that gather
+    its rows anew: scoretable, groupwise and the cached-pool cadence
+    (``k_aug2``). ``boot`` is the boot pool's own perm, aug and uniforms,
+    drawn at step 0 of ``pipelined_scoring`` only (``k_boot_stream``,
+    ``k_boot_aug``, ``k_boot_sel``)."""
 
     perm: Optional[torch.Tensor]  # [L] reshuffle permutation; read only if the stream wraps
-    aug: Augment                  # P or R images
+    aug: Optional[Augment]        # P or R images (None on a cadence step that reuses its pool)
     uniforms: Optional[torch.Tensor]  # [1, B] float32 U(0,1) of the draw (IS only)
-    aug2: Optional[Augment] = None    # B images (scoretable only)
+    aug2: Optional[Augment] = None    # B images (scoretable, groupwise, cadence)
+    boot: Optional["Draws"] = None    # pipelined step 0: the boot pool's draws
+
+
+class PendingBatch(NamedTuple):
+    """The batch selected for the next step under ``pipelined_scoring``
+    (the JAX package's ``PendingBatch``): the very images that were scored,
+    augmented and normalized, not a re-gather by slot."""
+
+    images: torch.Tensor        # [B, H, W, C] float32 after augmentation
+    labels: torch.Tensor        # [B] int32
+    scaled_probs: torch.Tensor  # [B] float32 p·P of the draw
+
+
+class CachedPool(NamedTuple):
+    """The scored pool that ``score_refresh_every = K > 1`` redraws from
+    on the K−1 steps after its refresh (the JAX package's ``CachedPool``)."""
+
+    slots: torch.Tensor      # [P] int64 shard slots
+    probs: torch.Tensor      # [P] float32 distribution of the refresh
+    pool_loss: torch.Tensor  # [] float32 train/pool_loss of the refresh
 
 
 class PendingSelection(NamedTuple):
@@ -87,7 +117,9 @@ def _map_tensors(fn: Callable[[torch.Tensor], Any], tree):
     return tree
 
 
-def clone_pending(pending: Optional[PendingSelection]) -> Optional[PendingSelection]:
+def clone_pending(pending):
+    """A copy of the tensors of a ring, a batch, a pool or a groupwise
+    state (``None`` stays ``None``)."""
     return None if pending is None else _map_tensors(torch.clone, pending)
 
 
@@ -101,9 +133,20 @@ def _plain(tree):
     return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
 
 
-def pending_to_host(pending: PendingSelection) -> Dict[str, Any]:
-    """The ring as plain dicts and lists of host tensors."""
+def pending_to_host(pending) -> Dict[str, Any]:
+    """The ring (or a mode's carried state) as plain dicts and lists of
+    host tensors."""
     return _plain(pending)
+
+
+def carried_from_host(cls, saved: Optional[Dict[str, Any]], device):
+    """A :class:`PendingBatch`, :class:`CachedPool` or
+    :class:`GroupwiseState` from :func:`pending_to_host`'s dict, on
+    ``device``."""
+    if saved is None:
+        return None
+    return cls(**{k: v.to(device) if isinstance(v, torch.Tensor) else v
+                  for k, v in saved.items()})
 
 
 def pending_from_host(saved: Dict[str, Any], device) -> PendingSelection:
@@ -204,6 +247,15 @@ class MercuryState:
     # flight. The stream (pool, uniform) is then the lookahead's, depth
     # pools ahead of the step.
     pending: Optional[PendingSelection] = None
+    # pipelined_scoring only: the batch step+1 trains on (the JAX state's
+    # ``pending``; a placeholder until step 0 boots)
+    pending_batch: Optional[PendingBatch] = None
+    # score_refresh_every > 1 only: the pool the steps between refreshes
+    # redraw from (a uniform placeholder until step 0 refreshes)
+    cached_pool: Optional[CachedPool] = None
+    # sampler="groupwise" only: the shard's importance and group tags on the
+    # device, cursor and generation on the host
+    groupwise: Optional[GroupwiseState] = None
 
     def clone(self) -> "MercuryState":
         """An independent copy: the model and its optimizer are copied
@@ -223,6 +275,9 @@ class MercuryState:
             accum=None if self.accum is None else [a.clone() for a in self.accum],
             sel_counts=None if self.sel_counts is None else self.sel_counts.clone(),
             pending=clone_pending(self.pending),
+            pending_batch=clone_pending(self.pending_batch),
+            cached_pool=clone_pending(self.cached_pool),
+            groupwise=clone_pending(self.groupwise),
         )
 
 
@@ -243,13 +298,22 @@ def create_state(model: torch.nn.Module, device: torch.device, seed: int,
                  with_scoretable: bool = False,
                  rank: int = 0,
                  grad_accum_steps: int = 1,
-                 with_sel_counts: bool = False) -> MercuryState:
+                 with_sel_counts: bool = False,
+                 with_groupwise: bool = False,
+                 pending_batch_size: int = 0,
+                 pending_sample_shape: Tuple[int, ...] = (32, 32, 3),
+                 cached_pool_size: int = 0) -> MercuryState:
     """Move ``model`` to ``device`` and build its optimizer, a fresh EMA,
     the worker's stream and a generator seeded with ``rank_seed(seed,
     rank)``; with ``with_scoretable`` also a score table of ones over the
     shard, cursor 0; with ``grad_accum_steps > 1`` a zero accumulator; with
-    ``with_sel_counts`` a zero ledger over the shard. The model arrives with
-    its weights: the same on every rank."""
+    ``with_sel_counts`` a zero ledger over the shard; with
+    ``with_groupwise`` the groupwise state over the shard. The modes'
+    placeholders are the JAX package's: ``pending_batch_size=B`` a batch of
+    zero images of ``pending_sample_shape`` (after augmentation), zero
+    labels and unit weights; ``cached_pool_size=P`` zero slots under the
+    uniform distribution. The model arrives with its weights: the same on
+    every rank."""
     device = torch.device(device)
     model = model.to(device)
     if device.type == "cuda":
@@ -267,7 +331,22 @@ def create_state(model: torch.nn.Module, device: torch.device, seed: int,
     sel_counts = None
     if with_sel_counts:
         sel_counts = torch.zeros(shard_len, dtype=torch.int32, device=device)
+    pending_batch = cached_pool = None
+    if pending_batch_size:
+        b = pending_batch_size
+        pending_batch = PendingBatch(
+            images=torch.zeros((b, *pending_sample_shape), dtype=torch.float32, device=device),
+            labels=torch.zeros(b, dtype=torch.int32, device=device),
+            scaled_probs=torch.ones(b, dtype=torch.float32, device=device))
+    if cached_pool_size:
+        p = cached_pool_size
+        cached_pool = CachedPool(
+            slots=torch.zeros(p, dtype=torch.long, device=device),
+            probs=torch.full((p,), 1.0 / p, dtype=torch.float32, device=device),
+            pool_loss=torch.zeros((), dtype=torch.float32, device=device))
     return MercuryState(step=0, model=model, optimizer=opt,
                         lr_schedule=schedule, ema=init_ema(device),
                         stream=stream, generator=gen, scoretable=table,
-                        accum=accum, sel_counts=sel_counts)
+                        accum=accum, sel_counts=sel_counts,
+                        pending_batch=pending_batch, cached_pool=cached_pool,
+                        groupwise=init_groupwise(shard_len, device) if with_groupwise else None)

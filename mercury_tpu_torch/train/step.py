@@ -40,6 +40,31 @@ of the shard instead of a stream:
    launch; under ``"grad_norm"`` their gradient norms), and the cursor
    advances by ``R``. The stream is not read.
 
+The pool sampler has three step modes (the JAX step's pipelined, cadence
+and groupwise branches):
+
+- ``pipelined_scoring``: the step trains on the batch it selected the step
+  before (``state.pending_batch``: the scored images, labels and ``p·P``)
+  and scores the next pool (steps 1-5 above, ``score_and_draw`` included)
+  before the optimizer step, so with the pre-update weights. Step 0 first
+  scores a boot pool with ``draws.boot`` and trains on its draw, so the
+  stream and the EMA advance twice. The clip share and drift are the next
+  pool's; the ESS and the weights' histogram the trained batch's;
+- ``score_refresh_every=K > 1``: on steps with ``step % K == 0`` the step
+  takes a pool off the stream, scores it (a scorer-only ingest: bf16 under
+  ``scoring_dtype="bfloat16"``), updates the EMA and caches the pool's
+  slots, ``importance_probs`` and pool loss (``state.cached_pool``). Every
+  step draws B from the cached distribution (plain inverse CDF), gathers
+  and ingests those slots with ``aug2`` and weighs them by the cached
+  ``p·P``. Between refreshes the clip share and drift are 0 and
+  ``train/pool_loss`` is the cached one;
+- ``sampler="groupwise"``: the next window of ``P`` slots of the shard, in
+  order (``sampling/groupwise.py``; the stream is not read), is scored
+  (scorer-only ingest), written into the shard's importance as the newest
+  group, and B drawn from that group (plain inverse CDF), gathered and
+  ingested with ``aug2``, weighed by ``p·M`` (M the group's size). The EMA
+  is updated after the draw: it feeds the telemetry only.
+
 With ``fused_input`` every ingest is one ``augment_normalize`` kernel
 launch that gathers the uint8 rows itself (its ``rows``): no separate
 gather of the images. With ``use_importance_sampling=False`` the step is
@@ -53,7 +78,8 @@ of W ranks, and these cross the ranks (``parallel/collectives.py``):
   scoring forward, the train forward and the backward (one all-reduce a
   layer in each);
 - with ``sync_importance_stats``, the pool mean feeding the EMA (a sum and
-  a count);
+  a count; twice on a pipelined step 0, none on a cadence step that
+  reuses its pool);
 - the gradients, as one bucket before the optimizer step;
 - the BN running statistics, as one bucket after it (under ``"local"``
   too);
@@ -160,8 +186,12 @@ from mercury_tpu_torch.ops.mercury_kernels import (
 )
 from mercury_tpu_torch.parallel.collectives import allreduce_mean_, allreduce_sum
 from mercury_tpu_torch.parallel.distributed import require_world
+from mercury_tpu_torch.sampling.groupwise import draw as groupwise_draw
+from mercury_tpu_torch.sampling.groupwise import update_importance, window_indices
 from mercury_tpu_torch.sampling.importance import (
+    draw_with_replacement,
     ema_update,
+    importance_probs,
     per_sample_grad_norm_bound,
     per_sample_loss,
     pool_mean,
@@ -174,7 +204,14 @@ from mercury_tpu_torch.sampling.scoretable import (
     refresh_window,
     scatter_mean,
 )
-from mercury_tpu_torch.train.state import Augment, Draws, MercuryState, PendingSelection
+from mercury_tpu_torch.train.state import (
+    Augment,
+    CachedPool,
+    Draws,
+    MercuryState,
+    PendingBatch,
+    PendingSelection,
+)
 
 CROP_PAD = 4
 IMAGE_SIZE = 32  # CIFAR's side: the range of the cutout centres
@@ -228,12 +265,36 @@ def make_draws(state: MercuryState, config: TrainConfig) -> Draws:
                      aug2=augment_draws(config.batch_size))
     p = pool_size(config)
     length = state.stream.perm.shape[0]
-    perm = None
-    if state.stream.cursor + p > length:
-        perm = torch.randperm(length, generator=gen, device=dev)
+
+    def reshuffle(cursor: int) -> Optional[torch.Tensor]:
+        """The stream's next permutation when a pool from ``cursor``
+        wraps it."""
+        if cursor + p > length:
+            return torch.randperm(length, generator=gen, device=dev)
+        return None
+
+    if config.use_groupwise:
+        # The window is read in order: no stream, no permutation.
+        return Draws(perm=None, aug=augment_draws(p), uniforms=uniforms(),
+                     aug2=augment_draws(config.batch_size))
+    if config.use_cadence:
+        # Only a refresh step reads the stream and scores a pool.
+        perm = aug = None
+        if state.step % config.score_refresh_every == 0:
+            perm = reshuffle(state.stream.cursor)
+            aug = augment_draws(p)
+        return Draws(perm=perm, aug=aug, uniforms=uniforms(),
+                     aug2=augment_draws(config.batch_size))
+    cursor, boot = state.stream.cursor, None
+    if config.use_pipelined and state.step == 0:
+        # The boot pool comes first off the stream; the step's pool after it.
+        boot_perm = reshuffle(cursor)
+        boot = Draws(perm=boot_perm, aug=augment_draws(p), uniforms=uniforms())
+        cursor = (0 if boot_perm is not None else cursor) + p
+    perm = reshuffle(cursor)
     aug = augment_draws(p)
     return Draws(perm=perm, aug=aug,
-                 uniforms=uniforms() if config.use_importance_sampling else None)
+                 uniforms=uniforms() if config.use_importance_sampling else None, boot=boot)
 
 
 def scoring_forward(model: torch.nn.Module, images: torch.Tensor,
@@ -326,6 +387,8 @@ def make_train_step(
     bf16 = config.compute_dtype == "bfloat16"
     accum_steps = config.grad_accum_steps
     telemetry = config.telemetry
+    use_pipelined, use_cadence, use_groupwise = (
+        config.use_pipelined, config.use_cadence, config.use_groupwise)
     if telemetry and use_table:
         # The ages are a rotation of the same L values at every cursor.
         ages = {f"sampler/table_age_{name}": torch.tensor(value, dtype=torch.float32)
@@ -489,7 +552,21 @@ def make_train_step(
             return (selected, sel_images, sel_labels, scaled_probs, None, avg_pool_loss,
                     clip, drift)
 
+        def score_next(stream, ema, d: Draws):
+            """The pipelined step's next pool: its slots off the stream,
+            scored, the EMA updated and B drawn (``score_and_draw``); the
+            drawn images, labels and ``p·P`` are the next step's batch."""
+            stream, slots = next_pool(stream, p_size, lambda: _perm(d))
+            rows, labels = gather(slots)
+            (selected, sel_images, sel_labels, scaled_probs, probs, ema, avg_pool_loss,
+             clip, drift) = select_from(ingest(rows, use_kernels, d.aug), labels, ema,
+                                        d.uniforms)
+            return (stream, ema, PendingBatch(sel_images, sel_labels, scaled_probs),
+                    selected, probs, avg_pool_loss, clip, drift)
+
         stream, ema, table = state.stream, state.ema, state.scoretable
+        pending_batch, cached_pool, groupwise = (
+            state.pending_batch, state.cached_pool, state.groupwise)
         if host_stream:
             pending = state.pending
             front, front_draws = pending.slots[0], pending.draws[0]
@@ -540,6 +617,67 @@ def make_train_step(
             avg_pool_loss = pool_loss(r_logits, r_labels, score_avg)
             sel_rows, sel_labels = gather(selected)
             sel_images = ingest(sel_rows, use_kernels, draws.aug2)
+        elif use_pipelined:
+            # Train on the batch selected last step; score the next pool
+            # with the same weights before the update (the JAX step's
+            # pipelined branch). Step 0 boots: a pool scored first, its
+            # draw trained on now.
+            if state.step == 0:
+                boot = _need(draws.boot, "boot")
+                stream, ema, current = score_next(stream, ema, boot)[:3]
+            else:
+                current = state.pending_batch
+            (stream, ema, pending_batch, selected, probs, avg_pool_loss, clip,
+             drift) = score_next(stream, ema, draws)
+            sel_images, sel_labels, scaled_probs = current
+        elif use_cadence:
+            # Every K-th step scores a fresh pool and caches its
+            # distribution; every step draws B from the cache and gathers
+            # and ingests those slots anew (the JAX step's cadence branch).
+            if state.step % config.score_refresh_every == 0:
+                stream, slots = next_pool(stream, p_size, lambda: _perm(draws))
+                rows, labels = gather(slots)
+                pool_scores, pool_logits = score(
+                    ingest(rows, use_kernels, _need(draws.aug, "aug"), scorer_in_dtype),
+                    labels)
+                score_avg = pool_mean(pool_scores, sync_stats)
+                ema_prev = ema.value
+                ema = ema_update(ema, score_avg, config.ema_alpha)
+                cached_pool = CachedPool(
+                    slots, importance_probs(pool_scores, ema.value, config.is_alpha),
+                    pool_loss(pool_logits, labels, score_avg))
+                if telemetry:
+                    clip = clip_fraction(pool_scores, ema.value, config.is_alpha)
+                    drift = ema_drift(score_avg, ema_prev)
+            elif telemetry:
+                # Nothing scored this step: nothing clips or drifts.
+                clip = drift = torch.zeros((), dtype=torch.float32, device=dev)
+            probs = cached_pool.probs
+            selected = draw_with_replacement(probs, draws.uniforms)
+            scaled_probs = probs[selected] * p_size
+            sel_rows, sel_labels = gather(cached_pool.slots[selected])
+            sel_images = ingest(sel_rows, use_kernels, _need(draws.aug2, "aug2"))
+            avg_pool_loss = cached_pool.pool_loss
+        elif use_groupwise:
+            # The next window of the shard, in order: scored, written into
+            # the importance as the newest group, and the batch drawn from
+            # that group, gathered and ingested anew (the JAX step's
+            # groupwise branch). The EMA follows for telemetry only.
+            slots = window_indices(groupwise, p_size)
+            rows, labels = gather(slots)
+            pool_scores, pool_logits = score(
+                ingest(rows, use_kernels, draws.aug, scorer_in_dtype), labels)
+            groupwise = update_importance(groupwise, slots, pool_scores)
+            selected, scaled_probs, probs = groupwise_draw(groupwise, draws.uniforms)
+            sel_rows, sel_labels = gather(selected)
+            sel_images = ingest(sel_rows, use_kernels, _need(draws.aug2, "aug2"))
+            score_avg = pool_mean(pool_scores, sync_stats)
+            ema_prev = ema.value
+            ema = ema_update(ema, score_avg, config.ema_alpha)
+            avg_pool_loss = pool_loss(pool_logits, labels, score_avg)
+            if telemetry:
+                clip = clip_fraction(pool_scores, ema.value, config.is_alpha)
+                drift = ema_drift(score_avg, ema_prev)
         else:
             if host_stream:
                 # The streamed rows are the pool the lookahead drew, with
@@ -645,6 +783,8 @@ def make_train_step(
         state.ema = ema
         state.stream = stream
         state.scoretable = table
+        state.pending_batch, state.cached_pool, state.groupwise = (
+            pending_batch, cached_pool, groupwise)
         means: Dict[str, torch.Tensor] = {}  # telemetry scalars, averaged at W>1
         hists: Dict[str, torch.Tensor] = {}  # telemetry histograms, summed at W>1
         with torch.no_grad():
@@ -686,12 +826,16 @@ def make_train_step(
             "train/loss": loss,
             "train/acc": acc,
             "train/pool_loss": avg_pool_loss,
-            # [B] pool positions, or table slots, trained on
+            # [B]: positions in the pool trained on, or drawn this step in
+            # the next pool (pipelined), or in the cached pool (cadence);
+            # shard slots (scoretable, groupwise)
             "sampler/selected": selected,
         }
         if probs is not None:
             # [P] or [L]: what the batch was drawn from (host-stream
-            # scoretable: what step t+depth's batch was drawn from)
+            # scoretable: what step t+depth's batch was drawn from;
+            # pipelined: the next pool's; cadence: the cached pool's;
+            # groupwise: the newest group's over the shard)
             metrics["sampler/probs"] = probs
         if telemetry:
             metrics.update(means)

@@ -150,6 +150,13 @@ class Trainer:
             with_scoretable=config.use_scoretable, rank=self.rank,
             grad_accum_steps=config.grad_accum_steps,
             with_sel_counts=config.use_ledger,
+            with_groupwise=config.use_groupwise,
+            pending_batch_size=config.batch_size if config.use_pipelined else 0,
+            # The IID augmentation crops to 32 whatever the image size.
+            pending_sample_shape=((32, 32, self.dataset.x_train.shape[-1])
+                                  if config.augmentation == "iid"
+                                  else tuple(self.dataset.x_train.shape[1:])),
+            cached_pool_size=config.candidate_pool_size if config.use_cadence else 0,
         )
         self.sampler_monitor: Optional[SamplerHealthMonitor] = None
         if config.use_ledger:

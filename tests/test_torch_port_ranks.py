@@ -1,6 +1,7 @@
 """Rank bodies of the port's two-rank CPU tests (``test_torch_port_parallel``,
-``test_torch_port_dist_step``, ``test_torch_port_checkpoint`` and
-``test_torch_port_telemetry_step``); this file holds no tests.
+``test_torch_port_dist_step``, ``test_torch_port_checkpoint``,
+``test_torch_port_telemetry_step`` and ``test_torch_port_sampler_modes``);
+this file holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
 process of its own, one a rank, in a gloo process group, and pickles the
@@ -252,3 +253,54 @@ def failing_rank():
         raise RuntimeError("rank 1 fails on purpose")
     dist.all_reduce(torch.ones(1))
     return "unreachable"
+
+
+def carried_numpy(state) -> dict:
+    """What the pool sampler's step modes carry, as host numpy values: the
+    EMA, the stream and the pending batch, cached pool or groupwise
+    state."""
+    out = {"ema": float(state.ema.value), "ema_count": int(state.ema.count),
+           "cursor": state.stream.cursor, "perm": state.stream.perm.numpy().copy()}
+    for prefix, value in (("pending", state.pending_batch), ("cached", state.cached_pool),
+                          ("gw", state.groupwise)):
+        if value is not None:
+            out.update({f"{prefix}.{k}": v.numpy().copy() if torch.is_tensor(v) else v
+                        for k, v in value._asdict().items()})
+    return out
+
+
+def modes_rank(jobs, data):
+    """The pool sampler's step modes at W ranks: for each job ``(config,
+    state_dict, perms, draws, synced)`` the model from ``state_dict``, this
+    rank's stream permutation ``perms[rank]``, then a step a row of
+    ``draws[t][rank]``, each followed by loading ``synced[t]`` (the JAX
+    step's parameters). Returns each step's metrics, carried state and
+    parameters before the load."""
+    torch.set_num_threads(1)
+    r = dist.get_rank()
+    x, y, xt, yt, shards, mean, std = data
+    out = []
+    for config, state_dict, perms, draws, synced in jobs:
+        model = tiny_resnet()
+        model.load_state_dict(state_dict)
+        set_sync_batch_norm(model, config.batch_norm == "sync")
+        dataset = make_sharded_dataset((x, y), (xt, yt), shards, mean, std, 10,
+                                       device=torch.device("cpu"), rank=r)
+        state = create_state(
+            model, "cpu", config.seed, dataset.shard_len, "adam", config.lr,
+            config.steps_per_epoch * config.num_epochs, rank=r,
+            with_groupwise=config.use_groupwise,
+            pending_batch_size=config.batch_size if config.use_pipelined else 0,
+            cached_pool_size=config.candidate_pool_size if config.use_cadence else 0)
+        state.stream = ShardStream(perm=torch.tensor(perms[r], dtype=torch.long), cursor=0)
+        step_fn = make_train_step(config, dataset)
+        steps = []
+        for row, params in zip(draws, synced):
+            metrics = step_fn(state, row[r])
+            steps.append(dict(
+                metrics={k: v.detach().clone() for k, v in metrics.items()},
+                carried=carried_numpy(state),
+                state_dict={k: v.detach().clone() for k, v in state.model.state_dict().items()}))
+            state.model.load_state_dict(params)
+        out.append(steps)
+    return out

@@ -65,13 +65,15 @@ def test_config_fields_match_the_jax_package():
     for name in ("refresh_size", "table_decay", "refresh_mode", "scoring_dtype",
                  "fused_input", "sampler", "grad_accum_steps", "checkpoint_dir",
                  "checkpoint_every", "checkpoint_keep", "auto_resume", "prefetch_depth",
-                 "decode_workers", "stream_shard_mode", "image_size"):
+                 "decode_workers", "stream_shard_mode", "image_size",
+                 "pipelined_scoring", "score_refresh_every"):
         assert name in {f.name for f in dataclasses.fields(TrainConfig)}, name
     assert (cfg.refresh_size, cfg.table_decay, cfg.refresh_mode) == (64, 0.98, "sync")
     assert (cfg.grad_accum_steps, cfg.checkpoint_dir, cfg.checkpoint_every,
             cfg.checkpoint_keep, cfg.auto_resume) == (1, None, 1000, 3, False)
     assert (cfg.prefetch_depth, cfg.decode_workers, cfg.stream_shard_mode,
             cfg.image_size) == (2, 0, "auto", 32)
+    assert (cfg.pipelined_scoring, cfg.score_refresh_every) == (False, 1)
 
 
 @pytest.mark.parametrize("field,kw", [
@@ -96,10 +98,47 @@ def test_config_fields_match_the_jax_package():
                  id="stream_shard_mode-global"),
     pytest.param("stream_shard_mode", dict(world_size=2, stream_shard_mode="replicated"),
                  id="stream_shard_mode-replicated-two-ranks"),
+    # The pool sampler's step modes are ported: what the JAX step refuses
+    # of them is refused.
+    pytest.param("pipelined_scoring", dict(pipelined_scoring=True, sampler="scoretable"),
+                 id="pipelined_scoring-scoretable"),
+    pytest.param("pipelined_scoring", dict(pipelined_scoring=True, sampler="groupwise"),
+                 id="pipelined_scoring-groupwise"),
+    pytest.param("score_refresh_every", dict(score_refresh_every=0),
+                 id="score_refresh_every-0"),
+    pytest.param("score_refresh_every", dict(score_refresh_every=0,
+                                             use_importance_sampling=False),
+                 id="score_refresh_every-0-uniform"),
+    pytest.param("score_refresh_every", dict(score_refresh_every=8, sampler="scoretable"),
+                 id="score_refresh_every-scoretable"),
+    pytest.param("score_refresh_every", dict(score_refresh_every=8, sampler="groupwise"),
+                 id="score_refresh_every-groupwise"),
+    pytest.param("score_refresh_every", dict(score_refresh_every=8, pipelined_scoring=True),
+                 id="score_refresh_every-pipelined"),
+    pytest.param("pipelined_scoring", dict(pipelined_scoring=True,
+                                           data_placement="host_stream"),
+                 id="pipelined_scoring-host_stream"),
+    pytest.param("score_refresh_every", dict(score_refresh_every=8,
+                                             data_placement="host_stream"),
+                 id="score_refresh_every-host_stream"),
+    pytest.param("sampler", dict(sampler="groupwise", data_placement="host_stream"),
+                 id="sampler-groupwise-host_stream"),
 ])
 def test_config_rejects_what_is_not_ported(field, kw):
     with pytest.raises(ValueError, match=field):
         TrainConfig(**{"world_size": 1, **kw})
+
+
+@pytest.mark.parametrize("kw", [
+    dict(pipelined_scoring=True, sampler="scoretable"),
+    dict(score_refresh_every=8, sampler="groupwise"),
+    dict(score_refresh_every=8, pipelined_scoring=True),
+    dict(sampler="groupwise", pipelined_scoring=True, data_placement="host_stream"),
+], ids=["pipelined-scoretable", "cadence-groupwise", "cadence-pipelined", "host_stream"])
+def test_step_modes_are_ignored_without_importance_sampling(kw):
+    """As in the JAX step, the uniform arm ignores the step modes."""
+    cfg = TrainConfig(world_size=1, use_importance_sampling=False, **kw)
+    assert not (cfg.use_pipelined or cfg.use_cadence or cfg.use_groupwise)
 
 
 def test_default_config_constructs_at_four_ranks():
