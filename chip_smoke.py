@@ -117,6 +117,21 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    mode's state in flight, then 4 steps live and 4 restored, bit-equal
    under deterministic cuDNN.
 
+12. the gradient path's options at ``world_size=2`` (two gloo ranks on
+   the one card, as phase 6), the default pool config at full width: (a)
+   ``zero_sharding=True``, (b) ``grad_compression="int8"``, (c) both, (d)
+   ``grad_compression="stochastic"``, each 3 warm steps, then 10 timed
+   steps a turn after 10 of the plain W=2 step. Every window's launches
+   are the pool step's; after every window the replicas' parameters and
+   BN statistics are bit-equal (sha256); a kernel step matches a plain
+   step with the same draws on each rank; ``train/sparse_rate`` is in
+   (0, 1] under (d) and 1.0 elsewhere; (a) and (c) save, then run 4 steps
+   live and 4 restored, bit-equal under deterministic cuDNN. Printed: each
+   arm's steps/s a rank beside the plain step's in its turn, the bytes
+   handed to ``torch.distributed`` a step by call and dtype (and what a
+   rank sends for them), their host ms, and the optimizer state's bytes a
+   rank; the int8 arms must send ¼ of the float32 gradient's bytes.
+
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
 arm and the scoretable step, in turns (see :func:`profile_phase`).
@@ -212,6 +227,24 @@ MODE_STEPS = 20
 MODE_TURNS = ("pool", "pipelined", "cadence", "groupwise",
               "groupwise", "cadence", "pipelined", "pool")
 MODE_RESUME = 4           # steps live and restored after a save
+# Phase 12, the gradient path's options at W=2 (two gloo ranks on the one
+# card): each arm 3 warm steps, then GRAD_STEPS timed steps in a turn after
+# the plain W=2 step's GRAD_STEPS.
+GRAD_ARMS = {"zero": dict(zero_sharding=True),
+             "int8": dict(grad_compression="int8"),
+             "zero_int8": dict(zero_sharding=True, grad_compression="int8"),
+             "stochastic": dict(grad_compression="stochastic")}
+GRAD_STEPS = 10
+GRAD_RESUME = 4           # steps live and restored after a save (ZeRO arms)
+# The torch.distributed calls whose bytes phase 12 counts: the tensor
+# handed in (all_reduce's buffer, the input of the others), and what a
+# rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
+# of those bytes (a ring all-reduce 2(W−1)/W; all-to-all and
+# reduce-scatter (W−1)/W; all-gather W−1).
+WIRE_CALLS = {"all_reduce": lambda w: 2 * (w - 1) / w,
+              "all_to_all_single": lambda w: (w - 1) / w,
+              "all_gather_into_tensor": lambda w: w - 1,
+              "reduce_scatter_tensor": lambda w: (w - 1) / w}
 # CIFAR-100's normalization (float32 in the dataset).
 CIFAR100_MEAN = (0.5071, 0.4865, 0.4409)
 CIFAR100_STD = (0.2673, 0.2564, 0.2762)
@@ -235,9 +268,9 @@ JAX_STEP_KEYS = {
                    "sampler/table_age_mean", "sampler/table_age_max", *_W_HIST,
                    *_SCORE_HIST},
 }
-# The JAX keys of options the port does not implement (gradient
-# compression, mixture of experts), and the port's own keys: the draws.
-JAX_ONLY_KEYS = {"train/sparse_rate", "train/moe_aux"}
+# The JAX keys of options the port does not implement (mixture of
+# experts), and the port's own keys: the draws.
+JAX_ONLY_KEYS = {"train/moe_aux"}
 PORT_ONLY_KEYS = {"sampler/selected", "sampler/probs"}
 # The seven keys of the scoretable Trainer's sampler-health monitor.
 MONITOR_KEYS = {"sampler_dist/frac_never_selected", "sampler_dist/gini",
@@ -280,6 +313,7 @@ def main() -> int:
     surface = run_phase("config surface", config_surface_phase, torch, card)
     stream = run_phase("host stream", host_stream_phase, torch, card)
     modes = run_phase("sampler modes", sampler_modes_phase, torch, card)
+    grad = run_phase("gradient path", grad_path_phase, torch, card, main_path)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -287,7 +321,8 @@ def main() -> int:
                    "accum_resume": accum["launches"][k["name"]],
                    "config_surface": surface["launches"][k["name"]],
                    "host_stream": stream["launches"][k["name"]],
-                   "sampler_modes": modes["launches"][k["name"]]}
+                   "sampler_modes": modes["launches"][k["name"]],
+                   "grad_path": grad["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -299,7 +334,8 @@ def main() -> int:
          "main_path": main_path["summary"], "scoretable_path": table_path["summary"],
          "two_ranks": two_ranks["summary"], "accum_resume": accum["summary"],
          "telemetry": telemetry, "config_surface": surface["summary"],
-         "host_stream": stream["summary"], "sampler_modes": modes["summary"]},
+         "host_stream": stream["summary"], "sampler_modes": modes["summary"],
+         "grad_path": grad["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -933,6 +969,13 @@ def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3,
     band of the CDF, likelier over a table of thousands than over a pool of
     320); then the losses differ too, and the step is repeated from the same
     state with fresh draws. One of ``attempts`` must draw the same batch.
+    Under ``grad_compression="stochastic"`` the two gradients differ where
+    the bf16 backward rounds a last-bit difference of the NLL's gradient
+    the other way (one bf16 ulp, 2⁻⁸ of the value), and every element whose
+    uniform lies that close to ``|g|/max|g|`` is kept on one side and
+    dropped on the other: there the sparse rates may differ by 1e-3 (a
+    thousandth of the gradient's elements kept on one side only) and the
+    gradient's norm by rtol 1e-2 (both differences returned).
     At two ranks ``any_rank`` tells whether a draw differed on any rank, so
     the ranks repeat (and issue their collectives) together."""
     from mercury_tpu_torch.train.step import make_draws
@@ -960,6 +1003,12 @@ def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3,
     finally:
         trainer.state = state
     step_err = {"band_misses": band_misses}
+    stochastic = config.grad_compression == "stochastic"
+    if stochastic:
+        a, b = float(k_m["train/sparse_rate"]), float(p_m["train/sparse_rate"])
+        step_err["train/sparse_rate"] = abs(a - b)
+        check(0 < a <= 1 and abs(a - b) <= 1e-3,
+              f"train/sparse_rate: kernel step {a!r}, plain step {b!r}")
     for key in ("train/loss", "train/pool_loss"):
         a, b = float(k_m[key]), float(p_m[key])
         step_err[key] = abs(a - b)
@@ -968,7 +1017,8 @@ def kernel_vs_plain_step(torch, trainer, config, attempts: int = 3,
     if config.telemetry:
         p_table = None if tables[False] is None else tables[False].scores
         step_err["telemetry"] = telemetry_agree(torch, k_m, p_m, p_table,
-                                                trained_weights(state, config, p_m))
+                                                trained_weights(state, config, p_m),
+                                                grad_norm_rtol=1e-2 if stochastic else 1e-4)
     if not quiet:
         print(f"kernel step vs plain step: |d loss| {step_err['train/loss']:.2e}, "
               f"|d pool_loss| {step_err['train/pool_loss']:.2e}, same draws "
@@ -1055,11 +1105,14 @@ def near_edges(torch, values, lo: float, hi: float, rel: float = 1e-5) -> int:
     return int(((v / edges - 1).abs() <= rel).any(1).sum())
 
 
-def telemetry_agree(torch, k_m, p_m, p_table=None, weights=None) -> dict:
+def telemetry_agree(torch, k_m, p_m, p_table=None, weights=None,
+                    grad_norm_rtol: float = 1e-4) -> dict:
     """A kernel step's telemetry against the plain step's (same state and
     draws): ESS and clip share rtol 1e-5, the drift within 1e-5 of the pool
     mean it is taken from (the EMA before the step is the same on both
-    sides), the gradient's norm rtol 1e-4; the histograms equal, except
+    sides), the gradient's norm rtol ``grad_norm_rtol`` (1e-4; see
+    :func:`kernel_vs_plain_step` for the stochastic quantizer's); the
+    histograms equal, except
     that a value within 1e-5 of a bin edge may move one bin (the f32 NLL
     and draw arithmetic differ in the last bits). ``weights``, the batch's
     IS weights, default to the plain step's ``p·N`` of its draw."""
@@ -1072,7 +1125,7 @@ def telemetry_agree(torch, k_m, p_m, p_table=None, weights=None) -> dict:
 
     err = {}
     for key, rtol in (("sampler/ess", 1e-5), ("sampler/clip_frac", 1e-5),
-                      ("train/grad_norm", 1e-4)):
+                      ("train/grad_norm", grad_norm_rtol)):
         a, b = float(k_m[key]), float(p_m[key])
         err[key] = abs(a - b)
         check(math.isfinite(a) and abs(a - b) <= rtol * abs(b),
@@ -2346,6 +2399,224 @@ def sampler_modes_phase(torch, card: str) -> dict:
     del trainers
     torch.cuda.empty_cache()
     return {"launches": launches, "summary": summary}
+
+
+# ----------------------------------------------------------------- phase 12
+def grad_path_phase(torch, card: str, main_path) -> dict:
+    """Phase 12: the gradient path's options at W=2, two gloo ranks on card
+    0 started by ``spawn`` (:func:`grad_path_body` is each rank's part).
+    Checks that both ranks saw the same windows, launches, replicas and
+    resumes, and prints each arm's rate beside the plain W=2 step's in its
+    turn, the collective bytes a step and the optimizer bytes a rank."""
+    import shutil
+
+    from mercury_tpu_torch.parallel.distributed import spawn
+
+    per_step = {k: v // MAIN_STEPS for k, v in main_path["launches"].items()}
+    directory = tempfile.mkdtemp(prefix="mercury_grad_ckpt_")
+    try:
+        ranks = spawn(grad_path_body, TWO_RANKS, "gloo", per_step, directory,
+                      devices=[0] * TWO_RANKS, timeout_s=600)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    r0, r1 = ranks
+    for key in ("replicas", "resume", "sparse_rate"):
+        check(r0[key] == r1[key], f"gradient path: the ranks' {key} differ: "
+              f"{r0[key]} and {r1[key]}")
+    wire, sent = r0["wire_bytes_per_step"], r0["sent_bytes_per_step"]
+    # The gradient's bytes sent a step: the plain bucket's are what the
+    # plain arm's all-reduces send beyond the int8 arm's (the BN
+    # statistics, the running statistics and the metrics on both); ZeRO's
+    # its reduce-scatter and all-gather; int8's every int8 byte.
+    bucket = sent["plain"]["all_reduce float32"] - sent["int8"]["all_reduce float32"]
+    zero_f32 = (sent["zero"]["reduce_scatter_tensor float32"]
+                + sent["zero"]["all_gather_into_tensor float32"])
+    ratios = {name: sum(v for k, v in sent[name].items() if k.endswith("int8")) / ref
+              for name, ref in (("int8", bucket), ("zero_int8", zero_f32))}
+    check(all(0.24 < r < 0.26 for r in ratios.values()),
+          f"gradient path: int8 bytes sent over float32 {ratios}")
+    summary = {"card": card, "ranks": TWO_RANKS, "backend": "gloo", "steps": GRAD_STEPS,
+               "gradient_bucket_sent_bytes": bucket, "zero_float32_sent_bytes": zero_f32,
+               "int8_over_float32_sent": ratios, "per_rank": ranks}
+    for name in ("plain", *GRAD_ARMS):
+        rates = {r["rank"]: [round(v, 3) for v in r["steps_per_s"][name]] for r in ranks}
+        ms = [{k: round(v, 2) for k, v in window.items()} for window in r0["wire_ms_per_step"][name]]
+        print(f"{name}: steps/s a rank {rates}; bytes handed to torch.distributed a step "
+              f"{ {k: round(v) for k, v in wire[name].items()} }, their host ms a step (rank "
+              f"0, each window) {ms}; optimizer state {r0['optimizer_bytes'][name]} bytes a "
+              f"rank (rank 1: {r1['optimizer_bytes'][name]}); sparse rate "
+              f"{r0['sparse_rate'][name]} [{card}]")
+    for name in GRAD_ARMS:
+        errs = [{**{k: v for k, v in e.items() if k != "telemetry"},
+                 "train/grad_norm": e["telemetry"]["train/grad_norm"]}
+                for e in (r["kernel_vs_plain"][name] for r in ranks)]
+        print(f"{name}: {[round(v, 3) for v in r0['steps_per_s'][name]]} steps/s against the "
+              f"plain W=2 step's {[round(v, 3) for v in r0['steps_per_s']['plain_' + name]]} "
+              f"in its turn (rank 0) [{card}]; kernel step vs plain step {errs}")
+    print(f"the gradient's bytes sent a step by a rank: int8 {ratios['int8']:.4f} of the "
+          f"plain all-reduce's {round(bucket)}, ZeRO+int8 {ratios['zero_int8']:.4f} of ZeRO's "
+          f"{round(zero_f32)}; sent by call and dtype "
+          f"{ {n: {k: round(v) for k, v in sent[n].items()} for n in sent} }")
+    print(f"replicas bit-equal after every window ({sum(map(len, r0['replicas'].values()))} "
+          f"windows); resumes bit-equal: "
+          f"{ {k: v['tensors_and_counters'] for k, v in r0['resume'].items()} } tensors and "
+          f"counters, saved at step {r0['resume']['zero']['saved_at']}")
+    launches = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+    return {"launches": launches, "summary": summary}
+
+
+def grad_path_body(per_step, directory):
+    """One rank of phase 12 (run by ``spawn``; prints nothing): the default
+    pool config at W=2 with each ``GRAD_ARMS`` option and without (the
+    plain arm), all built first, warmed, then timed in turns (plain, arm),
+    with launches, collective bytes and replica digests checked or taken
+    per window; a kernel step against a plain step in each arm; under ZeRO
+    a save into ``directory`` and a resume."""
+    import torch
+    import torch.distributed as dist
+
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.collectives import allreduce_sum
+
+    configs = {"plain": TrainConfig(model="resnet18", dataset="synthetic",
+                                    world_size=TWO_RANKS)}
+    configs.update({name: configs["plain"].replace(**kw) for name, kw in GRAD_ARMS.items()})
+    check(all(c.candidate_pool_size == 320 and c.batch_size == 32 and c.batch_norm == "sync"
+              and c.compute_dtype == "bfloat16" for c in configs.values()),
+          f"unexpected gradient-path configs {configs}")
+    trainers = {name: build_trainer(torch, config, quiet=True)
+                for name, config in configs.items()}
+    rank = trainers["plain"].rank
+    for trainer in trainers.values():
+        warm(trainer)
+
+    # (call, dtype, bytes, host seconds) of each collective in a window;
+    # gloo returns when the collective is done.
+    calls = []
+
+    def counting(name, original, at):
+        def counted(*args, **kwargs):
+            t = args[at]
+            t0 = time.perf_counter()
+            out = original(*args, **kwargs)
+            calls.append((name, str(t.dtype).replace("torch.", ""),
+                          t.numel() * t.element_size(), time.perf_counter() - t0))
+            return out
+        return counted
+
+    originals = {name: getattr(dist, name) for name in WIRE_CALLS}
+    for name in WIRE_CALLS:
+        setattr(dist, name, counting(name, originals[name], 0 if name == "all_reduce" else 1))
+
+    def replica(trainer):
+        model = trainer.state.model
+        return {k: digest(v) for k, v in model.state_dict().items()}
+
+    launches = {k: 0 for k in mk.KERNELS}
+    rates = {}
+    wire, sent, wire_ms, sparse, replicas = {}, {}, {}, {}, {}
+    try:
+        for arm in GRAD_ARMS:
+            for name, key in (("plain", "plain_" + arm), (arm, arm)):
+                calls.clear()
+                dt, counts, losses, metrics = timed_steps(torch, mk, trainers[name], GRAD_STEPS)
+                want = {k: v * GRAD_STEPS for k, v in per_step.items()}
+                check(counts == want, f"rank {rank} {name}: launch counts {counts}, "
+                      f"expected {want}")
+                rates.setdefault(key, []).append(GRAD_STEPS / dt)
+                rates.setdefault(name, []).append(GRAD_STEPS / dt)
+                if name != "plain":
+                    for k, v in counts.items():
+                        launches[k] += v
+                by, out, ms = {}, {}, {}
+                for call, dtype, nbytes, seconds in calls:
+                    key = f"{call} {dtype}"
+                    by[key] = by.get(key, 0) + nbytes / GRAD_STEPS
+                    out[key] = (out.get(key, 0)
+                                + WIRE_CALLS[call](TWO_RANKS) * nbytes / GRAD_STEPS)
+                    ms[key] = ms.get(key, 0) + seconds * 1e3 / GRAD_STEPS
+                wire[name], sent[name] = by, out
+                wire_ms.setdefault(name, []).append(ms)
+                rate = torch.stack([m["train/sparse_rate"] for m in metrics]).cpu()
+                ok = (((rate > 0) & (rate <= 1)).all() if name == "stochastic"
+                      else (rate == 1.0).all())
+                check(bool(torch.isfinite(rate).all()) and bool(ok),
+                      f"rank {rank} {name}: train/sparse_rate {rate.tolist()}")
+                sparse[name] = [rate.min().item(), rate.max().item()]
+                replicas.setdefault(name, []).append(replica(trainers[name]))
+    finally:
+        for name, original in originals.items():
+            setattr(dist, name, original)
+
+    def any_rank(flag: bool) -> bool:
+        return bool(allreduce_sum(torch.tensor(float(flag), device=trainers["plain"].device)) > 0)
+
+    step_err = {}
+    for name in GRAD_ARMS:
+        try:
+            step_err[name] = kernel_vs_plain_step(
+                torch, trainers[name], configs[name], any_rank=any_rank, quiet=True)
+        except SmokeFailure as e:
+            raise SmokeFailure(f"rank {rank} {name}: {e}") from e
+    optimizer_bytes = {name: sum(v.numel() * v.element_size()
+                                 for st in t.state.optimizer.state.values()
+                                 for v in st.values() if torch.is_tensor(v))
+                       for name, t in trainers.items()}
+    resume = {}
+    for name in ("zero", "zero_int8"):
+        resume[name] = grad_resume(torch, trainers[name], directory)
+    torch.cuda.synchronize()
+    for trainer in trainers.values():
+        trainer.close()
+    return {"rank": rank, "steps_per_s": rates, "launches": launches,
+            "wire_bytes_per_step": wire, "sent_bytes_per_step": sent,
+            "wire_ms_per_step": wire_ms, "sparse_rate": sparse,
+            "replicas": {name: [digest_of_digests(d) for d in windows]
+                         for name, windows in replicas.items()},
+            "kernel_vs_plain": step_err, "optimizer_bytes": optimizer_bytes,
+            "resume": resume}
+
+
+def digest_of_digests(digests: dict) -> str:
+    """One sha256 over a dict of digests, in key order."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(digests, sort_keys=True).encode()).hexdigest()
+
+
+def grad_resume(torch, trainer, directory: str) -> dict:
+    """Under deterministic cuDNN, at two ranks: a save of ``trainer`` into
+    ``directory``, ``GRAD_RESUME`` steps live, a fresh trainer restored from
+    the file and the same steps; the saved and restored states (each rank's
+    ZeRO chunk moments among them), the losses and the states after
+    bit-equal. Returns the step saved at, the tensors compared and the
+    digest of the state reached."""
+    undo = deterministic_cudnn(torch)
+    try:
+        at = trainer.state.step
+        trainer.save(directory)
+        saved = carried_digests(trainer.state)
+        a = torch.stack([trainer.train_step()["train/loss"] for _ in range(GRAD_RESUME)])
+        after = carried_digests(trainer.state)
+        fresh = build_trainer(torch, trainer.config, quiet=True)
+        check(fresh.restore(directory) == at, "restored step")
+        restored = carried_digests(fresh.state)
+        differ = sorted(k for k in saved if restored.get(k) != saved[k])
+        check(restored.keys() == saved.keys() and not differ,
+              f"the restored state differs from the saved one: {differ[:5]}")
+        b = torch.stack([fresh.train_step()["train/loss"] for _ in range(GRAD_RESUME)])
+        check(torch.equal(a, b), f"losses live {a.tolist()}, restored {b.tolist()}")
+        again = carried_digests(fresh.state)
+        differ = sorted(k for k in after if again.get(k) != after[k])
+        check(again.keys() == after.keys() and not differ,
+              f"the restored run's state differs from the live one's: {differ[:5]}")
+        fresh.close()
+    finally:
+        undo()
+    return {"saved_at": at, "tensors_and_counters": len(saved),
+            "reached": digest_of_digests({k: v for k, v in after.items()
+                                          if k.startswith("model.")})}
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):

@@ -69,6 +69,20 @@ class TrainConfig:
     # into a running mean and every A-th step applies the update. The log,
     # eval and checkpoint cadences still count steps (microsteps).
     grad_accum_steps: int = 1
+    # ZeRO-1: each rank owns 1/W of the flattened parameter vector (the JAX
+    # package's ravel_pytree order) and keeps the optimizer state of that
+    # chunk only. The gradient is reduce-scattered, the chunk's update
+    # all-gathered and added to the replicated parameters: a reduce-scatter
+    # and an all-gather move what one all-reduce would.
+    zero_sharding: bool = False
+    # "stochastic": each rank's gradient becomes sign(g)·max|g|·Bernoulli(
+    # |g|/max|g|) per parameter before the sync (an unbiased estimator; the
+    # wire still carries dense float32; train/sparse_rate is its share of
+    # nonzeros). "int8": both halves of the sync (all-to-all reduce-scatter
+    # and all-gather) carry int8 with one scale a row and stochastic
+    # rounding, 4× fewer bytes; at one rank it runs only under
+    # zero_sharding, whose two halves quantize even then.
+    grad_compression: str = "none"
 
     # Importance sampling
     use_importance_sampling: bool = True
@@ -232,6 +246,8 @@ class TrainConfig:
             bad("warmup_steps", "must be >= 0")
         if self.grad_accum_steps < 1:
             bad("grad_accum_steps", "must be >= 1")
+        if self.grad_compression not in ("none", "stochastic", "int8"):
+            bad("grad_compression", "use 'none', 'stochastic' or 'int8'")
         if self.variance_probe_every < 0:
             bad("variance_probe_every", "must be >= 0")
         # The pool sampler's step modes, refused where the JAX step

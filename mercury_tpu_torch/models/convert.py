@@ -6,12 +6,17 @@ arrays under Flax's automatic names (``Conv_0``, ``BatchNorm_0``,
 :class:`~mercury_tpu_torch.models.resnet.ResNet`. Conv kernels go HWIO →
 OIHW, Dense kernels ``[in, out]`` → ``[out, in]``, BatchNorm
 ``scale/bias/mean/var`` → ``weight/bias/running_mean/running_var``.
+
+``jax_flat_order`` goes the other way for the parameters as one vector:
+the index that puts the port's concatenated parameters in the order of
+``ravel_pytree`` of the Flax ``params``, which the JAX package's ZeRO
+chunks and int8 rows are cut from.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +35,10 @@ _BLOCK_NAMES = {
                    "Conv_3": "down_conv", "BatchNorm_3": "down_bn"},
 }
 _TOP_NAMES = {"Conv_0": "conv", "BatchNorm_0": "bn", "Dense_0": "fc"}
+# Port parameter name → Flax leaf name, by Flax layer kind.
+_LEAVES = {("Conv", "weight"): "kernel", ("Dense", "weight"): "kernel",
+           ("Dense", "bias"): "bias", ("BatchNorm", "weight"): "scale",
+           ("BatchNorm", "bias"): "bias"}
 
 
 def _t(a) -> torch.Tensor:
@@ -89,3 +98,45 @@ def params_from_flax(params: Mapping[str, Any],
         else:
             raise KeyError(f"no port counterpart for Flax module {name!r}")
     return out
+
+
+def _flax_path(name: str, block: str) -> Tuple[str, ...]:
+    """The Flax ``params`` path of the port's parameter ``name`` in a
+    ResNet of ``block`` ("BasicBlock" or "Bottleneck") blocks."""
+    *modules, leaf = name.split(".")
+    if modules[0] == "blocks":
+        layer = {v: k for k, v in _BLOCK_NAMES[block].items()}[modules[2]]
+        path: Tuple[str, ...] = (f"{block}_{modules[1]}", layer)
+    else:
+        layer = {v: k for k, v in _TOP_NAMES.items()}[modules[0]]
+        path = (layer,)
+    return path + (_LEAVES[layer.split("_")[0], leaf],)
+
+
+def jax_flat_order(model: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(order, inverse)``, int64 ``[n]`` on the model's device:
+    ``port_vec[order]`` is ``ravel_pytree`` of the Flax ResNet's ``params``
+    and ``jax_vec[inverse]`` the port's vector back, where ``port_vec`` is
+    ``torch.cat([p.reshape(-1) for p in model.parameters()])``.
+
+    ``ravel_pytree`` takes the leaves in sorted-key order at every level
+    (``BasicBlock_10`` before ``BasicBlock_2``; ``BatchNorm_*`` before
+    ``Conv_*``; ``bias`` before ``kernel`` and ``scale``), each raveled in
+    its Flax layout: conv kernels HWIO, the Dense kernel ``[in, out]``."""
+    block = type(model.blocks[0]).__name__
+    leaves: List[Tuple[Tuple[str, ...], torch.Tensor]] = []
+    offset = 0
+    for name, p in model.named_parameters():
+        path = _flax_path(name, block)
+        idx = torch.arange(offset, offset + p.numel()).view(p.shape)
+        if path[-2].startswith("Conv_"):
+            idx = idx.permute(2, 3, 1, 0)  # OIHW → HWIO
+        elif idx.dim() == 2:
+            idx = idx.T  # [out, in] → [in, out]
+        leaves.append((path, idx.reshape(-1)))
+        offset += p.numel()
+    order = torch.cat([idx for _, idx in sorted(leaves, key=lambda leaf: leaf[0])])
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(offset)
+    device = next(model.parameters()).device
+    return order.to(device), inverse.to(device)

@@ -1,12 +1,21 @@
 """The step's collectives over ``torch.distributed`` — the PyTorch
 counterpart of ``mercury_tpu/parallel/collectives.py``
-(``allreduce_mean_tree``, ``psum_stats``) and of the ``lax.pmean`` in
-Flax's synced BatchNorm.
+(``allreduce_mean_tree``, ``psum_stats``, the int8 wire and ZeRO's two
+halves) and of the ``lax.pmean`` in Flax's synced BatchNorm.
 
 Every function takes the process group (``None``: the default group) and
-is the identity at one rank: it returns its input and issues no collective,
-with or without a process group. Ranks must call them in the same order,
-as they do when they run the same step.
+issues no collective at one rank, with or without a process group. Each is
+the identity there, except the two halves of the int8 wire, which quantize
+at one rank as the JAX functions do. Ranks must call them in the same
+order, as they do when they run the same step.
+
+The int8 wire (``grad_compression="int8"``) holds the JAX arithmetic: one
+scale a row, ``max(max|row|, 1e-30)/127``, and stochastic rounding
+``clip(floor(y) + (u < y − floor(y)), −127, 127)`` with the uniforms ``u``
+as an argument. Gloo takes CUDA tensors in ``all_to_all_single``,
+``all_gather_into_tensor`` and ``reduce_scatter_tensor``, int8 included
+(torch 2.11 on the H100, ``chip_smoke.py`` phase 12), so every backend
+issues the same calls.
 """
 
 from __future__ import annotations
@@ -15,6 +24,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from mercury_tpu_torch.utils.tree import pad_to_chunks
 
 
 def world(group=None) -> int:
@@ -108,3 +119,93 @@ def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     if world(group) == 1:
         return x
     return AllReduceMean.apply(x, group)
+
+
+def stochastic_round(u: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Unbiased rounding of ``y`` to the int8 grid, ``u`` uniforms of
+    ``y``'s shape: ``E[round(y)] = y`` inside ±127."""
+    lo = torch.floor(y)
+    return torch.clamp(lo + (u < y - lo).to(y.dtype), -127, 127).to(torch.int8)
+
+
+def quantize_rows(u: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 of ``x`` ``[R, ...]`` with one scale a leading row, and the
+    ``[R, 1, …]`` float32 scales."""
+    dims = tuple(range(1, x.dim()))
+    scale = torch.clamp(x.abs().amax(dim=dims, keepdim=True), min=1e-30) / 127.0
+    return stochastic_round(u, x / scale), scale
+
+
+def compressed_psum_scatter_mean(rows: torch.Tensor, u: torch.Tensor, group=None
+                                 ) -> torch.Tensor:
+    """The mean over the ranks of this rank's row of ``rows`` ``[W, C]``,
+    int8 on the wire: each row quantized (``u`` ``[W, C]``), two
+    ``all_to_all_single`` (the int8 rows, then the scales), the mean in
+    float32. ``[C]`` float32; at one rank the dequantized row."""
+    q, scale = quantize_rows(u, rows)
+    if world(group) > 1:
+        q_all, s_all = torch.empty_like(q), torch.empty_like(scale)
+        dist.all_to_all_single(q_all, q, group=group)
+        dist.all_to_all_single(s_all, scale, group=group)
+        q, scale = q_all, s_all
+    return (q.to(torch.float32) * scale).mean(dim=0)
+
+
+def compressed_all_gather(chunk: torch.Tensor, u: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``[C]`` chunk, concatenated, int8 on the wire: the
+    chunk quantized with one scale (``u`` ``[C]``), two all-gathers (the
+    int8 chunk, then the scale), dequantized. ``[W·C]`` float32; at one
+    rank the dequantized chunk."""
+    q, scale = quantize_rows(u[None], chunk[None])
+    w = world(group)
+    if w > 1:
+        gq = q.new_empty((w, q.shape[1]))
+        gs = scale.new_empty((w, 1))
+        dist.all_gather_into_tensor(gq, q, group=group)
+        dist.all_gather_into_tensor(gs, scale, group=group)
+        q, scale = gq, gs
+    return (q.to(torch.float32) * scale).reshape(-1)
+
+
+def allreduce_quantizes(group=None) -> bool:
+    """Whether :func:`compressed_allreduce_mean` quantizes: across ranks
+    only, as in the JAX package; at one rank it is the identity (ZeRO's two
+    halves quantize there all the same)."""
+    return world(group) > 1
+
+
+def compressed_allreduce_mean(vec: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor,
+                              group=None) -> torch.Tensor:
+    """The mean over the ranks of a float32 vector, int8 on both halves of
+    the wire: zero-padded to ``[W, chunk]``,
+    :func:`compressed_psum_scatter_mean` (``u1`` ``[W, chunk]``), then
+    :func:`compressed_all_gather` of the mean chunk (``u2`` ``[chunk]``).
+    ``vec`` itself at one rank."""
+    if not allreduce_quantizes(group):
+        return vec
+    w = world(group)
+    mine = compressed_psum_scatter_mean(pad_to_chunks(vec, w), u1, group)
+    return compressed_all_gather(mine, u2, group)[:vec.numel()]
+
+
+def psum_scatter_mean(rows: torch.Tensor, group=None) -> torch.Tensor:
+    """ZeRO's gradient half: this rank's row of the mean over the ranks of
+    ``rows`` ``[W, C]``, by one ``reduce_scatter_tensor`` (SUM, then ÷W);
+    ``rows[0]`` at one rank."""
+    w = world(group)
+    if w == 1:
+        return rows[0]
+    out = rows.new_empty(rows.shape[1:])
+    dist.reduce_scatter_tensor(out, rows.reshape(-1), op=dist.ReduceOp.SUM, group=group)
+    return out.div_(w)
+
+
+def all_gather_flat(chunk: torch.Tensor, group=None) -> torch.Tensor:
+    """ZeRO's update half: every rank's ``[C]`` chunk concatenated,
+    ``[W·C]``, by one ``all_gather_into_tensor``; ``chunk`` at one rank."""
+    w = world(group)
+    if w == 1:
+        return chunk
+    out = chunk.new_empty((w * chunk.numel(),))
+    dist.all_gather_into_tensor(out, chunk, group=group)
+    return out

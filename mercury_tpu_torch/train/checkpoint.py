@@ -28,6 +28,11 @@ drops the ring; a ring does not restore into a run of another placement.
 A file restores only into a run of the same step mode: one with a pending
 batch, a cached pool or a groupwise state into a run that keeps the same.
 
+Under ``zero_sharding`` each rank's optimizer state and accumulator are
+its own chunk's, so they go into its row and each rank restores its own;
+such a file restores only into a ZeRO run of the same ``world_size`` (the
+JAX package's elastic resharding of the chunks is not ported).
+
 A file is written to ``ckpt_<step>.pt.tmp``, flushed to disk and renamed,
 so a torn write never carries a checkpoint's name.
 """
@@ -89,10 +94,22 @@ def _cpu(t: torch.Tensor) -> torch.Tensor:
     return t.detach().cpu()
 
 
-def _rank_row(state: MercuryState) -> Dict[str, Any]:
-    """This rank's sampler state, on the host."""
+def _optimizer_on_host(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    sd = optimizer.state_dict()
+    return {"param_groups": sd["param_groups"],
+            "state": {i: {k: _cpu(v) if torch.is_tensor(v) else v for k, v in st.items()}
+                      for i, st in sd["state"].items()}}
+
+
+def _rank_row(state: MercuryState, zero: bool) -> Dict[str, Any]:
+    """This rank's sampler state, and under ZeRO its chunk's optimizer
+    state and accumulator, on the host."""
     table = state.scoretable
-    return {
+    own = {}
+    if zero:
+        own = {"optimizer": _optimizer_on_host(state.optimizer),
+               "accum": None if state.accum is None else [_cpu(a) for a in state.accum]}
+    return {**own,
         "ema_value": _cpu(state.ema.value), "ema_count": _cpu(state.ema.count),
         "perm": _cpu(state.stream.perm), "cursor": state.stream.cursor,
         "generator": state.generator.get_state(),
@@ -132,7 +149,8 @@ def save_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
     """Write ``state`` to ``directory/ckpt_<state.step>.pt`` and prune to
     the newest ``keep``; return the path. Called by every rank at W>1:
     rank 0 writes, and every rank returns once the file exists."""
-    rows = gather_to_rank0(_rank_row(state))
+    zero = config.zero_sharding
+    rows = gather_to_rank0(_rank_row(state, zero))
     path = checkpoint_path(directory, state.step)
     if rank() == 0:
         os.makedirs(directory, exist_ok=True)
@@ -140,10 +158,11 @@ def save_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
             "format": FORMAT,
             "step": state.step, "updates": state.updates, "mini_step": state.mini_step,
             "world_size": config.world_size, "grad_accum_steps": config.grad_accum_steps,
-            "device": state.stream.perm.device.type,
+            "zero_sharding": zero, "device": state.stream.perm.device.type,
             "model": {k: _cpu(v) for k, v in state.model.state_dict().items()},
-            "optimizer": state.optimizer.state_dict(),
-            "accum": None if state.accum is None else [_cpu(a) for a in state.accum],
+            # Under ZeRO both are in the rank rows.
+            "optimizer": None if zero else _optimizer_on_host(state.optimizer),
+            "accum": None if zero or state.accum is None else [_cpu(a) for a in state.accum],
             "ranks": rows,
         })
         prune(directory, keep)
@@ -157,8 +176,8 @@ def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
     """Load ``directory/ckpt_<step>.pt`` (default: the newest) into
     ``state`` in place, this rank's row of sampler state included; return
     the step. A checkpoint saved at another ``world_size``, another
-    ``grad_accum_steps`` or on another device type raises ``ValueError``
-    naming the field."""
+    ``grad_accum_steps``, another ``zero_sharding`` or on another device
+    type raises ``ValueError`` naming the field."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -168,12 +187,15 @@ def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     device = state.stream.perm.device
     for field, have in (("format", FORMAT), ("world_size", config.world_size),
+                        ("zero_sharding", config.zero_sharding),
                         ("grad_accum_steps", config.grad_accum_steps),
                         ("device", device.type)):
-        if ckpt[field] != have:
+        saved = ckpt.get(field, False)
+        if saved != have:
             raise ValueError(
-                f"{path} was saved with {field}={ckpt[field]!r}, this run has "
-                f"{field}={have!r}: the port restores only into the same one")
+                f"{path} was saved with {field}={saved!r}, this run has {field}={have!r}: "
+                "the port restores only into the same one (it does not reshard "
+                "zero_sharding's optimizer chunks)")
     row = ckpt["ranks"][rank()]
     if (row["table"] is None) != (state.scoretable is None):
         raise ValueError(f"{path} and this run differ in sampler: one keeps a "
@@ -186,9 +208,10 @@ def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
         raise ValueError(f"{path} was saved by a data_placement='host_stream' run (its "
                          "stream and generator are depth steps ahead): restore it into one")
     state.model.load_state_dict(ckpt["model"])
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    own = row if config.zero_sharding else ckpt
+    state.optimizer.load_state_dict(own["optimizer"])
     if state.accum is not None:
-        for acc, saved in zip(state.accum, ckpt["accum"]):
+        for acc, saved in zip(state.accum, own["accum"]):
             acc.copy_(saved)
     state.step, state.updates, state.mini_step = (
         ckpt["step"], ckpt["updates"], ckpt["mini_step"])

@@ -22,6 +22,12 @@ Under ``data_placement="host_stream"`` it carries the ring of selections in
 flight, :class:`PendingSelection`: the slots and weights of steps
 t … t+depth−1, drawn ``depth`` steps ahead, and those steps' random draws.
 
+With ``zero_sharding`` (ZeRO-1) the optimizer holds one float32 tensor,
+this rank's chunk of the flattened parameters in the JAX package's order,
+and its state (and the accumulator) are that chunk's. ZeRO's step and the
+int8 wire read the flat order, :class:`FlatLayout`, which
+:func:`flat_layout` builds on first use and keeps on the state.
+
 The pool sampler's step modes carry their own: ``pipelined_scoring`` the
 batch selected for the next step (:class:`PendingBatch`),
 ``score_refresh_every > 1`` the scored pool it redraws from
@@ -40,9 +46,12 @@ import numpy as np
 import torch
 
 from mercury_tpu_torch.data.pipeline import ShardStream, init_shard_streams
+from mercury_tpu_torch.models.convert import jax_flat_order
+from mercury_tpu_torch.parallel import collectives
 from mercury_tpu_torch.sampling.groupwise import GroupwiseState, init_groupwise
 from mercury_tpu_torch.sampling.importance import EMAState, init_ema
 from mercury_tpu_torch.sampling.scoretable import ScoreTableState, init_score_table
+from mercury_tpu_torch.utils.tree import zero_chunk_size
 
 Schedule = Callable[[int], float]
 
@@ -64,13 +73,41 @@ class Draws(NamedTuple):
     its rows anew: scoretable, groupwise and the cached-pool cadence
     (``k_aug2``). ``boot`` is the boot pool's own perm, aug and uniforms,
     drawn at step 0 of ``pipelined_scoring`` only (``k_boot_stream``,
-    ``k_boot_aug``, ``k_boot_sel``)."""
+    ``k_boot_aug``, ``k_boot_sel``). The gradient's quantizers read the
+    last three, drawn only when their option is on: ``grad_uniforms`` one
+    uniform a gradient element under ``grad_compression="stochastic"`` (the
+    JAX step's ``split(fold_in(rng, 0x71), n_leaves)``), ``wire_u1`` and
+    ``wire_u2`` the int8 wire's two roundings (``split(fold_in(rng,
+    0x72))``)."""
 
     perm: Optional[torch.Tensor]  # [L] reshuffle permutation; read only if the stream wraps
     aug: Optional[Augment]        # P or R images (None on a cadence step that reuses its pool)
     uniforms: Optional[torch.Tensor]  # [1, B] float32 U(0,1) of the draw (IS only)
     aug2: Optional[Augment] = None    # B images (scoretable, groupwise, cadence)
     boot: Optional["Draws"] = None    # pipelined step 0: the boot pool's draws
+    # a float32 tensor of each parameter's shape, in model.parameters() order
+    grad_uniforms: Optional[Tuple[torch.Tensor, ...]] = None
+    wire_u1: Optional[torch.Tensor] = None  # [W, chunk] the gradient rows, JAX order
+    wire_u2: Optional[torch.Tensor] = None  # [chunk] the gathered chunk
+
+
+class FlatLayout(NamedTuple):
+    """The parameters as the JAX package's flat vector (``ravel_pytree``
+    order, ``models/convert.jax_flat_order``), cut into ZeRO's ``[W,
+    chunk]``: rank ``r`` owns elements ``[r·chunk, (r+1)·chunk)``."""
+
+    order: torch.Tensor    # [n] int64: jax_vec = port_vec[order]
+    inverse: torch.Tensor  # [n] int64: port_vec = jax_vec[inverse]
+    world: int
+    rank: int
+
+    @property
+    def n(self) -> int:
+        return self.order.numel()
+
+    @property
+    def chunk(self) -> int:
+        return zero_chunk_size(self.n, self.world)
 
 
 class PendingBatch(NamedTuple):
@@ -157,8 +194,13 @@ def pending_from_host(saved: Dict[str, Any], device) -> PendingSelection:
     def augment(d):
         return None if d is None else Augment(**{k: put(v) for k, v in d.items()})
 
+    def each(ts):
+        return None if ts is None else tuple(put(t) for t in ts)
+
     draws = tuple(Draws(perm=put(d["perm"]), aug=augment(d["aug"]),
-                        uniforms=put(d["uniforms"]), aug2=augment(d["aug2"]))
+                        uniforms=put(d["uniforms"]), aug2=augment(d["aug2"]),
+                        grad_uniforms=each(d.get("grad_uniforms")),
+                        wire_u1=put(d.get("wire_u1")), wire_u2=put(d.get("wire_u2")))
                   for d in saved["draws"])
     return PendingSelection(put(saved["slots"]), put(saved["scaled_probs"]), draws)
 
@@ -238,7 +280,8 @@ class MercuryState:
     updates: int = 0                 # optimizer updates applied (= step at A=1)
     mini_step: int = 0               # microsteps folded into accum since the last update
     # grad_accum_steps > 1 only: the float32 running mean of this window's
-    # gradients, one tensor a parameter in model.parameters() order
+    # gradients, one tensor a parameter in model.parameters() order (under
+    # zero_sharding one: this rank's chunk)
     accum: Optional[List[torch.Tensor]] = None
     # sampler="scoretable" with telemetry only: this rank's [L] int32 ledger
     # of trained slots on the device, one count an occurrence
@@ -256,6 +299,9 @@ class MercuryState:
     # sampler="groupwise" only: the shard's importance and group tags on the
     # device, cursor and generation on the host
     groupwise: Optional[GroupwiseState] = None
+    # the JAX flat order and ZeRO's chunking, built by flat_layout() on
+    # first use (never changed, so clones share it)
+    flat: Optional[FlatLayout] = None
 
     def clone(self) -> "MercuryState":
         """An independent copy: the model and its optimizer are copied
@@ -302,7 +348,9 @@ def create_state(model: torch.nn.Module, device: torch.device, seed: int,
                  with_groupwise: bool = False,
                  pending_batch_size: int = 0,
                  pending_sample_shape: Tuple[int, ...] = (32, 32, 3),
-                 cached_pool_size: int = 0) -> MercuryState:
+                 cached_pool_size: int = 0,
+                 world_size: int = 1,
+                 zero_sharding: bool = False) -> MercuryState:
     """Move ``model`` to ``device`` and build its optimizer, a fresh EMA,
     the worker's stream and a generator seeded with ``rank_seed(seed,
     rank)``; with ``with_scoretable`` also a score table of ones over the
@@ -312,13 +360,20 @@ def create_state(model: torch.nn.Module, device: torch.device, seed: int,
     placeholders are the JAX package's: ``pending_batch_size=B`` a batch of
     zero images of ``pending_sample_shape`` (after augmentation), zero
     labels and unit weights; ``cached_pool_size=P`` zero slots under the
-    uniform distribution. The model arrives with its weights: the same on
-    every rank."""
+    uniform distribution. With ``zero_sharding`` the optimizer runs over
+    one float32 tensor of ``zero_chunk_size(n, world_size)``, this rank's
+    chunk of the flat parameters (the step copies the parameters into it
+    before each update), and the accumulator is chunk-shaped. The model arrives with its weights: the same on every
+    rank."""
     device = torch.device(device)
     model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
-    opt, schedule = make_optimizer(optimizer, model.parameters(), lr,
+    params = list(model.parameters())
+    if zero_sharding:
+        chunk = zero_chunk_size(sum(p.numel() for p in params), world_size)
+        params = [torch.nn.Parameter(torch.zeros(chunk, dtype=torch.float32, device=device))]
+    opt, schedule = make_optimizer(optimizer, params, lr,
                                    total_steps, weight_decay, warmup_steps,
                                    grad_accum_steps)
     gen = torch.Generator(device=device)
@@ -327,7 +382,7 @@ def create_state(model: torch.nn.Module, device: torch.device, seed: int,
     table = init_score_table(shard_len, device) if with_scoretable else None
     accum = None
     if grad_accum_steps > 1:
-        accum = [torch.zeros_like(p, dtype=torch.float32) for p in model.parameters()]
+        accum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
     sel_counts = None
     if with_sel_counts:
         sel_counts = torch.zeros(shard_len, dtype=torch.int32, device=device)
@@ -350,3 +405,13 @@ def create_state(model: torch.nn.Module, device: torch.device, seed: int,
                         accum=accum, sel_counts=sel_counts,
                         pending_batch=pending_batch, cached_pool=cached_pool,
                         groupwise=init_groupwise(shard_len, device) if with_groupwise else None)
+
+
+def flat_layout(state: MercuryState) -> FlatLayout:
+    """The state's :class:`FlatLayout` over the ranks of the default
+    process group, built from the model the first time ZeRO's step or the
+    int8 wire asks for it and kept on the state."""
+    if state.flat is None:
+        state.flat = FlatLayout(*jax_flat_order(state.model),
+                               world=collectives.world(), rank=collectives.rank())
+    return state.flat

@@ -88,6 +88,20 @@ of W ranks, and these cross the ranks (``parallel/collectives.py``):
 
 At W=1 the step issues no collective and needs no process group.
 
+The gradient path (:func:`sync_and_step`, the JAX ``train_update``'s
+middle) has two options. ``grad_compression="stochastic"`` quantizes each
+rank's gradient per parameter before the sync (``utils/quantize.py``;
+``train/sparse_rate`` is the share of nonzeros, 1.0 without it).
+``grad_compression="int8"`` syncs the gradient as the JAX package's flat
+vector (``ravel_pytree`` order, ``state.flat``) with int8 on both halves
+of the wire. ``zero_sharding`` reduce-scatters that flat vector, steps the
+optimizer on this rank's chunk (under ``"int8"`` the compressed
+reduce-scatter), all-gathers the chunk's update (compressed under
+``"int8"``) and adds it to the parameters; at A > 1 the chunk is
+accumulated, and a microstep that applies nothing still gathers its zero
+update, as the JAX step does. Under ZeRO the two halves (int8 or not) run
+at W=1 too, where they issue no collective but the int8 ones quantize.
+
 With ``config.telemetry`` (the default, as in the JAX package) the step
 also returns the sampler's health (``obs/``): ``sampler/ess``,
 ``sampler/clip_frac``, ``sampler/ema_drift``, ``train/grad_norm`` (after the
@@ -184,7 +198,16 @@ from mercury_tpu_torch.ops.mercury_kernels import (
     score_and_draw,
     table_refresh_draw,
 )
-from mercury_tpu_torch.parallel.collectives import allreduce_mean_, allreduce_sum
+from mercury_tpu_torch.parallel.collectives import (
+    all_gather_flat,
+    allreduce_mean_,
+    allreduce_quantizes,
+    allreduce_sum,
+    compressed_all_gather,
+    compressed_allreduce_mean,
+    compressed_psum_scatter_mean,
+    psum_scatter_mean,
+)
 from mercury_tpu_torch.parallel.distributed import require_world
 from mercury_tpu_torch.sampling.groupwise import draw as groupwise_draw
 from mercury_tpu_torch.sampling.groupwise import update_importance, window_indices
@@ -211,7 +234,10 @@ from mercury_tpu_torch.train.state import (
     MercuryState,
     PendingBatch,
     PendingSelection,
+    flat_layout,
 )
+from mercury_tpu_torch.utils.quantize import sparsity, stochastic_quantize
+from mercury_tpu_torch.utils.tree import pad_to_chunks
 
 CROP_PAD = 4
 IMAGE_SIZE = 32  # CIFAR's side: the range of the cutout centres
@@ -232,7 +258,24 @@ def pool_size(config: TrainConfig) -> int:
 
 
 def make_draws(state: MercuryState, config: TrainConfig) -> Draws:
-    """One step's draws from the state's generator, on its device."""
+    """One step's draws from the state's generator, on its device: the
+    sampler's, then the gradient quantizers' where their option is on (so
+    with both off the generator's sequence is the step's without them)."""
+    draws = _sampler_draws(state, config)
+    gen = state.generator
+    dev = gen.device
+    if config.grad_compression == "stochastic":
+        draws = draws._replace(grad_uniforms=tuple(
+            torch.rand(p.shape, generator=gen, device=dev) for p in state.model.parameters()))
+    elif _int8_wire(config):
+        flat = flat_layout(state)
+        draws = draws._replace(
+            wire_u1=torch.rand((flat.world, flat.chunk), generator=gen, device=dev),
+            wire_u2=torch.rand(flat.chunk, generator=gen, device=dev))
+    return draws
+
+
+def _sampler_draws(state: MercuryState, config: TrainConfig) -> Draws:
     gen = state.generator
     dev = gen.device
 
@@ -326,14 +369,16 @@ def set_lr(state: MercuryState) -> None:
 
 
 @torch.no_grad()
-def accumulate(state: MercuryState, accum_steps: int) -> None:
-    """optax.MultiSteps for one microstep: fold the gradients into the
-    running mean ``acc + (g − acc) / (mini_step + 1)`` (its ``_acc_update``;
-    a sum divided at the end would round otherwise), and on the
-    ``accum_steps``-th microstep apply the mean as the gradient at
+def accumulate(state: MercuryState, accum_steps: int,
+               params: Optional[Sequence[torch.Tensor]] = None) -> None:
+    """optax.MultiSteps for one microstep: fold the gradients of ``params``
+    (default: the model's; under ZeRO the chunk the optimizer holds) into
+    the running mean ``acc + (g − acc) / (mini_step + 1)`` (its
+    ``_acc_update``; a sum divided at the end would round otherwise), and on
+    the ``accum_steps``-th microstep apply the mean as the gradient at
     ``lr_schedule(updates)`` and zero the accumulator. Between updates the
     parameters and the optimizer state do not change."""
-    params = list(state.model.parameters())
+    params = list(state.model.parameters()) if params is None else list(params)
     diff = torch._foreach_sub([p.grad for p in params], state.accum)
     torch._foreach_div_(diff, float(state.mini_step + 1))
     torch._foreach_add_(state.accum, diff)
@@ -348,6 +393,93 @@ def accumulate(state: MercuryState, accum_steps: int) -> None:
     torch._foreach_zero_(state.accum)
     state.mini_step = 0
     state.updates += 1
+
+
+def apply_update(state: MercuryState, accum_steps: int,
+                 params: Optional[Sequence[torch.Tensor]] = None) -> None:
+    """The optimizer step, or at ``grad_accum_steps > 1`` :func:`accumulate`
+    of ``params``' gradients."""
+    if state.accum is None:
+        state.optimizer.step()
+        state.updates += 1
+    else:
+        accumulate(state, accum_steps, params)
+
+
+@torch.no_grad()
+def sync_and_step(state: MercuryState, config: TrainConfig, draws: Draws,
+                  telemetry: bool):
+    """The gradient path after the backward, the JAX ``train_update``'s
+    middle, in its order: the optional ``"stochastic"`` quantization; the
+    sync (the all-reduced bucket, the int8 all-reduce of the flat vector,
+    or ZeRO's reduce-scatter, chunk update and all-gather of the update,
+    int8 or not); the gradient's norm (under ``telemetry``; ZeRO's from its
+    chunks); the optimizer step or the accumulation. Returns the norm
+    (None without telemetry) and this rank's ``train/sparse_rate`` (None
+    unless ``"stochastic"``)."""
+    params = list(state.model.parameters())
+    sparse_rate = grad_norm = None
+    if config.grad_compression == "stochastic":
+        grads = [stochastic_quantize(u, p.grad)
+                 for u, p in zip(_need(draws.grad_uniforms, "grad_uniforms"), params)]
+        total = float(sum(g.numel() for g in grads))
+        sparse_rate = torch.stack([sparsity(g) * (g.numel() / total) for g in grads]).sum()
+        for p, g in zip(params, grads):
+            p.grad = g
+    if config.zero_sharding:
+        return _zero_step(state, config, draws, params, telemetry), sparse_rate
+    grads = [p.grad for p in params if p.grad is not None]
+    if _int8_wire(config):
+        flat = flat_layout(state)
+        vec = torch.cat([g.reshape(-1) for g in grads])[flat.order]
+        vec = compressed_allreduce_mean(vec, _need(draws.wire_u1, "wire_u1"),
+                                        _need(draws.wire_u2, "wire_u2"))[flat.inverse]
+        for g, part in zip(grads, vec.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+    elif config.world_size > 1:
+        allreduce_mean_(grads)
+    if telemetry:
+        # This (micro)step's gradient, equal on every rank.
+        grad_norm = global_grad_norm(grads)
+    apply_update(state, config.grad_accum_steps)
+    return grad_norm, sparse_rate
+
+
+def _zero_step(state: MercuryState, config: TrainConfig, draws: Draws,
+               params: Sequence[torch.Tensor], telemetry: bool) -> Optional[torch.Tensor]:
+    """ZeRO-1 (the JAX step's ``zero`` branch): this rank's chunk of the
+    mean flat gradient by reduce-scatter, the optimizer over the chunk of
+    the flat parameters (the update is the chunk's change), the updates
+    all-gathered and added to the parameters through the inverse order.
+    Returns the gradient's norm under ``telemetry``: the root of the
+    all-reduced sum of the chunks' squares (the padding is zeros)."""
+    flat = flat_layout(state)
+    int8 = config.grad_compression == "int8"
+    gvec = torch.cat([p.grad.reshape(-1) for p in params])[flat.order]
+    rows = pad_to_chunks(gvec, flat.world)
+    if int8:
+        gchunk = compressed_psum_scatter_mean(rows, _need(draws.wire_u1, "wire_u1"))
+    else:
+        gchunk = psum_scatter_mean(rows)
+    grad_norm = None
+    if telemetry:
+        grad_norm = torch.sqrt(allreduce_sum(gchunk.to(torch.float32).square().sum()))
+    pvec = torch.cat([p.reshape(-1) for p in params])[flat.order]
+    pchunk = pad_to_chunks(pvec, flat.world)[flat.rank]
+    chunk = state.optimizer.param_groups[0]["params"][0]
+    chunk.copy_(pchunk)
+    chunk.grad = gchunk
+    apply_update(state, config.grad_accum_steps, [chunk])
+    # Zero on a microstep that applies nothing, gathered all the same.
+    update = chunk - pchunk
+    if int8:
+        uvec = compressed_all_gather(update, _need(draws.wire_u2, "wire_u2"))
+    else:
+        uvec = all_gather_flat(update)
+    uvec = uvec[:flat.n][flat.inverse]
+    torch._foreach_add_(params, [u.view_as(p) for p, u in zip(
+        params, uvec.split([p.numel() for p in params]))])
+    return grad_norm
 
 
 def make_train_step(
@@ -385,7 +517,6 @@ def make_train_step(
     batch_size = config.batch_size
     refresh_size = config.refresh_size
     bf16 = config.compute_dtype == "bfloat16"
-    accum_steps = config.grad_accum_steps
     telemetry = config.telemetry
     use_pipelined, use_cadence, use_groupwise = (
         config.use_pipelined, config.use_cadence, config.use_groupwise)
@@ -463,6 +594,40 @@ def make_train_step(
         images = augment(normalize_images(raw, dataset.mean, dataset.std), aug)
         return images if out_dtype is None else images.to(out_dtype)
 
+    # train/sparse_rate without "stochastic": one 1.0, the same tensor every
+    # step (no op a step, no collective).
+    dense_rate = torch.ones((), dtype=torch.float32, device=data_dev)
+
+    def train_update(state: MercuryState, sel_images: torch.Tensor, sel_labels: torch.Tensor,
+                     scaled_probs: torch.Tensor, draws: Draws, loss_of):
+        """The train back end every step path shares (the JAX step's
+        ``train_update``): the reweighted forward and backward, then
+        :func:`sync_and_step` (at A > 1 the gradient is folded into the
+        accumulator instead, and every A-th microstep applies it), then the
+        BN running statistics' mean over the ranks. Returns the logits, the
+        per-sample and reweighted losses, the gradient's norm and this
+        rank's sparse rate."""
+        model = state.model
+        if state.accum is None:
+            set_lr(state)
+        state.optimizer.zero_grad(set_to_none=True)
+        if config.zero_sharding:
+            # The optimizer holds the flat chunk, not the model's parameters.
+            model.zero_grad(set_to_none=True)
+        with torch.autocast(device_type=data_dev.type, dtype=torch.bfloat16,
+                            enabled=bf16 and data_dev.type == "cuda"):
+            logits = model(to_nchw(sel_images), train=True, keep_stats=True)
+        train_losses = loss_of(logits, sel_labels)
+        loss = reweighted_loss(train_losses, scaled_probs)
+        loss.backward()
+        grad_norm, sparse_rate = sync_and_step(state, config, draws, telemetry)
+        if world_size > 1:
+            # Averaged under "sync" (already equal) and "local" alike, as
+            # the JAX step averages batch_stats.
+            allreduce_mean_([b for name, b in model.named_buffers()
+                             if name.endswith(("running_mean", "running_var"))])
+        return logits, train_losses, loss, grad_norm, sparse_rate
+
     def step_fn(state: MercuryState, draws: Optional[Draws] = None,
                 use_kernels: bool = True, x_stream: Optional[torch.Tensor] = None):
         if host_stream:
@@ -488,8 +653,6 @@ def make_train_step(
 
         model = state.model
         dev = data_dev
-        autocast = torch.autocast(device_type=dev.type, dtype=torch.bfloat16,
-                                  enabled=bf16 and dev.type == "cuda")
 
         def score(images: torch.Tensor, labels: torch.Tensor):
             """The scoring forward and the per-sample scores; returns the
@@ -703,34 +866,11 @@ def make_train_step(
         if probe:
             var_ratio = probe_var_ratio(sel_images, sel_labels, scaled_probs)
 
-        # --- train update: reweighted forward/backward, optimizer step (at
-        # A > 1 the gradient is folded into the accumulator instead, and
-        # every A-th microstep applies it).
-        if state.accum is None:
-            set_lr(state)
-        state.optimizer.zero_grad(set_to_none=True)
-        with autocast:
-            logits = model(to_nchw(sel_images), train=True,
-                           keep_stats=True)
-        train_losses = loss_of(logits, sel_labels)
-        loss = reweighted_loss(train_losses, scaled_probs)
-        loss.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        if world_size > 1:
-            allreduce_mean_(grads)
-        if telemetry:
-            # This (micro)step's gradient, equal on every rank.
-            grad_norm = global_grad_norm(grads)
-        if state.accum is None:
-            state.optimizer.step()
-            state.updates += 1
-        else:
-            accumulate(state, accum_steps)
-        if world_size > 1:
-            # Averaged under "sync" (already equal) and "local" alike, as
-            # the JAX step averages batch_stats.
-            allreduce_mean_([b for name, b in model.named_buffers()
-                             if name.endswith(("running_mean", "running_var"))])
+        # Under host_stream the trained batch is step t's, drawn with the
+        # ring's front: its quantizers' uniforms are that step's too.
+        logits, train_losses, loss, grad_norm, sparse_rate = train_update(
+            state, sel_images, sel_labels, scaled_probs,
+            front_draws if host_stream else draws, loss_of)
 
         if use_table:
             # Write-back: the trained slots' fresh scores, duplicates
@@ -785,7 +925,8 @@ def make_train_step(
         state.scoretable = table
         state.pending_batch, state.cached_pool, state.groupwise = (
             pending_batch, cached_pool, groupwise)
-        means: Dict[str, torch.Tensor] = {}  # telemetry scalars, averaged at W>1
+        # The telemetry's scalars and the sparse rate, averaged at W>1.
+        means: Dict[str, torch.Tensor] = {}
         hists: Dict[str, torch.Tensor] = {}  # telemetry histograms, summed at W>1
         with torch.no_grad():
             if telemetry:
@@ -800,6 +941,8 @@ def make_train_step(
                     # The table after the write-back: what the next draw reads.
                     hists["score_hist"] = log_bin_histogram(table.scores, SCORE_HIST_LO,
                                                             SCORE_HIST_HI)
+            if sparse_rate is not None:
+                means["train/sparse_rate"] = sparse_rate
             hits = logits.argmax(dim=-1) == sel_labels
             loss = loss.detach()
             if world_size == 1:
@@ -837,8 +980,10 @@ def make_train_step(
             # pipelined: the next pool's; cadence: the cached pool's;
             # groupwise: the newest group's over the shard)
             metrics["sampler/probs"] = probs
+        if sparse_rate is None:
+            metrics["train/sparse_rate"] = dense_rate
+        metrics.update(means)
         if telemetry:
-            metrics.update(means)
             metrics["train/grad_norm"] = grad_norm
             if use_table:
                 metrics.update(ages)
@@ -908,6 +1053,12 @@ def _perm(draws: Draws) -> torch.Tensor:
     if draws.perm is None:
         raise ValueError("the stream wraps this step: draws.perm is required")
     return draws.perm
+
+
+def _int8_wire(config: TrainConfig) -> bool:
+    """The int8 collectives quantize: ZeRO's two halves at any world size,
+    the all-reduce where :func:`allreduce_quantizes` says."""
+    return config.grad_compression == "int8" and (config.zero_sharding or allreduce_quantizes())
 
 
 def _need(value: Optional[torch.Tensor], name: str) -> torch.Tensor:

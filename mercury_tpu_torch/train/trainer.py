@@ -157,6 +157,7 @@ class Trainer:
                                   if config.augmentation == "iid"
                                   else tuple(self.dataset.x_train.shape[1:])),
             cached_pool_size=config.candidate_pool_size if config.use_cadence else 0,
+            world_size=config.world_size, zero_sharding=config.zero_sharding,
         )
         self.sampler_monitor: Optional[SamplerHealthMonitor] = None
         if config.use_ledger:

@@ -1,7 +1,7 @@
 """Rank bodies of the port's two-rank CPU tests (``test_torch_port_parallel``,
 ``test_torch_port_dist_step``, ``test_torch_port_checkpoint``,
-``test_torch_port_telemetry_step`` and ``test_torch_port_sampler_modes``);
-this file holds no tests.
+``test_torch_port_telemetry_step``, ``test_torch_port_sampler_modes`` and
+``test_torch_port_grad_path``); this file holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
 process of its own, one a rank, in a gloo process group, and pickles the
@@ -304,3 +304,45 @@ def modes_rank(jobs, data):
             state.model.load_state_dict(params)
         out.append(steps)
     return out
+
+
+def grad_path_rank(jobs, data, checkpoint_kw, directory):
+    """The gradient path's options at W ranks: for each job ``(config,
+    state_dict, perms, draws, synced)`` the model from ``state_dict``, this
+    rank's stream permutation ``perms[rank]``, then a step a row of
+    ``draws[t][rank]``, each followed by loading ``synced[t]`` (the JAX
+    step's parameters); then :func:`checkpoint_rank` of ``checkpoint_kw``
+    into ``directory``, three steps before the save and three after. Returns
+    each step's metrics, parameters before the load and, under ZeRO, this
+    rank's chunk moments; and the checkpoint run's states."""
+    torch.set_num_threads(1)
+    r = dist.get_rank()
+    x, y, xt, yt, shards, mean, std = data
+    out = []
+    for config, state_dict, perms, draws, synced in jobs:
+        model = tiny_resnet()
+        model.load_state_dict(state_dict)
+        set_sync_batch_norm(model, config.batch_norm == "sync")
+        dataset = make_sharded_dataset((x, y), (xt, yt), shards, mean, std, 10,
+                                       device=torch.device("cpu"), rank=r,
+                                       placement=config.data_placement)
+        state = create_state(
+            model, "cpu", config.seed, dataset.shard_len, "adam", config.lr,
+            config.steps_per_epoch * config.num_epochs, rank=r,
+            grad_accum_steps=config.grad_accum_steps,
+            with_scoretable=config.use_scoretable, world_size=config.world_size,
+            zero_sharding=config.zero_sharding)
+        state.stream = ShardStream(perm=torch.tensor(perms[r], dtype=torch.long), cursor=0)
+        step_fn = make_train_step(config, dataset)
+        steps = []
+        for row, params in zip(draws, synced):
+            metrics = step_fn(state, row[r])
+            moments = {k: v.clone() for st in state.optimizer.state.values()
+                       for k, v in st.items() if k.startswith("exp_avg")}
+            steps.append(dict(
+                metrics={k: v.detach().clone() for k, v in metrics.items()},
+                moments=moments if config.zero_sharding else None,
+                state_dict={k: v.detach().clone() for k, v in state.model.state_dict().items()}))
+            state.model.load_state_dict(params)
+        out.append(steps)
+    return dict(jobs=out, checkpoint=checkpoint_rank(checkpoint_kw, directory, 3, 3))

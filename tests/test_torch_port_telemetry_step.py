@@ -54,9 +54,10 @@ COMMON = dict(dataset="synthetic", world_size=1, batch_size=B, presample_batches
               compute_dtype="float32", num_epochs=1, steps_per_epoch=STEPS, seed=0)
 TABLE = dict(sampler="scoretable", refresh_size=R, fused_input=True)
 SCALARS = ("sampler/ess", "sampler/clip_frac", "sampler/ema_drift")
-# The keys of the step before telemetry (telemetry=False).
-UNTRACED_KEYS = {"train/loss", "train/acc", "train/pool_loss", "sampler/selected",
-                 "sampler/probs"}
+# The keys of the step before telemetry (telemetry=False), and the sparse
+# rate, which the JAX step returns with or without telemetry.
+UNTRACED_KEYS = {"train/loss", "train/acc", "train/pool_loss", "train/sparse_rate",
+                 "sampler/selected", "sampler/probs"}
 
 
 def _np_tree(tree):
