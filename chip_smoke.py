@@ -130,7 +130,22 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    arm's steps/s a rank beside the plain step's in its turn, the bytes
    handed to ``torch.distributed`` a step by call and dtype (and what a
    rank sends for them), their host ms, and the optimizer state's bytes a
-   rank; the int8 arms must send ¼ of the float32 gradient's bytes.
+   rank; the int8 arms must send ¼ of the float32 gradient's bytes;
+13. async scoring (``refresh_mode="async"``): (a) from one state, a
+   ``score_once`` chunk against the same window through the live model and
+   the plain NLL, the chunk applied at age 0 and 3 (bit for bit), one async
+   step with the kernels (``table_refresh_draw`` with a one-slot sentinel
+   window) against the plain route (the same slots, slot 0 the decay
+   alone), the sentinel and ``table_refresh_draw`` at R=1 against the plain
+   versions at L=5000 and 50,000; (b) phase 5's config with the plain and
+   the fused ingest: the sync step, the async step with a live fleet and
+   one with ``scorer_throttle_s=0.005``, 20 steps a turn in turns (1
+   nll_fwd a step against sync's 2; chunks applied and rejected, the
+   staleness, the fleet's rows/s and launches, a snapshot's ms); (c) phase
+   10 (b)'s streamed scoretable under async (32 rows streamed a step
+   against 96, the stall share, a kernel step against a plain step); (d) a
+   restore in the middle of a live run (the queue empty, the snapshot at
+   the restored step) and no scorer thread alive after ``close()``.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -150,6 +165,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -236,6 +252,14 @@ GRAD_ARMS = {"zero": dict(zero_sharding=True),
              "stochastic": dict(grad_compression="stochastic")}
 GRAD_STEPS = 10
 GRAD_RESUME = 4           # steps live and restored after a save (ZeRO arms)
+# Phase 13, async scoring: phase 5's scoretable config with
+# refresh_mode="async" (its fused ingest, and the plain one), against the
+# sync step in turns, and with the fleet throttled; phase 10 (b)'s
+# streamed scoretable under async.
+ASYNC_TABLE = dict(SCORETABLE, refresh_mode="async")
+ASYNC_STEPS = 20
+ASYNC_TURNS = ("sync", "async", "throttled", "throttled", "async", "sync")
+ASYNC_THROTTLE_S = 0.005
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -253,8 +277,8 @@ CIFAR100_STD = (0.2673, 0.2564, 0.2762)
 PARAMETERS = {("resnet18", 10): 11_173_962, ("resnet18", 100): 11_220_132,
               ("resnet101", 100): 42_697_380, ("resnet152", 100): 58_341_028}
 
-# The metric keys of the JAX package's default step (pool) and its
-# scoretable step, with telemetry on (its default): a CPU test holds this
+# The metric keys of the JAX package's default step (pool), its scoretable
+# step and its async scoretable step, with telemetry on (its default): a CPU test holds this
 # literal to the JAX step's own keys.
 _W_HIST = [f"sampler_dist/w_hist/b{i:02d}" for i in range(16)]
 _SCORE_HIST = [f"sampler_dist/score_hist/b{i:02d}" for i in range(16)]
@@ -268,6 +292,9 @@ JAX_STEP_KEYS = {
                    "sampler/table_age_mean", "sampler/table_age_max", *_W_HIST,
                    *_SCORE_HIST},
 }
+# The async scoretable step: no window, so no table ages.
+JAX_STEP_KEYS["async"] = JAX_STEP_KEYS["scoretable"] - {
+    "sampler/table_age_min", "sampler/table_age_mean", "sampler/table_age_max"}
 # The JAX keys of options the port does not implement (mixture of
 # experts), and the port's own keys: the draws.
 JAX_ONLY_KEYS = {"train/moe_aux"}
@@ -314,6 +341,7 @@ def main() -> int:
     stream = run_phase("host stream", host_stream_phase, torch, card)
     modes = run_phase("sampler modes", sampler_modes_phase, torch, card)
     grad = run_phase("gradient path", grad_path_phase, torch, card, main_path)
+    async_ = run_phase("async scoring", async_scoring_phase, torch, card, stream["summary"])
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -322,7 +350,8 @@ def main() -> int:
                    "config_surface": surface["launches"][k["name"]],
                    "host_stream": stream["launches"][k["name"]],
                    "sampler_modes": modes["launches"][k["name"]],
-                   "grad_path": grad["launches"][k["name"]]}
+                   "grad_path": grad["launches"][k["name"]],
+                   "async_scoring": async_["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -335,7 +364,7 @@ def main() -> int:
          "two_ranks": two_ranks["summary"], "accum_resume": accum["summary"],
          "telemetry": telemetry, "config_surface": surface["summary"],
          "host_stream": stream["summary"], "sampler_modes": modes["summary"],
-         "grad_path": grad["summary"]},
+         "grad_path": grad["summary"], "async_scoring": async_["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1063,7 +1092,7 @@ def telemetry_rows(torch, metrics, keys):
 
 
 def check_telemetry(torch, metrics, path: str, batch: int):
-    """Every step's telemetry on ``path`` ("pool" or "scoretable"): the
+    """Every step's telemetry on ``path`` ("pool", "scoretable" or "async"): the
     JAX step's metric keys (``JAX_STEP_KEYS``, less the options the port
     does not implement, plus the port's draws), ESS in (0, 1], clip share
     in [0, 1], the gradient's norm finite and positive, the IS-weight
@@ -1084,7 +1113,7 @@ def check_telemetry(torch, metrics, path: str, batch: int):
     out = {"ess": [ess.min().item(), ess.max().item()],
            "clip_frac": [clip.min().item(), clip.max().item()],
            "grad_norm": [gnorm.min().item(), gnorm.max().item()]}
-    if path == "scoretable":
+    if path in ("scoretable", "async"):
         length = metrics[0]["sampler/probs"].numel()
         s_sums = telemetry_rows(torch, metrics, _SCORE_HIST).sum(1)
         check(bool((s_sums == length).all()),
@@ -1132,7 +1161,10 @@ def telemetry_agree(torch, k_m, p_m, p_table=None, weights=None,
               f"{key}: kernel step {a!r}, plain step {b!r}")
     a, b = float(k_m["sampler/ema_drift"]), float(p_m["sampler/ema_drift"])
     err["sampler/ema_drift"] = abs(a - b)
-    check(abs(a - b) <= 1e-5 * abs(float(p_m["train/pool_loss"])),
+    # Async scores no pool: its drift is taken from the trained batch's
+    # reweighted scores, whose mean is the train loss.
+    scale = float(p_m["train/pool_loss"]) or float(p_m["train/loss"])
+    check(abs(a - b) <= 1e-5 * abs(scale),
           f"sampler/ema_drift: kernel step {a!r}, plain step {b!r}")
     probs = p_m["sampler/probs"]
     if weights is None:
@@ -1893,7 +1925,8 @@ def stream_kernel_vs_plain_step(torch, trainer, config, attempts: int = 3):
                                                     use_kernels)
         (k_m, k_next), (p_m, p_next) = results[True], results[False]
         if config.use_scoretable:
-            r = config.refresh_size
+            # The ring's newest row: the window (sync) and the draw.
+            r = 0 if config.use_async else config.refresh_size
             u = draws.uniforms
             k_sel, p_sel = (states[x].pending.slots[-1][r:] for x in (True, False))
         else:
@@ -2617,6 +2650,391 @@ def grad_resume(torch, trainer, directory: str) -> dict:
     return {"saved_at": at, "tensors_and_counters": len(saved),
             "reached": digest_of_digests({k: v for k, v in after.items()
                                           if k.startswith("model.")})}
+
+
+# ----------------------------------------------------------------- phase 13
+def async_kernel_vs_plain(torch, mk, card: str) -> dict:
+    """(a) From one state, with the fleet's workers stopped: a chunk of
+    ``score_once`` against the same window, augmentation and parameters
+    through the live model and the plain NLL; the chunk applied at age 0
+    (its scores exactly) and at age 3 (``v·w + μ·(1 − w)`` in float32, bit
+    for bit); one async step with the kernels against the plain route from
+    the same draws (the same slots, weights to rtol 1e-5, the table's
+    untouched slots bit-equal, the rest to rtol 1e-5, slot 0 the decay
+    alone); and the sentinel refresh and ``table_refresh_draw`` at R=1
+    against the plain versions at L = 5000 and 50,000."""
+    import numpy as np
+
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.data.pipeline import normalize_images
+    from mercury_tpu_torch.ops import reference
+    from mercury_tpu_torch.sampling.scoretable import decay_scores
+    from mercury_tpu_torch.sampling.scorer_fleet import chunk_seed
+    from mercury_tpu_torch.train.step import (
+        augment_images,
+        draw_augment,
+        make_draws,
+        scoring_forward,
+    )
+
+    config = TrainConfig(**ASYNC_TABLE)
+    check(config.use_async and config.fused_input and config.refresh_size == 64
+          and config.snapshot_every == 16 and config.scorer_workers == 1,
+          f"unexpected async config {config}")
+    trainer = build_trainer(torch, config, quiet=True)
+    warm(trainer)
+    fleet = trainer._scorer_fleet
+    fleet.close()
+    ds, state, dev = trainer.dataset, trainer.state, trainer.device
+    length, r = ds.shard_len, config.refresh_size
+    fleet.snapshot(state.model, state.step)
+    chunk_id, start = fleet._chunk_seq, fleet._cursor
+    before = dict(fleet.launch_counts)
+    chunk = fleet.score_once()
+    fleet_nll = fleet.launch_counts["nll_fwd"] - before["nll_fwd"]
+    slots = (start + torch.arange(r, device=trainer.device)) % length
+    check(torch.equal(chunk.slots, slots.cpu()) and chunk.step == state.step
+          and chunk.scores.is_pinned() == (dev.type == "cuda") and fleet_nll == 1,
+          f"score_once: slots {chunk.slots.tolist()[:4]}..., step {chunk.step}, "
+          f"{fleet_nll} nll_fwd launches")
+    gidx = ds.shard_indices[ds.rank][slots]
+    gen = torch.Generator(device=trainer.device).manual_seed(chunk_seed(config.seed, chunk_id))
+    images = augment_images(normalize_images(ds.x_train[gidx], ds.mean, ds.std),
+                            draw_augment(gen, r, config), config)
+    with torch.no_grad():
+        want = reference.nll_forward(scoring_forward(state.model, images, config).float(),
+                                     ds.y_train[gidx])
+    score_err = within(chunk.scores, want.cpu(), rtol=1e-3, atol=1e-3)
+
+    table0 = state.scoretable.scores.clone()
+    ema = np.float32(state.ema.value.item())
+    slots_d = chunk.slots.to(trainer.device)
+    rest = torch.ones(length, dtype=torch.bool, device=trainer.device)
+    rest[slots_d] = False
+    for age in (0, 3):
+        state.scoretable = state.scoretable._replace(scores=table0.clone())
+        trainer._apply_chunks([chunk._replace(step=state.step - age)], state.step)
+        w = np.float32(config.table_decay ** age)
+        want_v = chunk.scores.numpy() * w + ema * (np.float32(1.0) - w)
+        got = state.scoretable.scores
+        check(np.array_equal(got[slots_d].cpu().numpy(), want_v)
+              and torch.equal(got[rest], table0[rest]),
+              f"the chunk applied at age {age} is not v·w + μ·(1 − w) bit for bit")
+
+    # One async step, kernels against the plain route, from one state.
+    probe = state.clone()
+    for _ in range(3):
+        draws = make_draws(probe, config)
+        runs = {}
+        for use_kernels in (True, False):
+            s = state.clone()
+            mk.reset_launch_counts()
+            m = trainer._step_fn(s, draws, use_kernels)
+            runs[use_kernels] = (m, s, dict(mk.launch_counts))
+        (k_m, k_s, k_c), (p_m, p_s, p_c) = runs[True], runs[False]
+        _, _, differ = check_draws(torch, "async kernel step vs plain step", p_m["sampler/probs"],
+                                   draws.uniforms.reshape(-1), k_m["sampler/selected"],
+                                   p_m["sampler/selected"])
+        if not bool(differ.any()):
+            break
+    else:
+        raise SmokeFailure("async kernel and plain steps drew different batches in 3 tries")
+    check(k_c["table_refresh_draw"] == 1 and p_c["table_refresh_draw"] == 0
+          and k_c["nll_fwd"] == 1 and k_c["augment_normalize"] == 1,
+          f"async step launches: kernels {k_c}, plain {p_c}")
+    sel = k_m["sampler/selected"]
+    scaled_err = within(k_m["sampler/probs"][sel] * length,
+                        p_m["sampler/probs"][sel] * length, rtol=1e-5, atol=0.0)
+    trained = torch.zeros(length, dtype=torch.bool, device=trainer.device)
+    trained[sel] = True
+    kt, pt = k_s.scoretable.scores, p_s.scoretable.scores
+    check(torch.equal(kt[~trained], pt[~trained]),
+          "async step: the untouched slots of the kernel and plain tables differ")
+    table_err = within(kt[trained], pt[trained], rtol=1e-5, atol=0.0)
+    decayed = decay_scores(state.scoretable.scores, state.ema.value, config.table_decay)
+    sentinel_ok = bool(trained[0]) or kt[0].item() == decayed[0].item()
+    check(sentinel_ok, f"slot 0 after the sentinel {kt[0].item()!r}, the decay "
+          f"{decayed[0].item()!r}")
+    loss_err = abs(float(k_m["train/loss"]) - float(p_m["train/loss"]))
+    check(loss_err <= 1e-4 * abs(float(p_m["train/loss"])),
+          f"async step losses {float(k_m['train/loss'])!r}, {float(p_m['train/loss'])!r}")
+    tel = telemetry_agree(torch, k_m, p_m, pt)
+    check(k_s.scoretable.cursor == state.scoretable.cursor, "the async step moved the cursor")
+
+    # The sentinel refresh alone and the kernel at R = 1, at one block and
+    # at a cluster of 16.
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = []
+    for n in (5000, 50_000):
+        scores = torch.rand(n, generator=gen, device=dev) * 4 + 0.1
+        ema_t = torch.tensor([0.9], device=dev)
+        sent = ema_t + (scores[:1] - ema_t) * config.table_decay
+        u = torch.rand(config.batch_size, generator=gen, device=dev)
+        new_t = mk.table_refresh_draw_kernel(
+            scores, torch.zeros(1, dtype=torch.int64, device=dev), sent, ema_t, u,
+            config.is_alpha, config.table_decay)[0]
+        check(torch.equal(new_t, decay_scores(scores, ema_t[0], config.table_decay)),
+              f"the sentinel refresh at L={n} is not the decay alone")
+        for wrap in (False, True):
+            cases.append(table_case(torch, mk, reference, gen, n, 1, config.batch_size,
+                                    dup=False, wrap=wrap))
+    print(f"async (a): score_once [{r}] vs the live model and plain NLL max |err| "
+          f"{score_err:.2e}; applied at ages 0 and 3 bit for bit; kernel vs plain step: "
+          f"same slots, |d scaled| {scaled_err:.2e}, written-back slots |err| {table_err:.2e}, "
+          f"untouched slots and slot 0 (the sentinel) bit-equal, |d loss| {loss_err:.2e}; "
+          f"telemetry {tel}; table_refresh_draw at R=1: " + ", ".join(
+              f"L={c['shape'][0]} K={c['clusters']} {c['ms'] * 1e3:.2f} us "
+              f"(plain {c['plain_ms'] * 1e3:.2f} us)" for c in cases) + f" [{card}]")
+    trainer.close()
+    del trainer
+    return {"score_once_err": score_err, "scaled_err": scaled_err, "table_err": table_err,
+            "loss_err": loss_err, "telemetry": tel, "sentinel_slot0_drawn": bool(trained[0]),
+            "r1_cases": cases}
+
+
+def async_live(torch, mk, card: str, fused: bool) -> dict:
+    """(b) The scoretable config of phase 5 (``fused_input`` as given):
+    the sync step, the async step with a live fleet, and the async step
+    with the fleet throttled, ``ASYNC_STEPS`` a turn in ``ASYNC_TURNS``.
+    Each window's step launches are checked (async: one nll_fwd a step, the
+    sync step's two); the fleet's launches, chunks applied and rejected,
+    the staleness, the fleet's rows/s and the snapshot's ms are read."""
+    import statistics as st
+
+    from mercury_tpu_torch import TrainConfig
+
+    base = dict(SCORETABLE, fused_input=fused)
+    configs = {"sync": TrainConfig(**base),
+               "async": TrainConfig(**base, refresh_mode="async"),
+               "throttled": TrainConfig(**base, refresh_mode="async",
+                                        scorer_throttle_s=ASYNC_THROTTLE_S)}
+    trainers = {name: build_trainer(torch, c, quiet=True) for name, c in configs.items()}
+    for trainer in trainers.values():
+        warm(trainer)
+    ingest = 1 if fused else 0
+    per_step = {"sync": {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 0,
+                         "table_refresh_draw": 1, "augment_normalize": 2 * ingest},
+                "async": {"nll_fwd": 1, "nll_bwd": 1, "score_and_draw": 0,
+                          "table_refresh_draw": 1, "augment_normalize": ingest}}
+    launches = {k: 0 for k in mk.KERNELS}
+    rates = {name: [] for name in configs}
+    fleet = {name: {"chunks_applied": 0, "fleet_launches": {k: 0 for k in mk.KERNELS},
+                    "staleness_mean": [], "staleness_max": [], "rows_per_s": [],
+                    "rejected": 0, "table_range": None} for name in ("async", "throttled")}
+    for name in ASYNC_TURNS:
+        trainer = trainers[name]
+        f = trainer._scorer_fleet
+        if f is not None:
+            trainer.scorer_stats()
+            applied0, counts0 = f.summary()["chunks_applied"], dict(f.launch_counts)
+        dt, counts, losses, metrics = timed_steps(torch, mk, trainer, ASYNC_STEPS)
+        want = {k: v * ASYNC_STEPS for k, v in per_step["sync" if f is None else "async"].items()}
+        check(counts == want, f"{name} (fused={fused}): step launches {counts}, expected {want}")
+        check_telemetry(torch, metrics, "scoretable" if f is None else "async",
+                        configs[name].batch_size)
+        rates[name].append(ASYNC_STEPS / dt)
+        if f is None:
+            continue
+        for k, v in counts.items():
+            launches[k] += v
+        stats = trainer.scorer_stats()
+        rec = fleet[name]
+        rec["chunks_applied"] += f.summary()["chunks_applied"] - applied0
+        for k in mk.KERNELS:
+            rec["fleet_launches"][k] += f.launch_counts[k] - counts0[k]
+        rec["rejected"] = stats["sampler/chunks_rejected"]
+        rec["staleness_mean"].append(stats["sampler/score_staleness_mean"])
+        rec["staleness_max"].append(stats["sampler/score_staleness_max"])
+        rec["rows_per_s"].append(stats["scorer/throughput"])
+        check(trainer.state.scoretable.cursor == 0, f"{name}: the async step moved the cursor")
+        # Losses, and so scores, are >= 0; a saturated bf16 softmax gives
+        # exact zeros.
+        table = trainer.state.scoretable.scores
+        check(bool(torch.isfinite(table).all()) and float(table.min()) >= 0,
+              f"{name}: the table is not finite and >= 0: min {float(table.min())!r}, "
+              f"max {float(table.max())!r}, {int((~torch.isfinite(table)).sum())} "
+              f"non-finite, EMA {float(trainer.state.ema.value)!r}")
+        rec["table_range"] = [float(table.min()), float(table.max()),
+                              int((table == 0).sum())]
+    summary = {"steps_per_s": rates, "per_step_launches": per_step}
+    for name, rec in fleet.items():
+        f = trainers[name]._scorer_fleet
+        check(rec["rejected"] == 0, f"{name}: {rec['rejected']} chunks rejected")
+        check(rec["chunks_applied"] >= 1 and rec["fleet_launches"]["nll_fwd"] >= 1,
+              f"{name}: the fleet applied {rec['chunks_applied']} chunks, launched "
+              f"{rec['fleet_launches']}")
+        check(rec["fleet_launches"]["augment_normalize"] == 0
+              and rec["fleet_launches"]["table_refresh_draw"] == 0,
+              f"{name}: fleet launches {rec['fleet_launches']}")
+        # A snapshot's host time (the call: the trainer does not wait) and
+        # its device time on the trainer's stream (CUDA events around it),
+        # the fleet's worker running beside it; medians of 5.
+        model, step = trainers[name].state.model, trainers[name].state.step
+        host, device = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            t0 = time.perf_counter()
+            f.snapshot(model, step)
+            host.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            device.append(start.elapsed_time(end))
+        rec["snapshot_ms"], rec["snapshot_device_ms"] = st.median(host), st.median(device)
+        rec["snapshot_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in f._snap.tensors.values())
+        summary[name] = rec
+    print(f"async (b), fused_input={fused}: steps/s in turns of {ASYNC_STEPS}: " + ", ".join(
+        f"{n} {[round(x, 2) for x in rates[n]]}" for n in configs) + f"; step launches a "
+        f"step sync {per_step['sync']}, async {per_step['async']} [{card}]")
+    for name, rec in fleet.items():
+        print(f"  {name}: chunks applied {rec['chunks_applied']}, rejected {rec['rejected']}, "
+              f"staleness mean {rec['staleness_mean']} max {rec['staleness_max']} steps, "
+              f"fleet rows/s {[round(x, 1) for x in rec['rows_per_s']]}, fleet launches "
+              f"{rec['fleet_launches']}, snapshot {rec['snapshot_ms']:.3f} ms on the host, "
+              f"{rec['snapshot_device_ms']:.3f} ms on the stream ({rec['snapshot_bytes']} "
+              f"bytes); table min, max, zeros {rec['table_range']}")
+    keep = trainers.pop("async")
+    for trainer in trainers.values():
+        trainer.close()
+    del trainers
+    torch.cuda.empty_cache()
+    return {"launches": launches, "summary": summary, "trainer": keep}
+
+
+def async_stream(torch, mk, card: str, stream) -> dict:
+    """(c) Phase 10 (b)'s streamed scoretable (a 50,000-row np.memmap,
+    fused, bf16 scorer) under async: 3 + 20 steps, B rows streamed a step
+    against the sync step's R + B, the stall share, and a kernel step
+    against a plain step. The fleet gathers its windows from the memmap on
+    the host."""
+    from mercury_tpu_torch import TrainConfig
+
+    config = TrainConfig(**STREAM_TABLE, refresh_mode="async")
+    sync_rows = TrainConfig(**STREAM_TABLE).stream_rows
+    check(config.stream_rows == config.batch_size == 32 and sync_rows == 96,
+          f"streamed rows: async {config.stream_rows}, sync {sync_rows}")
+    with tempfile.TemporaryDirectory() as directory:
+        ds, nbytes = stream_dataset(torch, config, STREAM_ROWS, directory)
+        trainer = build_trainer(torch, config, dataset=ds, quiet=True)
+        warm(trainer)
+        fleet = trainer._scorer_fleet
+        trainer.stream_stats()
+        trainer.scorer_stats()
+        applied0 = fleet.summary()["chunks_applied"]
+        dt, counts, losses, metrics = timed_steps(torch, mk, trainer, STREAM_STEPS)
+        stats, fstats = trainer.stream_stats(), trainer.scorer_stats()
+        per_step = {"nll_fwd": 1, "nll_bwd": 1, "score_and_draw": 1,
+                    "table_refresh_draw": 0, "augment_normalize": 1}
+        want = {k: v * STREAM_STEPS for k, v in per_step.items()}
+        check(counts == want, f"async stream: launch counts {counts}, expected {want}")
+        # Whole batches of B rows; the pipeline runs prefetch_depth ahead,
+        # so a window of STREAM_STEPS pops sees that many copies, give or
+        # take the depth.
+        batch_bytes = config.batch_size * 32 * 32 * 3
+        copies = stats["data/h2d_bytes"] / batch_bytes
+        check(copies == int(copies)
+              and abs(copies - STREAM_STEPS) <= config.prefetch_depth,
+              f"async stream: {stats['data/h2d_bytes']} bytes sent in {STREAM_STEPS} steps, "
+              f"not whole batches of {batch_bytes}")
+        check_telemetry(torch, metrics, "async", config.batch_size)
+        applied = fleet.summary()["chunks_applied"] - applied0
+        step_err = stream_kernel_vs_plain_step(torch, trainer, config)
+        steps_s, stall = STREAM_STEPS / dt, stats["data/stall_s"] / dt
+        sync_bytes = stream["scoretable"]["h2d_window_bytes"] / STREAM_STEPS
+        print(f"async (c) streamed scoretable, L={ds.shard_len}: {steps_s:.2f} steps/s "
+              f"(sync in phase 10: {stream['scoretable']['steps_per_s']:.2f}), stall share "
+              f"{stall:.4f}; {config.stream_rows} rows = {batch_bytes} bytes streamed a step "
+              f"({copies:.0f} batches copied in the window) against sync's {sync_rows} rows "
+              f"= {sync_bytes:.0f} (phase 10's window over its steps); "
+              f"chunks applied {applied}, staleness mean "
+              f"{fstats['sampler/score_staleness_mean']:.2f} max "
+              f"{fstats['sampler/score_staleness_max']:.0f} steps [{card}]")
+        trainer.close()
+        del trainer, ds
+    torch.cuda.empty_cache()
+    return {"launches": counts,
+            "summary": {"steps_per_s": steps_s, "stall_share": stall,
+                        "rows_per_step": config.stream_rows, "sync_rows_per_step": sync_rows,
+                        "bytes_per_step": batch_bytes, "batches_copied": copies,
+                        "sync_bytes_per_step": sync_bytes, "chunks_applied": applied,
+                        "staleness": [fstats["sampler/score_staleness_mean"],
+                                      fstats["sampler/score_staleness_max"]],
+                        "launches": counts, "kernel_vs_plain": step_err, "card": card}}
+
+
+def async_resume(torch, trainer) -> dict:
+    """(d) A save, 3 steps, then a restore in the middle of the live run:
+    the queue is empty, the snapshot is the restored step's, and every
+    chunk applied after it was scored from that snapshot or a later one."""
+    steps_after = []
+    apply = trainer._apply_chunks
+
+    def recorded(chunks, step):
+        steps_after.extend(c.step for c in chunks)
+        apply(chunks, step)
+
+    with tempfile.TemporaryDirectory() as directory:
+        trainer.save(directory)
+        saved = trainer.state.step
+        for _ in range(3):
+            trainer.train_step()
+        t0 = time.perf_counter()
+        step = trainer.restore(directory)
+        restore_s = time.perf_counter() - t0
+        summary = trainer._scorer_fleet.summary()
+        check(step == saved == trainer.state.step and summary["queue_depth"] == 0
+              and summary["snapshot_step"] == saved,
+              f"restore at {step} (saved {saved}): queue {summary['queue_depth']}, "
+              f"snapshot step {summary['snapshot_step']}")
+        trainer._apply_chunks = recorded
+        try:
+            deadline = time.monotonic() + 60
+            while not steps_after:
+                check(time.monotonic() < deadline, "no chunk applied after the restore")
+                trainer.train_step()
+        finally:
+            del trainer._apply_chunks
+    check(min(steps_after) >= saved, f"chunks of steps {steps_after} applied after the "
+          f"restore to step {saved}")
+    trainer.close()
+    trainer.close()
+    alive = [t.name for t in threading.enumerate() if t.name.startswith("mercury-scorer-")]
+    check(not alive, f"scorer threads alive after close(): {alive}")
+    print(f"async (d): restored step {saved} in {restore_s:.2f} s with the fleet live: queue "
+          f"empty, snapshot at the restored step, the next chunks scored at steps "
+          f"{sorted(set(steps_after))}; after close() no scorer thread alive")
+    return {"restored_step": saved, "restore_s": restore_s, "chunk_steps_after": steps_after}
+
+
+def async_scoring_phase(torch, card: str, stream) -> dict:
+    """Phase 13: async scoring, (a) kernel against plain from one state,
+    (b) a live fleet with the plain and the fused ingest against the sync
+    step in turns, (c) the async host stream at L=50,000, (d) a restore in
+    the middle of a run and the fleet's close."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    out = {"card": card, "kernel_vs_plain": async_kernel_vs_plain(torch, mk, card)}
+    launches = {k: 0 for k in mk.KERNELS}
+    live = {}
+    for fused in (False, True):
+        result = async_live(torch, mk, card, fused)
+        out["fused" if fused else "plain"] = result["summary"]
+        for k, v in result["launches"].items():
+            launches[k] += v
+        if fused:
+            live = result["trainer"]
+        else:
+            result["trainer"].close()
+    result = async_stream(torch, mk, card, stream)
+    out["host_stream"] = result["summary"]
+    for k, v in result["launches"].items():
+        launches[k] += v
+    out["resume"] = async_resume(torch, live)
+    del live
+    torch.cuda.empty_cache()
+    return {"launches": launches, "summary": out}
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):

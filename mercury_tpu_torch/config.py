@@ -2,9 +2,11 @@
 
 The fields are those of ``mercury_tpu.config.TrainConfig`` that the
 importance-sampled pool (with its step modes), groupwise and scoretable
-steps read, under the same names and with the same defaults, so a
-configuration written for one package means the same run in the other. A value the port does not implement yet raises ``ValueError``
-naming the field, instead of silently training something else.
+(sync or async) steps read, under the same names and with the same
+defaults, so a configuration written for one package means the same run
+in the other. A value the port does not implement yet raises
+``ValueError`` naming the field, instead of silently training something
+else.
 """
 
 from __future__ import annotations
@@ -113,7 +115,21 @@ class TrainConfig:
     # toward the EMA by table_decay and draws from the whole table.
     refresh_size: int = 64
     table_decay: float = 0.98
-    refresh_mode: str = "sync"        # the port runs "sync" only
+    # "sync": the step rescores the window itself; "async": a scorer fleet
+    # (sampling/scorer_fleet.py) of scorer_workers threads, each on its own
+    # CUDA stream, rescores round-robin windows against a copy of the
+    # parameters taken every snapshot_every steps, and the Trainer scatters
+    # each chunk into the table between steps, weighted by
+    # table_decay**age; the step only decays, normalizes and draws. One
+    # process only (world_size=1).
+    refresh_mode: str = "sync"
+    scorer_workers: int = 1
+    snapshot_every: int = 16
+    # Idle seconds a scorer worker waits between chunks (0: none).
+    scorer_throttle_s: float = 0.0
+    # Where the fleet scores: "host" (threads of this process); "device"
+    # (the JAX package's scorer slice) is not ported.
+    scorer_backend: str = "host"
 
     # Augmentation and partition
     # "noniid": pad-4 crop + hflip; "iid": resize 35, crop 32, hflip and a
@@ -208,8 +224,30 @@ class TrainConfig:
             bad("sampler", f"the port samples with {', '.join(_SAMPLERS)}")
         if self.refresh_mode not in ("sync", "async"):
             bad("refresh_mode", "use 'sync' or 'async'")
-        if self.refresh_mode == "async":
-            bad("refresh_mode", "the async scorer fleet is not ported yet")
+        if self.refresh_mode == "async" and not self.use_scoretable:
+            bad("refresh_mode", "'async' requires sampler='scoretable' with "
+                "use_importance_sampling=True (the scorer fleet refreshes the "
+                f"persistent score table), got sampler={self.sampler!r}, "
+                f"use_importance_sampling={self.use_importance_sampling}")
+        if self.scorer_backend not in ("host", "device"):
+            bad("scorer_backend", "use 'host' or 'device'")
+        if self.scorer_backend != "host" and not self.use_async:
+            bad("scorer_backend", "'device' requires refresh_mode='async' with "
+                "sampler='scoretable'")
+        if self.scorer_backend == "device":
+            bad("scorer_backend", "the device scorer backend is not ported yet")
+        if self.use_async:
+            if self.scorer_workers < 1:
+                bad("scorer_workers", "must be >= 1")
+            if self.snapshot_every < 1:
+                bad("snapshot_every", "must be >= 1")
+            if self.scorer_throttle_s < 0:
+                bad("scorer_throttle_s", "must be >= 0")
+            if self.world_size > 1:
+                bad("refresh_mode", "'async' with scorer_backend='host' is "
+                    "single-controller only: the scorer fleet's params snapshot "
+                    "and its (slots, scores) chunk stream are per-process, and "
+                    "every rank of the port is a process (world_size=1)")
         if self.use_scoretable:
             if self.refresh_size < 1:
                 bad("refresh_size", "must be >= 1")
@@ -284,6 +322,11 @@ class TrainConfig:
         return self.use_importance_sampling and self.sampler == "scoretable"
 
     @property
+    def use_async(self) -> bool:
+        """The scoretable refreshed by the scorer fleet, off the step."""
+        return self.use_scoretable and self.refresh_mode == "async"
+
+    @property
     def use_groupwise(self) -> bool:
         return self.use_importance_sampling and self.sampler == "groupwise"
 
@@ -325,7 +368,10 @@ class TrainConfig:
     @property
     def stream_rows(self) -> int:
         """Rows a host-stream step receives: the pool, or the refresh
-        window and the drawn batch, or the batch (uniform)."""
+        window and the drawn batch, or the batch (uniform, and the async
+        scoretable, whose fleet scores its windows itself)."""
+        if self.use_async:
+            return self.batch_size
         if self.use_scoretable:
             return self.refresh_size + self.batch_size
         return self.candidate_pool_size if self.use_importance_sampling else self.batch_size

@@ -23,12 +23,16 @@ the kernel does not take, a failed build or a refused launch raises.
 
 ``launch_counts`` counts kernel launches by name, one per launch and
 nowhere else, so a run can show that its main path went through the
-kernels; :func:`reset_launch_counts` zeroes it.
+kernels; a thread inside :func:`counting_into` counts into another dict
+instead (the scorer fleet counts its own, so ``launch_counts`` stays the
+step's); :func:`reset_launch_counts` zeroes ``launch_counts``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+import contextlib
+import threading
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,6 +41,8 @@ from mercury_tpu_torch.ops import reference
 KERNELS = ("nll_fwd", "nll_bwd", "score_and_draw", "table_refresh_draw",
            "augment_normalize")
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
+_counting = threading.local()   # .counts: this thread's dict, if not launch_counts
+_count_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -250,8 +256,20 @@ def cluster_limit() -> int:
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        launch_counts[k] = 0
+    with _count_lock:
+        for k in KERNELS:
+            launch_counts[k] = 0
+
+
+@contextlib.contextmanager
+def counting_into(counts: Dict[str, int]) -> Iterator[None]:
+    """Count the calling thread's launches into ``counts`` while inside."""
+    before = getattr(_counting, "counts", None)
+    _counting.counts = counts
+    try:
+        yield
+    finally:
+        _counting.counts = before
 
 
 def _check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
@@ -268,7 +286,9 @@ def _check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
 def _launched(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-    launch_counts[name] += 1
+    counts = getattr(_counting, "counts", None)
+    with _count_lock:
+        (launch_counts if counts is None else counts)[name] += 1
 
 
 def _check_ema(ema_value: torch.Tensor) -> None:

@@ -10,13 +10,16 @@ batch's fresh scores back (:func:`scatter_mean`).
 
 The cursor of the window lives on the host, as the presampling stream's
 does, so :func:`refresh_window` never waits for the device. Random numbers
-are inputs: :func:`table_draw_inverse_cdf` takes its uniforms.
+are inputs: :func:`table_draw_inverse_cdf` takes its uniforms. Under
+``refresh_mode="async"`` the scorer fleet's chunks enter through
+:func:`apply_async_chunk`, weighted for their age.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from mercury_tpu_torch.sampling.importance import importance_probs
@@ -71,6 +74,24 @@ def scatter_mean(scores: torch.Tensor, slots: torch.Tensor,
     counts = torch.zeros_like(scores).index_add_(
         0, slots, torch.ones_like(values, dtype=torch.float32))
     return torch.where(counts > 0, sums / counts.clamp(min=1.0), scores)
+
+
+def stale_weighted(values: torch.Tensor, ema_value, age_weight: float) -> torch.Tensor:
+    """A chunk's scores discounted toward the EMA for their age:
+    ``v·w + μ·(1 − w)`` with ``w = γ^age``, float32 ops with ``w`` and
+    ``1 − w`` rounded to float32 on the host as the JAX package rounds
+    them. The convex form makes ``w = 1.0`` exact: ``v·1 + μ·0 = v``."""
+    w = np.float32(age_weight)
+    return values * float(w) + ema_value * float(np.float32(1.0) - w)
+
+
+def apply_async_chunk(scores: torch.Tensor, slots: torch.Tensor, values: torch.Tensor,
+                      ema_value, age_weight: float) -> torch.Tensor:
+    """Scatter one scorer-fleet chunk into the table: the fresh ``values``
+    at ``slots``, weighted by :func:`stale_weighted`, through the same
+    :func:`scatter_mean` as the step's refresh, so a chunk at age 0 writes
+    what the step's own refresh would."""
+    return scatter_mean(scores, slots, stale_weighted(values, ema_value, age_weight))
 
 
 def table_probs(scores: torch.Tensor, ema_value, alpha: float = 0.5) -> torch.Tensor:

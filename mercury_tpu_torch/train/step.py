@@ -40,6 +40,17 @@ of the shard instead of a stream:
    launch; under ``"grad_norm"`` their gradient norms), and the cursor
    advances by ``R``. The stream is not read.
 
+Under ``refresh_mode="async"`` (the JAX step's async branch) a scorer fleet
+rescores the windows off the step (``sampling/scorer_fleet.py``, applied by
+the Trainer), so the step scores nothing: it decays, normalizes and draws
+over the whole table — the kernel route through ``table_refresh_draw``
+with a one-slot window that writes slot 0's own decayed value back (a
+no-op, so one kernel serves both modes), the plain route by
+``decay_scores``, ``table_probs`` and ``table_draw_inverse_cdf`` — then
+trains, updates the EMA from the trained batch's scores reweighted to the
+shard's mean (``mean(s/(L·p))``), writes them back and keeps the cursor.
+``train/pool_loss`` is 0 and the table ages are not reported.
+
 The pool sampler has three step modes (the JAX step's pipelined, cadence
 and groupwise branches):
 
@@ -137,7 +148,9 @@ steps t … t+depth−1:
   weights from the ring; after the write-back one ``score_and_draw`` over
   the ``L`` slots draws step t+depth's batch (``p·L`` its weights), after
   that step's window, ``depth`` windows on. The ledger counts at train
-  time.
+  time. Under async the stream carries the batch alone: nothing is
+  scored, the table decays, the EMA follows the trained batch before the
+  lookahead draws, and the ring's slots are the draw.
 
 The draws of step t+depth are drawn at step t from the one generator, so
 its sequence is the replicated run's. :func:`prime_host_stream` fills the
@@ -226,6 +239,8 @@ from mercury_tpu_torch.sampling.scoretable import (
     decay_scores,
     refresh_window,
     scatter_mean,
+    table_draw_inverse_cdf,
+    table_probs,
 )
 from mercury_tpu_torch.train.state import (
     Augment,
@@ -275,33 +290,56 @@ def make_draws(state: MercuryState, config: TrainConfig) -> Draws:
     return draws
 
 
+def draw_augment(gen: torch.Generator, n: int, config: TrainConfig) -> Augment:
+    """The random numbers of one ingest of ``n`` images from ``gen``, on its
+    device: the crop offsets and flips, then the IID transform's angles and
+    scales, or the cutout centres."""
+    dev = gen.device
+    iid = config.augmentation == "iid"
+
+    def uniform(lo: float, hi: float) -> torch.Tensor:
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+
+    hi = IID_RESIZE - IID_CROP if iid else 2 * CROP_PAD
+    aug = Augment(torch.randint(0, hi + 1, (n, 2), generator=gen, device=dev,
+                                dtype=torch.int32),
+                  torch.rand(n, generator=gen, device=dev) < 0.5)
+    if iid:
+        theta = torch.deg2rad(uniform(-MAX_ROTATE_DEG, MAX_ROTATE_DEG))
+        return aug._replace(theta=theta, scale=uniform(*SCALE_RANGE))
+    if config.cutout and config.augmentation == "noniid":
+        return aug._replace(cut=torch.randint(0, IMAGE_SIZE, (n, 2), generator=gen,
+                                              device=dev, dtype=torch.int32))
+    return aug
+
+
+def augment_images(images: torch.Tensor, aug: Augment, config: TrainConfig) -> torch.Tensor:
+    """The unfused augmentation of normalized images. As the JAX step's
+    _augment: cutout rides on the noniid crop and flip only; under "iid"
+    and "none" the flag is ignored."""
+    if config.augmentation == "noniid":
+        return augment_batch(images, aug.crop, aug.flip, CROP_PAD,
+                             _need(aug.cut, "cut") if config.cutout else None)
+    if config.augmentation == "iid":
+        return augment_batch_iid(images, aug.crop, aug.flip, _need(aug.theta, "theta"),
+                                 _need(aug.scale, "scale"))
+    return images
+
+
 def _sampler_draws(state: MercuryState, config: TrainConfig) -> Draws:
     gen = state.generator
     dev = gen.device
 
-    iid = config.augmentation == "iid"
-
-    def uniform(n: int, lo: float, hi: float) -> torch.Tensor:
-        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
-
     def augment_draws(n: int) -> Augment:
-        """The crop offsets and flips of ``n`` images, then the IID
-        transform's angles and scales, or the cutout centres."""
-        hi = IID_RESIZE - IID_CROP if iid else 2 * CROP_PAD
-        aug = Augment(torch.randint(0, hi + 1, (n, 2), generator=gen, device=dev,
-                                    dtype=torch.int32),
-                      torch.rand(n, generator=gen, device=dev) < 0.5)
-        if iid:
-            theta = torch.deg2rad(uniform(n, -MAX_ROTATE_DEG, MAX_ROTATE_DEG))
-            return aug._replace(theta=theta, scale=uniform(n, *SCALE_RANGE))
-        if config.cutout and config.augmentation == "noniid":
-            return aug._replace(cut=torch.randint(0, IMAGE_SIZE, (n, 2), generator=gen,
-                                                  device=dev, dtype=torch.int32))
-        return aug
+        return draw_augment(gen, n, config)
 
     def uniforms():
         return torch.rand((1, config.batch_size), generator=gen, device=dev)
 
+    if config.use_async:
+        # No refresh window: the fleet scores the table's windows itself.
+        return Draws(perm=None, aug=None, uniforms=uniforms(),
+                     aug2=augment_draws(config.batch_size))
     if config.use_scoretable:
         aug = augment_draws(config.refresh_size)
         return Draws(perm=None, aug=aug, uniforms=uniforms(),
@@ -510,6 +548,7 @@ def make_train_step(
     world_size = config.world_size
     use_is = config.use_importance_sampling
     use_table = config.use_scoretable
+    async_refresh = config.use_async
     host_stream = config.host_stream
     depth = config.prefetch_depth
     sync_stats = use_is and config.sync_importance_stats and world_size > 1
@@ -520,7 +559,7 @@ def make_train_step(
     telemetry = config.telemetry
     use_pipelined, use_cadence, use_groupwise = (
         config.use_pipelined, config.use_cadence, config.use_groupwise)
-    if telemetry and use_table:
+    if telemetry and use_table and not async_refresh:
         # The ages are a rotation of the same L values at every cursor.
         ages = {f"sampler/table_age_{name}": torch.tensor(value, dtype=torch.float32)
                 for name, value in zip(("min", "mean", "max"),
@@ -559,18 +598,6 @@ def make_train_step(
         rows = slots if shard_row is None else shard_row[slots]
         return rows, y_rows[rows]
 
-    def augment(images: torch.Tensor, aug: Augment) -> torch.Tensor:
-        """The unfused augmentation of normalized images. As the JAX step's
-        _augment: cutout rides on the noniid crop and flip only; under
-        "iid" and "none" the flag is ignored."""
-        if config.augmentation == "noniid":
-            return augment_batch(images, aug.crop, aug.flip, CROP_PAD,
-                                 _need(aug.cut, "cut") if config.cutout else None)
-        if config.augmentation == "iid":
-            return augment_batch_iid(images, aug.crop, aug.flip, _need(aug.theta, "theta"),
-                                     _need(aug.scale, "scale"))
-        return images
-
     def ingest(gidx: Optional[torch.Tensor], use_kernels: bool, aug: Augment,
                out_dtype: Optional[torch.dtype] = None,
                raw: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -591,7 +618,7 @@ def make_train_step(
                                                mean_t, std_t, aug.crop, aug.flip,
                                                CROP_PAD, dtype)
         raw = x_rows[gidx] if raw is None else raw
-        images = augment(normalize_images(raw, dataset.mean, dataset.std), aug)
+        images = augment_images(normalize_images(raw, dataset.mean, dataset.std), aug, config)
         return images if out_dtype is None else images.to(out_dtype)
 
     # train/sparse_rate without "stochastic": one 1.0, the same tensor every
@@ -734,7 +761,43 @@ def make_train_step(
             pending = state.pending
             front, front_draws = pending.slots[0], pending.draws[0]
         clip = drift = None
-        if use_table and host_stream:
+        if async_refresh and host_stream:
+            # The streamed rows are the batch drawn depth steps ago, and
+            # nothing is scored: the table only decays; the EMA follows the
+            # trained batch, before the lookahead draws.
+            selected = front
+            new_scores = decay_scores(table.scores.to(torch.float32), ema.value,
+                                      config.table_decay)
+            probs = None
+            scaled_probs = pending.scaled_probs[0]
+            sel_labels = gather(front)[1]
+            sel_images = ingest(None, use_kernels, front_draws.aug2, raw=x_stream)
+            avg_pool_loss = torch.zeros((), dtype=torch.float32, device=dev)
+        elif async_refresh:
+            # No refresh window: the fleet rescored the table between
+            # steps. Decay, normalize and draw over the whole table (the JAX
+            # step's async branch): the kernel with a one-slot window that
+            # writes slot 0's own decayed value back, a no-op, or the plain
+            # decay, probs and inverse-CDF draw.
+            n_slots = table.scores.shape[0]
+            if use_kernels:
+                sent = ema.value + (table.scores[:1] - ema.value) * config.table_decay
+                new_scores, probs, selected, scaled_probs = table_refresh_draw(
+                    table.scores, torch.zeros(1, dtype=torch.int64, device=dev), sent,
+                    ema.value, draws.uniforms, config.is_alpha, config.table_decay)
+            else:
+                new_scores = decay_scores(table.scores.to(torch.float32), ema.value,
+                                          config.table_decay)
+                probs = table_probs(new_scores, ema.value, config.is_alpha)
+                selected = table_draw_inverse_cdf(probs, draws.uniforms).long()
+                scaled_probs = probs[selected] * n_slots
+            selected = selected.long()
+            if telemetry:
+                clip = clip_fraction(new_scores, ema.value, config.is_alpha)
+            avg_pool_loss = torch.zeros((), dtype=torch.float32, device=dev)
+            sel_rows, sel_labels = gather(selected)
+            sel_images = ingest(sel_rows, use_kernels, draws.aug2)
+        elif use_table and host_stream:
             # Rows 0:R of x_stream are this step's refresh window, rows R:
             # the batch drawn depth steps ago (the JAX hs_body): decay and
             # scatter with plain ops; the draw is the lookahead's, below.
@@ -880,6 +943,14 @@ def make_train_step(
             with torch.no_grad():
                 fresh = (score_of(logits.detach(), sel_labels) if grad_norm_scores
                          else train_losses.detach())
+                if async_refresh:
+                    # No window scored: the EMA follows the trained batch's
+                    # scores reweighted to the shard's mean, E[s/(L·p)].
+                    score_avg = pool_mean(fresh / scaled_probs, sync_stats)
+                    ema_prev = ema.value
+                    ema = ema_update(ema, score_avg, config.ema_alpha)
+                    if telemetry:
+                        drift = ema_drift(score_avg, ema_prev)
                 scores = scatter_mean(new_scores, selected, fresh)
                 if config.use_ledger:
                     if state.sel_counts is None:  # a state built without one
@@ -889,7 +960,9 @@ def make_train_step(
                     state.sel_counts.index_add_(
                         0, selected, torch.ones_like(selected, dtype=torch.int32))
             cursor = table.cursor
-            table = ScoreTableState(scores, advance_cursor(table, refresh_size))
+            # Async: the fleet owns the sweep and the cursor stays put.
+            table = ScoreTableState(scores, cursor if async_refresh
+                                    else advance_cursor(table, refresh_size))
 
         next_gidx = None
         if host_stream:
@@ -903,10 +976,14 @@ def make_train_step(
                 select = score_and_draw if use_kernels else reference.score_and_draw
                 probs, next_sel, next_scaled = select(
                     table.scores, ema.value, draws.uniforms, config.is_alpha)
-                # The window of step t+depth is depth R-sized advances on.
-                window = (cursor + depth * refresh_size
-                          + torch.arange(refresh_size, device=dev)) % n_slots
-                next_slots = torch.cat([window, next_sel.long()])
+                if async_refresh:
+                    # The stream carries the draw alone.
+                    next_slots = next_sel.long()
+                else:
+                    # The window of step t+depth is depth R-sized advances on.
+                    window = (cursor + depth * refresh_size
+                              + torch.arange(refresh_size, device=dev)) % n_slots
+                    next_slots = torch.cat([window, next_sel.long()])
                 if telemetry:
                     # Over the table the next draw normalizes.
                     clip = clip_fraction(table.scores, ema.value, config.is_alpha)
@@ -985,7 +1062,7 @@ def make_train_step(
         metrics.update(means)
         if telemetry:
             metrics["train/grad_norm"] = grad_norm
-            if use_table:
+            if use_table and not async_refresh:
                 metrics.update(ages)
             for family, counts in hists.items():
                 metrics.update(zip(hist_keys(family), counts))
@@ -1030,7 +1107,13 @@ def prime_host_stream(state: MercuryState, config: TrainConfig, dataset: Sharded
     slots_steps, kept = [], []
     for i in range(depth):
         d = draws[i] if draws is not None else make_draws(state, config)
-        if config.use_scoretable:
+        if config.use_async:
+            # The draw alone, by the async step's inverse CDF of the flat
+            # distribution: the fleet scores the windows.
+            n = state.scoretable.scores.shape[0]
+            flat = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
+            slots_i = table_draw_inverse_cdf(flat, d.uniforms.to(dev)).long()
+        elif config.use_scoretable:
             table = state.scoretable
             n = table.scores.shape[0]
             window = (table.cursor + i * config.refresh_size

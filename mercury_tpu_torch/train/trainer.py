@@ -30,6 +30,17 @@ batches ahead, and each step is pop → step → push (:meth:`train_step`).
 restore refills the pipeline from the restored ring (or primes it anew
 from a checkpoint without one), and :meth:`close` stops the worker.
 
+Under ``refresh_mode="async"`` the Trainer keeps a
+:class:`~mercury_tpu_torch.sampling.scorer_fleet.ScorerFleet`, built after
+the state and before ``auto_resume``, with a first snapshot. After every
+step (:meth:`train_step`) it scatters the chunks the fleet has ready into
+the table, each weighted by ``table_decay**age`` (a chunk with a
+non-finite score is rejected and counted), and snapshots the parameters
+every ``snapshot_every`` steps; none of it waits for the device. ``fit``'s
+log records add the fleet's five ``stats()`` keys and
+``sampler/chunks_rejected``; a restore drops the queued chunks and
+snapshots the restored parameters; :meth:`close` stops the fleet.
+
 With the scoretable sampler and ``telemetry`` the Trainer keeps a
 ``SamplerHealthMonitor`` (``obs/sampler_health.py``): at every
 ``log_every`` tick ``fit`` merges its seven ledger-derived keys into the
@@ -42,7 +53,7 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +75,8 @@ from mercury_tpu_torch.obs.sampler_health import SamplerHealthMonitor
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
 from mercury_tpu_torch.parallel import distributed
 from mercury_tpu_torch.parallel.collectives import gather_to_rank0
+from mercury_tpu_torch.sampling.scoretable import apply_async_chunk
+from mercury_tpu_torch.sampling.scorer_fleet import ScoreChunk, ScorerFleet
 from mercury_tpu_torch.train import checkpoint
 from mercury_tpu_torch.train.state import MercuryState, create_state
 from mercury_tpu_torch.train.step import Draws, make_train_step, prime_host_stream, to_nchw
@@ -179,23 +192,91 @@ class Trainer:
                 config.stream_rows, self.device, depth=config.prefetch_depth)
             self._seed_stream_pipe(
                 prime_host_stream(self.state, config, self.dataset))
-        # Crash or preemption recovery: the newest checkpoint, sampler state
-        # included; the first fit() then runs on to the original
-        # total_steps.
-        self._auto_resumed = False
-        if (config.auto_resume and config.checkpoint_dir
-                and checkpoint.latest_step(config.checkpoint_dir) is not None):
-            step = self.restore()
-            self._auto_resumed = True
-            _log.info("auto-resumed from the checkpoint at step %d", step)
+        # refresh_mode="async": the scorer fleet and its first snapshot.
+        # Built before auto_resume: a restore resets it.
+        self._scorer_fleet: Optional[ScorerFleet] = None
+        self._chunks_rejected = 0
+        # Chunks whose copy to the device may still read their pinned
+        # buffers, each with the event after its copy.
+        self._chunks_in_copy: List[Tuple[torch.cuda.Event, ScoreChunk]] = []
+        try:
+            if config.use_async:
+                self._scorer_fleet = ScorerFleet(self.dataset, self.state.model, config,
+                                                 self.device)
+                self._scorer_fleet.snapshot(self.state.model, self.state.step)
+            # Crash or preemption recovery: the newest checkpoint, sampler
+            # state included; the first fit() then runs on to the original
+            # total_steps.
+            self._auto_resumed = False
+            if (config.auto_resume and config.checkpoint_dir
+                    and checkpoint.latest_step(config.checkpoint_dir) is not None):
+                step = self.restore()
+                self._auto_resumed = True
+                _log.info("auto-resumed from the checkpoint at step %d", step)
+        except BaseException:
+            self.close()
+            raise
 
     def train_step(self, draws: Optional[Draws] = None,
                    use_kernels: bool = True) -> Dict[str, torch.Tensor]:
         """One step; metrics stay on the device. Under host_stream ``draws``
-        are those of step t+depth, whose selection the step draws."""
+        are those of step t+depth, whose selection the step draws. Under
+        async refresh the fleet's ready chunks are applied after it."""
         if self._stream_pipe is not None:
-            return self._host_stream_step(draws, use_kernels)
-        return self._step_fn(self.state, draws, use_kernels)
+            metrics = self._host_stream_step(draws, use_kernels)
+        else:
+            metrics = self._step_fn(self.state, draws, use_kernels)
+        self._async_refresh_tick(self.state.step)
+        return metrics
+
+    def _apply_chunks(self, chunks: List[ScoreChunk], step: int) -> None:
+        """Scatter the fleet's chunks into the table, each at its age's
+        weight ``float32(table_decay**age)``. A chunk with a non-finite
+        score is rejected, counted and leaves the table as it was. The
+        chunks are pinned host tensors: their copies to the device do not
+        wait for the step in flight, and each stays referenced until the
+        event after its copy has passed."""
+        cuda = self.device.type == "cuda"
+        self._chunks_in_copy = [(e, c) for e, c in self._chunks_in_copy if not e.query()]
+        for chunk in chunks:
+            if not bool(torch.isfinite(chunk.scores).all()):
+                self._chunks_rejected += 1
+                _log.warning("rejected a non-finite score chunk (snapshot step %d) at "
+                             "step %d: table untouched", chunk.step, step)
+                continue
+            age = max(step - chunk.step, 0)
+            table = self.state.scoretable
+            self.state.scoretable = table._replace(scores=apply_async_chunk(
+                table.scores, chunk.slots.to(self.device, non_blocking=True),
+                chunk.scores.to(self.device, non_blocking=True), self.state.ema.value,
+                self.config.table_decay ** age))
+            if cuda:
+                copied = torch.cuda.Event()
+                copied.record()
+                self._chunks_in_copy.append((copied, chunk))
+            self._scorer_fleet.note_applied(age)
+
+    def _async_refresh_tick(self, step: int, advanced: int = 1) -> None:
+        """After a step under async refresh: apply the ready chunks, and
+        snapshot the parameters when the step crossed a multiple of
+        ``snapshot_every``. Host numbers only: no device sync."""
+        fleet = self._scorer_fleet
+        if fleet is None:
+            return
+        chunks = fleet.drain()
+        if chunks:
+            self._apply_chunks(chunks, step)
+        every = self.config.snapshot_every
+        if step // every > (step - advanced) // every:
+            fleet.snapshot(self.state.model, step)
+
+    def scorer_stats(self) -> Dict[str, float]:
+        """The fleet's ``stats()`` since the previous call and the count of
+        rejected chunks (none without async refresh)."""
+        if self._scorer_fleet is None:
+            return {}
+        return {**self._scorer_fleet.stats(),
+                "sampler/chunks_rejected": float(self._chunks_rejected)}
 
     def _host_stream_step(self, draws: Optional[Draws] = None,
                           use_kernels: bool = True) -> Dict[str, torch.Tensor]:
@@ -233,9 +314,15 @@ class Trainer:
         return {} if self._stream_pipe is None else self._stream_pipe.stats()
 
     def close(self) -> None:
-        """Stop the prefetch worker; a second call does nothing."""
-        if self._stream_pipe is not None:
-            self._stream_pipe.close()
+        """Stop the scorer fleet, then the prefetch worker. A second call
+        does nothing, and a Trainer whose construction stopped partway
+        closes what it built."""
+        fleet = getattr(self, "_scorer_fleet", None)
+        if fleet is not None:
+            fleet.close()
+        pipe = getattr(self, "_stream_pipe", None)
+        if pipe is not None:
+            pipe.close()
 
     def fit(self, num_epochs: Optional[int] = None, *,
             steps: Optional[int] = None) -> Dict[str, float]:
@@ -252,7 +339,8 @@ class Trainer:
         the end. Returns the final evaluation (the last eval tick's, else a
         fresh :meth:`evaluate`), the last step's scalar metrics and, when
         the last step is a log tick, the sampler-health keys and (under
-        host_stream) the pipeline's ``data/*`` counters."""
+        host_stream) the pipeline's ``data/*`` counters and (under async
+        refresh) the fleet's."""
         cfg = self.config
         start = self.state.step
         if steps is not None:
@@ -273,7 +361,8 @@ class Trainer:
             step = self.state.step
             health = {}
             if cfg.log_every and step % cfg.log_every == 0:
-                health = {**self.sampler_health(), **self.stream_stats()}
+                health = {**self.sampler_health(), **self.stream_stats(),
+                          **self.scorer_stats()}
                 _log.info("step %d: %s", step, {**_scalars(metrics), **health})
             if cfg.eval_every and step % cfg.eval_every == 0:
                 evaluation = self.evaluate()
@@ -319,10 +408,14 @@ class Trainer:
         """Restore the checkpoint at ``step`` (default: the newest) from
         ``directory`` (default ``checkpoint_dir``); return its step. Under
         host_stream the prefetch pipeline is refilled from the restored
-        ring."""
+        ring; under async refresh the fleet's queued chunks are dropped and
+        the restored parameters snapshotted."""
         step = checkpoint.restore_checkpoint(self._directory(directory), self.state,
                                              self.config, step)
         self._refill_stream_pipe()
+        if self._scorer_fleet is not None:
+            self._scorer_fleet.reset()
+            self._scorer_fleet.snapshot(self.state.model, self.state.step)
         return step
 
     def _logits(self, raw: torch.Tensor) -> torch.Tensor:

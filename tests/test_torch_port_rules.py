@@ -74,13 +74,20 @@ def test_config_fields_match_the_jax_package():
     assert (cfg.prefetch_depth, cfg.decode_workers, cfg.stream_shard_mode,
             cfg.image_size) == (2, 0, "auto", 32)
     assert (cfg.pipelined_scoring, cfg.score_refresh_every) == (False, 1)
+    assert (cfg.scorer_workers, cfg.snapshot_every, cfg.scorer_throttle_s,
+            cfg.scorer_backend) == (1, 16, 0.0, "host")
 
 
 @pytest.mark.parametrize("field,kw", [
-    # The scoretable sampler and the fused ingest are ported; their async
-    # refresh and a fused ingest without the noniid augmentation are not.
-    pytest.param("refresh_mode", dict(sampler="scoretable", refresh_mode="async"),
+    # The scoretable sampler, its async refresh and the fused ingest are
+    # ported: the async refresh is refused where the JAX package refuses it
+    # (across processes: every rank of the port is one; without the score
+    # table), and a fused ingest without the noniid augmentation is refused.
+    pytest.param("refresh_mode", dict(sampler="scoretable", refresh_mode="async",
+                                      world_size=2),
                  id="sampler-scoretable"),
+    pytest.param("refresh_mode", dict(sampler="pool", refresh_mode="async"),
+                 id="refresh_mode-async-pool"),
     pytest.param("fused_input", dict(fused_input=True, augmentation="none"),
                  id="fused_input-True"),
     # host_stream, imagefolder and scoring_dtype are ported: what the JAX

@@ -192,7 +192,9 @@ def test_kernel_and_plain_steps_agree_on_cpu():
 
 
 @pytest.mark.parametrize("kw,field", [
-    (dict(refresh_mode="async"), "refresh_mode"),
+    # The async refresh is ported: refused, as the JAX package refuses it,
+    # without the score table and across processes.
+    (dict(refresh_mode="async", sampler="pool"), "refresh_mode"),
     (dict(refresh_mode="weird"), "refresh_mode"),
     (dict(fused_input=True, augmentation="none"), "fused_input"),
     (dict(refresh_size=0), "refresh_size"),
@@ -200,6 +202,7 @@ def test_kernel_and_plain_steps_agree_on_cpu():
     (dict(scoring_dtype="bfloat16", use_importance_sampling=False), "scoring_dtype"),
     # The groupwise sampler is ported; it is refused with host_stream only.
     (dict(sampler="groupwise", data_placement="host_stream"), "sampler"),
+    (dict(refresh_mode="async", world_size=2), "refresh_mode"),
 ])
 def test_config_rejections(kw, field):
     base = dict(world_size=1, sampler="scoretable")
