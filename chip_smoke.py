@@ -145,7 +145,21 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    10 (b)'s streamed scoretable under async (32 rows streamed a step
    against 96, the stall share, a kernel step against a plain step); (d) a
    restore in the middle of a live run (the queue empty, the snapshot at
-   the restored step) and no scorer thread alive after ``close()``.
+   the restored step) and no scorer thread alive after ``close()``;
+14. the scorer service (``sampling/scorer_service.py``): (a) from one
+   snapshot, the device backend's two chunks bit-equal to the host
+   fleet's, its ``nll_fwd`` counted apart on its own stream, tenant 1's
+   chunk from ``chunk_seed(seed, 0x100000)`` against the plain NLL; (b)
+   phase 5's config, plain and fused ingest: sync, async with the host
+   fleet and async with ``scorer_backend="device"``, 20 steps a turn in
+   six turns (chunks scored and applied a step, staleness, the scorer's
+   launches a step; the device arm picks at most 2 chunks a snapshot
+   epoch); (c) two tenants at "3,1" on the host backend against one, in
+   turns (the shares, the rates); (d) the device backend's lockstep at
+   W=2, two gloo ranks on the one card, ``snapshot_every=4``, 16 steps
+   run twice (the schedule one snapshot behind, each rank's table
+   bit-equal across the runs, the trainer's wait at each snapshot); (e) a
+   restore in the live device run and no service thread after ``close()``.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -193,6 +207,63 @@ REPLACES = {
     "table_refresh_draw": "mercury_tpu/ops/mercury_kernels.py:394",
     "augment_normalize": "mercury_tpu/ops/mercury_kernels.py:531",
 }
+def spare_card(torch, mk, card: str) -> dict:
+    """(f) Only when a second card is visible: the device backend of a
+    Trainer on card 0 scores on the spare card ``reserve_scorer_device``
+    gives. From one snapshot, taken just before three steps rewrite the
+    parameters it copied, the spare card's two chunks agree with the host
+    fleet's on card 0 to the kernel phase's ``nll_fwd`` tolerance (so the
+    copy to the spare read the parameters before the allocator could
+    reuse them); then a live fit applies the spare card's chunks."""
+    if torch.cuda.device_count() < 2:
+        print(f"service (f): one card visible, the spare-card path is not run [{card}]")
+        return {"run": False}
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.sampling.scorer_fleet import ScorerFleet
+    from mercury_tpu_torch.sampling.scorer_service import ScorerService
+
+    config = TrainConfig(**ASYNC_TABLE, scorer_backend="device", snapshot_every=4)
+    trainer = build_trainer(torch, config, quiet=True)
+    warm(trainer)
+    ds, model, dev = trainer.dataset, trainer.state.model, trainer.device
+    program = trainer._scorer_fleet.summary()["program"]
+    check(program == {"backend": "device", "device": "cuda:1", "dedicated_slice": True},
+          f"spare card: the device backend on {dev} scores with {program}")
+    fleet = ScorerFleet(ds, model, config.replace(scorer_backend="host"), dev)
+    svc = ScorerService(ds, model, config, dev)
+    for s in (fleet, svc):
+        s.close()
+        s.snapshot(model, trainer.state.step)
+    for _ in range(3):
+        trainer.train_step()
+    host = [fleet.score_once() for _ in range(2)]
+    spare = [svc.score_once() for _ in range(2)]
+    errs = [within(b.scores, a.scores, rtol=1e-5, atol=1e-5) for a, b in zip(host, spare)]
+    bit_equal = all(torch.equal(a.scores, b.scores) for a, b in zip(host, spare))
+    check(all(torch.equal(a.slots, b.slots) for a, b in zip(host, spare))
+          and svc.launch_counts["nll_fwd"] == 2,
+          f"spare card: chunks {[c.slots[:4] for c in spare]}, "
+          f"nll_fwd {svc.launch_counts['nll_fwd']}")
+    live = trainer._scorer_fleet
+    fitted = trainer.fit(steps=16)
+    summary = live.summary()
+    check(math.isfinite(fitted["train/loss"]) and summary["chunks_applied"] >= 1
+          and live.launch_counts["nll_fwd"] >= 1
+          and bool(torch.isfinite(trainer.state.scoretable.scores).all()),
+          f"spare card: fit gave {fitted}, {summary}")
+    trainer.close()
+    print(f"service (f): {torch.cuda.device_count()} cards visible; the device backend on "
+          f"{dev} scores on {program['device']}; its 2 chunks from a snapshot taken before "
+          f"3 steps against the host fleet's on {dev}: max |err| {max(errs):.2e}, bit-equal "
+          f"{bit_equal}; after fit(steps=16), {summary['chunks_applied']} chunks applied and "
+          f"{live.launch_counts['nll_fwd']} nll_fwd on the spare since the Trainer was built "
+          f"[{card}]")
+    del trainer, fleet, svc, live
+    torch.cuda.empty_cache()
+    return {"run": True, "cards": torch.cuda.device_count(), "max_abs_err": max(errs),
+            "bit_equal": bit_equal, "chunks_applied": summary["chunks_applied"]}
+
+
 # The one PyTorch computation of each kernel's function timed as library_ms.
 LIBRARY_CALLS = {
     "nll_fwd": 'F.cross_entropy(reduction="none")',
@@ -260,6 +331,16 @@ ASYNC_TABLE = dict(SCORETABLE, refresh_mode="async")
 ASYNC_STEPS = 20
 ASYNC_TURNS = ("sync", "async", "throttled", "throttled", "async", "sync")
 ASYNC_THROTTLE_S = 0.005
+# Phase 14, the scorer service: (b) sync, the async host fleet and the
+# async device backend in turns; (c) two tenants at "3,1" against one, in
+# turns; (d) the device backend's lockstep at W=2 over gloo, run twice.
+SERVICE_STEPS = 20
+SERVICE_TURNS = ("sync", "host", "device", "device", "host", "sync")
+TENANT_STEPS = 20
+TENANT_TURNS = ("one", "two", "two", "one")
+TENANT_WEIGHTS = "3,1"
+LOCKSTEP = dict(ASYNC_TABLE, world_size=TWO_RANKS, scorer_backend="device", snapshot_every=4)
+LOCKSTEP_STEPS = 16
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -342,6 +423,7 @@ def main() -> int:
     modes = run_phase("sampler modes", sampler_modes_phase, torch, card)
     grad = run_phase("gradient path", grad_path_phase, torch, card, main_path)
     async_ = run_phase("async scoring", async_scoring_phase, torch, card, stream["summary"])
+    service = run_phase("scorer service", scorer_service_phase, torch, card)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -351,7 +433,8 @@ def main() -> int:
                    "host_stream": stream["launches"][k["name"]],
                    "sampler_modes": modes["launches"][k["name"]],
                    "grad_path": grad["launches"][k["name"]],
-                   "async_scoring": async_["launches"][k["name"]]}
+                   "async_scoring": async_["launches"][k["name"]],
+                   "scorer_service": service["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -364,7 +447,8 @@ def main() -> int:
          "two_ranks": two_ranks["summary"], "accum_resume": accum["summary"],
          "telemetry": telemetry, "config_surface": surface["summary"],
          "host_stream": stream["summary"], "sampler_modes": modes["summary"],
-         "grad_path": grad["summary"], "async_scoring": async_["summary"]},
+         "grad_path": grad["summary"], "async_scoring": async_["summary"],
+         "scorer_service": service["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3033,6 +3117,394 @@ def async_scoring_phase(torch, card: str, stream) -> dict:
         launches[k] += v
     out["resume"] = async_resume(torch, live)
     del live
+    torch.cuda.empty_cache()
+    return {"launches": launches, "summary": out}
+
+
+# ----------------------------------------------------------------- phase 14
+def service_chunks(torch, mk, card: str) -> dict:
+    """(a) From one state and snapshot, workers stopped: the device
+    backend's two chunks against the host fleet's (bit for bit), with the
+    service's ``nll_fwd`` counted in its own counts, on a stream of its
+    own; tenant 1's chunk from its own generator (``chunk_seed(seed,
+    0x100000)``), held against the same chunk with the plain NLL to the
+    kernel phase's ``nll_fwd`` tolerance."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.sampling import scorer_fleet
+    from mercury_tpu_torch.sampling.scorer_fleet import ScorerFleet, chunk_seed
+    from mercury_tpu_torch.sampling.scorer_service import _TENANT_KEY_STRIDE, ScorerService
+
+    config = TrainConfig(**ASYNC_TABLE)
+    trainer = build_trainer(torch, config, quiet=True)
+    warm(trainer)
+    trainer.close()
+    ds, model, dev, step = trainer.dataset, trainer.state.model, trainer.device, trainer.state.step
+    tenants = config.replace(scorer_tenants=2)
+    scorers = {"fleet": ScorerFleet(ds, model, config, dev),
+               "device": ScorerService(ds, model, config.replace(scorer_backend="device"), dev),
+               "tenants": ScorerService(ds, model, tenants, dev),
+               "plain": ScorerService(ds, model, tenants.replace(use_pallas=False), dev)}
+    for s in scorers.values():
+        s.close()
+        s.snapshot(model, step)
+    mk.reset_launch_counts()
+    host = [scorers["fleet"].score_once() for _ in range(2)]
+    svc = scorers["device"]
+    before = svc.launch_counts["nll_fwd"]
+    # The stream current at each of the service's nll_fwd calls.
+    streams = []
+    nll = mk.per_sample_nll
+
+    def on_stream(logits, labels):
+        streams.append(torch.cuda.current_stream(logits.device).cuda_stream
+                       if logits.is_cuda else None)
+        return nll(logits, labels)
+
+    mk.per_sample_nll = on_stream
+    try:
+        on_device = [svc.score_once() for _ in range(2)]
+    finally:
+        mk.per_sample_nll = nll
+    svc_nll = svc.launch_counts["nll_fwd"] - before
+    for k, (a, b) in enumerate(zip(host, on_device)):
+        check(a.step == b.step == step and torch.equal(a.slots, b.slots)
+              and torch.equal(a.scores, b.scores),
+              f"the device backend's chunk {k} is not the host fleet's")
+    own = svc._scorer.stream()   # this thread's scoring stream (None on the CPU)
+    check(svc_nll == 2 and mk.launch_counts["nll_fwd"] == 0
+          and (dev.type == "cpu"
+               or (streams == [own.cuda_stream] * 2
+                   and own.cuda_stream != torch.cuda.default_stream(dev).cuda_stream)),
+          f"the service's nll_fwd: {svc_nll} launches in its counts, "
+          f"{mk.launch_counts['nll_fwd']} in the step's; on streams {streams}, its own "
+          f"{own}")
+    seeds = []
+    draw = scorer_fleet.draw_augment
+
+    def recorded(gen, n, cfg):
+        seeds.append(gen.initial_seed())
+        return draw(gen, n, cfg)
+
+    scorer_fleet.draw_augment = recorded
+    try:
+        t1 = scorers["tenants"].score_once(1)
+        plain = scorers["plain"].score_once(1)
+    finally:
+        scorer_fleet.draw_augment = draw
+    want_seed = chunk_seed(config.seed, _TENANT_KEY_STRIDE)
+    check(seeds == [want_seed] * 2 and torch.equal(t1.slots, host[0].slots)
+          and not torch.equal(t1.scores, host[0].scores),
+          f"tenant 1's chunk: seeds {seeds}, want {want_seed}")
+    err = within(t1.scores, plain.scores, rtol=1e-5, atol=1e-5)
+    program = svc.summary()["program"]
+    print(f"service (a): the device backend's 2 chunks [{config.refresh_size}] bit-equal to "
+          f"the host fleet's; the service's nll_fwd {svc_nll} launches in its own counts (the "
+          f"step's 0), on its own stream; program {program}; tenant 1's chunk from seed "
+          f"chunk_seed(seed, 0x100000), kernel against the plain NLL max |err| {err:.2e} "
+          f"[{card}]")
+    del trainer, scorers
+    torch.cuda.empty_cache()
+    return {"bit_equal_chunks": 2, "service_nll_fwd": svc_nll, "tenant1_err": err,
+            "program": program}
+
+
+def service_live(torch, mk, card: str, fused: bool) -> dict:
+    """(b) Phase 5's scoretable config (``fused_input`` as given): the
+    sync step, async with the host fleet and async with the device backend,
+    ``SERVICE_STEPS`` a turn in ``SERVICE_TURNS``. Each window's step
+    launches are checked; each async arm's chunks scored and applied a
+    step, staleness and scorer launches a step are read; the device arm's
+    picks in each snapshot epoch (read at the next snapshot) must be at
+    most its cap."""
+    from mercury_tpu_torch import TrainConfig
+
+    base = dict(SCORETABLE, fused_input=fused)
+    configs = {"sync": TrainConfig(**base),
+               "host": TrainConfig(**base, refresh_mode="async"),
+               "device": TrainConfig(**base, refresh_mode="async", scorer_backend="device")}
+    trainers = {name: build_trainer(torch, c, quiet=True) for name, c in configs.items()}
+    svc = trainers["device"]._scorer_fleet
+    epochs = []
+    snapshot = svc.snapshot
+
+    def paced(model, step):
+        epochs.append(svc._tenants[0].scored_in_epoch)
+        snapshot(model, step)
+
+    svc.snapshot = paced
+    for trainer in trainers.values():
+        warm(trainer)
+    ingest = 1 if fused else 0
+    per_step = {"sync": {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 0,
+                         "table_refresh_draw": 1, "augment_normalize": 2 * ingest},
+                "async": {"nll_fwd": 1, "nll_bwd": 1, "score_and_draw": 0,
+                          "table_refresh_draw": 1, "augment_normalize": ingest}}
+    launches = {k: 0 for k in mk.KERNELS}
+    rates = {name: [] for name in configs}
+    arms = {name: {"scored": 0, "applied": 0, "scorer_launches": {k: 0 for k in mk.KERNELS},
+                   "staleness_mean": [], "staleness_max": [], "rejected": 0}
+            for name in ("host", "device")}
+    epochs_before = len(epochs)
+    for turn, name in enumerate(SERVICE_TURNS):
+        trainer = trainers[name]
+        f = trainer._scorer_fleet
+        if f is not None:
+            trainer.scorer_stats()
+            s0, c0 = f.summary(), dict(f.launch_counts)
+        dt, counts, losses, metrics = timed_steps(torch, mk, trainer, SERVICE_STEPS)
+        want = {k: v * SERVICE_STEPS
+                for k, v in per_step["sync" if f is None else "async"].items()}
+        check(counts == want, f"{name} (fused={fused}): step launches {counts}, "
+              f"expected {want}")
+        rates[name].append(SERVICE_STEPS / dt)
+        if f is None:
+            continue
+        if name == "device" and turn == SERVICE_TURNS.index("device"):
+            check_telemetry(torch, metrics, "async", configs[name].batch_size)
+        stats, s1 = trainer.scorer_stats(), f.summary()
+        rec = arms[name]
+        rec["scored"] += s1["chunks_scored"] - s0["chunks_scored"]
+        rec["applied"] += s1["chunks_applied"] - s0["chunks_applied"]
+        for k in mk.KERNELS:
+            rec["scorer_launches"][k] += f.launch_counts[k] - c0[k]
+        rec["rejected"] = stats["sampler/chunks_rejected"]
+        rec["staleness_mean"].append(stats["sampler/score_staleness_mean"])
+        rec["staleness_max"].append(stats["sampler/score_staleness_max"])
+        if name == "device":
+            for k, v in counts.items():
+                launches[k] += v
+            for k in mk.KERNELS:
+                launches[k] += f.launch_counts[k] - c0[k]
+        table = trainer.state.scoretable.scores
+        check(bool(torch.isfinite(table).all()) and trainer.state.scoretable.cursor == 0,
+              f"{name}: the table is not finite, or the cursor moved")
+    steps = SERVICE_STEPS * SERVICE_TURNS.count("host")
+    for name, rec in arms.items():
+        check(rec["rejected"] == 0 and rec["applied"] >= 1
+              and rec["scorer_launches"]["nll_fwd"] >= 1
+              and rec["scorer_launches"]["augment_normalize"] == 0,
+              f"{name} (fused={fused}): {rec}")
+        rec.update(scored_per_step=rec["scored"] / steps, applied_per_step=rec["applied"] / steps,
+                   nll_fwd_per_step=rec["scorer_launches"]["nll_fwd"] / steps)
+    cap = svc._epoch_cap
+    paced_epochs = epochs[epochs_before:]
+    check(paced_epochs and max(paced_epochs) <= cap and max(paced_epochs) >= 1,
+          f"device (fused={fused}): chunks picked in each snapshot epoch {paced_epochs}, "
+          f"cap {cap}")
+    # Each arm's turn over the sync turn in the same half of the order.
+    ratios = {name: [a / b for a, b in zip(rates[name], rates["sync"])]
+              for name in ("host", "device")}
+    print(f"service (b), fused_input={fused}: steps/s in turns of {SERVICE_STEPS}: " + ", ".join(
+        f"{n} {[round(x, 2) for x in rates[n]]}" for n in configs) + f"; device picked "
+        f"{paced_epochs} chunks in its snapshot epochs (cap {cap}) [{card}]")
+    for name, rec in arms.items():
+        print(f"  {name}: {rec['scored_per_step']:.3f} chunks scored and "
+              f"{rec['applied_per_step']:.3f} applied a step, staleness mean "
+              f"{rec['staleness_mean']} max {rec['staleness_max']} steps, scorer nll_fwd "
+              f"{rec['nll_fwd_per_step']:.3f} a step, rejected {rec['rejected']}")
+    keep = trainers.pop("device")
+    keep._scorer_fleet.snapshot = snapshot
+    for trainer in trainers.values():
+        trainer.close()
+    del trainers
+    torch.cuda.empty_cache()
+    return {"launches": launches, "trainer": keep,
+            "summary": {"steps_per_s": rates, "epoch_picks": paced_epochs, "cap": cap,
+                        "turn_ratios_over_sync": ratios, **arms}}
+
+
+def tenant_shares(torch, mk, card: str) -> dict:
+    """(c) Two tenants at ``TENANT_WEIGHTS`` on the host backend against
+    the one-tenant fleet, ``TENANT_STEPS`` a turn in ``TENANT_TURNS``: the
+    chunk shares, the rates, and tenant 1's chunks discarded as
+    delivered."""
+    from mercury_tpu_torch import TrainConfig
+
+    configs = {"one": TrainConfig(**ASYNC_TABLE),
+               "two": TrainConfig(**ASYNC_TABLE, scorer_tenants=2,
+                                  scorer_tenant_weights=TENANT_WEIGHTS)}
+    trainers = {name: build_trainer(torch, c, quiet=True) for name, c in configs.items()}
+    for trainer in trainers.values():
+        warm(trainer)
+    svc, fleet = trainers["two"]._scorer_fleet, trainers["one"]._scorer_fleet
+    scored0 = [t["chunks_scored"] for t in svc.summary()["tenants"]]
+    fleet0 = fleet.summary()["chunks_scored"]
+    c0 = dict(svc.launch_counts)
+    launches = {k: 0 for k in mk.KERNELS}
+    rates = {name: [] for name in configs}
+    for name in TENANT_TURNS:
+        dt, counts, losses, metrics = timed_steps(torch, mk, trainers[name], TENANT_STEPS)
+        rates[name].append(TENANT_STEPS / dt)
+        if name == "two":
+            for k, v in counts.items():
+                launches[k] += v
+    trainers["two"].train_step()   # drains what the last turn queued
+    fitted = trainers["two"].fit(steps=2)
+    check(math.isfinite(fitted["train/loss"]) and math.isfinite(fitted["test/eval_loss"]),
+          f"two tenants: fit gave {fitted}")
+    tenants = svc.summary()["tenants"]
+    scored = [t["chunks_scored"] - s for t, s in zip(tenants, scored0)]
+    one = fleet.summary()["chunks_scored"] - fleet0
+    for k in mk.KERNELS:
+        launches[k] += svc.launch_counts[k] - c0[k]
+    total = max(sum(scored), 1)
+    shares = [c / total for c in scored]
+    check(scored[1] >= 1 and scored[0] > scored[1]
+          and tenants[1]["discarded"] == tenants[1]["delivered"] >= 1
+          and tenants[0]["discarded"] == 0,
+          f"two tenants: scored {scored}, tenants {tenants}")
+    steps = TENANT_STEPS * TENANT_TURNS.count("two")
+    print(f"service (c): two tenants at weights {TENANT_WEIGHTS!r}, host backend: chunks "
+          f"scored {scored} in {steps} steps (shares {[round(x, 3) for x in shares]}; the "
+          f"one-tenant fleet {one}); steps/s "
+          f"in turns of {TENANT_STEPS}: one tenant {[round(x, 2) for x in rates['one']]}, "
+          f"two {[round(x, 2) for x in rates['two']]}; tenant 1 delivered and discarded "
+          f"{tenants[1]['discarded']} [{card}]")
+    for trainer in trainers.values():
+        trainer.close()
+    del trainers
+    torch.cuda.empty_cache()
+    return {"launches": launches,
+            "summary": {"scored": scored, "shares": shares, "one_tenant_scored": one,
+                        "steps_per_s": rates, "tenants": tenants}}
+
+
+def lockstep_phase(torch, card: str) -> dict:
+    """(d) The device backend's lockstep at W=2: two gloo ranks on card 0
+    (:func:`lockstep_body`), each running ``LOCKSTEP_STEPS`` steps twice.
+    Chunk q carries snapshot q's step and is applied at the tick after
+    snapshot q+1 on both ranks, in both runs, and each rank's final table
+    is bit-equal between its runs."""
+    from mercury_tpu_torch.parallel.distributed import spawn
+
+    ranks = spawn(lockstep_body, TWO_RANKS, "gloo", devices=[0] * TWO_RANKS, timeout_s=600)
+    every = LOCKSTEP["snapshot_every"]
+    want = [(s + every + 1, s) for s in range(0, LOCKSTEP_STEPS - every, every)]
+    for r in ranks:
+        check(r["tables"][0] == r["tables"][1],
+              f"lockstep rank {r['rank']}: the final tables of the two runs differ")
+        for run in r["runs"]:
+            check(run["applied"] == want, f"lockstep rank {r['rank']}: applied (tick step, "
+                  f"chunk step) {run['applied']}, expected {want}")
+    check(ranks[0]["runs"][0]["applied"] == ranks[1]["runs"][0]["applied"],
+          "lockstep: the ranks applied different schedules")
+    for r in ranks:
+        waits = [[round(w, 3) for w in run["waits_ms"]] for run in r["runs"]]
+        print(f"service (d) rank {r['rank']}: lockstep W=2 over gloo on one card, "
+              f"snapshot_every={every}: chunks applied at (tick, snapshot step) "
+              f"{r['runs'][0]['applied']}; the trainer's wait at each snapshot {waits} ms; "
+              f"steps/s {[round(run['steps_per_s'], 2) for run in r['runs']]}; final table "
+              f"bit-equal across the two runs ({r['tables'][0][:12]}); service nll_fwd "
+              f"{r['runs'][-1]['service_launches']['nll_fwd']} [{card}]")
+    launches = {k: sum(run["launches"][k] + run["service_launches"][k]
+                       for r in ranks for run in r["runs"])
+                for k in ranks[0]["runs"][0]["launches"]}
+    return {"launches": launches, "summary": {"per_rank": ranks, "applied": want}}
+
+
+def lockstep_body():
+    """One rank of phase 14 (d) (run by ``spawn``; prints nothing):
+    ``LOCKSTEP`` under deterministic cuDNN, ``LOCKSTEP_STEPS`` steps from
+    a fresh Trainer, twice; each run's applied chunks, snapshot waits,
+    launches, rate and final table's digest."""
+    import torch
+
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    config = TrainConfig(**LOCKSTEP)
+    undo = deterministic_cudnn(torch)
+    runs, tables = [], []
+    try:
+        for _ in range(2):
+            trainer = build_trainer(torch, config, quiet=True)
+            svc = trainer._scorer_fleet
+            check(svc.summary()["lockstep"], "the W=2 device backend is not in lockstep")
+            applied = []
+            apply = trainer._apply_chunks
+
+            def recorded(chunks, step, apply=apply, applied=applied):
+                applied.extend((step, c.step) for c in chunks)
+                apply(chunks, step)
+
+            trainer._apply_chunks = recorded
+            c0 = dict(svc.launch_counts)
+            dt, counts, losses, metrics = timed_steps(torch, mk, trainer, LOCKSTEP_STEPS)
+            runs.append({"applied": list(applied), "waits_ms": list(svc.barrier_waits_ms),
+                         "steps_per_s": LOCKSTEP_STEPS / dt, "launches": counts,
+                         "service_launches": {k: svc.launch_counts[k] - c0[k]
+                                              for k in mk.KERNELS},
+                         "losses": losses.tolist()})
+            tables.append(digest(trainer.state.scoretable.scores))
+            fitted = trainer.fit(steps=2)
+            check(math.isfinite(fitted["train/loss"]), f"lockstep: fit gave {fitted}")
+            trainer.close()
+            del trainer, svc
+            torch.cuda.empty_cache()
+    finally:
+        undo()
+    import torch.distributed as dist
+
+    return {"rank": dist.get_rank(), "runs": runs, "tables": tables}
+
+
+def service_resume(torch, trainer) -> dict:
+    """(e) ``fit`` for 2 steps, a save, 3 steps, then a restore in the
+    live device-backend run: every tenant's queue is empty and the
+    snapshot is the restored step's; after ``close()`` (twice) no scorer
+    thread is left."""
+    fitted = trainer.fit(steps=2)
+    check(math.isfinite(fitted["train/loss"]) and math.isfinite(fitted["test/eval_loss"]),
+          f"device backend: fit gave {fitted}")
+    with tempfile.TemporaryDirectory() as directory:
+        trainer.save(directory)
+        saved = trainer.state.step
+        for _ in range(3):
+            trainer.train_step()
+        step = trainer.restore(directory)
+        summary = trainer._scorer_fleet.summary()
+        check(step == saved == trainer.state.step and summary["snapshot_step"] == saved
+              and all(t["queue_depth"] == 0 for t in summary["tenants"]),
+              f"restore at {step} (saved {saved}): {summary}")
+        trainer.train_step()
+    trainer.close()
+    trainer.close()
+    alive = [t.name for t in threading.enumerate() if t.name.startswith("mercury-scorer-")]
+    check(not alive, f"scorer threads alive after close(): {alive}")
+    print(f"service (e): fit(steps=2) loss {fitted['train/loss']:.4f}; restored step {saved} "
+          f"in a live device-backend run: every queue empty, the snapshot at the restored "
+          f"step; no scorer thread after close()")
+    return {"restored_step": saved}
+
+
+def scorer_service_phase(torch, card: str) -> dict:
+    """Phase 14: the scorer service. (a) the device backend's chunks
+    against the fleet's, and tenant 1's; (b) sync, async host and async
+    device in turns, plain and fused ingest; (c) two tenants at "3,1";
+    (d) the lockstep at W=2, twice; (e) a restore in a live device run;
+    (f) with a second card visible, the device backend on the spare."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    out = {"card": card, "chunks": service_chunks(torch, mk, card)}
+    launches = {k: 0 for k in mk.KERNELS}
+    live = None
+    for fused in (False, True):
+        result = service_live(torch, mk, card, fused)
+        out["fused" if fused else "plain"] = result["summary"]
+        for k, v in result["launches"].items():
+            launches[k] += v
+        if fused:
+            live = result["trainer"]
+        else:
+            result["trainer"].close()
+    for name, result in (("tenants", tenant_shares(torch, mk, card)),
+                         ("lockstep", lockstep_phase(torch, card))):
+        out[name] = result["summary"]
+        for k, v in result["launches"].items():
+            launches[k] += v
+    out["resume"] = service_resume(torch, live)
+    del live
+    out["spare"] = spare_card(torch, mk, card)
     torch.cuda.empty_cache()
     return {"launches": launches, "summary": out}
 

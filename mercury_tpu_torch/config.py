@@ -12,11 +12,14 @@ else.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 _MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
 _DATASETS = ("cifar10", "cifar100", "synthetic", "imagefolder")
 _SAMPLERS = ("pool", "scoretable", "groupwise")
+
+# The most scorer tenants (their metric keys are t0..t3).
+MAX_TENANTS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,16 +123,34 @@ class TrainConfig:
     # CUDA stream, rescores round-robin windows against a copy of the
     # parameters taken every snapshot_every steps, and the Trainer scatters
     # each chunk into the table between steps, weighted by
-    # table_decay**age; the step only decays, normalizes and draws. One
-    # process only (world_size=1).
+    # table_decay**age; the step only decays, normalizes and draws. At
+    # world_size > 1 only with scorer_backend="device" (lockstep).
     refresh_mode: str = "sync"
     scorer_workers: int = 1
     snapshot_every: int = 16
-    # Idle seconds a scorer worker waits between chunks (0: none).
+    # Idle seconds a host-backend scorer worker waits between chunks (0:
+    # none); must be 0 under scorer_backend="device".
     scorer_throttle_s: float = 0.0
-    # Where the fleet scores: "host" (threads of this process); "device"
-    # (the JAX package's scorer slice) is not ported.
+    # Where and how the async scorer runs (sampling/scorer_service.py):
+    # "host": threads of this process score continuously, paced by
+    # scorer_throttle_s; "device": the workers score on a card no rank of
+    # this host trains on, else on their own streams of the rank's card
+    # (parallel/distributed.reserve_scorer_device), paced by snapshots: a
+    # snapshot opens at most a queue's worth of chunks a tenant. At
+    # world_size > 1 the device backend runs in lockstep: one tenant, one
+    # worker, chunk q scored from snapshot q and applied after q+1.
     scorer_backend: str = "host"
+    # Scorer tenants (1..4): a queue each, chunks scheduled by smooth
+    # weighted round-robin over scorer_tenant_weights ("" = equal; "3,1":
+    # tenant 0 gets 3/4). Tenant 0 feeds this trainer's table; the others
+    # model co-hosted consumers, drained and discarded after accounting.
+    scorer_tenants: int = 1
+    scorer_tenant_weights: str = ""
+    # Scoring SLOs (ScorerService.slo_status; 0 disables): a tenant's
+    # staleness in steps above slo_score_staleness_max, or its queue depth
+    # at or above scorer_queue_highwater, is a breach.
+    slo_score_staleness_max: int = 0
+    scorer_queue_highwater: int = 0
 
     # Augmentation and partition
     # "noniid": pad-4 crop + hflip; "iid": resize 35, crop 32, hflip and a
@@ -229,13 +250,14 @@ class TrainConfig:
                 "use_importance_sampling=True (the scorer fleet refreshes the "
                 f"persistent score table), got sampler={self.sampler!r}, "
                 f"use_importance_sampling={self.use_importance_sampling}")
-        if self.scorer_backend not in ("host", "device"):
-            bad("scorer_backend", "use 'host' or 'device'")
+        # The JAX step's refusals: the backend and the tenants are the async
+        # scorer's (validate_scorer_composition checks the backend's name).
         if self.scorer_backend != "host" and not self.use_async:
-            bad("scorer_backend", "'device' requires refresh_mode='async' with "
-                "sampler='scoretable'")
-        if self.scorer_backend == "device":
-            bad("scorer_backend", "the device scorer backend is not ported yet")
+            bad("scorer_backend", "any backend but 'host' requires refresh_mode='async' "
+                "with sampler='scoretable'")
+        if self.scorer_tenants != 1 and not self.use_async:
+            bad("scorer_tenants", "requires refresh_mode='async' with "
+                "sampler='scoretable' (tenancy is a property of the scorer service)")
         if self.use_async:
             if self.scorer_workers < 1:
                 bad("scorer_workers", "must be >= 1")
@@ -243,11 +265,7 @@ class TrainConfig:
                 bad("snapshot_every", "must be >= 1")
             if self.scorer_throttle_s < 0:
                 bad("scorer_throttle_s", "must be >= 0")
-            if self.world_size > 1:
-                bad("refresh_mode", "'async' with scorer_backend='host' is "
-                    "single-controller only: the scorer fleet's params snapshot "
-                    "and its (slots, scores) chunk stream are per-process, and "
-                    "every rank of the port is a process (world_size=1)")
+            validate_scorer_composition(self, self.world_size)
         if self.use_scoretable:
             if self.refresh_size < 1:
                 bad("refresh_size", "must be >= 1")
@@ -383,3 +401,57 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+def parse_tenant_weights(config: TrainConfig) -> List[float]:
+    """``scorer_tenant_weights`` as floats ("" = equal weights); raises
+    ``ValueError`` naming the field on a bad entry, length or sign."""
+    n = int(config.scorer_tenants)
+    raw = (config.scorer_tenant_weights or "").strip()
+    if not raw:
+        return [1.0] * n
+    prefix = f"TrainConfig.scorer_tenant_weights={config.scorer_tenant_weights!r}: "
+    try:
+        weights = [float(w) for w in raw.split(",")]
+    except ValueError:
+        raise ValueError(prefix + "must be comma-separated numbers") from None
+    if len(weights) != n:
+        raise ValueError(prefix + f"has {len(weights)} entries for scorer_tenants={n}")
+    if any(w <= 0 for w in weights):
+        raise ValueError(prefix + "entries must be > 0")
+    return weights
+
+
+def validate_scorer_composition(config: TrainConfig, world_size: int) -> None:
+    """Refuse what JAX's ``validate_scorer_composition`` refuses, with
+    ``world_size`` (a process a rank) in place of the process count; each
+    ``ValueError`` names its field."""
+
+    def bad(field: str, why: str) -> None:
+        raise ValueError(f"TrainConfig.{field}={getattr(config, field)!r}: {why}")
+
+    backend = config.scorer_backend
+    if backend not in ("host", "device"):
+        bad("scorer_backend", "use 'host' or 'device'")
+    tenants = int(config.scorer_tenants)
+    if not 1 <= tenants <= MAX_TENANTS:
+        bad("scorer_tenants", f"must be in 1..{MAX_TENANTS} (the metric keys are "
+            f"t0..t{MAX_TENANTS - 1})")
+    parse_tenant_weights(config)
+    if backend == "device" and float(config.scorer_throttle_s) != 0.0:
+        bad("scorer_throttle_s", "is the host backend's duty-cycle knob; the device "
+            "backend is paced by snapshots (each opens one bounded scoring epoch, so "
+            "snapshot_every bounds the duty cycle): set scorer_throttle_s=0")
+    if world_size > 1:
+        if backend == "host":
+            bad("refresh_mode", "'async' with scorer_backend='host' is "
+                "single-controller only: the scorer fleet's params snapshot and its "
+                "(slots, scores) chunk stream are per-process, with no protocol across "
+                "processes to keep every rank's score table consistent; "
+                "scorer_backend='device' scores in deterministic lockstep and runs at "
+                "world_size > 1")
+        for field in ("scorer_tenants", "scorer_workers"):
+            if int(getattr(config, field)) > 1:
+                bad(field, "world_size > 1 runs scorer_backend='device' in deterministic "
+                    "lockstep (chunk q scored from snapshot q, delivered at snapshot q+1, "
+                    "on every rank), with exactly one tenant and one worker")

@@ -25,6 +25,7 @@ from __future__ import annotations
 import datetime
 import os
 import shutil
+import socket
 import tempfile
 from typing import Any, Callable, List, Optional, Sequence
 
@@ -33,7 +34,8 @@ import torch.distributed as dist
 
 from mercury_tpu_torch.parallel.collectives import rank, world
 
-__all__ = ["init_distributed", "rank", "world", "require_world", "device", "spawn"]
+__all__ = ["init_distributed", "rank", "world", "require_world", "device",
+           "cards_in_use", "reserve_scorer_device", "spawn"]
 
 DEFAULT_TIMEOUT_S = 300.0
 
@@ -104,6 +106,31 @@ def device() -> torch.device:
         raise RuntimeError("no CUDA device: the port trains on the GPU. Pass "
                            "device='cpu' to run on the CPU deliberately.")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def cards_in_use(own: torch.device) -> List[int]:
+    """The card indices the ranks of this host train on: ``own``'s alone
+    without a process group, else gathered from every rank (a collective:
+    every rank calls it)."""
+    if not (dist.is_available() and dist.is_initialized()) or world() == 1:
+        return [own.index]
+    pairs: List[Any] = [None] * world()
+    dist.all_gather_object(pairs, (socket.gethostname(), own.index))
+    host = socket.gethostname()
+    return sorted({index for name, index in pairs if name == host})
+
+
+def reserve_scorer_device(own: torch.device, in_use: Sequence[int],
+                          visible: Optional[int] = None) -> torch.device:
+    """The card of ``scorer_backend="device"`` — the counterpart of the JAX
+    package's ``reserve_scorer_slice``: the first of the ``visible`` cards
+    (default ``torch.cuda.device_count()``) that is not ``in_use`` by a
+    rank of this host, else the rank's own card ``own``, where the scorer's
+    workers score on streams of their own beside the step."""
+    if visible is None:
+        visible = torch.cuda.device_count()
+    spares = [i for i in range(visible) if i not in set(in_use)]
+    return torch.device("cuda", spares[0]) if spares else own
 
 
 def _rank_main(rank_: int, fn: Callable, world_size: int, backend: str,

@@ -30,10 +30,14 @@ flips come from a generator of its own, seeded from ``(seed, 0x5C0, k)``,
 never from the rank's generator, so the step's draws do not depend on the
 fleet.
 
-One process only: every rank of the port is a process, and the chunk
-stream has no protocol across processes (``config.py`` refuses
-``world_size > 1``). A worker that raises is reported at the next
-:meth:`ScorerFleet.drain`; nothing restarts it.
+The window's rows, the thread's stream, the snapshot and the scoring of a
+window are :class:`ChunkScorer`'s, which the scorer service
+(``sampling/scorer_service.py``: the device backend, tenants, the SLOs
+and the lockstep at W>1) shares, so a chunk of either is the same bits.
+
+The fleet is one process's (the host backend at ``world_size=1``): its
+chunk stream has no protocol across processes. A worker that raises is
+reported at the next :meth:`ScorerFleet.drain`; nothing restarts it.
 """
 
 from __future__ import annotations
@@ -64,16 +68,19 @@ _log = logging.getLogger(__name__)
 FLEET_STREAM = 0x5C0  # the fleet's augmentation stream, apart from the step's
 
 
-def chunk_seed(seed: int, chunk_id: int) -> int:
+def chunk_seed(seed: int, chunk_id: int, rank: int = 0) -> int:
     """The seed of chunk ``chunk_id``'s generator: ``(seed, 0x5C0,
-    chunk_id)`` mixed by numpy's ``SeedSequence``."""
-    words = np.random.SeedSequence([seed, FLEET_STREAM, chunk_id]).generate_state(2)
+    chunk_id)`` mixed by numpy's ``SeedSequence``; a rank ``r > 0`` (the
+    lockstep service at W>1) mixes ``r`` in too, so each rank draws its
+    own crops and flips and rank 0 draws those of W=1."""
+    entropy = [seed, FLEET_STREAM, chunk_id] + ([rank] if rank else [])
+    words = np.random.SeedSequence(entropy).generate_state(2)
     return int(words[0]) << 32 | int(words[1])
 
 
 class Snapshot(NamedTuple):
     """A copy of the model's parameters and buffers, by name, views of one
-    flat tensor; ``ready`` the event after the copy on the trainer's stream
+    flat tensor on the scorer's device; ``ready`` the event after the copy
     (None on the CPU)."""
 
     tensors: Dict[str, torch.Tensor]
@@ -101,13 +108,23 @@ class ScoringProgram:
     under ``use_pallas=False``; the smoothed loss under
     ``label_smoothing``), or under ``importance_score="grad_norm"`` the
     gradient-norm bound. Each thread scores with its own copy of the model
-    (``functional_call`` swaps a module's tensors while it runs)."""
+    (``functional_call`` swaps a module's tensors while it runs).
 
-    def __init__(self, model: torch.nn.Module, mean, std, config: TrainConfig) -> None:
+    ``backend`` and ``device`` say where it scores: ``"host"`` on the
+    training device, ``"device"`` on the card
+    ``parallel.distributed.reserve_scorer_device`` gave, ``dedicated``
+    when no rank of this host trains on it (:meth:`describe`). The math is
+    the same on both."""
+
+    def __init__(self, model: torch.nn.Module, mean, std, config: TrainConfig,
+                 backend: str = "host", device=None, dedicated: bool = False) -> None:
         self._template = set_sync_batch_norm(copy.deepcopy(model), False)
+        if device is not None:
+            self._template.to(device)
         self._mean, self._std = mean, std
         self._config = config
         self._local = threading.local()
+        self.backend, self.device, self.dedicated = backend, device, dedicated
 
     def _module(self) -> torch.nn.Module:
         module = getattr(self._local, "module", None)
@@ -135,6 +152,127 @@ class ScoringProgram:
             return reference.nll_forward(logits, labels)
         return mk.per_sample_nll(logits, labels)
 
+    def describe(self) -> Dict[str, Any]:
+        return {"backend": self.backend, "device": str(self.device),
+                "dedicated_slice": self.dedicated}
+
+
+class ChunkScorer:
+    """What the fleet and the scorer service share: the window's rows, a
+    CUDA stream for each scoring thread, the snapshot, and the scoring of
+    one window into a :class:`ScoreChunk`. So a chunk of either, from the
+    same snapshot, window and seed, is the same bits.
+
+    ``device`` is where the step trains and the rows lie; ``scorer_device``
+    (default ``device``) where the chunk is scored. When they differ (a
+    spare card), the snapshot and the window's rows are copied to it."""
+
+    def __init__(self, dataset: ShardedDataset, model: torch.nn.Module,
+                 config: TrainConfig, device, backend: str = "host",
+                 scorer_device=None) -> None:
+        self.device = with_index(torch.device(device))
+        self.scorer_device = (self.device if scorer_device is None
+                              else with_index(torch.device(scorer_device)))
+        self.cuda = self.device.type == "cuda"
+        rank = dataset.rank
+        self._host_pixels = dataset.host_pixels
+        if self._host_pixels:
+            # host_stream (an np.memmap too): gathered on the host.
+            self._x = dataset.x_train
+            self._rows_np = dataset.shard_indices[rank].cpu().numpy()
+            self._y, self._shard_row = dataset.y_train, dataset.shard_indices[rank]
+        elif dataset.x_shard is not None:
+            # Sharded placement: the rank's own rows, indexed by slot.
+            self._x, self._y, self._shard_row = dataset.x_shard, dataset.y_shard, None
+        else:
+            self._x, self._y = dataset.x_train, dataset.y_train
+            self._shard_row = dataset.shard_indices[rank]
+        self.L = dataset.shard_len
+        self.R = int(config.refresh_size)
+        self._config = config
+        self.program = ScoringProgram(model, dataset.mean, dataset.std, config, backend,
+                                      self.scorer_device,
+                                      dedicated=self.scorer_device != self.device)
+        self._local = threading.local()   # .stream: the thread's CUDA stream
+        # Kernel launches of this scorer's chunks (ops.mercury_kernels).
+        self.launch_counts: Dict[str, int] = {k: 0 for k in mk.KERNELS}
+
+    def stream(self):
+        """The calling thread's CUDA stream on the scorer's device (None on
+        the CPU)."""
+        if not self.cuda:
+            return None
+        stream = getattr(self._local, "stream", None)
+        if stream is None:
+            stream = self._local.stream = torch.cuda.Stream(self.scorer_device)
+        return stream
+
+    def gather(self, start: int):
+        """The window at ``start``: its uint8 rows and labels on the
+        scorer's device."""
+        slots = (start + torch.arange(self.R, device=self.device)) % self.L
+        if not self._host_pixels:
+            rows = slots if self._shard_row is None else self._shard_row[slots]
+            return self._x[rows].to(self.scorer_device), self._y[rows].to(self.scorer_device)
+        gidx = self._rows_np[(start + np.arange(self.R)) % self.L]
+        host = torch.from_numpy(np.ascontiguousarray(self._x[gidx]))
+        if self.cuda:
+            # Pinned, so the copy is a DMA on this thread's stream; the
+            # buffer lives until the scores' copy back has synchronized it.
+            host = host.pin_memory()
+        return (host.to(self.scorer_device, non_blocking=True),
+                self._y[self._shard_row[slots]].to(self.scorer_device))
+
+    def snapshot(self, model: torch.nn.Module, step: int) -> Snapshot:
+        """Copy the model's parameters and buffers: one ``cat`` on the
+        trainer's stream (the tensors are views of it), copied on to a
+        spare scorer card, and an event after it; the caller does not
+        wait. A copy between cards runs on the source's current stream and
+        the destination's current stream waits for it (PyTorch's ordering),
+        so the source ``cat`` is freed in stream order after the copy has
+        read it, and the event on the destination covers the copy."""
+        named = [*model.named_parameters(), *model.named_buffers()]
+        flat = torch.cat([t.detach().reshape(-1) for _, t in named])
+        if self.scorer_device != self.device:
+            flat = flat.to(self.scorer_device)
+        tensors = {name: v.view(t.shape) for (name, t), v in
+                   zip(named, flat.split([t.numel() for _, t in named]))}
+        ready = None
+        if self.cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.scorer_device))
+        return Snapshot(tensors, ready, int(step))
+
+    def score(self, snap: Snapshot, start: int, seed: int) -> ScoreChunk:
+        """The window at ``start`` scored on the calling thread's stream
+        against ``snap``, its crops and flips drawn from a generator seeded
+        ``seed``. Returns once the scores are in pinned host memory: the
+        snapshot, rows and scores are then no longer read."""
+        stream = self.stream()
+        with contextlib.ExitStack() as ctx:
+            if stream is not None:
+                ctx.enter_context(torch.cuda.device(self.scorer_device))
+                ctx.enter_context(torch.cuda.stream(stream))
+                stream.wait_event(snap.ready)
+            ctx.enter_context(mk.counting_into(self.launch_counts))
+            rows, labels = self.gather(start)
+            gen = torch.Generator(device=self.scorer_device).manual_seed(seed)
+            scores = self.program(snap.tensors, rows, labels,
+                                  draw_augment(gen, self.R, self._config))
+            out = torch.empty(self.R, dtype=torch.float32, pin_memory=self.cuda)
+            # Synchronizes this thread's stream.
+            out.copy_(scores)
+        slots_h = torch.empty(self.R, dtype=torch.int64, pin_memory=self.cuda)
+        slots_h.copy_(torch.from_numpy((start + np.arange(self.R)) % self.L))
+        return ScoreChunk(slots=slots_h, scores=out, step=snap.step)
+
+
+def with_index(device: torch.device) -> torch.device:
+    """A CUDA device with its index (the current card's when none)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
 
 class ScorerFleet:
     """``config.scorer_workers`` daemon threads scoring round-robin windows
@@ -152,33 +290,13 @@ class ScorerFleet:
 
     def __init__(self, dataset: ShardedDataset, model: torch.nn.Module,
                  config: TrainConfig, device) -> None:
-        self._device = torch.device(device)
-        self._cuda = self._device.type == "cuda"
-        if self._cuda and self._device.index is None:
-            self._device = torch.device("cuda", torch.cuda.current_device())
-        rank = dataset.rank
-        self._host_pixels = dataset.host_pixels
-        if self._host_pixels:
-            # host_stream (an np.memmap too): gathered on the host.
-            self._x = dataset.x_train
-            self._rows_np = dataset.shard_indices[rank].cpu().numpy()
-            self._y, self._shard_row = dataset.y_train, dataset.shard_indices[rank]
-        elif dataset.x_shard is not None:
-            # Sharded placement: the rank's own rows, indexed by slot.
-            self._x, self._y, self._shard_row = dataset.x_shard, dataset.y_shard, None
-        else:
-            self._x, self._y = dataset.x_train, dataset.y_train
-            self._shard_row = dataset.shard_indices[rank]
-        self._L = dataset.shard_len
-        self._R = int(config.refresh_size)
+        self._scorer = ChunkScorer(dataset, model, config, device)
+        self._L, self._R = self._scorer.L, self._scorer.R
         self._seed = int(config.seed)
-        self._config = config
         self._workers = int(config.scorer_workers)
         self._throttle = float(config.scorer_throttle_s)
-        self._program = ScoringProgram(model, dataset.mean, dataset.std, config)
-        self._local = threading.local()   # .stream: the thread's CUDA stream
         # Kernel launches of this fleet's scoring (ops.mercury_kernels).
-        self.launch_counts: Dict[str, int] = {k: 0 for k in mk.KERNELS}
+        self.launch_counts: Dict[str, int] = self._scorer.launch_counts
 
         self._snap: Optional[Snapshot] = None  # replaced whole by snapshot()
         self._lock = threading.Lock()
@@ -203,29 +321,6 @@ class ScorerFleet:
             t.start()
 
     # ------------------------------------------------------------- scoring
-    def _stream(self):
-        """The calling thread's CUDA stream (None on the CPU)."""
-        if not self._cuda:
-            return None
-        stream = getattr(self._local, "stream", None)
-        if stream is None:
-            stream = self._local.stream = torch.cuda.Stream(self._device)
-        return stream
-
-    def _gather(self, start: int, slots: torch.Tensor):
-        """The window's uint8 rows and labels on the device."""
-        if not self._host_pixels:
-            rows = slots if self._shard_row is None else self._shard_row[slots]
-            return self._x[rows], self._y[rows]
-        gidx = self._rows_np[(start + np.arange(self._R)) % self._L]
-        host = torch.from_numpy(np.ascontiguousarray(self._x[gidx]))
-        if self._cuda:
-            # Pinned, so the copy is a DMA on this thread's stream; the
-            # buffer lives until the scores' copy back has synchronized it.
-            host = host.pin_memory()
-        return (host.to(self._device, non_blocking=True),
-                self._y[self._shard_row[slots]])
-
     def _next_chunk(self) -> Tuple[int, Optional[ScoreChunk]]:
         """The next window scored on the calling thread, and the generation
         it was begun in."""
@@ -237,29 +332,11 @@ class ScorerFleet:
             self._cursor = (start + self._R) % self._L
             chunk_id = self._chunk_seq
             self._chunk_seq += 1
-        stream = self._stream()
-        with contextlib.ExitStack() as ctx:
-            if stream is not None:
-                ctx.enter_context(torch.cuda.device(self._device))
-                ctx.enter_context(torch.cuda.stream(stream))
-                stream.wait_event(snap.ready)
-            ctx.enter_context(mk.counting_into(self.launch_counts))
-            slots = (start + torch.arange(self._R, device=self._device)) % self._L
-            rows, labels = self._gather(start, slots)
-            gen = torch.Generator(device=self._device).manual_seed(
-                chunk_seed(self._seed, chunk_id))
-            scores = self._program(snap.tensors, rows, labels,
-                                   draw_augment(gen, self._R, self._config))
-            out = torch.empty(self._R, dtype=torch.float32, pin_memory=self._cuda)
-            # Synchronizes this thread's stream: the snapshot, rows and
-            # scores are no longer read once it returns.
-            out.copy_(scores)
-        slots_h = torch.empty(self._R, dtype=torch.int64, pin_memory=self._cuda)
-        slots_h.copy_(torch.from_numpy((start + np.arange(self._R)) % self._L))
+        chunk = self._scorer.score(snap, start, chunk_seed(self._seed, chunk_id))
         with self._lock:
             self._chunks_scored += 1
             self._rows_scored += self._R
-        return generation, ScoreChunk(slots=slots_h, scores=out, step=snap.step)
+        return generation, chunk
 
     def _offer(self, generation: int, chunk: ScoreChunk) -> None:
         """Queue ``chunk`` unless a reset came since it was begun; while the
@@ -304,18 +381,11 @@ class ScorerFleet:
     # ----------------------------------------------------------- lifecycle
     def snapshot(self, model: torch.nn.Module, step: int) -> None:
         """Copy the model's parameters and buffers for the chunks scored
-        from now on: one ``cat`` on the trainer's stream (the tensors are
-        views of it) and an event after it; the caller does not wait."""
-        named = [*model.named_parameters(), *model.named_buffers()]
-        flat = torch.cat([t.detach().reshape(-1) for _, t in named])
-        tensors = {name: v.view(t.shape) for (name, t), v in
-                   zip(named, flat.split([t.numel() for _, t in named]))}
-        ready = None
-        if self._cuda:
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self._device))
+        from now on (:meth:`ChunkScorer.snapshot`); the caller does not
+        wait."""
+        snap = self._scorer.snapshot(model, step)
         with self._lock:
-            self._snap = Snapshot(tensors, ready, int(step))
+            self._snap = snap
             self._snapshots += 1
 
     def drain(self) -> List[ScoreChunk]:

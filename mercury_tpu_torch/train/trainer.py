@@ -30,16 +30,21 @@ batches ahead, and each step is pop → step → push (:meth:`train_step`).
 restore refills the pipeline from the restored ring (or primes it anew
 from a checkpoint without one), and :meth:`close` stops the worker.
 
-Under ``refresh_mode="async"`` the Trainer keeps a
-:class:`~mercury_tpu_torch.sampling.scorer_fleet.ScorerFleet`, built after
-the state and before ``auto_resume``, with a first snapshot. After every
-step (:meth:`train_step`) it scatters the chunks the fleet has ready into
-the table, each weighted by ``table_decay**age`` (a chunk with a
+Under ``refresh_mode="async"`` the Trainer keeps a scorer, built after
+the state and before ``auto_resume``, with a first snapshot: a
+:class:`~mercury_tpu_torch.sampling.scorer_fleet.ScorerFleet`, or, as the
+JAX Trainer chooses, a
+:class:`~mercury_tpu_torch.sampling.scorer_service.ScorerService` when
+``scorer_backend="device"``, ``scorer_tenants > 1`` or a scoring SLO is
+armed (at ``world_size > 1`` the device backend's lockstep). After every
+step (:meth:`train_step`) it scatters the chunks ready for this trainer
+into the table, each weighted by ``table_decay**age`` (a chunk with a
 non-finite score is rejected and counted), and snapshots the parameters
-every ``snapshot_every`` steps; none of it waits for the device. ``fit``'s
-log records add the fleet's five ``stats()`` keys and
-``sampler/chunks_rejected``; a restore drops the queued chunks and
-snapshots the restored parameters; :meth:`close` stops the fleet.
+every ``snapshot_every`` steps; nothing of it waits for the device, but a
+lockstep snapshot waits for this rank's scorer. ``fit``'s log records add
+the scorer's ``stats()`` keys and ``sampler/chunks_rejected``; a restore
+drops the queued chunks and snapshots the restored parameters;
+:meth:`close` stops the scorer.
 
 With the scoretable sampler and ``telemetry`` the Trainer keeps a
 ``SamplerHealthMonitor`` (``obs/sampler_health.py``): at every
@@ -53,7 +58,7 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -77,6 +82,7 @@ from mercury_tpu_torch.parallel import distributed
 from mercury_tpu_torch.parallel.collectives import gather_to_rank0
 from mercury_tpu_torch.sampling.scoretable import apply_async_chunk
 from mercury_tpu_torch.sampling.scorer_fleet import ScoreChunk, ScorerFleet
+from mercury_tpu_torch.sampling.scorer_service import ScorerService
 from mercury_tpu_torch.train import checkpoint
 from mercury_tpu_torch.train.state import MercuryState, create_state
 from mercury_tpu_torch.train.step import Draws, make_train_step, prime_host_stream, to_nchw
@@ -192,17 +198,24 @@ class Trainer:
                 config.stream_rows, self.device, depth=config.prefetch_depth)
             self._seed_stream_pipe(
                 prime_host_stream(self.state, config, self.dataset))
-        # refresh_mode="async": the scorer fleet and its first snapshot.
-        # Built before auto_resume: a restore resets it.
-        self._scorer_fleet: Optional[ScorerFleet] = None
+        # refresh_mode="async": the scorer and its first snapshot. Built
+        # before auto_resume: a restore resets it.
+        self._scorer_fleet: Optional[Union[ScorerFleet, ScorerService]] = None
         self._chunks_rejected = 0
         # Chunks whose copy to the device may still read their pinned
         # buffers, each with the event after its copy.
         self._chunks_in_copy: List[Tuple[torch.cuda.Event, ScoreChunk]] = []
         try:
             if config.use_async:
-                self._scorer_fleet = ScorerFleet(self.dataset, self.state.model, config,
-                                                 self.device)
+                # The JAX Trainer's choice: the service for the device
+                # backend, tenants or an armed SLO; else the fleet.
+                use_service = (config.scorer_backend == "device"
+                               or config.scorer_tenants > 1
+                               or config.slo_score_staleness_max > 0
+                               or config.scorer_queue_highwater > 0)
+                scorer = ScorerService if use_service else ScorerFleet
+                self._scorer_fleet = scorer(self.dataset, self.state.model, config,
+                                            self.device)
                 self._scorer_fleet.snapshot(self.state.model, self.state.step)
             # Crash or preemption recovery: the newest checkpoint, sampler
             # state included; the first fit() then runs on to the original
@@ -263,7 +276,10 @@ class Trainer:
         fleet = self._scorer_fleet
         if fleet is None:
             return
-        chunks = fleet.drain()
+        # The service's drain also advances every tenant's staleness and
+        # empties the other tenants' queues into their accounting.
+        chunks = (fleet.drain_for_step(step) if isinstance(fleet, ScorerService)
+                  else fleet.drain())
         if chunks:
             self._apply_chunks(chunks, step)
         every = self.config.snapshot_every
@@ -271,8 +287,8 @@ class Trainer:
             fleet.snapshot(self.state.model, step)
 
     def scorer_stats(self) -> Dict[str, float]:
-        """The fleet's ``stats()`` since the previous call and the count of
-        rejected chunks (none without async refresh)."""
+        """The scorer's ``stats()`` since the previous call and the count
+        of rejected chunks (none without async refresh)."""
         if self._scorer_fleet is None:
             return {}
         return {**self._scorer_fleet.stats(),

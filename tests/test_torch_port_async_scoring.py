@@ -508,7 +508,7 @@ def test_async_host_stream_steps_match_jax(hs_pair):
     (dict(scorer_workers=0), "scorer_workers"),
     (dict(snapshot_every=0), "snapshot_every"),
     (dict(scorer_throttle_s=-0.1), "scorer_throttle_s"),
-    (dict(scorer_backend="device"), "scorer_backend"),
+    (dict(scorer_backend="device", scorer_throttle_s=0.1), "scorer_throttle_s"),
     (dict(scorer_backend="device", refresh_mode="sync"), "scorer_backend"),
     (dict(scorer_backend="tpu"), "scorer_backend"),
 ])
@@ -519,7 +519,8 @@ def test_refusals(kw, field):
 
 def test_jax_refuses_what_the_port_refuses():
     """The JAX step refuses async without the scoretable, and the JAX
-    Trainer's composition check refuses the host fleet across processes."""
+    Trainer's composition check refuses the host fleet across processes and
+    accepts the device backend's lockstep there, as the port does."""
     from mercury_tpu.sampling.scorer_service import validate_scorer_composition
 
     jm, tx = _jax_model(), jstate.make_optimizer("adam", 0.001, 10)
@@ -530,6 +531,8 @@ def test_jax_refuses_what_the_port_refuses():
         validate_scorer_composition(JConfig(**COMMON), 2)
     with pytest.raises(ValueError, match="single-controller"):
         TrainConfig(**{**COMMON, "world_size": 2})
+    validate_scorer_composition(JConfig(**COMMON, scorer_backend="device"), 2)
+    assert TrainConfig(**{**COMMON, "world_size": 2, "scorer_backend": "device"}).world_size == 2
 
 
 # ------------------------------------------------------------------ the Trainer

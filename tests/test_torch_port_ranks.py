@@ -1,7 +1,8 @@
 """Rank bodies of the port's two-rank CPU tests (``test_torch_port_parallel``,
 ``test_torch_port_dist_step``, ``test_torch_port_checkpoint``,
-``test_torch_port_telemetry_step``, ``test_torch_port_sampler_modes`` and
-``test_torch_port_grad_path``); this file holds no tests.
+``test_torch_port_telemetry_step``, ``test_torch_port_sampler_modes``,
+``test_torch_port_grad_path`` and ``test_torch_port_scorer_service_dist``);
+this file holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
 process of its own, one a rank, in a gloo process group, and pickles the
@@ -30,6 +31,9 @@ from mercury_tpu_torch.models.resnet import (
     set_sync_batch_norm,
 )
 from mercury_tpu_torch.parallel import collectives
+from mercury_tpu_torch.parallel.distributed import cards_in_use
+from mercury_tpu_torch.sampling import scorer_fleet
+from mercury_tpu_torch.sampling.scorer_service import ScorerService
 from mercury_tpu_torch.sampling.importance import EMAState
 from mercury_tpu_torch.train.state import create_state
 from mercury_tpu_torch.train.step import make_train_step
@@ -346,3 +350,94 @@ def grad_path_rank(jobs, data, checkpoint_kw, directory):
             state.model.load_state_dict(params)
         out.append(steps)
     return dict(jobs=out, checkpoint=checkpoint_rank(checkpoint_kw, directory, 3, 3))
+
+
+def _recorded(trainer):
+    """Wrap ``trainer``'s apply and its scorer's snapshot to record every
+    applied chunk as ``(tick step, chunk step)`` and every snapshot's step
+    into the two lists returned (cleared by the caller as it likes)."""
+    applied, snapshots = [], []
+    apply, snapshot = trainer._apply_chunks, trainer._scorer_fleet.snapshot
+
+    def recorded(chunks, step):
+        applied.extend((step, c.step) for c in chunks)
+        apply(chunks, step)
+
+    def snapped(model, step):
+        snapshots.append(step)
+        snapshot(model, step)
+
+    trainer._apply_chunks, trainer._scorer_fleet.snapshot = recorded, snapped
+    return applied, snapshots
+
+
+def lockstep_rank(config_kw, data, state_dict, augs, runs, steps, directory, restore_at):
+    """The device backend's lockstep at W ranks, on the CPU. First this
+    rank's two ``score_once`` chunks of a :class:`ScorerService` (workers
+    stopped) from a snapshot at step 5 of the model ``state_dict``, the
+    crops and flips of chunk ``seq`` being ``augs[seq][rank]``, and the
+    card indices ``cards_in_use`` gathers when rank r says it trains on
+    card ``2 + r``. Then ``runs`` Trainers, each ``fit(steps=steps)`` from
+    the tiny model of seed 0, recording every applied chunk as ``(tick
+    step, chunk step)``, every snapshot's step, and the final table. Last,
+    a restore in a live run: ``restore_at`` steps, a save into
+    ``directory``, two more steps, a restore of the save and ``steps -
+    restore_at`` steps; and a fresh Trainer (other weights) restored from
+    the same save and run as far. Both record what they apply and snapshot
+    from the restore on."""
+    torch.set_num_threads(1)
+    r = dist.get_rank()
+    x, y, xt, yt, shards, mean, std = data
+    config = TrainConfig(**config_kw)
+
+    def dataset():
+        return make_sharded_dataset((x, y), (xt, yt), shards, mean, std, 10,
+                                    device=torch.device("cpu"), rank=r)
+
+    model = tiny_resnet()
+    model.load_state_dict(state_dict)
+    svc = ScorerService(dataset(), model, config, "cpu")
+    svc.close()
+    fed = iter(row[r] for row in augs)
+    draw = scorer_fleet.draw_augment
+    scorer_fleet.draw_augment = lambda gen, n, cfg: next(fed)
+    try:
+        svc.snapshot(model, 5)
+        chunks = [svc.score_once() for _ in augs]
+    finally:
+        scorer_fleet.draw_augment = draw
+    out = dict(chunks=chunks, summary=svc.summary(), runs=[],
+               cards=cards_in_use(torch.device("cuda", 2 + r)))
+    for _ in range(runs):
+        trainer = Trainer(config, dataset=dataset(), device="cpu", model=tiny_resnet(seed=0))
+        snapshots0 = [trainer._scorer_fleet.summary()["snapshot_step"]]
+        applied, snapshots = _recorded(trainer)
+        try:
+            result = trainer.fit(steps=steps)
+            out["runs"].append(dict(
+                applied=applied, snapshots=snapshots0 + snapshots,
+                loss=result["train/loss"], table=trainer.state.scoretable.scores.clone(),
+                summary=trainer._scorer_fleet.summary(),
+                waits=list(trainer._scorer_fleet.barrier_waits_ms)))
+        finally:
+            trainer.close()
+    restored = {}
+    live = Trainer(config, dataset=dataset(), device="cpu", model=tiny_resnet(seed=0))
+    fresh = Trainer(config, dataset=dataset(), device="cpu", model=tiny_resnet(seed=1))
+    try:
+        live.fit(steps=restore_at)
+        live.save(directory)
+        live.fit(steps=2)   # snapshot restore_at + 2 arms a chunk of this trajectory
+        for name, trainer in (("live", live), ("fresh", fresh)):
+            applied, snapshots = _recorded(trainer)
+            step = trainer.restore(directory)
+            result = trainer.fit(steps=steps - restore_at)
+            restored[name] = dict(step=step, applied=applied, snapshots=snapshots,
+                                  loss=result["train/loss"],
+                                  table=trainer.state.scoretable.scores.clone(),
+                                  summary=trainer._scorer_fleet.summary())
+    finally:
+        live.close()
+        fresh.close()
+    out["restored"] = restored
+    return out
