@@ -159,7 +159,22 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    W=2, two gloo ranks on the one card, ``snapshot_every=4``, 16 steps
    run twice (the schedule one snapshot behind, each rank's table
    bit-equal across the runs, the trainer's wait at each snapshot); (e) a
-   restore in the live device run and no service thread after ``close()``.
+   restore in the live device run and no service thread after ``close()``;
+15. the command line (``mercury_tpu_torch/cli.py``) on the main path's
+   config as flags: (a) ``cli.main([..., "--dry-run"])`` in this process
+   (2 nll_fwd, 1 nll_bwd and 1 score_and_draw, and the same step from the
+   state before it with the plain versions); (b) ``python -m
+   mercury_tpu_torch --dry-run`` (exit 0, a JSON last line); (c) a 40-step
+   ``fit`` through ``cli.main`` with ``--log-every 10 --heartbeat-every 10
+   --log-dir D``: four records with a finite loss and 0 < ``perf/mfu`` <
+   1, the manifest naming the card, the rank's shards, heartbeat lines;
+   (d) the fit's steps/s with no metric stream, with records but no
+   ``log_dir``, and with ``log_dir`` and the heartbeat, in turns, and the
+   synchronizing calls of one log tick on the training thread (none);
+   (e) ``timing_breakdown`` in ms; (f) ``torchrun --nproc_per_node=1 -m
+   mercury_tpu_torch --distributed --dry-run`` over NCCL; (g) ``trace``
+   around 3 steps, whose Chrome trace names ``nll_fwd_kernel`` and
+   ``select_kernel``.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -341,6 +356,18 @@ TENANT_TURNS = ("one", "two", "two", "one")
 TENANT_WEIGHTS = "3,1"
 LOCKSTEP = dict(ASYNC_TABLE, world_size=TWO_RANKS, scorer_backend="device", snapshot_every=4)
 LOCKSTEP_STEPS = 16
+# Phase 15, the command line: the main path's config as flags, a 40-step
+# fit with a record every 10 steps, and the fit's rate with and without the
+# metric stream in turns.
+CLI_ARGS = ["--model", "resnet18", "--dataset", "synthetic", "--world-size", "1"]
+CLI_FIT_STEPS = 40
+CLI_LOG_EVERY = 10
+CLI_RATE_STEPS = 60
+CLI_RATE_TURNS = ("none", "records", "log_dir", "log_dir", "records", "none") * 2
+CLI_RATE_ARMS = {"none": dict(log_every=0, heartbeat_every=0),
+                 "records": dict(log_every=CLI_LOG_EVERY, heartbeat_every=0),
+                 "log_dir": dict(log_every=CLI_LOG_EVERY, heartbeat_every=CLI_LOG_EVERY)}
+CLI_TIMEOUT_S = 300
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -424,6 +451,7 @@ def main() -> int:
     grad = run_phase("gradient path", grad_path_phase, torch, card, main_path)
     async_ = run_phase("async scoring", async_scoring_phase, torch, card, stream["summary"])
     service = run_phase("scorer service", scorer_service_phase, torch, card)
+    cmd = run_phase("command line", command_line_phase, torch, card)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -434,7 +462,8 @@ def main() -> int:
                    "sampler_modes": modes["launches"][k["name"]],
                    "grad_path": grad["launches"][k["name"]],
                    "async_scoring": async_["launches"][k["name"]],
-                   "scorer_service": service["launches"][k["name"]]}
+                   "scorer_service": service["launches"][k["name"]],
+                   "command_line": cmd["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -448,7 +477,7 @@ def main() -> int:
          "telemetry": telemetry, "config_surface": surface["summary"],
          "host_stream": stream["summary"], "sampler_modes": modes["summary"],
          "grad_path": grad["summary"], "async_scoring": async_["summary"],
-         "scorer_service": service["summary"]},
+         "scorer_service": service["summary"], "command_line": cmd["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3506,6 +3535,306 @@ def scorer_service_phase(torch, card: str) -> dict:
     del live
     out["spare"] = spare_card(torch, mk, card)
     torch.cuda.empty_cache()
+    return {"launches": launches, "summary": out}
+
+# ----------------------------------------------------------------- phase 15
+def cli_subprocess(argv, timeout_s: float = CLI_TIMEOUT_S) -> dict:
+    """Run ``argv`` from the checkout's root; it must exit 0 with a JSON
+    object as its last line of stdout, which is returned with the time."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=timeout_s)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{' '.join(argv[:6])} … exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    try:
+        metrics = json.loads(last)
+    except ValueError:
+        raise SmokeFailure(f"{' '.join(argv[:6])} …: last line is not JSON: {last[:300]}")
+    check(math.isfinite(metrics.get("train/loss", math.nan)),
+          f"{' '.join(argv[:6])} …: train/loss {metrics.get('train/loss')}")
+    return {"seconds": seconds, "metrics": metrics}
+
+
+def main_thread_syncs(torch, fn) -> list:
+    """The synchronizing CUDA calls ``fn`` makes on this thread, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (another
+    thread's, such as the metric writer's drain, are left out)."""
+    import warnings
+
+    me = threading.current_thread()
+    caught = []
+
+    def show(message, *args, **kwargs):
+        # "called a synchronizing CUDA operation"; not the mode's one-time
+        # notice that it is a prototype.
+        if (threading.current_thread() is me
+                and "synchronizing CUDA operation" in str(message)):
+            caught.append(str(message).splitlines()[0])
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return caught
+
+
+def cli_dry_run(torch, mk, card: str) -> dict:
+    """(a) ``cli.main(["--dry-run", …])`` in this process: its launches,
+    then its step again from the state before it (the same draws), with the
+    kernels against the plain versions."""
+    import io
+    from contextlib import redirect_stdout
+
+    from mercury_tpu_torch import TrainConfig, cli
+    from mercury_tpu_torch.train.trainer import Trainer
+
+    seen = {}
+    step = Trainer.train_step
+
+    def spy(self, *args, **kwargs):
+        seen["trainer"], seen["before"] = self, self.state.clone()
+        seen["metrics"] = step(self, *args, **kwargs)
+        return seen["metrics"]
+
+    out = io.StringIO()
+    Trainer.train_step = spy
+    try:
+        mk.reset_launch_counts()
+        with redirect_stdout(out):
+            rc = cli.main(CLI_ARGS + ["--dry-run"])
+        torch.cuda.synchronize()
+        counts = dict(mk.launch_counts)
+    finally:
+        Trainer.train_step = step
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 2, f"dry run: rc {rc}, output {lines}")
+    printed = json.loads(lines[-1])
+    want = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 1, "table_refresh_draw": 0,
+            "augment_normalize": 0}
+    check(counts == want, f"dry run: launches {counts}, expected {want}")
+    check(set(printed) == set(seen["metrics"]) and math.isfinite(printed["train/loss"]),
+          f"dry run printed {sorted(printed)}")
+    trainer = seen["trainer"]
+    check(trainer.device.type == "cuda", f"dry run trained on {trainer.device}")
+    config = TrainConfig(model="resnet18", dataset="synthetic", world_size=1)
+    check(trainer.config == config, f"dry run config {trainer.config}")
+    trainer.state = seen["before"]
+    step_err = kernel_vs_plain_step(torch, trainer, config, quiet=True)
+    print(f"cli (a): {lines[0]}; one step, launches {counts}, train/loss "
+          f"{printed['train/loss']:.4f}; the same step with the plain versions |d loss| "
+          f"{step_err['train/loss']:.2e} ({step_err['band_misses']} band retries) [{card}]")
+    del trainer, seen
+    torch.cuda.empty_cache()
+    return {"launches": counts, "loss": printed["train/loss"], "kernel_vs_plain": step_err}
+
+
+def cli_fit(torch, mk, card: str, directory: str) -> dict:
+    """(c) ``cli.main`` fitting CLI_FIT_STEPS steps with a record every
+    CLI_LOG_EVERY and a heartbeat every CLI_LOG_EVERY into ``directory``:
+    one record a tick with a finite loss and 0 < perf/mfu < 1, the
+    manifest's card, the shards, the heartbeat lines, and the launches (the
+    steps' and the final evaluation's nll_fwd)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from mercury_tpu_torch import cli
+
+    out = io.StringIO()
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        rc = cli.main(CLI_ARGS + [
+            "--steps-per-epoch", str(CLI_FIT_STEPS), "--num-epochs", "1",
+            "--log-every", str(CLI_LOG_EVERY), "--heartbeat-every", str(CLI_LOG_EVERY),
+            "--eval-every", "0", "--log-dir", directory])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(mk.launch_counts)
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0, f"fit: rc {rc}")
+    final = json.loads(lines[-1])
+    records = [json.loads(line) for line in open(Path(directory) / "metrics.jsonl")]
+    ticks = list(range(CLI_LOG_EVERY, CLI_FIT_STEPS + 1, CLI_LOG_EVERY))
+    check([r["step"] for r in records] == ticks, f"fit: records at {[r['step'] for r in records]}")
+    for r in records:
+        check(math.isfinite(r["train/loss"]) and 0 < r["perf/mfu"] < 1,
+              f"fit: record at {r['step']}: loss {r['train/loss']}, mfu {r['perf/mfu']}")
+    manifest = json.loads((Path(directory) / "run_manifest.json").read_text())
+    name = torch.cuda.get_device_name(0)
+    check(manifest["device_kind"] == name and manifest["platform"] == "gpu"
+          and manifest["peak_flops"] == 989.4e12, f"fit: manifest {manifest}")
+    shards = sorted(p.name for p in Path(directory).iterdir())
+    check({"metrics.h0.jsonl", "heartbeat.h0.jsonl"} <= set(shards), f"fit: files {shards}")
+    beats = [line for line in lines if line.startswith("step ")]
+    check(beats, f"fit: no heartbeat line in {lines[:5]}")
+    # The final evaluation runs nll_fwd once a batch of 256 on each split.
+    evals = -(-5000 // 256) + -(-1000 // 256)
+    want = {"nll_fwd": 2 * CLI_FIT_STEPS + evals, "nll_bwd": CLI_FIT_STEPS,
+            "score_and_draw": CLI_FIT_STEPS, "table_refresh_draw": 0, "augment_normalize": 0}
+    check(counts == want, f"fit: launches {counts}, expected {want}")
+    flops = records[-1]["perf/flops_per_step"]
+    summary = {"seconds": seconds, "launches": counts, "final": final, "heartbeats": beats,
+               "records": records, "flops_per_step": flops, "manifest_device": name,
+               "files": shards}
+    print(f"cli (c): fit of {CLI_FIT_STEPS} steps in {seconds:.2f} s (build and final "
+          f"evaluation included); records at {ticks}: steps/s "
+          f"{[round(r['perf/steps_per_s'], 2) for r in records]}, perf/mfu "
+          f"{[round(r['perf/mfu'], 5) for r in records]}, perf/flops_per_step {flops:.0f}, "
+          f"loss {[round(r['train/loss'], 4) for r in records]}; {len(beats)} heartbeat "
+          f"line(s), first: {beats[0]!r}; files {shards}; launches {counts} [{card}]")
+    return summary
+
+
+def cli_rates(torch, mk, card: str, directory: str) -> dict:
+    """(d) ``fit`` of CLI_RATE_STEPS steps a turn with no metric stream
+    (``log_every=0``), with records but no ``log_dir``, and with
+    ``log_dir`` and the heartbeat, in turns (the final evaluation left
+    out; a first fit of CLI_LOG_EVERY steps a trainer, untimed, takes the
+    FLOP count and starts the drain thread); the host time of a log tick
+    on the training thread and of a record on the drain thread; the time
+    of the FLOP count; the synchronizing calls of one log tick on the
+    training thread (none expected); returns the log_dir trainer for (e)
+    and (g)."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.obs.accounting import flops_per_step
+
+    def timed(fn, into):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                into.append(time.perf_counter() - t0)
+        return wrapper
+
+    trainers = {}
+    try:
+        for name, kw in CLI_RATE_ARMS.items():
+            log_dir = str(Path(directory) / "rates") if name == "log_dir" else None
+            trainer = build_trainer(torch, TrainConfig(
+                model="resnet18", dataset="synthetic", world_size=1, log_dir=log_dir,
+                eval_every=0, **kw), quiet=True)
+            trainers[name] = trainer
+            trainer.evaluate = lambda include_train=True: {}
+            warm(trainer)
+            trainer.fit(steps=CLI_LOG_EVERY)
+        live = trainers["log_dir"]
+        t0 = time.perf_counter()
+        flops = flops_per_step(live)
+        count_ms = (time.perf_counter() - t0) * 1e3
+        tick_s, emit_s, flush_s = [], [], []
+        live._log_tick = timed(live._log_tick, tick_s)
+        live.logger._emit = timed(live.logger._emit, emit_s)
+        live.logger._flush_sinks = timed(live.logger._flush_sinks, flush_s)
+        sink_s = {f"{i}:{type(sink).__name__}": [] for i, sink in enumerate(live.logger.sinks)}
+        for (name, into), sink in zip(sink_s.items(), live.logger.sinks):
+            sink.write = timed(sink.write, into)
+        rates = {name: [] for name in trainers}
+        for name in CLI_RATE_TURNS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainers[name].fit(steps=CLI_RATE_STEPS)
+            torch.cuda.synchronize()
+            rates[name].append(CLI_RATE_STEPS / (time.perf_counter() - t0))
+        live.logger.flush()
+        tick_us = statistics.mean(tick_s) * 1e6
+        emit_us = statistics.mean(emit_s) * 1e6
+        sink_us = {name: statistics.mean(v) * 1e6 for name, v in sink_s.items() if v}
+        flush_us = statistics.mean(flush_s) * 1e6
+        metrics = live.train_step()
+        syncs = main_thread_syncs(torch, lambda: live._log_tick(live.state.step, metrics))
+        check(not syncs, f"a log tick synchronized the training thread: {syncs}")
+        live.logger.flush()
+    except BaseException:
+        for trainer in trainers.values():
+            trainer.close()
+        raise
+    for name in ("none", "records"):
+        trainers[name].close()
+    ratio = {name: [a / b for a, b in zip(rates[name], rates["none"])]
+             for name in ("records", "log_dir")}
+    print(f"cli (d): fit steps/s in turns of {CLI_RATE_STEPS} (a record every "
+          f"{CLI_LOG_EVERY} steps): no stream {[round(r, 2) for r in rates['none']]}, "
+          f"records without log_dir {[round(r, 2) for r in rates['records']]}, log_dir and "
+          f"heartbeat {[round(r, 2) for r in rates['log_dir']]}; over no stream, turn by "
+          f"turn: records {[round(r, 3) for r in ratio['records']]}, log_dir "
+          f"{[round(r, 3) for r in ratio['log_dir']]}; a log tick (log_dir) takes "
+          f"{tick_us:.1f} us of the training thread and {len(syncs)} synchronizing calls "
+          f"there, a record {emit_us:.1f} us of the drain thread ({len(emit_s)} records; "
+          f"a write by sink, us: { {k: round(v, 1) for k, v in sink_us.items()} }), a flush "
+          f"of the sinks {flush_us:.1f} us ({len(flush_s)} flushes); "
+          f"the FLOP count ({flops:.0f}) takes {count_ms:.1f} ms once [{card}]")
+    return {"trainer": live, "summary": {"steps_per_s": rates, "over_none": ratio,
+                                         "log_tick_syncs": syncs, "log_tick_us": tick_us,
+                                         "record_drain_us": emit_us, "sink_write_us": sink_us,
+                                         "sink_flush_us": flush_us,
+                                         "flops_count_ms": count_ms}}
+
+
+def command_line_phase(torch, card: str) -> dict:
+    """Phase 15: the command line. (a) ``--dry-run`` in-process; (b) ``python
+    -m mercury_tpu_torch --dry-run``; (c) a fit with ``--log-dir``; (d) the
+    fit's rate with and without the metric stream; (e)
+    ``timing_breakdown``; (f) ``torchrun`` with ``--distributed`` over NCCL;
+    (g) ``trace`` around 3 steps."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.train.profile import timing_breakdown, trace
+
+    out = {"card": card}
+    dry = cli_dry_run(torch, mk, card)
+    out["dry_run"] = {k: dry[k] for k in ("loss", "kernel_vs_plain")}
+    launches = dict(dry["launches"])
+    sub = cli_subprocess([sys.executable, "-m", "mercury_tpu_torch", *CLI_ARGS, "--dry-run"])
+    out["module"] = {"seconds": sub["seconds"], "loss": sub["metrics"]["train/loss"]}
+    print(f"cli (b): python -m mercury_tpu_torch --dry-run: exit 0 in {sub['seconds']:.1f} s, "
+          f"train/loss {sub['metrics']['train/loss']:.4f} [{card}]")
+    with tempfile.TemporaryDirectory(ignore_cleanup_errors=True) as directory:
+        fit = cli_fit(torch, mk, card, directory)
+        for k, v in fit["launches"].items():
+            launches[k] += v
+        out["fit"] = fit
+        rates = cli_rates(torch, mk, card, directory)
+        out["rates"] = rates["summary"]
+        trainer = rates["trainer"]
+        seg = timing_breakdown(trainer, iters=10)
+        out["timing_breakdown_ms"] = {k: v * 1e3 for k, v in seg.items()}
+        print("cli (e): timing_breakdown (ms, median of 10): "
+              + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in seg.items()) + f" [{card}]")
+        with trace(directory):
+            for _ in range(3):
+                trainer.train_step()
+            torch.cuda.synchronize()
+        text = (Path(directory) / "trace.json").read_text()
+        names = {k: text.count(k) for k in ("nll_fwd_kernel", "select_kernel",
+                                            "nll_bwd_kernel")}
+        check(names["nll_fwd_kernel"] > 0 and names["select_kernel"] > 0,
+              f"trace: kernel names {names}")
+        out["trace"] = {"bytes": len(text), "names": names}
+        print(f"cli (g): trace of 3 steps, {len(text)} bytes of Chrome trace, kernel "
+              f"names {names} [{card}]")
+        trainer.close()
+        del trainer, rates
+        torch.cuda.empty_cache()
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    run = cli_subprocess([sys.executable, "-m", "torch.distributed.run", "--nnodes=1",
+                          "--nproc_per_node=1", "--master_addr=127.0.0.1",
+                          f"--master_port={port}", "-m", "mercury_tpu_torch",
+                          "--distributed", *CLI_ARGS, "--dry-run"])
+    out["torchrun"] = {"seconds": run["seconds"], "loss": run["metrics"]["train/loss"]}
+    print(f"cli (f): torchrun --nproc_per_node=1 -m mercury_tpu_torch --distributed "
+          f"--dry-run over NCCL: exit 0 in {run['seconds']:.1f} s, train/loss "
+          f"{run['metrics']['train/loss']:.4f} [{card}]")
     return {"launches": launches, "summary": out}
 
 

@@ -168,6 +168,13 @@ class TrainConfig:
     seed: int = 102
     eval_every: int = 200
     log_every: int = 100
+    # fit's metric stream (obs/writer.py): every log_every steps a record
+    # goes to the async writer; with log_dir, rank 0 writes the run
+    # manifest, metrics.jsonl and TensorBoard, and every rank its own
+    # metrics.h{r}.jsonl and heartbeat.h{r}.jsonl shards. heartbeat_every
+    # paces a one-line stdout summary on rank 0 (0 disables it).
+    log_dir: Optional[str] = None
+    heartbeat_every: int = 100
     # Checkpoints (train/checkpoint.py): fit saves every checkpoint_every
     # steps (0: never) and at its end when checkpoint_dir is set, keeping the
     # newest checkpoint_keep files (0: all); auto_resume restores the newest
@@ -398,6 +405,13 @@ class TrainConfig:
     def candidate_pool_size(self) -> int:
         """Per-step importance candidate count (10×32 = 320 by default)."""
         return self.presample_batches * self.batch_size
+
+    def run_name(self) -> str:
+        """The run's name, encoding the config as the JAX package's does."""
+        iid = "noniid" if self.noniid else "iid"
+        isp = "is" if self.use_importance_sampling else "uniform"
+        return (f"{self.model}_{self.dataset}_{isp}_{iid}_w{self.world_size}"
+                f"_b{self.batch_size}_lr{self.lr:g}_seed{self.seed}")
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

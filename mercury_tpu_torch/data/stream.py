@@ -33,7 +33,6 @@ same code runs with plain copies.
 
 from __future__ import annotations
 
-import logging
 import queue
 import threading
 import time
@@ -43,9 +42,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from mercury_tpu_torch.utils.logging import get_logger
+
 __all__ = ["HostStreamSource", "ImageFolderSource", "PrefetchPipeline"]
 
-_log = logging.getLogger(__name__)
+_log = get_logger(__name__)
 
 
 class _Threads:

@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import logging
 import queue
 import threading
 import time
@@ -62,8 +61,9 @@ from mercury_tpu_torch.ops import reference
 from mercury_tpu_torch.sampling.importance import per_sample_grad_norm_bound, per_sample_loss
 from mercury_tpu_torch.train.state import Augment
 from mercury_tpu_torch.train.step import augment_images, draw_augment, scoring_forward
+from mercury_tpu_torch.utils.logging import get_logger
 
-_log = logging.getLogger(__name__)
+_log = get_logger(__name__)
 
 FLEET_STREAM = 0x5C0  # the fleet's augmentation stream, apart from the step's
 

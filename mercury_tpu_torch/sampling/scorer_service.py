@@ -52,7 +52,6 @@ event journal; a dead worker raises at the next drain.
 
 from __future__ import annotations
 
-import logging
 import queue
 import threading
 import time
@@ -75,8 +74,9 @@ from mercury_tpu_torch.sampling.scorer_fleet import (
     chunk_seed,
     with_index,
 )
+from mercury_tpu_torch.utils.logging import get_logger
 
-_log = logging.getLogger(__name__)
+_log = get_logger(__name__)
 
 # Tenant i's chunk seq draws from chunk id i·_TENANT_KEY_STRIDE + seq: the
 # tenants' streams never meet, and tenant 0's is the fleet's.

@@ -1,0 +1,157 @@
+"""Per-segment timing and the profiler trace — the PyTorch counterpart of
+``mercury_tpu/train/profile.py``.
+
+:func:`timing_breakdown` gives the reference's five timed segments of a
+step — ``step_time`` (the whole step), ``ff_time`` (the train forward),
+``bp_time`` (the backward), ``is_time`` (the importance scoring) and
+``sync_time`` (the gradient all-reduce) — plus ``fb_time``, each the
+median of ``iters`` timed calls, in seconds. Each segment but the step
+runs apart from it, on the trainer's model and its parameters as they
+are, leaving them, the running statistics and the gradients untouched:
+the sum of the parts need not equal the step. On the card a segment is
+timed between two ``torch.cuda.Event``s on the stream (launch gaps
+included), on the CPU by the host clock.
+
+:func:`trace` is a ``torch.profiler`` window that writes a Chrome trace.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import statistics
+import time
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from mercury_tpu_torch.data.pipeline import normalize_images
+from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
+from mercury_tpu_torch.parallel.collectives import allreduce_mean_
+from mercury_tpu_torch.sampling.importance import per_sample_loss, reweighted_loss
+from mercury_tpu_torch.train.step import scoring_forward, to_nchw
+
+
+def _timeit(fn: Callable[[], object], iters: int, device: torch.device) -> float:
+    """Median of ``iters`` timed calls of ``fn`` after one untimed call:
+    CUDA events around the call on the card, the host clock around the
+    call and its completion on the CPU."""
+    cuda = device.type == "cuda"
+    fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+    times = []
+    for _ in range(max(int(iters), 1)):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+    return float(statistics.median(times))
+
+
+def timing_breakdown(trainer, iters: int = 10) -> Dict[str, float]:
+    """The reference's five segments for ``trainer``'s config, and the raw
+    forward+backward (seconds, median of ``iters``):
+
+    - ``is_time``: the scoring forward (train-mode, running statistics
+      untouched, the scoring precision) and the per-sample loss of the
+      pool (the first ``P`` rows of the train split, normalized), through
+      the NLL kernel where the step uses it;
+    - ``ff_time``: the train forward and per-sample loss of the batch under
+      the step's autocast; ``fb_time``: that and the backward of the reweighted loss
+      (``torch.autograd.grad``, so no ``.grad`` is written); ``bp_time``:
+      ``fb_time − ff_time``, clamped at 0;
+    - ``sync_time``: the mean over the ranks of the flat parameters
+      (``parallel/collectives.allreduce_mean_`` on a copy), a no-op at one
+      rank;
+    - ``step_time``: ``trainer.train_step()``, which advances the trainer.
+    """
+    cfg = trainer.config
+    ds = trainer.dataset
+    dev = trainer.device
+    model = trainer.state.model
+    params = [p for p in model.parameters() if p.requires_grad]
+    bf16 = cfg.compute_dtype == "bfloat16" and dev.type == "cuda"
+
+    def images_of(n: int):
+        idx = np.arange(n) % ds.n_train
+        x, y = ds.x_train, ds.y_train
+        raw = (torch.from_numpy(np.ascontiguousarray(x[idx])) if isinstance(x, np.ndarray)
+               else x[torch.as_tensor(idx, device=x.device)])
+        labels = y[torch.as_tensor(idx, device=y.device)]
+        return normalize_images(raw.to(dev), ds.mean, ds.std), labels.to(dev)
+
+    pool = images_of(cfg.candidate_pool_size)
+    batch = images_of(cfg.batch_size)
+    weights = torch.ones(cfg.batch_size, dtype=torch.float32, device=dev)
+    smoothing = cfg.label_smoothing
+
+    def loss_of(logits, labels):
+        """The step's per-sample loss: the NLL kernel's wrapper, or the
+        smoothed loss (whose step runs the plain route)."""
+        if smoothing or cfg.use_pallas is False:
+            return per_sample_loss(logits, labels, smoothing)
+        return per_sample_nll(logits, labels)
+
+    def train_forward(images, labels):
+        with torch.autocast(device_type=dev.type, dtype=torch.bfloat16, enabled=bf16):
+            logits = model(to_nchw(images), train=True, keep_stats=False)
+        return loss_of(logits, labels)
+
+    def score():
+        with torch.no_grad():
+            return loss_of(scoring_forward(model, pool[0], cfg), pool[1])
+
+    def forward():
+        with torch.no_grad():
+            return train_forward(*batch)
+
+    def forward_backward():
+        loss = reweighted_loss(train_forward(*batch), weights)
+        return torch.autograd.grad(loss, params)
+
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+
+    def sync():
+        return allreduce_mean_([flat])
+
+    is_t = _timeit(score, iters, dev)
+    ff_t = _timeit(forward, iters, dev)
+    fb_t = _timeit(forward_backward, iters, dev)
+    sync_t = _timeit(sync, iters, dev)
+    step_t = _timeit(trainer.train_step, iters, dev)
+    return {
+        "step_time": step_t,
+        "ff_time": ff_t,
+        "bp_time": max(fb_t - ff_t, 0.0),
+        # The raw forward+backward median: bp_time (fb − ff, clamped) can
+        # read 0 from two noisy medians, and fb_time keeps that visible.
+        "fb_time": fb_t,
+        "is_time": is_t,
+        "sync_time": sync_t,
+    }
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, name: str = "trace.json"):
+    """A ``torch.profiler`` window (host and, where CUDA is available, the
+    card's kernels) whose Chrome trace is written to ``log_dir/name`` when
+    the window closes; yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, name))

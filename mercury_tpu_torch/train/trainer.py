@@ -52,11 +52,22 @@ With the scoretable sampler and ``telemetry`` the Trainer keeps a
 logged record (:meth:`Trainer.sampler_health`), and into its returned
 dict when its last step is a tick. At W>1 rank 0 gathers every rank's
 ledger, table and EMA for them at the tick; the other ranks log without.
+
+Every Trainer streams its log ticks through an
+:class:`~mercury_tpu_torch.obs.writer.AsyncMetricWriter` (``self.logger``):
+``fit`` enqueues each tick's record (the step's scalar metrics, still on
+the device, with the live ``perf/*`` rates of
+:class:`~mercury_tpu_torch.obs.accounting.ThroughputMeter` and the host
+counters) and a drain thread copies it to the host and writes it. With
+``log_dir`` rank 0 writes ``run_manifest.json``, ``metrics.jsonl`` and
+TensorBoard (when it imports), and every rank its metric and heartbeat
+shards; ``heartbeat_every`` prints a line on rank 0. :meth:`close` (or
+``with Trainer(config) as t:``) stops the scorer and the prefetch worker,
+then drains and closes the writer.
 """
 
 from __future__ import annotations
 
-import logging
 import math
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -76,7 +87,18 @@ from mercury_tpu_torch.data.stream import HostStreamSource, PrefetchPipeline
 from mercury_tpu_torch.data.transforms import EVAL_RESIZE, IID_CROP, eval_transform_iid
 from mercury_tpu_torch.models import create_model
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
+from mercury_tpu_torch.obs.accounting import ThroughputMeter, flops_per_step
+from mercury_tpu_torch.obs.manifest import write_run_manifest
 from mercury_tpu_torch.obs.sampler_health import SamplerHealthMonitor
+from mercury_tpu_torch.obs.writer import (
+    AsyncMetricWriter,
+    HeartbeatShardSink,
+    HeartbeatSink,
+    JsonlSink,
+    host_thread_stats,
+    shard_filename,
+    try_tensorboard_sink,
+)
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
 from mercury_tpu_torch.parallel import distributed
 from mercury_tpu_torch.parallel.collectives import gather_to_rank0
@@ -86,8 +108,9 @@ from mercury_tpu_torch.sampling.scorer_service import ScorerService
 from mercury_tpu_torch.train import checkpoint
 from mercury_tpu_torch.train.state import MercuryState, create_state
 from mercury_tpu_torch.train.step import Draws, make_train_step, prime_host_stream, to_nchw
+from mercury_tpu_torch.utils.logging import get_logger
 
-_log = logging.getLogger(__name__)
+_log = get_logger(__name__)
 EVAL_BATCH = 256
 
 
@@ -198,6 +221,28 @@ class Trainer:
                 config.stream_rows, self.device, depth=config.prefetch_depth)
             self._seed_stream_pipe(
                 prime_host_stream(self.state, config, self.dataset))
+        # The metric stream: the manifest and the sinks, then the writer,
+        # whose drain thread starts at the first record.
+        sinks = []
+        if config.log_dir and self.rank == 0:
+            write_run_manifest(config.log_dir, config, self.device)
+            sinks.append(JsonlSink(config.log_dir))
+            sinks.append(try_tensorboard_sink(config.log_dir))
+        if config.log_dir:
+            # Every rank (rank 0 included) writes its own metric and
+            # heartbeat shards.
+            sinks.append(JsonlSink(config.log_dir, filename=shard_filename(self.rank)))
+            sinks.append(HeartbeatShardSink(config.log_dir, self.rank))
+        if config.heartbeat_every and self.rank == 0:
+            sinks.append(HeartbeatSink(every_steps=config.heartbeat_every))
+        self.logger = AsyncMetricWriter(sinks)
+        # steps/s, examples/s and MFU between log ticks; the FLOP count is
+        # taken at the first log tick.
+        self._throughput = ThroughputMeter(
+            examples_per_step=config.batch_size * config.world_size,
+            device_kind=(torch.cuda.get_device_name(self.device)
+                         if self.device.type == "cuda" else None))
+        self._flops_known = False
         # refresh_mode="async": the scorer and its first snapshot. Built
         # before auto_resume: a restore resets it.
         self._scorer_fleet: Optional[Union[ScorerFleet, ScorerService]] = None
@@ -330,15 +375,25 @@ class Trainer:
         return {} if self._stream_pipe is None else self._stream_pipe.stats()
 
     def close(self) -> None:
-        """Stop the scorer fleet, then the prefetch worker. A second call
-        does nothing, and a Trainer whose construction stopped partway
-        closes what it built."""
+        """Stop the scorer fleet, then the prefetch worker, then drain and
+        close the metric writer (last: the other two feed its records). A
+        second call does nothing, and a Trainer whose construction stopped
+        partway closes what it built."""
         fleet = getattr(self, "_scorer_fleet", None)
         if fleet is not None:
             fleet.close()
         pipe = getattr(self, "_stream_pipe", None)
         if pipe is not None:
             pipe.close()
+        writer = getattr(self, "logger", None)
+        if writer is not None:
+            writer.close()
+
+    def __enter__(self) -> "Trainer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def fit(self, num_epochs: Optional[int] = None, *,
             steps: Optional[int] = None) -> Dict[str, float]:
@@ -350,8 +405,9 @@ class Trainer:
         ``step × world_size`` exceeds ``step_budget``. ``steps=k`` runs
         ``k`` steps from here (under the same budget).
 
-        Logs every ``log_every``, evaluates every ``eval_every`` and, with a
-        ``checkpoint_dir``, saves every ``checkpoint_every`` steps and at
+        Writes a record to ``self.logger`` every ``log_every`` steps,
+        evaluates every ``eval_every`` (also logged, and printed) and, with
+        a ``checkpoint_dir``, saves every ``checkpoint_every`` steps and at
         the end. Returns the final evaluation (the last eval tick's, else a
         fresh :meth:`evaluate`), the last step's scalar metrics and, when
         the last step is a log tick, the sampler-health keys and (under
@@ -372,24 +428,54 @@ class Trainer:
         metrics: Dict[str, torch.Tensor] = {}
         health: Dict[str, float] = {}
         saved = None
-        while self.state.step < end:
-            metrics = self.train_step()
-            step = self.state.step
-            health = {}
-            if cfg.log_every and step % cfg.log_every == 0:
-                health = {**self.sampler_health(), **self.stream_stats(),
-                          **self.scorer_stats()}
-                _log.info("step %d: %s", step, {**_scalars(metrics), **health})
-            if cfg.eval_every and step % cfg.eval_every == 0:
-                evaluation = self.evaluate()
-            if cfg.checkpoint_dir and cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
+        self._throughput.reset(start)
+        try:
+            while self.state.step < end:
+                metrics = self.train_step()
+                step = self.state.step
+                health = {}
+                if cfg.log_every and step % cfg.log_every == 0:
+                    health = self._log_tick(step, metrics)
+                if cfg.eval_every and step % cfg.eval_every == 0:
+                    evaluation = self.evaluate()
+                    self.logger.log_scalars(step, evaluation)
+                    print(f"  eval @ {step}: "
+                          + " ".join(f"{k}={v:.4f}" for k, v in evaluation.items()))
+                if (cfg.checkpoint_dir and cfg.checkpoint_every
+                        and step % cfg.checkpoint_every == 0):
+                    self.save()
+                    saved = step
+            if cfg.checkpoint_dir and saved != self.state.step:
                 self.save()
-                saved = step
-        if cfg.checkpoint_dir and saved != self.state.step:
-            self.save()
-        if not evaluation:
-            evaluation = self.evaluate()
-        return {**evaluation, **_scalars(metrics), **health}
+            if not evaluation:
+                evaluation = self.evaluate()
+            return {**evaluation, **_scalars(metrics), **health}
+        finally:
+            self.logger.flush()
+
+    def _log_tick(self, step: int, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """Enqueue the record of a log tick, as the JAX ``fit`` assembles
+        it: the step's scalar metrics (device tensors, copied by the drain
+        thread), the throughput since the previous tick, the pipeline's,
+        the scorer's and the sampler monitor's keys, the thread census and
+        the epoch. The monitor's gather (a collective at W>1) runs here, on
+        the training thread; nothing else reads the card. Returns the
+        sampler-health, stream and scorer keys for ``fit``'s result."""
+        if not self._flops_known:
+            self._throughput.flops_per_step = flops_per_step(self)
+            self._flops_known = True
+        record: Dict = {k: v for k, v in metrics.items() if v.numel() == 1}
+        record.update(self._throughput.tick(step))
+        stream, scorer = self.stream_stats(), self.scorer_stats()
+        health = self.sampler_health()
+        record.update(stream)
+        record.update(scorer)
+        record.update(health)
+        record.update(host_thread_stats())
+        record["threads/queue_depth/metrics"] = float(self.logger.queue_depth())
+        record["epoch"] = (step - 1) // self.steps_per_epoch
+        self.logger.write(step, record)
+        return {**health, **stream, **scorer}
 
     def sampler_health(self) -> Dict[str, float]:
         """The sampler-health monitor's keys of the ledger so far (none

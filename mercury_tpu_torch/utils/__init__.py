@@ -1,1 +1,1 @@
-"""Tensor helpers of the port."""
+"""Host helpers of the port: tensor trees, quantizers, logging and meters."""

@@ -274,15 +274,15 @@ def test_probe_sentinel_off_cadence():
     assert ratios[1] > 0 and ratios[3] > 0
 
 
-def test_trainer_log_record_carries_the_monitor(caplog):
-    """At a log tick ``fit`` logs and returns the monitor's seven keys,
-    equal to the JAX monitor's on the same ``[1, L]`` arrays; nothing on
-    other steps."""
+def test_trainer_log_record_carries_the_monitor():
+    """At a log tick ``fit`` writes to its metric stream, and returns, the
+    monitor's seven keys, equal to the JAX monitor's on the same ``[1, L]``
+    arrays; nothing on other steps."""
     tr = _tiny(log_every=3, **TABLE)
-    with caplog.at_level("INFO", logger="mercury_tpu_torch.train.trainer"):
-        out = tr.fit(steps=3)
-    assert chip_smoke.MONITOR_KEYS <= set(out)
-    assert "sampler_dist/gini" in caplog.text
+    out = tr.fit(steps=3)
+    record = tr.logger.latest_record()
+    assert record["step"] == 3
+    assert chip_smoke.MONITOR_KEYS <= set(out) and chip_smoke.MONITOR_KEYS <= set(record)
     st = tr.state
     jstate_np = SimpleNamespace(
         sel_counts=st.sel_counts.numpy()[None],
@@ -294,8 +294,11 @@ def test_trainer_log_record_carries_the_monitor(caplog):
     assert want.keys() == chip_smoke.MONITOR_KEYS
     for k, v in want.items():
         assert out[k] == pytest.approx(v, rel=1e-12), k
+        assert record[k] == pytest.approx(v, rel=1e-12), k
     assert 0.0 <= out["sampler_dist/gini"] <= 1.0
     assert not chip_smoke.MONITOR_KEYS & set(tr.fit(steps=1))  # step 4: no tick
+    assert tr.logger.latest_record()["step"] == 3
+    tr.close()
 
 
 def test_ledger_counts_each_duplicate():
