@@ -174,7 +174,30 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    (e) ``timing_breakdown`` in ms; (f) ``torchrun --nproc_per_node=1 -m
    mercury_tpu_torch --distributed --dry-run`` over NCCL; (g) ``trace``
    around 3 steps, whose Chrome trace names ``nll_fwd_kernel`` and
-   ``select_kernel``.
+   ``select_kernel``;
+16. durable checkpoints, elastic restore and the fault plane on the main
+   path's config under deterministic cuDNN: (a) a 24-step ``fit`` saving
+   every 8 with the sha256 manifest (file bytes, each save's blocking,
+   write and digest ms, a verified restore's read, verify and load ms, and
+   saves with and without the manifest in turns); (b) 40-step fits saving
+   every 10, sync and ``async_checkpoint`` in six turns (the ms each save
+   blocks the training thread, steps/s, steps/s while a write is in
+   flight, and the async files equal to the sync files by their tensors'
+   sha256); (c) a byte of the newest file flipped: ``auto_resume`` falls
+   back to the older step naming the failed check, and 8 steps from there
+   are bit-equal to an explicit restore of it (the same pair under cuDNN's
+   default settings is read, not checked); (d) ``ckpt_io_error@step=16``
+   with two retries (every save lands, the next record shows one write
+   failure) and ``every=1`` without retries (``fit`` raises ``OSError``,
+   no ``.tmp`` left); (e) elastic restore with two gloo ranks on the card:
+   a W=2 ZeRO file restored at W=1 (moments equal to the chunks
+   concatenated; 8 steps launching 2 nll_fwd, 1 nll_bwd, 1 score_and_draw
+   a step; a kernel step against a plain step), and a W=1 scoretable +
+   fused file restored at W=2 (each rank's table equal to the plain
+   repartition; 4 steps launching the scoretable path's kernels; a kernel
+   step against a plain step on each rank); (f) the host stream with
+   ``prefetch_stall@step=5,secs=0.5`` bit-equal to a run without, and
+   ``prefetch_die`` raising at the next ``pop`` with its name.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -190,6 +213,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -368,6 +393,20 @@ CLI_RATE_ARMS = {"none": dict(log_every=0, heartbeat_every=0),
                  "records": dict(log_every=CLI_LOG_EVERY, heartbeat_every=0),
                  "log_dir": dict(log_every=CLI_LOG_EVERY, heartbeat_every=CLI_LOG_EVERY)}
 CLI_TIMEOUT_S = 300
+# Phase 16: the main path's config with the durability defaults.
+DURABLE = dict(model="resnet18", dataset="synthetic", world_size=1, eval_every=0,
+               log_every=0)
+DURABLE_FIT = 24          # (a) steps, a save every DURABLE_EVERY
+DURABLE_EVERY = 8
+RATE_FIT = 40             # (b) steps of a turn, a save every RATE_EVERY
+RATE_EVERY = 10
+RATE_TURNS = ("sync", "async", "async", "sync", "sync", "async")
+FLIP_RUN = 8              # (c) steps after the fallback
+ELASTIC_AT = 4            # (e) the step of the saves restored elastically
+ELASTIC_RUN = 8           # (e) steps after the shrink's restore
+GROW_RUN = 4              # (e) steps a rank after the grow's restore
+STALL = "prefetch_stall@step=5,secs=0.5"
+STALL_STEPS = 10          # (f)
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -452,6 +491,7 @@ def main() -> int:
     async_ = run_phase("async scoring", async_scoring_phase, torch, card, stream["summary"])
     service = run_phase("scorer service", scorer_service_phase, torch, card)
     cmd = run_phase("command line", command_line_phase, torch, card)
+    durable = run_phase("durable checkpoints", durable_phase, torch, card, main_path, table_path)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -463,7 +503,8 @@ def main() -> int:
                    "grad_path": grad["launches"][k["name"]],
                    "async_scoring": async_["launches"][k["name"]],
                    "scorer_service": service["launches"][k["name"]],
-                   "command_line": cmd["launches"][k["name"]]}
+                   "command_line": cmd["launches"][k["name"]],
+                   "durable_checkpoints": durable["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -477,7 +518,8 @@ def main() -> int:
          "telemetry": telemetry, "config_surface": surface["summary"],
          "host_stream": stream["summary"], "sampler_modes": modes["summary"],
          "grad_path": grad["summary"], "async_scoring": async_["summary"],
-         "scorer_service": service["summary"], "command_line": cmd["summary"]},
+         "scorer_service": service["summary"], "command_line": cmd["summary"],
+         "durable_checkpoints": durable["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3836,6 +3878,554 @@ def command_line_phase(torch, card: str) -> dict:
           f"--dry-run over NCCL: exit 0 in {run['seconds']:.1f} s, train/loss "
           f"{run['metrics']['train/loss']:.4f} [{card}]")
     return {"launches": launches, "summary": out}
+
+
+# ----------------------------------------------------------------- phase 16
+def counted(mk, total: dict, fn):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after, added into ``total``; returns ``fn()``'s result and the counts."""
+    mk.reset_launch_counts()
+    out = fn()
+    counts = dict(mk.launch_counts)
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return out, counts
+
+
+def eval_launches(trainer) -> int:
+    """The ``nll_fwd`` launches of one ``evaluate()``: one a batch of the
+    train and the test split."""
+    from mercury_tpu_torch.data.pipeline import eval_batches
+    from mercury_tpu_torch.train.trainer import EVAL_BATCH
+
+    ds = trainer.dataset
+    return (len(eval_batches(int(ds.x_train.shape[0]), EVAL_BATCH))
+            + len(eval_batches(int(ds.x_test.shape[0]), EVAL_BATCH)))
+
+
+def fit_launches(trainer, steps: int, per_step: dict) -> dict:
+    """What a ``fit`` of ``steps`` steps ending in one ``evaluate()``
+    launches."""
+    want = {k: v * steps for k, v in per_step.items()}
+    want["nll_fwd"] += eval_launches(trainer)
+    return want
+
+
+class KeptMessages:
+    """A logging handler that keeps each record's message."""
+
+    def __init__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(inner, record):
+                self.messages.append(record.getMessage())
+
+        self.messages = []
+        self.handler = Handler()
+
+
+def durable_fit(torch, mk, card: str, directory: str, per_step: dict, total: dict) -> dict:
+    """(a) ``fit`` with manifests: a save every ``DURABLE_EVERY`` steps,
+    each timed (blocking, serialize and write, digests); a verified restore
+    timed; saves of the same state with and without the manifest, in
+    turns."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.train import checkpoint
+
+    config = TrainConfig(**DURABLE, checkpoint_dir=directory, checkpoint_every=DURABLE_EVERY)
+    check(config.checkpoint_manifest and config.checkpoint_verify and config.checkpoint_keep == 3,
+          f"unexpected durability defaults {config}")
+    trainer = build_trainer(torch, config, quiet=True)
+    saves = []
+    save = trainer.save
+
+    def timed_save(directory=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(directory)
+        ms = (time.perf_counter() - t0) * 1e3
+        t = checkpoint.timings()
+        saves.append({"blocking_ms": ms, "write_ms": t["write_s"] * 1e3,
+                      "digest_ms": t["digest_s"] * 1e3})
+        return path
+
+    trainer.save = timed_save
+    _, counts = counted(mk, total, lambda: trainer.fit(steps=DURABLE_FIT))
+    want = fit_launches(trainer, DURABLE_FIT, per_step)
+    check(counts == want, f"durable fit: launch counts {counts}, expected {want}")
+    steps = checkpoint.all_steps(directory)
+    check(steps == [8, 16, 24] and len(saves) == 3, f"durable fit: saved {steps}, {len(saves)} "
+          "saves timed")
+    path = checkpoint.checkpoint_path(directory, DURABLE_FIT)
+    nbytes = os.path.getsize(path)
+    doc = json.loads(Path(checkpoint.manifest_path(path)).read_text())
+    check(doc["bytes"] == nbytes and doc["step"] == DURABLE_FIT,
+          f"manifest of {path}: {doc['bytes']} bytes, step {doc['step']}")
+    fresh = build_trainer(torch, config, quiet=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(fresh.restore() == DURABLE_FIT, "restore of the newest file")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    t = checkpoint.timings()
+    verify = {"restore_ms": restore_ms, "read_ms": t["read_s"] * 1e3,
+              "verify_ms": t["verify_s"] * 1e3, "load_ms": t["load_s"] * 1e3}
+    saved, restored = carried_digests(trainer.state), carried_digests(fresh.state)
+    differ = sorted(k for k, v in saved.items() if restored.get(k) != v)
+    check(saved.keys() == restored.keys() and not differ,
+          f"verified restore differs from the saved state: {differ[:5]}")
+    turns = {"manifest": [], "plain": []}
+    side = os.path.join(directory, "turns")
+    for name in ("manifest", "plain", "plain", "manifest"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(side, trainer.state, config, manifest=name == "manifest")
+        turns[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"durable (a): fit of {DURABLE_FIT} steps saving every {DURABLE_EVERY}: "
+          f"{nbytes} bytes a file, {len(doc['tensors'])} tensor digests; save ms (blocking / "
+          f"serialize+write+fsync / sha256 of the file and of each tensor) "
+          + "; ".join(f"{s['blocking_ms']:.1f} / {s['write_ms']:.1f} / {s['digest_ms']:.1f}"
+                      for s in saves)
+          + f"; verified restore {restore_ms:.1f} ms (read {verify['read_ms']:.1f}, verify "
+          f"{verify['verify_ms']:.1f}, load {verify['load_ms']:.1f}); save ms in turns with the "
+          f"manifest {[round(v, 1) for v in turns['manifest']]}, without "
+          f"{[round(v, 1) for v in turns['plain']]} [{card}]")
+    shutil.rmtree(side, ignore_errors=True)
+    fresh.close()
+    return {"trainer": trainer, "config": config,
+            "summary": {"file_bytes": nbytes, "tensors": len(doc["tensors"]), "saves": saves,
+                        "restore": verify, "save_ms_turns": turns}}
+
+
+def durable_rates(torch, mk, card: str, root: str, per_step: dict, total: dict) -> dict:
+    """(b) ``RATE_FIT``-step fits saving every ``RATE_EVERY``, sync and
+    async in turns: the training thread's blocking ms a save, steps/s of
+    the fit (saves included, the closing evaluation not), steps/s of the
+    steps taken while a write was in flight and of the others, and the
+    files of the two kinds compared by their tensors' sha256."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.train import checkpoint
+
+    out = {"sync": [], "async": []}
+    manifests = {}
+    for turn, name in enumerate(RATE_TURNS):
+        directory = os.path.join(root, f"rate_{turn}_{name}")
+        config = TrainConfig(**DURABLE, checkpoint_dir=directory, checkpoint_every=RATE_EVERY,
+                             async_checkpoint=name == "async")
+        trainer = build_trainer(torch, config, quiet=True)
+        blocking, step_s, eval_s = [], [], []
+        step, evaluate, save = trainer.train_step, trainer.evaluate, trainer.save
+        join, save_async = trainer._join_checkpoint, checkpoint.save_checkpoint_async
+
+        def timed(fn, into):
+            def wrapped(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    into.append(time.perf_counter() - t0)
+            return wrapped
+
+        def timed_step(*args, **kwargs):
+            flight = trainer._ckpt_thread
+            in_flight = flight is not None and not flight.done()
+            t0 = time.perf_counter()
+            metrics = step(*args, **kwargs)
+            step_s.append((time.perf_counter() - t0, in_flight))
+            return metrics
+
+        joins, async_calls = [], []
+        trainer.train_step, trainer.evaluate = timed_step, timed(evaluate, eval_s)
+        trainer.save = timed(save, blocking)
+        trainer._join_checkpoint = timed(join, joins)
+        checkpoint.save_checkpoint_async = timed(save_async, async_calls)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, counts = counted(mk, total, lambda: trainer.fit(steps=RATE_FIT))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            checkpoint.save_checkpoint_async = save_async
+        want = fit_launches(trainer, RATE_FIT, per_step)
+        check(counts == want, f"durable (b) {name}: launch counts {counts}, expected {want}")
+        saves = RATE_FIT // RATE_EVERY
+        if name == "async":
+            check(len(async_calls) == saves and not blocking,
+                  f"durable (b) async: {len(async_calls)} async saves, {len(blocking)} sync")
+            # A save blocks for its host copy, and for the previous write
+            # when that is still in flight at the next save; fit's end
+            # waits for the last write.
+            per_save = [(a + j) * 1e3 for a, j in zip(async_calls, joins)]
+            final_join_ms = sum(joins[saves:]) * 1e3
+        else:
+            check(len(blocking) == saves and not async_calls,
+                  f"durable (b) sync: {len(blocking)} saves, {len(async_calls)} async")
+            per_save = [b * 1e3 for b in blocking]
+            final_join_ms = 0.0
+        flying = [s for s, f in step_s if f]
+        grounded = [s for s, f in step_s if not f]
+        out[name].append({
+            "blocking_ms": per_save, "final_join_ms": final_join_ms,
+            "steps_per_s": RATE_FIT / (wall - sum(eval_s)),
+            "steps_in_flight": len(flying),
+            "in_flight_steps_per_s": len(flying) / sum(flying) if flying else None,
+            "other_steps_per_s": len(grounded) / sum(grounded)})
+        steps = checkpoint.all_steps(directory)
+        check(steps == [20, 30, 40], f"durable (b) {name}: files {steps}")
+        manifests.setdefault(name, {s: json.loads(Path(checkpoint.manifest_path(
+            checkpoint.checkpoint_path(directory, s))).read_text())["tensors"] for s in steps})
+        trainer.close()
+        del trainer
+        shutil.rmtree(directory, ignore_errors=True)
+    differ = {s: sorted(k for k, v in manifests["sync"][s].items()
+                        if manifests["async"][s].get(k) != v) for s in manifests["sync"]}
+    check(all(manifests["async"][s].keys() == manifests["sync"][s].keys() for s in differ)
+          and not any(differ.values()),
+          f"durable (b): async files differ from sync files: { {s: d[:3] for s, d in differ.items()} }")
+    for name in ("sync", "async"):
+        print(f"durable (b) {name}: blocking ms a save "
+              f"{[[round(v, 1) for v in t['blocking_ms']] for t in out[name]]}; steps/s "
+              f"{[round(t['steps_per_s'], 2) for t in out[name]]}; steps/s with a write in "
+              f"flight {[t['in_flight_steps_per_s'] and round(t['in_flight_steps_per_s'], 2) for t in out[name]]} "
+              f"({[t['steps_in_flight'] for t in out[name]]} steps), without "
+              f"{[round(t['other_steps_per_s'], 2) for t in out[name]]}; fit's closing wait "
+              f"for the last write, ms {[round(t['final_join_ms'], 1) for t in out[name]]} "
+              f"[{card}]")
+    print(f"durable (b): the async files at steps 20, 30, 40 equal the sync files, "
+          f"{len(manifests['sync'][40])} tensors by sha256")
+    return out
+
+
+def durable_flip(torch, mk, card: str, fit: dict, total: dict) -> dict:
+    """(c) One byte of the newest file flipped: a fresh ``auto_resume``
+    Trainer lands on the older step, naming the failed check, and
+    ``FLIP_RUN`` steps from there are bit-equal to a run restored
+    explicitly from that step. Then the same pair under the default cuDNN
+    settings, read and not checked."""
+    from mercury_tpu_torch.train import checkpoint
+
+    config = fit["config"]
+    directory = config.checkpoint_dir
+    path = checkpoint.checkpoint_path(directory, DURABLE_FIT)
+    blob = bytearray(Path(path).read_bytes())
+    blob[len(blob) // 2] ^= 0x01
+    Path(path).write_bytes(bytes(blob))
+    kept = KeptMessages()
+    checkpoint._log.addHandler(kept.handler)
+    try:
+        walked = build_trainer(torch, config.replace(auto_resume=True), quiet=True)
+    finally:
+        checkpoint._log.removeHandler(kept.handler)
+    older = DURABLE_FIT - DURABLE_EVERY
+    check(walked.state.step == older, f"auto_resume landed on step {walked.state.step}, "
+          f"not {older}")
+    named = [m for m in kept.messages if f"ckpt_{DURABLE_FIT}.pt" in m and "sha256 mismatch" in m]
+    check(bool(named), f"the fallback's warning does not name the failed check: {kept.messages}")
+    explicit = build_trainer(torch, config, quiet=True)
+    check(explicit.restore(step=older) == older, "explicit restore")
+
+    def run(trainer):
+        losses = torch.stack([trainer.train_step()["train/loss"] for _ in range(FLIP_RUN)])
+        torch.cuda.synchronize()
+        return losses.cpu(), carried_digests(trainer.state)
+
+    (la, da), _ = counted(mk, total, lambda: run(walked))
+    (lb, db), _ = counted(mk, total, lambda: run(explicit))
+    differ = sorted(k for k in da if db.get(k) != da[k])
+    check(torch.equal(la, lb) and not differ,
+          f"fallback run vs explicit restore: losses {la.tolist()} {lb.tolist()}, differ {differ[:5]}")
+    walked.close()
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = False, False   # PyTorch's defaults
+    pair = []
+    try:
+        for _ in range(2):
+            explicit.restore(step=older)
+            (losses, digests), _ = counted(mk, total, lambda: run(explicit))
+            pair.append((losses, digests))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+        explicit.close()
+    default_equal = (torch.equal(pair[0][0], pair[1][0])
+                     and all(pair[1][1].get(k) == v for k, v in pair[0][1].items()))
+    default_differ = sum(pair[1][1].get(k) != v for k, v in pair[0][1].items())
+    print(f"durable (c): byte {len(blob) // 2} of ckpt_{DURABLE_FIT}.pt flipped; auto_resume "
+          f"fell back to step {older} ({named[0][:100]}…); {FLIP_RUN} steps from there bit-equal "
+          f"to an explicit restore of step {older} ({len(da)} tensors and counters, losses "
+          f"{la.tolist()}); under cuDNN's default settings two runs restored from step {older} "
+          f"are {'bit-equal' if default_equal else 'not bit-equal'} after {FLIP_RUN} steps "
+          f"({default_differ} of {len(pair[0][1])} digests differ) [{card}]")
+    return {"fell_back_to": older, "warning": named[0], "tensors_and_counters": len(da),
+            "default_cudnn_bit_equal": default_equal, "default_cudnn_differ": default_differ}
+
+
+def durable_faults(torch, mk, card: str, root: str, per_step: dict, total: dict) -> dict:
+    """(d) ``ckpt_io_error@step=16`` with two retries: every save lands and
+    the record after the failed attempt shows one more write failure;
+    ``every=1`` without retries: ``fit`` raises ``OSError`` and leaves no
+    ``.tmp``."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.train import checkpoint
+
+    directory = os.path.join(root, "faults")
+    config = TrainConfig(**{**DURABLE, "log_every": DURABLE_EVERY}, checkpoint_dir=directory,
+                         checkpoint_every=DURABLE_EVERY, checkpoint_write_retries=2,
+                         fault_spec="ckpt_io_error@step=16")
+    trainer = build_trainer(torch, config, quiet=True)
+    records = []
+    trainer.logger.add_observer(lambda r: records.append(dict(r)))
+    before = checkpoint.write_failures()
+    steps = DURABLE_FIT + DURABLE_EVERY
+    _, counts = counted(mk, total, lambda: trainer.fit(steps=steps))
+    want = fit_launches(trainer, steps, per_step)
+    check(counts == want, f"durable (d): launch counts {counts}, expected {want}")
+    trainer.logger.flush()
+    failures = {int(r["step"]): r["checkpoint/write_failures"] - before for r in records}
+    check(failures == {8: 0, 16: 0, 24: 0, 32: 1},
+          f"durable (d): write failures by record {failures}, expected one after step 24's save")
+    check(checkpoint.all_steps(directory) == [16, 24, 32]
+          and trainer._faults.stats() == {"fault/injected": 1.0, "fault/armed": 0.0},
+          f"durable (d): files {checkpoint.all_steps(directory)}, {trainer._faults.stats()}")
+    trainer.close()
+    directory = os.path.join(root, "faults_every")
+    config = config.replace(checkpoint_dir=directory, checkpoint_every=2,
+                            checkpoint_write_retries=0, fault_spec="ckpt_io_error@step=0,every=1")
+    trainer = build_trainer(torch, config, quiet=True)
+    before = checkpoint.write_failures()
+    try:
+        trainer.fit(steps=4)
+    except OSError as exc:
+        raised = f"{type(exc).__name__}: {exc}"
+    else:
+        raise SmokeFailure("durable (d): fit with every checkpoint write failing did not raise")
+    left = sorted(os.listdir(directory)) if os.path.isdir(directory) else []
+    check("ckpt_io_error" in raised and not left and trainer.state.step == 2
+          and checkpoint.write_failures() == before + 1,
+          f"durable (d): raised {raised!r} at step {trainer.state.step}, left {left}")
+    trainer.close()
+    print(f"durable (d): ckpt_io_error@step=16 with 2 retries fired at step 24's save (the "
+          f"clock reads 23 there), the write landed at its 2nd attempt and the step-32 record "
+          f"shows 1 write failure; every=1 without retries: fit raised {raised!r} at step 2, "
+          f"nothing left in the directory [{card}]")
+    return {"failures_by_record": failures, "raised": raised}
+
+
+def durable_elastic(torch, mk, card: str, root: str, pool_step: dict, table_step: dict,
+                    total: dict) -> dict:
+    """(e) Shrink: a W=2 ZeRO pool run (two gloo ranks on the card) saves
+    at step ``ELASTIC_AT``; a W=1 ZeRO Trainer restores it elastically (its
+    moments equal the ranks' chunks concatenated), then ``ELASTIC_RUN``
+    steps with their launches, and a kernel step against a plain step.
+    Grow: a W=1 scoretable + fused run saves at ``ELASTIC_AT``; the two
+    ranks restore it (each rank's table held to a plain recomputation),
+    then ``GROW_RUN`` steps a rank with their launches and a kernel step
+    against a plain step on each."""
+    import numpy as np
+
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.parallel.distributed import spawn
+    from mercury_tpu_torch.train import checkpoint
+
+    shrink_dir, grow_dir = os.path.join(root, "shrink"), os.path.join(root, "grow")
+    source = build_trainer(torch, TrainConfig(**SCORETABLE), quiet=True)
+    counted(mk, total, lambda: [source.train_step() for _ in range(ELASTIC_AT)])
+    source.save(grow_dir)
+    shard = source.dataset.shard_indices[0].cpu().numpy()
+    source.close()
+    del source
+    ranks = spawn(elastic_body, TWO_RANKS, "gloo", table_step, shrink_dir, grow_dir, shard,
+                  devices=[0] * TWO_RANKS, timeout_s=600)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    config = TrainConfig(**{**DURABLE, "zero_sharding": True})
+    trainer = build_trainer(torch, config, quiet=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(trainer.restore_elastic(shrink_dir) == ELASTIC_AT, "shrink: restored step")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    raw = torch.load(checkpoint.checkpoint_path(shrink_dir, ELASTIC_AT), weights_only=True)
+    n = sum(p.numel() for p in trainer.state.model.parameters())
+    st = trainer.state.optimizer.state_dict()["state"][0]
+    for key in ("exp_avg", "exp_avg_sq"):
+        want = torch.cat([row["optimizer"]["state"][0][key] for row in raw["ranks"]])[:n]
+        check(torch.equal(st[key].cpu(), want), f"shrink: {key} is not the ranks' chunks "
+              "concatenated")
+    check(all(torch.equal(v.cpu(), raw["model"][k])
+              for k, v in trainer.state.model.state_dict().items()),
+          "shrink: the model differs from the checkpoint's")
+    _, counts = counted(mk, total, lambda: [trainer.train_step() for _ in range(ELASTIC_RUN)])
+    want = {k: v * ELASTIC_RUN for k, v in pool_step.items()}
+    check(counts == want, f"shrink: launch counts {counts}, expected {want}")
+    step_err = kernel_vs_plain_step(torch, trainer, config, quiet=True)
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    for r in ranks:
+        e = r["kernel_vs_plain"]
+        print(f"durable (e) grow, rank {r['rank']}: W=1 scoretable file restored at W=2 in "
+              f"{r['restore_ms']:.1f} ms, the table over this rank's {r['table_len']} slots "
+              f"equal to the plain repartition; {GROW_RUN} steps launching "
+              f"{r['window_launches']}, "
+              f"losses {[round(v, 4) for v in r['losses']]}; kernel step vs plain step "
+              f"|d loss| {e['train/loss']:.2e} [{card}]")
+    print(f"durable (e) shrink: W=2 ZeRO file restored at W=1 in {restore_ms:.1f} ms, Adam "
+          f"moments equal to the 2 chunks concatenated ({n} elements); {ELASTIC_RUN} steps "
+          f"launching {counts}; kernel step vs plain step |d loss| {step_err['train/loss']:.2e}, "
+          f"|d pool_loss| {step_err['train/pool_loss']:.2e} [{card}]")
+    return {"shrink": {"restore_ms": restore_ms, "launches": counts, "kernel_vs_plain": step_err},
+            "grow": [{k: r[k] for k in ("rank", "restore_ms", "table_len", "window_launches",
+                                        "losses", "kernel_vs_plain")} for r in ranks]}
+
+
+def elastic_body(table_step, shrink_dir, grow_dir, shard_w1):
+    """One rank of phase 16 (e) (run by ``spawn``; prints nothing): a W=2
+    ZeRO pool run of ``ELASTIC_AT`` steps saved into ``shrink_dir``; then a
+    W=2 scoretable + fused Trainer restoring the W=1 file in ``grow_dir``,
+    its table held to the plain repartition (``shard_w1``: the W=1 run's
+    shard), ``GROW_RUN`` steps with their launches and a kernel step
+    against a plain step."""
+    import numpy as np
+    import torch
+
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.collectives import allreduce_sum
+    from mercury_tpu_torch.train import checkpoint
+
+    launches = {}
+    zero = build_trainer(torch, TrainConfig(**{**DURABLE, "zero_sharding": True,
+                                                "world_size": TWO_RANKS}), quiet=True)
+    counted(mk, launches, lambda: [zero.train_step() for _ in range(ELASTIC_AT)])
+    zero.save(shrink_dir)
+    zero.close()
+    del zero
+    config = TrainConfig(**{**SCORETABLE, "world_size": TWO_RANKS})
+    trainer = build_trainer(torch, config, quiet=True)
+    rank = trainer.rank
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(trainer.restore_elastic(grow_dir) == ELASTIC_AT, f"rank {rank}: grow step")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    row = torch.load(checkpoint.checkpoint_path(grow_dir, ELASTIC_AT),
+                     weights_only=True)["ranks"][0]
+    plain = np.full(int(trainer.dataset.y_train.numel()), float(row["ema_value"]), np.float32)
+    plain[shard_w1] = row["table"].numpy()
+    want = plain[trainer.dataset.shard_indices[rank].cpu().numpy()]
+    got = trainer.state.scoretable.scores.cpu().numpy()
+    check(np.array_equal(got, want), f"rank {rank}: the grown table is not the plain repartition")
+    (losses, counts) = counted(mk, launches, lambda: torch.stack(
+        [trainer.train_step()["train/loss"] for _ in range(GROW_RUN)]).cpu())
+    want_counts = {k: v * GROW_RUN for k, v in table_step.items()}
+    check(counts == want_counts, f"rank {rank}: grow launch counts {counts}, expected "
+          f"{want_counts}")
+    check(bool(torch.isfinite(losses).all()), f"rank {rank}: losses {losses.tolist()}")
+
+    def any_rank(flag: bool) -> bool:
+        return bool(allreduce_sum(torch.tensor(float(flag), device=trainer.device)) > 0)
+
+    step_err = kernel_vs_plain_step(torch, trainer, config, any_rank=any_rank, quiet=True)
+    torch.cuda.synchronize()
+    trainer.close()
+    return {"rank": rank, "restore_ms": restore_ms, "table_len": int(got.size),
+            "launches": launches, "window_launches": counts, "losses": losses.tolist(),
+            "kernel_vs_plain": step_err}
+
+
+def durable_stream(torch, mk, card: str, per_step: dict, total: dict) -> dict:
+    """(f) The host stream with ``prefetch_stall@step=5,secs=0.5``: the
+    stalled run's state bit-equal to a run without, and the stall counted;
+    ``prefetch_die`` raises at the next ``pop`` naming itself."""
+    from mercury_tpu_torch import TrainConfig
+
+    config = TrainConfig(**{**DURABLE, "data_placement": "host_stream"})
+    runs = {}
+    for name, spec in (("plain", ""), ("stalled", STALL)):
+        trainer = build_trainer(torch, config.replace(fault_spec=spec), quiet=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, counts = counted(mk, total, lambda: trainer.fit(steps=STALL_STEPS))
+        torch.cuda.synchronize()
+        want = fit_launches(trainer, STALL_STEPS, per_step)
+        check(counts == want, f"durable (f) {name}: launch counts {counts}, expected {want}")
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "digests": carried_digests(trainer.state),
+                      "wait_s": trainer._stream_pipe.summary()["total_wait_s"],
+                      "faults": None if trainer._faults is None else trainer._faults.stats()}
+        trainer.close()
+    differ = sorted(k for k, v in runs["plain"]["digests"].items()
+                    if runs["stalled"]["digests"].get(k) != v)
+    check(not differ, f"durable (f): the stalled run differs: {differ[:5]}")
+    # The stall precedes the gather, so the pops wait for it.
+    extra = runs["stalled"]["wait_s"] - runs["plain"]["wait_s"]
+    check(runs["stalled"]["faults"] == {"fault/injected": 1.0, "fault/armed": 0.0}
+          and extra >= 0.3,
+          f"durable (f): the pops waited {extra:.3f} s more, {runs['stalled']['faults']}")
+    trainer = build_trainer(torch, config.replace(fault_spec="prefetch_die@step=3"), quiet=True)
+    try:
+        trainer.fit(steps=8)
+    except RuntimeError as exc:
+        raised = str(exc)
+    else:
+        raise SmokeFailure("durable (f): prefetch_die did not raise")
+    finally:
+        trainer.close()
+    check("prefetch worker died" in raised and "prefetch_die" in raised,
+          f"durable (f): the death does not name the fault: {raised[:200]}")
+    print(f"durable (f): host stream, {STALL}: {STALL_STEPS} steps bit-equal to a run "
+          f"without ({len(runs['plain']['digests'])} digests), pops waited "
+          f"{runs['stalled']['wait_s']:.3f} s against {runs['plain']['wait_s']:.3f} s, fit "
+          f"{runs['stalled']['seconds']:.2f} s "
+          f"against {runs['plain']['seconds']:.2f} s; prefetch_die@step=3: fit raised "
+          f"'prefetch worker died' naming prefetch_die [{card}]")
+    return {k: {"seconds": v["seconds"], "wait_s": v["wait_s"]} for k, v in runs.items()}
+
+
+def durable_phase(torch, card: str, main_path, table_path) -> dict:
+    """Phase 16: durable checkpoints, elastic restore and the fault plane
+    on the main path's config at full width, under deterministic cuDNN
+    (the previous settings restored after): (a) a fit with manifests, (b)
+    async against sync in turns, (c) a flipped byte, (d) write faults, (e)
+    elastic restore across world sizes, (f) prefetch faults."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    pool_step = {k: v // MAIN_STEPS for k, v in main_path["launches"].items()}
+    table_step = {k: v // MAIN_STEPS for k, v in table_path["launches"].items()}
+    total = {k: 0 for k in mk.KERNELS}
+    undo = deterministic_cudnn(torch)
+    root = tempfile.mkdtemp(prefix="mercury_durable_")
+    seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        fit = part("a", durable_fit, torch, mk, card, os.path.join(root, "fit"), pool_step,
+                   total)
+        rates = part("b", durable_rates, torch, mk, card, root, pool_step, total)
+        flip = part("c", durable_flip, torch, mk, card, fit, total)
+        fit["trainer"].close()
+        faults = part("d", durable_faults, torch, mk, card, root, pool_step, total)
+        elastic = part("e", durable_elastic, torch, mk, card, root, pool_step, table_step,
+                       total)
+        stream = part("f", durable_stream, torch, mk, card, pool_step, total)
+    finally:
+        undo()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print("durable: seconds by part " + ", ".join(f"({k}) {v:.1f}" for k, v in seconds.items()))
+    return {"launches": total,
+            "summary": {"card": card, "fit": fit["summary"], "rates": rates, "flip": flip,
+                        "faults": faults, "elastic": elastic, "stream": stream,
+                        "launches": total, "seconds": seconds}}
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):

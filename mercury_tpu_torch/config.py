@@ -56,6 +56,11 @@ class TrainConfig:
     # so W=1 here) or "auto" (local at W>1, replicated at W=1). Every rank
     # is its own process in the port, so the two gather the same rows.
     stream_shard_mode: str = "auto"
+    # restore_elastic (train/elastic.py): carry the score table, repartitioned
+    # by the new ranks' ownership, and the stream and table cursors as
+    # fractions of the epoch; False starts them fresh at the restored step.
+    # A restore at the same world_size always carries them exactly.
+    stream_checkpoint_cursor: bool = True
 
     # Optimization
     batch_size: int = 32
@@ -178,11 +183,29 @@ class TrainConfig:
     # Checkpoints (train/checkpoint.py): fit saves every checkpoint_every
     # steps (0: never) and at its end when checkpoint_dir is set, keeping the
     # newest checkpoint_keep files (0: all); auto_resume restores the newest
-    # checkpoint in checkpoint_dir when the Trainer is built.
+    # checkpoint in checkpoint_dir when the Trainer is built (elastically
+    # when it was saved at another world_size).
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 1000
+    # fit's cadence saves on a writer thread (the copy to the host stays on
+    # the training thread); one write in flight. At W>1 saves stay
+    # synchronous.
+    async_checkpoint: bool = False
     checkpoint_keep: int = 3
     auto_resume: bool = False
+    # A write that raises OSError is tried again this many times, after
+    # backoff·2^k seconds; every failed attempt counts into
+    # checkpoint/write_failures.
+    checkpoint_write_retries: int = 2
+    checkpoint_retry_backoff_s: float = 0.25
+    # A sha256 sidecar (ckpt_<step>.pt.manifest.json: the file's digest and
+    # each tensor's) beside every checkpoint, checked on restore: a file
+    # that fails it is passed over for the next-older one, as a torn file is.
+    checkpoint_manifest: bool = True
+    checkpoint_verify: bool = True
+    # Deterministic fault schedule (faults.py grammar), e.g.
+    # "scorer_die@step=40;ckpt_io_error@step=100,every=50"; "" arms nothing.
+    fault_spec: str = ""
     # Telemetry (obs/diagnostics.py, obs/sampler_health.py): the step also
     # returns the sampler-health scalars (ESS of the importance weights,
     # score-clip fraction, EMA drift, the gradient's norm and, on the

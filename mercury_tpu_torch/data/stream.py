@@ -42,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from mercury_tpu_torch.faults import InjectedFault
 from mercury_tpu_torch.utils.logging import get_logger
 
 __all__ = ["HostStreamSource", "ImageFolderSource", "PrefetchPipeline"]
@@ -159,11 +160,13 @@ class PrefetchPipeline:
     the part of it due to the input, the worker's gather and copy after
     the indices were ready (the wait for the step that makes the indices
     is the pipeline's normal cadence). A worker that dies re-raises its
-    exception, with its traceback, at the next ``pop``.
+    exception, with its traceback, at the next ``pop``. ``faults`` (a
+    :class:`~mercury_tpu_torch.faults.FaultPlane`) arms the ``prefetch_die``
+    and ``prefetch_stall`` hooks before each gather.
     """
 
     def __init__(self, source, rows: int, device, depth: int = 2,
-                 pop_timeout_s: float = 300.0) -> None:
+                 pop_timeout_s: float = 300.0, faults=None) -> None:
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.source = source
@@ -174,6 +177,7 @@ class PrefetchPipeline:
         if self._cuda and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._pop_timeout_s = float(pop_timeout_s)
+        self._faults = faults
         dtype = torch.from_numpy(np.empty(0, source.dtype)).dtype
         shape = (self.rows,) + tuple(source.row_shape)
         self._staging = [torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
@@ -332,6 +336,12 @@ class PrefetchPipeline:
                 return
             generation, idx, ready = item
             try:
+                if self._faults is not None:
+                    if self._faults.fire("prefetch_die") is not None:
+                        raise InjectedFault("prefetch_die: injected prefetch-worker death")
+                    stall = self._faults.fire("prefetch_stall")
+                    if stall is not None:
+                        time.sleep(float(stall.get("secs", 1.0)))
                 slot = self._slot
                 self._slot = (slot + 1) % len(self._staging)
                 slab = self._staging[slot]

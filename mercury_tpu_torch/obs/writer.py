@@ -116,10 +116,13 @@ class AsyncMetricWriter:
     ``observers`` are callables given each HOST record on the drain thread
     before the sinks; one may change the record in place, and the sinks
     see the change. Their exceptions are counted, never raised.
+
+    ``faults`` (a :class:`~mercury_tpu_torch.faults.FaultPlane`) arms the
+    ``sink_wedge`` hook: the drain thread sleeps ``secs`` before a record.
     """
 
     def __init__(self, sinks: Iterable, capacity: int = 256,
-                 start: bool = True, observers: Iterable = ()) -> None:
+                 start: bool = True, observers: Iterable = (), faults=None) -> None:
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.sinks = [s for s in sinks if s is not None]
@@ -139,6 +142,7 @@ class AsyncMetricWriter:
         self._autostart = start
         self._thread: Optional[threading.Thread] = None
         self._copy_streams: Dict = {}
+        self._faults = faults
 
     # -------------------------------------------------------------- plumbing
     def start(self) -> None:
@@ -254,6 +258,12 @@ class AsyncMetricWriter:
 
     def _emit(self, item) -> None:
         step, t, scalars, ready = item
+        if self._faults is not None:
+            wedge = self._faults.fire("sink_wedge")
+            if wedge is not None:
+                # The drain thread, not a sink: writes keep queueing and the
+                # drop-oldest policy absorbs the stall.
+                time.sleep(float(wedge.get("secs", 1.0)))
         with self._lock:
             dropped = self.dropped
             observers = self.observers

@@ -42,6 +42,14 @@ def rank(group=None) -> int:
     return dist.get_rank(group)
 
 
+def host_flag_device(group=None) -> torch.device:
+    """Where a small bookkeeping collective's tensor lives: this rank's
+    card under NCCL, the host under gloo."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def allreduce_mean_(tensors: Sequence[torch.Tensor], group=None
                     ) -> Sequence[torch.Tensor]:
     """Replace each tensor by its mean over the ranks, in place: one

@@ -55,6 +55,7 @@ from torch.func import functional_call
 
 from mercury_tpu_torch.config import TrainConfig
 from mercury_tpu_torch.data.pipeline import ShardedDataset, normalize_images
+from mercury_tpu_torch.faults import InjectedFault
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
 from mercury_tpu_torch.ops import mercury_kernels as mk
 from mercury_tpu_torch.ops import reference
@@ -286,15 +287,18 @@ class ScorerFleet:
     ready queue holds ``max(2·workers, 2)`` chunks, and a worker waits on a
     full queue, so the fleet idles when the trainer is not draining. Unlike
     the JAX fleet's, :meth:`reset` also drops a chunk begun before it, so
-    no chunk of the old trajectory reaches the queue after a restore."""
+    no chunk of the old trajectory reaches the queue after a restore.
+    ``faults`` (a :class:`~mercury_tpu_torch.faults.FaultPlane`) arms the
+    ``scorer_die`` and ``scorer_nan`` hooks of :meth:`_next_chunk`."""
 
     def __init__(self, dataset: ShardedDataset, model: torch.nn.Module,
-                 config: TrainConfig, device) -> None:
+                 config: TrainConfig, device, faults=None) -> None:
         self._scorer = ChunkScorer(dataset, model, config, device)
         self._L, self._R = self._scorer.L, self._scorer.R
         self._seed = int(config.seed)
         self._workers = int(config.scorer_workers)
         self._throttle = float(config.scorer_throttle_s)
+        self._faults = faults
         # Kernel launches of this fleet's scoring (ops.mercury_kernels).
         self.launch_counts: Dict[str, int] = self._scorer.launch_counts
 
@@ -326,13 +330,21 @@ class ScorerFleet:
         it was begun in."""
         with self._lock:
             snap, generation = self._snap, self._generation
-            if snap is None:
-                return generation, None
+        if snap is None:
+            return generation, None
+        faults = self._faults
+        if faults is not None and faults.fire("scorer_die") is not None:
+            # Kills the thread that scores: a worker, or score_once's caller.
+            raise InjectedFault("scorer_die: injected scorer death")
+        with self._lock:
             start = self._cursor
             self._cursor = (start + self._R) % self._L
             chunk_id = self._chunk_seq
             self._chunk_seq += 1
         chunk = self._scorer.score(snap, start, chunk_seed(self._seed, chunk_id))
+        if faults is not None and faults.fire("scorer_nan") is not None:
+            # The trainer's check must reject the chunk.
+            chunk.scores.fill_(float("nan"))
         with self._lock:
             self._chunks_scored += 1
             self._rows_scored += self._R

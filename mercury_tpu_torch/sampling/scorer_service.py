@@ -45,8 +45,11 @@ Idle workers park on an event that a snapshot sets (and, for the host
 backend, a drain that freed a queue slot); none polls. :meth:`reset` (a
 restore) drops every queue, a chunk begun before it and a lockstep chunk
 in flight, and rewinds the windows and seeds, so a restored run goes on
-as a fresh one restored from the same checkpoint. Not ported:
-``restart_workers``, the ``scorer_*`` faults, the tracer's spans and the
+as a fresh one restored from the same checkpoint. The ``scorer_*``
+faults (``faults``, a :class:`~mercury_tpu_torch.faults.FaultPlane`) hook
+in where the JAX service's do: ``scorer_die`` and ``scorer_nan`` in
+:meth:`_score_chunk`, ``scorer_wedge`` (a tenant no longer scheduled) in a
+worker's loop. Not ported: ``restart_workers``, the tracer's spans and the
 event journal; a dead worker raises at the next drain.
 """
 
@@ -66,6 +69,7 @@ from mercury_tpu_torch.config import (  # noqa: F401 (the JAX module's names)
     validate_scorer_composition,
 )
 from mercury_tpu_torch.data.pipeline import ShardedDataset
+from mercury_tpu_torch.faults import InjectedFault
 from mercury_tpu_torch.parallel.distributed import cards_in_use, reserve_scorer_device
 from mercury_tpu_torch.sampling.scorer_fleet import (
     ChunkScorer,
@@ -112,6 +116,7 @@ class _Tenant:
         self.staleness = 0         # steps since the last delivered chunk's snapshot
         self.slo_latched = False   # rising-edge latch of a breach
         self.slo_breaches = 0
+        self.wedged = False        # the scorer_wedge fault's latch
 
 
 class ScorerService:
@@ -119,10 +124,10 @@ class ScorerService:
     daemon threads ``mercury-scorer-svc-<i>`` over ``config.scorer_tenants``
     queues. ``device`` is the training device; the device backend on the
     card scores on the card ``reserve_scorer_device`` gives, anything else
-    on ``device``."""
+    on ``device``. ``faults`` arms the ``scorer_*`` hooks."""
 
     def __init__(self, dataset: ShardedDataset, model: torch.nn.Module,
-                 config: TrainConfig, device) -> None:
+                 config: TrainConfig, device, faults=None) -> None:
         device = with_index(torch.device(device))
         self._backend = config.scorer_backend
         scorer_device = device
@@ -136,6 +141,7 @@ class ScorerService:
         self._workers = int(config.scorer_workers)
         self._throttle = float(config.scorer_throttle_s)
         self._config = config
+        self._faults = faults
         # Kernel launches of the service's scoring, apart from the step's.
         self.launch_counts: Dict[str, int] = self._scorer.launch_counts
 
@@ -182,7 +188,7 @@ class ScorerService:
 
     # ---------------------------------------------------------- scheduling
     def _eligible_locked(self, t: _Tenant) -> bool:
-        if t.snap is None:
+        if t.wedged or t.snap is None:
             return False
         if t.ready.qsize() + t.inflight >= t.ready.maxsize:
             return False  # backpressure: the consumer's queue is full
@@ -214,14 +220,20 @@ class ScorerService:
         generation it was begun in; no chunk without a snapshot."""
         with self._lock:
             snap, generation = t.snap, self._generation
-            if snap is None:
-                return generation, None
+        if snap is None:
+            return generation, None
+        faults = self._faults
+        if faults is not None and faults.fire("scorer_die") is not None:
+            raise InjectedFault("scorer_die: injected scorer death")
+        with self._lock:
             start = t.cursor
             t.cursor = (start + self._R) % self._L
             seq = t.seq
             t.seq += 1
         chunk = self._scorer.score(
             snap, start, chunk_seed(self._seed, t.idx * _TENANT_KEY_STRIDE + seq, self._rank))
+        if faults is not None and faults.fire("scorer_nan") is not None:
+            chunk.scores.fill_(float("nan"))
         with self._lock:
             t.chunks_scored += 1
             t.rows_scored += self._R
@@ -244,6 +256,14 @@ class ScorerService:
                 if self._lockstep:
                     self._lockstep_round()
                     continue
+                faults = self._faults
+                if faults is not None:
+                    args = faults.fire("scorer_wedge")
+                    if args is not None:
+                        wedge_idx = int(args.get("tenant", 0))
+                        with self._lock:
+                            self._tenants[wedge_idx].wedged = True
+                        _log.warning("scorer_wedge injected: tenant t%d frozen", wedge_idx)
                 t = self._next_tenant()
                 if t is None:
                     self._work.wait()
@@ -503,7 +523,7 @@ class ScorerService:
                         "chunks_scored": t.chunks_scored, "delivered": t.delivered,
                         "discarded": t.discarded, "queue_depth": t.ready.qsize(),
                         "staleness": t.staleness, "slo_breaches": t.slo_breaches,
-                        "wedged": False}   # the scorer_wedge fault is not ported
+                        "wedged": t.wedged}
                        for t in self._tenants]
             snap0 = self._tenants[0].snap
             return {

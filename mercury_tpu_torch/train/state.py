@@ -161,13 +161,13 @@ def clone_pending(pending):
 
 
 def _plain(tree):
-    """Named tuples → dicts (with a ``None`` kept), for ``torch.load``'s
-    ``weights_only`` reader."""
+    """Named tuples → dicts (with a ``None`` kept) of host copies, for
+    ``torch.load``'s ``weights_only`` reader."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return {k: _plain(v) for k, v in tree._asdict().items()}
     if isinstance(tree, (tuple, list)):
         return [_plain(v) for v in tree]
-    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+    return tree.detach().to("cpu", copy=True) if isinstance(tree, torch.Tensor) else tree
 
 
 def pending_to_host(pending) -> Dict[str, Any]:

@@ -17,9 +17,21 @@ keep their parameters equal through the step's collectives.
 
 Beyond training: ``save``/``restore`` (``train/checkpoint.py``; ``fit``
 saves every ``checkpoint_every`` steps and at its end when
-``checkpoint_dir`` is set, and ``auto_resume`` restores the newest
-checkpoint there at construction), ``predict`` (logits of raw images) and
-``per_class_accuracy``.
+``checkpoint_dir`` is set, the cadence saves on a writer thread under
+``async_checkpoint``, and ``auto_resume`` restores the newest checkpoint
+there at construction, falling back to an older one that fails to load or
+to verify), ``restore_elastic`` (``train/elastic.py``: a checkpoint of
+another world size, which ``auto_resume`` takes by itself), ``predict``
+(logits of raw images) and ``per_class_accuracy``.
+
+With a ``fault_spec`` the Trainer arms a
+:class:`~mercury_tpu_torch.faults.FaultPlane` and hands it to the hook
+sites: ``fit`` (``host_slow``, and the clock), the checkpoint writes
+(``ckpt_io_error``), the prefetch worker, the scorer and the metric
+writer. ``fit``'s log records then carry ``fault/injected`` and
+``fault/armed``, and with a ``checkpoint_dir`` always
+``checkpoint/write_failures``. No supervisor restarts a worker an injected
+fault killed: it raises, as in the JAX package with ``supervise=False``.
 
 Under ``data_placement="host_stream"`` the train pixels stay a host array
 (``dataset``, when passed, may hold an ``np.memmap``): the Trainer primes
@@ -69,10 +81,12 @@ then drains and closes the writer.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple, Union
+import time
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mercury_tpu_torch.config import TrainConfig
 from mercury_tpu_torch.data import cifar
@@ -85,6 +99,7 @@ from mercury_tpu_torch.data.pipeline import (
 )
 from mercury_tpu_torch.data.stream import HostStreamSource, PrefetchPipeline
 from mercury_tpu_torch.data.transforms import EVAL_RESIZE, IID_CROP, eval_transform_iid
+from mercury_tpu_torch.faults import FaultPlane
 from mercury_tpu_torch.models import create_model
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
 from mercury_tpu_torch.obs.accounting import ThroughputMeter, flops_per_step
@@ -101,11 +116,11 @@ from mercury_tpu_torch.obs.writer import (
 )
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
 from mercury_tpu_torch.parallel import distributed
-from mercury_tpu_torch.parallel.collectives import gather_to_rank0
+from mercury_tpu_torch.parallel.collectives import gather_to_rank0, host_flag_device
 from mercury_tpu_torch.sampling.scoretable import apply_async_chunk
 from mercury_tpu_torch.sampling.scorer_fleet import ScoreChunk, ScorerFleet
 from mercury_tpu_torch.sampling.scorer_service import ScorerService
-from mercury_tpu_torch.train import checkpoint
+from mercury_tpu_torch.train import checkpoint, elastic
 from mercury_tpu_torch.train.state import MercuryState, create_state
 from mercury_tpu_torch.train.step import Draws, make_train_step, prime_host_stream, to_nchw
 from mercury_tpu_torch.utils.logging import get_logger
@@ -165,6 +180,11 @@ class Trainer:
                 f"pixels are {'a host array' if dataset.host_pixels else 'a tensor'}: "
                 "build it with make_sharded_dataset(..., placement=data_placement)")
         self.dataset = dataset
+        # The fault plane, before every hook site it is handed to.
+        self._faults: Optional[FaultPlane] = (FaultPlane(config.fault_spec)
+                                              if config.fault_spec else None)
+        # fit's async cadence write in flight, at most one.
+        self._ckpt_thread: Optional[checkpoint.AsyncSave] = None
         if config.num_classes is not None and config.num_classes != self.dataset.num_classes:
             raise ValueError(
                 f"config.num_classes={config.num_classes} but dataset "
@@ -218,7 +238,8 @@ class Trainer:
             # gather the same rows.
             self._stream_pipe = PrefetchPipeline(
                 HostStreamSource(self.dataset.x_train, config.decode_workers),
-                config.stream_rows, self.device, depth=config.prefetch_depth)
+                config.stream_rows, self.device, depth=config.prefetch_depth,
+                faults=self._faults)
             self._seed_stream_pipe(
                 prime_host_stream(self.state, config, self.dataset))
         # The metric stream: the manifest and the sinks, then the writer,
@@ -235,7 +256,7 @@ class Trainer:
             sinks.append(HeartbeatShardSink(config.log_dir, self.rank))
         if config.heartbeat_every and self.rank == 0:
             sinks.append(HeartbeatSink(every_steps=config.heartbeat_every))
-        self.logger = AsyncMetricWriter(sinks)
+        self.logger = AsyncMetricWriter(sinks, faults=self._faults)
         # steps/s, examples/s and MFU between log ticks; the FLOP count is
         # taken at the first log tick.
         self._throughput = ThroughputMeter(
@@ -260,7 +281,7 @@ class Trainer:
                                or config.scorer_queue_highwater > 0)
                 scorer = ScorerService if use_service else ScorerFleet
                 self._scorer_fleet = scorer(self.dataset, self.state.model, config,
-                                            self.device)
+                                            self.device, faults=self._faults)
                 self._scorer_fleet.snapshot(self.state.model, self.state.step)
             # Crash or preemption recovery: the newest checkpoint, sampler
             # state included; the first fit() then runs on to the original
@@ -268,9 +289,8 @@ class Trainer:
             self._auto_resumed = False
             if (config.auto_resume and config.checkpoint_dir
                     and checkpoint.latest_step(config.checkpoint_dir) is not None):
-                step = self.restore()
+                self._auto_resume()
                 self._auto_resumed = True
-                _log.info("auto-resumed from the checkpoint at step %d", step)
         except BaseException:
             self.close()
             raise
@@ -408,8 +428,11 @@ class Trainer:
         Writes a record to ``self.logger`` every ``log_every`` steps,
         evaluates every ``eval_every`` (also logged, and printed) and, with
         a ``checkpoint_dir``, saves every ``checkpoint_every`` steps and at
-        the end. Returns the final evaluation (the last eval tick's, else a
-        fresh :meth:`evaluate`), the last step's scalar metrics and, when
+        the end (under ``async_checkpoint`` the cadence saves on a writer
+        thread, one at a time; every write is joined before ``fit``
+        returns or raises, and a failed one raises here). Returns the
+        final evaluation (the last eval tick's, else a fresh
+        :meth:`evaluate`), the last step's scalar metrics and, when
         the last step is a log tick, the sampler-health keys and (under
         host_stream) the pipeline's ``data/*`` counters and (under async
         refresh) the fleet's."""
@@ -431,6 +454,13 @@ class Trainer:
         self._throughput.reset(start)
         try:
             while self.state.step < end:
+                if self._faults is not None:
+                    # The clock the hook sites fire against, and the
+                    # training thread's own hook.
+                    self._faults.note_step(self.state.step)
+                    slow = self._faults.fire("host_slow")
+                    if slow is not None:
+                        time.sleep(float(slow.get("secs", 1.0)))
                 metrics = self.train_step()
                 step = self.state.step
                 health = {}
@@ -443,15 +473,44 @@ class Trainer:
                           + " ".join(f"{k}={v:.4f}" for k, v in evaluation.items()))
                 if (cfg.checkpoint_dir and cfg.checkpoint_every
                         and step % cfg.checkpoint_every == 0):
-                    self.save()
+                    if cfg.async_checkpoint:
+                        self._join_checkpoint()
+                        self._ckpt_thread = checkpoint.save_checkpoint_async(
+                            cfg.checkpoint_dir, self.state, cfg,
+                            failure_cb=self._ckpt_failure_cb, **self._ckpt_kwargs())
+                    else:
+                        self.save()
                     saved = step
+            self._join_checkpoint()
             if cfg.checkpoint_dir and saved != self.state.step:
                 self.save()
             if not evaluation:
                 evaluation = self.evaluate()
             return {**evaluation, **_scalars(metrics), **health}
         finally:
+            # No write stays in flight past fit: a relaunch must not find
+            # a file half written.
+            self._join_checkpoint()
             self.logger.flush()
+
+    def _join_checkpoint(self) -> None:
+        """Wait for the async write in flight, if any; raise its error."""
+        thread, self._ckpt_thread = self._ckpt_thread, None
+        if thread is not None:
+            thread.join()
+
+    def _ckpt_failure_cb(self, exc: BaseException) -> None:
+        """On the writer thread, when an async write has failed: a warning
+        now (``fit`` raises the error at the next join)."""
+        _log.warning("async checkpoint write failed (%s: %s); %d failed attempts so far",
+                     type(exc).__name__, exc, checkpoint.write_failures())
+
+    def _ckpt_kwargs(self) -> Dict[str, Any]:
+        """The durability settings of every save."""
+        cfg = self.config
+        return dict(keep=cfg.checkpoint_keep, retries=cfg.checkpoint_write_retries,
+                    retry_backoff_s=cfg.checkpoint_retry_backoff_s,
+                    manifest=cfg.checkpoint_manifest, faults=self._faults)
 
     def _log_tick(self, step: int, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """Enqueue the record of a log tick, as the JAX ``fit`` assembles
@@ -472,6 +531,10 @@ class Trainer:
         record.update(scorer)
         record.update(health)
         record.update(host_thread_stats())
+        if self._faults is not None:
+            record.update(self._faults.stats())
+        if self.config.checkpoint_dir:
+            record["checkpoint/write_failures"] = float(checkpoint.write_failures())
         record["threads/queue_depth/metrics"] = float(self.logger.queue_depth())
         record["epoch"] = (step - 1) // self.steps_per_epoch
         self.logger.write(step, record)
@@ -501,24 +564,71 @@ class Trainer:
 
     def save(self, directory: Optional[str] = None) -> str:
         """Save the whole state to ``directory`` (default
-        ``checkpoint_dir``) as ``ckpt_<step>.pt``, keeping the newest
-        ``checkpoint_keep``; return its path. At W>1 every rank calls it."""
+        ``checkpoint_dir``) as ``ckpt_<step>.pt`` with the config's
+        durability settings (manifest, retries, the fault plane), keeping
+        the newest ``checkpoint_keep``; return its path. At W>1 every rank
+        calls it."""
         return checkpoint.save_checkpoint(self._directory(directory), self.state,
-                                          self.config, keep=self.config.checkpoint_keep)
+                                          self.config, **self._ckpt_kwargs())
 
     def restore(self, directory: Optional[str] = None, step: Optional[int] = None) -> int:
-        """Restore the checkpoint at ``step`` (default: the newest) from
-        ``directory`` (default ``checkpoint_dir``); return its step. Under
-        host_stream the prefetch pipeline is refilled from the restored
-        ring; under async refresh the fleet's queued chunks are dropped and
-        the restored parameters snapshotted."""
+        """Restore the checkpoint at ``step`` (default: the newest that
+        loads and, under ``checkpoint_verify``, verifies; at W>1 agreed
+        across the ranks) from ``directory`` (default ``checkpoint_dir``);
+        return its step. Under host_stream the prefetch pipeline is
+        refilled from the restored ring; under async refresh the fleet's
+        queued chunks are dropped and the restored parameters
+        snapshotted."""
         step = checkpoint.restore_checkpoint(self._directory(directory), self.state,
-                                             self.config, step)
+                                             self.config, step,
+                                             verify=self.config.checkpoint_verify)
+        self._after_restore()
+        return step
+
+    def restore_elastic(self, directory: Optional[str] = None, step: Optional[int] = None,
+                        raw: Optional[Dict[str, Any]] = None) -> int:
+        """Restore a checkpoint saved at another world size (or the same):
+        the model, the optimizer (ZeRO's chunks resharded) and the counters
+        exactly, the EMA from the old ranks', the score table, ledger and
+        cursors carried under ``stream_checkpoint_cursor``, the generator
+        re-seeded from the restored step (``train/elastic.py``); ``raw`` is
+        a payload already read at ``step``. Every rank calls it. Under
+        host_stream the ring is primed anew for the new shards."""
+        step = elastic.elastic_restore(self._directory(directory), self, step, raw=raw)
+        self._after_restore()
+        return step
+
+    def _after_restore(self) -> None:
         self._refill_stream_pipe()
         if self._scorer_fleet is not None:
             self._scorer_fleet.reset()
             self._scorer_fleet.snapshot(self.state.model, self.state.step)
-        return step
+
+    def _auto_resume(self) -> None:
+        """The newest checkpoint's world size decides between
+        :meth:`restore` and :meth:`restore_elastic`; at W>1 rank 0's
+        reading decides for every rank."""
+        cfg = self.config
+        raw, raw_step = elastic.probe_checkpoint(cfg.checkpoint_dir)
+        w_ckpt = elastic.world_size_of_raw(raw)
+        if cfg.world_size > 1:
+            agreed = torch.tensor([-1 if w_ckpt is None else w_ckpt,
+                                   -1 if raw_step is None else raw_step],
+                                  dtype=torch.int64, device=host_flag_device())
+            dist.broadcast(agreed, src=0)
+            w0, s0 = (int(v) for v in agreed.tolist())
+            if s0 != raw_step:
+                raw = None  # this rank read another file: it reads rank 0's
+            w_ckpt, raw_step = (None if w0 < 0 else w0), (None if s0 < 0 else s0)
+        if w_ckpt is not None and w_ckpt != cfg.world_size:
+            step = self.restore_elastic(step=raw_step, raw=raw)
+            _log.info("auto-resumed elastically from a %d-rank checkpoint at step %d "
+                      "(now %d ranks)", w_ckpt, step, cfg.world_size)
+        else:
+            # The fall-back walk reads (and verifies) the files itself.
+            del raw
+            step = self.restore()
+            _log.info("auto-resumed from the checkpoint at step %d", step)
 
     def _logits(self, raw: torch.Tensor) -> torch.Tensor:
         """Inference-mode logits of ``EVAL_BATCH`` raw NHWC images on this

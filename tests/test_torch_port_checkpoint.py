@@ -50,7 +50,8 @@ def test_resume_mid_window_is_bit_exact(tmp_path, path):
     finally:
         torch.set_num_threads(threads)
     assert out["step"] == 3 and int(out["saved"]["mini_step"]) == 1
-    assert int(out["saved"]["updates"]) == 1 and os.listdir(tmp_path) == ["ckpt_3.pt"]
+    assert int(out["saved"]["updates"]) == 1
+    assert sorted(os.listdir(tmp_path)) == ["ckpt_3.pt", "ckpt_3.pt.manifest.json"]
     _assert_equal(out["restored"], out["saved"], "restored vs saved")
     _assert_equal(out["resumed"], out["live"], "resumed vs uninterrupted")
     assert int(out["live"]["updates"]) == 3 and int(out["live"]["step"]) == 6
@@ -67,7 +68,8 @@ def test_cadence_keep_and_auto_resume(tmp_path):
     first = _trainer(**kw)
     first.fit(steps=5)
     assert checkpoint.all_steps(d) == [4, 5]
-    assert sorted(os.listdir(d)) == ["ckpt_4.pt", "ckpt_5.pt"]
+    assert sorted(os.listdir(d)) == ["ckpt_4.pt", "ckpt_4.pt.manifest.json",
+                                     "ckpt_5.pt", "ckpt_5.pt.manifest.json"]
     resumed = _trainer(auto_resume=True, **kw)
     assert resumed.state.step == 5 and resumed.state.mini_step == 1
     assert resumed.total_steps == 6
@@ -86,9 +88,12 @@ def test_checkpoint_every_zero_saves_only_at_the_end(tmp_path):
 
 
 def _edit(path, **fields):
+    """Rewrite the file with ``fields`` changed; its sha256 sidecar no
+    longer describes it and goes, so the file restores unverified."""
     ckpt = torch.load(path, weights_only=True)
     ckpt.update(fields)
     torch.save(ckpt, path)
+    os.unlink(checkpoint.manifest_path(path))
 
 
 @pytest.mark.parametrize("field,edit,kw", [
@@ -99,7 +104,7 @@ def _edit(path, **fields):
     ("format", dict(format=0), {}),
 ])
 def test_restore_refuses_another_run(tmp_path, field, edit, kw):
-    """A checkpoint of another world size (elastic restore is not ported),
+    """A checkpoint of another world size (``restore_elastic`` takes it),
     another accumulation, another device type (a CUDA generator state
     cannot seed a CPU generator), another sampler or another file format
     raises before the state is touched."""
@@ -150,7 +155,8 @@ def test_torn_file_is_never_a_checkpoint(tmp_path):
             tr.save()
     finally:
         torch.save = save
-    assert sorted(os.listdir(d)) == ["ckpt_1.pt", "ckpt_9.pt.tmp", "ckpt_x.pt"]
+    assert sorted(os.listdir(d)) == ["ckpt_1.pt", "ckpt_1.pt.manifest.json",
+                                     "ckpt_9.pt.tmp", "ckpt_x.pt"]
 
 
 def test_two_ranks_one_writer_own_rows(tmp_path):
@@ -159,7 +165,7 @@ def test_two_ranks_one_writer_own_rows(tmp_path):
     permutation (they differ) and both continuations are bit-equal."""
     kw = {**COMMON, "world_size": 2}
     ranks = spawn(checkpoint_rank, 2, "gloo", kw, str(tmp_path), 3, 3)
-    assert os.listdir(tmp_path) == ["ckpt_3.pt"]
+    assert sorted(os.listdir(tmp_path)) == ["ckpt_3.pt", "ckpt_3.pt.manifest.json"]
     path = str(tmp_path / "ckpt_3.pt")
     assert [r["path"] for r in ranks] == [path, path]
     assert [len(r["writes"]) for r in ranks] == [1, 0]

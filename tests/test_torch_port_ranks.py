@@ -1,7 +1,8 @@
 """Rank bodies of the port's two-rank CPU tests (``test_torch_port_parallel``,
 ``test_torch_port_dist_step``, ``test_torch_port_checkpoint``,
 ``test_torch_port_telemetry_step``, ``test_torch_port_sampler_modes``,
-``test_torch_port_grad_path`` and ``test_torch_port_scorer_service_dist``);
+``test_torch_port_grad_path``, ``test_torch_port_scorer_service_dist``,
+``test_torch_port_elastic`` and ``test_torch_port_durable_checkpoint``);
 this file holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
@@ -441,3 +442,72 @@ def lockstep_rank(config_kw, data, state_dict, augs, runs, steps, directory, res
         fresh.close()
     out["restored"] = restored
     return out
+
+
+def elastic_save_rank(jobs):
+    """For each ``(config_kw, directory, steps)``: a ``Trainer`` of the tiny
+    model at W ranks, ``steps`` steps, a save into ``directory``. Returns
+    each job's losses."""
+    torch.set_num_threads(1)
+    out = []
+    for config_kw, directory, steps in jobs:
+        trainer = Trainer(TrainConfig(**config_kw), device="cpu", model=tiny_resnet(seed=0))
+        out.append([float(trainer.train_step()["train/loss"]) for _ in range(steps)])
+        trainer.save(directory)
+        trainer.close()
+    return out
+
+
+def elastic_restore_rank(jobs):
+    """For each ``(config_kw, directory, auto)``: a ``Trainer`` of the tiny
+    model with other weights at W ranks that restores ``directory``
+    elastically (``auto``: by ``auto_resume`` at construction); the state
+    it restored, the step, and two more steps' losses."""
+    torch.set_num_threads(1)
+    out = []
+    for config_kw, directory, auto in jobs:
+        config = TrainConfig(**config_kw)
+        if auto:
+            trainer = Trainer(config.replace(checkpoint_dir=directory, auto_resume=True),
+                              device="cpu", model=tiny_resnet(seed=1))
+            step = trainer.state.step
+        else:
+            trainer = Trainer(config, device="cpu", model=tiny_resnet(seed=1))
+            step = trainer.restore_elastic(directory)
+        restored = state_tensors(trainer.state)
+        losses = [float(trainer.train_step()["train/loss"]) for _ in range(2)]
+        trainer.close()
+        out.append(dict(rank=dist.get_rank(), step=step, restored=restored, losses=losses,
+                        shard_row=trainer.dataset.shard_indices[trainer.rank].clone()))
+    return out
+
+
+def fallback_rank(config_kw, directory):
+    """Two saves at W ranks (after steps 1 and 2); then a fresh ``Trainer``
+    whose newest file fails to read on rank 1 alone restores, and another
+    restores step 1 explicitly. Returns both restored steps and states."""
+    from mercury_tpu_torch.train import checkpoint
+
+    torch.set_num_threads(1)
+    config = TrainConfig(**config_kw)
+    live = Trainer(config, device="cpu", model=tiny_resnet(seed=0))
+    for _ in range(2):
+        live.train_step()
+        live.save(directory)
+    load = checkpoint.load_checkpoint
+
+    def failing(directory_, step, verify=True):
+        if step == 2 and dist.get_rank() == 1:
+            raise OSError("rank 1 cannot read ckpt_2.pt")
+        return load(directory_, step, verify)
+
+    checkpoint.load_checkpoint = failing
+    try:
+        walked = Trainer(config, device="cpu", model=tiny_resnet(seed=1))
+        step = walked.restore(directory)
+    finally:
+        checkpoint.load_checkpoint = load
+    explicit = Trainer(config, device="cpu", model=tiny_resnet(seed=1))
+    explicit.restore(directory, step=1)
+    return dict(rank=dist.get_rank(), step=step, walked=state_tensors(walked.state),
+                explicit=state_tensors(explicit.state))

@@ -66,7 +66,10 @@ def test_config_fields_match_the_jax_package():
                  "fused_input", "sampler", "grad_accum_steps", "checkpoint_dir",
                  "checkpoint_every", "checkpoint_keep", "auto_resume", "prefetch_depth",
                  "decode_workers", "stream_shard_mode", "image_size",
-                 "pipelined_scoring", "score_refresh_every"):
+                 "pipelined_scoring", "score_refresh_every", "async_checkpoint",
+                 "checkpoint_write_retries", "checkpoint_retry_backoff_s",
+                 "checkpoint_manifest", "checkpoint_verify", "stream_checkpoint_cursor",
+                 "fault_spec"):
         assert name in {f.name for f in dataclasses.fields(TrainConfig)}, name
     assert (cfg.refresh_size, cfg.table_decay, cfg.refresh_mode) == (64, 0.98, "sync")
     assert (cfg.grad_accum_steps, cfg.checkpoint_dir, cfg.checkpoint_every,
@@ -74,6 +77,10 @@ def test_config_fields_match_the_jax_package():
     assert (cfg.prefetch_depth, cfg.decode_workers, cfg.stream_shard_mode,
             cfg.image_size) == (2, 0, "auto", 32)
     assert (cfg.pipelined_scoring, cfg.score_refresh_every) == (False, 1)
+    assert (cfg.async_checkpoint, cfg.checkpoint_write_retries, cfg.checkpoint_retry_backoff_s,
+            cfg.checkpoint_manifest, cfg.checkpoint_verify, cfg.stream_checkpoint_cursor,
+            cfg.fault_spec) == (False, 2, 0.25, True, True, True, "")
+    assert len(dataclasses.fields(TrainConfig)) == 71
     assert (cfg.scorer_workers, cfg.snapshot_every, cfg.scorer_throttle_s,
             cfg.scorer_backend) == (1, 16, 0.0, "host")
 
