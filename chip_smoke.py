@@ -197,7 +197,28 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    repartition; 4 steps launching the scoretable path's kernels; a kernel
    step against a plain step on each rank); (f) the host stream with
    ``prefetch_stall@step=5,secs=0.5`` bit-equal to a run without, and
-   ``prefetch_die`` raising at the next ``pop`` with its name.
+   ``prefetch_die`` raising at the next ``pop`` with its name;
+17. the supervised runtime (``supervise=True``) on phase 5's config under
+   ``refresh_mode="async"`` with a ``log_dir``: (a) ``scorer_die@step=5``
+   restarted once within the budget (``mercury-scorer-0-r1``, level 0,
+   the restart's journal parent the ``fault/fired``), then unsupervised,
+   supervised and supervised-without-journal fits of 30 steps in six turns
+   (steps/s, host µs a step, the tick's host µs); (b) budget 0, a probe
+   and a sync refresh every step, two every-step ``scorer_die`` and
+   ``host_slow``: ``fit`` ends green at level 3 with ``sampler/is_active``
+   0 and the table constant at 0, each level's launches a step (the step's
+   and the fleet's), the level-3 ``table_refresh_draw`` kernel against its
+   plain version (the same slots, p = 1/L, weights 1) and a kernel step
+   against a plain step; (c) budget 0 and one death: async → sync → async
+   through the probe, the workers revived with a fresh budget, and a
+   chunk scored on the training thread against the plain NLL; (d) the
+   host-stream pool step with ``prefetch_die@step=3`` under deterministic
+   cuDNN bit-equal to an uninterrupted run (``mercury-prefetch-r1``), and a
+   kernel step against a plain step; (e) ``anomaly_inject_nan_step=10``
+   writes ``flight_record_step10_non_finite.json`` with the card's
+   allocator statistics, whether ``mfu_floor`` fired at the default 0.01,
+   and in (b)'s journal each ``supervisor/degrade``'s parent chain rooted
+   at a ``fault/fired``.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -407,6 +428,18 @@ ELASTIC_RUN = 8           # (e) steps after the shrink's restore
 GROW_RUN = 4              # (e) steps a rank after the grow's restore
 STALL = "prefetch_stall@step=5,secs=0.5"
 STALL_STEPS = 10          # (f)
+# Phase 17 (PR 19): the supervised runtime on phase 5's config under async
+# refresh, with a log_dir (the journal, flight records, the summary).
+SUPERVISED = dict(ASYNC_TABLE, supervise=True, supervisor_backoff_s=0.0, eval_every=0,
+                  log_every=10, heartbeat_every=0)
+SUP_FIT = 20              # (a) steps after the warm-up; the death at step 5
+SUP_RATE = 30             # (a) steps a turn of the rates
+SUP_TURNS = ("plain", "supervised", "journal_off", "journal_off", "supervised", "plain") * 2
+CHAOS = ("scorer_die@step=1,every=1;scorer_die@step=1,every=1;"
+         "host_slow@step=1,every=1,secs=0.02")
+CHAOS_STEPS = 12          # (b)
+RECOVER_STEPS = 12        # (c)
+PREFETCH_STEPS = 8        # (d), the death at step 3
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -492,6 +525,8 @@ def main() -> int:
     service = run_phase("scorer service", scorer_service_phase, torch, card)
     cmd = run_phase("command line", command_line_phase, torch, card)
     durable = run_phase("durable checkpoints", durable_phase, torch, card, main_path, table_path)
+    supervised = run_phase("supervised runtime", supervised_phase, torch, card, main_path,
+                           table_path)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -504,7 +539,8 @@ def main() -> int:
                    "async_scoring": async_["launches"][k["name"]],
                    "scorer_service": service["launches"][k["name"]],
                    "command_line": cmd["launches"][k["name"]],
-                   "durable_checkpoints": durable["launches"][k["name"]]}
+                   "durable_checkpoints": durable["launches"][k["name"]],
+                   "supervised_runtime": supervised["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -519,7 +555,8 @@ def main() -> int:
          "host_stream": stream["summary"], "sampler_modes": modes["summary"],
          "grad_path": grad["summary"], "async_scoring": async_["summary"],
          "scorer_service": service["summary"], "command_line": cmd["summary"],
-         "durable_checkpoints": durable["summary"]},
+         "durable_checkpoints": durable["summary"],
+         "supervised_runtime": supervised["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4426,6 +4463,453 @@ def durable_phase(torch, card: str, main_path, table_path) -> dict:
             "summary": {"card": card, "fit": fit["summary"], "rates": rates, "flip": flip,
                         "faults": faults, "elastic": elastic, "stream": stream,
                         "launches": total, "seconds": seconds}}
+
+
+# ------------------------------------------------------------------ phase 17
+def fleet_delta(fleet, before: dict) -> dict:
+    return {k: fleet.launch_counts[k] - before[k] for k in before}
+
+
+def timed_fit(torch, trainer, steps: int) -> dict:
+    """``fit(steps=...)`` with its final evaluation timed apart (the rate
+    leaves it out), and the supervisor's ticks timed on the host."""
+    evals, ticks = [], []
+    evaluate, sup = trainer.evaluate, trainer.supervisor
+
+    def timed_evaluate(*a, **kw):
+        t0 = time.perf_counter()
+        out = evaluate(*a, **kw)
+        evals.append(time.perf_counter() - t0)
+        return out
+
+    trainer.evaluate = timed_evaluate
+    if sup is not None:
+        tick = sup.tick
+
+        def timed_tick(step):
+            t0 = time.perf_counter()
+            tick(step)
+            ticks.append(time.perf_counter() - t0)
+
+        sup.tick = timed_tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = trainer.fit(steps=steps)
+    finally:
+        del trainer.evaluate
+        if sup is not None:
+            del sup.tick
+    wall = time.perf_counter() - t0 - sum(evals)
+    return {"out": out, "steps_per_s": steps / wall, "us_per_step": wall / steps * 1e6,
+            "tick_us": (statistics.mean(ticks) * 1e6) if ticks else None}
+
+
+def async_step_vs_plain(torch, mk, trainer, what: str) -> dict:
+    """One async step from the trainer's state and draws, kernels against
+    the plain route (``table_refresh_draw`` with the sentinel window,
+    ``nll_fwd``, ``nll_bwd``, ``augment_normalize`` against the plain
+    versions): the same slots, the loss to rtol 1e-4, the telemetry. The
+    state is left as it was."""
+    from mercury_tpu_torch.train.step import make_draws
+
+    state = trainer.state
+    for _ in range(3):
+        draws = make_draws(state.clone(), trainer.config)
+        runs = {}
+        for use_kernels in (True, False):
+            s = state.clone()
+            mk.reset_launch_counts()
+            m = trainer._step_fn(s, draws, use_kernels)
+            runs[use_kernels] = (m, s, dict(mk.launch_counts))
+        (k_m, k_s, k_c), (p_m, p_s, p_c) = runs[True], runs[False]
+        _, _, differ = check_draws(torch, f"{what}: kernel step vs plain step",
+                                   p_m["sampler/probs"], draws.uniforms.reshape(-1),
+                                   k_m["sampler/selected"], p_m["sampler/selected"])
+        if not bool(differ.any()):
+            break
+    else:
+        raise SmokeFailure(f"{what}: kernel and plain steps drew different batches in 3 tries")
+    check(k_c["table_refresh_draw"] == 1 and k_c["nll_fwd"] == 1
+          and k_c["nll_bwd"] == 1 and k_c["augment_normalize"] == 1
+          and sum(p_c.values()) == 0, f"{what}: launches kernels {k_c}, plain {p_c}")
+    loss_err = abs(float(k_m["train/loss"]) - float(p_m["train/loss"]))
+    check(loss_err <= 1e-4 * abs(float(p_m["train/loss"])),
+          f"{what}: losses {float(k_m['train/loss'])!r}, {float(p_m['train/loss'])!r}")
+    tel = telemetry_agree(torch, k_m, p_m, p_s.scoretable.scores)
+    return {"loss_err": loss_err, "telemetry": tel}
+
+
+def flat_table_draw(torch, mk, trainer) -> dict:
+    """The level-3 draw: ``table_refresh_draw`` on the flattened table with
+    the sentinel window, the kernel against its plain version from the
+    same uniforms: the same slots, p = 1/L for every slot, weights 1."""
+    from mercury_tpu_torch.ops import reference
+
+    config, state, dev = trainer.config, trainer.state, trainer.device
+    table, ema = state.scoretable.scores, state.ema.value
+    n = table.numel()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {"L": n, "same_slots": True}
+    for _ in range(4):
+        u = torch.rand(config.batch_size, generator=gen, device=dev)
+        sent = ema + (table[:1] - ema) * config.table_decay
+        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+        k = mk.table_refresh_draw_kernel(table, zero, sent, ema, u, config.is_alpha,
+                                         config.table_decay)
+        p = reference.table_refresh_draw(table, zero, sent, ema, u, config.is_alpha,
+                                         config.table_decay)
+        check(torch.equal(k[2].long(), p[2].long()),
+              f"level 3: kernel slots {k[2].tolist()}, plain {p[2].tolist()}")
+        flat = torch.full_like(k[1], 1.0 / n)
+        out["probs_err"] = max(out.get("probs_err", 0.0),
+                               within(k[1], flat, rtol=1e-6, atol=0.0),
+                               within(p[1], flat, rtol=1e-6, atol=0.0))
+        ones = torch.ones_like(k[3])
+        out["weights_err"] = max(out.get("weights_err", 0.0),
+                                 within(k[3], ones, rtol=1e-6, atol=0.0),
+                                 within(p[3], ones, rtol=1e-6, atol=0.0))
+    return out
+
+
+def score_once_vs_plain(torch, trainer) -> float:
+    """A chunk scored on the training thread (the sync level's and the
+    probes' path: the fleet's ``nll_fwd``) against the same window,
+    augmentation and parameters through the live model and the plain NLL;
+    the fleet's workers stopped first."""
+    from mercury_tpu_torch.data.pipeline import normalize_images
+    from mercury_tpu_torch.ops import reference
+    from mercury_tpu_torch.sampling.scorer_fleet import chunk_seed
+    from mercury_tpu_torch.train.step import augment_images, draw_augment, scoring_forward
+
+    config, ds, state = trainer.config, trainer.dataset, trainer.state
+    fleet = trainer._scorer_fleet
+    fleet.close()
+    fleet.snapshot(state.model, state.step)
+    chunk_id, start = fleet._chunk_seq, fleet._cursor
+    before = fleet.launch_counts["nll_fwd"]
+    chunk = fleet.score_once()
+    check(fleet.launch_counts["nll_fwd"] - before == 1, "score_once launched no nll_fwd")
+    slots = (start + torch.arange(config.refresh_size, device=trainer.device)) % ds.shard_len
+    gidx = ds.shard_indices[ds.rank][slots]
+    gen = torch.Generator(device=trainer.device).manual_seed(chunk_seed(config.seed, chunk_id))
+    images = augment_images(normalize_images(ds.x_train[gidx], ds.mean, ds.std),
+                            draw_augment(gen, config.refresh_size, config), config)
+    with torch.no_grad():
+        want = reference.nll_forward(scoring_forward(state.model, images, config).float(),
+                                     ds.y_train[gidx])
+    return within(chunk.scores, want.cpu(), rtol=1e-3, atol=1e-3)
+
+
+def read_events(directory: str) -> list:
+    from mercury_tpu_torch.obs.events import read_journal
+
+    return read_journal(os.path.join(directory, "events.h0.jsonl"))
+
+
+def supervised_restart(torch, mk, card: str, root: str, step_launches: dict,
+                       total: dict) -> dict:
+    """(a) A one-shot ``scorer_die@step=5``: the fleet restarted once
+    (``-r1``), level 0, green; with ``anomaly_inject_nan_step=10`` the
+    non_finite flight record (e). Then unsupervised, supervised and
+    supervised without the journal fits in turns: steps/s and the tick's
+    host µs."""
+    from mercury_tpu_torch import TrainConfig
+
+    directory = os.path.join(root, "a")
+    config = TrainConfig(**SUPERVISED, fault_spec="scorer_die@step=5", log_dir=directory,
+                         anomaly_inject_nan_step=10)
+    trainer = build_trainer(torch, config, quiet=True)
+    warm(trainer)
+    fleet = trainer._scorer_fleet
+    f0 = dict(fleet.launch_counts)
+    _, counts = counted(mk, total, lambda: trainer.fit(steps=SUP_FIT))
+    torch.cuda.synchronize()
+    fl = fleet_delta(fleet, f0)
+    for k, v in fl.items():
+        total[k] += v
+    want = fit_launches(trainer, SUP_FIT, step_launches)
+    check(counts == want, f"supervised (a): step launches {counts}, expected {want}")
+    check(fl["nll_fwd"] >= 1 and sum(fl.values()) == fl["nll_fwd"],
+          f"supervised (a): fleet launches {fl}")
+    summ, stats = fleet.summary(), trainer.supervisor.stats()
+    names = [t.name for t in fleet._threads]
+    check(summ["restarts"] == 1 and names == ["mercury-scorer-0-r1"] and fleet.alive()
+          and stats["supervisor/restarts"] == 1.0 and stats["supervisor/level"] == 0.0,
+          f"supervised (a): fleet {summ}, threads {names}, supervisor {stats}")
+    kvp = async_step_vs_plain(torch, mk, trainer, "supervised (a)")
+    trainer.close()
+    flights = sorted(n for n in os.listdir(directory) if n.startswith("flight_record_"))
+    check("flight_record_step10_non_finite.json" in flights,
+          f"supervised (e): no non_finite flight record in {flights}")
+    doc = json.load(open(os.path.join(directory, "flight_record_step10_non_finite.json")))
+    mem = doc["device_memory"]
+    check(doc["trigger"]["kind"] == "non_finite" and "cuda:0" in mem
+          and mem["cuda:0"].get("allocated_bytes.all.current", 0) > 0,
+          f"supervised (e): flight record trigger {doc['trigger']}, memory keys {list(mem)}")
+    rows = read_events(directory)
+    kinds = [r["kind"] for r in rows]
+    check(kinds.count("supervisor/restart") == 1 and "fault/fired" in kinds,
+          f"supervised (a): journal kinds {kinds}")
+    restart = rows[kinds.index("supervisor/restart")]
+    fired = rows[kinds.index("fault/fired")]
+    check(restart["parent_id"] == fired["event_id"],
+          f"supervised (a): the restart's parent {restart['parent_id']}, the fault "
+          f"{fired['event_id']}")
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    mfus = [r.get("perf/mfu") for r in records if "perf/mfu" in r]
+    triggers = doc["trigger_counts"]
+    summary_a = {"flight_records": flights, "trigger_counts_at_dump": triggers,
+                 "journal_kinds": kinds, "mfu": mfus, "kernel_vs_plain": kvp,
+                 "fleet_launches": fl, "peak_allocated": mem["cuda:0"].get(
+                     "allocated_bytes.all.peak")}
+    print(f"supervised (a): scorer_die@step=5 restarted once (threads {names}), level 0, "
+          f"{SUP_FIT} steps green; fleet launches {fl}; kernel vs plain async step |d loss| "
+          f"{kvp['loss_err']:.2e}; (e) flight records {flights}, memory stats of "
+          f"{list(mem)}, perf/mfu {mfus} against the floor 0.01 [{card}]")
+
+    # The rates: unsupervised, supervised, supervised without the journal.
+    arms = {"plain": dict(supervise=False), "supervised": {},
+            "journal_off": dict(event_journal=False)}
+    trainers, fleet0 = {}, {}
+    for name, kw in arms.items():
+        cfg = TrainConfig(**{**SUPERVISED, **kw, "log_dir": os.path.join(root, f"rate_{name}")})
+        trainers[name] = build_trainer(torch, cfg, quiet=True)
+        warm(trainers[name])
+        # Untimed: the first log tick counts the step's FLOPs (~1 s).
+        trainers[name].fit(steps=CLI_LOG_EVERY)
+        fleet0[name] = dict(trainers[name]._scorer_fleet.launch_counts)
+    rates = {name: [] for name in arms}
+    us = {name: [] for name in arms}
+    ticks = []
+    for name in SUP_TURNS:
+        t = trainers[name]
+        r, counts = counted(mk, total, lambda: timed_fit(torch, t, SUP_RATE))
+        want = fit_launches(t, SUP_RATE, step_launches)
+        check(counts == want, f"supervised rates ({name}): launches {counts}, expected {want}")
+        rates[name].append(r["steps_per_s"])
+        us[name].append(r["us_per_step"])
+        if r["tick_us"] is not None:
+            ticks.append(r["tick_us"])
+    mfu_fired = {}
+    for name, t in trainers.items():
+        mfu_fired[name] = (t.anomaly.trigger_counts.get("mfu_floor", 0)
+                           if t.anomaly is not None else None)
+        for k, v in fleet_delta(t._scorer_fleet, fleet0[name]).items():
+            total[k] += v
+        t.close()
+    # Each turn over its neighbour of the other arm (ABBA order).
+    ratio = [s / p for s, p in zip(rates["supervised"], rates["plain"])]
+    journal_ratio = [s / o for s, o in zip(rates["supervised"], rates["journal_off"])]
+    print(f"supervised (a) rates, {SUP_RATE} steps a turn in turns {SUP_TURNS}: steps/s "
+          + ", ".join(f"{n} {[round(x, 2) for x in v]}" for n, v in rates.items())
+          + f"; supervised/plain {[round(x, 3) for x in ratio]}, journal on/off "
+          f"{[round(x, 3) for x in journal_ratio]}; host us a step "
+          + ", ".join(f"{n} {[round(x, 1) for x in v]}" for n, v in us.items())
+          + f"; the tick {[round(x, 2) for x in ticks]} us a step; mfu_floor triggers "
+          f"at the default floor {mfu_fired} [{card}]")
+    summary_a.update(steps_per_s=rates, us_per_step=us, tick_us=ticks,
+                     supervised_over_plain=ratio, journal_on_over_off=journal_ratio,
+                     mfu_floor_triggers=mfu_fired)
+    return summary_a
+
+
+def supervised_chaos(torch, mk, card: str, root: str, step_launches: dict,
+                     total: dict) -> dict:
+    """(b) Budget 0, a probe and a sync refresh every step, two every-step
+    scorer deaths and a slow host: ``fit`` ends green at level 3, the table
+    constant, each level's launches a step counted, the level-3 draw held
+    to its plain version, and the journal's chains (e)."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.obs.events import parent_chain
+
+    directory = os.path.join(root, "b")
+    config = TrainConfig(**SUPERVISED, fault_spec=CHAOS, log_dir=directory,
+                         supervisor_restart_budget=0, supervisor_probe_every=1,
+                         supervisor_sync_every=1)
+    trainer = build_trainer(torch, config, quiet=True)
+    warm(trainer)
+    fleet, sup = trainer._scorer_fleet, trainer.supervisor
+    # The counts at each step's start and before the final evaluation: a
+    # step's interval holds its launches and its tick's (the probe's).
+    marks = []
+    step, evaluate = trainer.train_step, trainer.evaluate
+
+    def mark():
+        marks.append((sup.level(), dict(mk.launch_counts), dict(fleet.launch_counts)))
+
+    def marked_step(*a, **kw):
+        mark()
+        return step(*a, **kw)
+
+    def marked_evaluate(*a, **kw):
+        mark()
+        return evaluate(*a, **kw)
+
+    trainer.train_step, trainer.evaluate = marked_step, marked_evaluate
+    f0 = dict(fleet.launch_counts)
+    try:
+        out, counts = counted(mk, total, lambda: trainer.fit(steps=CHAOS_STEPS))
+    finally:
+        del trainer.train_step, trainer.evaluate
+    torch.cuda.synchronize()
+    fl = fleet_delta(fleet, f0)
+    for k, v in fl.items():
+        total[k] += v
+    want = fit_launches(trainer, CHAOS_STEPS, step_launches)
+    check(counts == want, f"supervised (b): step launches {counts}, expected {want}")
+    by_level = {}
+    for (level, s0, q0), (_, s1, q1) in zip(marks[:-1], marks[1:]):
+        rec = by_level.setdefault(level, {"steps": 0, "step": {k: 0 for k in s0},
+                                          "fleet": {k: 0 for k in q0}})
+        rec["steps"] += 1
+        for k in s0:
+            rec["step"][k] += s1[k] - s0[k]
+            rec["fleet"][k] += q1[k] - q0[k]
+    stats = sup.stats()
+    table = trainer.state.scoretable.scores
+    check(math.isfinite(out["train/loss"]) and stats["supervisor/level"] == 3.0
+          and stats["sampler/is_active"] == 0.0 and stats["supervisor/degradations"] >= 3
+          and bool((table == table[0]).all()) and float(table[0]) == 0.0,
+          f"supervised (b): loss {out['train/loss']!r}, {stats}, table min "
+          f"{float(table.min())!r} max {float(table.max())!r}")
+    flat = flat_table_draw(torch, mk, trainer)
+    kvp = async_step_vs_plain(torch, mk, trainer, "supervised (b), level 3")
+    transitions = [t["to"] for t in sup.summary()["transitions"]]
+    trainer.close()
+    rows = read_events(directory)
+    degrades = [r for r in rows if r["kind"] == "supervisor/degrade"]
+    chains = [[e["kind"] for e in parent_chain(rows, r["event_id"])] for r in degrades]
+    check([r["detail"]["to"] for r in degrades][-3:] == ["sync", "frozen", "uniform"]
+          and all(c[0] == "fault/fired" for c in chains),
+          f"supervised (b): degrades {[r['detail'] for r in degrades]}, chains {chains}")
+    check(os.path.exists(os.path.join(directory, "supervisor_summary.json")),
+          "supervised (b): no supervisor_summary.json")
+    per_step = {level: {part: {k: v / rec["steps"] for k, v in rec[part].items()}
+                        for part in ("step", "fleet")} | {"steps": rec["steps"]}
+                for level, rec in sorted(by_level.items())}
+    print(f"supervised (b): chaos past a budget of 0, {CHAOS_STEPS} steps green at level 3 "
+          f"(transitions {transitions}), the table constant at 0; launches a step by the "
+          f"level at the step's start {per_step}; level-3 table_refresh_draw at L="
+          f"{flat['L']}: the kernel's slots the plain version's, p = 1/L to "
+          f"{flat['probs_err']:.2e}, weights 1 to {flat['weights_err']:.2e}; kernel vs plain "
+          f"step at level 3 |d loss| {kvp['loss_err']:.2e}; (e) each degrade's chain: "
+          f"{chains[-3:]} [{card}]")
+    return {"transitions": transitions, "per_step_by_level": per_step, "flat_draw": flat,
+            "kernel_vs_plain": kvp, "chains": chains, "fleet_launches": fl,
+            "journal_events": len(rows)}
+
+
+def supervised_recovery(torch, mk, card: str, root: str, step_launches: dict,
+                        total: dict) -> dict:
+    """(c) Budget 0 and a one-shot death: async → sync, then the probe
+    revives the workers and climbs back to async with a fresh budget. Then
+    a chunk scored on the training thread held to the plain NLL."""
+    from mercury_tpu_torch import TrainConfig
+
+    config = TrainConfig(**SUPERVISED, fault_spec="scorer_die@step=5",
+                         log_dir=os.path.join(root, "c"), supervisor_restart_budget=0,
+                         supervisor_probe_every=4, supervisor_sync_every=2)
+    trainer = build_trainer(torch, config, quiet=True)
+    warm(trainer)
+    fleet, sup = trainer._scorer_fleet, trainer.supervisor
+    f0 = dict(fleet.launch_counts)
+    _, counts = counted(mk, total, lambda: trainer.fit(steps=RECOVER_STEPS))
+    torch.cuda.synchronize()
+    fl = fleet_delta(fleet, f0)
+    for k, v in fl.items():
+        total[k] += v
+    want = fit_launches(trainer, RECOVER_STEPS, step_launches)
+    check(counts == want, f"supervised (c): step launches {counts}, expected {want}")
+    moves = [(t["from"], t["to"]) for t in sup.summary()["transitions"]]
+    state = sup.model_state()
+    check(moves == [("async", "sync"), ("sync", "async")] and sup.level() == 0
+          and fleet.alive() and fleet.summary()["restarts"] == 1
+          and state["budget_bucket"] == "fresh",
+          f"supervised (c): transitions {moves}, {state}, fleet {fleet.summary()}")
+    err = score_once_vs_plain(torch, trainer)
+    trainer.close()
+    print(f"supervised (c): one death past a budget of 0: {moves}, the workers revived "
+          f"(restart 1), budget {state['budget_bucket']}; fleet launches {fl}; a chunk "
+          f"scored on the training thread vs the plain NLL max |err| {err:.2e} [{card}]")
+    return {"transitions": moves, "fleet_launches": fl, "score_once_err": err}
+
+
+def supervised_prefetch(torch, mk, card: str, pool_launches: dict, total: dict) -> dict:
+    """(d) The host-stream pool step, supervised, under deterministic cuDNN
+    with ``prefetch_die@step=3``: the state bit-equal to an uninterrupted
+    unsupervised run's, ``score_and_draw`` launched, and a kernel step
+    against a plain step after the restart."""
+    from mercury_tpu_torch import TrainConfig
+
+    config = TrainConfig(**{**DURABLE, "data_placement": "host_stream"})
+    undo = deterministic_cudnn(torch)
+    runs = {}
+    try:
+        for name, kw in (("plain", {}), ("supervised", dict(
+                supervise=True, supervisor_backoff_s=0.0, fault_spec="prefetch_die@step=3"))):
+            trainer = build_trainer(torch, config.replace(**kw), quiet=True)
+            _, counts = counted(mk, total, lambda: trainer.fit(steps=PREFETCH_STEPS))
+            torch.cuda.synchronize()
+            want = fit_launches(trainer, PREFETCH_STEPS, pool_launches)
+            check(counts == want and counts["score_and_draw"] == PREFETCH_STEPS,
+                  f"supervised (d) {name}: launches {counts}, expected {want}")
+            runs[name] = {"digests": carried_digests(trainer.state), "trainer": trainer}
+        sup = runs["supervised"]["trainer"]
+        check(sup.supervisor.stats()["supervisor/restarts"] == 1.0 and sup._stream_gen == 1
+              and sup._stream_pipe._thread.name == "mercury-prefetch-r1",
+              f"supervised (d): {sup.supervisor.stats()}, generation {sup._stream_gen}")
+        differ = sorted(k for k, v in runs["plain"]["digests"].items()
+                        if runs["supervised"]["digests"].get(k) != v)
+        check(not differ, f"supervised (d): the restarted run differs: {differ[:5]}")
+        step_err = stream_kernel_vs_plain_step(torch, sup, sup.config)
+    finally:
+        undo()
+        for run in runs.values():
+            run["trainer"].close()
+    print(f"supervised (d): host-stream pool step, prefetch_die@step=3 restarted "
+          f"(mercury-prefetch-r1), {PREFETCH_STEPS} steps bit-equal to an uninterrupted run "
+          f"({len(runs['plain']['digests'])} digests), {pool_launches} a step [{card}]")
+    return {"digests": len(runs["plain"]["digests"]), "kernel_vs_plain": step_err}
+
+
+def supervised_phase(torch, card: str, main_path, table_path) -> dict:
+    """Phase 17: the supervised runtime on phase 5's config under async
+    refresh (a) a restart within the budget, (b) chaos past it to uniform
+    sampling, (c) a recovery to async, (d) a prefetch restart on the pool
+    path, (e) the anomaly engine and the journal. The launches counted are
+    the fits' steps and the fleet's scoring."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    pool_step = {k: v // MAIN_STEPS for k, v in main_path["launches"].items()}
+    async_step = {"nll_fwd": 1, "nll_bwd": 1, "score_and_draw": 0, "table_refresh_draw": 1,
+                  "augment_normalize": 1}
+    total = {k: 0 for k in mk.KERNELS}
+    root = tempfile.mkdtemp(prefix="mercury_supervised_")
+    seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        restart = part("a", supervised_restart, torch, mk, card, root, async_step, total)
+        chaos = part("b", supervised_chaos, torch, mk, card, root, async_step, total)
+        recovery = part("c", supervised_recovery, torch, mk, card, root, async_step, total)
+        prefetch = part("d", supervised_prefetch, torch, mk, card, pool_step, total)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    check(all(v > 0 for v in total.values()), f"supervised: a kernel never launched: {total}")
+    print("supervised: seconds by part " + ", ".join(f"({k}) {v:.1f}"
+                                                     for k, v in seconds.items()))
+    return {"launches": total,
+            "summary": {"card": card, "restart": restart, "chaos": chaos,
+                        "recovery": recovery, "prefetch": prefetch, "launches": total,
+                        "seconds": seconds}}
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):

@@ -206,6 +206,55 @@ class TrainConfig:
     # Deterministic fault schedule (faults.py grammar), e.g.
     # "scorer_die@step=40;ckpt_io_error@step=100,every=50"; "" arms nothing.
     fault_spec: str = ""
+    # The host supervisor (runtime/supervisor.py): fit checks the scorer's
+    # and the prefetch worker's liveness each step, restarts a dead one
+    # with exponential backoff under a budget of supervisor_restart_budget
+    # restarts, and past the scorer's budget walks the ladder async → sync
+    # → frozen → uniform instead of raising. A probe every
+    # supervisor_probe_every steps (0: never) climbs back a level; at the
+    # sync level the training thread scores a window every
+    # supervisor_sync_every steps; supervisor_poll_s > 0 starts a thread
+    # that timestamps deaths between steps.
+    supervise: bool = False
+    supervisor_restart_budget: int = 3
+    supervisor_backoff_s: float = 0.5
+    supervisor_probe_every: int = 200
+    supervisor_poll_s: float = 0.0
+    supervisor_sync_every: int = 16
+    # The event journal (obs/events.py): with log_dir, every rank appends
+    # the supervisor's, scorer's, fault plane's, checkpoints' and anomaly
+    # engine's decisions, each with its cause's id, to events.h{r}.jsonl,
+    # written by the metric writer's drain thread.
+    event_journal: bool = True
+    # The anomaly engine (obs/anomaly.py), rank 0: nine triggers over the
+    # logged records (non-finite loss or gradient norm, ESS, stall share,
+    # MFU, straggler, selection Gini, starved classes, var_ratio) and the
+    # step times (slow_step: over factor × the rolling median, armed after
+    # 16 steps); a trigger writes flight_record_*.json (the last
+    # anomaly_window records) to anomaly_dir (None: log_dir), at most one
+    # in anomaly_cooldown_steps, and arms a torch.profiler window of
+    # anomaly_profile_steps steps. anomaly_inject_nan_step poisons the host
+    # record's train/loss at the first log tick at or after it (0: never).
+    anomaly_detection: bool = True
+    anomaly_window: int = 64
+    anomaly_slow_step_factor: float = 3.0
+    anomaly_cooldown_steps: int = 200
+    anomaly_profile_steps: int = 0
+    anomaly_dir: Optional[str] = None
+    anomaly_inject_nan_step: int = 0
+    anomaly_straggler_factor: float = 2.0
+    # The triggers' floors and ceilings (0 disarms each): perf/mfu (read
+    # only where the card's peak is known), sampler/ess, the host stream's
+    # stall share of a log interval, sampler_dist/gini, any class below
+    # slo_class_starvation_share of its data share (also the sampler
+    # monitor's starvation share; 0 leaves the monitor at 0.2), and
+    # slo_var_ratio_patience logged probes in a row with var_ratio >= 1.
+    slo_mfu_floor: float = 0.01
+    slo_ess_floor: float = 0.0
+    slo_stall_frac_max: float = 0.25
+    slo_selection_gini_max: float = 0.0
+    slo_class_starvation_share: float = 0.0
+    slo_var_ratio_patience: int = 0
     # Telemetry (obs/diagnostics.py, obs/sampler_health.py): the step also
     # returns the sampler-health scalars (ESS of the importance weights,
     # score-clip fraction, EMA drift, the gradient's norm and, on the
@@ -296,6 +345,12 @@ class TrainConfig:
             if self.scorer_throttle_s < 0:
                 bad("scorer_throttle_s", "must be >= 0")
             validate_scorer_composition(self, self.world_size)
+            if self.supervise and self.world_size > 1:
+                bad("supervise", "the async scorer's degradation ladder at world_size > 1 "
+                    "needs its level changes agreed across the ranks (a rank that left "
+                    "the lockstep scorer would leave the others waiting at its "
+                    "snapshot barrier), which the port does not do yet: supervise a W>1 "
+                    "run with refresh_mode='sync'")
         if self.use_scoretable:
             if self.refresh_size < 1:
                 bad("refresh_size", "must be >= 1")

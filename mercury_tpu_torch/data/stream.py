@@ -42,7 +42,6 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from mercury_tpu_torch.faults import InjectedFault
 from mercury_tpu_torch.utils.logging import get_logger
 
 __all__ = ["HostStreamSource", "ImageFolderSource", "PrefetchPipeline"]
@@ -162,11 +161,13 @@ class PrefetchPipeline:
     is the pipeline's normal cadence). A worker that dies re-raises its
     exception, with its traceback, at the next ``pop``. ``faults`` (a
     :class:`~mercury_tpu_torch.faults.FaultPlane`) arms the ``prefetch_die``
-    and ``prefetch_stall`` hooks before each gather.
+    and ``prefetch_stall`` hooks before each gather. ``generation`` > 0
+    names the worker ``mercury-prefetch-r<generation>``: a pipeline the
+    supervisor built in place of a dead one.
     """
 
     def __init__(self, source, rows: int, device, depth: int = 2,
-                 pop_timeout_s: float = 300.0, faults=None) -> None:
+                 pop_timeout_s: float = 300.0, faults=None, generation: int = 0) -> None:
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.source = source
@@ -201,7 +202,8 @@ class PrefetchPipeline:
         self._last_stall_s = 0.0
         self._last_h2d_bytes = 0
         self._closed = False
-        self._thread = threading.Thread(target=self._loop, name="mercury-prefetch",
+        suffix = f"-r{int(generation)}" if generation else ""
+        self._thread = threading.Thread(target=self._loop, name=f"mercury-prefetch{suffix}",
                                         daemon=True)
         self._thread.start()
 
@@ -338,7 +340,7 @@ class PrefetchPipeline:
             try:
                 if self._faults is not None:
                     if self._faults.fire("prefetch_die") is not None:
-                        raise InjectedFault("prefetch_die: injected prefetch-worker death")
+                        raise self._faults.injected("prefetch_die: injected prefetch-worker death")
                     stall = self._faults.fire("prefetch_stall")
                     if stall is not None:
                         time.sleep(float(stall.get("secs", 1.0)))

@@ -1,7 +1,10 @@
 """Deterministic fault injection for the port's host runtime: the port's
 own copy of ``mercury_tpu/faults.py``, with the same grammar, kinds and
-firing rules (the event journal is not ported, so a firing is recorded only
-in :meth:`FaultPlane.stats` and :meth:`FaultPlane.summary`).
+firing rules. A firing counts into :meth:`FaultPlane.stats` and
+:meth:`FaultPlane.summary` and, with a journal, is journaled as
+``fault/fired``; the hook sites that raise put that event's id on the
+:class:`InjectedFault`, so what the death caused (a restart, a ladder
+step) names it as its parent.
 
 Spec grammar (``TrainConfig.fault_spec``)::
 
@@ -66,7 +69,12 @@ KNOWN_KINDS = frozenset({
 
 class InjectedFault(RuntimeError):
     """An injected failure: told apart from an organic one in logs, handled
-    the same way by the runtime."""
+    the same way by the runtime. ``event_id`` is its ``fault/fired``
+    event's id (None without a journal)."""
+
+    def __init__(self, message: str, event_id: Optional[str] = None) -> None:
+        super().__init__(message)
+        self.event_id = event_id
 
 
 class _Entry:
@@ -142,13 +150,16 @@ class FaultPlane:
     :meth:`note_step` runs on the training thread once a step of ``fit``;
     :meth:`fire` runs there and on the worker threads (prefetch, scorer,
     metric drain). One lock guards all firing state, so an entry due once
-    fires once however many workers race for it."""
+    fires once however many workers race for it. With ``journal`` every
+    firing is journaled (its ``emit`` takes only its own lock)."""
 
-    def __init__(self, spec: str = "") -> None:
+    def __init__(self, spec: str = "", journal=None) -> None:
         self._entries = parse_fault_spec(spec)
         self._lock = threading.Lock()
         self._step = 0
         self._fired_total = 0
+        self._journal = journal
+        self._local = threading.local()   # .event: the thread's last firing's id
 
     def note_step(self, step: int) -> None:
         """Advance the clock (training thread, once a step)."""
@@ -172,8 +183,23 @@ class FaultPlane:
                 if entry.every:
                     entry.next_due = step + entry.every
                 self._fired_total += 1
+                self._local.event = None
+                if self._journal is not None:
+                    try:
+                        self._local.event = self._journal.emit(
+                            "fault/fired", step,
+                            detail={"fault": entry.kind, "fired": entry.fired,
+                                    "args": dict(entry.args)})
+                    except Exception:
+                        pass  # the plane fires even when the journal fails
                 return dict(entry.args)
         return None
+
+    def injected(self, message: str) -> InjectedFault:
+        """The :class:`InjectedFault` of the calling thread's latest
+        firing, with its journal id (None without a journal): what a hook
+        site that raises names as the cause."""
+        return InjectedFault(message, getattr(self._local, "event", None))
 
     def stats(self) -> Dict[str, float]:
         """``fault/injected`` and ``fault/armed`` for a log record."""

@@ -119,10 +119,14 @@ class AsyncMetricWriter:
 
     ``faults`` (a :class:`~mercury_tpu_torch.faults.FaultPlane`) arms the
     ``sink_wedge`` hook: the drain thread sleeps ``secs`` before a record.
+    ``journal`` (an :class:`~mercury_tpu_torch.obs.events.EventJournal`) is
+    written where the sinks are flushed: by the drain thread when it goes
+    idle, and at :meth:`flush` and :meth:`close` (the Trainer closes it).
     """
 
     def __init__(self, sinks: Iterable, capacity: int = 256,
-                 start: bool = True, observers: Iterable = (), faults=None) -> None:
+                 start: bool = True, observers: Iterable = (), faults=None,
+                 journal=None) -> None:
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.sinks = [s for s in sinks if s is not None]
@@ -143,6 +147,7 @@ class AsyncMetricWriter:
         self._thread: Optional[threading.Thread] = None
         self._copy_streams: Dict = {}
         self._faults = faults
+        self._journal = journal
 
     # -------------------------------------------------------------- plumbing
     def start(self) -> None:
@@ -233,6 +238,9 @@ class AsyncMetricWriter:
                 s.close()
             except Exception as exc:
                 self._note_error("sink %s close failed: %s", type(s).__name__, exc)
+        # Producers may still emit during the Trainer's teardown, so the
+        # journal outlives the writer: written here, closed by the Trainer.
+        self._flush_journal()
 
     def __enter__(self) -> "AsyncMetricWriter":
         return self
@@ -255,6 +263,14 @@ class AsyncMetricWriter:
                     flush()
                 except Exception as exc:
                     self._note_error("sink %s %s failed: %s", type(s).__name__, what, exc)
+        self._flush_journal()
+
+    def _flush_journal(self) -> None:
+        if self._journal is not None:
+            try:
+                self._journal.flush()
+            except Exception as exc:
+                self._note_error("event journal flush failed: %s", exc)
 
     def _emit(self, item) -> None:
         step, t, scalars, ready = item

@@ -37,7 +37,9 @@ and the lockstep at W>1) shares, so a chunk of either is the same bits.
 
 The fleet is one process's (the host backend at ``world_size=1``): its
 chunk stream has no protocol across processes. A worker that raises is
-reported at the next :meth:`ScorerFleet.drain`; nothing restarts it.
+reported at the next :meth:`ScorerFleet.drain`, unless the supervisor
+(``runtime/supervisor.py``) finds it dead first and calls
+:meth:`ScorerFleet.restart_workers`.
 """
 
 from __future__ import annotations
@@ -55,7 +57,6 @@ from torch.func import functional_call
 
 from mercury_tpu_torch.config import TrainConfig
 from mercury_tpu_torch.data.pipeline import ShardedDataset, normalize_images
-from mercury_tpu_torch.faults import InjectedFault
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
 from mercury_tpu_torch.ops import mercury_kernels as mk
 from mercury_tpu_torch.ops import reference
@@ -283,7 +284,8 @@ class ScorerFleet:
     worker died; :meth:`note_applied` records an applied chunk's age for
     :meth:`stats`; :meth:`reset` drops the queued chunks (a restore);
     :meth:`close` stops the workers (a second call does nothing);
-    :meth:`score_once` scores the next window on the calling thread. The
+    :meth:`score_once` scores the next window on the calling thread;
+    :meth:`restart_workers` replaces the workers (the supervisor). The
     ready queue holds ``max(2·workers, 2)`` chunks, and a worker waits on a
     full queue, so the fleet idles when the trainer is not draining. Unlike
     the JAX fleet's, :meth:`reset` also drops a chunk begun before it, so
@@ -315,11 +317,21 @@ class ScorerFleet:
         self._tick_t = time.perf_counter()
 
         self._ready: "queue.Queue[ScoreChunk]" = queue.Queue(maxsize=max(2 * self._workers, 2))
-        self._generation = 0   # bumped by reset(): a chunk begun before is dropped
+        # Bumped by reset() and restart_workers(): a chunk begun before is
+        # dropped.
+        self._generation = 0
+        self._restarts = 0
         self._exc: Optional[BaseException] = None
         self._closed = False
-        self._threads = [threading.Thread(target=self._run, args=(i,), daemon=True,
-                                          name=f"mercury-scorer-{i}")
+        self._spawn_workers()
+
+    def _spawn_workers(self) -> None:
+        """Start a set of workers with a stop event of their own, named
+        ``mercury-scorer-<i>``, or ``…-r<N>`` after the N-th restart."""
+        suffix = f"-r{self._restarts}" if self._restarts else ""
+        self._stop = stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(i, stop), daemon=True,
+                                          name=f"mercury-scorer-{i}{suffix}")
                          for i in range(self._workers)]
         for t in self._threads:
             t.start()
@@ -335,7 +347,7 @@ class ScorerFleet:
         faults = self._faults
         if faults is not None and faults.fire("scorer_die") is not None:
             # Kills the thread that scores: a worker, or score_once's caller.
-            raise InjectedFault("scorer_die: injected scorer death")
+            raise faults.injected("scorer_die: injected scorer death")
         with self._lock:
             start = self._cursor
             self._cursor = (start + self._R) % self._L
@@ -350,10 +362,11 @@ class ScorerFleet:
             self._rows_scored += self._R
         return generation, chunk
 
-    def _offer(self, generation: int, chunk: ScoreChunk) -> None:
-        """Queue ``chunk`` unless a reset came since it was begun; while the
-        queue is full, wait (backpressure), with an escape on close."""
-        while not self._closed:
+    def _offer(self, generation: int, chunk: ScoreChunk, stop: threading.Event) -> None:
+        """Queue ``chunk`` unless a reset or restart came since it was
+        begun; while the queue is full, wait (backpressure), with an escape
+        on the worker's stop event."""
+        while not (self._closed or stop.is_set()):
             with self._lock:
                 if generation != self._generation:
                     return
@@ -371,23 +384,21 @@ class ScorerFleet:
                                "before score_once()")
         return chunk
 
-    def _run(self, idx: int) -> None:
+    def _run(self, idx: int, stop: threading.Event) -> None:
         try:
-            while not self._closed:
+            while not (self._closed or stop.is_set()):
                 if self._snap is None:
-                    time.sleep(0.005)
+                    stop.wait(0.005)
                     continue
                 generation, chunk = self._next_chunk()
                 if chunk is not None:
-                    self._offer(generation, chunk)
-                deadline = time.perf_counter() + self._throttle
-                while not self._closed:
-                    left = deadline - time.perf_counter()
-                    if left <= 0:
-                        break
-                    time.sleep(min(left, 0.05))
+                    self._offer(generation, chunk, stop)
+                if self._throttle > 0:
+                    stop.wait(self._throttle)
         except BaseException as exc:  # raised again at the next drain()
-            self._exc = exc
+            if not stop.is_set():
+                # A worker of a retired generation dies without a word.
+                self._exc = exc
             _log.warning("scorer worker %d died: %s: %s", idx, type(exc).__name__, exc)
 
     # ----------------------------------------------------------- lifecycle
@@ -433,10 +444,43 @@ class ScorerFleet:
                     break
 
     def alive(self) -> bool:
-        """False once a worker died or exited, or the fleet is closed."""
+        """False once a worker of the live set died or exited, or the fleet
+        is closed."""
         if self._closed or self._exc is not None:
             return False
         return all(t.is_alive() for t in self._threads)
+
+    def death_event(self) -> Optional[str]:
+        """The journal id of the injected fault that killed a worker, if
+        one did (the supervisor's cause of the death)."""
+        return getattr(self._exc, "event_id", None)
+
+    def restart_workers(self, timeout: float = 5.0) -> int:
+        """Retire the workers (their stop event ends the live ones; the
+        dead ones just join), clear the death, drop a chunk a retired
+        worker began (the generation moves on) and start a full set named
+        ``-r<N>``; return N, the restart's number. The queued chunks stay:
+        they were scored from a valid snapshot. A worker still running
+        after ``timeout`` seconds is left to end on its stop event."""
+        if self._closed:
+            raise RuntimeError("restart_workers() on a closed ScorerFleet")
+        self._stop.set()
+        deadline = time.perf_counter() + timeout
+        for t in self._threads:
+            t.join(timeout=max(0.0, deadline - time.perf_counter()))
+        wedged = [t.name for t in self._threads if t.is_alive()]
+        if wedged:
+            _log.warning("scorer restart: threads of the retired workers still alive "
+                         "%.0f s after stop, left to end (daemons): %s",
+                         timeout, ", ".join(wedged))
+        with self._lock:
+            self._exc = None
+            self._generation += 1
+            self._restarts += 1
+        self._spawn_workers()
+        _log.warning("scorer fleet restarted (restart %d, %d workers)",
+                     self._restarts, self._workers)
+        return self._restarts
 
     def close(self, timeout: float = 30.0) -> None:
         """Stop the workers and join them, at most ``timeout`` seconds in
@@ -445,6 +489,7 @@ class ScorerFleet:
         if self._closed:
             return
         self._closed = True
+        self._stop.set()
         deadline = time.perf_counter() + timeout
         for t in self._threads:
             t.join(timeout=max(0.0, deadline - time.perf_counter()))
@@ -482,6 +527,8 @@ class ScorerFleet:
             return {
                 "workers": self._workers,
                 "workers_alive": alive,
+                "generation": self._generation,
+                "restarts": self._restarts,
                 "chunk_rows": self._R,
                 "chunks_scored": self._chunks_scored,
                 "rows_scored": self._rows_scored,

@@ -49,8 +49,12 @@ as a fresh one restored from the same checkpoint. The ``scorer_*``
 faults (``faults``, a :class:`~mercury_tpu_torch.faults.FaultPlane`) hook
 in where the JAX service's do: ``scorer_die`` and ``scorer_nan`` in
 :meth:`_score_chunk`, ``scorer_wedge`` (a tenant no longer scheduled) in a
-worker's loop. Not ported: ``restart_workers``, the tracer's spans and the
-event journal; a dead worker raises at the next drain.
+worker's loop. :meth:`ScorerService.restart_workers` replaces the workers
+(the supervisor's restart); a dead worker the supervisor does not restart
+raises at the next drain. With ``journal`` (an
+:class:`~mercury_tpu_torch.obs.events.EventJournal`) the service journals
+each tenant's admission, each snapshot, a tenant's starvation (the rising
+edge of its SLO breach) and a wedge. Not ported: the tracer's spans.
 """
 
 from __future__ import annotations
@@ -69,7 +73,6 @@ from mercury_tpu_torch.config import (  # noqa: F401 (the JAX module's names)
     validate_scorer_composition,
 )
 from mercury_tpu_torch.data.pipeline import ShardedDataset
-from mercury_tpu_torch.faults import InjectedFault
 from mercury_tpu_torch.parallel.distributed import cards_in_use, reserve_scorer_device
 from mercury_tpu_torch.sampling.scorer_fleet import (
     ChunkScorer,
@@ -124,10 +127,11 @@ class ScorerService:
     daemon threads ``mercury-scorer-svc-<i>`` over ``config.scorer_tenants``
     queues. ``device`` is the training device; the device backend on the
     card scores on the card ``reserve_scorer_device`` gives, anything else
-    on ``device``. ``faults`` arms the ``scorer_*`` hooks."""
+    on ``device``. ``faults`` arms the ``scorer_*`` hooks; ``journal``
+    records the service's decisions."""
 
     def __init__(self, dataset: ShardedDataset, model: torch.nn.Module,
-                 config: TrainConfig, device, faults=None) -> None:
+                 config: TrainConfig, device, faults=None, journal=None) -> None:
         device = with_index(torch.device(device))
         self._backend = config.scorer_backend
         scorer_device = device
@@ -142,6 +146,7 @@ class ScorerService:
         self._throttle = float(config.scorer_throttle_s)
         self._config = config
         self._faults = faults
+        self._journal = journal
         # Kernel launches of the service's scoring, apart from the step's.
         self.launch_counts: Dict[str, int] = self._scorer.launch_counts
 
@@ -151,6 +156,10 @@ class ScorerService:
         weights = parse_tenant_weights(config)
         self._tenants = [_Tenant(i, weights[i], queue_max)
                          for i in range(int(config.scorer_tenants))]
+        for t in self._tenants:
+            self._emit("scorer/tenant_admitted", -1,
+                       {"tenant": t.name, "weight": t.weight, "queue_max": queue_max,
+                        "backend": self._backend})
 
         # Lockstep at W>1 (one tenant, one worker: the config's checks).
         self._lockstep = self._backend == "device" and config.world_size > 1
@@ -168,7 +177,6 @@ class ScorerService:
         # finds nothing eligible and clears it under the same lock, so no
         # wake-up is lost.
         self._work = threading.Event()
-        self._stop = threading.Event()
         self._chunks_scored = 0
         self._rows_scored = 0
         self._applied_chunks = 0
@@ -177,14 +185,28 @@ class ScorerService:
         self._ages: List[float] = []
         self._tick_rows = 0
         self._tick_t = time.perf_counter()
-        self._generation = 0   # bumped by reset(): a chunk begun before is dropped
+        # Bumped by reset() and restart_workers(): a chunk begun before is
+        # dropped.
+        self._generation = 0
+        self._restarts = 0
         self._exc: Optional[BaseException] = None
         self._closed = False
-        self._threads = [threading.Thread(target=self._run, args=(i,), daemon=True,
-                                          name=f"mercury-scorer-svc-{i}")
+        self._spawn_workers()
+
+    def _spawn_workers(self) -> None:
+        """Start a set of workers with a stop event of their own, named
+        ``mercury-scorer-svc-<i>``, or ``…-r<N>`` after the N-th restart."""
+        suffix = f"-r{self._restarts}" if self._restarts else ""
+        self._stop = stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(i, stop), daemon=True,
+                                          name=f"mercury-scorer-svc-{i}{suffix}")
                          for i in range(self._workers)]
         for t in self._threads:
             t.start()
+
+    def _emit(self, kind: str, step: int, detail: Dict[str, Any]) -> None:
+        if self._journal is not None:
+            self._journal.emit(kind, step, detail=detail)
 
     # ---------------------------------------------------------- scheduling
     def _eligible_locked(self, t: _Tenant) -> bool:
@@ -224,7 +246,7 @@ class ScorerService:
             return generation, None
         faults = self._faults
         if faults is not None and faults.fire("scorer_die") is not None:
-            raise InjectedFault("scorer_die: injected scorer death")
+            raise faults.injected("scorer_die: injected scorer death")
         with self._lock:
             start = t.cursor
             t.cursor = (start + self._R) % self._L
@@ -250,11 +272,11 @@ class ScorerService:
                                "before score_once()")
         return chunk
 
-    def _run(self, idx: int) -> None:
+    def _run(self, idx: int, stop: threading.Event) -> None:
         try:
-            while not self._closed:
+            while not (self._closed or stop.is_set()):
                 if self._lockstep:
-                    self._lockstep_round()
+                    self._lockstep_round(stop)
                     continue
                 faults = self._faults
                 if faults is not None:
@@ -263,7 +285,9 @@ class ScorerService:
                         wedge_idx = int(args.get("tenant", 0))
                         with self._lock:
                             self._tenants[wedge_idx].wedged = True
+                            last_step = self._last_step
                         _log.warning("scorer_wedge injected: tenant t%d frozen", wedge_idx)
+                        self._emit("scorer/wedged", last_step, {"tenant": f"t{wedge_idx}"})
                 t = self._next_tenant()
                 if t is None:
                     self._work.wait()
@@ -280,18 +304,20 @@ class ScorerService:
                         t.ready.put_nowait(chunk)
                         t.last_delivered_step = chunk.step
                 if self._throttle > 0:
-                    self._stop.wait(self._throttle)
+                    stop.wait(self._throttle)
         except BaseException as exc:  # raised again at the next drain
+            if stop.is_set():
+                return  # a worker of a retired generation dies without a word
             self._exc = exc
             self._ls_done.set()   # a lockstep snapshot need not wait it out
             _log.warning("scorer service worker %d died: %s: %s", idx,
                          type(exc).__name__, exc)
 
-    def _lockstep_round(self) -> None:
+    def _lockstep_round(self, stop: threading.Event) -> None:
         """Wait for the request a snapshot arms, score chunk ``q`` from
         snapshot ``q`` and hand it over for delivery at snapshot ``q+1``."""
         self._ls_req.wait()
-        if self._closed:
+        if self._closed or stop.is_set():
             return
         with self._lock:
             self._ls_req.clear()
@@ -318,6 +344,7 @@ class ScorerService:
                 t.snap = snap
                 t.scored_in_epoch = 0
             self._snapshots += 1
+            snapshots = self._snapshots
             self._last_step = int(step)
             self._work.set()
             if self._lockstep and self._exc is None and not self._closed:
@@ -325,6 +352,8 @@ class ScorerService:
                 self._ls_armed = self._ls_ticket
                 self._ls_done.clear()
                 self._ls_req.set()
+        self._emit("scorer/snapshot", int(step),
+                   {"epoch": snapshots, "tenants": len(self._tenants)})
 
     def _lockstep_deliver(self) -> None:
         armed, self._ls_armed = self._ls_armed, None
@@ -406,6 +435,7 @@ class ScorerService:
         stale_max = int(self._config.slo_score_staleness_max)
         highwater = int(self._config.scorer_queue_highwater)
         breaches: List[str] = []
+        starved: List[Dict[str, Any]] = []
         with self._lock:
             for t in self._tenants:
                 reasons = []
@@ -420,9 +450,14 @@ class ScorerService:
                     if not t.slo_latched:
                         t.slo_latched = True
                         t.slo_breaches += 1
+                        # The starvation decision: the rising edge only.
+                        starved.append({"tenant": t.name, "reasons": list(reasons),
+                                        "wedged": t.wedged})
                     breaches.append(f"{t.name}: " + ", ".join(reasons))
                 else:
                     t.slo_latched = False
+        for detail in starved:
+            self._emit("scorer/starved", int(step), detail)
         return "; ".join(breaches) if breaches else None
 
     def note_applied(self, age: int) -> None:
@@ -453,10 +488,54 @@ class ScorerService:
                         break
 
     def alive(self) -> bool:
-        """False once a worker died or exited, or the service is closed."""
+        """False once a worker of the live set died or exited, or the
+        service is closed."""
         if self._closed or self._exc is not None:
             return False
         return all(t.is_alive() for t in self._threads)
+
+    def death_event(self) -> Optional[str]:
+        """The journal id of the injected fault that killed a worker, if
+        one did (the supervisor's cause of the death)."""
+        return getattr(self._exc, "event_id", None)
+
+    def restart_workers(self, timeout: float = 5.0) -> int:
+        """Retire the workers (their stop event ends the live ones, parked
+        ones are woken; the dead ones just join), clear the death, the
+        queue-slot reservations and a lockstep round in flight, drop a
+        chunk a retired worker began (the generation moves on) and start a
+        full set named ``-r<N>``; return N, the restart's number. The
+        queued chunks stay. A worker still running after ``timeout``
+        seconds is left to end on its stop event."""
+        if self._closed:
+            raise RuntimeError("restart_workers() on a closed ScorerService")
+        self._stop.set()
+        self._ls_req.set()
+        with self._lock:
+            self._work.set()
+        deadline = time.perf_counter() + timeout
+        for t in self._threads:
+            t.join(timeout=max(0.0, deadline - time.perf_counter()))
+        wedged = [t.name for t in self._threads if t.is_alive()]
+        if wedged:
+            _log.warning("scorer service restart: threads of the retired workers still "
+                         "alive %.0f s after stop, left to end (daemons): %s",
+                         timeout, ", ".join(wedged))
+        with self._lock:
+            self._exc = None
+            self._ls_req.clear()
+            self._ls_done.clear()
+            self._ls_chunk = None
+            self._ls_armed = None
+            self._ls_ticket += 1
+            self._generation += 1
+            self._restarts += 1
+            for t in self._tenants:
+                t.inflight = 0  # the reservations died with their workers
+        self._spawn_workers()
+        _log.warning("scorer service restarted (restart %d, %d workers)",
+                     self._restarts, self._workers)
+        return self._restarts
 
     def close(self, timeout: float = 30.0) -> None:
         """Stop the workers and join them, at most ``timeout`` seconds in
@@ -516,7 +595,7 @@ class ScorerService:
     def summary(self) -> Dict[str, Any]:
         """The running totals, the fleet's and each tenant's (reading them
         moves nothing). ``chunk_shape`` is this rank's row of JAX's
-        ``[W, R]``; ``generation`` counts resets."""
+        ``[W, R]``; ``generation`` counts resets and restarts."""
         alive = sum(1 for t in self._threads if t.is_alive())
         with self._lock:
             tenants = [{"name": t.name, "weight": t.weight,
@@ -530,7 +609,7 @@ class ScorerService:
                 "workers": self._workers,
                 "workers_alive": alive,
                 "generation": self._generation,
-                "restarts": 0,   # restart_workers is not ported
+                "restarts": self._restarts,
                 "chunk_shape": [1, self._R],
                 "chunks_scored": self._chunks_scored,
                 "rows_scored": self._rows_scored,

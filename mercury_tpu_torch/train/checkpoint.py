@@ -361,11 +361,12 @@ def prune(directory: str, keep: int) -> None:
 
 def save_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
                     keep: int = 0, *, retries: int = 0, retry_backoff_s: float = 0.25,
-                    manifest: bool = False, faults=None) -> str:
+                    manifest: bool = False, faults=None, journal=None) -> str:
     """Write ``state`` to ``directory/ckpt_<state.step>.pt`` and prune to
     the newest ``keep``; return the path. Called by every rank at W>1:
     rank 0 writes, and every rank returns once rank 0 is done (the barrier
-    is reached even when the write raised on rank 0, which then raises)."""
+    is reached even when the write raised on rank 0, which then raises).
+    ``journal`` records the written file as ``checkpoint/written``."""
     rows = gather_to_rank0(_rank_row(state, config.zero_sharding))
     path = checkpoint_path(directory, state.step)
     try:
@@ -375,10 +376,22 @@ def save_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
                                 retry_backoff_s=retry_backoff_s, manifest=manifest,
                                 faults=faults)
             prune(directory, keep)
+            _journal_written(journal, state.step, path, manifest)
     finally:
         if world() > 1:
             dist.barrier()
     return path
+
+
+def _journal_written(journal, step: int, path: str, manifest: bool) -> None:
+    """Journal a durable file (nothing without a journal; never raises)."""
+    if journal is None:
+        return
+    try:
+        journal.emit("checkpoint/written", int(step),
+                     detail={"path": path, "manifest": bool(manifest)})
+    except Exception:
+        pass
 
 
 class AsyncSave:
@@ -429,7 +442,7 @@ class AsyncSave:
 def save_checkpoint_async(directory: str, state: MercuryState, config: TrainConfig,
                           keep: int = 0, *, retries: int = 0,
                           retry_backoff_s: float = 0.25, manifest: bool = False,
-                          faults=None, failure_cb=None) -> Optional[AsyncSave]:
+                          faults=None, failure_cb=None, journal=None) -> Optional[AsyncSave]:
     """Copy ``state`` to the host here (the next step updates it in
     place), then serialize, digest, write and prune on a thread; return its
     :class:`AsyncSave`. At W>1 the gather to rank 0 and the barrier must
@@ -437,16 +450,20 @@ def save_checkpoint_async(directory: str, state: MercuryState, config: TrainConf
     returns None."""
     if world() > 1:
         save_checkpoint(directory, state, config, keep, retries=retries,
-                        retry_backoff_s=retry_backoff_s, manifest=manifest, faults=faults)
+                        retry_backoff_s=retry_backoff_s, manifest=manifest, faults=faults,
+                        journal=journal)
         return None
     os.makedirs(directory, exist_ok=True)
     path = checkpoint_path(directory, state.step)
     payload = _payload(state, config, [_rank_row(state, config.zero_sharding)])
+    step = state.step
 
     def write() -> None:
         _write_with_retries(path, payload, retries=retries, retry_backoff_s=retry_backoff_s,
                             manifest=manifest, faults=faults)
         prune(directory, keep)
+        # On the writer thread: when the file became durable.
+        _journal_written(journal, step, path, manifest)
 
     return AsyncSave(write, f"ckpt-write-{state.step}", failure_cb)
 
@@ -523,6 +540,22 @@ def load_checkpoint(directory: str, step: int, verify: bool = True) -> Dict[str,
     return ckpt
 
 
+def _journal_verified(journal, directory: str, step: int, verify: bool) -> None:
+    """Journal a file that loaded and passed its sidecar's checks (nothing
+    without a journal, a sidecar or ``verify``; never raises)."""
+    if journal is None or not verify:
+        return
+    path = checkpoint_path(directory, step)
+    doc = _load_manifest(path)
+    if doc is None:
+        return
+    try:
+        journal.emit("checkpoint/verified", int(step),
+                     detail={"path": path, "leaves": len(doc.get("tensors") or {})})
+    except Exception:
+        pass
+
+
 def _agreed_steps(steps: List[int]) -> List[int]:
     """Rank 0's newest :data:`MAX_CANDIDATES` steps on every rank (the
     ranks' listings of a shared directory may differ)."""
@@ -546,7 +579,8 @@ def _all_ranks(ok: bool) -> bool:
 
 
 def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
-                       step: Optional[int] = None, *, verify: bool = True) -> int:
+                       step: Optional[int] = None, *, verify: bool = True,
+                       journal=None) -> int:
     """Load ``directory/ckpt_<step>.pt`` into ``state`` in place, this
     rank's row of sampler state included; return the step.
 
@@ -558,10 +592,12 @@ def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
     checkpoint saved at another ``world_size`` (``restore_elastic`` takes
     it), another ``grad_accum_steps``, another ``zero_sharding`` or on
     another device type raises ``ValueError`` naming the field, before the
-    state is touched."""
+    state is touched. ``journal`` records each verified file and each
+    fall back (``checkpoint/fallback``)."""
     if step is not None:
-        _apply(load_checkpoint(directory, step, verify), checkpoint_path(directory, step),
-               state, config)
+        ckpt = load_checkpoint(directory, step, verify)
+        _journal_verified(journal, directory, step, verify)
+        _apply(ckpt, checkpoint_path(directory, step), state, config)
         return step
     _sweep_stale_tmps(directory)
     steps = _agreed_steps(all_steps(directory))
@@ -572,6 +608,7 @@ def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
     for candidate in reversed(steps):
         try:
             ckpt, err = load_checkpoint(directory, candidate, verify), None
+            _journal_verified(journal, directory, candidate, verify)
         except Exception as e:  # a torn or corrupt file: try an older one
             ckpt, err = None, e
         if _all_ranks(err is None):
@@ -581,9 +618,17 @@ def restore_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
             errors.append((candidate, err))
             _log.warning("checkpoint ckpt_%d.pt in %s failed to restore (%s: %s); trying "
                          "an older one", candidate, directory, type(err).__name__, err)
+            reason = f"{type(err).__name__}: {err}"
         else:
             _log.warning("checkpoint ckpt_%d.pt in %s loaded here but failed on another "
                          "rank; trying an older one", candidate, directory)
+            reason = "peer process failed to restore it"
+        if journal is not None:
+            try:
+                journal.emit("checkpoint/fallback", int(candidate),
+                             detail={"rejected_step": int(candidate), "reason": reason})
+            except Exception:
+                pass
     raise RuntimeError(
         f"all {len(steps)} checkpoints in {directory} failed to restore"
         + (f"; the newest error here: {errors[0][1]!r}" if errors

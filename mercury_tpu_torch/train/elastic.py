@@ -30,7 +30,9 @@ What carries over, and what the new run derives afresh:
   resumed run never replays the draws of step 0.
 
 A different model, another ``zero_sharding`` or another
-``grad_accum_steps`` raises ``ValueError`` naming the field.
+``grad_accum_steps`` raises ``ValueError`` naming the field. With the
+Trainer's event journal the restore is journaled as
+``elastic/reshard_begin`` and ``elastic/reshard_end`` (its parent).
 """
 
 from __future__ import annotations
@@ -215,10 +217,21 @@ def elastic_restore(directory: str, trainer, step: Optional[int] = None,
             raise ValueError(f"checkpoint {step} in {directory} was saved with "
                              f"{field}={saved!r}, this run has {field}={have!r}: an "
                              "elastic resume keeps it")
-    model_sd = state.model.state_dict()
-    _check_same(raw["model"], model_sd, "model")
     rows = raw["ranks"]
     w_old, w_new = len(rows), config.world_size
+    journal = getattr(trainer, "_journal", None)
+    begin_eid = None
+    if journal is not None:
+        table_old = rows[0].get("table")
+        begin_eid = journal.emit(
+            "elastic/reshard_begin", int(step),
+            detail={"w_old": w_old, "w_new": w_new,
+                    "l_old": None if table_old is None else int(table_old.numel()),
+                    "l_new": (None if state.scoretable is None
+                              else int(state.scoretable.scores.numel())),
+                    "directory": directory})
+    model_sd = state.model.state_dict()
+    _check_same(raw["model"], model_sd, "model")
     if config.zero_sharding:
         n = sum(p.numel() for p in state.model.parameters())
         old_opt = [row["optimizer"] for row in rows]
@@ -247,10 +260,15 @@ def elastic_restore(directory: str, trainer, step: Optional[int] = None,
     state.ema = EMAState(torch.tensor(ema_val, dtype=torch.float32, device=dev),
                          torch.tensor(ema_cnt, dtype=torch.int32, device=dev))
     state.generator.manual_seed(elastic_seed(config.seed, r, state.step))
+    carried = ["step", "model", "optimizer", "ema", "generator"]
     if config.stream_checkpoint_cursor:
         for field, value in _carry_streamed_state(trainer, rows, w_old, w_new,
                                                   ema_val).items():
             setattr(state, field, value)
+            carried.append(field)
     # The ring holds selections of the old shards: the Trainer primes anew.
     state.pending = None
+    if journal is not None:
+        journal.emit("elastic/reshard_end", int(step), parent=begin_eid,
+                     detail={"w_old": w_old, "w_new": w_new, "carried": sorted(carried)})
     return int(step)

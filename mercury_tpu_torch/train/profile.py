@@ -13,6 +13,9 @@ timed between two ``torch.cuda.Event``s on the stream (launch gaps
 included), on the CPU by the host clock.
 
 :func:`trace` is a ``torch.profiler`` window that writes a Chrome trace.
+:class:`ProfilerWindow` is the one an anomaly trigger opens inside
+``fit`` (``anomaly_profile_steps``): it writes to
+``{anomaly_dir|log_dir}/profile`` and never raises.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import contextlib
 import os
 import statistics
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -31,6 +34,9 @@ from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
 from mercury_tpu_torch.parallel.collectives import allreduce_mean_
 from mercury_tpu_torch.sampling.importance import per_sample_loss, reweighted_loss
 from mercury_tpu_torch.train.step import scoring_forward, to_nchw
+from mercury_tpu_torch.utils.logging import get_logger
+
+_log = get_logger(__name__)
 
 
 def _timeit(fn: Callable[[], object], iters: int, device: torch.device) -> float:
@@ -155,3 +161,65 @@ def trace(log_dir: str, name: str = "trace.json"):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, name))
+
+
+class ProfilerWindow:
+    """A ``torch.profiler`` capture of the next few steps of ``fit``, opened
+    when the anomaly engine asks for one (the counterpart of the JAX
+    Trainer's ``jax.profiler`` window). :meth:`start` opens it for
+    ``steps`` steps, :meth:`advance` counts the steps taken and closes it
+    after the last, writing ``<log_dir>/profile/trace_step<N>.json`` (N the
+    step it opened at). Nothing here raises: a capture that fails to open
+    or to write is logged and dropped. Without ``log_dir`` nothing opens."""
+
+    def __init__(self, log_dir: Optional[str]) -> None:
+        self.dir = os.path.join(log_dir, "profile") if log_dir else None
+        self._prof = None
+        self._left = 0
+        self._step = 0
+        self.written: List[str] = []
+
+    @property
+    def active(self) -> bool:
+        return self._prof is not None
+
+    def start(self, steps: int, step: int) -> bool:
+        if self.dir is None or self._prof is not None or steps <= 0:
+            return False
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.start()
+        except Exception as exc:
+            _log.warning("profiler start failed: %s", exc)
+            return False
+        self._prof, self._left, self._step = prof, int(steps), int(step)
+        _log.warning("anomaly-armed profiler capture: %d steps -> %s", steps, self.dir)
+        return True
+
+    def advance(self, steps: int = 1) -> None:
+        if self._prof is None:
+            return
+        self._left -= steps
+        if self._left <= 0:
+            self.stop()
+
+    def stop(self) -> Optional[str]:
+        """Close the capture and write its trace; the path, or None."""
+        prof, self._prof, self._left = self._prof, None, 0
+        if prof is None:
+            return None
+        try:
+            prof.stop()
+            os.makedirs(self.dir, exist_ok=True)
+            path = os.path.join(self.dir, f"trace_step{self._step}.json")
+            prof.export_chrome_trace(path)
+        except Exception as exc:
+            _log.warning("profiler stop failed: %s", exc)
+            return None
+        self.written.append(path)
+        return path

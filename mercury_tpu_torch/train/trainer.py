@@ -30,8 +30,29 @@ sites: ``fit`` (``host_slow``, and the clock), the checkpoint writes
 (``ckpt_io_error``), the prefetch worker, the scorer and the metric
 writer. ``fit``'s log records then carry ``fault/injected`` and
 ``fault/armed``, and with a ``checkpoint_dir`` always
-``checkpoint/write_failures``. No supervisor restarts a worker an injected
-fault killed: it raises, as in the JAX package with ``supervise=False``.
+``checkpoint/write_failures``. Without ``supervise`` a worker an injected
+fault killed raises at the next step, as in the JAX package.
+
+The supervised host runtime, as the JAX Trainer builds it: with
+``log_dir`` and ``event_journal`` an
+:class:`~mercury_tpu_torch.obs.events.EventJournal` (``events.h{r}.jsonl``)
+is built first, and the fault plane, the scorer service, the checkpoint
+writes and restores, the supervisor and the anomaly engine journal their
+decisions to it; the metric writer's drain thread writes it. Rank 0 keeps
+an :class:`~mercury_tpu_torch.obs.anomaly.AnomalyEngine` (``anomaly_*`` and
+``slo_*``), a writer observer over every logged record, fed each step's
+time by ``fit``; its dumps (``flight_record_*.json``) go to
+``anomaly_dir`` or ``log_dir``, and a trigger may open a
+:class:`~mercury_tpu_torch.train.profile.ProfilerWindow`. With
+``supervise`` a :class:`~mercury_tpu_torch.runtime.supervisor.
+HostSupervisor` supervises the prefetch worker (``escalates=False``: a
+dead one is rebuilt from the state's ring, bit-equal to an uninterrupted
+run, within the budget; past it ``fit`` raises) and the async scorer
+(``escalates=True``: restarted within the budget, and past it the ladder
+async → sync → frozen → uniform, :meth:`Trainer._refresh_tick`); the
+scorer service's SLOs walk the same ladder. ``fit`` ticks it each step and
+logs its ``supervisor/*`` keys and ``sampler/is_active``; :meth:`close`
+writes ``supervisor_summary.json`` to ``log_dir`` on rank 0.
 
 Under ``data_placement="host_stream"`` the train pixels stay a host array
 (``dataset``, when passed, may hold an ``np.memmap``): the Trainer primes
@@ -74,13 +95,16 @@ counters) and a drain thread copies it to the host and writes it. With
 ``log_dir`` rank 0 writes ``run_manifest.json``, ``metrics.jsonl`` and
 TensorBoard (when it imports), and every rank its metric and heartbeat
 shards; ``heartbeat_every`` prints a line on rank 0. :meth:`close` (or
-``with Trainer(config) as t:``) stops the scorer and the prefetch worker,
-then drains and closes the writer.
+``with Trainer(config) as t:``) stops the supervisor, the scorer and the
+prefetch worker, then drains and closes the writer and the journal.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -103,7 +127,9 @@ from mercury_tpu_torch.faults import FaultPlane
 from mercury_tpu_torch.models import create_model
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
 from mercury_tpu_torch.obs.accounting import ThroughputMeter, flops_per_step
-from mercury_tpu_torch.obs.manifest import write_run_manifest
+from mercury_tpu_torch.obs.anomaly import AnomalyEngine
+from mercury_tpu_torch.obs.events import EventJournal
+from mercury_tpu_torch.obs.manifest import build_run_manifest, write_run_manifest
 from mercury_tpu_torch.obs.sampler_health import SamplerHealthMonitor
 from mercury_tpu_torch.obs.writer import (
     AsyncMetricWriter,
@@ -117,10 +143,12 @@ from mercury_tpu_torch.obs.writer import (
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
 from mercury_tpu_torch.parallel import distributed
 from mercury_tpu_torch.parallel.collectives import gather_to_rank0, host_flag_device
+from mercury_tpu_torch.runtime.supervisor import HostSupervisor
 from mercury_tpu_torch.sampling.scoretable import apply_async_chunk
 from mercury_tpu_torch.sampling.scorer_fleet import ScoreChunk, ScorerFleet
 from mercury_tpu_torch.sampling.scorer_service import ScorerService
 from mercury_tpu_torch.train import checkpoint, elastic
+from mercury_tpu_torch.train.profile import ProfilerWindow
 from mercury_tpu_torch.train.state import MercuryState, create_state
 from mercury_tpu_torch.train.step import Draws, make_train_step, prime_host_stream, to_nchw
 from mercury_tpu_torch.utils.logging import get_logger
@@ -180,9 +208,6 @@ class Trainer:
                 f"pixels are {'a host array' if dataset.host_pixels else 'a tensor'}: "
                 "build it with make_sharded_dataset(..., placement=data_placement)")
         self.dataset = dataset
-        # The fault plane, before every hook site it is handed to.
-        self._faults: Optional[FaultPlane] = (FaultPlane(config.fault_spec)
-                                              if config.fault_spec else None)
         # fit's async cadence write in flight, at most one.
         self._ckpt_thread: Optional[checkpoint.AsyncSave] = None
         if config.num_classes is not None and config.num_classes != self.dataset.num_classes:
@@ -192,6 +217,19 @@ class Trainer:
         # Refuses a world_size that the process group does not have, and
         # label smoothing where the kernels would run.
         self._step_fn = make_train_step(config, self.dataset)
+        # The event journal, before every producer that takes it.
+        self._journal: Optional[EventJournal] = (
+            EventJournal(config.log_dir, self.rank)
+            if config.log_dir and config.event_journal else None)
+        # The fault plane, before every hook site it is handed to (a
+        # malformed spec raises here).
+        try:
+            self._faults: Optional[FaultPlane] = (
+                FaultPlane(config.fault_spec, journal=self._journal)
+                if config.fault_spec else None)
+        except BaseException:
+            self.close()
+            raise
         # The IID evaluation's crop offsets, the same for every batch, as
         # the JAX package crops every batch with one fixed key (its offsets
         # differ from these: threefry is not Philox).
@@ -223,25 +261,60 @@ class Trainer:
         )
         self.sampler_monitor: Optional[SamplerHealthMonitor] = None
         if config.use_ledger:
-            # The JAX Trainer's starvation share, until the SLO fields are
-            # ported.
             self.sampler_monitor = SamplerHealthMonitor(
                 self.dataset.shard_indices.cpu().numpy(),
                 self.dataset.y_train.cpu().numpy(), self.dataset.num_classes,
-                config.is_alpha, starvation_share=0.2)
+                config.is_alpha, starvation_share=config.slo_class_starvation_share or 0.2)
+        # The anomaly engine, rank 0's: its value checks run on the writer's
+        # drain thread; only the step-time check runs here.
+        self.anomaly: Optional[AnomalyEngine] = None
+        if config.anomaly_detection and self.rank == 0:
+            self.anomaly = AnomalyEngine(
+                ring_steps=config.anomaly_window,
+                slow_step_factor=config.anomaly_slow_step_factor,
+                ess_floor=config.slo_ess_floor,
+                stall_frac_max=config.slo_stall_frac_max if config.host_stream else 0.0,
+                mfu_floor=config.slo_mfu_floor,
+                straggler_factor=config.anomaly_straggler_factor,
+                gini_max=config.slo_selection_gini_max,
+                # Any starved class breaches; the share is the monitor's.
+                starved_classes=1.0 if config.slo_class_starvation_share > 0 else 0.0,
+                var_ratio_patience=config.slo_var_ratio_patience,
+                cooldown_steps=config.anomaly_cooldown_steps,
+                dump_dir=config.anomaly_dir or config.log_dir,
+                context_fn=self._flight_context,
+                profile_steps=config.anomaly_profile_steps,
+                journal=self._journal)
+        self._profiler = ProfilerWindow(config.anomaly_dir or config.log_dir)
+        self._nan_injected = False
+        # The supervisor; the units register as their fleets are built.
+        self.supervisor: Optional[HostSupervisor] = None
+        if config.supervise:
+            self.supervisor = HostSupervisor(
+                restart_budget=config.supervisor_restart_budget,
+                backoff_s=config.supervisor_backoff_s,
+                probe_every=config.supervisor_probe_every,
+                poll_s=config.supervisor_poll_s,
+                anomaly=self.anomaly, journal=self._journal)
+        # The ladder level the refresh path last acted on (3: flattened).
+        self._actuated_level = 0
         # host_stream: prime the ring with steps 0 … depth−1 and put their
         # gathers in flight. Built before auto_resume: a restore refills it.
         self._stream_pipe: Optional[PrefetchPipeline] = None
+        self._stream_gen = 0   # supervisor restarts of the pipeline
         if config.host_stream:
             # One pipeline a rank, over this rank's own rows: every rank is
             # a process, so stream_shard_mode "local" and "replicated" (W=1)
             # gather the same rows.
-            self._stream_pipe = PrefetchPipeline(
-                HostStreamSource(self.dataset.x_train, config.decode_workers),
-                config.stream_rows, self.device, depth=config.prefetch_depth,
-                faults=self._faults)
+            self._stream_pipe = self._new_stream_pipe()
             self._seed_stream_pipe(
                 prime_host_stream(self.state, config, self.dataset))
+            if self.supervisor is not None:
+                # No degraded mode makes pixels: past its budget a dead
+                # worker raises. ``alive`` reads the current pipeline.
+                self.supervisor.register_unit(
+                    "prefetch", alive=lambda: self._stream_pipe.alive(),
+                    restart=self._restart_stream_pipe, escalates=False)
         # The metric stream: the manifest and the sinks, then the writer,
         # whose drain thread starts at the first record.
         sinks = []
@@ -256,7 +329,11 @@ class Trainer:
             sinks.append(HeartbeatShardSink(config.log_dir, self.rank))
         if config.heartbeat_every and self.rank == 0:
             sinks.append(HeartbeatSink(every_steps=config.heartbeat_every))
-        self.logger = AsyncMetricWriter(sinks, faults=self._faults)
+        observers = [] if self.anomaly is None else [self.anomaly.observe_record]
+        if self.supervisor is not None:
+            observers.append(self.supervisor.observe_record)
+        self.logger = AsyncMetricWriter(sinks, observers=observers, faults=self._faults,
+                                        journal=self._journal)
         # steps/s, examples/s and MFU between log ticks; the FLOP count is
         # taken at the first log tick.
         self._throughput = ThroughputMeter(
@@ -279,10 +356,32 @@ class Trainer:
                                or config.scorer_tenants > 1
                                or config.slo_score_staleness_max > 0
                                or config.scorer_queue_highwater > 0)
-                scorer = ScorerService if use_service else ScorerFleet
-                self._scorer_fleet = scorer(self.dataset, self.state.model, config,
-                                            self.device, faults=self._faults)
+                if use_service:
+                    self._scorer_fleet = ScorerService(
+                        self.dataset, self.state.model, config, self.device,
+                        faults=self._faults, journal=self._journal)
+                else:
+                    self._scorer_fleet = ScorerFleet(self.dataset, self.state.model, config,
+                                                     self.device, faults=self._faults)
                 self._scorer_fleet.snapshot(self.state.model, self.state.step)
+                if self.supervisor is not None:
+                    # Past its budget the ladder takes over: the table can be
+                    # refreshed on this thread, frozen or flattened, and
+                    # training goes on either way.
+                    self.supervisor.register_unit(
+                        "scorer_service" if use_service else "scorer",
+                        alive=lambda: self._scorer_fleet.alive(),
+                        restart=lambda: self._scorer_fleet.restart_workers(),
+                        escalates=True, cause=lambda: self._scorer_fleet.death_event())
+                    self.supervisor.set_ladder(
+                        probe=self._probe_scoring,
+                        revive=lambda: self._scorer_fleet.restart_workers())
+                    if use_service:
+                        # A wedged tenant or an undrained queue walks the
+                        # ladder as a death does.
+                        self.supervisor.register_slo(
+                            "scorer_service",
+                            lambda: self._scorer_fleet.slo_status(self.state.step))
             # Crash or preemption recovery: the newest checkpoint, sampler
             # state included; the first fit() then runs on to the original
             # total_steps.
@@ -304,7 +403,8 @@ class Trainer:
             metrics = self._host_stream_step(draws, use_kernels)
         else:
             metrics = self._step_fn(self.state, draws, use_kernels)
-        self._async_refresh_tick(self.state.step)
+        if self._scorer_fleet is not None:
+            self._refresh_tick(self.state.step)
         return metrics
 
     def _apply_chunks(self, chunks: List[ScoreChunk], step: int) -> None:
@@ -341,6 +441,10 @@ class Trainer:
         fleet = self._scorer_fleet
         if fleet is None:
             return
+        if self.supervisor is not None and not fleet.alive():
+            # A worker died: the supervisor's tick restarts it or walks the
+            # ladder (drain would raise); the queued chunks wait.
+            return
         # The service's drain also advances every tenant's staleness and
         # empties the other tenants' queues into their accounting.
         chunks = (fleet.drain_for_step(step) if isinstance(fleet, ScorerService)
@@ -350,6 +454,64 @@ class Trainer:
         every = self.config.snapshot_every
         if step // every > (step - advanced) // every:
             fleet.snapshot(self.state.model, step)
+
+    def _sync_refresh_tick(self, step: int, advanced: int = 1) -> None:
+        """Ladder level 1: the training thread scores one window every
+        ``supervisor_sync_every`` steps against a snapshot taken now (no
+        worker thread); a failure descends one level, with the fault that
+        caused it as the parent."""
+        fleet = self._scorer_fleet
+        every = max(int(self.config.supervisor_sync_every), 1)
+        if step // every <= (step - advanced) // every:
+            return
+        try:
+            fleet.snapshot(self.state.model, step)
+            chunk = fleet.score_once()
+        except Exception as exc:
+            self.supervisor.report_failure("sync refresh", step, exc,
+                                           parent=getattr(exc, "event_id", None))
+            return
+        self._apply_chunks([chunk], step)
+
+    def _refresh_tick(self, step: int, advanced: int = 1) -> None:
+        """After each step under async refresh, by the ladder's level: 0
+        drains the scorer, 1 scores on this thread, 2 does nothing (the
+        step's decay flattens the table toward the EMA mean), 3 zeroes the
+        table in place on the step's stream after every step (no sync, no
+        copy), so the next draw is uniform: the step's write-back rescores
+        the slots it trained, and a one-time flatten would let them tilt
+        the draws again."""
+        sup = self.supervisor
+        level = 0 if sup is None else sup.level()
+        if level == 0:
+            self._async_refresh_tick(step, advanced)
+        elif level == 1:
+            self._sync_refresh_tick(step, advanced)
+        if sup is None:
+            return
+        if level >= 3:
+            self.state.scoretable.scores.zero_()
+            if self._actuated_level < 3:
+                _log.warning("sampler degraded to UNIFORM at step %d: score table "
+                             "flattened (sampler/is_active=0)", step)
+        # A climb below uniform needs no undoing: the resumed refresh and
+        # the step's write-backs repaint the flattened table.
+        self._actuated_level = level
+
+    def _probe_scoring(self) -> None:
+        """The supervisor's probe: one round scored on this thread against
+        the parameters now and applied; raises on a failure or a
+        non-finite score (the chunk's pinned host scores: no device
+        sync)."""
+        fleet = self._scorer_fleet
+        if fleet is None:
+            raise RuntimeError("no scorer fleet to probe")
+        step = self.state.step
+        fleet.snapshot(self.state.model, step)
+        chunk = fleet.score_once()
+        if not bool(torch.isfinite(chunk.scores).all()):
+            raise RuntimeError("probe chunk contains non-finite scores")
+        self._apply_chunks([chunk], step)
 
     def scorer_stats(self) -> Dict[str, float]:
         """The scorer's ``stats()`` since the previous call and the count
@@ -363,11 +525,42 @@ class Trainer:
                           use_kernels: bool = True) -> Dict[str, torch.Tensor]:
         """Pop → step → push: train on the oldest prefetched rows and hand
         the selection of step t+depth, a device tensor still being
-        computed, to the pipeline. A dead worker raises here."""
-        batch = self._stream_pipe.pop()
+        computed, to the pipeline. A dead worker raises here, unless the
+        supervisor restarts it within its budget: the new pipeline is
+        refilled from the ring, so the batch popped is the one the dead
+        worker owed."""
+        try:
+            batch = self._stream_pipe.pop()
+        except RuntimeError:
+            if (self.supervisor is None
+                    or not self.supervisor.request_restart("prefetch", self.state.step)):
+                raise
+            batch = self._stream_pipe.pop()
         metrics, next_gidx = self._step_fn(self.state, batch, draws, use_kernels)
         self._stream_pipe.push(next_gidx)
         return metrics
+
+    def _new_stream_pipe(self) -> PrefetchPipeline:
+        cfg = self.config
+        return PrefetchPipeline(
+            HostStreamSource(self.dataset.x_train, cfg.decode_workers), cfg.stream_rows,
+            self.device, depth=cfg.prefetch_depth, faults=self._faults,
+            generation=self._stream_gen)
+
+    def _restart_stream_pipe(self) -> None:
+        """The supervisor's restart of the prefetch worker: close the dead
+        pipeline, build a new one (``mercury-prefetch-r<N>``) and refill it
+        from the state's ring, which holds the selections of steps t …
+        t+depth−1 wherever the worker died: the run goes on bit-equal to an
+        uninterrupted one."""
+        old = self._stream_pipe
+        self._stream_gen += 1
+        try:
+            old.close(timeout=5.0)
+        except Exception as exc:
+            _log.warning("dead prefetch pipeline close() raised: %s", exc)
+        self._stream_pipe = self._new_stream_pipe()
+        self._refill_stream_pipe()
 
     def _seed_stream_pipe(self, gidx: torch.Tensor) -> None:
         """Drop what the pipeline holds and push the ``[depth, S]``
@@ -395,19 +588,65 @@ class Trainer:
         return {} if self._stream_pipe is None else self._stream_pipe.stats()
 
     def close(self) -> None:
-        """Stop the scorer fleet, then the prefetch worker, then drain and
-        close the metric writer (last: the other two feed its records). A
-        second call does nothing, and a Trainer whose construction stopped
-        partway closes what it built."""
-        fleet = getattr(self, "_scorer_fleet", None)
-        if fleet is not None:
-            fleet.close()
-        pipe = getattr(self, "_stream_pipe", None)
-        if pipe is not None:
-            pipe.close()
-        writer = getattr(self, "logger", None)
-        if writer is not None:
-            writer.close()
+        """Stop the supervisor (its poll must not read the teardown as
+        deaths), the scorer fleet, the prefetch worker and a profiler
+        window, then drain and close the metric writer (the others feed
+        its records); last, even when a step of this raised, write
+        ``supervisor_summary.json`` and close the journal. A second call
+        does nothing, and a Trainer whose construction stopped partway
+        closes what it built."""
+        try:
+            supervisor = getattr(self, "supervisor", None)
+            if supervisor is not None:
+                supervisor.close()
+            fleet = getattr(self, "_scorer_fleet", None)
+            if fleet is not None:
+                fleet.close()
+            pipe = getattr(self, "_stream_pipe", None)
+            if pipe is not None:
+                pipe.close()
+            profiler = getattr(self, "_profiler", None)
+            if profiler is not None:
+                profiler.stop()
+            writer = getattr(self, "logger", None)
+            if writer is not None:
+                writer.close()
+        finally:
+            self._write_supervisor_summary()
+            journal = getattr(self, "_journal", None)
+            if journal is not None:
+                journal.close()
+
+    def _write_supervisor_summary(self) -> None:
+        """``supervisor_summary.json`` in ``log_dir`` on rank 0: the
+        ladder's transitions, the budgets and the SLO latches. Never
+        raises."""
+        supervisor = getattr(self, "supervisor", None)
+        config = getattr(self, "config", None)
+        if supervisor is None or config is None or not config.log_dir or self.rank != 0:
+            return
+        try:
+            path = os.path.join(config.log_dir, "supervisor_summary.json")
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(supervisor.summary(), f, indent=2, default=str)
+                f.write("\n")
+            os.replace(tmp, path)
+        except Exception as exc:
+            _log.warning("supervisor summary write failed: %s", exc)
+
+    def _flight_context(self) -> Dict[str, Any]:
+        """A flight record's run context (called only when one is
+        written): the config, the manifest and the summaries of the
+        pipeline, the scorer, the supervisor and the fault plane."""
+        ctx: Dict[str, Any] = {"config": dataclasses.asdict(self.config),
+                               "manifest": build_run_manifest(self.config, self.device)}
+        for key, attr in (("pipeline", "_stream_pipe"), ("scorer_fleet", "_scorer_fleet"),
+                          ("supervisor", "supervisor"), ("faults", "_faults")):
+            part = getattr(self, attr, None)
+            if part is not None:
+                ctx[key] = part.summary()
+        return ctx
 
     def __enter__(self) -> "Trainer":
         return self
@@ -454,6 +693,9 @@ class Trainer:
         self._throughput.reset(start)
         try:
             while self.state.step < end:
+                # The iteration's wall time: under asynchronous launches it
+                # settles to the device's pace once the queue is full.
+                t_iter = time.perf_counter()
                 if self._faults is not None:
                     # The clock the hook sites fire against, and the
                     # training thread's own hook.
@@ -463,6 +705,19 @@ class Trainer:
                         time.sleep(float(slow.get("secs", 1.0)))
                 metrics = self.train_step()
                 step = self.state.step
+                if self.supervisor is not None:
+                    # Liveness, restarts, SLOs and probes: host work only.
+                    self.supervisor.tick(step)
+                if self.anomaly is not None:
+                    self.anomaly.observe_step_time(step, time.perf_counter() - t_iter)
+                # A trigger's profiler window opens here, so the next
+                # occurrence of a sporadic anomaly lands inside it.
+                if self._profiler.active:
+                    self._profiler.advance()
+                elif self.anomaly is not None:
+                    want = self.anomaly.take_profile_request()
+                    if want > 0:
+                        self._profiler.start(want, step)
                 health = {}
                 if cfg.log_every and step % cfg.log_every == 0:
                     health = self._log_tick(step, metrics)
@@ -501,16 +756,23 @@ class Trainer:
 
     def _ckpt_failure_cb(self, exc: BaseException) -> None:
         """On the writer thread, when an async write has failed: a warning
-        now (``fit`` raises the error at the next join)."""
+        and a flight record now (``fit`` raises the error at the next
+        join). Never raises."""
         _log.warning("async checkpoint write failed (%s: %s); %d failed attempts so far",
                      type(exc).__name__, exc, checkpoint.write_failures())
+        if self.anomaly is not None:
+            self.anomaly.dump_flight_record(
+                "checkpoint_write_failed", self.state.step,
+                {"error": f"{type(exc).__name__}: {exc}",
+                 "write_failures": checkpoint.write_failures()})
 
     def _ckpt_kwargs(self) -> Dict[str, Any]:
         """The durability settings of every save."""
         cfg = self.config
         return dict(keep=cfg.checkpoint_keep, retries=cfg.checkpoint_write_retries,
                     retry_backoff_s=cfg.checkpoint_retry_backoff_s,
-                    manifest=cfg.checkpoint_manifest, faults=self._faults)
+                    manifest=cfg.checkpoint_manifest, faults=self._faults,
+                    journal=self._journal)
 
     def _log_tick(self, step: int, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """Enqueue the record of a log tick, as the JAX ``fit`` assembles
@@ -533,10 +795,19 @@ class Trainer:
         record.update(host_thread_stats())
         if self._faults is not None:
             record.update(self._faults.stats())
+        if self.supervisor is not None:
+            # The ladder's level, restarts and descents, sampler/is_active.
+            record.update(self.supervisor.stats())
         if self.config.checkpoint_dir:
             record["checkpoint/write_failures"] = float(checkpoint.write_failures())
         record["threads/queue_depth/metrics"] = float(self.logger.queue_depth())
         record["epoch"] = (step - 1) // self.steps_per_epoch
+        inject = self.config.anomaly_inject_nan_step
+        if inject and not self._nan_injected and step >= inject:
+            # For tests: the host record's loss, never the step, turns NaN,
+            # so the non_finite trigger runs end to end.
+            record["train/loss"] = float("nan")
+            self._nan_injected = True
         self.logger.write(step, record)
         return {**health, **stream, **scorer}
 
@@ -581,7 +852,8 @@ class Trainer:
         snapshotted."""
         step = checkpoint.restore_checkpoint(self._directory(directory), self.state,
                                              self.config, step,
-                                             verify=self.config.checkpoint_verify)
+                                             verify=self.config.checkpoint_verify,
+                                             journal=self._journal)
         self._after_restore()
         return step
 

@@ -80,7 +80,7 @@ def test_config_fields_match_the_jax_package():
     assert (cfg.async_checkpoint, cfg.checkpoint_write_retries, cfg.checkpoint_retry_backoff_s,
             cfg.checkpoint_manifest, cfg.checkpoint_verify, cfg.stream_checkpoint_cursor,
             cfg.fault_spec) == (False, 2, 0.25, True, True, True, "")
-    assert len(dataclasses.fields(TrainConfig)) == 71
+    assert len(dataclasses.fields(TrainConfig)) == 92
     assert (cfg.scorer_workers, cfg.snapshot_every, cfg.scorer_throttle_s,
             cfg.scorer_backend) == (1, 16, 0.0, "host")
 
