@@ -218,7 +218,33 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    writes ``flight_record_step10_non_finite.json`` with the card's
    allocator statistics, whether ``mfu_floor`` fired at the default 0.01,
    and in (b)'s journal each ``supervisor/degrade``'s parent chain rooted
-   at a ``fault/fired``.
+   at a ``fault/fired``;
+18. the rest of the host runtime's observability: (a) the main path's
+   config with ``trace=True``, ``serve_port`` on a free port and a
+   ``log_dir``, 30 steps of ``fit`` while a thread scrapes ``/healthz``,
+   ``/statusz`` and ``/metricsz`` (``/metricsz`` parses back to the
+   writer's latest record); ``trace.json`` holds one ``trainer/dispatch``
+   span a step on the ``train`` thread and the journal's lane;
+   ``anomaly_inject_nan_step`` opens a profiler window whose
+   ``profile/trace_step<N>.json`` ``obs/profile_parse`` attributes at
+   ``attributed_frac`` 1.0 with device time in ``mercury_scoring`` and
+   ``mercury_optimizer`` (its lanes and categories printed); the fit's
+   launches are the step's 30 times over and the evaluation's; steps/s
+   with the tracer off and on and the server off and on (scraped once and
+   ten times a second by another process), in turns, each turn's launches
+   held; CUDA kernels a step with the tracer off, on and the scopes open
+   (printed); a span's host ns, on and off; a kernel step against a plain
+   step; (b)
+   two gloo ranks on the card, phase 14's lockstep config supervised,
+   with ``host_slow`` on rank 1 alone under ``crosshost_telemetry``
+   ``"allgather"`` and then ``"files"`` (rank 0's records carry the
+   ``host/*`` keys and the straggler trigger fires from
+   ``host/straggler_ratio`` above 1.5), then ``scorer_die`` on rank 1
+   alone at budget 0 with probes off (both ranks act on the same level at
+   every step, walk the same transitions, leave the lockstep and finish
+   in time), the agreement's host µs a tick, and the four kernels a step;
+   (c) ``python -m mercury_tpu_torch.obs.report`` on (a)'s run, as HTML
+   too, and ``--diff`` against a second run of (a)'s config: exit 0.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -440,6 +466,30 @@ CHAOS = ("scorer_die@step=1,every=1;scorer_die@step=1,every=1;"
 CHAOS_STEPS = 12          # (b)
 RECOVER_STEPS = 12        # (c)
 PREFETCH_STEPS = 8        # (d), the death at step 3
+# Phase 18: the main path's config with the tracer, the status
+# server, a log_dir and an anomaly-armed profiler window; the W=2 lockstep
+# config supervised, with cross-rank aggregation and the agreed ladder.
+# Only the injected NaN triggers (a): slow_step and the MFU floor are off,
+# so the NaN's window is the one that opens.
+OBS = dict(model="resnet18", dataset="synthetic", world_size=1, eval_every=0, log_every=10,
+           heartbeat_every=0, anomaly_slow_step_factor=0.0, slo_mfu_floor=0.0)
+OBS_STEPS = 30            # (a) steps of each fit
+OBS_NAN_STEP = 12         # (a) the injected NaN: the tick at step 20 opens the window
+OBS_WINDOW = 3            # (a) steps of the profiler window
+OBS_TURN = 60             # (a) steps a turn of the rates
+# The arms of the rates: the tracer on, and the status server scraped once
+# a second (a fast prober) or ten times a second (30 scrapes a second).
+OBS_TURNS = ("off", "trace", "serve10", "serve1", "serve1", "serve10", "trace", "off")
+OBS_SCRAPE_S = {"serve1": 1.0, "serve10": 0.1}
+OBS_SPANS = 20_000        # spans timed for a span's host ns
+OBS_RANKS = dict(LOCKSTEP, supervise=True, supervisor_backoff_s=0.0, eval_every=0,
+                 log_every=2, heartbeat_every=0, anomaly_straggler_factor=1.5,
+                 anomaly_slow_step_factor=0.0)
+OBS_RANK_STEPS = 8        # (b) steps of each fit
+OBS_SLOW = "host_slow@step=0,every=1,secs=0.1"
+OBS_DIE_STEP = 3          # (b) rank 1's scorer_die
+OBS_RANK_TIMEOUT_S = 120  # (b) the ladder fit must end within this
+ENDPOINTS = ("/healthz", "/statusz", "/metricsz")
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -527,6 +577,7 @@ def main() -> int:
     durable = run_phase("durable checkpoints", durable_phase, torch, card, main_path, table_path)
     supervised = run_phase("supervised runtime", supervised_phase, torch, card, main_path,
                            table_path)
+    observed = run_phase("observability", observability_phase, torch, card, main_path)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -540,7 +591,9 @@ def main() -> int:
                    "scorer_service": service["launches"][k["name"]],
                    "command_line": cmd["launches"][k["name"]],
                    "durable_checkpoints": durable["launches"][k["name"]],
-                   "supervised_runtime": supervised["launches"][k["name"]]}
+                   "supervised_runtime": supervised["launches"][k["name"]],
+                   "observability": observed["launches"][k["name"]],
+                   "observability_two_ranks": observed["two_rank_launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -556,7 +609,8 @@ def main() -> int:
          "grad_path": grad["summary"], "async_scoring": async_["summary"],
          "scorer_service": service["summary"], "command_line": cmd["summary"],
          "durable_checkpoints": durable["summary"],
-         "supervised_runtime": supervised["summary"]},
+         "supervised_runtime": supervised["summary"],
+         "observability": observed["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2168,16 +2222,27 @@ def stream_pool(torch, mk, card: str) -> dict:
                "host_stream": TrainConfig(**STREAM, data_placement="host_stream")}
     check(configs["host_stream"].prefetch_depth == 2
           and configs["host_stream"].stream_rows == 320, f"{configs['host_stream']}")
-    datasets, held = {}, {}
+    # The bytes the build asked the caching allocator for. Its allocated
+    # bytes would count whole cached blocks: a free block less than 1 MiB
+    # larger than a request is handed out unsplit, so that count moves with
+    # what earlier phases left in the cache.
+    def requested() -> int:
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    datasets, held, tensors = {}, {}, {}
     for name, config in configs.items():
         torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
+        before = requested()
         datasets[name] = build_dataset(config, resolve_device())
         torch.cuda.synchronize()
-        held[name] = torch.cuda.memory_allocated() - before
+        held[name] = requested() - before
+        fields = (getattr(datasets[name], f.name) for f in dataclasses.fields(datasets[name]))
+        tensors[name] = sum(t.untyped_storage().nbytes() for t in fields
+                            if isinstance(t, torch.Tensor) and t.is_cuda)
     pixels = datasets["replicated"].x_train.numel()
-    check(pixels == 15_360_000 and held["replicated"] - held["host_stream"] == pixels,
-          f"device bytes of the datasets {held}, pixels {pixels}")
+    check(pixels == 15_360_000 and held == tensors
+          and held["replicated"] - held["host_stream"] == pixels,
+          f"device bytes of the datasets {held}, their tensors {tensors}, pixels {pixels}")
     print(f"dataset device bytes: replicated {held['replicated']}, host_stream "
           f"{held['host_stream']} (the 5000 x 3072 train pixels stay in host memory)")
 
@@ -4909,6 +4974,509 @@ def supervised_phase(torch, card: str, main_path, table_path) -> dict:
     return {"launches": total,
             "summary": {"card": card, "restart": restart, "chaos": chaos,
                         "recovery": recovery, "prefetch": prefetch, "launches": total,
+                        "seconds": seconds}}
+
+
+# ------------------------------------------------------------------ phase 18
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(port: int, path: str):
+    """(status, body) of a GET on the loopback (``http.client``: no proxy
+    is consulted)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read().decode()
+    finally:
+        conn.close()
+
+
+# The scraper's process: GETs the endpoints every period until its stdin
+# closes, then prints each endpoint's status codes and the errors as JSON.
+SCRAPER = r"""
+import http.client, json, select, sys
+port, period, endpoints = int(sys.argv[1]), float(sys.argv[2]), sys.argv[3:]
+codes, errors = {ep: [] for ep in endpoints}, []
+while not select.select([sys.stdin], [], [], period)[0]:
+    for ep in endpoints:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        try:
+            conn.request("GET", ep)
+            r = conn.getresponse()
+            r.read()
+            codes[ep].append(r.status)
+        except Exception as exc:
+            errors.append(f"{ep}: {type(exc).__name__}: {exc}")
+        finally:
+            conn.close()
+print(json.dumps({"codes": codes, "errors": errors}))
+"""
+
+
+class Scraper:
+    """A process of its own (as a scraper is: its client work holds none of
+    the trainer's GIL) reading the three endpoints every ``period_s`` until
+    :meth:`stop`: each endpoint's status codes, and the errors."""
+
+    def __init__(self, port: int, period_s: float = OBS_SCRAPE_S["serve10"]):
+        self._proc = subprocess.Popen(
+            [sys.executable, "-c", SCRAPER, str(port), str(period_s), *ENDPOINTS],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.codes = {ep: [] for ep in ENDPOINTS}
+        self.errors = []
+
+    def stop(self) -> dict:
+        if self._proc is not None:
+            out, _ = self._proc.communicate(input="", timeout=60)
+            self._proc = None
+            got = json.loads(out.strip().splitlines()[-1])
+            self.codes, self.errors = got["codes"], got["errors"]
+        return {ep: len(c) for ep, c in self.codes.items()}
+
+
+def kernels_a_step(torch, trainer, steps: int = 10) -> dict:
+    """CUDA kernels and memsets a step over ``steps`` steps: the
+    ``kernel`` and ``gpu_memset`` events of a ``torch.profiler`` trace (the
+    activity records themselves, not an aggregate)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.train_step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        events = json.load(open(path))["traceEvents"]
+    return {cat: sum(1 for e in events if e.get("cat") == cat) / steps
+            for cat in ("kernel", "gpu_memset")}
+
+
+def span_ns(tracer, spans: int = OBS_SPANS) -> float:
+    """Host ns of one ``with tracer.span(...)`` (the loop's own cost
+    included)."""
+    t0 = time.perf_counter_ns()
+    for _ in range(spans):
+        with tracer.span("trainer/dispatch", cat="trainer"):
+            pass
+    return (time.perf_counter_ns() - t0) / spans
+
+
+def trace_lanes(doc: dict) -> dict:
+    """What a ``torch.profiler`` Chrome trace calls its lanes: the process
+    and thread names of the pids that hold device events, the count of
+    events a category, and the names of the annotation ranges on the host
+    and on the card."""
+    cats: dict = {}
+    device_pids = set()
+    ranges = {"user_annotation": set(), "gpu_user_annotation": set()}
+    for e in doc.get("traceEvents", []):
+        cat = e.get("cat")
+        if e.get("ph") == "X":
+            cats[cat] = cats.get(cat, 0) + 1
+            if cat in ("kernel", "gpu_memcpy", "gpu_memset", "gpu_user_annotation"):
+                device_pids.add(e.get("pid"))
+            if cat in ranges:
+                ranges[cat].add(e.get("name"))
+    names = sorted({f"{e.get('pid')}:{e.get('name')}={(e.get('args') or {}).get('name')}"
+                    for e in doc.get("traceEvents", [])
+                    if e.get("ph") == "M" and e.get("pid") in device_pids
+                    and e.get("name") in ("process_name", "thread_name")})
+    return {"categories": cats, "device_lane_names": names,
+            "ranges": {k: sorted(v) for k, v in ranges.items()}}
+
+
+def observed_fit(torch, mk, card: str, root: str, pool_step: dict, total: dict) -> dict:
+    """(a) 30 steps of ``fit`` on the main path's config with the tracer,
+    the status server (scraped from another thread), a log_dir and the NaN
+    injection's profiler window; then the trace, the window's attribution
+    and the records."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.obs import profile_parse, serve
+
+    port = free_port()
+    run = os.path.join(root, "a")
+    config = TrainConfig(**OBS, trace=True, serve_port=port, log_dir=run,
+                         anomaly_inject_nan_step=OBS_NAN_STEP,
+                         anomaly_profile_steps=OBS_WINDOW)
+    trainer = build_trainer(torch, config, quiet=True)
+    scraper = Scraper(port)
+    try:
+        warm(trainer)
+        out, counts = counted(mk, total, lambda: trainer.fit(steps=OBS_STEPS))
+        want = fit_launches(trainer, OBS_STEPS, pool_step)
+        check(counts == want, f"observed fit: launches {counts}, expected {want} "
+              "(the step's, inside and outside the profiler window, and the evaluation's)")
+        check(math.isfinite(out["test/eval_loss"]), f"observed fit gave {out}")
+        trainer.logger.flush()
+        scrapes = scraper.stop()
+        check(not scraper.errors, f"scrapes failed: {scraper.errors[:3]}")
+        check(all(n > 0 and set(scraper.codes[ep]) == {200} for ep, n in scrapes.items()),
+              f"scrapes during the fit: {scraper.codes}")
+        code, text = http_get(port, "/metricsz")
+        samples = serve.parse_openmetrics(text)
+        latest = trainer.logger.latest_record()
+        want_samples = {serve.metric_name(k): float(v) for k, v in latest.items()
+                        if isinstance(v, (int, float))}
+        check(code == 200 and samples.keys() == want_samples.keys() and all(
+            samples[k] == want_samples[k] or (math.isnan(samples[k]) and math.isnan(v))
+            for k, v in want_samples.items()),
+            "/metricsz does not parse back to the writer's latest record")
+        status = json.loads(http_get(port, "/statusz")[1])
+        check(status["step"] == trainer.state.step and status["state_schema_sha"] is None
+              and status["manifest"]["device_kind"] == torch.cuda.get_device_name(0),
+              f"/statusz: {sorted(status)}")
+        health = json.loads(http_get(port, "/healthz")[1])
+        check(health["healthy"] and health["step"] == trainer.state.step, f"/healthz {health}")
+        windows = trainer._profiler.written
+        check(len(windows) == 1, f"profiler windows written: {windows}")
+    finally:
+        scraper.stop()
+        trainer.close()
+    window = windows[0]
+    check(os.path.basename(window).startswith("trace_step")
+          and os.path.dirname(window) == os.path.join(run, "profile"), f"window at {window}")
+    bd = profile_parse.parse_profile(window)
+    lanes = trace_lanes(json.load(open(window)))
+    scopes = {k: v["time_us"] for k, v in bd["scopes"].items()}
+    check(bd["attributed_frac"] == 1.0 and bd["counts"]["lane"] == "torch_streams"
+          and scopes["mercury_scoring"] > 0 and scopes["mercury_optimizer"] > 0,
+          f"window attribution: {bd['attributed_frac']} {scopes} {lanes}")
+    saved = json.load(open(os.path.join(run, "device_time_breakdown.json")))
+    check(saved["total_device_time_us"] == bd["total_device_time_us"],
+          "device_time_breakdown.json is not the window's breakdown")
+    records = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+    check(any("prof/scope_frac/mercury_scoring" in r for r in records),
+          "no prof/* record after the window")
+    doc = json.load(open(os.path.join(run, "trace.json")))
+    threads = {e["args"]["name"]: e["tid"] for e in doc["traceEvents"] if e["ph"] == "M"}
+    dispatch = [e for e in doc["traceEvents"] if e.get("name") == "trainer/dispatch"]
+    check(len(dispatch) == WARMUP_STEPS + OBS_STEPS
+          and {e["tid"] for e in dispatch} == {threads["train"]},
+          f"trace.json: {len(dispatch)} dispatch spans, expected "
+          f"{WARMUP_STEPS + OBS_STEPS} on the train thread")
+    check("events/anomaly" in threads and doc["otherData"]["journal_events"] > 0,
+          f"trace.json: no journal lane ({sorted(threads)})")
+    flight = [n for n in os.listdir(run) if n.startswith("flight_record_")]
+    opened = int(os.path.basename(window)[len("trace_step"):-len(".json")])
+    check(flight == ["flight_record_step20_non_finite.json"] and 20 < opened <= 30,
+          f"flight records {flight}, window {window}: not the NaN's")
+    spans = json.load(open(os.path.join(run, flight[0])))["spans"]
+    check(any(s["name"] == "trainer/dispatch" for s in spans), "the flight record has no spans")
+    print(f"observability (a): {OBS_STEPS} steps with trace, serve_port {port} (scrapes "
+          f"{scrapes}), window {os.path.basename(window)}: scopes "
+          + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in scopes.items())
+          + f", attributed_frac {bd['attributed_frac']}, idle {bd['idle']['idle_frac']:.3f}, "
+          f"{bd['counts']['device_events']} device events ({bd['counts']['by_launch']} placed "
+          f"by their launch), {bd['counts']['annotation_ranges']} host ranges; trace.json "
+          f"{len(doc['traceEvents'])} events [{card}]")
+    print(f"observability (a): the window's lanes {lanes}")
+    return {"run": run, "scrapes": scrapes, "window": os.path.basename(window),
+            "breakdown": {k: bd[k] for k in ("scopes", "total_device_time_us",
+                                             "attributed_frac", "h2d", "idle", "counts")},
+            "lanes": lanes, "trace_events": len(doc["traceEvents"]),
+            "dispatch_spans": len(dispatch), "flight_record": flight[0]}
+
+
+def observed_rates(torch, mk, card: str, root: str, pool_step: dict, total: dict) -> dict:
+    """(a) A second run of the config (trace, a log_dir, no injection) for
+    (c)'s diff, then steps/s with the tracer off and on and the status
+    server off and on (scraped once or ten times a second by another
+    process) in turns, CUDA kernels a step, a span's host ns, and a kernel
+    step against a plain step."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.obs.serve import StatusServer
+    from mercury_tpu_torch.obs.trace import NULL_TRACER, SpanTracer
+
+    run = os.path.join(root, "b")
+    config = TrainConfig(**OBS, trace=True, log_dir=run)
+    trainer = build_trainer(torch, config, quiet=True)
+    rates = {arm: [] for arm in ("off", "trace", "serve1", "serve10")}
+    scrapes = []
+    try:
+        warm(trainer)
+        out, counts = counted(mk, total, lambda: trainer.fit(steps=OBS_STEPS))
+        want = fit_launches(trainer, OBS_STEPS, pool_step)
+        check(counts == want, f"second fit: launches {counts}, expected {want}")
+        # Against the plain versions at phase 4's step (33), after the fit,
+        # so the two runs of (c)'s diff draw alike; after the turns the loss
+        # nears 0 and float32's rounding of lse − z[y] is no longer small
+        # beside it.
+        step_err = kernel_vs_plain_step(torch, trainer, config, quiet=True)
+        own = trainer.tracer
+        for arm in OBS_TURNS:
+            trainer.tracer = SpanTracer(config.trace_capacity) if arm == "trace" else NULL_TRACER
+            server = scraper = None
+            if arm in OBS_SCRAPE_S:
+                server = StatusServer(0, health_fn=trainer._serve_health,
+                                      status_fn=trainer._serve_status,
+                                      metrics_fn=trainer.logger.latest_record)
+                scraper = Scraper(server.port, OBS_SCRAPE_S[arm])
+            try:
+                dt, counts, _, _ = timed_steps(torch, mk, trainer, OBS_TURN)
+            finally:
+                if scraper is not None:
+                    scrapes.append({arm: scraper.stop()})
+                    check(not scraper.errors, f"{arm}: scrapes failed {scraper.errors[:3]}")
+                    server.close()
+            for k, v in counts.items():
+                total[k] += v
+            want = {k: v * OBS_TURN for k, v in pool_step.items()}
+            check(counts == want, f"{arm} turn: launches {counts}, expected {want}")
+            rates[arm].append(OBS_TURN / dt)
+        # CUDA kernels a step (torch.profiler, not a ProfilerWindow: the
+        # step's scopes stay shut) with the tracer off and on, and with the
+        # scopes forced open, each arm from the same state (a reshuffle of
+        # the stream falls on the same step). Printed, not held equal: the
+        # count moves by a few kernels in ten steps between reads of one
+        # state whatever the arm; the hand-written kernels' launches, held
+        # exact in every turn, are the step's own.
+        from mercury_tpu_torch.train import scopes
+
+        kernels, state = {}, trainer.state
+        for arm in ("off", "trace", "scopes"):
+            trainer.tracer = own if arm == "trace" else NULL_TRACER
+            trainer.state = state.clone()
+            scopes.state.capturing = arm == "scopes"
+            try:
+                kernels[arm] = kernels_a_step(torch, trainer)
+            finally:
+                scopes.state.capturing = False
+        trainer.state = state
+        trainer.tracer = own
+        ns = {"null": span_ns(NULL_TRACER), "span_tracer": span_ns(SpanTracer(4096))}
+    finally:
+        trainer.close()
+    ratios = {arm: [a / b for a, b in zip(rates[arm], rates["off"])]
+              for arm in ("trace", "serve1", "serve10")}
+    print(f"observability (a): steps/s in turns {OBS_TURNS}: "
+          + ", ".join(f"{arm} {v}" for arm, v in rates.items())
+          + f" (scrapes {scrapes}); over off: "
+          + ", ".join(f"{arm} {[round(r, 3) for r in v]}" for arm, v in ratios.items())
+          + f"; CUDA kernels a step {kernels}; "
+          f"a span {ns['span_tracer']:.0f} ns on, "
+          f"{ns['null']:.0f} ns off; kernel step vs plain |d loss| "
+          f"{step_err['train/loss']:.2e} [{card}]")
+    return {"run": run, "rates": rates, "ratios": ratios, "scrapes": scrapes,
+            "span_ns": ns, "kernels_per_step": kernels, "kernel_vs_plain": step_err}
+
+
+def observed_ranks_body(root: str):
+    """One rank of phase 18 (b) (run by ``spawn``; prints nothing): the
+    W=2 lockstep config supervised, ``host_slow`` on rank 1 under each
+    aggregation mode, then ``scorer_die`` on rank 1 at budget 0 with the
+    levels recorded at every tick and refresh."""
+    import torch
+    import torch.distributed as dist
+
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    rank = dist.get_rank()
+    step = {"nll_fwd": 1, "nll_bwd": 1, "score_and_draw": 0, "table_refresh_draw": 1,
+            "augment_normalize": 1}
+    total = {k: 0 for k in mk.KERNELS}
+    service = {k: 0 for k in mk.KERNELS}
+    out = {"rank": rank, "runs": {}}
+
+    def fit(kw, before_fit=None):
+        trainer = build_trainer(torch, TrainConfig(**kw), quiet=True)
+        svc = trainer._scorer_fleet
+        c0 = dict(svc.launch_counts)
+        try:
+            extra = before_fit(trainer) if before_fit else None
+            t0 = time.perf_counter()
+            result, counts = counted(mk, total, lambda: trainer.fit(steps=OBS_RANK_STEPS))
+            elapsed = time.perf_counter() - t0
+            want = fit_launches(trainer, OBS_RANK_STEPS, step)
+            check(counts == want, f"rank {rank}: launches {counts}, expected {want}")
+            check(math.isfinite(result["train/loss"]), f"rank {rank}: fit gave {result}")
+            for k in service:
+                service[k] += svc.launch_counts[k] - c0[k]
+            return trainer, elapsed, extra
+        except BaseException:
+            trainer.close()
+            raise
+
+    for mode in ("allgather", "files"):
+        kw = dict(OBS_RANKS, crosshost_telemetry=mode, log_dir=os.path.join(root, mode))
+        if rank == 1:
+            kw["fault_spec"] = OBS_SLOW
+        trainer, elapsed, _ = fit(kw)
+        trainer.close()
+        out["runs"][mode] = {"seconds": elapsed, "triggers": (
+            None if trainer.anomaly is None else dict(trainer.anomaly.trigger_counts))}
+
+    kw = dict(OBS_RANKS, crosshost_telemetry="off", supervisor_restart_budget=0,
+              supervisor_probe_every=0, supervisor_sync_every=1,
+              log_dir=os.path.join(root, "ladder"))
+    if rank == 1:
+        kw["fault_spec"] = f"scorer_die@step={OBS_DIE_STEP}"
+    levels, acted, agree_us = [], [], []
+
+    def record(trainer):
+        from mercury_tpu_torch.parallel import collectives
+
+        sup = trainer.supervisor
+        tick, refresh, agree = sup.tick, trainer._refresh_tick, sup._agree
+
+        def ticked(step_):
+            tick(step_)
+            levels.append((step_, sup.level()))
+
+        def refreshed(step_, advanced=1):
+            acted.append((step_, sup.level()))
+            refresh(step_, advanced)
+
+        def timed_agree(values):
+            t0 = time.perf_counter()
+            got = agree(values)
+            agree_us.append((time.perf_counter() - t0) * 1e6)
+            return got
+
+        check(agree is collectives.allreduce_max_ints, "the W=2 supervisor has no agreement")
+        sup.tick, trainer._refresh_tick, sup._agree = ticked, refreshed, timed_agree
+
+    trainer, elapsed, _ = fit(kw, record)
+    try:
+        out["ladder"] = {"levels": levels, "acted": acted, "seconds": elapsed,
+                         "transitions": trainer.supervisor.summary()["transitions"],
+                         "released": trainer._scorer_fleet._ls_released,
+                         "agree_us": agree_us}
+    finally:
+        trainer.close()
+    out["launches"], out["service_launches"] = total, service
+    return out
+
+
+def observed_ranks(torch, card: str, root: str, total: dict) -> dict:
+    """(b) Two gloo ranks on card 0 (:func:`observed_ranks_body`)."""
+    from mercury_tpu_torch.parallel.distributed import spawn
+
+    ranks = spawn(observed_ranks_body, TWO_RANKS, "gloo", root, devices=[0] * TWO_RANKS,
+                  timeout_s=600)
+    for mode in ("allgather", "files"):
+        check(ranks[1]["runs"][mode]["triggers"] is None, "rank 1 has an anomaly engine")
+        fired = ranks[0]["runs"][mode]["triggers"]
+        check(fired.get("straggler", 0) >= 1, f"{mode}: the straggler trigger did not fire "
+              f"on rank 0 ({fired})")
+        records = [json.loads(line)
+                   for line in open(os.path.join(root, mode, "metrics.jsonl"))]
+        ticks = [r for r in records if "host/reporting" in r]
+        check(ticks and all(k in ticks[-1] for k in ("host/min/step_time_s",
+                                                     "host/max/step_time_s",
+                                                     "host/spread/step_time_s")),
+              f"{mode}: rank 0's records lack the host/* keys")
+        ratios = [r["host/straggler_ratio"] for r in ticks if "host/straggler_ratio" in r]
+        check(ratios and max(ratios) > OBS_RANKS["anomaly_straggler_factor"],
+              f"{mode}: host/straggler_ratio {ratios}")
+        ranks[0]["runs"][mode]["straggler_ratio"] = ratios
+    a, b = ranks[0]["ladder"], ranks[1]["ladder"]
+    check(a["levels"] == b["levels"] and a["acted"] == b["acted"],
+          f"the ranks' levels differ: {a['levels']} / {b['levels']}")
+    moves = [[(t["step"], t["from"], t["to"]) for t in r["transitions"]] for r in (a, b)]
+    check(moves[0] == moves[1] and len(moves[0]) == 1 and moves[0][0][1:] == ("async", "sync"),
+          f"the ranks' transitions: {moves}")
+    check(a["released"] and b["released"], "a rank did not leave the lockstep")
+    check(max(a["seconds"], b["seconds"]) < OBS_RANK_TIMEOUT_S,
+          f"the ladder fits took {a['seconds']:.1f} and {b['seconds']:.1f} s")
+    check(a["acted"][-1][1] == 1, f"the last refresh acted on level {a['acted'][-1]}")
+    launches = {k: sum(r["launches"][k] + r["service_launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    for k in ("nll_fwd", "nll_bwd", "table_refresh_draw", "augment_normalize"):
+        check(all(r["launches"][k] > 0 for r in ranks), f"(b): {k} never launched")
+    agree = a["agree_us"] + b["agree_us"]
+    print(f"observability (b): two gloo ranks on one card; straggler ratios "
+          f"allgather {[round(x, 3) for x in ranks[0]['runs']['allgather']['straggler_ratio']]}"
+          f", files {[round(x, 3) for x in ranks[0]['runs']['files']['straggler_ratio']]}; "
+          f"ladder {moves[0]}, levels a tick {[lvl for _, lvl in a['levels']]} on both "
+          f"ranks, fits {a['seconds']:.1f}/{b['seconds']:.1f} s; the agreement "
+          f"{statistics.median(agree):.1f} µs a tick (median of {len(agree)}, max "
+          f"{max(agree):.1f}); launches {launches} [{card}]")
+    for k, v in launches.items():
+        total[k] += v
+    return {"per_rank": ranks, "launches": launches,
+            "agree_us": {"median": statistics.median(agree), "max": max(agree),
+                         "n": len(agree)}}
+
+
+def observed_reports(card: str, run_a: str, run_b: str) -> dict:
+    """(c) The report of (a)'s run, as markdown and HTML (``report.main``
+    in this process), and ``--diff`` of (a)'s two runs through the command
+    line, ``python -m mercury_tpu_torch.obs.report``."""
+    from mercury_tpu_torch.obs import report
+
+    out = {}
+    for name, args in (("report", [run_a, "--out", os.path.join(run_a, "report.md")]),
+                       ("html", [run_a, "--html", "--out", os.path.join(run_a, "report.html")])):
+        rc = report.main(args)
+        out[name] = {"rc": rc}
+        check(rc == 0, f"report {name}: rc {rc}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mercury_tpu_torch.obs.report", "--diff",
+                           run_a, run_b], capture_output=True, text=True, timeout=120, cwd=ROOT)
+    out["diff"] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                   "checked": [line for line in proc.stdout.splitlines()
+                               if line.startswith(("ok ", "skip "))]}
+    check(proc.returncode == 0, f"report --diff: rc {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    text = open(os.path.join(run_a, "report.md")).read()
+    sections = [line for line in text.splitlines() if line.startswith("## ")]
+    for want in ("## Manifest", "## Metrics", "## Device-time breakdown", "## Run timeline",
+                 "## Flight records"):
+        check(want in sections, f"the report lacks {want}: {sections}")
+    print(f"observability (c): report sections {sections}; --diff exit 0 over "
+          f"{len(out['diff']['checked'])} rules [{card}]")
+    out["sections"] = sections
+    return out
+
+
+def observability_phase(torch, card: str, main_path) -> dict:
+    """Phase 18: (a) tracing, serving and the profiler window on the main
+    path, (b) aggregation and the agreed ladder at W=2, (c) reports. The
+    launches counted are the fits' and the turns' steps and, in (b), the
+    service's scoring."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    pool_step = {k: v // MAIN_STEPS for k, v in main_path["launches"].items()}
+    total = {k: 0 for k in mk.KERNELS}
+    two_ranks = {k: 0 for k in mk.KERNELS}
+    root = tempfile.mkdtemp(prefix="mercury_observed_")
+    seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        fitted = part("a", observed_fit, torch, mk, card, root, pool_step, total)
+        rates = part("a rates", observed_rates, torch, mk, card, root, pool_step, total)
+        torch.cuda.empty_cache()
+        ranks = part("b", observed_ranks, torch, card, os.path.join(root, "ranks"), two_ranks)
+        reports = part("c", observed_reports, card, fitted["run"], rates["run"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    check(all(v > 0 for k, v in total.items() if k in pool_step and pool_step[k]),
+          f"observability: a kernel of the main path never launched: {total}")
+    print("observability: seconds by part " + ", ".join(f"({k}) {v:.1f}"
+                                                        for k, v in seconds.items()))
+    return {"launches": total, "two_rank_launches": two_ranks,
+            "summary": {"card": card, "fit": fitted, "rates": rates,
+                        "ranks": {k: v for k, v in ranks.items() if k != "per_rank"},
+                        "per_rank": ranks["per_rank"], "reports": reports,
                         "seconds": seconds}}
 
 

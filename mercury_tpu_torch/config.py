@@ -243,6 +243,24 @@ class TrainConfig:
     anomaly_dir: Optional[str] = None
     anomaly_inject_nan_step: int = 0
     anomaly_straggler_factor: float = 2.0
+    # Host span tracing (obs/trace.py): named spans of the training thread,
+    # the prefetch worker and the scorer's workers into a ring of the last
+    # trace_capacity; at close rank 0 writes log_dir/trace.json with the
+    # event journal merged in. A span times host work (a step's launches,
+    # not its kernels) and never synchronizes the card; with trace=False
+    # every site is one shared no-op.
+    trace: bool = False
+    trace_capacity: int = 4096
+    # Cross-rank telemetry (obs/aggregate.py): host/{min,max,spread}/* and
+    # host/straggler_ratio on rank 0's records, over a window of
+    # crosshost_window steps a rank. "files" tails the ranks' shards in
+    # log_dir on rank 0's drain thread; "allgather" gathers at the log tick
+    # on every rank; "auto" is "files" at W > 1 and "off" at one rank.
+    crosshost_telemetry: str = "auto"
+    crosshost_window: int = 8
+    # The status server (obs/serve.py) on rank 0 at this port: /healthz,
+    # /statusz and /metricsz (the writer's latest record). 0: none.
+    serve_port: int = 0
     # The triggers' floors and ceilings (0 disarms each): perf/mfu (read
     # only where the card's peak is known), sampler/ess, the host stream's
     # stall share of a log interval, sampler_dist/gini, any class below
@@ -345,12 +363,6 @@ class TrainConfig:
             if self.scorer_throttle_s < 0:
                 bad("scorer_throttle_s", "must be >= 0")
             validate_scorer_composition(self, self.world_size)
-            if self.supervise and self.world_size > 1:
-                bad("supervise", "the async scorer's degradation ladder at world_size > 1 "
-                    "needs its level changes agreed across the ranks (a rank that left "
-                    "the lockstep scorer would leave the others waiting at its "
-                    "snapshot barrier), which the port does not do yet: supervise a W>1 "
-                    "run with refresh_mode='sync'")
         if self.use_scoretable:
             if self.refresh_size < 1:
                 bad("refresh_size", "must be >= 1")

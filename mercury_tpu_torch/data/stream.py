@@ -42,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from mercury_tpu_torch.obs.trace import NULL_TRACER
 from mercury_tpu_torch.utils.logging import get_logger
 
 __all__ = ["HostStreamSource", "ImageFolderSource", "PrefetchPipeline"]
@@ -163,11 +164,13 @@ class PrefetchPipeline:
     :class:`~mercury_tpu_torch.faults.FaultPlane`) arms the ``prefetch_die``
     and ``prefetch_stall`` hooks before each gather. ``generation`` > 0
     names the worker ``mercury-prefetch-r<generation>``: a pipeline the
-    supervisor built in place of a dead one.
+    supervisor built in place of a dead one. ``tracer`` (``obs/trace.py``)
+    records the worker's ``stream/*`` spans on its ``prefetch`` track.
     """
 
     def __init__(self, source, rows: int, device, depth: int = 2,
-                 pop_timeout_s: float = 300.0, faults=None, generation: int = 0) -> None:
+                 pop_timeout_s: float = 300.0, faults=None, generation: int = 0,
+                 tracer=None) -> None:
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.source = source
@@ -179,6 +182,7 @@ class PrefetchPipeline:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._pop_timeout_s = float(pop_timeout_s)
         self._faults = faults
+        self._tracer = tracer if tracer is not None else NULL_TRACER
         dtype = torch.from_numpy(np.empty(0, source.dtype)).dtype
         shape = (self.rows,) + tuple(source.row_shape)
         self._staging = [torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
@@ -332,6 +336,8 @@ class PrefetchPipeline:
     def _loop(self) -> None:
         if self._cuda:
             torch.cuda.set_device(self.device)
+        tracer = self._tracer
+        tracer.register_thread("prefetch")
         while True:
             item = self._work.get()
             if item is _STOP:
@@ -349,22 +355,31 @@ class PrefetchPipeline:
                 slab = self._staging[slot]
                 if self._copied[slot] is not None:
                     # depth + 1 slabs back: a fence, all but never a wait.
-                    self._copied[slot].synchronize()
-                gidx = self._indices(idx, ready, self._idx_host[slot])
+                    with tracer.span("stream/slab_fence", cat="stream"):
+                        self._copied[slot].synchronize()
+                # The wait this thread exists to absorb: the step that makes
+                # the indices, so the training thread never waits for it.
+                with tracer.span("stream/wait_indices", cat="stream"):
+                    gidx = self._indices(idx, ready, self._idx_host[slot])
                 if gidx.shape[0] != self.rows:
                     raise ValueError(f"a selection of {gidx.shape[0]} rows; the pipeline "
                                      f"streams {self.rows}")
                 t_ready = time.monotonic()
-                self.source.gather(gidx, slab.numpy())
+                with tracer.span("stream/gather", cat="stream", rows=int(gidx.size)):
+                    self.source.gather(gidx, slab.numpy())
                 copied = None
-                if self._cuda:
-                    with torch.cuda.stream(self._copy_stream):
-                        batch = slab.to(self.device, non_blocking=True)
-                        copied = torch.cuda.Event(blocking=True)
-                        copied.record(self._copy_stream)
-                    self._copied[slot] = copied
-                else:
-                    batch = slab.clone()
+                # The copy's enqueue on the side stream (on the card), not
+                # the copy itself.
+                with tracer.span("stream/h2d", cat="stream",
+                                 bytes=int(slab.numel() * slab.element_size())):
+                    if self._cuda:
+                        with torch.cuda.stream(self._copy_stream):
+                            batch = slab.to(self.device, non_blocking=True)
+                            copied = torch.cuda.Event(blocking=True)
+                            copied.record(self._copy_stream)
+                        self._copied[slot] = copied
+                    else:
+                        batch = slab.clone()
                 self.total_h2d_bytes += slab.numel() * slab.element_size()
                 self._publish((generation, batch, copied, time.monotonic() - t_ready))
             except BaseException as exc:  # raised again at the next pop()

@@ -14,9 +14,9 @@ writer's drain thread at no cost to the training thread), dumped as one
   its budget;
 - **mfu_floor**: ``perf/mfu`` below its floor (0.0 means the card's peak is
   unknown: no breach);
-- **straggler**: ``host/straggler_ratio`` above its factor. Only a
-  cross-host aggregator attaches that key, and the port has none yet, so
-  it stays armed and silent, as in a one-process JAX run;
+- **straggler**: ``host/straggler_ratio`` above its factor; the cross-rank
+  aggregator (``obs/aggregate.py``, ``crosshost_telemetry``) attaches that
+  key at W > 1, before this engine sees the record;
 - **selection_collapse**: ``sampler_dist/gini`` above its ceiling, the
   histograms attached;
 - **class_starvation**: ``sampler_dist/class_starved`` at or above its
@@ -27,8 +27,9 @@ writer's drain thread at no cost to the training thread), dumped as one
 A dump holds the ring, the step times, the trigger counts, the run's
 context (``context_fn``: the config, the manifest, the pipeline's,
 scorer's, supervisor's and fault plane's summaries) and each local card's
-allocator statistics (:func:`device_memory_stats`); ``spans`` is empty (the
-port has no span tracer yet). With ``profile_steps > 0`` a trigger also
+allocator statistics (:func:`device_memory_stats`) and ``spans``, the
+tracer's ring (``obs/trace.py``; empty with the disabled tracer). Each
+trigger also marks an ``anomaly/<kind>`` instant on the tracer. With ``profile_steps > 0`` a trigger also
 asks ``fit`` for a ``torch.profiler`` window of that many steps
 (:meth:`AnomalyEngine.take_profile_request`). Dumps are debounced
 (``cooldown_steps`` between them, ``max_dumps`` a run); every trigger,
@@ -102,7 +103,7 @@ class AnomalyEngine:
                  var_ratio_patience: int = 0, cooldown_steps: int = 200,
                  max_dumps: int = 8, dump_dir: Optional[str] = None,
                  context_fn: Optional[Callable[[], Dict[str, Any]]] = None,
-                 profile_steps: int = 0, journal=None) -> None:
+                 profile_steps: int = 0, journal=None, tracer=None) -> None:
         if ring_steps < 1:
             raise ValueError(f"ring_steps must be >= 1, got {ring_steps}")
         self.ring: deque = deque(maxlen=int(ring_steps))
@@ -120,6 +121,7 @@ class AnomalyEngine:
         self.context_fn = context_fn
         self.profile_steps = int(profile_steps)
         self.journal = journal
+        self.tracer = tracer
 
         self.triggers = 0
         self.trigger_counts: Dict[str, int] = {}
@@ -257,6 +259,8 @@ class AnomalyEngine:
                 if self.profile_steps > 0:
                     self._profile_pending = self.profile_steps
         _log.warning("anomaly trigger %s at step %d: %s", kind, step, detail)
+        if self.tracer is not None:
+            self.tracer.instant(f"anomaly/{kind}", cat="anomaly", step=step)
         path = None
         if not debounced:
             path = self.dump_flight_record(kind, step, detail)
@@ -289,7 +293,7 @@ class AnomalyEngine:
                 "trigger_counts": trigger_counts,
                 "triggers_total": triggers_total,
                 "ring": list(self.ring),
-                "spans": [],
+                "spans": self.tracer.snapshot() if self.tracer is not None else [],
                 "step_time_window_s": [round(t, 6) for t in self._step_times],
                 "rolling_median_step_s": self._median_s,
                 "device_memory": device_memory_stats(),

@@ -217,3 +217,61 @@ def all_gather_flat(chunk: torch.Tensor, group=None) -> torch.Tensor:
     out = chunk.new_empty((w * chunk.numel(),))
     dist.all_gather_into_tensor(out, chunk, group=group)
     return out
+
+
+# ------------------------------------------------------- host collectives
+# Two small collectives of the host runtime, on ``host_flag_device``: the
+# cross-rank telemetry's all-gather at the log tick and the supervisor's
+# ladder agreement a tick. Their values are host numbers in and out. Under
+# NCCL the tensor is on the card, so the collective runs on a side stream
+# of its own: reading its result waits for that stream alone, never for
+# the step's kernels queued on the current stream.
+
+
+_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _host_collective(values, dtype: torch.dtype, run, group) -> List:
+    """``run(tensor)`` on a tensor of ``values`` on ``host_flag_device``;
+    the result as a list of host numbers."""
+    dev = host_flag_device(group)
+    if dev.type != "cuda":
+        return run(torch.tensor(list(values), dtype=dtype)).tolist()
+    side = _SIDE_STREAMS.get(dev.index)
+    if side is None:
+        side = _SIDE_STREAMS[dev.index] = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        out = run(torch.tensor(list(values), dtype=dtype, device=dev)).cpu()
+    return out.tolist()
+
+
+def allgather_floats(values: Sequence[float], group=None) -> List[List[float]]:
+    """Every rank's row of ``len(values)`` floats, in rank order, by one
+    ``all_gather_into_tensor`` of float32 (the JAX package's
+    ``process_allgather`` dtype; NaN passes through). Ranks must send rows
+    of one width; ``[values]`` rounded to float32 at one rank."""
+    w, n = world(group), len(values)
+
+    def run(t: torch.Tensor) -> torch.Tensor:
+        if w == 1:
+            return t[None]
+        out = t.new_empty((w * n,))
+        dist.all_gather_into_tensor(out, t, group=group)
+        return out.view(w, n)
+
+    if w == 1:
+        return [torch.tensor(list(values), dtype=torch.float32).tolist()]
+    return _host_collective(values, torch.float32, run, group)
+
+
+def allreduce_max_ints(values: Sequence[int], group=None) -> List[int]:
+    """The elementwise maximum over the ranks of a few integers, by one
+    all-reduce (MAX) of int64; ``values`` at one rank."""
+    if world(group) == 1:
+        return [int(v) for v in values]
+
+    def run(t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return t
+
+    return [int(v) for v in _host_collective(values, torch.int64, run, group)]

@@ -35,7 +35,20 @@ cause as parent. Decisions and restarts happen on the training thread, in
 :meth:`~HostSupervisor.report_failure`; the optional ``mercury-supervisor``
 thread (``poll_s > 0``) only timestamps a death between ticks.
 
-One addition to the JAX supervisor: a unit may name its death's cause
+**The ladder across ranks.** The JAX package runs W ranks in one process,
+with one supervisor that sees every rank's faults; the port runs a process
+a rank, each with its own supervisor. With ``agree`` (the Trainer's at
+W > 1: an all-reduce MAX of a few integers over the ranks) the ranks act
+as that one supervisor: at every :meth:`HostSupervisor.tick`, after its own
+units and SLOs, each rank agrees its ``[level, probe pinned]`` with the
+others and descends to the highest level any rank reached (each level a
+``supervisor/degrade`` of its own, as the one supervisor would descend), so
+every rank acts on the same level at every step. The probes then fall on
+the same steps, and a probe's climb needs every rank's probe to succeed
+(one more agreement, on a probe's tick only): a failure on any rank
+descends them all.
+
+Two additions to the JAX supervisor: the agreement above, and: a unit may name its death's cause
 (``register_unit(..., cause=)``, the journal id of the fault that killed
 it), which its restart, failed restart and exhaustion events take as
 parent, so a chaos run's ladder walk reads back to the ``fault/fired``
@@ -113,16 +126,24 @@ class HostSupervisor:
     log records; :meth:`level` says which refresh path the step takes. The
     metric writer's drain thread feeds :meth:`observe_record`.
     ``anomaly`` (an :class:`~mercury_tpu_torch.obs.anomaly.AnomalyEngine`)
-    dumps a flight record at every transition; ``journal`` records them."""
+    dumps a flight record at every transition; ``journal`` records them.
+    ``agree`` takes this rank's list of integers and returns their
+    elementwise maximum over the ranks (every rank calls it at the same
+    tick); None at one rank."""
 
     def __init__(self, *, restart_budget: int = 3, backoff_s: float = 0.5,
                  probe_every: int = 200, poll_s: float = 0.0,
-                 anomaly=None, journal=None) -> None:
+                 anomaly=None, journal=None,
+                 agree: Optional[Callable[[List[int]], List[int]]] = None) -> None:
         self._budget = max(int(restart_budget), 0)
         self._backoff_s = max(float(backoff_s), 0.0)
         self._probe_every = max(int(probe_every), 0)
         self._anomaly = anomaly
         self._journal = journal
+        # The ranks' agreement (elementwise MAX over the ranks), or None.
+        self._agree = agree
+        # A peer rank's latched SLO pins the probes here too.
+        self._peer_pinned = False
         # The latest descent's event: the parent of the probes after it.
         self._last_degrade_event: Optional[str] = None
         self._units: List[_Unit] = []
@@ -203,7 +224,20 @@ class HostSupervisor:
                 continue
             self._handle_down(unit, step, now)
         self._check_slos(step)
+        if self._agree is not None:
+            self._agree_level(step)
         self._maybe_probe(step)
+
+    def _agree_level(self, step: int) -> None:
+        """Agree ``[level, probe pinned]`` with the other ranks and descend
+        to the highest level any rank is at, one level a transition."""
+        with self._lock:
+            mine = [self._level, int(any(s.breached for s in self._slos))]
+        level, pinned = self._agree(mine)
+        with self._lock:
+            self._peer_pinned = bool(pinned)
+        for _ in range(level - self.level()):
+            self._degrade(step, f"agreed across the ranks: a rank is at {LEVEL_NAMES[level]}")
 
     def _check_slos(self, step: int) -> None:
         with self._lock:
@@ -400,7 +434,7 @@ class HostSupervisor:
         with self._lock:
             # A breaching SLO pins the ladder: climbing while it lasts would
             # oscillate (recover, breach again, descend).
-            slo_pinned = any(s.breached for s in self._slos)
+            slo_pinned = any(s.breached for s in self._slos) or self._peer_pinned
             due = (self._level > 0 and self._probe_every > 0
                    and not slo_pinned and step >= self._next_probe_step)
             if due:
@@ -409,6 +443,7 @@ class HostSupervisor:
             degrade_eid = self._last_degrade_event
         if not due or probe is None:
             return
+        error: Optional[BaseException] = None
         try:
             if level == 1 and revive is not None:
                 # The last climb needs live workers: revive them, then
@@ -416,11 +451,23 @@ class HostSupervisor:
                 revive()
             probe()
         except Exception as exc:
+            error = exc
+        # Across ranks the climb needs every rank's probe.
+        peer_failed = (self._agree is not None
+                       and self._agree([0 if error is None else 1])[0] > 0)
+        if error is not None:
             peid = self._journal_emit(
                 "supervisor/probe_failed", step, parent=degrade_eid,
                 detail={"level": level, "level_name": LEVEL_NAMES[level],
-                        "error": f"{type(exc).__name__}: {exc}"})
-            self.report_failure("recovery probe", step, exc, parent=peid)
+                        "error": f"{type(error).__name__}: {error}"})
+            self.report_failure("recovery probe", step, error, parent=peid)
+            return
+        if peer_failed:
+            peid = self._journal_emit(
+                "supervisor/probe_failed", step, parent=degrade_eid,
+                detail={"level": level, "level_name": LEVEL_NAMES[level],
+                        "error": "the probe failed on another rank"})
+            self._degrade(step, "recovery probe failed on another rank", parent=peid)
             return
         peid = self._journal_emit("supervisor/probe_ok", step, parent=degrade_eid,
                                   detail={"level": level, "level_name": LEVEL_NAMES[level]})

@@ -58,6 +58,7 @@ from torch.func import functional_call
 from mercury_tpu_torch.config import TrainConfig
 from mercury_tpu_torch.data.pipeline import ShardedDataset, normalize_images
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
+from mercury_tpu_torch.obs.trace import NULL_TRACER
 from mercury_tpu_torch.ops import mercury_kernels as mk
 from mercury_tpu_torch.ops import reference
 from mercury_tpu_torch.sampling.importance import per_sample_grad_norm_bound, per_sample_loss
@@ -291,16 +292,20 @@ class ScorerFleet:
     the JAX fleet's, :meth:`reset` also drops a chunk begun before it, so
     no chunk of the old trajectory reaches the queue after a restore.
     ``faults`` (a :class:`~mercury_tpu_torch.faults.FaultPlane`) arms the
-    ``scorer_die`` and ``scorer_nan`` hooks of :meth:`_next_chunk`."""
+    ``scorer_die`` and ``scorer_nan`` hooks of :meth:`_next_chunk`.
+    ``tracer`` (``obs/trace.py``) records a ``fleet/chunk`` span a chunk a
+    worker scores (the chunk's host time: its launches and the copy back of
+    its scores), on the worker's ``scorer<i>`` track."""
 
     def __init__(self, dataset: ShardedDataset, model: torch.nn.Module,
-                 config: TrainConfig, device, faults=None) -> None:
+                 config: TrainConfig, device, faults=None, tracer=None) -> None:
         self._scorer = ChunkScorer(dataset, model, config, device)
         self._L, self._R = self._scorer.L, self._scorer.R
         self._seed = int(config.seed)
         self._workers = int(config.scorer_workers)
         self._throttle = float(config.scorer_throttle_s)
         self._faults = faults
+        self._tracer = tracer if tracer is not None else NULL_TRACER
         # Kernel launches of this fleet's scoring (ops.mercury_kernels).
         self.launch_counts: Dict[str, int] = self._scorer.launch_counts
 
@@ -385,12 +390,14 @@ class ScorerFleet:
         return chunk
 
     def _run(self, idx: int, stop: threading.Event) -> None:
+        self._tracer.register_thread(f"scorer{idx}")
         try:
             while not (self._closed or stop.is_set()):
                 if self._snap is None:
                     stop.wait(0.005)
                     continue
-                generation, chunk = self._next_chunk()
+                with self._tracer.span("fleet/chunk", cat="scorer"):
+                    generation, chunk = self._next_chunk()
                 if chunk is not None:
                     self._offer(generation, chunk, stop)
                 if self._throttle > 0:

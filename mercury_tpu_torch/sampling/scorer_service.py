@@ -54,7 +54,17 @@ worker's loop. :meth:`ScorerService.restart_workers` replaces the workers
 raises at the next drain. With ``journal`` (an
 :class:`~mercury_tpu_torch.obs.events.EventJournal`) the service journals
 each tenant's admission, each snapshot, a tenant's starvation (the rising
-edge of its SLO breach) and a wedge. Not ported: the tracer's spans.
+edge of its SLO breach) and a wedge. ``tracer`` (``obs/trace.py``) records
+a ``fleet/chunk`` span a chunk a worker scores, on its ``scorer-svc<i>``
+track.
+
+A descent of the supervisor's ladder out of level 0 calls
+:meth:`ScorerService.release_lockstep`: the trainer no longer drains the
+lockstep's chunks, so the service stops arming rounds and no snapshot
+waits at the delivery barrier; the workers' restart for the climb back
+(:meth:`ScorerService.restart_workers`) arms it again. The ladder's level
+is agreed across the ranks (``runtime/supervisor.py``), so every rank
+releases at the same step.
 """
 
 from __future__ import annotations
@@ -73,6 +83,7 @@ from mercury_tpu_torch.config import (  # noqa: F401 (the JAX module's names)
     validate_scorer_composition,
 )
 from mercury_tpu_torch.data.pipeline import ShardedDataset
+from mercury_tpu_torch.obs.trace import NULL_TRACER
 from mercury_tpu_torch.parallel.distributed import cards_in_use, reserve_scorer_device
 from mercury_tpu_torch.sampling.scorer_fleet import (
     ChunkScorer,
@@ -131,7 +142,8 @@ class ScorerService:
     records the service's decisions."""
 
     def __init__(self, dataset: ShardedDataset, model: torch.nn.Module,
-                 config: TrainConfig, device, faults=None, journal=None) -> None:
+                 config: TrainConfig, device, faults=None, journal=None,
+                 tracer=None) -> None:
         device = with_index(torch.device(device))
         self._backend = config.scorer_backend
         scorer_device = device
@@ -147,6 +159,7 @@ class ScorerService:
         self._config = config
         self._faults = faults
         self._journal = journal
+        self._tracer = tracer if tracer is not None else NULL_TRACER
         # Kernel launches of the service's scoring, apart from the step's.
         self.launch_counts: Dict[str, int] = self._scorer.launch_counts
 
@@ -168,6 +181,9 @@ class ScorerService:
         self._ls_chunk: Optional[Tuple[int, Optional[ScoreChunk]]] = None
         self._ls_ticket = 0                 # bumped at every arm and reset
         self._ls_armed: Optional[int] = None
+        # Set by release_lockstep (a ladder descent), cleared by a restart:
+        # no round is armed or delivered while set.
+        self._ls_released = False
         # The trainer's wait at each lockstep snapshot, in ms.
         self.barrier_waits_ms: List[float] = []
 
@@ -273,6 +289,7 @@ class ScorerService:
         return chunk
 
     def _run(self, idx: int, stop: threading.Event) -> None:
+        self._tracer.register_thread(f"scorer-svc{idx}")
         try:
             while not (self._closed or stop.is_set()):
                 if self._lockstep:
@@ -293,7 +310,8 @@ class ScorerService:
                     self._work.wait()
                     continue
                 try:
-                    generation, chunk = self._score_chunk(t)
+                    with self._tracer.span("fleet/chunk", cat="scorer", tenant=t.idx):
+                        generation, chunk = self._score_chunk(t)
                 finally:
                     with self._lock:
                         t.inflight -= 1
@@ -322,7 +340,8 @@ class ScorerService:
         with self._lock:
             self._ls_req.clear()
             ticket = self._ls_ticket
-        generation, chunk = self._score_chunk(self._tenants[0])
+        with self._tracer.span("fleet/chunk", cat="scorer", tenant=0):
+            generation, chunk = self._score_chunk(self._tenants[0])
         with self._lock:
             if generation != self._generation:
                 chunk = None
@@ -337,7 +356,7 @@ class ScorerService:
         collected (waiting for this rank's scorer) and queued before the
         new snapshot arms the next request."""
         snap = self._scorer.snapshot(model, step)
-        if self._lockstep:
+        if self._lockstep and not self._ls_released:
             self._lockstep_deliver()
         with self._lock:
             for t in self._tenants:
@@ -347,7 +366,8 @@ class ScorerService:
             snapshots = self._snapshots
             self._last_step = int(step)
             self._work.set()
-            if self._lockstep and self._exc is None and not self._closed:
+            if (self._lockstep and self._exc is None and not self._closed
+                    and not self._ls_released):
                 self._ls_ticket += 1
                 self._ls_armed = self._ls_ticket
                 self._ls_done.clear()
@@ -387,6 +407,19 @@ class ScorerService:
             return
         with self._lock:
             t0.last_delivered_step = chunk.step
+
+    def release_lockstep(self) -> None:
+        """Leave the lockstep (a ladder descent): disarm the round in flight,
+        drop its chunk (the ticket moves on) and arm no more until
+        :meth:`restart_workers`, so no snapshot waits at the delivery
+        barrier. Nothing without lockstep."""
+        if not self._lockstep:
+            return
+        with self._lock:
+            self._ls_released = True
+            self._ls_armed = None
+            self._ls_ticket += 1
+            self._ls_req.clear()
 
     def drain_for_step(self, step: int) -> List[ScoreChunk]:
         """Tenant 0's ready chunks (the Trainer applies them); the other
@@ -527,6 +560,7 @@ class ScorerService:
             self._ls_done.clear()
             self._ls_chunk = None
             self._ls_armed = None
+            self._ls_released = False
             self._ls_ticket += 1
             self._generation += 1
             self._restarts += 1

@@ -15,7 +15,10 @@ included), on the CPU by the host clock.
 :func:`trace` is a ``torch.profiler`` window that writes a Chrome trace.
 :class:`ProfilerWindow` is the one an anomaly trigger opens inside
 ``fit`` (``anomaly_profile_steps``): it writes to
-``{anomaly_dir|log_dir}/profile`` and never raises.
+``{anomaly_dir|log_dir}/profile`` and never raises. While it captures, the
+step opens its named scopes (``train/scopes.py``), so the trace's kernels
+can be attributed (``obs/profile_parse.py``); outside a window the step
+opens none.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from mercury_tpu_torch.data.pipeline import normalize_images
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
 from mercury_tpu_torch.parallel.collectives import allreduce_mean_
 from mercury_tpu_torch.sampling.importance import per_sample_loss, reweighted_loss
+from mercury_tpu_torch.train import scopes
 from mercury_tpu_torch.train.step import scoring_forward, to_nchw
 from mercury_tpu_torch.utils.logging import get_logger
 
@@ -169,8 +173,10 @@ class ProfilerWindow:
     Trainer's ``jax.profiler`` window). :meth:`start` opens it for
     ``steps`` steps, :meth:`advance` counts the steps taken and closes it
     after the last, writing ``<log_dir>/profile/trace_step<N>.json`` (N the
-    step it opened at). Nothing here raises: a capture that fails to open
-    or to write is logged and dropped. Without ``log_dir`` nothing opens."""
+    step it opened at). While it is open the step's named scopes open too
+    (``scopes.state.capturing``). Nothing here raises: a capture that fails
+    to open or to write is logged and dropped. Without ``log_dir`` nothing
+    opens."""
 
     def __init__(self, log_dir: Optional[str]) -> None:
         self.dir = os.path.join(log_dir, "profile") if log_dir else None
@@ -198,21 +204,26 @@ class ProfilerWindow:
             _log.warning("profiler start failed: %s", exc)
             return False
         self._prof, self._left, self._step = prof, int(steps), int(step)
+        scopes.state.capturing = True
         _log.warning("anomaly-armed profiler capture: %d steps -> %s", steps, self.dir)
         return True
 
-    def advance(self, steps: int = 1) -> None:
+    def advance(self, steps: int = 1) -> Optional[str]:
+        """Count ``steps`` steps; after the window's last, close it and
+        return the trace's path (None otherwise, or when it failed)."""
         if self._prof is None:
-            return
+            return None
         self._left -= steps
         if self._left <= 0:
-            self.stop()
+            return self.stop()
+        return None
 
     def stop(self) -> Optional[str]:
         """Close the capture and write its trace; the path, or None."""
         prof, self._prof, self._left = self._prof, None, 0
         if prof is None:
             return None
+        scopes.state.capturing = False
         try:
             prof.stop()
             os.makedirs(self.dir, exist_ok=True)

@@ -165,6 +165,15 @@ The step's random numbers are one :class:`Draws`: by default made from the
 state's generator on the device; tests pass the JAX package's draws instead.
 On the card, with ``compute_dtype="bfloat16"``, forwards run under bf16
 autocast and the logits come back in float32.
+
+The JAX step's named scopes are ``record_function`` ranges
+(``train/scopes.py``): ``mercury_scoring`` (the scoring forward and its
+scores), ``mercury_augmentation`` or ``mercury_input_fuse`` (an ingest),
+``mercury_variance_probe``, ``mercury_grad_sync`` (the gradient's and the
+running statistics' collectives) and ``mercury_optimizer`` (the update).
+They open only while a profiler window captures; otherwise each site is a
+test of one host bool, and the step launches what it launched without
+them.
 """
 
 from __future__ import annotations
@@ -242,6 +251,7 @@ from mercury_tpu_torch.sampling.scoretable import (
     table_draw_inverse_cdf,
     table_probs,
 )
+from mercury_tpu_torch.train.scopes import scope
 from mercury_tpu_torch.train.state import (
     Augment,
     CachedPool,
@@ -467,19 +477,21 @@ def sync_and_step(state: MercuryState, config: TrainConfig, draws: Draws,
     if config.zero_sharding:
         return _zero_step(state, config, draws, params, telemetry), sparse_rate
     grads = [p.grad for p in params if p.grad is not None]
-    if _int8_wire(config):
-        flat = flat_layout(state)
-        vec = torch.cat([g.reshape(-1) for g in grads])[flat.order]
-        vec = compressed_allreduce_mean(vec, _need(draws.wire_u1, "wire_u1"),
-                                        _need(draws.wire_u2, "wire_u2"))[flat.inverse]
-        for g, part in zip(grads, vec.split([g.numel() for g in grads])):
-            g.copy_(part.view_as(g))
-    elif config.world_size > 1:
-        allreduce_mean_(grads)
+    with scope("mercury_grad_sync"):
+        if _int8_wire(config):
+            flat = flat_layout(state)
+            vec = torch.cat([g.reshape(-1) for g in grads])[flat.order]
+            vec = compressed_allreduce_mean(vec, _need(draws.wire_u1, "wire_u1"),
+                                            _need(draws.wire_u2, "wire_u2"))[flat.inverse]
+            for g, part in zip(grads, vec.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+        elif config.world_size > 1:
+            allreduce_mean_(grads)
     if telemetry:
         # This (micro)step's gradient, equal on every rank.
         grad_norm = global_grad_norm(grads)
-    apply_update(state, config.grad_accum_steps)
+    with scope("mercury_optimizer"):
+        apply_update(state, config.grad_accum_steps)
     return grad_norm, sparse_rate
 
 
@@ -495,10 +507,11 @@ def _zero_step(state: MercuryState, config: TrainConfig, draws: Draws,
     int8 = config.grad_compression == "int8"
     gvec = torch.cat([p.grad.reshape(-1) for p in params])[flat.order]
     rows = pad_to_chunks(gvec, flat.world)
-    if int8:
-        gchunk = compressed_psum_scatter_mean(rows, _need(draws.wire_u1, "wire_u1"))
-    else:
-        gchunk = psum_scatter_mean(rows)
+    with scope("mercury_grad_sync"):
+        if int8:
+            gchunk = compressed_psum_scatter_mean(rows, _need(draws.wire_u1, "wire_u1"))
+        else:
+            gchunk = psum_scatter_mean(rows)
     grad_norm = None
     if telemetry:
         grad_norm = torch.sqrt(allreduce_sum(gchunk.to(torch.float32).square().sum()))
@@ -507,13 +520,15 @@ def _zero_step(state: MercuryState, config: TrainConfig, draws: Draws,
     chunk = state.optimizer.param_groups[0]["params"][0]
     chunk.copy_(pchunk)
     chunk.grad = gchunk
-    apply_update(state, config.grad_accum_steps, [chunk])
+    with scope("mercury_optimizer"):
+        apply_update(state, config.grad_accum_steps, [chunk])
     # Zero on a microstep that applies nothing, gathered all the same.
     update = chunk - pchunk
-    if int8:
-        uvec = compressed_all_gather(update, _need(draws.wire_u2, "wire_u2"))
-    else:
-        uvec = all_gather_flat(update)
+    with scope("mercury_grad_sync"):
+        if int8:
+            uvec = compressed_all_gather(update, _need(draws.wire_u2, "wire_u2"))
+        else:
+            uvec = all_gather_flat(update)
     uvec = uvec[:flat.n][flat.inverse]
     torch._foreach_add_(params, [u.view_as(p) for p, u in zip(
         params, uvec.split([p.numel() for p in params]))])
@@ -608,18 +623,21 @@ def make_train_step(
         rows ``gidx`` itself), the gather and the op chain otherwise."""
         dtype = out_dtype or torch.float32
         if config.fused_input:
-            if use_kernels:
-                if raw is not None:
-                    return augment_normalize(raw, mean_t, std_t, aug.crop, aug.flip,
-                                             CROP_PAD, out_dtype=dtype)
-                return augment_normalize(x_rows, mean_t, std_t, aug.crop, aug.flip,
-                                         CROP_PAD, out_dtype=dtype, rows=gidx)
-            return reference.augment_normalize(x_rows[gidx] if raw is None else raw,
-                                               mean_t, std_t, aug.crop, aug.flip,
-                                               CROP_PAD, dtype)
-        raw = x_rows[gidx] if raw is None else raw
-        images = augment_images(normalize_images(raw, dataset.mean, dataset.std), aug, config)
-        return images if out_dtype is None else images.to(out_dtype)
+            with scope("mercury_input_fuse"):
+                if use_kernels:
+                    if raw is not None:
+                        return augment_normalize(raw, mean_t, std_t, aug.crop, aug.flip,
+                                                 CROP_PAD, out_dtype=dtype)
+                    return augment_normalize(x_rows, mean_t, std_t, aug.crop, aug.flip,
+                                             CROP_PAD, out_dtype=dtype, rows=gidx)
+                return reference.augment_normalize(x_rows[gidx] if raw is None else raw,
+                                                   mean_t, std_t, aug.crop, aug.flip,
+                                                   CROP_PAD, dtype)
+        with scope("mercury_augmentation"):
+            raw = x_rows[gidx] if raw is None else raw
+            images = augment_images(normalize_images(raw, dataset.mean, dataset.std), aug,
+                                    config)
+            return images if out_dtype is None else images.to(out_dtype)
 
     # train/sparse_rate without "stochastic": one 1.0, the same tensor every
     # step (no op a step, no collective).
@@ -651,8 +669,9 @@ def make_train_step(
         if world_size > 1:
             # Averaged under "sync" (already equal) and "local" alike, as
             # the JAX step averages batch_stats.
-            allreduce_mean_([b for name, b in model.named_buffers()
-                             if name.endswith(("running_mean", "running_var"))])
+            with scope("mercury_grad_sync"):
+                allreduce_mean_([b for name, b in model.named_buffers()
+                                 if name.endswith(("running_mean", "running_var"))])
         return logits, train_losses, loss, grad_norm, sparse_rate
 
     def step_fn(state: MercuryState, draws: Optional[Draws] = None,
@@ -684,9 +703,10 @@ def make_train_step(
         def score(images: torch.Tensor, labels: torch.Tensor):
             """The scoring forward and the per-sample scores; returns the
             scores and the logits."""
-            logits = scoring_forward(model, images, config)
-            with torch.no_grad():
-                return score_of(logits, labels), logits
+            with scope("mercury_scoring"):
+                logits = scoring_forward(model, images, config)
+                with torch.no_grad():
+                    return score_of(logits, labels), logits
 
         def pool_loss(logits: torch.Tensor, labels: torch.Tensor,
                       score_avg: torch.Tensor) -> torch.Tensor:
@@ -704,11 +724,12 @@ def make_train_step(
             pre-update model in the scoring precision, the gradient-norm
             bounds of its logits and their two moments, pooled over the
             ranks before the ratio."""
-            logits = scoring_forward(model, images, config)
-            with torch.no_grad():
-                g = per_sample_grad_norm_bound(logits.float(), labels, smoothing)
-                return variance_probe_ratio(
-                    g, scaled_probs, mean=lambda v: pool_mean(v, sync_stats))
+            with scope("mercury_variance_probe"):
+                logits = scoring_forward(model, images, config)
+                with torch.no_grad():
+                    g = per_sample_grad_norm_bound(logits.float(), labels, smoothing)
+                    return variance_probe_ratio(
+                        g, scaled_probs, mean=lambda v: pool_mean(v, sync_stats))
 
         def select_from(images: torch.Tensor, labels: torch.Tensor, ema, uniforms):
             """Score a pool, update the EMA and draw the batch: the selected

@@ -54,6 +54,28 @@ scorer service's SLOs walk the same ladder. ``fit`` ticks it each step and
 logs its ``supervisor/*`` keys and ``sampler/is_active``; :meth:`close`
 writes ``supervisor_summary.json`` to ``log_dir`` on rank 0.
 
+The rest of the host runtime's observability, as the JAX Trainer builds
+it. ``trace=True`` records host spans (``obs/trace.py``: ``trainer/*`` on
+the ``train`` thread, ``stream/*`` on the prefetch worker, ``fleet/chunk``
+on the scorer's workers, ``anomaly/<kind>`` and ``profiler/*`` instants)
+into a ring of ``trace_capacity``; a span times the host's work, a step's
+launches and not its kernels, and never synchronizes the card. At
+:meth:`close` rank 0 writes ``log_dir/trace.json`` with its event journal
+merged in. ``crosshost_telemetry`` (``obs/aggregate.py``) adds
+``host/{min,max,spread}/*`` and ``host/straggler_ratio`` to rank 0's
+records, from the ranks' shards (``"files"``, on the drain thread) or by
+an all-gather at the log tick (``"allgather"``); each record carries
+``time/host_s``, the training thread's seconds a step outside the step's
+dispatch, which the straggler window reads. ``serve_port`` starts a
+:class:`~mercury_tpu_torch.obs.serve.StatusServer` on rank 0 (``/healthz``,
+``/statusz``, ``/metricsz`` from the writer's latest record), last in the
+constructor and first in :meth:`close`. When an anomaly-armed profiler
+window closes, rank 0 attributes its trace (``obs/profile_parse.py``),
+writes ``device_time_breakdown.json`` and logs the ``prof/*`` keys. At
+``world_size > 1`` the supervisor agrees the ladder's level with the other
+ranks every tick (``runtime/supervisor.py``), and a descent out of async
+releases the scorer service's lockstep.
+
 Under ``data_placement="host_stream"`` the train pixels stay a host array
 (``dataset``, when passed, may hold an ``np.memmap``): the Trainer primes
 the state's ring of selections in flight, keeps a
@@ -127,10 +149,18 @@ from mercury_tpu_torch.faults import FaultPlane
 from mercury_tpu_torch.models import create_model
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
 from mercury_tpu_torch.obs.accounting import ThroughputMeter, flops_per_step
+from mercury_tpu_torch.obs.aggregate import (
+    CrossHostGatherAggregator,
+    HostShardAggregator,
+    resolve_mode,
+)
 from mercury_tpu_torch.obs.anomaly import AnomalyEngine
-from mercury_tpu_torch.obs.events import EventJournal
+from mercury_tpu_torch.obs.events import EventJournal, journal_filename, read_journal
 from mercury_tpu_torch.obs.manifest import build_run_manifest, write_run_manifest
+from mercury_tpu_torch.obs.profile_parse import parse_profile, scope_frac_metrics, write_breakdown
 from mercury_tpu_torch.obs.sampler_health import SamplerHealthMonitor
+from mercury_tpu_torch.obs.serve import StatusServer
+from mercury_tpu_torch.obs.trace import NULL_TRACER, SpanTracer
 from mercury_tpu_torch.obs.writer import (
     AsyncMetricWriter,
     HeartbeatShardSink,
@@ -142,7 +172,12 @@ from mercury_tpu_torch.obs.writer import (
 )
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
 from mercury_tpu_torch.parallel import distributed
-from mercury_tpu_torch.parallel.collectives import gather_to_rank0, host_flag_device
+from mercury_tpu_torch.parallel.collectives import (
+    allgather_floats,
+    allreduce_max_ints,
+    gather_to_rank0,
+    host_flag_device,
+)
 from mercury_tpu_torch.runtime.supervisor import HostSupervisor
 from mercury_tpu_torch.sampling.scoretable import apply_async_chunk
 from mercury_tpu_torch.sampling.scorer_fleet import ScoreChunk, ScorerFleet
@@ -198,6 +233,19 @@ class Trainer:
     def __init__(self, config: TrainConfig, dataset: Optional[ShardedDataset] = None,
                  device=None, model: Optional[torch.nn.Module] = None) -> None:
         self.config = config
+        if config.serve_port < 0 or config.serve_port > 65535:
+            raise ValueError(
+                f"serve_port must be 0 (off) or a valid TCP port, "
+                f"got {config.serve_port}"
+            )
+        # The JAX Trainer's refusals of crosshost_telemetry, crosshost_window
+        # and trace_capacity, before anything is built.
+        self._crosshost_mode = resolve_mode(config.crosshost_telemetry, config.world_size,
+                                            config.log_dir)
+        if self._crosshost_mode != "off" and config.crosshost_window < 1:
+            raise ValueError(f"window must be >= 1, got {config.crosshost_window}")
+        # Host spans (obs/trace.py); the disabled tracer is one shared no-op.
+        self.tracer = SpanTracer(config.trace_capacity) if config.trace else NULL_TRACER
         self.rank = distributed.rank()
         self.device = resolve_device(device)
         if dataset is None:
@@ -284,7 +332,7 @@ class Trainer:
                 dump_dir=config.anomaly_dir or config.log_dir,
                 context_fn=self._flight_context,
                 profile_steps=config.anomaly_profile_steps,
-                journal=self._journal)
+                journal=self._journal, tracer=self.tracer)
         self._profiler = ProfilerWindow(config.anomaly_dir or config.log_dir)
         self._nan_injected = False
         # The supervisor; the units register as their fleets are built.
@@ -295,7 +343,9 @@ class Trainer:
                 backoff_s=config.supervisor_backoff_s,
                 probe_every=config.supervisor_probe_every,
                 poll_s=config.supervisor_poll_s,
-                anomaly=self.anomaly, journal=self._journal)
+                anomaly=self.anomaly, journal=self._journal,
+                # At W>1 the ranks agree the ladder's level every tick.
+                agree=allreduce_max_ints if config.world_size > 1 else None)
         # The ladder level the refresh path last acted on (3: flattened).
         self._actuated_level = 0
         # host_stream: prime the ring with steps 0 … depth−1 and put their
@@ -329,7 +379,20 @@ class Trainer:
             sinks.append(HeartbeatShardSink(config.log_dir, self.rank))
         if config.heartbeat_every and self.rank == 0:
             sinks.append(HeartbeatSink(every_steps=config.heartbeat_every))
-        observers = [] if self.anomaly is None else [self.anomaly.observe_record]
+        # Cross-rank telemetry: rank 0's shard tailer rides the drain thread
+        # ahead of the anomaly engine (which reads its host/* keys); the
+        # all-gather runs at the log tick on every rank.
+        self._host_agg: Optional[HostShardAggregator] = None
+        self._crosshost_gather: Optional[CrossHostGatherAggregator] = None
+        if self._crosshost_mode == "files" and self.rank == 0:
+            self._host_agg = HostShardAggregator(
+                config.log_dir, processes=config.world_size, window=config.crosshost_window)
+        elif self._crosshost_mode == "allgather":
+            self._crosshost_gather = CrossHostGatherAggregator(
+                window=config.crosshost_window, gather=allgather_floats, rank=self.rank)
+        observers = [] if self._host_agg is None else [self._host_agg.observe_record]
+        if self.anomaly is not None:
+            observers.append(self.anomaly.observe_record)
         if self.supervisor is not None:
             observers.append(self.supervisor.observe_record)
         self.logger = AsyncMetricWriter(sinks, observers=observers, faults=self._faults,
@@ -341,6 +404,11 @@ class Trainer:
             device_kind=(torch.cuda.get_device_name(self.device)
                          if self.device.type == "cuda" else None))
         self._flops_known = False
+        # The step's dispatch seconds so far, and fit's host seconds outside
+        # it since the last log tick (time/host_s: the straggler's signal).
+        self._dispatch_s = 0.0
+        self._host_s = 0.0
+        self._host_steps = 0
         # refresh_mode="async": the scorer and its first snapshot. Built
         # before auto_resume: a restore resets it.
         self._scorer_fleet: Optional[Union[ScorerFleet, ScorerService]] = None
@@ -359,10 +427,11 @@ class Trainer:
                 if use_service:
                     self._scorer_fleet = ScorerService(
                         self.dataset, self.state.model, config, self.device,
-                        faults=self._faults, journal=self._journal)
+                        faults=self._faults, journal=self._journal, tracer=self.tracer)
                 else:
                     self._scorer_fleet = ScorerFleet(self.dataset, self.state.model, config,
-                                                     self.device, faults=self._faults)
+                                                     self.device, faults=self._faults,
+                                                     tracer=self.tracer)
                 self._scorer_fleet.snapshot(self.state.model, self.state.step)
                 if self.supervisor is not None:
                     # Past its budget the ladder takes over: the table can be
@@ -390,9 +459,53 @@ class Trainer:
                     and checkpoint.latest_step(config.checkpoint_dir) is not None):
                 self._auto_resume()
                 self._auto_resumed = True
+            # The status server (obs/serve.py) on rank 0, started last, when
+            # every callback's target exists.
+            self._status_server: Optional[StatusServer] = None
+            if config.serve_port > 0 and self.rank == 0:
+                self._status_server = StatusServer(
+                    config.serve_port, health_fn=self._serve_health,
+                    status_fn=self._serve_status, metrics_fn=self.logger.latest_record)
         except BaseException:
             self.close()
             raise
+
+    def _serve_health(self) -> Dict[str, Any]:
+        """``/healthz``'s body: the step and the ladder's level, from host
+        numbers (the serving thread never reads the card)."""
+        body: Dict[str, Any] = {"step": self.state.step}
+        if self.supervisor is not None:
+            s = self.supervisor.summary()
+            body["level"] = s["level"]
+            body["level_name"] = s["level_name"]
+            body["units_down"] = sum(1 for u in s["units"] if u["down"])
+        return body
+
+    def _serve_status(self) -> Dict[str, Any]:
+        """``/statusz``'s body: the manifest, the supervisor's summary, the
+        scorer's and the journal's tail and counts. ``state_schema_sha`` is
+        None: the port has no state-schema file, as the JAX Trainer reports
+        when its file is absent."""
+        doc: Dict[str, Any] = {"step": self.state.step}
+        if self.config.log_dir:
+            try:
+                with open(os.path.join(self.config.log_dir, "run_manifest.json")) as f:
+                    doc["manifest"] = json.load(f)
+            except Exception:
+                pass
+        if self.supervisor is not None:
+            doc["supervisor"] = self.supervisor.summary()
+        fleet = getattr(self, "_scorer_fleet", None)
+        if fleet is not None:
+            try:
+                doc["scorer"] = fleet.summary()
+            except Exception:
+                pass
+        if self._journal is not None:
+            doc["events"] = self._journal.tail()
+            doc["event_counts"] = self._journal.counts()
+        doc["state_schema_sha"] = None
+        return doc
 
     def train_step(self, draws: Optional[Draws] = None,
                    use_kernels: bool = True) -> Dict[str, torch.Tensor]:
@@ -402,7 +515,10 @@ class Trainer:
         if self._stream_pipe is not None:
             metrics = self._host_stream_step(draws, use_kernels)
         else:
-            metrics = self._step_fn(self.state, draws, use_kernels)
+            t0 = time.perf_counter()
+            with self.tracer.span("trainer/dispatch", cat="trainer"):
+                metrics = self._step_fn(self.state, draws, use_kernels)
+            self._dispatch_s += time.perf_counter() - t0
         if self._scorer_fleet is not None:
             self._refresh_tick(self.state.step)
         return metrics
@@ -450,7 +566,8 @@ class Trainer:
         chunks = (fleet.drain_for_step(step) if isinstance(fleet, ScorerService)
                   else fleet.drain())
         if chunks:
-            self._apply_chunks(chunks, step)
+            with self.tracer.span("trainer/apply_refresh", cat="trainer", chunks=len(chunks)):
+                self._apply_chunks(chunks, step)
         every = self.config.snapshot_every
         if step // every > (step - advanced) // every:
             fleet.snapshot(self.state.model, step)
@@ -465,8 +582,9 @@ class Trainer:
         if step // every <= (step - advanced) // every:
             return
         try:
-            fleet.snapshot(self.state.model, step)
-            chunk = fleet.score_once()
+            with self.tracer.span("trainer/sync_refresh", cat="trainer"):
+                fleet.snapshot(self.state.model, step)
+                chunk = fleet.score_once()
         except Exception as exc:
             self.supervisor.report_failure("sync refresh", step, exc,
                                            parent=getattr(exc, "event_id", None))
@@ -483,6 +601,13 @@ class Trainer:
         the draws again."""
         sup = self.supervisor
         level = 0 if sup is None else sup.level()
+        if level > 0 and self._actuated_level == 0:
+            # Out of async: the trainer drains no lockstep chunk from here,
+            # so no snapshot may wait at its barrier (every rank leaves at
+            # this step: the level is agreed).
+            release = getattr(self._scorer_fleet, "release_lockstep", None)
+            if release is not None:
+                release()
         if level == 0:
             self._async_refresh_tick(step, advanced)
         elif level == 1:
@@ -529,15 +654,22 @@ class Trainer:
         supervisor restarts it within its budget: the new pipeline is
         refilled from the ring, so the batch popped is the one the dead
         worker owed."""
-        try:
-            batch = self._stream_pipe.pop()
-        except RuntimeError:
-            if (self.supervisor is None
-                    or not self.supervisor.request_restart("prefetch", self.state.step)):
-                raise
-            batch = self._stream_pipe.pop()
-        metrics, next_gidx = self._step_fn(self.state, batch, draws, use_kernels)
-        self._stream_pipe.push(next_gidx)
+        # The pop span is the input stall: the time the trainer waited for
+        # the prefetch worker.
+        with self.tracer.span("trainer/pop", cat="trainer"):
+            try:
+                batch = self._stream_pipe.pop()
+            except RuntimeError:
+                if (self.supervisor is None
+                        or not self.supervisor.request_restart("prefetch", self.state.step)):
+                    raise
+                batch = self._stream_pipe.pop()
+        t0 = time.perf_counter()
+        with self.tracer.span("trainer/dispatch", cat="trainer"):
+            metrics, next_gidx = self._step_fn(self.state, batch, draws, use_kernels)
+        self._dispatch_s += time.perf_counter() - t0
+        with self.tracer.span("trainer/push", cat="trainer"):
+            self._stream_pipe.push(next_gidx)
         return metrics
 
     def _new_stream_pipe(self) -> PrefetchPipeline:
@@ -545,7 +677,7 @@ class Trainer:
         return PrefetchPipeline(
             HostStreamSource(self.dataset.x_train, cfg.decode_workers), cfg.stream_rows,
             self.device, depth=cfg.prefetch_depth, faults=self._faults,
-            generation=self._stream_gen)
+            generation=self._stream_gen, tracer=self.tracer)
 
     def _restart_stream_pipe(self) -> None:
         """The supervisor's restart of the prefetch worker: close the dead
@@ -576,11 +708,12 @@ class Trainer:
         generator and stream, as the replicated run would draw on."""
         if self._stream_pipe is None:
             return
-        if self.state.pending is None:
-            gidx = prime_host_stream(self.state, self.config, self.dataset)
-        else:
-            gidx = self.dataset.shard_indices[self.dataset.rank][self.state.pending.slots]
-        self._seed_stream_pipe(gidx)
+        with self.tracer.span("trainer/refill_stream_pipe", cat="trainer"):
+            if self.state.pending is None:
+                gidx = prime_host_stream(self.state, self.config, self.dataset)
+            else:
+                gidx = self.dataset.shard_indices[self.dataset.rank][self.state.pending.slots]
+            self._seed_stream_pipe(gidx)
 
     def stream_stats(self) -> Dict[str, float]:
         """The prefetch pipeline's ``data/*`` counters since the previous
@@ -596,6 +729,11 @@ class Trainer:
         does nothing, and a Trainer whose construction stopped partway
         closes what it built."""
         try:
+            server = getattr(self, "_status_server", None)
+            if server is not None:
+                # Scrapers first: a request mid-teardown would read half-
+                # closed parts.
+                server.close()
             supervisor = getattr(self, "supervisor", None)
             if supervisor is not None:
                 supervisor.close()
@@ -607,7 +745,8 @@ class Trainer:
                 pipe.close()
             profiler = getattr(self, "_profiler", None)
             if profiler is not None:
-                profiler.stop()
+                self._profile_closed(profiler.stop())
+            self._export_trace()
             writer = getattr(self, "logger", None)
             if writer is not None:
                 writer.close()
@@ -616,6 +755,51 @@ class Trainer:
             journal = getattr(self, "_journal", None)
             if journal is not None:
                 journal.close()
+
+    def _export_trace(self) -> None:
+        """Rank 0 writes ``log_dir/trace.json``: the tracer's spans with this
+        rank's event journal merged in as lanes of instants and causal
+        arrows. A second call writes nothing more; never raises."""
+        tracer = getattr(self, "tracer", None)
+        config = getattr(self, "config", None)
+        if (tracer is None or not tracer.enabled or config is None or not config.log_dir
+                or getattr(self, "rank", 0) != 0 or getattr(self, "_trace_exported", False)):
+            return
+        self._trace_exported = True
+        try:
+            events = []
+            journal = getattr(self, "_journal", None)
+            if journal is not None:
+                journal.flush()
+                events = read_journal(os.path.join(config.log_dir,
+                                                   journal_filename(self.rank)))
+            tracer.export_chrome_trace(os.path.join(config.log_dir, "trace.json"),
+                                       events=events or None)
+        except Exception as exc:
+            _log.warning("trace export failed: %s", exc)
+
+    def _profile_closed(self, path: Optional[str]) -> None:
+        """After a profiler window closed with ``path`` (None: none was
+        open, or it failed): a ``profiler/stop`` instant and, on rank 0,
+        its device-time attribution (``obs/profile_parse.py``) written to
+        ``log_dir/device_time_breakdown.json`` and logged as ``prof/*``.
+        Never raises."""
+        if path is None:
+            return
+        self.tracer.instant("profiler/stop", cat="trainer")
+        if self.rank != 0:
+            return
+        try:
+            breakdown = parse_profile(path)
+            out_dir = self.config.log_dir or self.config.anomaly_dir
+            write_breakdown(breakdown, os.path.join(out_dir, "device_time_breakdown.json"))
+            if breakdown["total_device_time_us"] > 0:
+                self.logger.write(self.state.step, scope_frac_metrics(breakdown))
+            _log.warning("device-time breakdown written: %.1f%% attributed to named scopes",
+                         100.0 * (1.0 - breakdown["scopes"].get("unattributed", {})
+                                  .get("frac", 0.0)))
+        except Exception as exc:
+            _log.warning("profile fold-back failed: %s: %s", type(exc).__name__, exc)
 
     def _write_supervisor_summary(self) -> None:
         """``supervisor_summary.json`` in ``log_dir`` on rank 0: the
@@ -691,11 +875,13 @@ class Trainer:
         health: Dict[str, float] = {}
         saved = None
         self._throughput.reset(start)
+        self.tracer.register_thread("train")
         try:
             while self.state.step < end:
                 # The iteration's wall time: under asynchronous launches it
                 # settles to the device's pace once the queue is full.
                 t_iter = time.perf_counter()
+                dispatch_before = self._dispatch_s
                 if self._faults is not None:
                     # The clock the hook sites fire against, and the
                     # training thread's own hook.
@@ -708,33 +894,39 @@ class Trainer:
                 if self.supervisor is not None:
                     # Liveness, restarts, SLOs and probes: host work only.
                     self.supervisor.tick(step)
+                dt_iter = time.perf_counter() - t_iter
+                self._host_s += dt_iter - (self._dispatch_s - dispatch_before)
+                self._host_steps += 1
                 if self.anomaly is not None:
-                    self.anomaly.observe_step_time(step, time.perf_counter() - t_iter)
+                    self.anomaly.observe_step_time(step, dt_iter)
                 # A trigger's profiler window opens here, so the next
                 # occurrence of a sporadic anomaly lands inside it.
                 if self._profiler.active:
-                    self._profiler.advance()
+                    self._profile_closed(self._profiler.advance())
                 elif self.anomaly is not None:
                     want = self.anomaly.take_profile_request()
-                    if want > 0:
-                        self._profiler.start(want, step)
+                    if want > 0 and self._profiler.start(want, step):
+                        self.tracer.instant("profiler/start", cat="trainer", steps=want)
                 health = {}
                 if cfg.log_every and step % cfg.log_every == 0:
-                    health = self._log_tick(step, metrics)
+                    with self.tracer.span("trainer/log_gate", cat="trainer", step=step):
+                        health = self._log_tick(step, metrics)
                 if cfg.eval_every and step % cfg.eval_every == 0:
-                    evaluation = self.evaluate()
+                    with self.tracer.span("trainer/eval", cat="trainer", step=step):
+                        evaluation = self.evaluate()
                     self.logger.log_scalars(step, evaluation)
                     print(f"  eval @ {step}: "
                           + " ".join(f"{k}={v:.4f}" for k, v in evaluation.items()))
                 if (cfg.checkpoint_dir and cfg.checkpoint_every
                         and step % cfg.checkpoint_every == 0):
-                    if cfg.async_checkpoint:
-                        self._join_checkpoint()
-                        self._ckpt_thread = checkpoint.save_checkpoint_async(
-                            cfg.checkpoint_dir, self.state, cfg,
-                            failure_cb=self._ckpt_failure_cb, **self._ckpt_kwargs())
-                    else:
-                        self.save()
+                    with self.tracer.span("trainer/checkpoint", cat="trainer", step=step):
+                        if cfg.async_checkpoint:
+                            self._join_checkpoint()
+                            self._ckpt_thread = checkpoint.save_checkpoint_async(
+                                cfg.checkpoint_dir, self.state, cfg,
+                                failure_cb=self._ckpt_failure_cb, **self._ckpt_kwargs())
+                        else:
+                            self.save()
                     saved = step
             self._join_checkpoint()
             if cfg.checkpoint_dir and saved != self.state.step:
@@ -802,6 +994,16 @@ class Trainer:
             record["checkpoint/write_failures"] = float(checkpoint.write_failures())
         record["threads/queue_depth/metrics"] = float(self.logger.queue_depth())
         record["epoch"] = (step - 1) // self.steps_per_epoch
+        if self._host_steps:
+            # The training thread's seconds a step outside the dispatch since
+            # the last tick: fault sleeps, the refresh, the supervisor, the
+            # previous tick. A rank's peers wait for it inside their steps.
+            record["time/host_s"] = self._host_s / self._host_steps
+            self._host_s, self._host_steps = 0.0, 0
+        if self._crosshost_gather is not None:
+            # Every rank gathers (the tick is the same step on each); rank 0
+            # gets the merge back.
+            record.update(self._crosshost_gather.update(record))
         inject = self.config.anomaly_inject_nan_step
         if inject and not self._nan_injected and step >= inject:
             # For tests: the host record's loss, never the step, turns NaN,

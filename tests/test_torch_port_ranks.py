@@ -2,8 +2,9 @@
 ``test_torch_port_dist_step``, ``test_torch_port_checkpoint``,
 ``test_torch_port_telemetry_step``, ``test_torch_port_sampler_modes``,
 ``test_torch_port_grad_path``, ``test_torch_port_scorer_service_dist``,
-``test_torch_port_elastic`` and ``test_torch_port_durable_checkpoint``);
-this file holds no tests.
+``test_torch_port_elastic``, ``test_torch_port_durable_checkpoint``,
+``test_torch_port_aggregate`` and ``test_torch_port_supervisor``); this
+file holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
 process of its own, one a rank, in a gloo process group, and pickles the
@@ -31,6 +32,7 @@ from mercury_tpu_torch.models.resnet import (
     init_weights,
     set_sync_batch_norm,
 )
+from mercury_tpu_torch.obs.aggregate import CrossHostGatherAggregator
 from mercury_tpu_torch.parallel import collectives
 from mercury_tpu_torch.parallel.distributed import cards_in_use
 from mercury_tpu_torch.sampling import scorer_fleet
@@ -511,3 +513,79 @@ def fallback_rank(config_kw, directory):
     explicit.restore(directory, step=1)
     return dict(rank=dist.get_rank(), step=step, walked=state_tensors(walked.state),
                 explicit=state_tensors(explicit.state))
+
+
+def gather_rank(rounds):
+    """``CrossHostGatherAggregator`` (``"allgather"``) at W ranks: each
+    round's ``rounds[i][rank]`` record, through the gather; every
+    round's merge on this rank (empty on the ranks but 0)."""
+    r = dist.get_rank()
+    agg = CrossHostGatherAggregator(window=4, gather=collectives.allgather_floats, rank=r)
+    return [agg.update(records[r]) for records in rounds]
+
+
+def _rank_dataset(data):
+    x, y, xt, yt, shards, mean, std = data
+    return make_sharded_dataset((x, y), (xt, yt), shards, mean, std, 10,
+                                device=torch.device("cpu"), rank=dist.get_rank())
+
+
+def straggler_rank(config_kw, data, slow_rank, slow_spec, steps, log_dirs):
+    """A W-rank ``fit`` of ``steps`` steps for each ``crosshost_telemetry``
+    mode of ``log_dirs`` (mode → this run's log_dir), ``slow_spec`` (a
+    ``host_slow`` fault) on rank ``slow_rank`` alone: rank 0's anomaly
+    trigger counts a mode (None elsewhere)."""
+    torch.set_num_threads(1)
+    out = {}
+    for mode, log_dir in log_dirs.items():
+        kw = dict(config_kw, crosshost_telemetry=mode, log_dir=log_dir)
+        if dist.get_rank() == slow_rank:
+            kw["fault_spec"] = slow_spec
+        trainer = Trainer(TrainConfig(**kw), dataset=_rank_dataset(data), device="cpu",
+                          model=tiny_resnet(seed=0))
+        try:
+            trainer.fit(steps=steps)
+            trainer.logger.flush()
+            out[mode] = (None if trainer.anomaly is None
+                         else dict(trainer.anomaly.trigger_counts))
+        finally:
+            trainer.close()
+    return out
+
+
+def ladder_rank(config_kw, data, steps, die_rank, die_step):
+    """The supervised async ladder at W ranks: ``scorer_die`` at
+    ``die_step`` on rank ``die_rank`` alone, a ``fit`` of ``steps`` steps.
+    Returns each tick's level after the tick, the level each refresh tick
+    acted on, the supervisor's transitions, the service's summary, the
+    seconds ``fit`` took and this rank's journal kinds."""
+    import time
+
+    torch.set_num_threads(1)
+    kw = dict(config_kw)
+    if dist.get_rank() == die_rank:
+        kw["fault_spec"] = f"scorer_die@step={die_step}"
+    trainer = Trainer(TrainConfig(**kw), dataset=_rank_dataset(data), device="cpu",
+                      model=tiny_resnet(seed=0))
+    sup = trainer.supervisor
+    levels, acted = [], []
+    tick, refresh = sup.tick, trainer._refresh_tick
+
+    def ticked(step):
+        tick(step)
+        levels.append((step, sup.level()))
+
+    def refreshed(step, advanced=1):
+        acted.append((step, sup.level()))
+        refresh(step, advanced)
+
+    sup.tick, trainer._refresh_tick = ticked, refreshed
+    try:
+        t0 = time.perf_counter()
+        trainer.fit(steps=steps)
+        elapsed = time.perf_counter() - t0
+        return dict(levels=levels, acted=acted, transitions=sup.summary()["transitions"],
+                    service=trainer._scorer_fleet.summary(), elapsed=elapsed,
+                    released=trainer._scorer_fleet._ls_released)
+    finally:
+        trainer.close()

@@ -80,7 +80,7 @@ def test_config_fields_match_the_jax_package():
     assert (cfg.async_checkpoint, cfg.checkpoint_write_retries, cfg.checkpoint_retry_backoff_s,
             cfg.checkpoint_manifest, cfg.checkpoint_verify, cfg.stream_checkpoint_cursor,
             cfg.fault_spec) == (False, 2, 0.25, True, True, True, "")
-    assert len(dataclasses.fields(TrainConfig)) == 92
+    assert len(dataclasses.fields(TrainConfig)) == 97
     assert (cfg.scorer_workers, cfg.snapshot_every, cfg.scorer_throttle_s,
             cfg.scorer_backend) == (1, 16, 0.0, "host")
 
@@ -153,6 +153,73 @@ def test_step_modes_are_ignored_without_importance_sampling(kw):
     """As in the JAX step, the uniform arm ignores the step modes."""
     cfg = TrainConfig(world_size=1, use_importance_sampling=False, **kw)
     assert not (cfg.use_pipelined or cfg.use_cadence or cfg.use_groupwise)
+
+
+#: The observability fields: their defaults, and the ValueError a Trainer
+#: raises, as the JAX Trainer does, for a bad value (the JAX package's
+#: message: SpanTracer's, StragglerWindow's, or the Trainer's own).
+OBS_FIELDS = {"trace": False, "trace_capacity": 4096, "crosshost_telemetry": "auto",
+              "crosshost_window": 8, "serve_port": 0}
+
+
+def test_observability_fields_default_as_jax():
+    jfields = {f.name: f.default for f in dataclasses.fields(JConfig)}
+    tfields = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
+    for name, default in OBS_FIELDS.items():
+        assert tfields[name] == jfields[name] == default, name
+    missing = sorted(set(jfields) - set(tfields))
+    assert missing == ["fsdp_axis", "fsdp_parallel", "mesh_axis", "model_axis",
+                       "moe_aux_weight", "moe_experts", "plan", "plan_memory_budget_bytes",
+                       "remat", "scan_steps", "tensor_parallel"]
+
+
+def _jax_message(kw):
+    """The message of the JAX package's refusal of ``kw``."""
+    from mercury_tpu.obs.aggregate import StragglerWindow
+    from mercury_tpu.obs.trace import SpanTracer
+    from mercury_tpu.train.trainer import Trainer as JTrainer
+
+    if "serve_port" in kw:
+        call = lambda: JTrainer(JConfig(serve_port=kw["serve_port"]))  # noqa: E731
+    elif "trace_capacity" in kw:
+        call = lambda: SpanTracer(kw["trace_capacity"])  # noqa: E731
+    elif "crosshost_window" in kw:
+        call = lambda: StragglerWindow(kw["crosshost_window"])  # noqa: E731
+    else:
+        mode = kw["crosshost_telemetry"]
+        return (f"crosshost_telemetry={mode!r}: expected one of "
+                "'auto', 'off', 'files', 'allgather'")
+    with pytest.raises(ValueError) as err:
+        call()
+    return str(err.value)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(serve_port=-1), dict(serve_port=65536), dict(trace=True, trace_capacity=0),
+    dict(crosshost_telemetry="gossip"), dict(crosshost_telemetry="", world_size=2),
+    dict(crosshost_telemetry="allgather", crosshost_window=0),
+    dict(crosshost_telemetry="files", crosshost_window=0, log_dir="logs"),
+], ids=["serve-neg", "serve-big", "capacity-0", "mode-gossip", "mode-empty",
+        "window-gather", "window-files"])
+def test_observability_fields_validate_as_jax(kw):
+    with pytest.raises(ValueError) as err:
+        Trainer(TrainConfig(**{"world_size": 1, **kw}), device="cpu")
+    assert str(err.value) == _jax_message(kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(trace=False, trace_capacity=0), dict(crosshost_window=0),
+    dict(crosshost_telemetry="files", crosshost_window=0),
+], ids=["capacity-untraced", "window-off", "window-files-without-log-dir"])
+def test_observability_fields_ignored_where_jax_ignores_them(kw):
+    """A config builds where the JAX Trainer builds it: the capacity of a
+    tracer that is off, the window of an aggregation that is off (at one
+    rank ``"auto"`` is off, and ``"files"`` without a log_dir)."""
+    tr = _tiny(**kw)
+    try:
+        assert tr._crosshost_mode == "off" and not tr.tracer.enabled
+    finally:
+        tr.close()
 
 
 def test_default_config_constructs_at_four_ranks():

@@ -9,20 +9,26 @@ both supervisors through fake units of the same behaviour; ``stats()``,
 clock reading) and each journal's kinds, steps, details and parent links
 (as indices) are equal. The backoff is 0, so no script depends on time.
 
+(a') The agreed ladder: two port supervisors, one a rank in threads of one
+process with ``agree`` an exchange of maxima, walk each script exactly as
+one JAX supervisor that sees both ranks' deaths, failures, probes and SLOs
+(the level after every tick and the transitions).
+
 (b) The Trainer, as the JAX package's ``tests/test_supervisor.py``: a
 scorer death restarted within the budget (``-r1`` threads, level 0); a
 chaos run past the budget ending green at uniform sampling, whose
 flattened table draws as JAX's ``table_refresh_draw`` (interpret mode) does
 from the same uniforms; a prefetch restart bit-equal to an uninterrupted
 run, and its budget's exhaustion raising; the scorer service's SLO walking
-one level; the NaN injection's flight record; the refused W>1 async ladder;
-the starvation share reaching the sampler monitor; the 21 fields on the
-command line. Tiny sizes: a [1, 1]-stage ResNet of width 8, batch 4.
+one level; the NaN injection's flight record; the W=2 async ladder agreed
+across two gloo ranks; the starvation share reaching the sampler monitor;
+the 21 fields on the command line. Tiny sizes: a [1, 1]-stage ResNet of width 8, batch 4.
 """
 
 import dataclasses
 import json
 import os
+import threading
 import time
 from types import SimpleNamespace
 
@@ -41,11 +47,13 @@ from mercury_tpu.ops import table_refresh_draw_pallas  # noqa: E402
 from mercury_tpu.runtime import supervisor as jsup  # noqa: E402
 from mercury_tpu_torch import TrainConfig, Trainer, cli  # noqa: E402
 from mercury_tpu_torch.data import cifar  # noqa: E402
+from mercury_tpu_torch.data.partition import partition_data  # noqa: E402
 from mercury_tpu_torch.data.pipeline import make_sharded_dataset  # noqa: E402
 from mercury_tpu_torch.obs import events  # noqa: E402
 from mercury_tpu_torch.ops import reference  # noqa: E402
+from mercury_tpu_torch.parallel.distributed import spawn  # noqa: E402
 from mercury_tpu_torch.runtime import supervisor as tsup  # noqa: E402
-from test_torch_port_ranks import state_tensors, tiny_resnet  # noqa: E402
+from test_torch_port_ranks import ladder_rank, state_tensors, tiny_resnet  # noqa: E402
 
 B, R, N_TRAIN = 4, 8, 48
 COMMON = dict(dataset="synthetic", world_size=1, batch_size=B, presample_batches=2,
@@ -270,6 +278,163 @@ def test_poll_thread_stamps_a_death_and_stops():
     assert tsup.HostSupervisor()._thread is None
 
 
+# ------------------------------------------------ (a') the agreed ladder
+class Exchange:
+    """The ranks' agreement in one process: each rank's thread hands its
+    integers in, and every rank gets the elementwise maximum."""
+
+    def __init__(self, ranks):
+        self.barrier = threading.Barrier(ranks)
+        self.slots = [None] * ranks
+
+    def agree_fn(self, rank):
+        def agree(values):
+            self.slots[rank] = list(values)
+            self.barrier.wait(timeout=30)
+            out = [max(col) for col in zip(*self.slots)]
+            self.barrier.wait(timeout=30)
+            return out
+        return agree
+
+
+#: Each script: per step, each rank's ops before its tick (rank → ops); a
+#: unit is ``scorer`` (escalates) on every rank. One JAX supervisor sees
+#: them all: a unit down on any rank, a probe that fails on any rank, an
+#: SLO breached on any rank, every rank's reported failure.
+AGREED = {
+    "exhaustion_on_one_rank": dict(budget=0, probe_every=2, steps=12, ops={
+        3: {1: [("down",), ("probe", False)]},
+        7: {1: [("probe", True)]}}),
+    "probe_fails_on_the_other_rank": dict(budget=0, probe_every=1, steps=8, ops={
+        2: {0: [("down",)], 1: [("probe", False)]},
+        5: {1: [("probe", True)]}}),
+    "restarts_within_budget": dict(budget=2, probe_every=1, steps=6, ops={
+        2: {0: [("down",)]}, 4: {1: [("down",)]}}),
+    "reported_failure": dict(budget=3, probe_every=3, steps=9, ops={
+        2: {1: [("probe", False), ("fail",)]}, 6: {1: [("probe", True)]}}),
+    "slo_pins_every_rank": dict(budget=3, probe_every=1, steps=9, ops={
+        2: {0: [("slo", "t0: staleness 9 > 4")]}, 6: {0: [("slo", None)]}}),
+}
+
+
+class RankRig:
+    """One rank's supervisor (the port's, with ``agree``) or the one JAX
+    supervisor, its ``scorer`` unit, probe, revive and SLO."""
+
+    def __init__(self, mod, budget, probe_every, agree=None):
+        kw = {} if agree is None else {"agree": agree}
+        self.sup = mod.HostSupervisor(restart_budget=budget, backoff_s=0.0,
+                                      probe_every=probe_every, **kw)
+        self.unit = FakeUnit()
+        self.sup.register_unit("scorer", self.unit.alive, self.unit.restart, escalates=True)
+        self.probe_ok, self.slo = True, None
+        self.sup.set_ladder(probe=self._probe, revive=lambda: None)
+        self.sup.register_slo("scorer_service", lambda: self.slo)
+        self.levels = []
+
+    def _probe(self):
+        if not self.probe_ok:
+            raise RuntimeError("still broken")
+
+    def apply(self, op, step):
+        if op[0] == "down":
+            self.unit.up = False
+        elif op[0] == "probe":
+            self.probe_ok = op[1]
+        elif op[0] == "slo":
+            self.slo = op[1]
+        elif op[0] == "fail":
+            self.sup.report_failure("sync refresh", step, RuntimeError("x"))
+
+    def tick(self, step):
+        self.sup.tick(step)
+        self.levels.append(self.sup.level())
+
+    def transitions(self):
+        return [(t["step"], t["from"], t["to"]) for t in self.sup.summary()["transitions"]]
+
+
+def _run_rank(rig, script, rank):
+    for step in range(1, script["steps"] + 1):
+        for op in script["ops"].get(step, {}).get(rank, []):
+            rig.apply(op, step)
+        rig.tick(step)
+
+
+@pytest.mark.parametrize("name", sorted(AGREED))
+def test_agreed_ladder_is_one_jax_supervisor(name):
+    script = AGREED[name]
+    exchange = Exchange(2)
+    rigs = [RankRig(tsup, script["budget"], script["probe_every"], exchange.agree_fn(r))
+            for r in range(2)]
+    threads = [threading.Thread(target=_run_rank, args=(rigs[r], script, r))
+               for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+
+    one = RankRig(jsup, script["budget"], script["probe_every"])
+    state = [dict(probe=True, slo=None) for _ in range(2)]
+    for step in range(1, script["steps"] + 1):
+        for rank in range(2):
+            for op in script["ops"].get(step, {}).get(rank, []):
+                if op[0] in ("down", "fail"):
+                    one.apply(op, step)
+                else:
+                    state[rank][op[0]] = op[1]
+        one.probe_ok = all(s["probe"] for s in state)
+        one.slo = next((s["slo"] for s in state if s["slo"] is not None), None)
+        one.tick(step)
+    assert rigs[0].levels == rigs[1].levels == one.levels, name
+    assert rigs[0].transitions() == rigs[1].transitions() == one.transitions(), name
+    assert max(one.levels) > 0 or name == "restarts_within_budget"
+
+
+def test_w2_async_ladder_is_agreed():
+    """Two gloo ranks, the device backend's lockstep, ``supervise=True`` at
+    budget 0 and ``scorer_die`` on rank 1 alone: both ranks act on the same
+    level at every step and walk the same transitions, those of one JAX
+    supervisor fed the death at the step rank 1 saw it; with probes off the
+    ladder stays at sync and both ranks leave the lockstep; the fits end
+    within their time (no rank waits at a barrier)."""
+    # Unsupervised, the lockstep runs; supervised, the sync scoretable and
+    # the host stream run at W>1; supervised async now builds too.
+    TrainConfig(**{**COMMON, **ASYNC, "world_size": 2, "scorer_backend": "device",
+                   "supervise": False})
+    TrainConfig(**{**COMMON, "sampler": "scoretable", "world_size": 2})
+    TrainConfig(**{**COMMON, **STREAM, "world_size": 2})
+    (x, y), (xt, yt) = cifar.synthetic_cifar(10, 64, 8, seed=0)
+    shards = partition_data(y, 2, "hetero", alpha=0.5, seed=0, min_size=10)
+    data = (x, y, xt, yt, shards, cifar.CIFAR10_MEAN, cifar.CIFAR10_STD)
+    for probe_every in (0, 3):
+        config_kw = {**COMMON, **ASYNC, "world_size": 2, "scorer_backend": "device",
+                     "supervisor_restart_budget": 0, "supervisor_probe_every": probe_every,
+                     "supervisor_sync_every": 1}
+        ranks = spawn(ladder_rank, 2, "gloo", config_kw, data, 10, 1, 3, timeout_s=300)
+        assert ranks[0]["levels"] == ranks[1]["levels"], probe_every
+        assert ranks[0]["acted"] == ranks[1]["acted"], probe_every
+        moves = [[(t["step"], t["from"], t["to"]) for t in r["transitions"]] for r in ranks]
+        assert moves[0] == moves[1] and moves[0], probe_every
+        assert "exhausted" in ranks[1]["transitions"][0]["reason"]
+        assert "agreed across the ranks" in ranks[0]["transitions"][0]["reason"]
+        assert all(r["elapsed"] < 120 for r in ranks)
+        died = moves[0][0][0]
+        one = RankRig(jsup, 0, probe_every)
+        # The climb to async revives the scorer, as restart_workers does.
+        one.sup.set_ladder(probe=one._probe, revive=lambda: setattr(one.unit, "up", True))
+        for step in range(1, 11):
+            if step == died:
+                one.unit.up = False
+            one.tick(step)
+        assert [lvl for _, lvl in ranks[0]["levels"]] == one.levels, probe_every
+        assert moves[0] == one.transitions(), probe_every
+        if probe_every == 0:
+            assert max(one.levels) == 1 and all(r["released"] for r in ranks)
+            assert [lvl for _, lvl in ranks[0]["acted"]][-1] == 1
+
+
 # ------------------------------------------------------------ (b) trainer
 def _dataset(placement="replicated"):
     (x, y), (xt, yt) = cifar.synthetic_cifar(10, N_TRAIN, 8, seed=0)
@@ -470,17 +635,6 @@ def test_nan_injection_writes_a_flight_record(tmp_path):
         tr.close()
 
 
-def test_w2_async_ladder_is_refused():
-    with pytest.raises(ValueError, match=r"TrainConfig\.supervise=True.*world_size > 1"):
-        TrainConfig(**{**COMMON, **ASYNC, "world_size": 2, "scorer_backend": "device"})
-    # Unsupervised, the lockstep runs; supervised, the sync scoretable and
-    # the host stream run at W>1.
-    TrainConfig(**{**COMMON, **ASYNC, "world_size": 2, "scorer_backend": "device",
-                   "supervise": False})
-    TrainConfig(**{**COMMON, "sampler": "scoretable", "world_size": 2})
-    TrainConfig(**{**COMMON, **STREAM, "world_size": 2})
-
-
 def test_starvation_share_reaches_the_monitor():
     """``slo_class_starvation_share`` is the monitor's share (0 leaves it
     at 0.2), as the JAX Trainer passes it; the same ledger gives the same
@@ -517,7 +671,7 @@ def test_runtime_fields_match_the_jax_package():
     tfields = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     for name in RUNTIME_FIELDS:
         assert tfields[name] == jfields[name], name
-    assert len(RUNTIME_FIELDS) == 21 and len(tfields) == 92
+    assert len(RUNTIME_FIELDS) == 21 and len(tfields) == 97
     # JAX's one check of them: the anomaly ring must hold a record.
     with pytest.raises(ValueError, match="ring_steps must be >= 1"):
         _trainer(anomaly_window=0)
