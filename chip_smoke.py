@@ -22,7 +22,8 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    its rows from the 5000-image shard, and at shapes that stage by bytes,
    in float32 and bfloat16, each bit-equal to the plain version. The NLL
    kernels also run at phase 9's CIFAR-100 shapes ([320, 100], [32, 100],
-   [64, 100]), timed beside their library calls;
+   [64, 100]) and phase 19's 20 classes ([320, 20], [32, 20], [64, 20]),
+   timed beside their library calls;
 4. drives the main path: ``Trainer(TrainConfig(model="resnet18",
    dataset="synthetic", world_size=1))`` at full width (batch 32, pool 320,
    bf16, importance sampling and telemetry on) for 30 steps, with the
@@ -245,6 +246,18 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    in time), the agreement's host µs a tick, and the four kernels a step;
    (c) ``python -m mercury_tpu_torch.obs.report`` on (a)'s run, as HTML
    too, and ``--diff`` against a second run of (a)'s config: exit 0.
+19. the image family on ``synthetic_hard`` (20 classes, 5000 images),
+   batch 32, bf16: (a) SmallCNN, VGG-11, VGG-16 and MobileNetV2 at full
+   width on the default pool step, 3 warm-up and 30 timed steps each, the
+   kernels' launches a step phase 4's, each kernel's output on one step's
+   own inputs ([320, 20] and [32, 20] logits, the pool's draw) against its
+   plain version, a kernel step against a plain step; steps/s, the device
+   busy share (``torch.profiler``, 5 steps), peak memory, MFU and the
+   IS/uniform step-rate ratio in two turns; (b) MobileNetV2 on the
+   scoretable sampler with the fused ingest, 30 steps; (c) only where
+   scikit-learn imports, ResNet-18 on ``digits_imb``, importance sampling
+   against uniform, a fixed number of steps each: test accuracy, the
+   rare classes' (5-9) accuracy and the seconds.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -490,6 +503,18 @@ OBS_SLOW = "host_slow@step=0,every=1,secs=0.1"
 OBS_DIE_STEP = 3          # (b) rank 1's scorer_die
 OBS_RANK_TIMEOUT_S = 120  # (b) the ladder fit must end within this
 ENDPOINTS = ("/healthz", "/statusz", "/metricsz")
+# Phase 19, the image family on synthetic_hard: (a) each model on the
+# default pool step, its rate against the uniform arm in turns (is,
+# uniform, uniform, is); (b) MobileNetV2 on the fused scoretable step; (c)
+# ResNet-18 on digits_imb, IS against uniform, where scikit-learn imports.
+IMAGE_MODELS = ("smallcnn", "vgg11", "vgg16", "mobilenetv2")
+IMAGE = dict(dataset="synthetic_hard", world_size=1)
+IMAGE_TABLE = dict(IMAGE, model="mobilenetv2", sampler="scoretable", fused_input=True)
+IMAGE_TURNS = ("is", "uniform", "uniform", "is")
+DIGITS = dict(model="resnet18", dataset="digits_imb", world_size=1, eval_every=0,
+              log_every=0)
+DIGITS_STEPS = 300        # (c) steps of each arm
+RARE_CLASSES = (5, 6, 7, 8, 9)
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -502,10 +527,13 @@ WIRE_CALLS = {"all_reduce": lambda w: 2 * (w - 1) / w,
 # CIFAR-100's normalization (float32 in the dataset).
 CIFAR100_MEAN = (0.5071, 0.4865, 0.4409)
 CIFAR100_STD = (0.2673, 0.2564, 0.2762)
-# Parameter counts at full width, by model and class count (a CPU test holds
-# them to the JAX package's models).
+# Parameter counts at full width, by model and class count (CPU tests hold
+# them to the JAX package's models); phase 19's models have synthetic_hard's
+# 20 classes.
 PARAMETERS = {("resnet18", 10): 11_173_962, ("resnet18", 100): 11_220_132,
-              ("resnet101", 100): 42_697_380, ("resnet152", 100): 58_341_028}
+              ("resnet101", 100): 42_697_380, ("resnet152", 100): 58_341_028,
+              ("smallcnn", 20): 5_796, ("vgg11", 20): 9_291_476,
+              ("vgg16", 20): 14_787_156, ("mobilenetv2", 20): 2_249_492}
 
 # The metric keys of the JAX package's default step (pool), its scoretable
 # step and its async scoretable step, with telemetry on (its default): a CPU test holds this
@@ -578,6 +606,7 @@ def main() -> int:
     supervised = run_phase("supervised runtime", supervised_phase, torch, card, main_path,
                            table_path)
     observed = run_phase("observability", observability_phase, torch, card, main_path)
+    image = run_phase("image family", image_family_phase, torch, card)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -593,7 +622,8 @@ def main() -> int:
                    "durable_checkpoints": durable["launches"][k["name"]],
                    "supervised_runtime": supervised["launches"][k["name"]],
                    "observability": observed["launches"][k["name"]],
-                   "observability_two_ranks": observed["two_rank_launches"][k["name"]]}
+                   "observability_two_ranks": observed["two_rank_launches"][k["name"]],
+                   "image_models": image["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -610,7 +640,7 @@ def main() -> int:
          "scorer_service": service["summary"], "command_line": cmd["summary"],
          "durable_checkpoints": durable["summary"],
          "supervised_runtime": supervised["summary"],
-         "observability": observed["summary"]},
+         "observability": observed["summary"], "image_family": image["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -741,13 +771,19 @@ def kernel_phase(torch, card: str):
     # [32, 100] and the scoretable window [64, 100] — draw from a generator
     # of their own, so every other case keeps its inputs.
     c100_gen = torch.Generator(device=dev).manual_seed(11)
+    # Phase 19's 20 classes (synthetic_hard): the pool, the train batch and
+    # the scoretable window, from a generator of their own too.
+    c20_gen = torch.Generator(device=dev).manual_seed(13)
     for rng, n, c, dtype in [(gen, 320, 10, torch.float32), (gen, 32, 10, torch.float32),
                              (gen, 64, 10, torch.float32), (gen, 4096, 100, torch.float32),
                              (gen, 320, 10, torch.bfloat16), (gen, 32, 10, torch.bfloat16),
                              (gen, 64, 10, torch.bfloat16), (gen, 4096, 100, torch.bfloat16),
                              (c100_gen, 320, 100, torch.float32),
                              (c100_gen, 32, 100, torch.float32),
-                             (c100_gen, 64, 100, torch.float32)]:
+                             (c100_gen, 64, 100, torch.float32),
+                             (c20_gen, 320, 20, torch.float32),
+                             (c20_gen, 32, 20, torch.float32),
+                             (c20_gen, 64, 20, torch.float32)]:
         z, y = logits_case(n, c, dtype, rng)
         err = within(mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y), **fwd_tol)
         y64 = y.long()
@@ -800,14 +836,16 @@ def kernel_phase(torch, card: str):
 
     # nll_bwd: the train batch [32, 10] (the step's one call) and a
     # CIFAR-100-sized call, then (from bwd_gen) the scoretable window and
-    # pool widths and phase 9's train batch [32, 100]; the library is the
+    # pool widths, phase 9's train batch [32, 100] and phase 19's [32, 20];
+    # the library is the
     # 2 ATen calls of F.cross_entropy's gradient.
     for rng, n, c, dtype in [(gen, 32, 10, torch.float32), (gen, 4096, 100, torch.float32),
                              (gen, 32, 10, torch.bfloat16), (gen, 4096, 100, torch.bfloat16),
                              (bwd_gen, 64, 10, torch.float32), (bwd_gen, 64, 10, torch.bfloat16),
                              (bwd_gen, 320, 10, torch.float32),
                              (bwd_gen, 320, 10, torch.bfloat16),
-                             (c100_gen, 32, 100, torch.float32)]:
+                             (c100_gen, 32, 100, torch.float32),
+                             (c20_gen, 32, 20, torch.float32)]:
         z, y = logits_case(n, c, dtype, rng)
         g = torch.rand(n, generator=rng, device=dev) + 0.1
         got = mk.nll_bwd_kernel(z, y, g)
@@ -5478,6 +5516,247 @@ def observability_phase(torch, card: str, main_path) -> dict:
                         "ranks": {k: v for k, v in ranks.items() if k != "per_rank"},
                         "per_rank": ranks["per_rank"], "reports": reports,
                         "seconds": seconds}}
+
+
+# ----------------------------------------------------------------- phase 19
+def record_kernel_inputs(mk):
+    """Wrap the pool step's three kernels to keep a copy of the inputs of
+    each launch (the wrappers still launch and count); returns the dict of
+    lists and the undo."""
+    names = ("nll_fwd_kernel", "nll_bwd_kernel", "score_and_draw_kernel")
+    launches = {n: getattr(mk, n) for n in names}
+    seen = {n: [] for n in names}
+
+    def recorder(name):
+        def recorded(*args):
+            seen[name].append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+            return launches[name](*args)
+        return recorded
+
+    for n in names:
+        setattr(mk, n, recorder(n))
+
+    def undo():
+        for n, f in launches.items():
+            setattr(mk, n, f)
+
+    return seen, undo
+
+
+def step_kernels_vs_plain(torch, mk, trainer, name: str) -> dict:
+    """One pool step with its kernels' inputs kept, then each kernel
+    launched again on those inputs against its plain version, to the kernel
+    phase's tolerances: nll_fwd rtol 1e-5, atol 1e-5 ([320, C] and [32,
+    C]); nll_bwd as :func:`check_bwd` ([32, C]); score_and_draw's probs
+    rtol 1e-5 and its draws as :func:`check_draws`. Returns the shapes and
+    the largest errors."""
+    from mercury_tpu_torch.ops import reference
+
+    seen, undo = record_kernel_inputs(mk)
+    try:
+        trainer.train_step()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    out = {"nll_fwd": [], "nll_bwd": [], "score_and_draw": []}
+    for z, y in seen["nll_fwd_kernel"]:
+        err = within(mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y),
+                     rtol=1e-5, atol=1e-5)
+        out["nll_fwd"].append({"shape": list(z.shape), "dtype": str(z.dtype)[6:],
+                               "max_abs_err": err})
+    for z, y, g in seen["nll_bwd_kernel"]:
+        err, one_ulp = check_bwd(torch, reference, f"{name}: nll_bwd {list(z.shape)}",
+                                 mk.nll_bwd_kernel(z, y, g), z, y, g)
+        out["nll_bwd"].append({"shape": list(z.shape), "dtype": str(z.dtype)[6:],
+                               "max_abs_err": err, "one_ulp": one_ulp})
+    for losses, ema1, u, alpha in seen["score_and_draw_kernel"]:
+        probs, sel, scaled = mk.score_and_draw_kernel(losses, ema1, u, alpha)
+        p_ref, s_ref, c_ref = reference.score_and_draw(losses, ema1.reshape(()), u, alpha)
+        err = within(probs, p_ref, rtol=1e-5, atol=0.0)
+        _, _, differ = check_draws(torch, f"{name}: score_and_draw N={losses.numel()}",
+                                   probs, u, sel, s_ref)
+        same = ~differ
+        err = max(err, within(scaled[same], c_ref[same], rtol=1e-5, atol=0.0))
+        out["score_and_draw"].append({"shape": [losses.numel(), u.numel()],
+                                      "max_abs_err": err, "mismatches": int(differ.sum())})
+    shapes = {k: [c["shape"] for c in v] for k, v in out.items()}
+    classes = trainer.dataset.num_classes
+    want = {"nll_fwd": [[320, classes], [32, classes]], "nll_bwd": [[32, classes]],
+            "score_and_draw": [[320, 32]]}
+    check(shapes == want, f"{name}: the step's kernel shapes {shapes}, expected {want}")
+    return out
+
+
+def image_pool_arm(torch, mk, card: str, model: str, dataset, launches: dict) -> dict:
+    """(a) ``model`` on the default pool step over ``dataset``: 3 warm-up
+    and 30 timed steps with the launches a step phase 4's, the kernels on
+    one step's inputs and a kernel step against a plain step, a profiler
+    window, peak memory (above the arm's start: earlier phases' trainers stay
+    alive), MFU, then the uniform arm in turns."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.obs.accounting import flops_per_step, peak_flops
+
+    config = TrainConfig(**IMAGE, model=model)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # The peak above what earlier phases and the dataset hold.
+    base = torch.cuda.memory_allocated()
+    trainer = build_trainer(torch, config, quiet=True, dataset=dataset)
+    warm(trainer)
+    dt, counts, losses, metrics = timed_steps(torch, mk, trainer)
+    pool_step = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 1, "table_refresh_draw": 0,
+                 "augment_normalize": 0}
+    want = {k: v * MAIN_STEPS for k, v in pool_step.items()}
+    check(counts == want, f"image {model}: launch counts {counts}, expected {want}")
+    for k, v in counts.items():
+        launches[k] += v
+    peak = torch.cuda.max_memory_allocated() - base
+    telemetry = check_telemetry(torch, metrics, "pool", config.batch_size)
+    kernels = step_kernels_vs_plain(torch, mk, trainer, model)
+    step_err = kernel_vs_plain_step(torch, trainer, config, quiet=True)
+    window = profile_window(torch, trainer, dt / MAIN_STEPS * 1e6, steps=5)
+    window.pop("by_kernel")
+    flops = flops_per_step(trainer)
+    check(flops is not None and flops > 0, f"image {model}: FLOPs a step {flops}")
+    peak_rate = peak_flops(torch.cuda.get_device_name(0))
+    rates = {"is": [MAIN_STEPS / dt], "uniform": []}
+    arms = {"is": trainer,
+            "uniform": build_trainer(torch, config.replace(use_importance_sampling=False),
+                                     quiet=True, dataset=dataset)}
+    warm(arms["uniform"])
+    uniform_step = {**pool_step, "nll_fwd": 1, "score_and_draw": 0}
+    for turn in IMAGE_TURNS[1:]:
+        t_dt, t_counts, _, _ = timed_steps(torch, mk, arms[turn])
+        t_want = {k: v * MAIN_STEPS for k, v in
+                  (pool_step if turn == "is" else uniform_step).items()}
+        check(t_counts == t_want, f"image {model} ({turn} turn): launch counts {t_counts}, "
+              f"expected {t_want}")
+        rates[turn].append(MAIN_STEPS / t_dt)
+        for k, v in t_counts.items():
+            launches[k] += v
+    steps_s = statistics.mean(rates["is"])
+    mfu = flops * steps_s / peak_rate if peak_rate else None
+    ratio = steps_s / statistics.mean(rates["uniform"])
+    fwd_err = max(c["max_abs_err"] for c in kernels["nll_fwd"])
+    print(f"image (a) {model}: {MAIN_STEPS} steps in {dt:.3f} s = {MAIN_STEPS / dt:.2f} "
+          f"steps/s; losses first {losses[0].item():.4f}, last {losses[-1].item():.4f}; "
+          f"launches {counts}; peak memory {peak / 2**30:.3f} GiB above the arm's start; "
+          f"device busy "
+          f"{100 * window['busy_share_unprofiled']:.1f}% of the unprofiled step, "
+          f"{window['kernels_per_step']:.1f} CUDA kernels a step [{card}]")
+    print(f"  FLOPs a step {flops:.4g}, perf/mfu {mfu}; steps/s in turns: IS {rates['is']}, "
+          f"uniform {rates['uniform']}, IS/uniform {ratio:.3f}; the step's kernels on its "
+          f"own inputs: nll_fwd {[c['shape'] for c in kernels['nll_fwd']]} max|err| "
+          f"{fwd_err:.2e}, nll_bwd {kernels['nll_bwd'][0]['max_abs_err']:.2e}, "
+          f"score_and_draw {kernels['score_and_draw'][0]['max_abs_err']:.2e}; kernel step "
+          f"vs plain step |d loss| {step_err['train/loss']:.2e} [{card}]")
+    summary = {"model": model, "parameters": sum(p.numel() for p in
+                                                trainer.state.model.parameters()),
+               "steps": MAIN_STEPS, "seconds": dt, "steps_per_s": MAIN_STEPS / dt,
+               "launches": counts, "first_loss": losses[0].item(),
+               "last_loss": losses[-1].item(), "peak_bytes": peak, "profile": window,
+               "flops_per_step": flops, "mfu": mfu, "rates": rates, "is_over_uniform": ratio,
+               "step_kernels": kernels, "kernel_vs_plain": step_err, "telemetry": telemetry,
+               "card": card}
+    for arm in arms.values():
+        arm.close()
+    del arms, trainer
+    torch.cuda.empty_cache()
+    return summary
+
+
+def digits_arms(torch, mk, card: str) -> dict:
+    """(c) ResNet-18 on digits_imb, importance sampling against uniform,
+    ``DIGITS_STEPS`` steps each from the same seed: test accuracy, the rare
+    classes' accuracy and the seconds. Only where scikit-learn imports (the
+    digits ship inside it); the numbers are printed and checked finite."""
+    try:
+        import sklearn.datasets  # noqa: F401
+    except ImportError:
+        print(f"image (c): scikit-learn does not import here, so ResNet-18 on digits_imb "
+              f"(IS against uniform) was not run [{card}]")
+        return {"run": False}
+    from mercury_tpu_torch import TrainConfig
+
+    out = {"run": True, "steps": DIGITS_STEPS}
+    for arm, is_on in (("is", True), ("uniform", False)):
+        config = TrainConfig(**DIGITS, use_importance_sampling=is_on)
+        trainer = build_trainer(torch, config, quiet=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fitted = trainer.fit(steps=DIGITS_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        per_class = trainer.per_class_accuracy()
+        rare = float(per_class[list(RARE_CLASSES)].mean())
+        acc = float(fitted["test/eval_acc"])
+        check(math.isfinite(acc) and math.isfinite(rare),
+              f"image (c) {arm}: test accuracy {acc}, rare classes {rare}")
+        out[arm] = {"test_acc": acc, "rare_acc": rare, "seconds": seconds,
+                    "per_class": per_class.tolist(), "n_train": trainer.dataset.n_train}
+        print(f"image (c) ResNet-18 on digits_imb ({trainer.dataset.n_train} train images), "
+              f"{arm}: {DIGITS_STEPS} steps in {seconds:.2f} s, test accuracy {acc:.4f}, "
+              f"classes 5-9 {rare:.4f} [{card}]")
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def image_family_phase(torch, card: str) -> dict:
+    """Phase 19: the image family on the card. (a) SmallCNN, VGG-11, VGG-16
+    and MobileNetV2 on the default pool step over synthetic_hard (20
+    classes); (b) MobileNetV2 on the fused scoretable step; (c) ResNet-18
+    on digits_imb where scikit-learn imports."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.train.trainer import build_dataset
+
+    launches, seconds, out = {k: 0 for k in mk.KERNELS}, {}, {"card": card}
+    t0 = time.perf_counter()
+    dataset = build_dataset(TrainConfig(**IMAGE), torch.device("cuda"))
+    check(dataset.num_classes == 20 and dataset.synthetic and dataset.n_train == 5000,
+          f"synthetic_hard: {dataset.num_classes} classes, {dataset.n_train} images")
+    out["pool"] = {}
+    for model in IMAGE_MODELS:
+        out["pool"][model] = image_pool_arm(torch, mk, card, model, dataset, launches)
+    seconds["a"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    config = TrainConfig(**IMAGE_TABLE)
+    trainer = build_trainer(torch, config, quiet=True, dataset=dataset)
+    warm(trainer)
+    dt, counts, losses, metrics = timed_steps(torch, mk, trainer)
+    table_step = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 0, "table_refresh_draw": 1,
+                  "augment_normalize": 2}
+    want = {k: v * MAIN_STEPS for k, v in table_step.items()}
+    check(counts == want, f"image (b): launch counts {counts}, expected {want}")
+    for k, v in counts.items():
+        launches[k] += v
+    telemetry = check_telemetry(torch, metrics, "scoretable", config.batch_size)
+    step_err = kernel_vs_plain_step(torch, trainer, config, quiet=True)
+    print(f"image (b) mobilenetv2, scoretable + fused: {MAIN_STEPS} steps in {dt:.3f} s = "
+          f"{MAIN_STEPS / dt:.2f} steps/s; losses first {losses[0].item():.4f}, last "
+          f"{losses[-1].item():.4f}; launches {counts}; kernel step vs plain step |d loss| "
+          f"{step_err['train/loss']:.2e} [{card}]")
+    out["scoretable"] = {"steps": MAIN_STEPS, "seconds": dt, "steps_per_s": MAIN_STEPS / dt,
+                         "launches": counts, "first_loss": losses[0].item(),
+                         "last_loss": losses[-1].item(), "kernel_vs_plain": step_err,
+                         "telemetry": telemetry}
+    trainer.close()
+    del trainer, dataset
+    torch.cuda.empty_cache()
+    seconds["b"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["digits"] = digits_arms(torch, mk, card)
+    seconds["c"] = time.perf_counter() - t0
+    check(all(launches[k] > 0 for k in mk.KERNELS),
+          f"image family: a kernel of the path never launched: {launches}")
+    print("image family: seconds by part " + ", ".join(f"({k}) {v:.1f}"
+                                                        for k, v in seconds.items()))
+    out["seconds"] = seconds
+    return {"launches": launches, "summary": out}
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):

@@ -14,8 +14,10 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
-_MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
-_DATASETS = ("cifar10", "cifar100", "synthetic", "imagefolder")
+_MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "smallcnn",
+           "vgg11", "vgg13", "vgg16", "vgg19", "mobilenetv2", "mobilenet_v2")
+_DATASETS = ("cifar10", "cifar100", "synthetic", "synthetic_tail", "synthetic_hard",
+             "digits", "digits_imb", "imagefolder")
 _SAMPLERS = ("pool", "scoretable", "groupwise")
 
 # The most scorer tenants (their metric keys are t0..t3).
@@ -28,9 +30,11 @@ class TrainConfig:
     0.001×world_size with cosine decay, a 10×32 candidate pool drawn down
     to 32 by importance sampling."""
 
-    # Model / data
+    # Model / data: a ResNet, "smallcnn", a VGG or MobileNetV2.
     model: str = "resnet18"
     # "cifar10" or "cifar100": real files if present, else synthetic;
+    # "synthetic", "synthetic_tail", "synthetic_hard": the stand-ins;
+    # "digits", "digits_imb": scikit-learn's handwritten digits;
     # "imagefolder": data_dir/<class>/<image> (or data_dir/train/... and
     # data_dir/test/...), decoded with PIL and resized to image_size.
     dataset: str = "cifar10"

@@ -1,11 +1,12 @@
-"""CIFAR-10 and CIFAR-100 ingest to host arrays, and the deterministic
-synthetic stand-in.
+"""CIFAR-10 and CIFAR-100 ingest to host arrays, the deterministic
+synthetic stand-ins and scikit-learn's handwritten digits.
 
-A copy of the ``synthetic``, ``cifar10`` and ``cifar100`` branches of
-``mercury_tpu/data/cifar.py``: the port imports nothing from the JAX
-package, and the two must produce the same bytes from the same seed and
-search the same directories (test-enforced). Images are uint8 NHWC, labels
-int32.
+A copy of the image branches of ``mercury_tpu/data/cifar.py`` (``cifar10``,
+``cifar100``, ``synthetic``, ``synthetic_tail``, ``synthetic_hard``,
+``digits``, ``digits_imb``): the port imports nothing from the JAX package,
+and the two must produce the same bytes from the same seed and search the
+same directories (test-enforced). Images are uint8 NHWC, labels int32. The
+sequence datasets are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +29,18 @@ CIFAR100_STD = np.array([0.2673, 0.2564, 0.2762], np.float32)
 _SEARCH_DIRS = ("data", os.path.expanduser("~/.cache/mercury_tpu"), "/tmp/mercury_tpu_data")
 
 Split = Tuple[np.ndarray, np.ndarray]
+
+# The synthetic variants: (num_classes, difficulty, label_noise).
+# synthetic_hard is the sample-efficiency task (a heavy tail of hard
+# samples, 5% train-label noise); synthetic_tail the same tail with clean
+# labels.
+_SYNTH = {
+    "synthetic": (10, "uniform", 0.0),
+    "synthetic_tail": (20, "heavy_tail", 0.0),
+    "synthetic_hard": (20, "heavy_tail", 0.05),
+}
+# The JAX package's sequence datasets, refused here.
+SEQUENCE_DATASETS = ("digits_seq", "digits_seq_imb", "synthetic_seq", "synthetic_seq_hard")
 
 
 def _load_pickle_batches(batch_dir: str, files, label_key: str) -> Split:
@@ -80,27 +93,86 @@ def synthetic_cifar(
     test_size: int = 1000,
     image_size: int = 32,
     seed: int = 0,
+    difficulty: str = "uniform",
+    label_noise: float = 0.0,
 ) -> Tuple[Split, Split]:
     """Deterministic learnable stand-in for CIFAR: each class is a fixed
     random low-frequency template, each sample that template plus noise at
     a per-sample scale, so per-sample difficulty varies and importance
-    sampling has signal."""
+    sampling has signal.
+
+    ``difficulty="heavy_tail"`` draws the noise scale from a clipped
+    lognormal (most samples easy, a long tail very hard) and normalizes
+    each sample by its own min and max, so the tail does not crush every
+    sample's contrast. ``label_noise`` flips that share of the train
+    labels to another class; the test labels stay clean."""
     rng = np.random.default_rng(seed)
     small = rng.normal(0, 1, (num_classes, 4, 4, 3)).astype(np.float32)
     reps = image_size // 4
     templates = np.repeat(np.repeat(small, reps, axis=1), reps, axis=2)
 
-    def make(n, offset):
+    def make(n, offset, noisy_labels: bool):
         local = np.random.default_rng(seed + offset)
         y = local.integers(0, num_classes, n).astype(np.int32)
-        noise_scale = local.uniform(0.3, 1.5, (n, 1, 1, 1)).astype(np.float32)
+        if difficulty == "heavy_tail":
+            noise_scale = np.clip(
+                local.lognormal(-0.3, 1.0, (n, 1, 1, 1)), 0.1, 8.0).astype(np.float32)
+        elif difficulty == "uniform":
+            noise_scale = local.uniform(0.3, 1.5, (n, 1, 1, 1)).astype(np.float32)
+        else:
+            raise ValueError(f"unknown difficulty {difficulty!r}")
         noise = local.normal(
             0, 1, (n, image_size, image_size, 3)).astype(np.float32)
         x = templates[y] + noise_scale * noise
-        x = (x - x.min()) / (x.max() - x.min() + 1e-8)
+        if difficulty == "heavy_tail":
+            lo = x.min(axis=(1, 2, 3), keepdims=True)
+            hi = x.max(axis=(1, 2, 3), keepdims=True)
+            x = (x - lo) / (hi - lo + 1e-8)
+        else:
+            x = (x - x.min()) / (x.max() - x.min() + 1e-8)
+        if noisy_labels and label_noise > 0.0:
+            flip = local.random(n) < label_noise
+            shift = local.integers(1, num_classes, n).astype(np.int32)
+            y = np.where(flip, (y + shift) % num_classes, y).astype(np.int32)
         return (x * 255).astype(np.uint8), y
 
-    return make(train_size, 1), make(test_size, 2)
+    return make(train_size, 1, True), make(test_size, 2, False)
+
+
+def load_digits(name: str, seed: int = 0) -> Tuple[Split, Split, dict]:
+    """scikit-learn's 1,797 real 8×8 handwritten digits, upscaled to
+    32×32×3 uint8 and split 80/20 by a permutation from ``seed``.
+    ``digits_imb`` keeps ``max(round(0.1·n), 8)`` of the train samples of
+    each of classes 5-9; the test split stays balanced. The normalization
+    ``mean``/``std`` are the train split's."""
+    try:
+        from sklearn.datasets import load_digits as _load_digits
+    except ImportError as e:
+        raise ImportError(f"dataset {name!r} needs scikit-learn, which ships the "
+                          "digits; it is not installed") from e
+
+    d = _load_digits()
+    labels = d.target.astype(np.int32)
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(labels))
+    n_test = len(labels) // 5
+    test_idx, train_idx = order[:n_test], order[n_test:]
+    if name == "digits_imb":
+        ytr = labels[train_idx]
+        keep = np.ones(len(train_idx), bool)
+        for c in range(5, 10):
+            idx = np.where(ytr == c)[0]
+            n_keep = max(int(round(0.1 * len(idx))), 8)
+            keep[rng.permutation(idx)[n_keep:]] = False
+        train_idx = train_idx[keep]
+    imgs = (d.images / d.images.max() * 255.0).astype(np.uint8)
+    imgs = np.repeat(np.repeat(imgs, 4, axis=1), 4, axis=2)  # 8→32
+    imgs = np.repeat(imgs[..., None], 3, axis=-1)            # gray→RGB
+    flat = imgs[train_idx].astype(np.float32) / 255.0
+    mean = flat.mean(axis=(0, 1, 2)).astype(np.float32)
+    std = np.maximum(flat.std(axis=(0, 1, 2)), 1e-3).astype(np.float32)
+    return ((imgs[train_idx], labels[train_idx]), (imgs[test_idx], labels[test_idx]),
+            {"num_classes": 10, "mean": mean, "std": std, "synthetic": False})
 
 
 def find_data_dir(explicit: Optional[str] = None) -> Optional[str]:
@@ -125,11 +197,18 @@ def load_dataset(
     ``num_classes``, the normalization ``mean``/``std`` and whether the
     data is synthetic."""
     name = name.lower()
-    if name == "synthetic":
+    if name in _SYNTH:
+        num_classes, difficulty, label_noise = _SYNTH[name]
         train, test = synthetic_cifar(
-            10, synthetic_train_size, synthetic_test_size, seed=seed)
-        return train, test, {"num_classes": 10, "mean": CIFAR10_MEAN,
+            num_classes, synthetic_train_size, synthetic_test_size, seed=seed,
+            difficulty=difficulty, label_noise=label_noise)
+        return train, test, {"num_classes": num_classes, "mean": CIFAR10_MEAN,
                              "std": CIFAR10_STD, "synthetic": True}
+    if name in ("digits", "digits_imb"):
+        return load_digits(name, seed)
+    if name in SEQUENCE_DATASETS:
+        raise ValueError(f"dataset {name!r} is one of the sequence datasets, which "
+                         "the port does not load yet")
     if name not in ("cifar10", "cifar100"):
         raise ValueError(f"unknown dataset {name!r}")
     num_classes, mean, std, loader = (

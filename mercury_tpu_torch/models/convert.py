@@ -1,16 +1,19 @@
 """Weights and sampler state carried across from the JAX package.
 
-``params_from_flax`` maps the Flax ResNet's variables — nested dicts of
+``params_from_flax`` maps a Flax image model's variables — nested dicts of
 arrays under Flax's automatic names (``Conv_0``, ``BatchNorm_0``,
-``BasicBlock_3``, ``Dense_0``, …) — onto the state dict of the port's
-:class:`~mercury_tpu_torch.models.resnet.ResNet`. Conv kernels go HWIO →
-OIHW, Dense kernels ``[in, out]`` → ``[out, in]``, BatchNorm
-``scale/bias/mean/var`` → ``weight/bias/running_mean/running_var``.
+``BasicBlock_3``, ``InvertedResidual_10``, ``Dense_0``, …) — onto the state
+dict of the port's model of the same family. Conv kernels go HWIO → OIHW
+(a depthwise ``[3, 3, 1, C]`` to ``[C, 1, 3, 3]``), Dense kernels ``[in,
+out]`` → ``[out, in]``, BatchNorm ``scale/bias/mean/var`` →
+``weight/bias/running_mean/running_var``.
 
 ``jax_flat_order`` goes the other way for the parameters as one vector:
 the index that puts the port's concatenated parameters in the order of
 ``ravel_pytree`` of the Flax ``params``, which the JAX package's ZeRO
 chunks and int8 rows are cut from.
+
+Both read one table a family (:data:`FLAX_NAMES`).
 """
 
 from __future__ import annotations
@@ -24,21 +27,55 @@ import torch
 from mercury_tpu_torch.sampling.groupwise import GroupwiseState
 from mercury_tpu_torch.sampling.scoretable import ScoreTableState
 
-# Flax auto-names inside each block, in creation order, → port module names.
-_BLOCK_NAMES = {
-    "BasicBlock": {"Conv_0": "conv1", "BatchNorm_0": "bn1",
-                   "Conv_1": "conv2", "BatchNorm_1": "bn2",
-                   "Conv_2": "down_conv", "BatchNorm_2": "down_bn"},
-    "Bottleneck": {"Conv_0": "conv1", "BatchNorm_0": "bn1",
-                   "Conv_1": "conv2", "BatchNorm_1": "bn2",
-                   "Conv_2": "conv3", "BatchNorm_2": "bn3",
-                   "Conv_3": "down_conv", "BatchNorm_3": "down_bn"},
+_LAYERS = ("Conv", "BatchNorm", "Dense")
+_RESNET_TOP = (("conv", "Conv_0"), ("bn", "BatchNorm_0"), ("fc", "Dense_0"))
+
+
+def _resnet_blocks(block: str, names) -> tuple:
+    return tuple((f"blocks.{{i}}.{name}", f"{block}_{{i}}/{layer}_{n}")
+                 for n, (conv, bn) in enumerate(names)
+                 for name, layer in ((conv, "Conv"), (bn, "BatchNorm")))
+
+
+# Port module name → Flax module path, by family: the class of the
+# model's ``blocks`` (ResNet, MobileNetV2), "" for a model without blocks
+# (SmallCNN, VGG). ``{i}``/``{j}`` stand for an index, the same on both
+# sides. Flax numbers each layer kind in creation order within its module.
+FLAX_NAMES: Dict[str, Tuple[Tuple[str, str], ...]] = {
+    "BasicBlock": _RESNET_TOP + _resnet_blocks("BasicBlock", (
+        ("conv1", "bn1"), ("conv2", "bn2"), ("down_conv", "down_bn"))),
+    "Bottleneck": _RESNET_TOP + _resnet_blocks("Bottleneck", (
+        ("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"), ("down_conv", "down_bn"))),
+    # The block's convs/bns are its Conv_j/BatchNorm_j: two at expand 1,
+    # three otherwise.
+    "InvertedResidual": (
+        ("stem_conv", "Conv_0"), ("stem_bn", "BatchNorm_0"),
+        ("blocks.{i}.convs.{j}", "InvertedResidual_{i}/Conv_{j}"),
+        ("blocks.{i}.bns.{j}", "InvertedResidual_{i}/BatchNorm_{j}"),
+        ("head_conv", "Conv_1"), ("head_bn", "BatchNorm_1"), ("fc", "Dense_0")),
+    "": (("convs.{i}", "Conv_{i}"), ("bns.{i}", "BatchNorm_{i}"), ("fcs.{i}", "Dense_{i}")),
 }
-_TOP_NAMES = {"Conv_0": "conv", "BatchNorm_0": "bn", "Dense_0": "fc"}
 # Port parameter name → Flax leaf name, by Flax layer kind.
 _LEAVES = {("Conv", "weight"): "kernel", ("Dense", "weight"): "kernel",
            ("Dense", "bias"): "bias", ("BatchNorm", "weight"): "scale",
            ("BatchNorm", "bias"): "bias"}
+
+
+def _translate(name: str, table, src: int) -> str:
+    """``name`` (a port module name for ``src=0``, a "/"-joined Flax path
+    for ``src=1``) in the other column of ``table``; KeyError if no row
+    matches."""
+    for row in table:
+        pattern = re.escape(row[src]).replace(r"\{i\}", r"(?P<i>\d+)").replace(
+            r"\{j\}", r"(?P<j>\d+)")
+        m = re.fullmatch(pattern, name)
+        if m:
+            return row[1 - src].format(**m.groupdict())
+    raise KeyError(f"no counterpart for {name!r} in the family's table")
+
+
+def _kind(flax_name: str) -> str:
+    return flax_name.rsplit("_", 1)[0]
 
 
 def _t(a) -> torch.Tensor:
@@ -82,58 +119,53 @@ def groupwise_from_jax(importance, group, cursor, generation,
 
 def params_from_flax(params: Mapping[str, Any],
                      batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """State dict of the port's ResNet from the Flax ResNet's ``params``
-    and ``batch_stats`` collections."""
+    """State dict of the port's model from a Flax model's ``params`` and
+    ``batch_stats`` collections; the family is told by the names of its
+    blocks (none for SmallCNN and VGG)."""
+    kinds = {_kind(n) for n in params} - set(_LAYERS)
+    family = kinds.pop() if len(kinds) == 1 else ""
+    if kinds or family not in FLAX_NAMES:
+        blocks = sorted(n for n in params if _kind(n) not in _LAYERS)
+        raise KeyError(f"no port counterpart for Flax modules {blocks}")
     out: Dict[str, torch.Tensor] = {}
     for name, sub in params.items():
         stats = batch_stats.get(name, {})
-        m = re.fullmatch(r"(BasicBlock|Bottleneck)_(\d+)", name)
-        if m:
-            names = _BLOCK_NAMES[m.group(1)]
-            for layer, layer_params in sub.items():
-                _layer(out, f"blocks.{m.group(2)}.{names[layer]}", layer,
-                       layer_params, stats.get(layer, {}))
-        elif name in _TOP_NAMES:
-            _layer(out, _TOP_NAMES[name], name, sub, stats)
-        else:
-            raise KeyError(f"no port counterpart for Flax module {name!r}")
+        layers = ([(name, name, sub, stats)] if _kind(name) in _LAYERS else
+                  [(f"{name}/{k}", k, v, stats.get(k, {})) for k, v in sub.items()])
+        for path, layer, layer_params, layer_stats in layers:
+            _layer(out, _translate(path, FLAX_NAMES[family], 1), layer, layer_params,
+                   layer_stats)
     return out
 
 
-def _flax_path(name: str, block: str) -> Tuple[str, ...]:
-    """The Flax ``params`` path of the port's parameter ``name`` in a
-    ResNet of ``block`` ("BasicBlock" or "Bottleneck") blocks."""
-    *modules, leaf = name.split(".")
-    if modules[0] == "blocks":
-        layer = {v: k for k, v in _BLOCK_NAMES[block].items()}[modules[2]]
-        path: Tuple[str, ...] = (f"{block}_{modules[1]}", layer)
-    else:
-        layer = {v: k for k, v in _TOP_NAMES.items()}[modules[0]]
-        path = (layer,)
-    return path + (_LEAVES[layer.split("_")[0], leaf],)
+def _family(model: torch.nn.Module) -> str:
+    blocks = getattr(model, "blocks", None)
+    return type(blocks[0]).__name__ if blocks else ""
 
 
 def jax_flat_order(model: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(order, inverse)``, int64 ``[n]`` on the model's device:
-    ``port_vec[order]`` is ``ravel_pytree`` of the Flax ResNet's ``params``
+    ``port_vec[order]`` is ``ravel_pytree`` of the Flax model's ``params``
     and ``jax_vec[inverse]`` the port's vector back, where ``port_vec`` is
     ``torch.cat([p.reshape(-1) for p in model.parameters()])``.
 
     ``ravel_pytree`` takes the leaves in sorted-key order at every level
     (``BasicBlock_10`` before ``BasicBlock_2``; ``BatchNorm_*`` before
     ``Conv_*``; ``bias`` before ``kernel`` and ``scale``), each raveled in
-    its Flax layout: conv kernels HWIO, the Dense kernel ``[in, out]``."""
-    block = type(model.blocks[0]).__name__
+    its Flax layout: conv kernels HWIO, Dense kernels ``[in, out]``."""
+    table = FLAX_NAMES[_family(model)]
     leaves: List[Tuple[Tuple[str, ...], torch.Tensor]] = []
     offset = 0
     for name, p in model.named_parameters():
-        path = _flax_path(name, block)
+        module, leaf = name.rsplit(".", 1)
+        path = tuple(_translate(module, table, 0).split("/"))
+        kind = _kind(path[-1])
         idx = torch.arange(offset, offset + p.numel()).view(p.shape)
-        if path[-2].startswith("Conv_"):
+        if kind == "Conv":
             idx = idx.permute(2, 3, 1, 0)  # OIHW → HWIO
         elif idx.dim() == 2:
             idx = idx.T  # [out, in] → [in, out]
-        leaves.append((path, idx.reshape(-1)))
+        leaves.append((path + (_LEAVES[kind, leaf],), idx.reshape(-1)))
         offset += p.numel()
     order = torch.cat([idx for _, idx in sorted(leaves, key=lambda leaf: leaf[0])])
     inverse = torch.empty_like(order)

@@ -75,6 +75,27 @@ def _meta_copy(model: torch.nn.Module) -> torch.nn.Module:
     return meta
 
 
+def _conv_backward_flop(grad_out_shape, x_shape, w_shape, _bias, _stride,
+                        _padding, _dilation, transposed, _output_padding, groups,
+                        output_mask, out_shape=None, **kwargs) -> int:
+    """``aten.convolution_backward``'s FLOPs with the weight gradient
+    divided by ``groups``: PyTorch's own formula counts a grouped
+    convolution's weight gradient as a dense one's, so a depthwise 3×3
+    (MobileNetV2's) would count ``channels`` times its work."""
+    from torch.utils.flop_counter import conv_flop_count
+
+    def t(shape):
+        return [shape[1], shape[0]] + list(shape[2:])
+
+    count = 0
+    if output_mask[0]:
+        count += conv_flop_count(grad_out_shape, w_shape, x_shape, not transposed)
+    if output_mask[1]:
+        lhs, rhs = (grad_out_shape, x_shape) if transposed else (x_shape, grad_out_shape)
+        count += conv_flop_count(t(lhs), t(rhs), t(w_shape), transposed=False) // groups
+    return count
+
+
 def flops_per_step(trainer) -> Optional[float]:
     """FLOPs of one of ``trainer``'s steps (a microstep under
     ``grad_accum_steps``), as ``FlopCounterMode`` counts them: the
@@ -82,7 +103,9 @@ def flops_per_step(trainer) -> Optional[float]:
     no-grad forwards of :func:`scoring_forwards` (the scoring forward at
     the pool ``[P]``) and of the training forward and backward at the
     batch ``[B]`` (the backward computes no gradient of the images, so the
-    first convolution's input gradient is not counted). Elementwise work, batch norm, the NLL and the selection
+    first convolution's input gradient is not counted; a grouped
+    convolution's weight gradient counts its groups' work alone, as its
+    forward does). Elementwise work, batch norm, the NLL and the selection
     are not counted, so the count is not XLA's ``cost_analysis``.
 
     The count runs a ``meta`` copy of the model at those shapes: the
@@ -105,12 +128,14 @@ def flops_per_step(trainer) -> Optional[float]:
             return to_nchw(torch.empty((n, *sample), dtype=torch.float32, device="meta"))
 
         total = 0.0
+        mapping = {torch.ops.aten.convolution_backward: _conv_backward_flop}
         for rows, share in scoring_forwards(config):
-            with FlopCounterMode(display=False) as counter, torch.no_grad():
+            with FlopCounterMode(display=False, custom_mapping=mapping) as counter, \
+                    torch.no_grad():
                 model(images(rows), train=True, keep_stats=False)
             total += counter.get_total_flops() * share
         x = images(config.batch_size)
-        with FlopCounterMode(display=False) as counter:
+        with FlopCounterMode(display=False, custom_mapping=mapping) as counter:
             logits = model(x, train=True, keep_stats=True)
             logits.float().sum().backward()
         total += counter.get_total_flops()

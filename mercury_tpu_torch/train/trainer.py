@@ -286,7 +286,10 @@ class Trainer:
             generator=torch.Generator().manual_seed(0), dtype=torch.int32).to(self.device)
         if model is None:
             gen = torch.Generator().manual_seed(config.seed)
-            model = create_model(config.model, self.dataset.num_classes, gen)
+            # The sample shape sizes the input (and VGG's head) as the JAX
+            # init's sample does: the dataset's, before any augmentation.
+            model = create_model(config.model, self.dataset.num_classes, gen,
+                                 tuple(self.dataset.x_train.shape[1:]))
         set_sync_batch_norm(model, config.batch_norm == "sync" and config.world_size > 1)
         self.steps_per_epoch = config.steps_per_epoch or max(
             self.dataset.n_train // config.batch_size, 1)

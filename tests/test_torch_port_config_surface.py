@@ -269,7 +269,8 @@ def test_deep_resnets_train_float32(depth):
     assert r["port32_vs_jax32"] <= 5e-3
 
 
-@pytest.mark.parametrize("name,classes", sorted(chip_smoke.PARAMETERS))
+@pytest.mark.parametrize("name,classes", sorted(k for k in chip_smoke.PARAMETERS
+                                                 if k[0].startswith("resnet")))
 def test_full_width_parameter_count_equals_jax(name, classes):
     """Counted from the JAX init's shapes (``jax.eval_shape``: no forward
     runs) and from the port's model on the meta device; the smoke holds

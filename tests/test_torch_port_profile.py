@@ -91,6 +91,30 @@ def test_flops_per_step_is_the_closed_form(kw, scored):
         assert flops_per_step(tr) == pytest.approx(want, rel=1e-12)
 
 
+@pytest.mark.parametrize("name,kw", [
+    ("smallcnn", {}),
+    ("vgg11", {}),
+    ("mobilenetv2", dict(width_mult=0.25)),
+], ids=["smallcnn", "vgg11", "mobilenetv2"])
+@pytest.mark.parametrize("sampler", ["pool", "uniform"])
+def test_flops_per_step_is_the_closed_form_for_each_family(name, kw, sampler):
+    """The same closed form on the image families: VGG's Dense head and
+    MobileNetV2's depthwise 3×3s, whose weight gradient counts its groups'
+    work alone."""
+    from mercury_tpu_torch.models import create_model
+
+    model = create_model(name, 10, torch.Generator().manual_seed(0), **kw)
+    config = dict(dataset="synthetic", world_size=1, batch_size=B,
+                  presample_batches=PRESAMPLE, compute_dtype="float32", num_epochs=1,
+                  steps_per_epoch=4, eval_every=0, log_every=0, seed=0,
+                  use_importance_sampling=sampler == "pool")
+    scored = B * PRESAMPLE if sampler == "pool" else 0
+    with Trainer(TrainConfig(**config), device="cpu", model=model) as tr:
+        m, m_first = _macs(tr.state.model)
+        want = 2 * m * scored + 3 * 2 * m * B - 2 * m_first * B
+        assert flops_per_step(tr) == pytest.approx(want, rel=1e-12)
+
+
 def test_counting_leaves_the_trainer_as_it_was():
     with _tiny() as tr:
         tr.train_step()

@@ -101,7 +101,13 @@ def test_config_fields_match_the_jax_package():
     # package refuses of them is refused.
     pytest.param("prefetch_depth", dict(data_placement="host_stream", prefetch_depth=0),
                  id="data_placement-host_stream"),
-    pytest.param("model", dict(model="vgg11"), id="model-vgg11"),
+    # The image family is ported; the sequence models and datasets are not.
+    pytest.param("model", dict(model="transformer"), id="model-transformer"),
+    pytest.param("dataset", dict(dataset="digits_seq"), id="dataset-digits_seq"),
+    pytest.param("dataset", dict(dataset="digits_seq_imb"), id="dataset-digits_seq_imb"),
+    pytest.param("dataset", dict(dataset="synthetic_seq"), id="dataset-synthetic_seq"),
+    pytest.param("dataset", dict(dataset="synthetic_seq_hard"),
+                 id="dataset-synthetic_seq_hard"),
     pytest.param("data_dir", dict(dataset="imagefolder"), id="dataset-imagefolder"),
     pytest.param("scoring_dtype", dict(scoring_dtype="bfloat16",
                                        use_importance_sampling=False),
