@@ -257,7 +257,22 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    scoretable sampler with the fused ingest, 30 steps; (c) only where
    scikit-learn imports, ResNet-18 on ``digits_imb``, importance sampling
    against uniform, a fixed number of steps each: test accuracy, the
-   rare classes' (5-9) accuracy and the seconds.
+   rare classes' (5-9) accuracy and the seconds;
+20. the sequence family at the JAX package's default widths, batch 32,
+   bf16: (a) BiLSTM-attention (two BiLSTMs of 128, 675,722 parameters)
+   and the Transformer (d_model 128, 4 heads, 2 layers, 662,410) on
+   ``synthetic_seq`` (5000 float32 [32, 16] sequences,
+   ``augmentation="none"``) and ViT (patch 4, 4 layers, 809,098) on
+   ``synthetic``, each as phase 19's (a): 30 timed steps held to 2/1/1
+   launches a step, each kernel on the step's own inputs against its plain
+   version, a kernel step against a plain step, steps/s, busy share,
+   peak memory, MFU, and the uniform arm (1/1/0) in turns; (b) ViT on the
+   scoretable sampler with the fused ingest, 30 steps held to 2/1/0/1/2;
+   (c) the Transformer with ``remat=True`` against without from the same
+   seed, in turns: the same losses, each arm's peak memory and the steps/s
+   ratio; (d) ``evaluate`` and ``predict`` on ``synthetic_seq``: finite,
+   ``[N, 10]``, predict's argmax accuracy evaluate's. ``digits_seq`` runs
+   only where scikit-learn imports, and says so where it does not.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -515,6 +530,25 @@ DIGITS = dict(model="resnet18", dataset="digits_imb", world_size=1, eval_every=0
               log_every=0)
 DIGITS_STEPS = 300        # (c) steps of each arm
 RARE_CLASSES = (5, 6, 7, 8, 9)
+# Phase 20, the sequence family at the JAX package's default widths: (a)
+# path A (BiLSTM-attention) and path B (the Transformer) on synthetic_seq
+# and ViT on synthetic, each on the pool step with its uniform arm in
+# turns; (b) ViT on the fused scoretable step; (c) the Transformer with
+# remat against without, in turns; (d) evaluate and predict on
+# synthetic_seq; digits_seq only where scikit-learn imports.
+SEQUENCE = dict(dataset="synthetic_seq", world_size=1, augmentation="none")
+SEQUENCE_MODELS = ("bilstm_attention", "transformer")
+VIT = dict(model="vit", dataset="synthetic", world_size=1)
+VIT_TABLE = dict(VIT, sampler="scoretable", fused_input=True)
+REMAT_TURNS = ("off", "on", "on", "off")
+# Kernel launches a step of the pool and the fused scoretable steps.
+POOL_STEP = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 1, "table_refresh_draw": 0,
+             "augment_normalize": 0}
+TABLE_STEP = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 0, "table_refresh_draw": 1,
+              "augment_normalize": 2}
+DIGITS_SEQ = dict(SEQUENCE, model="bilstm_attention", dataset="digits_seq",
+                  eval_every=0, log_every=0)
+DIGITS_SEQ_STEPS = 30
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -529,11 +563,14 @@ CIFAR100_MEAN = (0.5071, 0.4865, 0.4409)
 CIFAR100_STD = (0.2673, 0.2564, 0.2762)
 # Parameter counts at full width, by model and class count (CPU tests hold
 # them to the JAX package's models); phase 19's models have synthetic_hard's
-# 20 classes.
+# 20 classes, phase 20's the 10 of synthetic_seq ([32, 16] sequences) and
+# synthetic.
 PARAMETERS = {("resnet18", 10): 11_173_962, ("resnet18", 100): 11_220_132,
               ("resnet101", 100): 42_697_380, ("resnet152", 100): 58_341_028,
               ("smallcnn", 20): 5_796, ("vgg11", 20): 9_291_476,
-              ("vgg16", 20): 14_787_156, ("mobilenetv2", 20): 2_249_492}
+              ("vgg16", 20): 14_787_156, ("mobilenetv2", 20): 2_249_492,
+              ("bilstm_attention", 10): 675_722, ("transformer", 10): 662_410,
+              ("vit", 10): 809_098}
 
 # The metric keys of the JAX package's default step (pool), its scoretable
 # step and its async scoretable step, with telemetry on (its default): a CPU test holds this
@@ -607,6 +644,7 @@ def main() -> int:
                            table_path)
     observed = run_phase("observability", observability_phase, torch, card, main_path)
     image = run_phase("image family", image_family_phase, torch, card)
+    sequence = run_phase("sequence family", sequence_family_phase, torch, card)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -623,7 +661,8 @@ def main() -> int:
                    "supervised_runtime": supervised["launches"][k["name"]],
                    "observability": observed["launches"][k["name"]],
                    "observability_two_ranks": observed["two_rank_launches"][k["name"]],
-                   "image_models": image["launches"][k["name"]]}
+                   "image_models": image["launches"][k["name"]],
+                   "sequence_models": sequence["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -640,7 +679,8 @@ def main() -> int:
          "scorer_service": service["summary"], "command_line": cmd["summary"],
          "durable_checkpoints": durable["summary"],
          "supervised_runtime": supervised["summary"],
-         "observability": observed["summary"], "image_family": image["summary"]},
+         "observability": observed["summary"], "image_family": image["summary"],
+         "sequence_family": sequence["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5587,16 +5627,16 @@ def step_kernels_vs_plain(torch, mk, trainer, name: str) -> dict:
     return out
 
 
-def image_pool_arm(torch, mk, card: str, model: str, dataset, launches: dict) -> dict:
-    """(a) ``model`` on the default pool step over ``dataset``: 3 warm-up
-    and 30 timed steps with the launches a step phase 4's, the kernels on
-    one step's inputs and a kernel step against a plain step, a profiler
-    window, peak memory (above the arm's start: earlier phases' trainers stay
-    alive), MFU, then the uniform arm in turns."""
-    from mercury_tpu_torch import TrainConfig
+def pool_arm(torch, mk, card: str, config, dataset, launches: dict, label: str) -> dict:
+    """``config`` (a model on the default pool step) over ``dataset``: 3
+    warm-up and 30 timed steps with the launches a step phase 4's, the
+    kernels on one step's inputs and a kernel step against a plain step, a
+    profiler window, peak memory (above the arm's start: earlier phases'
+    trainers stay alive), MFU, then the uniform arm in turns. Phase 19's
+    (a) and phase 20's (a)."""
     from mercury_tpu_torch.obs.accounting import flops_per_step, peak_flops
 
-    config = TrainConfig(**IMAGE, model=model)
+    model = config.model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # The peak above what earlier phases and the dataset hold.
@@ -5604,10 +5644,9 @@ def image_pool_arm(torch, mk, card: str, model: str, dataset, launches: dict) ->
     trainer = build_trainer(torch, config, quiet=True, dataset=dataset)
     warm(trainer)
     dt, counts, losses, metrics = timed_steps(torch, mk, trainer)
-    pool_step = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 1, "table_refresh_draw": 0,
-                 "augment_normalize": 0}
+    pool_step = POOL_STEP
     want = {k: v * MAIN_STEPS for k, v in pool_step.items()}
-    check(counts == want, f"image {model}: launch counts {counts}, expected {want}")
+    check(counts == want, f"{label} {model}: launch counts {counts}, expected {want}")
     for k, v in counts.items():
         launches[k] += v
     peak = torch.cuda.max_memory_allocated() - base
@@ -5617,7 +5656,7 @@ def image_pool_arm(torch, mk, card: str, model: str, dataset, launches: dict) ->
     window = profile_window(torch, trainer, dt / MAIN_STEPS * 1e6, steps=5)
     window.pop("by_kernel")
     flops = flops_per_step(trainer)
-    check(flops is not None and flops > 0, f"image {model}: FLOPs a step {flops}")
+    check(flops is not None and flops > 0, f"{label} {model}: FLOPs a step {flops}")
     peak_rate = peak_flops(torch.cuda.get_device_name(0))
     rates = {"is": [MAIN_STEPS / dt], "uniform": []}
     arms = {"is": trainer,
@@ -5629,7 +5668,7 @@ def image_pool_arm(torch, mk, card: str, model: str, dataset, launches: dict) ->
         t_dt, t_counts, _, _ = timed_steps(torch, mk, arms[turn])
         t_want = {k: v * MAIN_STEPS for k, v in
                   (pool_step if turn == "is" else uniform_step).items()}
-        check(t_counts == t_want, f"image {model} ({turn} turn): launch counts {t_counts}, "
+        check(t_counts == t_want, f"{label} {model} ({turn} turn): launch counts {t_counts}, "
               f"expected {t_want}")
         rates[turn].append(MAIN_STEPS / t_dt)
         for k, v in t_counts.items():
@@ -5638,7 +5677,7 @@ def image_pool_arm(torch, mk, card: str, model: str, dataset, launches: dict) ->
     mfu = flops * steps_s / peak_rate if peak_rate else None
     ratio = steps_s / statistics.mean(rates["uniform"])
     fwd_err = max(c["max_abs_err"] for c in kernels["nll_fwd"])
-    print(f"image (a) {model}: {MAIN_STEPS} steps in {dt:.3f} s = {MAIN_STEPS / dt:.2f} "
+    print(f"{label} {model}: {MAIN_STEPS} steps in {dt:.3f} s = {MAIN_STEPS / dt:.2f} "
           f"steps/s; losses first {losses[0].item():.4f}, last {losses[-1].item():.4f}; "
           f"launches {counts}; peak memory {peak / 2**30:.3f} GiB above the arm's start; "
           f"device busy "
@@ -5719,32 +5758,14 @@ def image_family_phase(torch, card: str) -> dict:
           f"synthetic_hard: {dataset.num_classes} classes, {dataset.n_train} images")
     out["pool"] = {}
     for model in IMAGE_MODELS:
-        out["pool"][model] = image_pool_arm(torch, mk, card, model, dataset, launches)
+        out["pool"][model] = pool_arm(torch, mk, card, TrainConfig(**IMAGE, model=model),
+                                      dataset, launches, "image (a)")
     seconds["a"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    config = TrainConfig(**IMAGE_TABLE)
-    trainer = build_trainer(torch, config, quiet=True, dataset=dataset)
-    warm(trainer)
-    dt, counts, losses, metrics = timed_steps(torch, mk, trainer)
-    table_step = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 0, "table_refresh_draw": 1,
-                  "augment_normalize": 2}
-    want = {k: v * MAIN_STEPS for k, v in table_step.items()}
-    check(counts == want, f"image (b): launch counts {counts}, expected {want}")
-    for k, v in counts.items():
-        launches[k] += v
-    telemetry = check_telemetry(torch, metrics, "scoretable", config.batch_size)
-    step_err = kernel_vs_plain_step(torch, trainer, config, quiet=True)
-    print(f"image (b) mobilenetv2, scoretable + fused: {MAIN_STEPS} steps in {dt:.3f} s = "
-          f"{MAIN_STEPS / dt:.2f} steps/s; losses first {losses[0].item():.4f}, last "
-          f"{losses[-1].item():.4f}; launches {counts}; kernel step vs plain step |d loss| "
-          f"{step_err['train/loss']:.2e} [{card}]")
-    out["scoretable"] = {"steps": MAIN_STEPS, "seconds": dt, "steps_per_s": MAIN_STEPS / dt,
-                         "launches": counts, "first_loss": losses[0].item(),
-                         "last_loss": losses[-1].item(), "kernel_vs_plain": step_err,
-                         "telemetry": telemetry}
-    trainer.close()
-    del trainer, dataset
+    out["scoretable"] = table_arm(torch, mk, card, TrainConfig(**IMAGE_TABLE), dataset,
+                                  launches, "image (b)")
+    del dataset
     torch.cuda.empty_cache()
     seconds["b"] = time.perf_counter() - t0
 
@@ -5755,6 +5776,183 @@ def image_family_phase(torch, card: str) -> dict:
           f"image family: a kernel of the path never launched: {launches}")
     print("image family: seconds by part " + ", ".join(f"({k}) {v:.1f}"
                                                         for k, v in seconds.items()))
+    out["seconds"] = seconds
+    return {"launches": launches, "summary": out}
+
+
+# ----------------------------------------------------------------- phase 20
+def table_arm(torch, mk, card: str, config, dataset, launches: dict, label: str) -> dict:
+    """``config`` on the fused scoretable step: 30 timed steps held to
+    2/1/0/1/2 launches a step (nll_fwd/nll_bwd/score_and_draw/
+    table_refresh_draw/augment_normalize), the telemetry, and a kernel
+    step against a plain step. Phase 19's (b) and phase 20's (b)."""
+    trainer = build_trainer(torch, config, quiet=True, dataset=dataset)
+    warm(trainer)
+    dt, counts, losses, metrics = timed_steps(torch, mk, trainer)
+    want = {k: v * MAIN_STEPS for k, v in TABLE_STEP.items()}
+    check(counts == want, f"{label}: launch counts {counts}, expected {want}")
+    for k, v in counts.items():
+        launches[k] += v
+    telemetry = check_telemetry(torch, metrics, "scoretable", config.batch_size)
+    step_err = kernel_vs_plain_step(torch, trainer, config, quiet=True)
+    print(f"{label} {config.model}, scoretable + fused: {MAIN_STEPS} steps in {dt:.3f} s = "
+          f"{MAIN_STEPS / dt:.2f} steps/s; losses first {losses[0].item():.4f}, last "
+          f"{losses[-1].item():.4f}; launches {counts}; kernel step vs plain step |d loss| "
+          f"{step_err['train/loss']:.2e} [{card}]")
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return {"steps": MAIN_STEPS, "seconds": dt, "steps_per_s": MAIN_STEPS / dt,
+            "launches": counts, "first_loss": losses[0].item(), "last_loss": losses[-1].item(),
+            "kernel_vs_plain": step_err, "telemetry": telemetry}
+
+
+def remat_turns(torch, mk, card: str, dataset, launches: dict) -> dict:
+    """(c) Path B with ``remat=True`` against without, from the same seed
+    (the same weights and draws), in turns (off, on, on, off): each turn's
+    losses equal the other arm's at the same steps (rtol 1e-5), the
+    launches a step are the pool step's, and the peak memory above each
+    turn's start and the steps/s ratio are printed."""
+    from mercury_tpu_torch import TrainConfig
+
+    arms = {name: build_trainer(torch, TrainConfig(**SEQUENCE, model="transformer",
+                                                   remat=name == "on"),
+                                quiet=True, dataset=dataset)
+            for name in ("off", "on")}
+    check(arms["on"].state.model.remat and not arms["off"].state.model.remat,
+          "remat: the arms' models")
+    rates, peaks, losses = {"off": [], "on": []}, {"off": [], "on": []}, {"off": [], "on": []}
+    for turn in REMAT_TURNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        dt, counts, turn_losses, _ = timed_steps(torch, mk, arms[turn])
+        check(counts == {k: v * MAIN_STEPS for k, v in POOL_STEP.items()},
+              f"remat ({turn} turn): launch counts {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        rates[turn].append(MAIN_STEPS / dt)
+        peaks[turn].append(torch.cuda.max_memory_allocated() - base)
+        losses[turn].append(turn_losses)
+    diff = max(float(((a - b).abs() / b.abs()).max())
+               for a, b in zip(losses["on"], losses["off"]))
+    check(diff <= 1e-5, f"remat on and off: losses differ by {diff:.3e} (relative) after "
+          f"the same draws")
+    ratio = statistics.mean(rates["on"]) / statistics.mean(rates["off"])
+    print(f"sequence (c) transformer remat on vs off, turns {REMAT_TURNS}: steps/s off "
+          f"{rates['off']}, on {rates['on']}, on/off {ratio:.3f}; peak memory above each "
+          f"turn's start off {[p / 2**20 for p in peaks['off']]} MiB, on "
+          f"{[p / 2**20 for p in peaks['on']]} MiB; losses on vs off max relative "
+          f"difference {diff:.2e} [{card}]")
+    for arm in arms.values():
+        arm.close()
+    del arms
+    torch.cuda.empty_cache()
+    return {"turns": list(REMAT_TURNS), "rates": rates, "on_over_off": ratio,
+            "peak_bytes": peaks, "loss_rel_diff": diff}
+
+
+def evaluate_predict(torch, card: str, dataset) -> dict:
+    """(d) Path A's Trainer after a few steps: ``evaluate`` finite, and
+    ``predict`` on the test split ``[N, 10]`` float32 and finite, its
+    argmax accuracy ``evaluate``'s exactly; a single ``[T, F]`` sequence
+    predicts one row."""
+    from mercury_tpu_torch import TrainConfig
+
+    trainer = build_trainer(torch, TrainConfig(**SEQUENCE, model="bilstm_attention"),
+                            quiet=True, dataset=dataset)
+    warm(trainer)
+    t0 = time.perf_counter()
+    ev = trainer.evaluate()
+    eval_s = time.perf_counter() - t0
+    check(all(math.isfinite(v) for v in ev.values()), f"evaluate: {ev}")
+    x, y = dataset.x_test, dataset.y_test
+    t0 = time.perf_counter()
+    logits = trainer.predict(x)
+    predict_s = time.perf_counter() - t0
+    check(tuple(logits.shape) == (x.shape[0], 10) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), f"predict: {tuple(logits.shape)}, "
+          f"{logits.dtype}")
+    acc = int((logits.argmax(-1) == y.cpu().long()).sum()) / x.shape[0]
+    check(acc == ev["test/eval_acc"], f"predict's accuracy {acc} vs evaluate's "
+          f"{ev['test/eval_acc']}")
+    one = trainer.predict(x[0].cpu().numpy())
+    check(tuple(one.shape) == (1, 10), f"predict of one [T, F] sequence: {tuple(one.shape)}")
+    print(f"sequence (d) bilstm_attention: evaluate {ev} in {eval_s:.3f} s; predict "
+          f"{tuple(logits.shape)} in {predict_s:.3f} s, argmax accuracy {acc:.4f} = "
+          f"evaluate's [{card}]")
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return {"evaluate": ev, "predict_acc": acc, "eval_s": eval_s, "predict_s": predict_s}
+
+
+def digits_seq_arm(torch, card: str) -> dict:
+    """digits_seq (scikit-learn's scans as [64, 1] sequences) with path A:
+    a short fit and a finite test accuracy, where scikit-learn imports;
+    otherwise a line that says it did not run."""
+    try:
+        import sklearn.datasets  # noqa: F401
+    except ImportError:
+        print(f"sequence: scikit-learn does not import here, so bilstm_attention on "
+              f"digits_seq was not run [{card}]")
+        return {"run": False}
+    from mercury_tpu_torch import TrainConfig, Trainer
+
+    # [64, 1] scanlines: the first cells' input kernels are 16× narrower
+    # than at synthetic_seq's 16 features, so PARAMETERS does not apply.
+    trainer = Trainer(TrainConfig(**DIGITS_SEQ))
+    fitted = trainer.fit(steps=DIGITS_SEQ_STEPS)
+    acc = float(fitted["test/eval_acc"])
+    check(math.isfinite(acc), f"digits_seq: test accuracy {acc}")
+    print(f"sequence: bilstm_attention on digits_seq, {DIGITS_SEQ_STEPS} steps, test "
+          f"accuracy {acc:.4f} [{card}]")
+    trainer.close()
+    return {"run": True, "steps": DIGITS_SEQ_STEPS, "test_acc": acc}
+
+
+def sequence_family_phase(torch, card: str) -> dict:
+    """Phase 20: the sequence family on the card at the JAX package's
+    default widths. (a) BiLSTM-attention and the Transformer on
+    synthetic_seq and ViT on synthetic, each on the pool step with its
+    uniform arm in turns; (b) ViT on the fused scoretable step; (c) the
+    Transformer with remat against without; (d) evaluate and predict on
+    synthetic_seq."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.train.trainer import build_dataset
+
+    launches, seconds, out = {k: 0 for k in mk.KERNELS}, {}, {"card": card, "pool": {}}
+    t0 = time.perf_counter()
+    seq = build_dataset(TrainConfig(**SEQUENCE), torch.device("cuda"))
+    check(seq.x_train.dtype == torch.float32 and tuple(seq.x_train.shape) == (5000, 32, 16)
+          and seq.num_classes == 10, f"synthetic_seq: {seq.x_train.dtype} "
+          f"{tuple(seq.x_train.shape)}, {seq.num_classes} classes")
+    for model in SEQUENCE_MODELS:
+        out["pool"][model] = pool_arm(torch, mk, card, TrainConfig(**SEQUENCE, model=model),
+                                      seq, launches, "sequence (a)")
+    images = build_dataset(TrainConfig(**VIT), torch.device("cuda"))
+    out["pool"]["vit"] = pool_arm(torch, mk, card, TrainConfig(**VIT), images, launches,
+                                  "sequence (a)")
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["scoretable"] = table_arm(torch, mk, card, TrainConfig(**VIT_TABLE), images,
+                                  launches, "sequence (b)")
+    del images
+    seconds["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["remat"] = remat_turns(torch, mk, card, seq, launches)
+    seconds["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["predict"] = evaluate_predict(torch, card, seq)
+    out["digits_seq"] = digits_seq_arm(torch, card)
+    seconds["d"] = time.perf_counter() - t0
+    del seq
+    torch.cuda.empty_cache()
+    check(all(launches[k] > 0 for k in mk.KERNELS),
+          f"sequence family: a kernel of the path never launched: {launches}")
+    print("sequence family: seconds by part " + ", ".join(f"({k}) {v:.1f}"
+                                                           for k, v in seconds.items()))
     out["seconds"] = seconds
     return {"launches": launches, "summary": out}
 

@@ -15,9 +15,11 @@ import dataclasses
 from typing import List, Optional
 
 _MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "smallcnn",
-           "vgg11", "vgg13", "vgg16", "vgg19", "mobilenetv2", "mobilenet_v2")
+           "vgg11", "vgg13", "vgg16", "vgg19", "mobilenetv2", "mobilenet_v2",
+           "bilstm_attention", "mylstm", "lstm", "transformer", "vit")
 _DATASETS = ("cifar10", "cifar100", "synthetic", "synthetic_tail", "synthetic_hard",
-             "digits", "digits_imb", "imagefolder")
+             "digits", "digits_imb", "digits_seq", "digits_seq_imb", "synthetic_seq",
+             "synthetic_seq_hard", "imagefolder")
 _SAMPLERS = ("pool", "scoretable", "groupwise")
 
 # The most scorer tenants (their metric keys are t0..t3).
@@ -30,11 +32,16 @@ class TrainConfig:
     0.001×world_size with cosine decay, a 10×32 candidate pool drawn down
     to 32 by importance sampling."""
 
-    # Model / data: a ResNet, "smallcnn", a VGG or MobileNetV2.
+    # Model / data: a ResNet, "smallcnn", a VGG, MobileNetV2, the
+    # sequence models "bilstm_attention" ("mylstm", "lstm") and
+    # "transformer", or "vit" (the Transformer over 4×4 image patches).
     model: str = "resnet18"
     # "cifar10" or "cifar100": real files if present, else synthetic;
     # "synthetic", "synthetic_tail", "synthetic_hard": the stand-ins;
     # "digits", "digits_imb": scikit-learn's handwritten digits;
+    # "digits_seq", "digits_seq_imb" (the digits as [64, 1] scanlines),
+    # "synthetic_seq", "synthetic_seq_hard": float32 [N, T, F] sequences,
+    # trained with augmentation="none";
     # "imagefolder": data_dir/<class>/<image> (or data_dir/train/... and
     # data_dir/test/...), decoded with PIL and resized to image_size.
     dataset: str = "cifar10"
@@ -294,6 +301,10 @@ class TrainConfig:
     # update_samples runs before optimizer.step). Step 0 scores a boot pool
     # first.
     pipelined_scoring: bool = False
+
+    # Activation rematerialization (transformer family only): each block's
+    # activations are recomputed in the backward instead of kept.
+    remat: bool = False
 
     # Precision
     compute_dtype: str = "bfloat16"   # autocast dtype on the card

@@ -1,12 +1,14 @@
 """CIFAR-10 and CIFAR-100 ingest to host arrays, the deterministic
-synthetic stand-ins and scikit-learn's handwritten digits.
+synthetic stand-ins, scikit-learn's handwritten digits and the sequence
+datasets.
 
-A copy of the image branches of ``mercury_tpu/data/cifar.py`` (``cifar10``,
-``cifar100``, ``synthetic``, ``synthetic_tail``, ``synthetic_hard``,
-``digits``, ``digits_imb``): the port imports nothing from the JAX package,
-and the two must produce the same bytes from the same seed and search the
-same directories (test-enforced). Images are uint8 NHWC, labels int32. The
-sequence datasets are not ported yet.
+A copy of ``mercury_tpu/data/cifar.py`` (``cifar10``, ``cifar100``,
+``synthetic``, ``synthetic_tail``, ``synthetic_hard``, ``digits``,
+``digits_imb``, ``digits_seq``, ``digits_seq_imb``, ``synthetic_seq``,
+``synthetic_seq_hard``): the port imports nothing from the JAX package, and
+the two must produce the same bytes from the same seed and search the same
+directories (test-enforced). Images are uint8 NHWC, sequences float32
+``[N, T, F]``, labels int32.
 """
 
 from __future__ import annotations
@@ -39,8 +41,6 @@ _SYNTH = {
     "synthetic_tail": (20, "heavy_tail", 0.0),
     "synthetic_hard": (20, "heavy_tail", 0.05),
 }
-# The JAX package's sequence datasets, refused here.
-SEQUENCE_DATASETS = ("digits_seq", "digits_seq_imb", "synthetic_seq", "synthetic_seq_hard")
 
 
 def _load_pickle_batches(batch_dir: str, files, label_key: str) -> Split:
@@ -139,12 +139,56 @@ def synthetic_cifar(
     return make(train_size, 1, True), make(test_size, 2, False)
 
 
+def synthetic_sequences(
+    num_classes: int = 10,
+    train_size: int = 5000,
+    test_size: int = 1000,
+    seq_len: int = 32,
+    feature_dim: int = 16,
+    seed: int = 0,
+    difficulty: str = "uniform",
+) -> Tuple[Split, Split]:
+    """Deterministic learnable float32 sequences ``[N, T, F]``: each class
+    a fixed random frequency and phase per feature channel, each sample
+    that pattern plus noise at a per-sample scale.
+
+    ``difficulty="hard_minority"``: 85% of the samples carry the pattern
+    over the whole sequence, 15% only in the last ``max(T // 5, 2)`` steps
+    (zero elsewhere) at 0.6 of the amplitude, all at noise scale 0.25."""
+    rng = np.random.default_rng(seed)
+    freqs = rng.uniform(0.5, 4.0, (num_classes, feature_dim)).astype(np.float32)
+    phases = rng.uniform(0, 2 * np.pi, (num_classes, feature_dim)).astype(np.float32)
+    t = np.arange(seq_len, dtype=np.float32)[None, :, None]  # [1, T, 1]
+
+    def make(n, offset):
+        local = np.random.default_rng(seed + offset)
+        y = local.integers(0, num_classes, n).astype(np.int32)
+        base = np.sin(2 * np.pi * freqs[y][:, None, :] * t / seq_len
+                      + phases[y][:, None, :])  # [n, T, F]
+        if difficulty == "hard_minority":
+            hard = local.random(n) < 0.15
+            win = max(seq_len // 5, 2)
+            window = (np.arange(seq_len) >= seq_len - win)[None, :, None]
+            keep = np.where(hard[:, None, None], window, True)
+            base = np.where(keep, base, 0.0)
+            base = np.where(hard[:, None, None], 0.6 * base, base)
+            noise_scale = np.full((n, 1, 1), 0.25, np.float32)
+        else:
+            noise_scale = local.uniform(0.2, 1.0, (n, 1, 1)).astype(np.float32)
+        noise = local.normal(0, 1, (n, seq_len, feature_dim)).astype(np.float32)
+        return (base + noise_scale * noise).astype(np.float32), y
+
+    return make(train_size, 1), make(test_size, 2)
+
+
 def load_digits(name: str, seed: int = 0) -> Tuple[Split, Split, dict]:
-    """scikit-learn's 1,797 real 8×8 handwritten digits, upscaled to
-    32×32×3 uint8 and split 80/20 by a permutation from ``seed``.
-    ``digits_imb`` keeps ``max(round(0.1·n), 8)`` of the train samples of
-    each of classes 5-9; the test split stays balanced. The normalization
-    ``mean``/``std`` are the train split's."""
+    """scikit-learn's 1,797 real 8×8 handwritten digits, split 80/20 by a
+    permutation from ``seed``: ``digits`` upscaled to 32×32×3 uint8,
+    ``digits_seq`` each scan as its raw length-64 scanline ``[64, 1]``
+    float32 in [0, 1]. ``*_imb`` keeps ``max(round(0.1·n), 8)`` of the
+    train samples of each of classes 5-9; the test split stays balanced.
+    The normalization ``mean``/``std`` are the train split's (per channel
+    for the images, one scalar of shape ``(1,)`` for the sequences)."""
     try:
         from sklearn.datasets import load_digits as _load_digits
     except ImportError as e:
@@ -157,7 +201,7 @@ def load_digits(name: str, seed: int = 0) -> Tuple[Split, Split, dict]:
     order = rng.permutation(len(labels))
     n_test = len(labels) // 5
     test_idx, train_idx = order[:n_test], order[n_test:]
-    if name == "digits_imb":
+    if name.endswith("_imb"):
         ytr = labels[train_idx]
         keep = np.ones(len(train_idx), bool)
         for c in range(5, 10):
@@ -165,6 +209,13 @@ def load_digits(name: str, seed: int = 0) -> Tuple[Split, Split, dict]:
             n_keep = max(int(round(0.1 * len(idx))), 8)
             keep[rng.permutation(idx)[n_keep:]] = False
         train_idx = train_idx[keep]
+    info = {"num_classes": 10, "synthetic": False}
+    if name.startswith("digits_seq"):
+        x = (d.images / d.images.max()).astype(np.float32).reshape(len(labels), 64, 1)
+        mean = x[train_idx].mean(keepdims=False).reshape(1).astype(np.float32)
+        std = np.maximum(x[train_idx].std(), 1e-3).reshape(1).astype(np.float32)
+        return ((x[train_idx], labels[train_idx]), (x[test_idx], labels[test_idx]),
+                {**info, "mean": mean, "std": std})
     imgs = (d.images / d.images.max() * 255.0).astype(np.uint8)
     imgs = np.repeat(np.repeat(imgs, 4, axis=1), 4, axis=2)  # 8→32
     imgs = np.repeat(imgs[..., None], 3, axis=-1)            # gray→RGB
@@ -172,7 +223,7 @@ def load_digits(name: str, seed: int = 0) -> Tuple[Split, Split, dict]:
     mean = flat.mean(axis=(0, 1, 2)).astype(np.float32)
     std = np.maximum(flat.std(axis=(0, 1, 2)), 1e-3).astype(np.float32)
     return ((imgs[train_idx], labels[train_idx]), (imgs[test_idx], labels[test_idx]),
-            {"num_classes": 10, "mean": mean, "std": std, "synthetic": False})
+            {**info, "mean": mean, "std": std})
 
 
 def find_data_dir(explicit: Optional[str] = None) -> Optional[str]:
@@ -204,11 +255,15 @@ def load_dataset(
             difficulty=difficulty, label_noise=label_noise)
         return train, test, {"num_classes": num_classes, "mean": CIFAR10_MEAN,
                              "std": CIFAR10_STD, "synthetic": True}
-    if name in ("digits", "digits_imb"):
+    if name in ("digits", "digits_imb", "digits_seq", "digits_seq_imb"):
         return load_digits(name, seed)
-    if name in SEQUENCE_DATASETS:
-        raise ValueError(f"dataset {name!r} is one of the sequence datasets, which "
-                         "the port does not load yet")
+    if name in ("synthetic_seq", "synthetic_seq_hard"):
+        train, test = synthetic_sequences(
+            10, synthetic_train_size, synthetic_test_size, seed=seed,
+            difficulty="hard_minority" if name == "synthetic_seq_hard" else "uniform")
+        # Float sequences: the normalization is the identity.
+        return train, test, {"num_classes": 10, "mean": np.zeros((1,), np.float32),
+                             "std": np.ones((1,), np.float32), "synthetic": True}
     if name not in ("cifar10", "cifar100"):
         raise ValueError(f"unknown dataset {name!r}")
     num_classes, mean, std, loader = (

@@ -1,6 +1,7 @@
-"""On-device data pipeline: the dataset as uint8 tensors on the device,
-batches gathered by index inside the step, augmentation as whole-batch
-tensor ops, and per-worker presampling streams.
+"""On-device data pipeline: the dataset on the device (uint8 images or
+float32 sequences), batches gathered by index inside the step,
+augmentation as whole-batch tensor ops, and per-worker presampling
+streams.
 
 The PyTorch counterpart of ``mercury_tpu/data/pipeline.py``. Images keep
 the JAX package's NHWC layout through this module, so its functions compare
@@ -142,9 +143,9 @@ class ShardedDataset:
     the host array itself (numpy or ``np.memmap``, never copied to the
     device), and the labels and shard indices are on the device."""
 
-    x_train: Union[torch.Tensor, np.ndarray]  # [N, H, W, C] uint8
+    x_train: Union[torch.Tensor, np.ndarray]  # [N, H, W, C] uint8 or [N, T, F] float32
     y_train: torch.Tensor        # [N] int32
-    x_test: torch.Tensor         # [Nt, H, W, C] uint8
+    x_test: torch.Tensor         # [Nt, ...] as x_train
     y_test: torch.Tensor         # [Nt] int32
     shard_indices: torch.Tensor  # [W, L] int64 — global ids, cyclically padded
     shard_sizes: torch.Tensor    # [W] int64 — true shard lengths
@@ -153,7 +154,7 @@ class ShardedDataset:
     num_classes: int
     synthetic: bool = True
     rank: int = 0
-    x_shard: Optional[torch.Tensor] = None  # [L, H, W, C] uint8 (sharded placement)
+    x_shard: Optional[torch.Tensor] = None  # [L, ...] as x_train (sharded placement)
     y_shard: Optional[torch.Tensor] = None  # [L] int32 (sharded placement)
 
     @property
@@ -204,6 +205,9 @@ def make_sharded_dataset(
     def put(a, dtype, dev=device):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
+    def rows_dtype(a) -> torch.dtype:
+        return torch.uint8 if np.asarray(a).dtype == np.uint8 else torch.float32
+
     sharded = placement == "sharded"
     train_dev = torch.device("cpu") if sharded else device
     if placement == "host_stream":
@@ -211,11 +215,11 @@ def make_sharded_dataset(
         if x_train.dtype != np.uint8:
             raise ValueError(f"host_stream streams uint8 rows, got {x_train.dtype}")
     else:
-        x_train = put(train[0], torch.uint8, train_dev)
+        x_train = put(train[0], rows_dtype(train[0]), train_dev)
     return ShardedDataset(
         x_train=x_train,
         y_train=put(train[1], torch.int32, train_dev),
-        x_test=put(test[0], torch.uint8),
+        x_test=put(test[0], rows_dtype(test[0])),
         y_test=put(test[1], torch.int32),
         shard_indices=put(rows, torch.long),
         shard_sizes=put([len(s) for s in shards], torch.long),
@@ -224,7 +228,8 @@ def make_sharded_dataset(
         num_classes=num_classes,
         synthetic=synthetic,
         rank=rank,
-        x_shard=put(np.asarray(train[0])[rows[rank]], torch.uint8) if sharded else None,
+        x_shard=(put(np.asarray(train[0])[rows[rank]], rows_dtype(train[0])) if sharded
+                 else None),
         y_shard=put(np.asarray(train[1])[rows[rank]], torch.int32) if sharded else None,
     )
 

@@ -1,5 +1,6 @@
 """Models of the port: the CIFAR-stem ResNets, the small debug CNN, the
-VGGs and MobileNetV2, under the JAX package's names."""
+VGGs, MobileNetV2, the BiLSTM-attention and Transformer sequence models and
+ViT, under the JAX package's names."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Optional, Tuple
 import torch
 
 from mercury_tpu_torch.models.layers import init_weights
+from mercury_tpu_torch.models.lstm import AdditiveAttention, BiLSTMAttention
 from mercury_tpu_torch.models.mobilenet import MobileNetV2
 from mercury_tpu_torch.models.resnet import (
     ResNet,
@@ -18,12 +20,24 @@ from mercury_tpu_torch.models.resnet import (
     ResNet152,
 )
 from mercury_tpu_torch.models.simple import SmallCNN
+from mercury_tpu_torch.models.transformer import TransformerBlock, TransformerClassifier
 from mercury_tpu_torch.models.vgg import CFG as VGG_CFG
 from mercury_tpu_torch.models.vgg import VGG, make_vgg
 
 _RESNETS = {"resnet18": ResNet18, "resnet34": ResNet34, "resnet50": ResNet50,
             "resnet101": ResNet101, "resnet152": ResNet152}
-MODELS = (*_RESNETS, "smallcnn", *VGG_CFG, "mobilenetv2", "mobilenet_v2")
+_LSTMS = ("bilstm_attention", "mylstm", "lstm")
+TRANSFORMERS = ("transformer", "vit")
+MODELS = (*_RESNETS, "smallcnn", *VGG_CFG, "mobilenetv2", "mobilenet_v2", *_LSTMS,
+          *TRANSFORMERS)
+
+
+def require_transformer_for_remat(name: str) -> None:
+    """The JAX package's refusal of ``remat`` outside the transformer
+    family."""
+    if name not in TRANSFORMERS:
+        raise ValueError("remat requires the transformer family "
+                         f"(model='transformer'|'vit'), got {name!r}")
 
 
 def create_model(name: str, num_classes: int = 10,
@@ -31,12 +45,18 @@ def create_model(name: str, num_classes: int = 10,
                  sample_shape: Tuple[int, int, int] = (32, 32, 3),
                  **kwargs) -> torch.nn.Module:
     """Build a model by name on the CPU with Flax-style initial weights
-    drawn from ``generator`` (a CPU generator). ``sample_shape`` ``(H, W,
-    C)`` is one training image's: its channels are the input's, and it
-    sizes the VGG head as the Flax init on a sample does. ``kwargs`` go to
-    the model (``width_mult``, ``cifar_stem``, ``hidden_dim``, ...)."""
+    drawn from ``generator`` (a CPU generator). ``sample_shape`` is one
+    training sample's, ``(H, W, C)`` or ``(T, F)``: its last axis is the
+    input's channels or features, and it sizes the VGG head as the Flax
+    init on a sample does. ``kwargs`` go to the model (``width_mult``,
+    ``cifar_stem``, ``hidden_dim``, ``d_model``, ...); ``vit`` defaults to
+    ``patch_size=4``, ``num_layers=4`` and ``max_len=(32 // p)**2``, as the
+    JAX package's. ``remat`` is for the transformer family only."""
     key = name.lower()
     channels = sample_shape[-1]
+    remat = kwargs.pop("remat", False)
+    if remat:
+        require_transformer_for_remat(key)
     if key in _RESNETS:
         model = _RESNETS[key](num_classes=num_classes, in_channels=channels, **kwargs)
     elif key in VGG_CFG:
@@ -45,6 +65,15 @@ def create_model(name: str, num_classes: int = 10,
         model = MobileNetV2(num_classes=num_classes, in_channels=channels, **kwargs)
     elif key == "smallcnn":
         model = SmallCNN(num_classes=num_classes, in_channels=channels, **kwargs)
+    elif key in _LSTMS:
+        model = BiLSTMAttention(num_classes=num_classes, in_features=channels, **kwargs)
+    elif key in TRANSFORMERS:
+        if key == "vit":
+            kwargs.setdefault("patch_size", 4)
+            kwargs.setdefault("num_layers", 4)
+            kwargs.setdefault("max_len", (32 // kwargs["patch_size"]) ** 2)
+        model = TransformerClassifier(num_classes=num_classes, in_features=channels,
+                                      remat=remat, **kwargs)
     else:
         raise ValueError(f"unknown model {name!r}; the port builds {sorted(MODELS)}")
     init_weights(model, generator)
@@ -52,5 +81,6 @@ def create_model(name: str, num_classes: int = 10,
 
 
 __all__ = ["ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
-           "SmallCNN", "VGG", "VGG_CFG", "MobileNetV2", "MODELS", "create_model",
-           "make_vgg"]
+           "SmallCNN", "VGG", "VGG_CFG", "MobileNetV2", "AdditiveAttention",
+           "BiLSTMAttention", "TransformerBlock", "TransformerClassifier", "MODELS",
+           "TRANSFORMERS", "create_model", "make_vgg", "require_transformer_for_remat"]

@@ -1,12 +1,14 @@
 """Weights and sampler state carried across from the JAX package.
 
-``params_from_flax`` maps a Flax image model's variables — nested dicts of
-arrays under Flax's automatic names (``Conv_0``, ``BatchNorm_0``,
-``BasicBlock_3``, ``InvertedResidual_10``, ``Dense_0``, …) — onto the state
-dict of the port's model of the same family. Conv kernels go HWIO → OIHW
-(a depthwise ``[3, 3, 1, C]`` to ``[C, 1, 3, 3]``), Dense kernels ``[in,
-out]`` → ``[out, in]``, BatchNorm ``scale/bias/mean/var`` →
-``weight/bias/running_mean/running_var``.
+``params_from_flax`` maps a Flax model's variables — nested dicts of
+arrays under Flax's names (``Conv_0``, ``BatchNorm_0``, ``BasicBlock_3``,
+``InvertedResidual_10``, ``Dense_0``, ``OptimizedLSTMCell_2/hf``,
+``block1/query``, ``pos_embed``, …) — onto the state dict of the port's
+model of the same family. Conv kernels go HWIO → OIHW (a depthwise ``[3,
+3, 1, C]`` to ``[C, 1, 3, 3]``), Dense kernels ``[in, out]`` → ``[out,
+in]``, BatchNorm ``scale/bias/mean/var`` →
+``weight/bias/running_mean/running_var``, LayerNorm ``scale/bias`` →
+``weight/bias``.
 
 ``jax_flat_order`` goes the other way for the parameters as one vector:
 the index that puts the port's concatenated parameters in the order of
@@ -38,9 +40,11 @@ def _resnet_blocks(block: str, names) -> tuple:
 
 
 # Port module name → Flax module path, by family: the class of the
-# model's ``blocks`` (ResNet, MobileNetV2), "" for a model without blocks
-# (SmallCNN, VGG). ``{i}``/``{j}`` stand for an index, the same on both
-# sides. Flax numbers each layer kind in creation order within its module.
+# model's ``blocks`` (ResNet, MobileNetV2, Transformer), else the model's
+# class where it has a row (the BiLSTM), else "" (SmallCNN, VGG). ``{i}``/
+# ``{j}`` stand for an index and ``{g}`` for a lower-case name, the same on
+# both sides; the first row that matches is taken. Flax numbers each layer
+# kind in creation order within its module.
 FLAX_NAMES: Dict[str, Tuple[Tuple[str, str], ...]] = {
     "BasicBlock": _RESNET_TOP + _resnet_blocks("BasicBlock", (
         ("conv1", "bn1"), ("conv2", "bn2"), ("down_conv", "down_bn"))),
@@ -53,12 +57,23 @@ FLAX_NAMES: Dict[str, Tuple[Tuple[str, str], ...]] = {
         ("blocks.{i}.convs.{j}", "InvertedResidual_{i}/Conv_{j}"),
         ("blocks.{i}.bns.{j}", "InvertedResidual_{i}/BatchNorm_{j}"),
         ("head_conv", "Conv_1"), ("head_bn", "BatchNorm_1"), ("fc", "Dense_0")),
+    # Flax creates the cells in call order: layer 1 forward, layer 1
+    # backward, then layer 2's; {g} is a gate's kernel (ii … ho).
+    "BiLSTMAttention": (
+        ("cells.{i}.{g}", "OptimizedLSTMCell_{i}/{g}"),
+        ("attn{i}.denses.{j}", "attn{i}/Dense_{j}"), ("fcs.{i}", "Dense_{i}")),
+    # {g} is query, key, value or proj.
+    "TransformerBlock": (
+        ("embed", "embed"), ("pos_embed", "pos_embed"),
+        ("blocks.{i}.ln1", "block{i}/LayerNorm_0"), ("blocks.{i}.ln2", "block{i}/LayerNorm_1"),
+        ("blocks.{i}.fc1", "block{i}/Dense_0"), ("blocks.{i}.fc2", "block{i}/Dense_1"),
+        ("blocks.{i}.{g}", "block{i}/{g}"), ("norm", "LayerNorm_0"), ("head", "head")),
     "": (("convs.{i}", "Conv_{i}"), ("bns.{i}", "BatchNorm_{i}"), ("fcs.{i}", "Dense_{i}")),
 }
-# Port parameter name → Flax leaf name, by Flax layer kind.
-_LEAVES = {("Conv", "weight"): "kernel", ("Dense", "weight"): "kernel",
-           ("Dense", "bias"): "bias", ("BatchNorm", "weight"): "scale",
-           ("BatchNorm", "bias"): "bias"}
+# A Flax top-level name that tells a family without blocks of its own
+# kind apart.
+_MARKERS = {"OptimizedLSTMCell_0": "BiLSTMAttention", "pos_embed": "TransformerBlock"}
+_PLACEHOLDERS = {"i": r"\d+", "j": r"\d+", "g": r"[a-z]+"}
 
 
 def _translate(name: str, table, src: int) -> str:
@@ -66,8 +81,9 @@ def _translate(name: str, table, src: int) -> str:
     for ``src=1``) in the other column of ``table``; KeyError if no row
     matches."""
     for row in table:
-        pattern = re.escape(row[src]).replace(r"\{i\}", r"(?P<i>\d+)").replace(
-            r"\{j\}", r"(?P<j>\d+)")
+        pattern = re.escape(row[src])
+        for key, rx in _PLACEHOLDERS.items():
+            pattern = pattern.replace(rf"\{{{key}\}}", f"(?P<{key}>{rx})")
         m = re.fullmatch(pattern, name)
         if m:
             return row[1 - src].format(**m.groupdict())
@@ -82,20 +98,35 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def _layer(out: Dict[str, torch.Tensor], prefix: str, flax_name: str,
-           params: Mapping[str, Any], stats: Mapping[str, Any]) -> None:
-    if flax_name.startswith("Conv_"):
-        out[f"{prefix}.weight"] = _t(params["kernel"]).permute(3, 2, 0, 1).contiguous()
-    elif flax_name.startswith("Dense_"):
-        out[f"{prefix}.weight"] = _t(params["kernel"]).T.contiguous()
-        out[f"{prefix}.bias"] = _t(params["bias"])
-    elif flax_name.startswith("BatchNorm_"):
+def _flax_layers(tree: Mapping[str, Any], path: Tuple[str, ...] = ()):
+    """``(path, leaves)`` of every layer of a Flax ``params`` tree: a dict
+    of arrays (``kernel``, ``bias``, ``scale``), or a bare array (the
+    Transformer's ``pos_embed``)."""
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping) and any(isinstance(v, Mapping) for v in sub.values()):
+            yield from _flax_layers(sub, path + (name,))
+        else:
+            yield path + (name,), sub
+
+
+def _layer(out: Dict[str, torch.Tensor], prefix: str, params, stats) -> None:
+    """The port's tensors of one Flax layer: a conv kernel HWIO → OIHW, a
+    Dense kernel ``[in, out]`` → ``[out, in]``, a norm's ``scale`` →
+    ``weight``, BatchNorm's ``mean``/``var`` → ``running_mean``/
+    ``running_var``, a bare array as it is."""
+    if not isinstance(params, Mapping):
+        out[prefix] = _t(params)
+        return
+    if "kernel" in params:
+        k = _t(params["kernel"])
+        out[f"{prefix}.weight"] = (k.permute(3, 2, 0, 1) if k.dim() == 4 else k.T).contiguous()
+    if "scale" in params:
         out[f"{prefix}.weight"] = _t(params["scale"])
+    if "bias" in params:
         out[f"{prefix}.bias"] = _t(params["bias"])
+    if stats:
         out[f"{prefix}.running_mean"] = _t(stats["mean"])
         out[f"{prefix}.running_var"] = _t(stats["var"])
-    else:
-        raise KeyError(f"no port counterpart for Flax layer {flax_name!r}")
 
 
 def scoretable_from_jax(scores, cursor, device=None) -> ScoreTableState:
@@ -121,26 +152,29 @@ def params_from_flax(params: Mapping[str, Any],
                      batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict of the port's model from a Flax model's ``params`` and
     ``batch_stats`` collections; the family is told by the names of its
-    blocks (none for SmallCNN and VGG)."""
+    blocks (none for SmallCNN and VGG) or by a marker (the BiLSTM's cells,
+    the Transformer's ``pos_embed``)."""
+    marked = [f for n, f in _MARKERS.items() if n in params]
     kinds = {_kind(n) for n in params} - set(_LAYERS)
-    family = kinds.pop() if len(kinds) == 1 else ""
-    if kinds or family not in FLAX_NAMES:
+    family = marked[0] if marked else (kinds.pop() if len(kinds) == 1 else "")
+    if (kinds and not marked) or family not in FLAX_NAMES:
         blocks = sorted(n for n in params if _kind(n) not in _LAYERS)
         raise KeyError(f"no port counterpart for Flax modules {blocks}")
     out: Dict[str, torch.Tensor] = {}
-    for name, sub in params.items():
-        stats = batch_stats.get(name, {})
-        layers = ([(name, name, sub, stats)] if _kind(name) in _LAYERS else
-                  [(f"{name}/{k}", k, v, stats.get(k, {})) for k, v in sub.items()])
-        for path, layer, layer_params, layer_stats in layers:
-            _layer(out, _translate(path, FLAX_NAMES[family], 1), layer, layer_params,
-                   layer_stats)
+    for path, layer_params in _flax_layers(params):
+        stats = batch_stats
+        for name in path:
+            stats = stats.get(name, {})
+        _layer(out, _translate("/".join(path), FLAX_NAMES[family], 1), layer_params, stats)
     return out
 
 
 def _family(model: torch.nn.Module) -> str:
     blocks = getattr(model, "blocks", None)
-    return type(blocks[0]).__name__ if blocks else ""
+    if blocks:
+        return type(blocks[0]).__name__
+    name = type(model).__name__
+    return name if name in FLAX_NAMES else ""
 
 
 def jax_flat_order(model: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -151,22 +185,28 @@ def jax_flat_order(model: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
 
     ``ravel_pytree`` takes the leaves in sorted-key order at every level
     (``BasicBlock_10`` before ``BasicBlock_2``; ``BatchNorm_*`` before
-    ``Conv_*``; ``bias`` before ``kernel`` and ``scale``), each raveled in
-    its Flax layout: conv kernels HWIO, Dense kernels ``[in, out]``."""
+    ``Conv_*``; ``bias`` before ``kernel`` and ``scale``; an LSTM cell's
+    ``hf, hg, hi, ho, if, ig, ii, io``), each raveled in its Flax layout:
+    conv kernels HWIO, Dense kernels ``[in, out]``."""
     table = FLAX_NAMES[_family(model)]
     leaves: List[Tuple[Tuple[str, ...], torch.Tensor]] = []
     offset = 0
     for name, p in model.named_parameters():
-        module, leaf = name.rsplit(".", 1)
-        path = tuple(_translate(module, table, 0).split("/"))
-        kind = _kind(path[-1])
+        module, _, leaf = name.rpartition(".")
         idx = torch.arange(offset, offset + p.numel()).view(p.shape)
-        if kind == "Conv":
+        offset += p.numel()
+        if not module:
+            # A bare parameter of the model, in Flax's layout already.
+            leaves.append((tuple(_translate(leaf, table, 0).split("/")), idx.reshape(-1)))
+            continue
+        path = tuple(_translate(module, table, 0).split("/"))
+        if idx.dim() == 4:
             idx = idx.permute(2, 3, 1, 0)  # OIHW → HWIO
         elif idx.dim() == 2:
             idx = idx.T  # [out, in] → [in, out]
-        leaves.append((path + (_LEAVES[kind, leaf],), idx.reshape(-1)))
-        offset += p.numel()
+        weighted = isinstance(model.get_submodule(module), (torch.nn.Conv2d, torch.nn.Linear))
+        flax_leaf = "bias" if leaf == "bias" else ("kernel" if weighted else "scale")
+        leaves.append((path + (flax_leaf,), idx.reshape(-1)))
     order = torch.cat([idx for _, idx in sorted(leaves, key=lambda leaf: leaf[0])])
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(offset)

@@ -1,6 +1,7 @@
-"""Layers shared by the port's image models, numerically matched to the
-Flax layers of ``mercury_tpu/models`` so weights carry across
-(``models/convert.py``) and the forwards agree.
+"""Layers shared by the port's image models, and every model's Flax-style
+initializer, numerically matched to the Flax layers of
+``mercury_tpu/models`` so weights carry across (``models/convert.py``) and
+the forwards agree.
 
 Two details of the Flax layers that plain ``nn.Conv2d``/``nn.BatchNorm2d``
 get wrong:
@@ -133,7 +134,10 @@ def set_sync_batch_norm(model: nn.Module, sync: bool) -> nn.Module:
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Flax's defaults: LeCun-normal kernels (truncated at 2σ), zero
-    biases; BN scale 1, bias 0."""
+    biases; BN and LayerNorm scale 1, bias 0. Then a module's own
+    ``flax_init(generator)``, where it has one, for Flax's other
+    initializers (the LSTM's orthogonal hidden kernels, the Transformer's
+    ``normal(0.02)`` positional embedding)."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             w = mod.weight
@@ -143,3 +147,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                   generator=generator)
             if getattr(mod, "bias", None) is not None:
                 nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+    for mod in model.modules():
+        if hasattr(mod, "flax_init"):
+            mod.flax_init(generator)

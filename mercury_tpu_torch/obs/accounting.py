@@ -102,8 +102,8 @@ def flops_per_step(trainer) -> Optional[float]:
     convolutions and matrix products at 2 FLOPs a multiply-add, of the
     no-grad forwards of :func:`scoring_forwards` (the scoring forward at
     the pool ``[P]``) and of the training forward and backward at the
-    batch ``[B]`` (the backward computes no gradient of the images, so the
-    first convolution's input gradient is not counted; a grouped
+    batch ``[B]`` (the backward computes no gradient of the images or
+    sequences, so the first layer's input gradient is not counted; a grouped
     convolution's weight gradient counts its groups' work alone, as its
     forward does). Elementwise work, batch norm, the NLL and the selection
     are not counted, so the count is not XLA's ``cost_analysis``.

@@ -269,10 +269,13 @@ IMAGE_SIZE = 32  # CIFAR's side: the range of the cutout centres
 
 
 def to_nchw(images: torch.Tensor) -> torch.Tensor:
-    """The model's NCHW view of NHWC images: channels_last in memory on
-    the card; a contiguous copy on the CPU, where the backward through this
-    network from a channels_last input aborted with heap corruption
-    (torch 2.13.0+cpu)."""
+    """The model's input: the NCHW view of NHWC images, channels_last in
+    memory on the card, a contiguous copy on the CPU, where the backward
+    through this network from a channels_last input aborted with heap
+    corruption (torch 2.13.0+cpu); any other batch (``[B, T, F]``
+    sequences) as it is."""
+    if images.dim() != 4:
+        return images
     x = images.permute(0, 3, 1, 2)
     return x if x.is_cuda else x.contiguous()
 
@@ -668,7 +671,8 @@ def make_train_step(
         grad_norm, sparse_rate = sync_and_step(state, config, draws, telemetry)
         if world_size > 1:
             # Averaged under "sync" (already equal) and "local" alike, as
-            # the JAX step averages batch_stats.
+            # the JAX step averages batch_stats; a model without batch norm
+            # has none, and no all-reduce is issued.
             with scope("mercury_grad_sync"):
                 allreduce_mean_([b for name, b in model.named_buffers()
                                  if name.endswith(("running_mean", "running_var"))])

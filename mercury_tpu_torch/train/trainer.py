@@ -146,7 +146,7 @@ from mercury_tpu_torch.data.pipeline import (
 from mercury_tpu_torch.data.stream import HostStreamSource, PrefetchPipeline
 from mercury_tpu_torch.data.transforms import EVAL_RESIZE, IID_CROP, eval_transform_iid
 from mercury_tpu_torch.faults import FaultPlane
-from mercury_tpu_torch.models import create_model
+from mercury_tpu_torch.models import create_model, require_transformer_for_remat
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
 from mercury_tpu_torch.obs.accounting import ThroughputMeter, flops_per_step
 from mercury_tpu_torch.obs.aggregate import (
@@ -262,6 +262,16 @@ class Trainer:
             raise ValueError(
                 f"config.num_classes={config.num_classes} but dataset "
                 f"{config.dataset!r} has {self.dataset.num_classes} classes")
+        # The JAX Trainer's refusals of remat and of augmenting sequences.
+        # [H, W, C] for images, [T, F] for sequences.
+        sample_shape = tuple(int(s) for s in self.dataset.x_train.shape[1:])
+        if len(sample_shape) != 3 and config.augmentation != "none":
+            raise ValueError(
+                f"augmentation={config.augmentation!r} needs image data; "
+                f"dataset {config.dataset!r} has sample shape {sample_shape} — "
+                "set augmentation='none'")
+        if config.remat:
+            require_transformer_for_remat(config.model)
         # Refuses a world_size that the process group does not have, and
         # label smoothing where the kernels would run.
         self._step_fn = make_train_step(config, self.dataset)
@@ -288,8 +298,8 @@ class Trainer:
             gen = torch.Generator().manual_seed(config.seed)
             # The sample shape sizes the input (and VGG's head) as the JAX
             # init's sample does: the dataset's, before any augmentation.
-            model = create_model(config.model, self.dataset.num_classes, gen,
-                                 tuple(self.dataset.x_train.shape[1:]))
+            model = create_model(config.model, self.dataset.num_classes, gen, sample_shape,
+                                 remat=config.remat)
         set_sync_batch_norm(model, config.batch_norm == "sync" and config.world_size > 1)
         self.steps_per_epoch = config.steps_per_epoch or max(
             self.dataset.n_train // config.batch_size, 1)
@@ -304,9 +314,8 @@ class Trainer:
             with_groupwise=config.use_groupwise,
             pending_batch_size=config.batch_size if config.use_pipelined else 0,
             # The IID augmentation crops to 32 whatever the image size.
-            pending_sample_shape=((32, 32, self.dataset.x_train.shape[-1])
-                                  if config.augmentation == "iid"
-                                  else tuple(self.dataset.x_train.shape[1:])),
+            pending_sample_shape=((32, 32, sample_shape[-1])
+                                  if config.augmentation == "iid" else sample_shape),
             cached_pool_size=config.candidate_pool_size if config.use_cadence else 0,
             world_size=config.world_size, zero_sharding=config.zero_sharding,
         )
@@ -1108,10 +1117,11 @@ class Trainer:
             _log.info("auto-resumed from the checkpoint at step %d", step)
 
     def _logits(self, raw: torch.Tensor) -> torch.Tensor:
-        """Inference-mode logits of ``EVAL_BATCH`` raw NHWC images on this
-        device, normalized with the dataset's statistics (``/255`` for
-        uint8 only) and, under ``augmentation="iid"``, resized to 33 and
-        cropped at ``eval_crop``; under the step's autocast."""
+        """Inference-mode logits of ``EVAL_BATCH`` raw NHWC images (or
+        ``[B, T, F]`` sequences) on this device, normalized with the
+        dataset's statistics (``/255`` for uint8 only) and, under
+        ``augmentation="iid"``, resized to 33 and cropped at ``eval_crop``;
+        under the step's autocast."""
         ds = self.dataset
         images = normalize_images(raw.to(self.device), ds.mean, ds.std)
         if self.config.augmentation == "iid":
@@ -1124,8 +1134,9 @@ class Trainer:
     @torch.no_grad()
     def predict(self, inputs) -> torch.Tensor:
         """Float32 logits ``[N, num_classes]`` on the host of ``[N, H, W, C]``
-        images (uint8 or float; a numpy array or a tensor; a single
-        ``[H, W, C]`` image is one of one), in ``evaluate``'s batches of
+        images (uint8 or float) or ``[N, T, F]`` sequences (a numpy array or
+        a tensor; a single ``[H, W, C]`` image or ``[T, F]`` sequence is one
+        of one), normalized as ``evaluate`` does, in its batches of
         ``EVAL_BATCH`` (the last padded by wrapping, as there)."""
         x = inputs if isinstance(inputs, np.ndarray) else torch.as_tensor(inputs)
         if x.ndim == self.dataset.x_test.dim() - 1:

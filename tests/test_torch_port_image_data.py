@@ -1,6 +1,7 @@
 """The port's image datasets against the JAX package's loader (the same
-bytes, labels and ``info`` from the same seed), the refusal of the
-sequence datasets, and a Trainer of the new image models on the CPU."""
+bytes, labels and ``info`` from the same seed), and a Trainer of the new
+image models on the CPU. The sequence datasets are held so in
+``test_torch_port_sequence_data.py``."""
 
 import sys
 
@@ -70,14 +71,6 @@ def test_unknown_difficulty_raises_as_jax():
     for module in (jcifar, tcifar):
         with pytest.raises(ValueError, match="unknown difficulty 'spiky'"):
             module.synthetic_cifar(2, 4, 4, difficulty="spiky")
-
-
-@pytest.mark.parametrize("name", tcifar.SEQUENCE_DATASETS)
-def test_sequence_datasets_still_refused(name):
-    with pytest.raises(ValueError, match="sequence"):
-        tcifar.load_dataset(name)
-    with pytest.raises(ValueError, match="dataset"):
-        TrainConfig(dataset=name, world_size=1)
 
 
 @pytest.mark.parametrize("name", ["digits", "digits_imb"])

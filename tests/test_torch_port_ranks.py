@@ -3,8 +3,8 @@
 ``test_torch_port_telemetry_step``, ``test_torch_port_sampler_modes``,
 ``test_torch_port_grad_path``, ``test_torch_port_scorer_service_dist``,
 ``test_torch_port_elastic``, ``test_torch_port_durable_checkpoint``,
-``test_torch_port_aggregate`` and ``test_torch_port_supervisor``); this
-file holds no tests.
+``test_torch_port_aggregate``, ``test_torch_port_supervisor`` and
+``test_torch_port_sequence_step``); this file holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
 process of its own, one a rank, in a gloo process group, and pickles the
@@ -24,6 +24,7 @@ import torch.distributed as dist
 
 from mercury_tpu_torch import TrainConfig, Trainer
 from mercury_tpu_torch.data.pipeline import ShardStream, make_sharded_dataset
+from mercury_tpu_torch.models import create_model
 from mercury_tpu_torch.models.convert import scoretable_from_jax
 from mercury_tpu_torch.models.resnet import (
     BasicBlock,
@@ -153,6 +154,37 @@ def step_rank(jobs):
             sel_counts=None if state.sel_counts is None else state.sel_counts.clone(),
             x_shard=None if dataset.x_shard is None else dataset.x_shard.clone()))
     return out
+
+
+def sequence_step_rank(config, model_kw, state_dict, data, ranks, steps):
+    """``steps`` port steps at W ranks of a model without batch norm
+    (``create_model(config.model, ..., **model_kw)``) from the JAX
+    worker's weights, stream permutation and EMA: ``data = (x, y, xt, yt,
+    shards, mean, std)``, ``ranks[rank]["draws"]`` this rank's ``Draws`` of
+    each step. Returns each step's metrics and all-reduce shapes, and the
+    model's state and gradient after the last."""
+    torch.set_num_threads(1)
+    r = dist.get_rank()
+    x, y, xt, yt, shards, mean, std = data
+    mine = ranks[r]
+    model = create_model(config.model, 10, None, tuple(x.shape[1:]), **model_kw)
+    model.load_state_dict(state_dict)
+    dataset = make_sharded_dataset((x, y), (xt, yt), shards, mean, std, 10,
+                                   device=torch.device("cpu"), rank=r)
+    state = create_state(model, "cpu", config.seed, dataset.shard_len, "adam", config.lr,
+                         config.steps_per_epoch, rank=r)
+    state.stream = ShardStream(perm=torch.tensor(mine["perm"], dtype=torch.long), cursor=0)
+    state.ema = EMAState(torch.tensor(mine["ema"]), torch.tensor(0, dtype=torch.int32))
+    step_fn = make_train_step(config, dataset)
+    metrics, calls = [], []
+    for draws in mine["draws"][:steps]:
+        with counting_all_reduces() as step_calls:
+            m = step_fn(state, draws)
+        metrics.append({k: v.detach().clone() for k, v in m.items()})
+        calls.append(step_calls)
+    return dict(metrics=metrics, calls=calls,
+                state_dict={k: v.detach().clone() for k, v in state.model.state_dict().items()},
+                grads={k: p.grad.detach().clone() for k, p in state.model.named_parameters()})
 
 
 def trainer_rank(config_kw, steps):

@@ -80,7 +80,7 @@ def test_config_fields_match_the_jax_package():
     assert (cfg.async_checkpoint, cfg.checkpoint_write_retries, cfg.checkpoint_retry_backoff_s,
             cfg.checkpoint_manifest, cfg.checkpoint_verify, cfg.stream_checkpoint_cursor,
             cfg.fault_spec) == (False, 2, 0.25, True, True, True, "")
-    assert len(dataclasses.fields(TrainConfig)) == 97
+    assert len(dataclasses.fields(TrainConfig)) == 98
     assert (cfg.scorer_workers, cfg.snapshot_every, cfg.scorer_throttle_s,
             cfg.scorer_backend) == (1, 16, 0.0, "host")
 
@@ -101,13 +101,8 @@ def test_config_fields_match_the_jax_package():
     # package refuses of them is refused.
     pytest.param("prefetch_depth", dict(data_placement="host_stream", prefetch_depth=0),
                  id="data_placement-host_stream"),
-    # The image family is ported; the sequence models and datasets are not.
-    pytest.param("model", dict(model="transformer"), id="model-transformer"),
-    pytest.param("dataset", dict(dataset="digits_seq"), id="dataset-digits_seq"),
-    pytest.param("dataset", dict(dataset="digits_seq_imb"), id="dataset-digits_seq_imb"),
-    pytest.param("dataset", dict(dataset="synthetic_seq"), id="dataset-synthetic_seq"),
-    pytest.param("dataset", dict(dataset="synthetic_seq_hard"),
-                 id="dataset-synthetic_seq_hard"),
+    # The image and sequence families are ported (their parity tests are
+    # test_torch_port_image_* and test_torch_port_sequence_*).
     pytest.param("data_dir", dict(dataset="imagefolder"), id="dataset-imagefolder"),
     pytest.param("scoring_dtype", dict(scoring_dtype="bfloat16",
                                        use_importance_sampling=False),
@@ -176,7 +171,7 @@ def test_observability_fields_default_as_jax():
     missing = sorted(set(jfields) - set(tfields))
     assert missing == ["fsdp_axis", "fsdp_parallel", "mesh_axis", "model_axis",
                        "moe_aux_weight", "moe_experts", "plan", "plan_memory_budget_bytes",
-                       "remat", "scan_steps", "tensor_parallel"]
+                       "scan_steps", "tensor_parallel"]
 
 
 def _jax_message(kw):
