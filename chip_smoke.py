@@ -272,7 +272,21 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    seed, in turns: the same losses, each arm's peak memory and the steps/s
    ratio; (d) ``evaluate`` and ``predict`` on ``synthetic_seq``: finite,
    ``[N, 10]``, predict's argmax accuracy evaluate's. ``digits_seq`` runs
-   only where scikit-learn imports, and says so where it does not.
+   only where scikit-learn imports, and says so where it does not;
+21. experts and chunks, batch 32, a pool of 320, bf16: (a) the
+   Transformer of phase 20 with ``moe_experts=8`` (2,508,442 parameters)
+   on ``synthetic_seq`` as phase 20's (a), every step's ``train/moe_aux``
+   finite and in (0, 8·layers]; (b) ViT with ``moe_experts=8``
+   (4,501,162) on the fused scoretable step, 2/1/0/1/2 launches a step;
+   (c) the first block's ``MoEMLP`` on the train forward's 1024 tokens,
+   under bf16 autocast: at ``capacity_factor=8`` its output within two
+   bf16 ulps of the largest of its ``reference()`` oracle's, at 1.0 under
+   a router tilted to one expert the overflow (the count past each
+   bucket's capacity) exactly zero and the rest the oracle's;
+   (d) ``scan_steps=4`` against 1 on the main path (ResNet-18) under
+   deterministic cuDNN, 16 steps a turn in turns (1, 4, 4, 1): equal
+   losses, equal ``state_digests``, 2/1/1 launches a step and both
+   steps/s.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -549,6 +563,17 @@ TABLE_STEP = {"nll_fwd": 2, "nll_bwd": 1, "score_and_draw": 0, "table_refresh_dr
 DIGITS_SEQ = dict(SEQUENCE, model="bilstm_attention", dataset="digits_seq",
                   eval_every=0, log_every=0)
 DIGITS_SEQ_STEPS = 30
+# Phase 21: (a) the Transformer and (b) ViT with 8 experts a block; (c) the
+# experts' layer on the train forward's tokens (batch 32 × T 32); (d) the
+# main path at scan_steps=SCAN_K against 1, SCAN_STEPS steps a turn.
+MOE_SEQ = dict(SEQUENCE, model="transformer", moe_experts=8)
+MOE_VIT_TABLE = dict(VIT_TABLE, moe_experts=8)
+MOE_TOKENS = 32 * 32
+MOE_TILT = 4.0            # (c) added to expert 0's router bias
+SCAN = dict(model="resnet18", dataset="synthetic", world_size=1)
+SCAN_K = 4
+SCAN_STEPS = 16
+SCAN_TURNS = (1, SCAN_K, SCAN_K, 1)
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -571,6 +596,9 @@ PARAMETERS = {("resnet18", 10): 11_173_962, ("resnet18", 100): 11_220_132,
               ("vgg16", 20): 14_787_156, ("mobilenetv2", 20): 2_249_492,
               ("bilstm_attention", 10): 675_722, ("transformer", 10): 662_410,
               ("vit", 10): 809_098}
+# The same with moe_experts=8 (phase 21): each block's dense MLP becomes
+# eight experts and a router.
+MOE_PARAMETERS = {("transformer", 10): 2_508_442, ("vit", 10): 4_501_162}
 
 # The metric keys of the JAX package's default step (pool), its scoretable
 # step and its async scoretable step, with telemetry on (its default): a CPU test holds this
@@ -590,9 +618,9 @@ JAX_STEP_KEYS = {
 # The async scoretable step: no window, so no table ages.
 JAX_STEP_KEYS["async"] = JAX_STEP_KEYS["scoretable"] - {
     "sampler/table_age_min", "sampler/table_age_mean", "sampler/table_age_max"}
-# The JAX keys of options the port does not implement (mixture of
-# experts), and the port's own keys: the draws.
-JAX_ONLY_KEYS = {"train/moe_aux"}
+# The JAX keys of options the port does not implement (none since the
+# mixture of experts), and the port's own keys: the draws.
+JAX_ONLY_KEYS: set = set()
 PORT_ONLY_KEYS = {"sampler/selected", "sampler/probs"}
 # The seven keys of the scoretable Trainer's sampler-health monitor.
 MONITOR_KEYS = {"sampler_dist/frac_never_selected", "sampler_dist/gini",
@@ -645,6 +673,7 @@ def main() -> int:
     observed = run_phase("observability", observability_phase, torch, card, main_path)
     image = run_phase("image family", image_family_phase, torch, card)
     sequence = run_phase("sequence family", sequence_family_phase, torch, card)
+    experts = run_phase("experts and chunks", experts_chunks_phase, torch, card)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -662,7 +691,8 @@ def main() -> int:
                    "observability": observed["launches"][k["name"]],
                    "observability_two_ranks": observed["two_rank_launches"][k["name"]],
                    "image_models": image["launches"][k["name"]],
-                   "sequence_models": sequence["launches"][k["name"]]}
+                   "sequence_models": sequence["launches"][k["name"]],
+                   "experts_and_chunks": experts["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -680,7 +710,8 @@ def main() -> int:
          "durable_checkpoints": durable["summary"],
          "supervised_runtime": supervised["summary"],
          "observability": observed["summary"], "image_family": image["summary"],
-         "sequence_family": sequence["summary"]},
+         "sequence_family": sequence["summary"],
+         "experts_and_chunks": experts["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1400,7 +1431,7 @@ def build_trainer(torch, config, quiet: bool = False, dataset=None):
     trainer = Trainer(config, dataset=dataset)
     n_params = sum(p.numel() for p in trainer.state.model.parameters())
     classes = trainer.dataset.num_classes
-    want = PARAMETERS[config.model, classes]
+    want = (PARAMETERS if config.moe_experts is None else MOE_PARAMETERS)[config.model, classes]
     check(n_params == want, f"{config.model} with {classes} classes has {n_params} "
           f"parameters, not {want}")
     if not quiet:
@@ -1781,7 +1812,7 @@ def state_digests(state) -> dict:
     out = {f"model.{k}": digest(v) for k, v in state.model.state_dict().items()}
     for i, st in state.optimizer.state_dict()["state"].items():
         out.update({f"adam.{i}.{k}": digest(v) for k, v in st.items()})
-    out.update({f"accum.{i}": digest(a) for i, a in enumerate(state.accum)})
+    out.update({f"accum.{i}": digest(a) for i, a in enumerate(state.accum or ())})
     out.update({"ema.value": digest(state.ema.value), "ema.count": digest(state.ema.count),
                 "stream.perm": digest(state.stream.perm),
                 "generator": digest(state.generator.get_state())})
@@ -5651,6 +5682,7 @@ def pool_arm(torch, mk, card: str, config, dataset, launches: dict, label: str) 
         launches[k] += v
     peak = torch.cuda.max_memory_allocated() - base
     telemetry = check_telemetry(torch, metrics, "pool", config.batch_size)
+    moe_aux = check_moe_aux(torch, trainer, metrics, label)
     kernels = step_kernels_vs_plain(torch, mk, trainer, model)
     step_err = kernel_vs_plain_step(torch, trainer, config, quiet=True)
     window = profile_window(torch, trainer, dt / MAIN_STEPS * 1e6, steps=5)
@@ -5679,7 +5711,7 @@ def pool_arm(torch, mk, card: str, config, dataset, launches: dict, label: str) 
     fwd_err = max(c["max_abs_err"] for c in kernels["nll_fwd"])
     print(f"{label} {model}: {MAIN_STEPS} steps in {dt:.3f} s = {MAIN_STEPS / dt:.2f} "
           f"steps/s; losses first {losses[0].item():.4f}, last {losses[-1].item():.4f}; "
-          f"launches {counts}; peak memory {peak / 2**30:.3f} GiB above the arm's start; "
+          f"launches {counts}; train/moe_aux {moe_aux}; peak memory {peak / 2**30:.3f} GiB above the arm's start; "
           f"device busy "
           f"{100 * window['busy_share_unprofiled']:.1f}% of the unprofiled step, "
           f"{window['kernels_per_step']:.1f} CUDA kernels a step [{card}]")
@@ -5696,12 +5728,27 @@ def pool_arm(torch, mk, card: str, config, dataset, launches: dict, label: str) 
                "last_loss": losses[-1].item(), "peak_bytes": peak, "profile": window,
                "flops_per_step": flops, "mfu": mfu, "rates": rates, "is_over_uniform": ratio,
                "step_kernels": kernels, "kernel_vs_plain": step_err, "telemetry": telemetry,
-               "card": card}
+               "moe_aux": moe_aux, "card": card}
     for arm in arms.values():
         arm.close()
     del arms, trainer
     torch.cuda.empty_cache()
     return summary
+
+
+def check_moe_aux(torch, trainer, metrics, label: str):
+    """Every step's ``train/moe_aux``: finite and in (0, E·layers] with
+    experts (each block's Switch loss lies in (0, E]), exactly 0.0
+    without. Returns its range over the steps."""
+    aux = torch.stack([m["train/moe_aux"] for m in metrics]).float().cpu()
+    experts = trainer.config.moe_experts
+    if experts is None:
+        check(bool((aux == 0).all()), f"{label}: train/moe_aux without experts {aux.tolist()}")
+        return None
+    top = experts * len(trainer.state.model.blocks)
+    check(bool((torch.isfinite(aux) & (aux > 0) & (aux <= top)).all()),
+          f"{label}: train/moe_aux outside (0, {top}]: {aux.tolist()}")
+    return [aux.min().item(), aux.max().item()]
 
 
 def digits_arms(torch, mk, card: str) -> dict:
@@ -5794,17 +5841,18 @@ def table_arm(torch, mk, card: str, config, dataset, launches: dict, label: str)
     for k, v in counts.items():
         launches[k] += v
     telemetry = check_telemetry(torch, metrics, "scoretable", config.batch_size)
+    moe_aux = check_moe_aux(torch, trainer, metrics, label)
     step_err = kernel_vs_plain_step(torch, trainer, config, quiet=True)
     print(f"{label} {config.model}, scoretable + fused: {MAIN_STEPS} steps in {dt:.3f} s = "
           f"{MAIN_STEPS / dt:.2f} steps/s; losses first {losses[0].item():.4f}, last "
-          f"{losses[-1].item():.4f}; launches {counts}; kernel step vs plain step |d loss| "
-          f"{step_err['train/loss']:.2e} [{card}]")
+          f"{losses[-1].item():.4f}; launches {counts}; train/moe_aux {moe_aux}; kernel step "
+          f"vs plain step |d loss| {step_err['train/loss']:.2e} [{card}]")
     trainer.close()
     del trainer
     torch.cuda.empty_cache()
     return {"steps": MAIN_STEPS, "seconds": dt, "steps_per_s": MAIN_STEPS / dt,
             "launches": counts, "first_loss": losses[0].item(), "last_loss": losses[-1].item(),
-            "kernel_vs_plain": step_err, "telemetry": telemetry}
+            "kernel_vs_plain": step_err, "telemetry": telemetry, "moe_aux": moe_aux}
 
 
 def remat_turns(torch, mk, card: str, dataset, launches: dict) -> dict:
@@ -5953,6 +6001,176 @@ def sequence_family_phase(torch, card: str) -> dict:
           f"sequence family: a kernel of the path never launched: {launches}")
     print("sequence family: seconds by part " + ", ".join(f"({k}) {v:.1f}"
                                                            for k, v in seconds.items()))
+    out["seconds"] = seconds
+    return {"launches": launches, "summary": out}
+
+
+# ----------------------------------------------------------------- phase 21
+def experts_layer(torch, card: str, dataset) -> dict:
+    """(c) The first block's experts on the train forward's tokens (a
+    forward hook keeps the input of the step's last forward, after a
+    warm-up), in fresh ``MoEMLP`` layers with the block's weights, under
+    bf16 autocast: at ``capacity_factor=8`` nothing drops and the output is
+    the ``reference()`` oracle's to two bf16 ulps of the oracle's largest
+    (``2**-6 · max|ref|``); at 1.0 with ``MOE_TILT`` added to expert 0's
+    router bias, exactly the tokens past each bucket's capacity (in token
+    order) have zero rows, and every other row is the oracle's to the same
+    tolerance. The bucketed forward and the oracle are timed (CUDA
+    graphs)."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.models import MoEMLP
+
+    trainer = build_trainer(torch, TrainConfig(**MOE_SEQ), quiet=True, dataset=dataset)
+    warm(trainer)
+    block = trainer.state.model.blocks[0].moe
+    seen = []
+    hook = block.register_forward_hook(lambda mod, args, out: seen.append(args[0].detach()))
+    try:
+        trainer.train_step()
+    finally:
+        hook.remove()
+    x = seen[-1]
+    d = x.shape[-1]
+    check(x.shape[0] * x.shape[1] == MOE_TOKENS and x.dtype == torch.bfloat16,
+          f"experts (c): the train forward's tokens {tuple(x.shape)} {x.dtype}")
+    out = {"tokens": MOE_TOKENS}
+    for name, factor, tilt in (("room", 8.0, 0.0), ("tilted", 1.0, MOE_TILT)):
+        layer = MoEMLP(block.num_experts, d, block.w_up.shape[-1] // d, factor).to(x.device)
+        layer.load_state_dict(block.state_dict())
+        with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+            layer.gate.bias[0] += tilt
+            y, aux = layer(x)
+            ref, ref_aux = layer.reference(x)
+            expert = layer._route(x.reshape(-1, d).to(torch.bfloat16))[0]
+            y_ms = graph_ms(torch, lambda: layer(x))
+            ref_ms = graph_ms(torch, lambda: layer.reference(x))
+        y, ref = y.float().reshape(-1, d), ref.float().reshape(-1, d)
+        cap = layer.capacity(MOE_TOKENS)
+        # Each token's place in its expert's bucket, in token order.
+        place = torch.zeros_like(expert)
+        for e in range(block.num_experts):
+            mine = expert == e
+            place[mine] = torch.arange(int(mine.sum()), device=x.device)
+        over = place >= cap
+        zero = (y == 0).all(dim=-1)
+        tol = 2.0 ** -6 * ref.abs().max().item()
+        err = (y[~over] - ref[~over]).abs().max().item()
+        check(torch.equal(zero, over) and bool(over.any()) == (tilt > 0),
+              f"experts (c) {name}: {int(zero.sum())} zero rows, {int(over.sum())} tokens "
+              f"past capacity {cap}")
+        check(bool(ref[over].abs().amax(dim=-1).gt(0).all()) if tilt else True,
+              f"experts (c) {name}: a dropped token's oracle row is zero")
+        check(err <= tol and torch.equal(aux, ref_aux) and math.isfinite(aux.item()),
+              f"experts (c) {name}: max|y − oracle| {err:.3e} > {tol:.3e}, aux {aux.item()} "
+              f"vs {ref_aux.item()}")
+        out[name] = {"capacity_factor": factor, "capacity": cap, "dropped": int(over.sum()),
+                     "max_abs_err": err, "tol": tol, "aux": aux.item(), "ms": y_ms,
+                     "oracle_ms": ref_ms}
+        print(f"experts (c) {name}: MoEMLP(8, {d}) on the train forward's {MOE_TOKENS} "
+              f"tokens, capacity_factor {factor} (C={cap}): {int(over.sum())} dropped, their "
+              f"rows exactly zero; max|y − oracle| {err:.2e} (tol {tol:.2e}); aux "
+              f"{aux.item():.4f}; bucketed {y_ms:.4f} ms, oracle {ref_ms:.4f} ms [{card}]")
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def scan_turns(torch, mk, card: str, launches: dict) -> dict:
+    """(d) The main path at ``scan_steps=SCAN_K`` (``train_chunk``) against
+    single steps, from the same seed under deterministic cuDNN, in turns
+    ``SCAN_TURNS`` of ``SCAN_STEPS`` steps after the same single-step
+    warm-up: each arm's losses of its n-th turn equal the other's, the launches a step the pool step's, and after
+    the turns the two states' ``state_digests`` equal."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.train.trainer import build_dataset
+
+    undo = deterministic_cudnn(torch)
+    try:
+        dataset = build_dataset(TrainConfig(**SCAN), torch.device("cuda"))
+        arms = {k: build_trainer(torch, TrainConfig(**SCAN, scan_steps=k), quiet=True,
+                                 dataset=dataset) for k in (1, SCAN_K)}
+        for trainer in arms.values():
+            warm(trainer)
+        rates = {k: [] for k in arms}
+        losses = {k: [] for k in arms}
+        for turn in SCAN_TURNS:
+            trainer = arms[turn]
+            mk.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if turn == 1:
+                got = torch.stack([trainer.train_step()["train/loss"]
+                                   for _ in range(SCAN_STEPS)])
+            else:
+                got = torch.cat([trainer.train_chunk()["train/loss"]
+                                 for _ in range(SCAN_STEPS // turn)])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = dict(mk.launch_counts)
+            want = {k: v * SCAN_STEPS for k, v in POOL_STEP.items()}
+            check(counts == want, f"scan (scan_steps={turn}): launch counts {counts}, "
+                  f"expected {want}")
+            for k, v in counts.items():
+                launches[k] += v
+            rates[turn].append(SCAN_STEPS / dt)
+            losses[turn].append(got.cpu())
+        for a, b in zip(losses[1], losses[SCAN_K]):
+            check(torch.equal(a, b) and bool(torch.isfinite(a).all()),
+                  f"scan: scan_steps={SCAN_K} losses {b.tolist()} vs single {a.tolist()}")
+        digests = {k: state_digests(t.state) for k, t in arms.items()}
+        differ = sorted(k for k in digests[1] if digests[1][k] != digests[SCAN_K].get(k))
+        check(not differ and digests[1].keys() == digests[SCAN_K].keys(),
+              f"scan: state digests differ: {differ[:8]}")
+        ratio = statistics.mean(rates[SCAN_K]) / statistics.mean(rates[1])
+        print(f"experts (d) scan_steps={SCAN_K} vs 1 on resnet18 under deterministic cuDNN, "
+              f"turns {SCAN_TURNS} of {SCAN_STEPS} steps: losses bit-equal, {len(digests[1])} "
+              f"state digests equal; steps/s single {rates[1]}, chunked {rates[SCAN_K]}, "
+              f"chunked/single {ratio:.3f} [{card}]")
+        for trainer in arms.values():
+            trainer.close()
+        del arms, dataset
+        torch.cuda.empty_cache()
+    finally:
+        undo()
+    return {"turns": list(SCAN_TURNS), "steps": SCAN_STEPS, "rates": rates,
+            "chunked_over_single": ratio, "digests": len(digests[1])}
+
+
+def experts_chunks_phase(torch, card: str) -> dict:
+    """Phase 21: the mixture of experts and K steps a call. (a) The
+    Transformer with ``moe_experts=8`` on synthetic_seq as phase 20's (a);
+    (b) ViT with ``moe_experts=8`` on the fused scoretable step; (c) the
+    experts' layer against its oracle on the card; (d) ``scan_steps=4``
+    against 1 on the main path."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.train.trainer import build_dataset
+
+    launches, seconds, out = {k: 0 for k in mk.KERNELS}, {}, {"card": card}
+    t0 = time.perf_counter()
+    seq = build_dataset(TrainConfig(**SEQUENCE), torch.device("cuda"))
+    out["pool"] = pool_arm(torch, mk, card, TrainConfig(**MOE_SEQ), seq, launches,
+                           "experts (a)")
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    images = build_dataset(TrainConfig(**VIT), torch.device("cuda"))
+    out["scoretable"] = table_arm(torch, mk, card, TrainConfig(**MOE_VIT_TABLE), images,
+                                  launches, "experts (b)")
+    del images
+    seconds["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["layer"] = experts_layer(torch, card, seq)
+    del seq
+    seconds["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["scan"] = scan_turns(torch, mk, card, launches)
+    seconds["d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    check(all(launches[k] > 0 for k in mk.KERNELS),
+          f"experts and chunks: a kernel of the path never launched: {launches}")
+    print("experts and chunks: seconds by part " + ", ".join(f"({k}) {v:.1f}"
+                                                              for k, v in seconds.items()))
     out["seconds"] = seconds
     return {"launches": launches, "summary": out}
 

@@ -302,6 +302,13 @@ class TrainConfig:
     # first.
     pipelined_scoring: bool = False
 
+    # Mixture of experts (transformer family only): the Switch experts of
+    # each block's MLP (None: the dense MLP); the router's load-balancing
+    # loss enters the objective scaled by moe_aux_weight (the Switch
+    # paper's alpha).
+    moe_experts: Optional[int] = None
+    moe_aux_weight: float = 0.01
+
     # Activation rematerialization (transformer family only): each block's
     # activations are recomputed in the backward instead of kept.
     remat: bool = False
@@ -325,6 +332,11 @@ class TrainConfig:
 
     # Data
     data_dir: Optional[str] = None    # CIFAR files (None: the search path); the image folder
+
+    # Dispatch: fit advances scan_steps steps a call (make_train_step's
+    # chunk), each metric a [scan_steps] series; single steps finish the
+    # tail. Needs variance_probe_every == 0 and no host_stream.
+    scan_steps: int = 1
 
     def __post_init__(self) -> None:
         def bad(field: str, why: str) -> None:

@@ -1,6 +1,7 @@
 """Models of the port: the CIFAR-stem ResNets, the small debug CNN, the
 VGGs, MobileNetV2, the BiLSTM-attention and Transformer sequence models and
-ViT, under the JAX package's names."""
+ViT (both with the Switch mixture of experts as an option), under the JAX
+package's names."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 from mercury_tpu_torch.models.layers import init_weights
 from mercury_tpu_torch.models.lstm import AdditiveAttention, BiLSTMAttention
 from mercury_tpu_torch.models.mobilenet import MobileNetV2
+from mercury_tpu_torch.models.moe import MoEMLP
 from mercury_tpu_torch.models.resnet import (
     ResNet,
     ResNet18,
@@ -32,11 +34,11 @@ MODELS = (*_RESNETS, "smallcnn", *VGG_CFG, "mobilenetv2", "mobilenet_v2", *_LSTM
           *TRANSFORMERS)
 
 
-def require_transformer_for_remat(name: str) -> None:
-    """The JAX package's refusal of ``remat`` outside the transformer
-    family."""
+def require_transformer_for(option: str, name: str) -> None:
+    """The JAX Trainer's refusal of ``option`` (``"remat"``,
+    ``"moe_experts"``) outside the transformer family."""
     if name not in TRANSFORMERS:
-        raise ValueError("remat requires the transformer family "
+        raise ValueError(f"{option} requires the transformer family "
                          f"(model='transformer'|'vit'), got {name!r}")
 
 
@@ -51,12 +53,16 @@ def create_model(name: str, num_classes: int = 10,
     init on a sample does. ``kwargs`` go to the model (``width_mult``,
     ``cifar_stem``, ``hidden_dim``, ``d_model``, ...); ``vit`` defaults to
     ``patch_size=4``, ``num_layers=4`` and ``max_len=(32 // p)**2``, as the
-    JAX package's. ``remat`` is for the transformer family only."""
+    JAX package's. ``remat`` and ``moe_experts`` (None: the dense MLP) are
+    for the transformer family only."""
     key = name.lower()
     channels = sample_shape[-1]
     remat = kwargs.pop("remat", False)
     if remat:
-        require_transformer_for_remat(key)
+        require_transformer_for("remat", key)
+    moe_experts = kwargs.pop("moe_experts", None)
+    if moe_experts is not None:
+        require_transformer_for("moe_experts", key)
     if key in _RESNETS:
         model = _RESNETS[key](num_classes=num_classes, in_channels=channels, **kwargs)
     elif key in VGG_CFG:
@@ -73,7 +79,7 @@ def create_model(name: str, num_classes: int = 10,
             kwargs.setdefault("num_layers", 4)
             kwargs.setdefault("max_len", (32 // kwargs["patch_size"]) ** 2)
         model = TransformerClassifier(num_classes=num_classes, in_features=channels,
-                                      remat=remat, **kwargs)
+                                      remat=remat, moe_experts=moe_experts, **kwargs)
     else:
         raise ValueError(f"unknown model {name!r}; the port builds {sorted(MODELS)}")
     init_weights(model, generator)
@@ -81,6 +87,6 @@ def create_model(name: str, num_classes: int = 10,
 
 
 __all__ = ["ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
-           "SmallCNN", "VGG", "VGG_CFG", "MobileNetV2", "AdditiveAttention",
+           "SmallCNN", "VGG", "VGG_CFG", "MobileNetV2", "MoEMLP", "AdditiveAttention",
            "BiLSTMAttention", "TransformerBlock", "TransformerClassifier", "MODELS",
-           "TRANSFORMERS", "create_model", "make_vgg", "require_transformer_for_remat"]
+           "TRANSFORMERS", "create_model", "make_vgg", "require_transformer_for"]

@@ -3,12 +3,13 @@
 ``params_from_flax`` maps a Flax model's variables — nested dicts of
 arrays under Flax's names (``Conv_0``, ``BatchNorm_0``, ``BasicBlock_3``,
 ``InvertedResidual_10``, ``Dense_0``, ``OptimizedLSTMCell_2/hf``,
-``block1/query``, ``pos_embed``, …) — onto the state dict of the port's
-model of the same family. Conv kernels go HWIO → OIHW (a depthwise ``[3,
-3, 1, C]`` to ``[C, 1, 3, 3]``), Dense kernels ``[in, out]`` → ``[out,
-in]``, BatchNorm ``scale/bias/mean/var`` →
-``weight/bias/running_mean/running_var``, LayerNorm ``scale/bias`` →
-``weight/bias``.
+``block1/query``, ``pos_embed``, the experts' ``block0/moe/w_up``, …) —
+onto the state dict of the port's model of the same family. Conv kernels
+go HWIO → OIHW (a depthwise ``[3, 3, 1, C]`` to ``[C, 1, 3, 3]``), Dense
+kernels ``[in, out]`` → ``[out, in]``, BatchNorm ``scale/bias/mean/var``
+→ ``weight/bias/running_mean/running_var``, LayerNorm ``scale/bias`` →
+``weight/bias``; bare arrays (``pos_embed``, the experts' stacked
+kernels and biases) as they are.
 
 ``jax_flat_order`` goes the other way for the parameters as one vector:
 the index that puts the port's concatenated parameters in the order of
@@ -21,7 +22,7 @@ Both read one table a family (:data:`FLAX_NAMES`).
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,23 +63,25 @@ FLAX_NAMES: Dict[str, Tuple[Tuple[str, str], ...]] = {
     "BiLSTMAttention": (
         ("cells.{i}.{g}", "OptimizedLSTMCell_{i}/{g}"),
         ("attn{i}.denses.{j}", "attn{i}/Dense_{j}"), ("fcs.{i}", "Dense_{i}")),
-    # {g} is query, key, value or proj.
+    # {g} is query, key, value or proj; {w} one of the experts' four bare
+    # arrays (w_up, b_up, w_down, b_down).
     "TransformerBlock": (
         ("embed", "embed"), ("pos_embed", "pos_embed"),
         ("blocks.{i}.ln1", "block{i}/LayerNorm_0"), ("blocks.{i}.ln2", "block{i}/LayerNorm_1"),
         ("blocks.{i}.fc1", "block{i}/Dense_0"), ("blocks.{i}.fc2", "block{i}/Dense_1"),
+        ("blocks.{i}.moe.gate", "block{i}/moe/gate"), ("blocks.{i}.moe.{w}", "block{i}/moe/{w}"),
         ("blocks.{i}.{g}", "block{i}/{g}"), ("norm", "LayerNorm_0"), ("head", "head")),
     "": (("convs.{i}", "Conv_{i}"), ("bns.{i}", "BatchNorm_{i}"), ("fcs.{i}", "Dense_{i}")),
 }
 # A Flax top-level name that tells a family without blocks of its own
 # kind apart.
 _MARKERS = {"OptimizedLSTMCell_0": "BiLSTMAttention", "pos_embed": "TransformerBlock"}
-_PLACEHOLDERS = {"i": r"\d+", "j": r"\d+", "g": r"[a-z]+"}
+_PLACEHOLDERS = {"i": r"\d+", "j": r"\d+", "g": r"[a-z]+", "w": r"[wb]_(?:up|down)"}
 
 
-def _translate(name: str, table, src: int) -> str:
+def _match(name: str, table, src: int) -> Optional[str]:
     """``name`` (a port module name for ``src=0``, a "/"-joined Flax path
-    for ``src=1``) in the other column of ``table``; KeyError if no row
+    for ``src=1``) in the other column of ``table``; None if no row
     matches."""
     for row in table:
         pattern = re.escape(row[src])
@@ -87,7 +90,15 @@ def _translate(name: str, table, src: int) -> str:
         m = re.fullmatch(pattern, name)
         if m:
             return row[1 - src].format(**m.groupdict())
-    raise KeyError(f"no counterpart for {name!r} in the family's table")
+    return None
+
+
+def _translate(name: str, table, src: int) -> str:
+    """:func:`_match`, with KeyError if no row matches."""
+    out = _match(name, table, src)
+    if out is None:
+        raise KeyError(f"no counterpart for {name!r} in the family's table")
+    return out
 
 
 def _kind(flax_name: str) -> str:
@@ -101,7 +112,7 @@ def _t(a) -> torch.Tensor:
 def _flax_layers(tree: Mapping[str, Any], path: Tuple[str, ...] = ()):
     """``(path, leaves)`` of every layer of a Flax ``params`` tree: a dict
     of arrays (``kernel``, ``bias``, ``scale``), or a bare array (the
-    Transformer's ``pos_embed``)."""
+    Transformer's ``pos_embed``, the experts' ``w_up`` …)."""
     for name, sub in tree.items():
         if isinstance(sub, Mapping) and any(isinstance(v, Mapping) for v in sub.values()):
             yield from _flax_layers(sub, path + (name,))
@@ -195,9 +206,11 @@ def jax_flat_order(model: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
         module, _, leaf = name.rpartition(".")
         idx = torch.arange(offset, offset + p.numel()).view(p.shape)
         offset += p.numel()
-        if not module:
-            # A bare parameter of the model, in Flax's layout already.
-            leaves.append((tuple(_translate(leaf, table, 0).split("/")), idx.reshape(-1)))
+        bare = _match(name, table, 0)
+        if bare is not None:
+            # A bare parameter (the positional embedding, the experts'
+            # stacked arrays), in Flax's layout already.
+            leaves.append((tuple(bare.split("/")), idx.reshape(-1)))
             continue
         path = tuple(_translate(module, table, 0).split("/"))
         if idx.dim() == 4:

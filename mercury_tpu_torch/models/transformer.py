@@ -12,22 +12,28 @@ port's step hands the model NCHW, whose channels go last again first.
 ``remat`` recomputes each block's activations in the backward
 (``torch.utils.checkpoint``), with the same numbers.
 
+With ``moe_experts`` each block's MLP is the Switch mixture of experts
+(``models/moe.py``, Flax's ``block{i}/moe``), and the model's
+load-balancing loss is the float32 sum of the blocks' (the JAX package
+sums the sowed ``"losses"``): ``forward(..., return_aux=True)`` returns it
+beside the logits, 0.0 without experts. Each block hands its loss out with
+its output, so a block recomputed under ``remat`` adds nothing twice.
+
 Not ported yet: sequence parallelism (``sp_axis``, the zigzag layout) and
-the mixture-of-experts MLP (``moe_experts``); each raises ``ValueError``.
+expert parallelism (``moe_ep_axis``); each raises ``ValueError``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from mercury_tpu_torch.models.moe import MoEMLP
 from mercury_tpu_torch.parallel.sequence import SP_NOT_PORTED, attention
-
-MOE_NOT_PORTED = "the mixture-of-experts MLP (moe_experts) is not ported: ROADMAP.md, Queue 1 item 5"
 
 
 class LayerNorm(nn.LayerNorm):
@@ -43,12 +49,15 @@ class LayerNorm(nn.LayerNorm):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN encoder block: multi-head self-attention, then a GELU MLP,
-    each added back to its input. ``ln1``/``ln2`` and ``fc1``/``fc2`` are
-    Flax's ``LayerNorm_0/1`` and ``Dense_0/1``."""
+    """Pre-LN encoder block: multi-head self-attention, then a GELU MLP (or,
+    with ``moe_experts``, the mixture of experts ``moe``), each added back
+    to its input. ``ln1``/``ln2`` and ``fc1``/``fc2`` are Flax's
+    ``LayerNorm_0/1`` and ``Dense_0/1``. ``forward`` returns the output and
+    the experts' load-balancing loss (None without experts)."""
 
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: int = 4,
-                 causal: bool = False):
+                 causal: bool = False, moe_experts: Optional[int] = None,
+                 moe_capacity_factor: float = 1.25, moe_ep_axis: Optional[str] = None):
         super().__init__()
         self.num_heads, self.causal = num_heads, causal
         self.ln1 = LayerNorm(d_model)
@@ -57,18 +66,25 @@ class TransformerBlock(nn.Module):
         self.value = nn.Linear(d_model, d_model)
         self.proj = nn.Linear(d_model, d_model)
         self.ln2 = LayerNorm(d_model)
-        self.fc1 = nn.Linear(d_model, mlp_ratio * d_model)
-        self.fc2 = nn.Linear(mlp_ratio * d_model, d_model)
+        if moe_experts is None:
+            self.fc1 = nn.Linear(d_model, mlp_ratio * d_model)
+            self.fc2 = nn.Linear(mlp_ratio * d_model, d_model)
+        else:
+            self.moe = MoEMLP(moe_experts, d_model, mlp_ratio, moe_capacity_factor,
+                              moe_ep_axis)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         b, t, d = x.shape
         h = self.ln1(x)
         shape = (b, t, self.num_heads, d // self.num_heads)
         out = attention(self.query(h).view(shape), self.key(h).view(shape),
                         self.value(h).view(shape), causal=self.causal)
         x = x + self.proj(out.reshape(b, t, d))
+        if hasattr(self, "moe"):
+            h, aux = self.moe(self.ln2(x))
+            return x + h, aux
         h = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
-        return x + h
+        return x + h, None
 
 
 class TransformerClassifier(nn.Module):
@@ -81,18 +97,19 @@ class TransformerClassifier(nn.Module):
                  max_len: int = 2048, causal: bool = False,
                  patch_size: Optional[int] = None, sp_axis: Optional[str] = None,
                  sp_impl: str = "ring", moe_experts: Optional[int] = None,
+                 moe_capacity_factor: float = 1.25, moe_ep_axis: Optional[str] = None,
                  remat: bool = False):
         super().__init__()
         if sp_axis is not None or sp_impl == "zigzag":
             raise ValueError(f"{SP_NOT_PORTED} (sp_axis={sp_axis!r}, sp_impl={sp_impl!r})")
-        if moe_experts is not None:
-            raise ValueError(f"{MOE_NOT_PORTED} (moe_experts={moe_experts})")
         self.patch_size, self.max_len, self.remat = patch_size, max_len, remat
         token = in_features * patch_size ** 2 if patch_size else in_features
         self.embed = nn.Linear(token, d_model)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
-        self.blocks = nn.ModuleList(TransformerBlock(d_model, num_heads, mlp_ratio, causal)
-                                    for _ in range(num_layers))
+        self.blocks = nn.ModuleList(
+            TransformerBlock(d_model, num_heads, mlp_ratio, causal, moe_experts,
+                             moe_capacity_factor, moe_ep_axis)
+            for _ in range(num_layers))
         self.norm = LayerNorm(d_model)
         self.head = nn.Linear(d_model, num_classes)
 
@@ -114,8 +131,10 @@ class TransformerClassifier(nn.Module):
         return x.permute(0, 1, 3, 2, 4, 5).reshape(b, (h // p) * (w // p), p * p * c)
 
     def forward(self, x: torch.Tensor, train: Optional[bool] = None,
-                keep_stats: bool = True) -> torch.Tensor:
-        """``train`` and ``keep_stats`` change nothing (no batch norm)."""
+                keep_stats: bool = True, return_aux: bool = False):
+        """The float32 logits, and with ``return_aux`` the float32 sum of
+        the blocks' load-balancing losses beside them. ``train`` and
+        ``keep_stats`` change nothing (no batch norm)."""
         if x.dim() == 4:
             x = self.patchify(x)
         t = x.shape[1]
@@ -123,9 +142,15 @@ class TransformerClassifier(nn.Module):
             raise ValueError(f"sequence length {t} exceeds max_len={self.max_len}")
         x = self.embed(x)
         x = x + self.pos_embed[:t].to(x.dtype)
+        aux = None
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                x, block_aux = checkpoint(block, x, use_reentrant=False)
             else:
-                x = block(x)
-        return self.head(self.norm(x).mean(dim=1)).float()
+                x, block_aux = block(x)
+            if block_aux is not None:
+                aux = block_aux.float() if aux is None else aux + block_aux.float()
+        logits = self.head(self.norm(x).mean(dim=1)).float()
+        if not return_aux:
+            return logits
+        return logits, (torch.zeros((), device=logits.device) if aux is None else aux)

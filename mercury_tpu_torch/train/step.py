@@ -130,6 +130,18 @@ all-reduce. With ``telemetry=False`` none of this is computed.
 With ``label_smoothing`` the per-sample loss is the smoothed cross-entropy
 of the plain PyTorch ops: the step needs ``use_pallas=False`` on the card.
 
+With ``moe_experts`` (the Transformer and ViT) the train forward also
+returns the experts' load-balancing loss, and the objective is the
+reweighted loss plus ``moe_aux_weight · aux`` (so is ``train/loss``); the
+scoring forward's is discarded. Every step reports ``train/moe_aux``, the
+mean over the ranks (0.0 without experts), carried by the metrics'
+all-reduce.
+
+``make_train_step(..., scan_steps=K)`` returns a chunk of K steps a call:
+the same step body K times in a row, each metric stacked into ``[K]``, so
+the state ends as K single calls leave it (the JAX package runs the chunk
+as one ``lax.scan``).
+
 Under ``data_placement="host_stream"`` (the JAX step's ``hs_body``) the
 step takes the rows a prefetch pipeline gathered for it, ``x_stream``, and
 returns the global row ids of the selection it draws for step t+depth.
@@ -539,7 +551,7 @@ def _zero_step(state: MercuryState, config: TrainConfig, draws: Draws,
 
 
 def make_train_step(
-    config: TrainConfig, dataset: ShardedDataset,
+    config: TrainConfig, dataset: ShardedDataset, scan_steps: int = 1,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build ``step_fn(state, draws=None, use_kernels=True) → metrics``.
 
@@ -561,7 +573,22 @@ def make_train_step(
 
     ``config.label_smoothing`` needs the plain versions (the NLL kernels
     compute the plain NLL): it raises ``ValueError`` where the kernels
-    would run, that is with ``use_pallas=True``, or ``None`` on the card."""
+    would run, that is with ``use_pallas=True``, or ``None`` on the card.
+
+    ``scan_steps=K > 1`` builds ``chunk_fn(state, draws=None,
+    use_kernels=True) → metrics`` instead: K steps, ``draws`` (when given)
+    a sequence of K, every metric ``[K, ...]``. It refuses the variance
+    probe and host_stream, as the JAX step does."""
+    if scan_steps > 1 and config.use_probe:
+        raise ValueError(
+            "variance_probe_every > 0 requires scan_steps == 1: scanned "
+            "chunks mean their metrics, which would blend the probe's "
+            "-1.0 off-step sentinel into the ratio")
+    if scan_steps > 1 and config.host_stream:
+        raise ValueError(
+            "host_stream requires scan_steps == 1: each step consumes "
+            "one host-prefetched batch and emits the next indices — a "
+            "scanned chunk would need the streamed batches mid-graph")
     require_world(config.world_size)
     world_size = config.world_size
     use_is = config.use_importance_sampling
@@ -643,8 +670,10 @@ def make_train_step(
             return images if out_dtype is None else images.to(out_dtype)
 
     # train/sparse_rate without "stochastic": one 1.0, the same tensor every
-    # step (no op a step, no collective).
+    # step (no op a step, no collective); train/moe_aux without experts a 0.0.
     dense_rate = torch.ones((), dtype=torch.float32, device=data_dev)
+    no_aux = torch.zeros((), dtype=torch.float32, device=data_dev)
+    moe = config.moe_experts is not None
 
     def train_update(state: MercuryState, sel_images: torch.Tensor, sel_labels: torch.Tensor,
                      scaled_probs: torch.Tensor, draws: Draws, loss_of):
@@ -653,7 +682,8 @@ def make_train_step(
         :func:`sync_and_step` (at A > 1 the gradient is folded into the
         accumulator instead, and every A-th microstep applies it), then the
         BN running statistics' mean over the ranks. Returns the logits, the
-        per-sample and reweighted losses, the gradient's norm and this
+        per-sample losses, the objective (with the experts' term), the
+        experts' loss (None without them), the gradient's norm and this
         rank's sparse rate."""
         model = state.model
         if state.accum is None:
@@ -662,11 +692,19 @@ def make_train_step(
         if config.zero_sharding:
             # The optimizer holds the flat chunk, not the model's parameters.
             model.zero_grad(set_to_none=True)
+        aux = None
         with torch.autocast(device_type=data_dev.type, dtype=torch.bfloat16,
                             enabled=bf16 and data_dev.type == "cuda"):
-            logits = model(to_nchw(sel_images), train=True, keep_stats=True)
+            if moe:
+                logits, aux = model(to_nchw(sel_images), train=True, keep_stats=True,
+                                    return_aux=True)
+            else:
+                logits = model(to_nchw(sel_images), train=True, keep_stats=True)
         train_losses = loss_of(logits, sel_labels)
         loss = reweighted_loss(train_losses, scaled_probs)
+        if moe:
+            # The Switch load-balancing term, summed over the blocks.
+            loss = loss + config.moe_aux_weight * aux
         loss.backward()
         grad_norm, sparse_rate = sync_and_step(state, config, draws, telemetry)
         if world_size > 1:
@@ -676,7 +714,7 @@ def make_train_step(
             with scope("mercury_grad_sync"):
                 allreduce_mean_([b for name, b in model.named_buffers()
                                  if name.endswith(("running_mean", "running_var"))])
-        return logits, train_losses, loss, grad_norm, sparse_rate
+        return logits, train_losses, loss, aux, grad_norm, sparse_rate
 
     def step_fn(state: MercuryState, draws: Optional[Draws] = None,
                 use_kernels: bool = True, x_stream: Optional[torch.Tensor] = None):
@@ -956,7 +994,7 @@ def make_train_step(
 
         # Under host_stream the trained batch is step t's, drawn with the
         # ring's front: its quantizers' uniforms are that step's too.
-        logits, train_losses, loss, grad_norm, sparse_rate = train_update(
+        logits, train_losses, loss, aux, grad_norm, sparse_rate = train_update(
             state, sel_images, sel_labels, scaled_probs,
             front_draws if host_stream else draws, loss_of)
 
@@ -1045,6 +1083,8 @@ def make_train_step(
                                                             SCORE_HIST_HI)
             if sparse_rate is not None:
                 means["train/sparse_rate"] = sparse_rate
+            if aux is not None:
+                means["train/moe_aux"] = aux.detach()
             hits = logits.argmax(dim=-1) == sel_labels
             loss = loss.detach()
             if world_size == 1:
@@ -1084,6 +1124,8 @@ def make_train_step(
             metrics["sampler/probs"] = probs
         if sparse_rate is None:
             metrics["train/sparse_rate"] = dense_rate
+        if aux is None:
+            metrics["train/moe_aux"] = no_aux
         metrics.update(means)
         if telemetry:
             metrics["train/grad_norm"] = grad_norm
@@ -1098,6 +1140,14 @@ def make_train_step(
             return metrics, next_gidx
         return metrics
 
+    if scan_steps > 1:
+        def chunk_fn(state: MercuryState, draws: Optional[Sequence[Draws]] = None,
+                     use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+            steps = [step_fn(state, None if draws is None else draws[i], use_kernels)
+                     for i in range(scan_steps)]
+            return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+
+        return chunk_fn
     if not host_stream:
         return step_fn
 

@@ -146,7 +146,7 @@ from mercury_tpu_torch.data.pipeline import (
 from mercury_tpu_torch.data.stream import HostStreamSource, PrefetchPipeline
 from mercury_tpu_torch.data.transforms import EVAL_RESIZE, IID_CROP, eval_transform_iid
 from mercury_tpu_torch.faults import FaultPlane
-from mercury_tpu_torch.models import create_model, require_transformer_for_remat
+from mercury_tpu_torch.models import create_model, require_transformer_for
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
 from mercury_tpu_torch.obs.accounting import ThroughputMeter, flops_per_step
 from mercury_tpu_torch.obs.aggregate import (
@@ -262,7 +262,8 @@ class Trainer:
             raise ValueError(
                 f"config.num_classes={config.num_classes} but dataset "
                 f"{config.dataset!r} has {self.dataset.num_classes} classes")
-        # The JAX Trainer's refusals of remat and of augmenting sequences.
+        # The JAX Trainer's refusals of remat, of experts outside the
+        # transformer family and of augmenting sequences.
         # [H, W, C] for images, [T, F] for sequences.
         sample_shape = tuple(int(s) for s in self.dataset.x_train.shape[1:])
         if len(sample_shape) != 3 and config.augmentation != "none":
@@ -270,11 +271,26 @@ class Trainer:
                 f"augmentation={config.augmentation!r} needs image data; "
                 f"dataset {config.dataset!r} has sample shape {sample_shape} — "
                 "set augmentation='none'")
+        if config.moe_experts is not None:
+            require_transformer_for("moe_experts", config.model)
         if config.remat:
-            require_transformer_for_remat(config.model)
+            require_transformer_for("remat", config.model)
         # Refuses a world_size that the process group does not have, and
         # label smoothing where the kernels would run.
         self._step_fn = make_train_step(config, self.dataset)
+        # K steps a call for fit (train_chunk), refused with the probe or
+        # host_stream; the JAX Trainer's warning for a cadence a chunk can
+        # step over.
+        self.scan_steps = max(int(config.scan_steps), 1)
+        self._chunk_fn = None
+        if self.scan_steps > 1:
+            for name in ("log_every", "eval_every", "checkpoint_every"):
+                every = getattr(config, name)
+                if every and every % self.scan_steps != 0:
+                    print(f"warning: {name}={every} is not a multiple of "
+                          f"scan_steps={self.scan_steps}; cadence actions fire "
+                          "at most once per chunk (at chunk boundaries)")
+            self._chunk_fn = make_train_step(config, self.dataset, scan_steps=self.scan_steps)
         # The event journal, before every producer that takes it.
         self._journal: Optional[EventJournal] = (
             EventJournal(config.log_dir, self.rank)
@@ -299,7 +315,7 @@ class Trainer:
             # The sample shape sizes the input (and VGG's head) as the JAX
             # init's sample does: the dataset's, before any augmentation.
             model = create_model(config.model, self.dataset.num_classes, gen, sample_shape,
-                                 remat=config.remat)
+                                 remat=config.remat, moe_experts=config.moe_experts)
         set_sync_batch_norm(model, config.batch_norm == "sync" and config.world_size > 1)
         self.steps_per_epoch = config.steps_per_epoch or max(
             self.dataset.n_train // config.batch_size, 1)
@@ -533,6 +549,22 @@ class Trainer:
             self._dispatch_s += time.perf_counter() - t0
         if self._scorer_fleet is not None:
             self._refresh_tick(self.state.step)
+        return metrics
+
+    def train_chunk(self, draws: Optional[List[Draws]] = None,
+                    use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+        """``scan_steps`` steps in one call (``draws``, when given, one a
+        step); every metric ``[scan_steps, ...]``, on the device. Under
+        async refresh the fleet's ready chunks are applied once, after the
+        last step."""
+        if self._chunk_fn is None:
+            raise ValueError("train_chunk needs TrainConfig.scan_steps > 1")
+        t0 = time.perf_counter()
+        with self.tracer.span("trainer/dispatch", cat="trainer", steps=self.scan_steps):
+            metrics = self._chunk_fn(self.state, draws, use_kernels)
+        self._dispatch_s += time.perf_counter() - t0
+        if self._scorer_fleet is not None:
+            self._refresh_tick(self.state.step, advanced=self.scan_steps)
         return metrics
 
     def _apply_chunks(self, chunks: List[ScoreChunk], step: int) -> None:
@@ -865,7 +897,11 @@ class Trainer:
         a ``checkpoint_dir``, saves every ``checkpoint_every`` steps and at
         the end (under ``async_checkpoint`` the cadence saves on a writer
         thread, one at a time; every write is joined before ``fit``
-        returns or raises, and a failed one raises here). Returns the
+        returns or raises, and a failed one raises here). With
+        ``scan_steps=K`` it runs a chunk of K steps while one fits before
+        the end and single steps for the tail; a tick fires when a call
+        crossed a multiple of its cadence, and a chunk's record holds the
+        chunk's means. Returns the
         final evaluation (the last eval tick's, else a fresh
         :meth:`evaluate`), the last step's scalar metrics and, when
         the last step is a log tick, the sampler-health keys and (under
@@ -886,8 +922,14 @@ class Trainer:
         metrics: Dict[str, torch.Tensor] = {}
         health: Dict[str, float] = {}
         saved = None
+        k = 1  # the steps of the last call
         self._throughput.reset(start)
         self.tracer.register_thread("train")
+
+        def crossed(every: int, at: int, advanced: int) -> bool:
+            """Did ``[at - advanced, at]`` cross a multiple of ``every``?"""
+            return bool(every) and (at // every) > ((at - advanced) // every)
+
         try:
             while self.state.step < end:
                 # The iteration's wall time: under asynchronous launches it
@@ -901,36 +943,41 @@ class Trainer:
                     slow = self._faults.fire("host_slow")
                     if slow is not None:
                         time.sleep(float(slow.get("secs", 1.0)))
-                metrics = self.train_step()
+                if self._chunk_fn is not None and self.state.step + self.scan_steps <= end:
+                    k = self.scan_steps
+                    metrics = self.train_chunk()
+                else:
+                    k = 1
+                    metrics = self.train_step()
                 step = self.state.step
                 if self.supervisor is not None:
-                    # Liveness, restarts, SLOs and probes: host work only.
+                    # Liveness, restarts, SLOs and probes: host work only,
+                    # once a call.
                     self.supervisor.tick(step)
                 dt_iter = time.perf_counter() - t_iter
                 self._host_s += dt_iter - (self._dispatch_s - dispatch_before)
-                self._host_steps += 1
+                self._host_steps += k
                 if self.anomaly is not None:
-                    self.anomaly.observe_step_time(step, dt_iter)
+                    self.anomaly.observe_step_time(step, dt_iter, steps=k)
                 # A trigger's profiler window opens here, so the next
                 # occurrence of a sporadic anomaly lands inside it.
                 if self._profiler.active:
-                    self._profile_closed(self._profiler.advance())
+                    self._profile_closed(self._profiler.advance(k))
                 elif self.anomaly is not None:
                     want = self.anomaly.take_profile_request()
                     if want > 0 and self._profiler.start(want, step):
                         self.tracer.instant("profiler/start", cat="trainer", steps=want)
                 health = {}
-                if cfg.log_every and step % cfg.log_every == 0:
+                if crossed(cfg.log_every, step, k):
                     with self.tracer.span("trainer/log_gate", cat="trainer", step=step):
-                        health = self._log_tick(step, metrics)
-                if cfg.eval_every and step % cfg.eval_every == 0:
+                        health = self._log_tick(step, metrics, k)
+                if crossed(cfg.eval_every, step, k):
                     with self.tracer.span("trainer/eval", cat="trainer", step=step):
                         evaluation = self.evaluate()
                     self.logger.log_scalars(step, evaluation)
                     print(f"  eval @ {step}: "
                           + " ".join(f"{k}={v:.4f}" for k, v in evaluation.items()))
-                if (cfg.checkpoint_dir and cfg.checkpoint_every
-                        and step % cfg.checkpoint_every == 0):
+                if cfg.checkpoint_dir and crossed(cfg.checkpoint_every, step, k):
                     with self.tracer.span("trainer/checkpoint", cat="trainer", step=step):
                         if cfg.async_checkpoint:
                             self._join_checkpoint()
@@ -945,7 +992,7 @@ class Trainer:
                 self.save()
             if not evaluation:
                 evaluation = self.evaluate()
-            return {**evaluation, **_scalars(metrics), **health}
+            return {**evaluation, **_scalars(metrics, k), **health}
         finally:
             # No write stays in flight past fit: a relaunch must not find
             # a file half written.
@@ -978,10 +1025,13 @@ class Trainer:
                     manifest=cfg.checkpoint_manifest, faults=self._faults,
                     journal=self._journal)
 
-    def _log_tick(self, step: int, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    def _log_tick(self, step: int, metrics: Dict[str, torch.Tensor],
+                  steps: int = 1) -> Dict[str, float]:
         """Enqueue the record of a log tick, as the JAX ``fit`` assembles
         it: the step's scalar metrics (device tensors, copied by the drain
-        thread), the throughput since the previous tick, the pipeline's,
+        thread; after a chunk of ``steps`` the ``[steps]`` series, which
+        the drain thread reduces to their means), the throughput since the
+        previous tick, the pipeline's,
         the scorer's and the sampler monitor's keys, the thread census and
         the epoch. The monitor's gather (a collective at W>1) runs here, on
         the training thread; nothing else reads the card. Returns the
@@ -989,7 +1039,7 @@ class Trainer:
         if not self._flops_known:
             self._throughput.flops_per_step = flops_per_step(self)
             self._flops_known = True
-        record: Dict = {k: v for k, v in metrics.items() if v.numel() == 1}
+        record: Dict = {k: v for k, v in metrics.items() if _is_scalar(v, steps)}
         record.update(self._throughput.tick(step))
         stream, scorer = self.stream_stats(), self.scorer_stats()
         health = self.sampler_health()
@@ -1198,5 +1248,11 @@ def _rows(x, idx_np: np.ndarray) -> torch.Tensor:
     return x[torch.as_tensor(idx_np, device=x.device)]
 
 
-def _scalars(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    return {k: float(v) for k, v in metrics.items() if v.numel() == 1}
+def _is_scalar(value: torch.Tensor, steps: int) -> bool:
+    """A scalar metric of one step, or its ``[steps]`` series of a chunk."""
+    return value.numel() == 1 if steps == 1 else tuple(value.shape) == (steps,)
+
+
+def _scalars(metrics: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, float]:
+    """The last step's scalar metrics as floats."""
+    return {k: float(v.reshape(-1)[-1]) for k, v in metrics.items() if _is_scalar(v, steps)}

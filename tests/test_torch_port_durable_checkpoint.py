@@ -312,6 +312,7 @@ def test_fit_counts_a_retried_write_in_its_record(tmp_path):
         0, 0, 0, 1]
     assert by_step[8]["fault/injected"] == 1.0 and by_step[8]["fault/armed"] == 0.0
     assert checkpoint.all_steps(str(tmp_path)) == [4, 6, 8]
+    tr.close()
 
 
 def test_fit_raises_when_every_write_fails(tmp_path):

@@ -55,9 +55,10 @@ COMMON = dict(dataset="synthetic", world_size=1, batch_size=B, presample_batches
 TABLE = dict(sampler="scoretable", refresh_size=R, fused_input=True)
 SCALARS = ("sampler/ess", "sampler/clip_frac", "sampler/ema_drift")
 # The keys of the step before telemetry (telemetry=False), and the sparse
-# rate, which the JAX step returns with or without telemetry.
+# rate and the experts' aux, which the JAX step returns with or without
+# telemetry.
 UNTRACED_KEYS = {"train/loss", "train/acc", "train/pool_loss", "train/sparse_rate",
-                 "sampler/selected", "sampler/probs"}
+                 "train/moe_aux", "sampler/selected", "sampler/probs"}
 
 
 def _np_tree(tree):

@@ -246,7 +246,10 @@ def test_fit_with_log_dir_streams_a_record_a_tick(tmp_path, capsys):
     """Six steps, a log tick every 2 and a heartbeat every 2: three records
     at steps 2, 4 and 6 with the ``perf/*`` keys in ``metrics.jsonl`` and
     rank 0's shard, the manifest, the heartbeat shard and lines; no writer
-    thread after ``close()``."""
+    thread after ``close()``: neither this Trainer's writer thread nor any
+    other it started (a drain thread an earlier test of the same process
+    left running is not this one's)."""
+    before = {t for t in threading.enumerate() if t.name == "mercury-metrics"}
     log_dir = str(tmp_path / "run")
     model = ResNet([1, 1], BasicBlock, num_classes=10, num_filters=8)
     init_weights(model, torch.Generator().manual_seed(0))
@@ -256,8 +259,11 @@ def test_fit_with_log_dir_streams_a_record_a_tick(tmp_path, capsys):
     with Trainer(cfg, device="cpu", model=model) as tr:
         out = tr.fit()
         flops = tr._throughput.flops_per_step
+        drain = tr.logger._thread
     assert np.isfinite(out["train/loss"]) and flops > 0
-    assert not [t for t in threading.enumerate() if t.name == "mercury-metrics"]
+    assert drain is not None and drain.name == "mercury-metrics" and not drain.is_alive()
+    assert not [t for t in threading.enumerate()
+                if t.name == "mercury-metrics" and t not in before]
     assert set(os.listdir(log_dir)) >= {"run_manifest.json", "metrics.jsonl",
                                          "metrics.h0.jsonl", "heartbeat.h0.jsonl"}
     manifest = json.load(open(os.path.join(log_dir, "run_manifest.json")))
