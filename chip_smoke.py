@@ -181,7 +181,7 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    every 8 with the sha256 manifest (file bytes, each save's blocking,
    write and digest ms, a verified restore's read, verify and load ms, and
    saves with and without the manifest in turns); (b) 40-step fits saving
-   every 10, sync and ``async_checkpoint`` in six turns (the ms each save
+   every 10, sync and ``async_checkpoint`` in four turns (the ms each save
    blocks the training thread, steps/s, steps/s while a write is in
    flight, and the async files equal to the sync files by their tensors'
    sha256); (c) a byte of the newest file flipped: ``auto_resume`` falls
@@ -286,7 +286,29 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    (d) ``scan_steps=4`` against 1 on the main path (ResNet-18) under
    deterministic cuDNN, 16 steps a turn in turns (1, 4, 4, 1): equal
    losses, equal ``state_digests``, 2/1/1 launches a step and both
-   steps/s.
+   steps/s;
+22. the mesh, gloo ranks on card 0 as phase 6's, under deterministic
+   cuDNN, batch 32, a pool of 320: (a) tensor parallelism in float32, the
+   Transformer of phase 20 (662,410 parameters) on ``synthetic_seq`` at
+   ``world_size=2, tensor_parallel=2`` (four ranks) and at
+   ``world_size=2`` (two); (b) FSDP, full-width ResNet-18 (11,173,962) on
+   ``synthetic`` in bf16 at ``world_size=1, fsdp_parallel=2`` (two ranks)
+   and at ``world_size=1`` (this process, before and after). Each arm: 3 warm-up
+   and 20 timed steps on every rank, 2/1/1 launches a step (phase 4's),
+   each kernel on one step's inputs against its plain version and a
+   kernel step against a plain step on every rank, the selections
+   bit-equal across each model group, the collectives a step by group
+   (count, bytes handed in, host ms), steps/s, and a rank's parameter and
+   Adam-moment bytes (``requested_bytes`` freed when they are dropped)
+   equal to what the layout predicts; then the sharded arm's losses
+   against the unsharded arm's: (a) while every worker's T=2 ranks draw
+   the indices its T=1 rank draws, which they must through the 3 warm-up
+   steps at least, each step's pool loss, loss and gradient norm to rtol
+   1e-4 (the row-parallel sums reassociate float32; the differences grow
+   until a score near a CDF boundary draws another sample, and the later
+   losses are printed, not held), (b) all 20 timed losses to rtol 1e-5
+   (the gathered weights are the whole ones, the reduce-scatter's mean of
+   two equal gradients exact).
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -324,7 +346,7 @@ WARMUP_STEPS = 3
 TWO_RANKS = 2
 TWO_RANK_STEPS = 10   # timed steps a rank in phase 6
 TELEMETRY_TURN = 10   # steps a turn of phase 8's rates
-TELEMETRY_TURNS = ("off", "on", "on", "off", "off", "on", "on", "off")
+TELEMETRY_TURNS = ("off", "on", "on", "off")
 PROBE_STEPS = 6       # steps of phase 8 with variance_probe_every=2
 TIMED_CALLS = 50      # kernel calls captured in one CUDA graph
 TIMED_REPLAYS = 20    # replays of that graph, median taken
@@ -476,8 +498,8 @@ LOCKSTEP_STEPS = 16
 CLI_ARGS = ["--model", "resnet18", "--dataset", "synthetic", "--world-size", "1"]
 CLI_FIT_STEPS = 40
 CLI_LOG_EVERY = 10
-CLI_RATE_STEPS = 60
-CLI_RATE_TURNS = ("none", "records", "log_dir", "log_dir", "records", "none") * 2
+CLI_RATE_STEPS = 30
+CLI_RATE_TURNS = ("none", "records", "log_dir", "log_dir", "records", "none")
 CLI_RATE_ARMS = {"none": dict(log_every=0, heartbeat_every=0),
                  "records": dict(log_every=CLI_LOG_EVERY, heartbeat_every=0),
                  "log_dir": dict(log_every=CLI_LOG_EVERY, heartbeat_every=CLI_LOG_EVERY)}
@@ -489,7 +511,7 @@ DURABLE_FIT = 24          # (a) steps, a save every DURABLE_EVERY
 DURABLE_EVERY = 8
 RATE_FIT = 40             # (b) steps of a turn, a save every RATE_EVERY
 RATE_EVERY = 10
-RATE_TURNS = ("sync", "async", "async", "sync", "sync", "async")
+RATE_TURNS = ("sync", "async", "async", "sync")
 FLIP_RUN = 8              # (c) steps after the fallback
 ELASTIC_AT = 4            # (e) the step of the saves restored elastically
 ELASTIC_RUN = 8           # (e) steps after the shrink's restore
@@ -502,7 +524,7 @@ SUPERVISED = dict(ASYNC_TABLE, supervise=True, supervisor_backoff_s=0.0, eval_ev
                   log_every=10, heartbeat_every=0)
 SUP_FIT = 20              # (a) steps after the warm-up; the death at step 5
 SUP_RATE = 30             # (a) steps a turn of the rates
-SUP_TURNS = ("plain", "supervised", "journal_off", "journal_off", "supervised", "plain") * 2
+SUP_TURNS = ("plain", "supervised", "journal_off", "journal_off", "supervised", "plain")
 CHAOS = ("scorer_die@step=1,every=1;scorer_die@step=1,every=1;"
          "host_slow@step=1,every=1,secs=0.02")
 CHAOS_STEPS = 12          # (b)
@@ -518,7 +540,7 @@ OBS = dict(model="resnet18", dataset="synthetic", world_size=1, eval_every=0, lo
 OBS_STEPS = 30            # (a) steps of each fit
 OBS_NAN_STEP = 12         # (a) the injected NaN: the tick at step 20 opens the window
 OBS_WINDOW = 3            # (a) steps of the profiler window
-OBS_TURN = 60             # (a) steps a turn of the rates
+OBS_TURN = 30             # (a) steps a turn of the rates
 # The arms of the rates: the tracer on, and the status server scraped once
 # a second (a fast prober) or ten times a second (30 scrapes a second).
 OBS_TURNS = ("off", "trace", "serve10", "serve1", "serve1", "serve10", "trace", "off")
@@ -534,7 +556,7 @@ OBS_RANK_TIMEOUT_S = 120  # (b) the ladder fit must end within this
 ENDPOINTS = ("/healthz", "/statusz", "/metricsz")
 # Phase 19, the image family on synthetic_hard: (a) each model on the
 # default pool step, its rate against the uniform arm in turns (is,
-# uniform, uniform, is); (b) MobileNetV2 on the fused scoretable step; (c)
+# uniform); (b) MobileNetV2 on the fused scoretable step; (c)
 # ResNet-18 on digits_imb, IS against uniform, where scikit-learn imports.
 IMAGE_MODELS = ("smallcnn", "vgg11", "vgg16", "mobilenetv2")
 IMAGE = dict(dataset="synthetic_hard", world_size=1)
@@ -574,6 +596,15 @@ SCAN = dict(model="resnet18", dataset="synthetic", world_size=1)
 SCAN_K = 4
 SCAN_STEPS = 16
 SCAN_TURNS = (1, SCAN_K, SCAN_K, 1)
+# Phase 22, the mesh, gloo ranks on card 0: (a) the Transformer of phase 20
+# at W=2 × T=2 against W=2 × T=1; (b) ResNet-18 at W=1 × F=2 against W=1.
+MESH_TP = dict(SEQUENCE, model="transformer", world_size=2, compute_dtype="float32")
+MESH_FSDP = dict(model="resnet18", dataset="synthetic", world_size=1)
+MESH_N = 2                # T and F
+MESH_STEPS = 20           # timed steps of each arm
+MESH_KINDS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+MESH_SERIES = ("train/pool_loss", "train/loss", "train/grad_norm")
+MESH_TP_RTOL = 1e-4       # (a) T=2 against T=1, float32, while the draws agree
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -674,6 +705,7 @@ def main() -> int:
     image = run_phase("image family", image_family_phase, torch, card)
     sequence = run_phase("sequence family", sequence_family_phase, torch, card)
     experts = run_phase("experts and chunks", experts_chunks_phase, torch, card)
+    mesh = run_phase("mesh", mesh_phase, torch, card, main_path)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -692,7 +724,8 @@ def main() -> int:
                    "observability_two_ranks": observed["two_rank_launches"][k["name"]],
                    "image_models": image["launches"][k["name"]],
                    "sequence_models": sequence["launches"][k["name"]],
-                   "experts_and_chunks": experts["launches"][k["name"]]}
+                   "experts_and_chunks": experts["launches"][k["name"]],
+                   "mesh": mesh["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -711,7 +744,7 @@ def main() -> int:
          "supervised_runtime": supervised["summary"],
          "observability": observed["summary"], "image_family": image["summary"],
          "sequence_family": sequence["summary"],
-         "experts_and_chunks": experts["summary"]},
+         "experts_and_chunks": experts["summary"], "mesh": mesh["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6173,6 +6206,291 @@ def experts_chunks_phase(torch, card: str) -> dict:
                                                               for k, v in seconds.items()))
     out["seconds"] = seconds
     return {"launches": launches, "summary": out}
+
+
+# ------------------------------------------------------------------ phase 22
+def counting_by_group(torch, mesh):
+    """Record each ``torch.distributed`` collective of :data:`MESH_KINDS`
+    with its group's name in ``mesh`` (``data`` or the second axis's),
+    the bytes handed in and its host seconds (gloo returns when done);
+    returns the list and the undo."""
+    import torch.distributed as dist
+
+    names = {}
+    if mesh.model is not None:
+        names[id(mesh.model.group)] = mesh.axis_names[1]
+    calls, originals = [], {k: getattr(dist, k) for k in MESH_KINDS}
+
+    def counter(kind):
+        def counted(*args, **kwargs):
+            sent = args[0] if kind == "all_reduce" else args[1]
+            group = kwargs.get("group")
+            t0 = time.perf_counter()
+            out = originals[kind](*args, **kwargs)
+            calls.append((kind, names.get(id(group), "data"),
+                          sent.numel() * sent.element_size(), time.perf_counter() - t0))
+            return out
+        return counted
+
+    for kind in MESH_KINDS:
+        setattr(dist, kind, counter(kind))
+
+    def undo():
+        for kind, fn in originals.items():
+            setattr(dist, kind, fn)
+
+    return calls, undo
+
+
+def requested_bytes(torch) -> int:
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def state_bytes(torch, trainer) -> dict:
+    """A rank's parameter and Adam-moment bytes: what the layout predicts
+    (float32 parameters, ``exp_avg`` and ``exp_avg_sq`` of each rank's
+    shard: 12 bytes an element, from the unsharded shapes and the split
+    dimensions), against the ``requested_bytes`` freed when the rank drops
+    its parameters and optimizer state (the gradients dropped first; the
+    Trainer is unusable after)."""
+    import gc
+
+    from mercury_tpu_torch.parallel.mesh import sharding_of
+
+    model, opt = trainer.state.model, trainer.state.optimizer
+    sh = sharding_of(model)
+    n, dims = (1, {}) if sh is None else (sh.size, sh.dims)
+    whole = {k: p.numel() * (n if k in dims else 1) for k, p in model.named_parameters()}
+    predicted = 12 * sum(v // (n if k in dims else 1) for k, v in whole.items())
+    # Adam's step counts, where the optimizer keeps them on the card.
+    counters = sum(t.numel() * t.element_size() for st in opt.state.values()
+                   for key, t in st.items() if key == "step" and t.is_cuda)
+    opt.zero_grad(set_to_none=True)
+    model.zero_grad(set_to_none=True)
+
+    def settled() -> int:
+        # Gloo records a CUDA tensor it sends on its own stream
+        # (record_stream), so the allocator frees such a block only when it
+        # next processes its events: empty_cache does, after a sync.
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return requested_bytes(torch)
+
+    before = settled()
+    for p in model.parameters():
+        p.data = torch.empty(0, device=p.device)
+    opt.state.clear()
+    freed = before - settled()
+    return {"predicted": predicted + counters, "freed": freed, "whole_parameters": sum(
+        whole.values()), "local_parameters": predicted // 12, "step_counter_bytes": counters}
+
+
+def mesh_arm(torch, mk, config, per_step, label: str) -> dict:
+    """One arm of phase 22 on this rank: 3 warm-up and MESH_STEPS timed
+    steps with the launches and the collectives counted, the kernels on
+    one step's inputs against their plain versions, a kernel step against
+    a plain step (retries agreed across every rank), then the state's
+    bytes. Prints nothing."""
+    import torch.distributed as dist
+
+    from mercury_tpu_torch import Trainer
+    from mercury_tpu_torch.parallel.collectives import allreduce_sum
+
+    t0 = time.perf_counter()
+    trainer = Trainer(config)
+    build_s = time.perf_counter() - t0
+    mesh = trainer.mesh
+    classes = trainer.dataset.num_classes
+    # The warm-up steps (untimed, uncounted), their series kept with the
+    # timed steps': the first is taken from the same weights in every arm.
+    first = [trainer.train_step() for _ in range(WARMUP_STEPS)]
+    calls, undo = counting_by_group(torch, mesh)
+    try:
+        dt, counts, losses, metrics = timed_steps(torch, mk, trainer, MESH_STEPS)
+    finally:
+        undo()
+    want = {k: v * MESH_STEPS for k, v in per_step.items()}
+    check(counts == want, f"{label} rank {mesh.rank}: launch counts {counts}, expected {want}")
+    selected = torch.stack([m["sampler/selected"] for m in metrics]).cpu()
+    # Every step's (warm-up and timed) held series and selections.
+    series = {k: torch.stack([m[k] for m in first + metrics]).float().cpu().tolist()
+              for k in MESH_SERIES}
+    every_selected = torch.stack([m["sampler/selected"] for m in first + metrics]).cpu()
+    del first, metrics
+    by_group = {}
+    for kind, group, nbytes, secs in calls:
+        row = by_group.setdefault(f"{kind}/{group}", [0, 0, 0.0])
+        row[0] += 1
+        row[1] += nbytes
+        row[2] += secs
+    by_group = {k: {"calls": c / MESH_STEPS, "bytes": b / MESH_STEPS,
+                    "host_ms": s / MESH_STEPS * 1e3} for k, (c, b, s) in by_group.items()}
+    kernels = step_kernels_vs_plain(torch, mk, trainer, f"{label} rank {mesh.rank}")
+
+    def any_rank(flag: bool) -> bool:
+        if not dist.is_initialized():
+            return flag
+        return bool(allreduce_sum(torch.tensor(float(flag), device=trainer.device)) > 0)
+
+    step_err = kernel_vs_plain_step(torch, trainer, config, any_rank=any_rank, quiet=True)
+    torch.cuda.synchronize()
+    nbytes = state_bytes(torch, trainer)
+    check(nbytes["whole_parameters"] == PARAMETERS[config.model, classes],
+          f"{label}: {nbytes['whole_parameters']} parameters unsharded, expected "
+          f"{PARAMETERS[config.model, classes]}")
+    check(nbytes["freed"] == nbytes["predicted"],
+          f"{label} rank {mesh.rank}: {nbytes['freed']} parameter and moment bytes, the "
+          f"layout predicts {nbytes['predicted']}")
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return {"rank": mesh.rank, "data_rank": mesh.data_rank, "model_rank": mesh.model_rank,
+            "mesh": dict(mesh.shape), "build_s": build_s, "seconds": dt,
+            "steps_per_s": MESH_STEPS / dt, "launches": counts, "losses": losses.tolist(),
+            "series": series, "every_selected": every_selected,
+            "selected": selected, "collectives": by_group, "kernels": kernels,
+            "kernel_vs_plain": step_err, "bytes": nbytes}
+
+
+def mesh_body(jobs, per_step):
+    """One gloo rank of phase 22 (run by ``spawn``): each job's arm under
+    deterministic cuDNN."""
+    import torch
+
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    undo = deterministic_cudnn(torch)
+    try:
+        return [mesh_arm(torch, mk, TrainConfig(**kw), per_step, label)
+                for label, kw in jobs]
+    finally:
+        undo()
+
+
+def mesh_phase(torch, card: str, main_path) -> dict:
+    """Phase 22: the mesh (see the module docstring). Spawns two gloo
+    process groups on card 0 (NCCL refuses two ranks on one card): four
+    ranks for (a)'s W=2 × T=2, then two for (a)'s W=2 × T=1 and (b)'s W=1
+    × F=2; (b)'s W=1 runs here, before and after."""
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.distributed import spawn
+
+    per_step = {k: v // MAIN_STEPS for k, v in main_path["launches"].items()}
+    seconds, arms = {}, {}
+    tp = dict(MESH_TP, tensor_parallel=MESH_N)
+    fsdp = dict(MESH_FSDP, fsdp_parallel=MESH_N)
+    undo = deterministic_cudnn(torch)
+    try:
+        t0 = time.perf_counter()
+        arms["w1_first"] = [mesh_arm(torch, mk, TrainConfig(**MESH_FSDP), per_step, "W=1")]
+        seconds["w1_first"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arms["tp"] = [r[0] for r in spawn(mesh_body, 2 * MESH_N, "gloo",
+                                          [("W=2 × T=2", tp)], per_step,
+                                          devices=[0] * 2 * MESH_N, timeout_s=600)]
+        seconds["tp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pairs = spawn(mesh_body, 2, "gloo", [("W=2", MESH_TP), ("W=1 × F=2", fsdp)],
+                      per_step, devices=[0, 0], timeout_s=600)
+        arms["dp"], arms["fsdp"] = [r[0] for r in pairs], [r[1] for r in pairs]
+        seconds["dp_fsdp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arms["w1_second"] = [mesh_arm(torch, mk, TrainConfig(**MESH_FSDP), per_step, "W=1")]
+        seconds["w1_second"] = time.perf_counter() - t0
+    finally:
+        undo()
+    # The model groups' selections, bit for bit.
+    for name in ("tp", "fsdp"):
+        ranks = arms[name]
+        for r in ranks:
+            first = ranks[r["data_rank"] * MESH_N]
+            check(torch.equal(r["selected"], first["selected"]),
+                  f"mesh {name}: rank {r['rank']} selected other indices than rank "
+                  f"{first['rank']}")
+    # The sharded arms against the unsharded arms. (a) In float32, while
+    # every worker's T=2 ranks draw the indices its T=1 rank draws: each
+    # step's pool loss (scored before the draw, so the first step whose
+    # draws differ too), loss and gradient norm to MESH_TP_RTOL (the
+    # row-parallel sums reassociate float32). Those rounding differences
+    # grow with the steps until a score near a CDF boundary draws another
+    # sample, after which the arms train apart; the draws must agree
+    # through the warm-up steps at least. (b) Every timed loss to rtol 1e-5.
+    steps = WARMUP_STEPS + MESH_STEPS
+    apart = [next((i for i, (a, b) in enumerate(zip(r["every_selected"],
+                                                    arms["dp"][r["data_rank"]]["every_selected"]))
+                   if not torch.equal(a, b)), steps) for r in arms["tp"]]
+    held = min(apart)
+    errs = {}
+    for r in arms["tp"]:
+        base = arms["dp"][r["data_rank"]]
+        for key in MESH_SERIES:
+            n = min(held + 1, steps) if key == "train/pool_loss" else held
+            err = max(abs(a - b) / abs(b) for a, b in zip(r["series"][key][:n],
+                                                          base["series"][key][:n]))
+            errs[f"tp_{key}"] = max(errs.get(f"tp_{key}", 0.0), err)
+    errs["tp_trained_losses"] = max(abs(a - b) / abs(b) for r in arms["tp"] for a, b in zip(
+        r["series"]["train/loss"], arms["dp"][r["data_rank"]]["series"]["train/loss"]))
+    errs["fsdp_losses"] = max(abs(a - b) / abs(b) for r in arms["fsdp"] for a, b in
+                              zip(r["losses"], arms["w1_first"][0]["losses"]))
+    print(f"mesh, sharded against unsharded: (a) the first step whose draws differ, by T=2 "
+          f"rank: {apart} of {steps}; over the {held} steps before it, max rel " + ", ".join(
+              f"{key} {errs[f'tp_{key}']:.2e}" for key in MESH_SERIES)
+          + f" (all {steps} losses, printed, not held: up to rel "
+          f"{errs['tp_trained_losses']:.2e}); (b) {MESH_STEPS} losses max rel "
+          f"{errs['fsdp_losses']:.2e}")
+    for name in ("tp", "dp"):
+        r = arms[name][0]
+        print(f"mesh {name} rank 0: first steps' " + "; ".join(
+            f"{key} {[round(v, 6) for v in r['series'][key][:held + 1]]}"
+            for key in MESH_SERIES))
+    check(held >= WARMUP_STEPS, f"mesh tp: T=2 ranks drew other indices than T=1 from "
+          f"step {held} (by rank {apart}), before the {WARMUP_STEPS} warm-up steps ended")
+    for key in MESH_SERIES:
+        check(errs[f"tp_{key}"] <= MESH_TP_RTOL, f"mesh tp: {key} rel "
+              f"{errs[f'tp_{key}']:.2e} against T=1 over {held} steps, rtol {MESH_TP_RTOL}")
+    check(errs["fsdp_losses"] <= 1e-5, f"mesh fsdp: losses rel {errs['fsdp_losses']:.2e} "
+          f"against W=1, rtol 1e-5")
+    check(arms["w1_first"][0]["losses"] == arms["w1_second"][0]["losses"],
+          "mesh: the two W=1 turns' losses differ")
+    launches = {k: 0 for k in mk.KERNELS}
+    for name in ("tp", "dp", "fsdp", "w1_first", "w1_second"):
+        for r in arms[name]:
+            for k, v in r["launches"].items():
+                launches[k] += v
+            e = r["kernel_vs_plain"]
+            b = r["bytes"]
+            print(f"mesh {name} rank {r['rank']} (worker {r['data_rank']}, shard "
+                  f"{r['model_rank']}, mesh {r['mesh']}): {MESH_STEPS} steps in "
+                  f"{r['seconds']:.3f} s = {r['steps_per_s']:.2f} steps/s [{card}]; losses "
+                  f"first {r['losses'][0]:.6f}, last {r['losses'][-1]:.6f}; launches "
+                  f"{r['launches']}; kernel step vs plain step |d loss| "
+                  f"{e['train/loss']:.2e} ({e['band_misses']} band retries); "
+                  f"parameter+moment bytes {b['freed']} (layout {b['predicted']}, "
+                  f"{b['local_parameters']} of {b['whole_parameters']} parameters)")
+            print(f"  collectives a step: " + "; ".join(
+                f"{k} {v['calls']:g} calls, {v['bytes'] / 1e6:.3f} MB, {v['host_ms']:.2f} ms"
+                for k, v in sorted(r["collectives"].items())) if r["collectives"]
+                else "  collectives a step: none")
+            print("  kernels on the step's inputs: " + ", ".join(
+                f"{k} {c['shape']} {c['max_abs_err']:.2e}"
+                for k, v in r["kernels"].items() for c in v))
+    check(all(launches[k] > 0 for k in ("nll_fwd", "nll_bwd", "score_and_draw")),
+          f"mesh: a kernel of the path never launched: {launches}")
+    rate = {name: statistics.mean(r["steps_per_s"] for r in arms[name]) for name in arms}
+    print(f"mesh steps/s a rank (mean over ranks), one turn each in the order W=1, "
+          f"W=2×T=2, W=2 and W=1×F=2, W=1: " + ", ".join(f"{k} {v:.2f}"
+                                                      for k, v in rate.items())
+          + f"; T=2/T=1 {rate['tp'] / rate['dp']:.3f}, F=2/W=1 "
+          f"{rate['fsdp'] / statistics.mean([rate['w1_first'], rate['w1_second']]):.3f} "
+          f"[{card}]")
+    print(f"mesh seconds by part " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    summary = {name: [{k: v for k, v in r.items() if k not in ("selected", "every_selected")}
+                      for r in ranks] for name, ranks in arms.items()}
+    summary.update(seconds=seconds, loss_rel_err=errs, steps_per_s=rate, card=card)
+    return {"launches": launches, "summary": summary}
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):

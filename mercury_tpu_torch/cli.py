@@ -124,7 +124,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     joined = False
     if args.distributed:
         cpu = args.device is not None and torch.device(args.device).type == "cpu"
-        distributed.init_distributed(config.world_size, "gloo" if cpu else "nccl")
+        # world_size × tensor_parallel (or × fsdp_parallel) ranks.
+        n = 1 if config.second_axis is None else config.second_axis[1]
+        distributed.init_distributed(config.world_size * n, "gloo" if cpu else "nccl")
         joined = True
     try:
         from mercury_tpu_torch.train.trainer import Trainer
@@ -132,7 +134,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         # A context manager: closes the scorer and the prefetch worker, then
         # drains and closes the metric writer.
         with Trainer(config, device=args.device) as trainer:
-            print(f"run: {config.run_name()}  mesh: {{'data': {config.world_size}}}  "
+            print(f"run: {config.run_name()}  mesh: {trainer.mesh.shape}  "
                   f"steps/epoch: {trainer.steps_per_epoch}")
             if args.dry_run:
                 # Under host_stream train_step is the fit loop's pop → step

@@ -12,7 +12,7 @@ else.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 _MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "smallcnn",
            "vgg11", "vgg13", "vgg16", "vgg19", "mobilenetv2", "mobilenet_v2",
@@ -48,6 +48,19 @@ class TrainConfig:
     num_classes: Optional[int] = None  # None: the dataset's; set: must equal it
     image_size: int = 32              # the imagefolder resize
     world_size: int = 4               # data-parallel ranks, one process each
+    mesh_axis: str = "data"           # the data axis's name (manifest, messages)
+    # A second axis inside each data worker, one process a rank, so a run
+    # takes world_size × tensor_parallel (or × fsdp_parallel) ranks; the
+    # two are mutually exclusive (parallel/mesh.py). tensor_parallel splits
+    # every transformer block Megatron-style over its ranks
+    # (parallel/tensor.py; the transformer family, num_heads divisible);
+    # fsdp_parallel shards every parameter of at least 1024 elements along
+    # its largest divisible dimension and gathers it for each forward
+    # (parallel/fsdp.py; any model). Adam's moments follow the shards.
+    tensor_parallel: int = 1
+    model_axis: str = "model"         # the tensor-parallel axis's name
+    fsdp_parallel: int = 1
+    fsdp_axis: str = "fsdp"           # the FSDP axis's name
     # "replicated": every rank holds the whole train split on its device and
     # gathers its shard's rows by global index; "sharded": a rank holds only
     # its own shard's rows; "host_stream": the pixels stay in host memory
@@ -350,6 +363,9 @@ class TrainConfig:
             bad("dataset", f"the port loads {', '.join(_DATASETS)}")
         if self.world_size < 1:
             bad("world_size", "must be >= 1")
+        for field in ("tensor_parallel", "fsdp_parallel"):
+            if getattr(self, field) < 1:
+                bad(field, "must be >= 1")
         if self.dataset == "imagefolder" and not self.data_dir:
             bad("dataset", "dataset='imagefolder' requires data_dir")
         if self.image_size < 1:
@@ -456,6 +472,17 @@ class TrainConfig:
     def lr(self) -> float:
         """Linear-scaling rule: base_lr × world_size."""
         return self.base_lr * self.world_size
+
+    @property
+    def second_axis(self) -> Optional[Tuple[str, int]]:
+        """The mesh's second axis, ``(name, size)``, when tensor_parallel or
+        fsdp_parallel is above 1 (tensor_parallel's when both are); None
+        for a data-only mesh."""
+        if self.tensor_parallel > 1:
+            return self.model_axis, self.tensor_parallel
+        if self.fsdp_parallel > 1:
+            return self.fsdp_axis, self.fsdp_parallel
+        return None
 
     @property
     def use_scoretable(self) -> bool:

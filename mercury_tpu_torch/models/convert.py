@@ -4,7 +4,9 @@
 arrays under Flax's names (``Conv_0``, ``BatchNorm_0``, ``BasicBlock_3``,
 ``InvertedResidual_10``, ``Dense_0``, ``OptimizedLSTMCell_2/hf``,
 ``block1/query``, ``pos_embed``, the experts' ``block0/moe/w_up``, …) —
-onto the state dict of the port's model of the same family. Conv kernels
+onto the state dict of the unsharded port model of the same family
+(``parallel/mesh.load_full_state_dict`` cuts it to a sharded rank's
+slices, ``full_state_dict`` gathers them back). Conv kernels
 go HWIO → OIHW (a depthwise ``[3, 3, 1, C]`` to ``[C, 1, 3, 3]``), Dense
 kernels ``[in, out]`` → ``[out, in]``, BatchNorm ``scale/bias/mean/var``
 → ``weight/bias/running_mean/running_var``, LayerNorm ``scale/bias`` →
@@ -184,8 +186,33 @@ def _family(model: torch.nn.Module) -> str:
     blocks = getattr(model, "blocks", None)
     if blocks:
         return type(blocks[0]).__name__
-    name = type(model).__name__
-    return name if name in FLAX_NAMES else ""
+    # The class or the nearest base with a row (a subclass keeps its table).
+    return next((cls.__name__ for cls in type(model).__mro__ if cls.__name__ in FLAX_NAMES), "")
+
+
+def flax_leaves(model: torch.nn.Module) -> List[Tuple[str, Tuple[str, ...], Tuple[int, ...]]]:
+    """``(name, flax_path, axes)`` of each parameter in
+    ``model.named_parameters()`` order: its path in the Flax ``params``
+    tree (``("block0", "query", "kernel")``, ``("pos_embed",)``) and, for
+    each dimension of the Flax leaf, the torch dimension it is: conv
+    kernels HWIO ← OIHW ``(2, 3, 1, 0)``, Dense kernels ``[in, out]`` ←
+    ``[out, in]`` ``(1, 0)``, every other leaf as it is."""
+    table = FLAX_NAMES[_family(model)]
+    out = []
+    for name, p in model.named_parameters():
+        module, _, leaf = name.rpartition(".")
+        bare = _match(name, table, 0)
+        if bare is not None:
+            # A bare parameter (the positional embedding, the experts'
+            # stacked arrays), in Flax's layout already.
+            out.append((name, tuple(bare.split("/")), tuple(range(p.dim()))))
+            continue
+        path = tuple(_translate(module, table, 0).split("/"))
+        axes = {4: (2, 3, 1, 0), 2: (1, 0)}.get(p.dim(), tuple(range(p.dim())))
+        weighted = isinstance(model.get_submodule(module), (torch.nn.Conv2d, torch.nn.Linear))
+        flax_leaf = "bias" if leaf == "bias" else ("kernel" if weighted else "scale")
+        out.append((name, path + (flax_leaf,), axes))
+    return out
 
 
 def jax_flat_order(model: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -199,27 +226,14 @@ def jax_flat_order(model: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
     ``Conv_*``; ``bias`` before ``kernel`` and ``scale``; an LSTM cell's
     ``hf, hg, hi, ho, if, ig, ii, io``), each raveled in its Flax layout:
     conv kernels HWIO, Dense kernels ``[in, out]``."""
-    table = FLAX_NAMES[_family(model)]
     leaves: List[Tuple[Tuple[str, ...], torch.Tensor]] = []
     offset = 0
-    for name, p in model.named_parameters():
-        module, _, leaf = name.rpartition(".")
+    params = dict(model.named_parameters())
+    for name, path, axes in flax_leaves(model):
+        p = params[name]
         idx = torch.arange(offset, offset + p.numel()).view(p.shape)
         offset += p.numel()
-        bare = _match(name, table, 0)
-        if bare is not None:
-            # A bare parameter (the positional embedding, the experts'
-            # stacked arrays), in Flax's layout already.
-            leaves.append((tuple(bare.split("/")), idx.reshape(-1)))
-            continue
-        path = tuple(_translate(module, table, 0).split("/"))
-        if idx.dim() == 4:
-            idx = idx.permute(2, 3, 1, 0)  # OIHW → HWIO
-        elif idx.dim() == 2:
-            idx = idx.T  # [out, in] → [in, out]
-        weighted = isinstance(model.get_submodule(module), (torch.nn.Conv2d, torch.nn.Linear))
-        flax_leaf = "bias" if leaf == "bias" else ("kernel" if weighted else "scale")
-        leaves.append((path + (flax_leaf,), idx.reshape(-1)))
+        leaves.append((path, idx.permute(*axes).reshape(-1)))
     order = torch.cat([idx for _, idx in sorted(leaves, key=lambda leaf: leaf[0])])
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(offset)

@@ -33,7 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mercury_tpu_torch.parallel.collectives import all_reduce_mean
+from mercury_tpu_torch.parallel.collectives import all_reduce_mean, rank, world
+from mercury_tpu_torch.parallel.mesh import GroupRef
 
 
 def _same_pads(size: int, k: int, s: int):
@@ -68,7 +69,11 @@ class BatchNorm(nn.Module):
     running average, biased variance, eps 1e-5). ``sync`` (the Flax
     model's ``bn_axis_name``) averages the batch statistics over the ranks;
     whoever builds the model sets it only at more than one rank
-    (:func:`set_sync_batch_norm`), so one rank keeps ``F.batch_norm``."""
+    (:func:`set_sync_batch_norm`), so one rank keeps ``F.batch_norm``;
+    ``sync_group`` holds the group it averages over (None: the default
+    group)."""
+
+    sync_group = None
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5, sync: bool = False):
@@ -106,7 +111,8 @@ class BatchNorm(nn.Module):
         the input's dtype."""
         xf = x.float()
         local = torch.stack([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
-        mean, mean_sq = all_reduce_mean(local)
+        group = None if self.sync_group is None else self.sync_group.group
+        mean, mean_sq = all_reduce_mean(local, group)
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
         if keep_stats:
             self._update_running(mean.detach(), var.detach())
@@ -122,13 +128,17 @@ class BatchNorm(nn.Module):
         self.running_var.mul_(m).add_(var, alpha=1.0 - m)
 
 
-def set_sync_batch_norm(model: nn.Module, sync: bool) -> nn.Module:
+def set_sync_batch_norm(model: nn.Module, sync: bool, group=None) -> nn.Module:
     """Set ``sync`` on every :class:`BatchNorm` of ``model``: the Flax
     model's ``bn_axis_name``, which the trainer sets for
-    ``batch_norm="sync"`` at more than one rank."""
+    ``batch_norm="sync"`` at more than one rank. ``group`` is the process
+    group the statistics are averaged over (None: the default group; the
+    data group under a second mesh axis)."""
+    ref = None if group is None else GroupRef(group, world(group), rank(group))
     for mod in model.modules():
         if isinstance(mod, BatchNorm):
             mod.sync = sync
+            mod.sync_group = ref
     return model
 
 

@@ -133,6 +133,10 @@ class BiLSTMAttention(nn.Module):
     ``OptimizedLSTMCell_0..3``: layer 1 forward and backward, then layer
     2's."""
 
+    # ``bilstm`` reads the cells' weights without calling the cells, so
+    # under FSDP the model's own call gathers them (``parallel/fsdp.py``).
+    fsdp_gather_at = {"cells.": ""}
+
     def __init__(self, num_classes: int = 10, in_features: int = 16,
                  hidden_dim: int = 128, attention_dim: int = 128, mlp_dim: int = 128):
         super().__init__()

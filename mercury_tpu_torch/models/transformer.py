@@ -19,6 +19,13 @@ sums the sowed ``"losses"``): ``forward(..., return_aux=True)`` returns it
 beside the logits, 0.0 without experts. Each block hands its loss out with
 its output, so a block recomputed under ``remat`` adds nothing twice.
 
+Under ``tensor_parallel`` (``parallel/tensor.py``) each block holds its
+model group as ``tp`` and this rank's Megatron shards: ``num_heads / T``
+heads of ``query``/``key``/``value`` and the matching columns of ``proj``,
+a ``1/T`` slice of ``fc1``'s outputs and of ``fc2``'s inputs. The block
+then runs ``f`` before each column-parallel product and ``g`` after each
+row-parallel one, whose bias is added after the all-reduce.
+
 Not ported yet: sequence parallelism (``sp_axis``, the zigzag layout) and
 expert parallelism (``moe_ep_axis``); each raises ``ValueError``.
 """
@@ -34,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mercury_tpu_torch.models.moe import MoEMLP
 from mercury_tpu_torch.parallel.sequence import SP_NOT_PORTED, attention
+from mercury_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 class LayerNorm(nn.LayerNorm):
@@ -53,7 +61,11 @@ class TransformerBlock(nn.Module):
     with ``moe_experts``, the mixture of experts ``moe``), each added back
     to its input. ``ln1``/``ln2`` and ``fc1``/``fc2`` are Flax's
     ``LayerNorm_0/1`` and ``Dense_0/1``. ``forward`` returns the output and
-    the experts' load-balancing loss (None without experts)."""
+    the experts' load-balancing loss (None without experts). ``tp``, the
+    model group under tensor parallelism, is set by
+    ``parallel.tensor.shard_model_tp``."""
+
+    tp = None
 
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: int = 4,
                  causal: bool = False, moe_experts: Optional[int] = None,
@@ -75,16 +87,29 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         b, t, d = x.shape
-        h = self.ln1(x)
-        shape = (b, t, self.num_heads, d // self.num_heads)
+        h = self._column_input(self.ln1(x))
+        heads = self.num_heads // (1 if self.tp is None else self.tp.size)
+        shape = (b, t, heads, d // self.num_heads)
         out = attention(self.query(h).view(shape), self.key(h).view(shape),
                         self.value(h).view(shape), causal=self.causal)
-        x = x + self.proj(out.reshape(b, t, d))
+        x = x + self._row(self.proj, out.reshape(b, t, -1))
         if hasattr(self, "moe"):
             h, aux = self.moe(self.ln2(x))
             return x + h, aux
-        h = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
-        return x + h, None
+        h = F.gelu(self.fc1(self._column_input(self.ln2(x))), approximate="tanh")
+        return x + self._row(self.fc2, h), None
+
+    def _column_input(self, h: torch.Tensor) -> torch.Tensor:
+        """Megatron's ``f`` before a column-parallel product."""
+        return h if self.tp is None else copy_to_model(h, self.tp)
+
+    def _row(self, linear: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product: the partial products summed over the
+        model group (``g``), then the bias, once."""
+        if self.tp is None:
+            return linear(h)
+        y = reduce_from_model(F.linear(h, linear.weight), self.tp)
+        return y + linear.bias.to(y.dtype)
 
 
 class TransformerClassifier(nn.Module):

@@ -50,8 +50,12 @@ def git_revision(cwd: Optional[str] = None) -> Optional[str]:
 def build_run_manifest(config, device=None, extra: Optional[Dict] = None) -> Dict:
     """The manifest dict (no filesystem). ``device`` is the trainer's
     (default: this rank's card when CUDA is available, else the CPU);
-    ``process_index`` and ``process_count`` are the rank and the world, and
-    ``mesh_shape`` is ``{"data": world_size}``."""
+    ``process_index`` and ``process_count`` are the global rank and the
+    ranks, and ``mesh_shape`` maps each mesh axis to its size, as the JAX
+    manifest's ``dict(mesh.shape)``: ``{mesh_axis: world_size}``, with the
+    second axis (``model_axis: tensor_parallel`` or ``fsdp_axis:
+    fsdp_parallel``) when one is above 1; ``mesh_axis_names`` their
+    names in order."""
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if torch.cuda.is_available() else torch.device("cpu"))
@@ -75,8 +79,12 @@ def build_run_manifest(config, device=None, extra: Optional[Dict] = None) -> Dic
         manifest["device_kind"] = None
         manifest["platform"] = "cpu"
         manifest["device_count"] = 1
-    manifest["mesh_shape"] = {"data": int(config.world_size)}
-    manifest["mesh_axis_names"] = ["data"]
+    shape = {config.mesh_axis: int(config.world_size)}
+    if config.second_axis is not None:
+        name, n = config.second_axis
+        shape[name] = int(n)
+    manifest["mesh_shape"] = shape
+    manifest["mesh_axis_names"] = list(shape)
     manifest["peak_flops"] = peak_flops(manifest["device_kind"])
     if extra:
         manifest.update(extra)

@@ -14,6 +14,11 @@ Two ways to run ``world_size=W``:
   returns each rank's result. The tests run two gloo ranks on the CPU
   with it; ``chip_smoke.py`` two gloo ranks that share one card.
 
+Under ``tensor_parallel=T`` or ``fsdp_parallel=F`` a run takes
+``world_size × T`` (or ``× F``) ranks: ``torchrun --nproc_per_node=W·T``
+and ``init_distributed(W·T, "nccl")``; ``parallel/mesh.py`` then splits
+them into data and model groups.
+
 The backend is always the caller's choice; nothing falls back from one
 backend to another. A rank that fails fails the whole launch: every
 collective has a timeout, and :func:`spawn` raises when any child exits
@@ -27,7 +32,7 @@ import os
 import shutil
 import socket
 import tempfile
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -78,24 +83,28 @@ def init_distributed(world_size: Optional[int], backend: str,
     return rank
 
 
-def require_world(world_size: int) -> int:
-    """This process's rank, once the process group is known to have
-    ``world_size`` ranks. ``world_size=1`` needs no process group; W>1
-    needs one of W ranks, and its absence raises instead of training at
+def require_world(world_size: int, second: Optional[Tuple[str, int]] = None) -> int:
+    """This process's global rank, once the process group is known to have
+    ``world_size`` ranks, or ``world_size × n`` under a second mesh axis
+    ``second = (field, n)`` (``("tensor_parallel", T)`` or
+    ``("fsdp_parallel", F)``). One rank needs no process group; more need
+    one of that many ranks, and its absence raises instead of training at
     one rank."""
+    field, n = second if second is not None else (None, 1)
+    need = world_size * n
+    what = (f"TrainConfig.world_size={world_size}" if field is None else
+            f"TrainConfig.world_size={world_size} × {field}={n}")
     initialized = dist.is_available() and dist.is_initialized()
     if not initialized:
-        if world_size == 1:
+        if need == 1:
             return 0
         raise ValueError(
-            f"TrainConfig.world_size={world_size} needs a process group of "
-            f"{world_size} ranks, one process each: launch with `torchrun "
-            f"--nproc_per_node={world_size}` and call "
+            f"{what} needs a process group of {need} ranks, one process each: "
+            f"launch with `torchrun --nproc_per_node={need}` and call "
             "mercury_tpu_torch.parallel.distributed.init_distributed, or run "
             "under mercury_tpu_torch.parallel.distributed.spawn")
-    if world() != world_size:
-        raise ValueError(f"TrainConfig.world_size={world_size} but the process "
-                         f"group has {world()} ranks")
+    if world() != need:
+        raise ValueError(f"{what} but the process group has {world()} ranks")
     return rank()
 
 

@@ -105,15 +105,15 @@ def reweighted_loss(losses: torch.Tensor,
     return (losses / scaled_probs).mean()
 
 
-def pool_mean(pool_losses: torch.Tensor, sync: bool = False) -> torch.Tensor:
-    """Mean pool loss. With ``sync`` and more than one rank, the **global**
-    mean: the sum and the count all-reduced over the ranks
-    (``psum(sum)/psum(count)``), so every rank's EMA stays the same. At one
-    rank the global mean is the local one."""
+def pool_mean(pool_losses: torch.Tensor, sync: bool = False, group=None) -> torch.Tensor:
+    """Mean pool loss. With ``sync`` and more than one rank in ``group``
+    (None: the default group), the **global** mean: the sum and the count
+    all-reduced over the ranks (``psum(sum)/psum(count)``), so every rank's
+    EMA stays the same. At one rank the global mean is the local one."""
     pool_losses = pool_losses.to(torch.float32)
-    if sync and world() > 1:
+    if sync and world(group) > 1:
         total, count = psum_stats(pool_losses.sum(),
-                                  pool_losses.new_full((), pool_losses.shape[0]))
+                                  pool_losses.new_full((), pool_losses.shape[0]), group)
         return total / count
     return pool_losses.mean()
 

@@ -33,6 +33,13 @@ its own chunk's, so they go into its row and each rank restores its own;
 same ``world_size``, and ``elastic.elastic_restore`` reshards the chunks
 for another.
 
+Under ``tensor_parallel`` or ``fsdp_parallel`` the file is the same as an
+unsharded run's: the model group gathers its shards of the parameters,
+Adam's moments and the accumulator (``parallel/mesh.py``), the rows are
+gathered over the data group (one a worker), and global rank 0 writes. A
+restore reads the whole tensors and each rank keeps its slices, so a file
+moves between layouts at the same ``world_size``.
+
 Durability. A file is written to ``ckpt_<step>.pt.tmp``, flushed to disk,
 renamed and the directory flushed, so a torn write never carries a
 checkpoint's name; a write that raises ``OSError`` is tried again
@@ -70,6 +77,15 @@ from mercury_tpu_torch.parallel.collectives import (
     host_flag_device,
     rank,
     world,
+)
+from mercury_tpu_torch.parallel.mesh import (
+    full_like_params,
+    full_optimizer_state,
+    full_state_dict,
+    load_full_state_dict,
+    local_like_params,
+    local_optimizer_state,
+    sharding_of,
 )
 from mercury_tpu_torch.sampling.importance import EMAState
 from mercury_tpu_torch.sampling.scoretable import ScoreTableState
@@ -172,6 +188,15 @@ def _optimizer_on_host(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
                       for i, st in sd["state"].items()}}
 
 
+def _data(state: MercuryState):
+    """The state's data group and its rank in it (the default group's on a
+    data-only run)."""
+    mesh = state.mesh
+    if mesh is None or mesh.second == 1:
+        return None, rank()
+    return mesh.data_group, mesh.data_rank
+
+
 def _rank_row(state: MercuryState, zero: bool) -> Dict[str, Any]:
     """This rank's sampler state, and under ZeRO its chunk's optimizer
     state and accumulator, on the host."""
@@ -193,18 +218,42 @@ def _rank_row(state: MercuryState, zero: bool) -> Dict[str, Any]:
     }
 
 
-def _payload(state: MercuryState, config: TrainConfig, rows: List[Dict[str, Any]]
-             ) -> Dict[str, Any]:
+def _whole(state: MercuryState, zero: bool) -> Dict[str, Any]:
+    """The replicated state as the unsharded run holds it: the model, the
+    optimizer and the accumulator (under ZeRO the model alone: the rest is
+    in the rank rows), gathered over the model group under a second mesh
+    axis (a collective of the group), on the host."""
+    model = state.model
+    whole: Dict[str, Any] = {"model": {k: _cpu(v) for k, v in full_state_dict(model).items()},
+                             "optimizer": None, "accum": None}
+    if zero:
+        return whole
+    if sharding_of(model) is None:
+        whole["optimizer"] = _optimizer_on_host(state.optimizer)
+        whole["accum"] = None if state.accum is None else [_cpu(a) for a in state.accum]
+        return whole
+    opt = full_optimizer_state(model, state.optimizer.state_dict())
+    whole["optimizer"] = {"param_groups": opt["param_groups"],
+                          "state": {i: {k: _cpu(v) if torch.is_tensor(v) else v
+                                        for k, v in st.items()}
+                                    for i, st in opt["state"].items()}}
+    whole["accum"] = (None if state.accum is None
+                      else [_cpu(a) for a in full_like_params(model, state.accum)])
+    return whole
+
+
+def _payload(state: MercuryState, config: TrainConfig, rows: List[Dict[str, Any]],
+             whole: Dict[str, Any]) -> Dict[str, Any]:
     zero = config.zero_sharding
     return {
         "format": FORMAT,
         "step": state.step, "updates": state.updates, "mini_step": state.mini_step,
         "world_size": config.world_size, "grad_accum_steps": config.grad_accum_steps,
         "zero_sharding": zero, "device": state.stream.perm.device.type,
-        "model": {k: _cpu(v) for k, v in state.model.state_dict().items()},
+        "model": whole["model"],
         # Under ZeRO both are in the rank rows.
-        "optimizer": None if zero else _optimizer_on_host(state.optimizer),
-        "accum": None if zero or state.accum is None else [_cpu(a) for a in state.accum],
+        "optimizer": whole["optimizer"],
+        "accum": whole["accum"],
         "ranks": rows,
     }
 
@@ -367,12 +416,14 @@ def save_checkpoint(directory: str, state: MercuryState, config: TrainConfig,
     rank 0 writes, and every rank returns once rank 0 is done (the barrier
     is reached even when the write raised on rank 0, which then raises).
     ``journal`` records the written file as ``checkpoint/written``."""
-    rows = gather_to_rank0(_rank_row(state, config.zero_sharding))
+    group, _ = _data(state)
+    rows = gather_to_rank0(_rank_row(state, config.zero_sharding), group)
+    whole = _whole(state, config.zero_sharding)
     path = checkpoint_path(directory, state.step)
     try:
         if rank() == 0:
             os.makedirs(directory, exist_ok=True)
-            _write_with_retries(path, _payload(state, config, rows), retries=retries,
+            _write_with_retries(path, _payload(state, config, rows, whole), retries=retries,
                                 retry_backoff_s=retry_backoff_s, manifest=manifest,
                                 faults=faults)
             prune(directory, keep)
@@ -455,7 +506,8 @@ def save_checkpoint_async(directory: str, state: MercuryState, config: TrainConf
         return None
     os.makedirs(directory, exist_ok=True)
     path = checkpoint_path(directory, state.step)
-    payload = _payload(state, config, [_rank_row(state, config.zero_sharding)])
+    payload = _payload(state, config, [_rank_row(state, config.zero_sharding)],
+                       _whole(state, config.zero_sharding))
     step = state.step
 
     def write() -> None:
@@ -651,7 +703,7 @@ def _apply(ckpt: Dict[str, Any], path: str, state: MercuryState, config: TrainCo
             raise ValueError(
                 f"{path} was saved with {field}={saved!r}, this run has {field}={have!r}: "
                 f"a restore takes only the same one{hint}")
-    row = ckpt["ranks"][rank()]
+    row = ckpt["ranks"][_data(state)[1]]
     if (row["table"] is None) != (state.scoretable is None):
         raise ValueError(f"{path} and this run differ in sampler: one keeps a "
                          "score table, the other does not")
@@ -666,11 +718,14 @@ def _apply(ckpt: Dict[str, Any], path: str, state: MercuryState, config: TrainCo
     if saved is not None and len(saved["draws"]) != config.prefetch_depth:
         raise ValueError(f"{path} was saved with prefetch_depth={len(saved['draws'])}, "
                          f"this run has prefetch_depth={config.prefetch_depth}")
-    state.model.load_state_dict(ckpt["model"])
+    # A sharded model keeps its slices of the whole tensors.
+    load_full_state_dict(state.model, ckpt["model"])
     own = row if config.zero_sharding else ckpt
-    state.optimizer.load_state_dict(own["optimizer"])
+    state.optimizer.load_state_dict(local_optimizer_state(state.model, own["optimizer"]))
     if state.accum is not None:
-        for acc, saved_acc in zip(state.accum, own["accum"]):
+        accum = own["accum"] if config.zero_sharding else local_like_params(
+            state.model, own["accum"])
+        for acc, saved_acc in zip(state.accum, accum):
             acc.copy_(saved_acc)
     state.step, state.updates, state.mini_step = (
         ckpt["step"], ckpt["updates"], ckpt["mini_step"])

@@ -131,8 +131,10 @@ def timing_breakdown(trainer, iters: int = 10) -> Dict[str, float]:
 
     flat = torch.cat([p.detach().reshape(-1) for p in params])
 
+    group = getattr(getattr(trainer, "mesh", None), "data_group", None)
+
     def sync():
-        return allreduce_mean_([flat])
+        return allreduce_mean_([flat], group)
 
     is_t = _timeit(score, iters, dev)
     ff_t = _timeit(forward, iters, dev)

@@ -28,6 +28,12 @@ and its state (and the accumulator) are that chunk's. ZeRO's step and the
 int8 wire read the flat order, :class:`FlatLayout`, which
 :func:`flat_layout` builds on first use and keeps on the state.
 
+Under ``tensor_parallel`` or ``fsdp_parallel`` the model holds this
+rank's shards (``parallel/tensor.py``, ``parallel/fsdp.py``), so the
+optimizer steps over the local shards and Adam's moments are shards too;
+``mesh`` is the rank's :class:`~mercury_tpu_torch.parallel.mesh.Mesh`,
+which the checkpoints read for the data rank and group.
+
 The pool sampler's step modes carry their own: ``pipelined_scoring`` the
 batch selected for the next step (:class:`PendingBatch`),
 ``score_refresh_every > 1`` the scored pool it redraws from
@@ -302,6 +308,9 @@ class MercuryState:
     # the JAX flat order and ZeRO's chunking, built by flat_layout() on
     # first use (never changed, so clones share it)
     flat: Optional[FlatLayout] = None
+    # the rank's place in the mesh (None: a data-only run over the default
+    # group); clones share it
+    mesh: Any = None
 
     def clone(self) -> "MercuryState":
         """An independent copy: the model and its optimizer are copied

@@ -99,6 +99,15 @@ of W ranks, and these cross the ranks (``parallel/collectives.py``):
 
 At W=1 the step issues no collective and needs no process group.
 
+Under ``tensor_parallel=T`` or ``fsdp_parallel=F`` (``parallel/mesh.py``)
+the process group has ``W × T`` (or ``× F``) ranks, and every collective
+above runs over the rank's data group, between the replicas of one model
+shard. The ranks of a model group are one worker: they score, draw and
+select the same indices, and the model's own collectives run inside its
+forward and backward (``parallel/tensor.py``, ``parallel/fsdp.py``). The
+gradient's norm sums its shards' squares over the model group
+(:func:`grad_norm_of`).
+
 The gradient path (:func:`sync_and_step`, the JAX ``train_update``'s
 middle) has two options. ``grad_compression="stochastic"`` quantizes each
 rank's gradient per parameter before the sync (``utils/quantize.py``;
@@ -190,7 +199,7 @@ them.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -243,6 +252,7 @@ from mercury_tpu_torch.parallel.collectives import (
     psum_scatter_mean,
 )
 from mercury_tpu_torch.parallel.distributed import require_world
+from mercury_tpu_torch.parallel.mesh import Mesh, sharding_of
 from mercury_tpu_torch.sampling.groupwise import draw as groupwise_draw
 from mercury_tpu_torch.sampling.groupwise import update_importance, window_indices
 from mercury_tpu_torch.sampling.importance import (
@@ -471,7 +481,7 @@ def apply_update(state: MercuryState, accum_steps: int,
 
 @torch.no_grad()
 def sync_and_step(state: MercuryState, config: TrainConfig, draws: Draws,
-                  telemetry: bool):
+                  telemetry: bool, group=None):
     """The gradient path after the backward, the JAX ``train_update``'s
     middle, in its order: the optional ``"stochastic"`` quantization; the
     sync (the all-reduced bucket, the int8 all-reduce of the flat vector,
@@ -479,7 +489,10 @@ def sync_and_step(state: MercuryState, config: TrainConfig, draws: Draws,
     int8 or not); the gradient's norm (under ``telemetry``; ZeRO's from its
     chunks); the optimizer step or the accumulation. Returns the norm
     (None without telemetry) and this rank's ``train/sparse_rate`` (None
-    unless ``"stochastic"``)."""
+    unless ``"stochastic"``). The gradient bucket is averaged over
+    ``group`` (None: the default group; the data group under a second mesh
+    axis), and a sharded model's norm sums its shards' squares over the
+    model group (:func:`grad_norm_of`)."""
     params = list(state.model.parameters())
     sparse_rate = grad_norm = None
     if config.grad_compression == "stochastic":
@@ -501,13 +514,32 @@ def sync_and_step(state: MercuryState, config: TrainConfig, draws: Draws,
             for g, part in zip(grads, vec.split([g.numel() for g in grads])):
                 g.copy_(part.view_as(g))
         elif config.world_size > 1:
-            allreduce_mean_(grads)
+            allreduce_mean_(grads, group)
     if telemetry:
         # This (micro)step's gradient, equal on every rank.
-        grad_norm = global_grad_norm(grads)
+        grad_norm = grad_norm_of(state.model)
     with scope("mercury_optimizer"):
         apply_update(state, config.grad_accum_steps)
     return grad_norm, sparse_rate
+
+
+def grad_norm_of(model: torch.nn.Module) -> torch.Tensor:
+    """The L2 norm of the model's gradient. A sharded model's is the whole
+    gradient's: its shards' squares summed over the model group (one
+    all-reduce), its replicated leaves counted once."""
+    sh = sharding_of(model)
+    grads = [(name, p.grad) for name, p in model.named_parameters() if p.grad is not None]
+    if sh is None:
+        return global_grad_norm([g for _, g in grads])
+    split = [g for name, g in grads if name in sh.dims]
+    whole = [g for name, g in grads if name not in sh.dims]
+
+    def squares(gs):
+        if not gs:
+            return torch.zeros((), dtype=torch.float32, device=grads[0][1].device)
+        return global_grad_norm(gs).square()
+
+    return torch.sqrt(allreduce_sum(squares(split), sh.group.group) + squares(whole))
 
 
 def _zero_step(state: MercuryState, config: TrainConfig, draws: Draws,
@@ -552,6 +584,7 @@ def _zero_step(state: MercuryState, config: TrainConfig, draws: Draws,
 
 def make_train_step(
     config: TrainConfig, dataset: ShardedDataset, scan_steps: int = 1,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build ``step_fn(state, draws=None, use_kernels=True) → metrics``.
 
@@ -578,7 +611,14 @@ def make_train_step(
     ``scan_steps=K > 1`` builds ``chunk_fn(state, draws=None,
     use_kernels=True) → metrics`` instead: K steps, ``draws`` (when given)
     a sequence of K, every metric ``[K, ...]``. It refuses the variance
-    probe and host_stream, as the JAX step does."""
+    probe and host_stream, as the JAX step does.
+
+    ``mesh`` (``train/trainer.build_mesh``'s, which refuses what a second
+    axis does not run and checks for ``world_size × T`` (or ``× F``)
+    ranks) places the step under ``tensor_parallel`` or
+    ``fsdp_parallel``, where it is required: the step's collectives run
+    over the mesh's data group, and the model arrives sharded over its
+    model group."""
     if scan_steps > 1 and config.use_probe:
         raise ValueError(
             "variance_probe_every > 0 requires scan_steps == 1: scanned "
@@ -589,7 +629,15 @@ def make_train_step(
             "host_stream requires scan_steps == 1: each step consumes "
             "one host-prefetched batch and emits the next indices — a "
             "scanned chunk would need the streamed batches mid-graph")
-    require_world(config.world_size)
+    if config.second_axis is None:
+        require_world(config.world_size)
+    elif mesh is None:
+        # build_mesh makes the refusals and checks the process group.
+        raise ValueError("a step under tensor_parallel or fsdp_parallel needs the mesh: "
+                         "pass mesh=train.trainer.build_mesh(config)")
+    # The data-parallel collectives' group: the default group, or the
+    # mesh's data group under a second axis.
+    dgroup = None if mesh is None else mesh.data_group
     world_size = config.world_size
     use_is = config.use_importance_sampling
     use_table = config.use_scoretable
@@ -706,14 +754,14 @@ def make_train_step(
             # The Switch load-balancing term, summed over the blocks.
             loss = loss + config.moe_aux_weight * aux
         loss.backward()
-        grad_norm, sparse_rate = sync_and_step(state, config, draws, telemetry)
+        grad_norm, sparse_rate = sync_and_step(state, config, draws, telemetry, dgroup)
         if world_size > 1:
             # Averaged under "sync" (already equal) and "local" alike, as
             # the JAX step averages batch_stats; a model without batch norm
             # has none, and no all-reduce is issued.
             with scope("mercury_grad_sync"):
                 allreduce_mean_([b for name, b in model.named_buffers()
-                                 if name.endswith(("running_mean", "running_var"))])
+                                 if name.endswith(("running_mean", "running_var"))], dgroup)
         return logits, train_losses, loss, aux, grad_norm, sparse_rate
 
     def step_fn(state: MercuryState, draws: Optional[Draws] = None,
@@ -758,7 +806,7 @@ def make_train_step(
             if not grad_norm_scores:
                 return score_avg
             with torch.no_grad():
-                return pool_mean(loss_of(logits, labels), sync_stats)
+                return pool_mean(loss_of(logits, labels), sync_stats, dgroup)
 
         def probe_var_ratio(images: torch.Tensor, labels: torch.Tensor,
                             scaled_probs: torch.Tensor) -> torch.Tensor:
@@ -771,14 +819,14 @@ def make_train_step(
                 with torch.no_grad():
                     g = per_sample_grad_norm_bound(logits.float(), labels, smoothing)
                     return variance_probe_ratio(
-                        g, scaled_probs, mean=lambda v: pool_mean(v, sync_stats))
+                        g, scaled_probs, mean=lambda v: pool_mean(v, sync_stats, dgroup))
 
         def select_from(images: torch.Tensor, labels: torch.Tensor, ema, uniforms):
             """Score a pool, update the EMA and draw the batch: the selected
             positions, the batch, its ``p·P``, the pool's distribution, the
             new EMA, the pool loss and the clip share and drift."""
             pool_scores, pool_logits = score(images, labels)
-            score_avg = pool_mean(pool_scores, sync_stats)
+            score_avg = pool_mean(pool_scores, sync_stats, dgroup)
             ema_prev = ema.value
             ema = ema_update(ema, score_avg, config.ema_alpha)
             select = score_and_draw if use_kernels else reference.score_and_draw
@@ -869,7 +917,7 @@ def make_train_step(
             r_scores, r_logits = score(
                 ingest(None, use_kernels, front_draws.aug, scorer_in_dtype,
                        raw=x_stream[:refresh_size]), r_labels)
-            score_avg = pool_mean(r_scores, sync_stats)
+            score_avg = pool_mean(r_scores, sync_stats, dgroup)
             ema_prev = ema.value
             ema = ema_update(ema, score_avg, config.ema_alpha)
             new_scores = scatter_mean(
@@ -889,7 +937,7 @@ def make_train_step(
             r_rows, r_labels = gather(r_slots)
             r_scores, r_logits = score(
                 ingest(r_rows, use_kernels, draws.aug, scorer_in_dtype), r_labels)
-            score_avg = pool_mean(r_scores, sync_stats)
+            score_avg = pool_mean(r_scores, sync_stats, dgroup)
             ema_prev = ema.value
             ema = ema_update(ema, score_avg, config.ema_alpha)
             refresh_draw = (table_refresh_draw if use_kernels
@@ -929,7 +977,7 @@ def make_train_step(
                 pool_scores, pool_logits = score(
                     ingest(rows, use_kernels, _need(draws.aug, "aug"), scorer_in_dtype),
                     labels)
-                score_avg = pool_mean(pool_scores, sync_stats)
+                score_avg = pool_mean(pool_scores, sync_stats, dgroup)
                 ema_prev = ema.value
                 ema = ema_update(ema, score_avg, config.ema_alpha)
                 cached_pool = CachedPool(
@@ -960,7 +1008,7 @@ def make_train_step(
             selected, scaled_probs, probs = groupwise_draw(groupwise, draws.uniforms)
             sel_rows, sel_labels = gather(selected)
             sel_images = ingest(sel_rows, use_kernels, _need(draws.aug2, "aug2"))
-            score_avg = pool_mean(pool_scores, sync_stats)
+            score_avg = pool_mean(pool_scores, sync_stats, dgroup)
             ema_prev = ema.value
             ema = ema_update(ema, score_avg, config.ema_alpha)
             avg_pool_loss = pool_loss(pool_logits, labels, score_avg)
@@ -1009,7 +1057,7 @@ def make_train_step(
                 if async_refresh:
                     # No window scored: the EMA follows the trained batch's
                     # scores reweighted to the shard's mean, E[s/(L·p)].
-                    score_avg = pool_mean(fresh / scaled_probs, sync_stats)
+                    score_avg = pool_mean(fresh / scaled_probs, sync_stats, dgroup)
                     ema_prev = ema.value
                     ema = ema_update(ema, score_avg, config.ema_alpha)
                     if telemetry:
@@ -1097,7 +1145,7 @@ def make_train_step(
                                     loss.new_full((), hits.numel()), *means.values()])
                 if hists:
                     flat = torch.cat([flat, *(h.float() for h in hists.values())])
-                sums = allreduce_sum(flat)
+                sums = allreduce_sum(flat, dgroup)
                 loss, avg_pool_loss = sums[0] / world_size, sums[1] / world_size
                 acc = sums[2] / sums[3]
                 at = 4
@@ -1156,6 +1204,42 @@ def make_train_step(
         return step_fn(state, draws, use_kernels, x_stream=x_stream)
 
     return hs_step_fn
+
+
+SECOND_AXIS_NOT_PORTED = ("is not ported under tensor_parallel or fsdp_parallel: "
+                          "ROADMAP.md, Queue 1 item 7b")
+
+
+def second_ranks(config: TrainConfig) -> Optional[Tuple[str, int]]:
+    """``("tensor_parallel", T)`` or ``("fsdp_parallel", F)`` for
+    ``require_world``; None on a data-only mesh."""
+    if config.second_axis is None:
+        return None
+    field = "tensor_parallel" if config.tensor_parallel > 1 else "fsdp_parallel"
+    return field, config.second_axis[1]
+
+
+def refuse_on_second_axis(config: TrainConfig) -> None:
+    """What a step with a second mesh axis does not run: ZeRO and
+    host_stream (the JAX step's refusals, with its messages), and the
+    gradient wires and async refresh (not ported: ``NotImplementedError``)."""
+    if config.zero_sharding:
+        raise ValueError(
+            "zero_sharding flattens params to a vector, which would force "
+            "an all-gather of the sharded params; use fsdp_parallel or "
+            "plain allreduce when a second mesh axis shards the params")
+    if config.host_stream:
+        raise ValueError(
+            "host_stream requires a data-only mesh (no tensor/fsdp "
+            "axis); drop tensor_parallel/fsdp_parallel")
+    if config.grad_compression != "none":
+        raise NotImplementedError(
+            f"grad_compression={config.grad_compression!r} {SECOND_AXIS_NOT_PORTED} (the "
+            "int8 wire's per-leaf path, compressed_pmean_tree_sharded)")
+    if config.use_async:
+        raise NotImplementedError(
+            f"refresh_mode='async' {SECOND_AXIS_NOT_PORTED} (the scorer's snapshots of a "
+            "sharded model)")
 
 
 def uniform_slots(uniforms: torch.Tensor, n: int) -> torch.Tensor:

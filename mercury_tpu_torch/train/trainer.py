@@ -15,6 +15,23 @@ process group of W ranks (``torchrun --nproc_per_node=W`` with
 by ``config.seed``), train on their own shards with their own draws and
 keep their parameters equal through the step's collectives.
 
+With ``tensor_parallel=T`` or ``fsdp_parallel=F`` the process group has
+``world_size × T`` (or ``× F``) ranks, one process each, and the Trainer
+builds the mesh (``parallel/mesh.py``, :func:`build_mesh`) with the JAX
+Trainer's refusals and messages: global rank ``r`` is data worker
+``r // T`` (``self.rank``: its dataset shard row, sampler row and draws)
+and shard ``r % T`` of the model, which it cuts to its Megatron shards
+(``parallel/tensor.py``, the transformer family) or FSDP shards
+(``parallel/fsdp.py``, any model) before the optimizer is built. The
+step's collectives run over the data group. Every rank calls ``fit``,
+``train_step``, ``evaluate``, ``predict``, ``save`` and ``restore``
+(the forwards gather or all-reduce over the model group); the first rank
+of each model group writes its worker's log shards, and global rank 0
+the run's manifest, records and journal. A checkpoint holds the whole
+model and moments, so it restores into another layout at the same
+``world_size``; ``restore_elastic``, async refresh and the gradient wires
+are not ported under a second axis (``NotImplementedError``).
+
 Beyond training: ``save``/``restore`` (``train/checkpoint.py``; ``fit``
 saves every ``checkpoint_every`` steps and at its end when
 ``checkpoint_dir`` is set, the cadence saves on a writer thread under
@@ -124,6 +141,8 @@ prefetch worker, then drains and closes the writer and the journal.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
 import json
 import math
 import os
@@ -146,7 +165,12 @@ from mercury_tpu_torch.data.pipeline import (
 from mercury_tpu_torch.data.stream import HostStreamSource, PrefetchPipeline
 from mercury_tpu_torch.data.transforms import EVAL_RESIZE, IID_CROP, eval_transform_iid
 from mercury_tpu_torch.faults import FaultPlane
-from mercury_tpu_torch.models import create_model, require_transformer_for
+from mercury_tpu_torch.models import (
+    TRANSFORMERS,
+    TransformerClassifier,
+    create_model,
+    require_transformer_for,
+)
 from mercury_tpu_torch.models.resnet import set_sync_batch_norm
 from mercury_tpu_torch.obs.accounting import ThroughputMeter, flops_per_step
 from mercury_tpu_torch.obs.aggregate import (
@@ -172,6 +196,9 @@ from mercury_tpu_torch.obs.writer import (
 )
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
 from mercury_tpu_torch.parallel import distributed
+from mercury_tpu_torch.parallel.fsdp import shard_model_fsdp
+from mercury_tpu_torch.parallel.mesh import Mesh, make_mesh, make_tp_mesh
+from mercury_tpu_torch.parallel.tensor import shard_model_tp
 from mercury_tpu_torch.parallel.collectives import (
     allgather_floats,
     allreduce_max_ints,
@@ -185,7 +212,15 @@ from mercury_tpu_torch.sampling.scorer_service import ScorerService
 from mercury_tpu_torch.train import checkpoint, elastic
 from mercury_tpu_torch.train.profile import ProfilerWindow
 from mercury_tpu_torch.train.state import MercuryState, create_state
-from mercury_tpu_torch.train.step import Draws, make_train_step, prime_host_stream, to_nchw
+from mercury_tpu_torch.train.step import (
+    SECOND_AXIS_NOT_PORTED,
+    Draws,
+    make_train_step,
+    prime_host_stream,
+    refuse_on_second_axis,
+    second_ranks,
+    to_nchw,
+)
 from mercury_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
@@ -224,6 +259,38 @@ def build_dataset(config: TrainConfig, device, rank: int = 0) -> ShardedDataset:
     )
 
 
+def build_mesh(config: TrainConfig, model: Optional[torch.nn.Module] = None) -> Mesh:
+    """The run's mesh, after the JAX Trainer's refusals of a second axis
+    (its messages): tensor_parallel and fsdp_parallel together, tensor
+    parallelism outside the transformer family or with ``num_heads`` (the
+    passed model's, else the family's default) not divisible by it; then
+    the step's (``train/step.refuse_on_second_axis``). A second axis needs
+    a process group of ``world_size × n`` ranks. This is the one place of
+    those checks: ``make_train_step`` under a second axis takes this
+    mesh."""
+    tp, fs = config.tensor_parallel, config.fsdp_parallel
+    if tp > 1 and fs > 1:
+        raise ValueError(
+            "tensor_parallel and fsdp_parallel are mutually exclusive "
+            "(both claim the second mesh axis); pick one")
+    if tp > 1:
+        if config.model not in TRANSFORMERS:
+            raise ValueError(
+                "tensor_parallel requires the transformer family "
+                f"(model='transformer'|'vit'), got {config.model!r}")
+        heads = (model.blocks[0].num_heads if model is not None else
+                 inspect.signature(TransformerClassifier).parameters["num_heads"].default)
+        if heads % tp != 0:
+            raise ValueError(f"num_heads={heads} must be divisible by tensor_parallel={tp}")
+    second = config.second_axis
+    if second is None:
+        # The step checks the process group (make_train_step).
+        return make_mesh(config.world_size, config.mesh_axis)
+    refuse_on_second_axis(config)
+    distributed.require_world(config.world_size, second_ranks(config))
+    return make_tp_mesh(config.world_size, second[1], config.mesh_axis, second[0])
+
+
 class Trainer:
     """``Trainer(config)`` builds everything on the card; ``dataset`` (a
     :class:`ShardedDataset` of this rank, placed as ``config.data_placement``
@@ -246,7 +313,16 @@ class Trainer:
             raise ValueError(f"window must be >= 1, got {config.crosshost_window}")
         # Host spans (obs/trace.py); the disabled tracer is one shared no-op.
         self.tracer = SpanTracer(config.trace_capacity) if config.trace else NULL_TRACER
-        self.rank = distributed.rank()
+        # The mesh (parallel/mesh.py): the data worker this rank is, and
+        # under tensor_parallel or fsdp_parallel its shard of the model. A
+        # model group's ranks are one worker: the same shard row, sampler
+        # row and draws. Its first rank writes the worker's logs; global
+        # rank 0 the run's.
+        self.mesh = build_mesh(config, model)
+        self.rank = self.mesh.data_rank
+        self._leads = self.mesh.leads
+        self._is_rank0 = self.rank == 0 and self._leads
+        dgroup = self.mesh.data_group
         self.device = resolve_device(device)
         if dataset is None:
             dataset = build_dataset(config, self.device, self.rank)
@@ -277,7 +353,7 @@ class Trainer:
             require_transformer_for("remat", config.model)
         # Refuses a world_size that the process group does not have, and
         # label smoothing where the kernels would run.
-        self._step_fn = make_train_step(config, self.dataset)
+        self._step_fn = make_train_step(config, self.dataset, mesh=self.mesh)
         # K steps a call for fit (train_chunk), refused with the probe or
         # host_stream; the JAX Trainer's warning for a cadence a chunk can
         # step over.
@@ -290,11 +366,12 @@ class Trainer:
                     print(f"warning: {name}={every} is not a multiple of "
                           f"scan_steps={self.scan_steps}; cadence actions fire "
                           "at most once per chunk (at chunk boundaries)")
-            self._chunk_fn = make_train_step(config, self.dataset, scan_steps=self.scan_steps)
+            self._chunk_fn = make_train_step(config, self.dataset, scan_steps=self.scan_steps,
+                                             mesh=self.mesh)
         # The event journal, before every producer that takes it.
         self._journal: Optional[EventJournal] = (
             EventJournal(config.log_dir, self.rank)
-            if config.log_dir and config.event_journal else None)
+            if config.log_dir and config.event_journal and self._leads else None)
         # The fault plane, before every hook site it is handed to (a
         # malformed spec raises here).
         try:
@@ -316,7 +393,14 @@ class Trainer:
             # init's sample does: the dataset's, before any augmentation.
             model = create_model(config.model, self.dataset.num_classes, gen, sample_shape,
                                  remat=config.remat, moe_experts=config.moe_experts)
-        set_sync_batch_norm(model, config.batch_norm == "sync" and config.world_size > 1)
+        # Under a second axis: this rank's shards (the whole model arrives,
+        # the same on every rank, and each keeps its slices).
+        if config.tensor_parallel > 1:
+            shard_model_tp(model, self.mesh.model)
+        elif config.fsdp_parallel > 1:
+            shard_model_fsdp(model, self.mesh.model)
+        set_sync_batch_norm(model, config.batch_norm == "sync" and config.world_size > 1,
+                            dgroup)
         self.steps_per_epoch = config.steps_per_epoch or max(
             self.dataset.n_train // config.batch_size, 1)
         self.total_steps = self.steps_per_epoch * config.num_epochs
@@ -335,6 +419,7 @@ class Trainer:
             cached_pool_size=config.candidate_pool_size if config.use_cadence else 0,
             world_size=config.world_size, zero_sharding=config.zero_sharding,
         )
+        self.state.mesh = self.mesh
         self.sampler_monitor: Optional[SamplerHealthMonitor] = None
         if config.use_ledger:
             self.sampler_monitor = SamplerHealthMonitor(
@@ -344,7 +429,7 @@ class Trainer:
         # The anomaly engine, rank 0's: its value checks run on the writer's
         # drain thread; only the step-time check runs here.
         self.anomaly: Optional[AnomalyEngine] = None
-        if config.anomaly_detection and self.rank == 0:
+        if config.anomaly_detection and self._is_rank0:
             self.anomaly = AnomalyEngine(
                 ring_steps=config.anomaly_window,
                 slow_step_factor=config.anomaly_slow_step_factor,
@@ -373,7 +458,7 @@ class Trainer:
                 poll_s=config.supervisor_poll_s,
                 anomaly=self.anomaly, journal=self._journal,
                 # At W>1 the ranks agree the ladder's level every tick.
-                agree=allreduce_max_ints if config.world_size > 1 else None)
+                agree=_on_group(allreduce_max_ints, dgroup) if config.world_size > 1 else None)
         # The ladder level the refresh path last acted on (3: flattened).
         self._actuated_level = 0
         # host_stream: prime the ring with steps 0 … depth−1 and put their
@@ -396,28 +481,29 @@ class Trainer:
         # The metric stream: the manifest and the sinks, then the writer,
         # whose drain thread starts at the first record.
         sinks = []
-        if config.log_dir and self.rank == 0:
+        if config.log_dir and self._is_rank0:
             write_run_manifest(config.log_dir, config, self.device)
             sinks.append(JsonlSink(config.log_dir))
             sinks.append(try_tensorboard_sink(config.log_dir))
-        if config.log_dir:
-            # Every rank (rank 0 included) writes its own metric and
-            # heartbeat shards.
+        if config.log_dir and self._leads:
+            # Every worker (rank 0 included) writes its own metric and
+            # heartbeat shards, from the first rank of its model group.
             sinks.append(JsonlSink(config.log_dir, filename=shard_filename(self.rank)))
             sinks.append(HeartbeatShardSink(config.log_dir, self.rank))
-        if config.heartbeat_every and self.rank == 0:
+        if config.heartbeat_every and self._is_rank0:
             sinks.append(HeartbeatSink(every_steps=config.heartbeat_every))
         # Cross-rank telemetry: rank 0's shard tailer rides the drain thread
         # ahead of the anomaly engine (which reads its host/* keys); the
         # all-gather runs at the log tick on every rank.
         self._host_agg: Optional[HostShardAggregator] = None
         self._crosshost_gather: Optional[CrossHostGatherAggregator] = None
-        if self._crosshost_mode == "files" and self.rank == 0:
+        if self._crosshost_mode == "files" and self._is_rank0:
             self._host_agg = HostShardAggregator(
                 config.log_dir, processes=config.world_size, window=config.crosshost_window)
         elif self._crosshost_mode == "allgather":
             self._crosshost_gather = CrossHostGatherAggregator(
-                window=config.crosshost_window, gather=allgather_floats, rank=self.rank)
+                window=config.crosshost_window,
+                gather=_on_group(allgather_floats, dgroup), rank=self.rank)
         observers = [] if self._host_agg is None else [self._host_agg.observe_record]
         if self.anomaly is not None:
             observers.append(self.anomaly.observe_record)
@@ -490,7 +576,7 @@ class Trainer:
             # The status server (obs/serve.py) on rank 0, started last, when
             # every callback's target exists.
             self._status_server: Optional[StatusServer] = None
-            if config.serve_port > 0 and self.rank == 0:
+            if config.serve_port > 0 and self._is_rank0:
                 self._status_server = StatusServer(
                     config.serve_port, health_fn=self._serve_health,
                     status_fn=self._serve_status, metrics_fn=self.logger.latest_record)
@@ -807,7 +893,8 @@ class Trainer:
         tracer = getattr(self, "tracer", None)
         config = getattr(self, "config", None)
         if (tracer is None or not tracer.enabled or config is None or not config.log_dir
-                or getattr(self, "rank", 0) != 0 or getattr(self, "_trace_exported", False)):
+                or not getattr(self, "_is_rank0", True)
+                or getattr(self, "_trace_exported", False)):
             return
         self._trace_exported = True
         try:
@@ -831,7 +918,7 @@ class Trainer:
         if path is None:
             return
         self.tracer.instant("profiler/stop", cat="trainer")
-        if self.rank != 0:
+        if not self._is_rank0:
             return
         try:
             breakdown = parse_profile(path)
@@ -851,7 +938,8 @@ class Trainer:
         raises."""
         supervisor = getattr(self, "supervisor", None)
         config = getattr(self, "config", None)
-        if supervisor is None or config is None or not config.log_dir or self.rank != 0:
+        if (supervisor is None or config is None or not config.log_dir
+                or not getattr(self, "_is_rank0", True)):
             return
         try:
             path = os.path.join(config.log_dir, "supervisor_summary.json")
@@ -1084,7 +1172,7 @@ class Trainer:
             return {}
         st = self.state
         rows = gather_to_rank0(tuple(t.cpu().numpy() for t in (
-            st.sel_counts, st.scoretable.scores, st.ema.value)))
+            st.sel_counts, st.scoretable.scores, st.ema.value)), self.mesh.data_group)
         if rows is None:
             return {}
         counts, scores, ema = (np.stack(col) for col in zip(*rows))
@@ -1129,7 +1217,10 @@ class Trainer:
         cursors carried under ``stream_checkpoint_cursor``, the generator
         re-seeded from the restored step (``train/elastic.py``); ``raw`` is
         a payload already read at ``step``. Every rank calls it. Under
-        host_stream the ring is primed anew for the new shards."""
+        host_stream the ring is primed anew for the new shards. Not under
+        tensor_parallel or fsdp_parallel (``NotImplementedError``)."""
+        if self.config.second_axis is not None:
+            raise NotImplementedError(f"restore_elastic {SECOND_AXIS_NOT_PORTED}")
         step = elastic.elastic_restore(self._directory(directory), self, step, raw=raw)
         self._after_restore()
         return step
@@ -1147,7 +1238,7 @@ class Trainer:
         cfg = self.config
         raw, raw_step = elastic.probe_checkpoint(cfg.checkpoint_dir)
         w_ckpt = elastic.world_size_of_raw(raw)
-        if cfg.world_size > 1:
+        if self.mesh.world_size * self.mesh.second > 1:
             agreed = torch.tensor([-1 if w_ckpt is None else w_ckpt,
                                    -1 if raw_step is None else raw_step],
                                   dtype=torch.int64, device=host_flag_device())
@@ -1238,6 +1329,11 @@ class Trainer:
             out.update(self._eval_split(train=True))
         out.update(self._eval_split(train=False))
         return out
+
+
+def _on_group(collective, group):
+    """``collective`` over ``group``: itself on the default group (None)."""
+    return collective if group is None else functools.partial(collective, group=group)
 
 
 def _rows(x, idx_np: np.ndarray) -> torch.Tensor:

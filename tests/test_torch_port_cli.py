@@ -74,7 +74,7 @@ def test_print_config_matches_jax(capsys):
     assert got == {k: want[k] for k in PORT_FIELDS}
 
 
-@pytest.mark.parametrize("flag", [["--tensor-parallel", "2"], ["--mesh-axis", "data"],
+@pytest.mark.parametrize("flag", [["--plan", "auto"], ["--plan-memory-budget-bytes", "0"],
                                   ["--log-ev", "5"]])
 def test_flags_the_port_lacks_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as exit_:

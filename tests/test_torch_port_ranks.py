@@ -3,8 +3,9 @@
 ``test_torch_port_telemetry_step``, ``test_torch_port_sampler_modes``,
 ``test_torch_port_grad_path``, ``test_torch_port_scorer_service_dist``,
 ``test_torch_port_elastic``, ``test_torch_port_durable_checkpoint``,
-``test_torch_port_aggregate``, ``test_torch_port_supervisor`` and
-``test_torch_port_sequence_step``); this file holds no tests.
+``test_torch_port_aggregate``, ``test_torch_port_supervisor``,
+``test_torch_port_sequence_step``, ``test_torch_port_mesh`` and
+``test_torch_port_fsdp``); this file holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
 process of its own, one a rank, in a gloo process group, and pickles the
@@ -43,26 +44,71 @@ from mercury_tpu_torch.train.state import create_state
 from mercury_tpu_torch.train.step import make_train_step
 
 
+def group_ranks(group) -> tuple:
+    """The global ranks of ``group`` (None: the default group's; ``(0,)``
+    without a process group)."""
+    if group is None:
+        return tuple(range(collectives.world()))
+    return tuple(dist.get_process_group_ranks(group))
+
+
 @contextlib.contextmanager
-def counting_all_reduces():
-    """Count the ``torch.distributed.all_reduce`` calls made inside."""
+def counting_all_reduces(groups: bool = False):
+    """Count the ``torch.distributed.all_reduce`` calls made inside: each
+    call's shape, or with ``groups`` its ``(shape, ranks of its group)``."""
+    with counting_collectives(("all_reduce",), groups) as calls:
+        yield calls
+
+
+@contextlib.contextmanager
+def counting_collectives(kinds=("all_reduce", "all_gather_into_tensor",
+                                "reduce_scatter_tensor"), groups: bool = True):
+    """Record the ``torch.distributed`` collectives of ``kinds`` made
+    inside: with ``groups`` each as ``(kind, shape, ranks of its group)``
+    (``all_reduce`` alone without ``kind``), else its input's shape."""
     calls = []
-    original = dist.all_reduce
+    originals = {kind: getattr(dist, kind) for kind in kinds}
 
-    def counted(tensor, *args, **kwargs):
-        calls.append(tuple(tensor.shape))
-        return original(tensor, *args, **kwargs)
+    def counter(kind):
+        def counted(*args, **kwargs):
+            # all_reduce(tensor, ...) and the gathers' (output, input, ...):
+            # record the tensor sent.
+            tensor = args[0] if kind == "all_reduce" else args[1]
+            shape = tuple(tensor.shape)
+            if groups:
+                group = kwargs.get("group")
+                entry = (shape, group_ranks(group))
+                calls.append(entry if kinds == ("all_reduce",) else (kind, *entry))
+            else:
+                calls.append(shape)
+            return originals[kind](*args, **kwargs)
+        return counted
 
-    dist.all_reduce = counted
+    for kind in kinds:
+        setattr(dist, kind, counter(kind))
     try:
         yield calls
     finally:
-        dist.all_reduce = original
+        for kind, fn in originals.items():
+            setattr(dist, kind, fn)
 
 
-def tiny_resnet(seed=None) -> ResNet:
-    """The tests' [1, 1]-stage ResNet of width 8 (6 BN layers)."""
-    model = ResNet([1, 1], BasicBlock, num_classes=10, num_filters=8)
+@contextlib.contextmanager
+def one_thread():
+    """Torch on one thread inside, as every spawned rank runs: the CPU
+    kernels' reductions then take the ranks' order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def tiny_resnet(seed=None, width: int = 8) -> ResNet:
+    """The tests' [1, 1]-stage ResNet of width 8 (6 BN layers), or of
+    ``width``."""
+    model = ResNet([1, 1], BasicBlock, num_classes=10, num_filters=width)
     if seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))
     return model
@@ -621,3 +667,79 @@ def ladder_rank(config_kw, data, steps, die_rank, die_step):
                     released=trainer._scorer_fleet._ls_released)
     finally:
         trainer.close()
+
+
+def mesh_rank(jobs):
+    """Each job one ``Trainer`` of a ``world_size × N`` mesh on the CPU
+    (``job``: ``config`` keywords; ``model``, None for the Trainer's own, a
+    ``create_model`` keyword dict with its ``name``, or ``{"tiny_resnet":
+    width}``; ``steps``; optionally ``params`` an unsharded state dict to
+    load, ``workers`` each worker's JAX stream permutation and EMA,
+    ``draws`` each worker's ``Draws`` a step, ``save`` a directory saved
+    into after ``save_at`` steps, ``restore`` a directory restored from
+    first, ``evaluate`` to evaluate and predict at the end). Under
+    ``scan_steps=K`` a step is a chunk of K. Returns, a job each: the
+    rank's place in the mesh and its groups, its shards before and after
+    the steps, Adam's local moments, each step's loss, selection, gradient
+    norm and collectives, the EMA's count and the gathered unsharded state
+    at the end."""
+    from mercury_tpu_torch.parallel.mesh import full_state_dict, load_full_state_dict
+    from mercury_tpu_torch.parallel.mesh import full_optimizer_state
+
+    if dist.is_initialized():
+        torch.set_num_threads(1)
+    out = []
+    for job in jobs:
+        config = TrainConfig(**job["config"])
+        spec, model = job.get("model"), None
+        if spec is not None and "tiny_resnet" in spec:
+            model = tiny_resnet(seed=0, width=spec["tiny_resnet"])
+        elif spec is not None:
+            kw = dict(spec)
+            model = create_model(kw.pop("name"), 10, torch.Generator().manual_seed(0),
+                                 tuple(kw.pop("sample_shape")), **kw)
+        trainer = Trainer(config, device="cpu", model=model)
+        mesh, state = trainer.mesh, trainer.state
+        if job.get("restore"):
+            trainer.restore(job["restore"])
+        if job.get("params") is not None:
+            load_full_state_dict(state.model, job["params"])
+        if job.get("workers") is not None:
+            mine = job["workers"][trainer.rank]
+            state.stream = ShardStream(perm=torch.tensor(mine["perm"], dtype=torch.long),
+                                       cursor=0)
+            state.ema = EMAState(torch.tensor(mine["ema"]), torch.tensor(0, dtype=torch.int32))
+        result = dict(rank=collectives.rank(), data_rank=trainer.rank, model_rank=mesh.model_rank,
+                      data_ranks=group_ranks(mesh.data_group),
+                      model_ranks=None if mesh.model is None else group_ranks(mesh.model.group),
+                      step0=state.step,
+                      local0={k: v.detach().clone() for k, v in state.model.state_dict().items()},
+                      losses=[], selected=[], grad_norms=[], calls=[])
+        for i in range(job["steps"]):
+            draws = None if job.get("draws") is None else job["draws"][trainer.rank][i]
+            with counting_collectives() as calls:
+                # A chunk of scan_steps steps a call, each metric [K].
+                m = (trainer.train_chunk() if config.scan_steps > 1
+                     else trainer.train_step(draws))
+            result["losses"].extend(m["train/loss"].reshape(-1).tolist())
+            result["selected"].append(m["sampler/selected"].clone())
+            if "train/grad_norm" in m:
+                result["grad_norms"].extend(m["train/grad_norm"].reshape(-1).tolist())
+            result["calls"].append(calls)
+            if job.get("save") and job.get("save_at") == i + 1:
+                trainer.save(job["save"])
+        adam = state.optimizer.state_dict()["state"]
+        result.update(
+            local={k: v.detach().clone() for k, v in state.model.state_dict().items()},
+            shapes={k: tuple(p.shape) for k, p in state.model.named_parameters()},
+            adam={i: {k: v.clone() for k, v in st.items() if torch.is_tensor(v)}
+                  for i, st in adam.items()},
+            full=full_state_dict(state.model),
+            full_adam=full_optimizer_state(state.model, state.optimizer.state_dict())["state"],
+            ema_count=int(state.ema.count),
+            evaluate=trainer.evaluate(include_train=False) if job.get("evaluate") else None,
+            predict=(trainer.predict(trainer.dataset.x_test[:8]) if job.get("evaluate")
+                     else None))
+        trainer.close()
+        out.append(result)
+    return out

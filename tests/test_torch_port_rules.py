@@ -80,7 +80,7 @@ def test_config_fields_match_the_jax_package():
     assert (cfg.async_checkpoint, cfg.checkpoint_write_retries, cfg.checkpoint_retry_backoff_s,
             cfg.checkpoint_manifest, cfg.checkpoint_verify, cfg.stream_checkpoint_cursor,
             cfg.fault_spec) == (False, 2, 0.25, True, True, True, "")
-    assert len(dataclasses.fields(TrainConfig)) == 101
+    assert len(dataclasses.fields(TrainConfig)) == 106
     assert (cfg.scorer_workers, cfg.snapshot_every, cfg.scorer_throttle_s,
             cfg.scorer_backend) == (1, 16, 0.0, "host")
 
@@ -169,8 +169,7 @@ def test_observability_fields_default_as_jax():
     for name, default in OBS_FIELDS.items():
         assert tfields[name] == jfields[name] == default, name
     missing = sorted(set(jfields) - set(tfields))
-    assert missing == ["fsdp_axis", "fsdp_parallel", "mesh_axis", "model_axis", "plan",
-                       "plan_memory_budget_bytes", "tensor_parallel"]
+    assert missing == ["plan", "plan_memory_budget_bytes"]
 
 
 def _jax_message(kw):

@@ -401,5 +401,5 @@ def test_jax_and_port_sequence_configs_agree():
     jfields = {f.name: f.default for f in dataclasses.fields(JConfig)}
     tfields = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     assert tfields["remat"] is jfields["remat"] is False
-    assert len(tfields) == 101 and len(jfields) == 108
+    assert len(tfields) == 106 and len(jfields) == 108
     assert set(tfields) <= set(jfields)

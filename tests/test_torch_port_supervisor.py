@@ -671,7 +671,7 @@ def test_runtime_fields_match_the_jax_package():
     tfields = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     for name in RUNTIME_FIELDS:
         assert tfields[name] == jfields[name], name
-    assert len(RUNTIME_FIELDS) == 21 and len(tfields) == 101
+    assert len(RUNTIME_FIELDS) == 21 and len(tfields) == 106
     # JAX's one check of them: the anomaly ring must hold a record.
     with pytest.raises(ValueError, match="ring_steps must be >= 1"):
         _trainer(anomaly_window=0)
