@@ -308,7 +308,31 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    until a score near a CDF boundary draws another sample, and the later
    losses are printed, not held), (b) all 20 timed losses to rtol 1e-5
    (the gathered weights are the whole ones, the reduce-scatter's mean of
-   two equal gradients exact).
+   two equal gradients exact);
+23. the compositions of a second axis, gloo ranks on card 0 under
+   deterministic cuDNN: (a) phase 22's Transformer in float32 at
+   ``world_size=2, tensor_parallel=2`` under each ``grad_compression``
+   ("none", "int8", "stochastic"), 3 warm-up and 10 timed steps an arm on
+   four ranks: 2/1/1 launches a step, each kernel on one step's inputs
+   against its plain version, a kernel step against a plain step, the
+   selections bit-equal in each model group, the whole parameters
+   gathered after the steps equal on every rank (sha256), 5,578,872
+   parameter and moment bytes a rank, the collectives a step by group,
+   kind and dtype (int8 payloads and float32 scales on the data group
+   under int8, float32 all-reduces only otherwise), ``train/sparse_rate``
+   below 1 under "stochastic" alone, steps/s a rank; the "none" arm
+   saves; (b) ResNet-18 at ``world_size=1, fsdp_parallel=2`` on the fused
+   scoretable under ``refresh_mode="async"`` (the host fleet, one
+   worker), 3 + 10 steps on two ranks: 1/1/1/1 launches a step (nll_fwd
+   [32, 10], nll_bwd, table_refresh_draw at R=1, augment_normalize [32]
+   with ``rows``), the two ranks' tables bit-equal after every step, the
+   chunks applied and their ages, the scorer's own launches and threads
+   on the first rank only; (c) (a)'s file restored with
+   ``restore_elastic`` at ``world_size=1, tensor_parallel=2`` (two ranks)
+   and at ``world_size=1`` (this process): the gathered model and Adam
+   state equal the file's by sha256, the EMA the rows' mean, 3 steps with
+   the selections bit-equal in the model group and the losses within rel
+   1e-5 of W=1's.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -602,9 +626,26 @@ MESH_TP = dict(SEQUENCE, model="transformer", world_size=2, compute_dtype="float
 MESH_FSDP = dict(model="resnet18", dataset="synthetic", world_size=1)
 MESH_N = 2                # T and F
 MESH_STEPS = 20           # timed steps of each arm
-MESH_KINDS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+MESH_KINDS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+              "all_to_all_single")
 MESH_SERIES = ("train/pool_loss", "train/loss", "train/grad_norm")
 MESH_TP_RTOL = 1e-4       # (a) T=2 against T=1, float32, while the draws agree
+# Phase 23, the compositions of a second axis: (a) phase 22's Transformer
+# at W=2 × T=2 with each gradient wire; (b) ResNet-18 at W=1 × F=2 on the
+# fused scoretable under async refresh; (c) (a)'s "none" file restored
+# elastically at W=1 × T=2, against W=1 in this process.
+COMP_WIRES = ("none", "int8", "stochastic")
+COMP_STEPS = 10           # timed steps of each arm
+COMP_TP_BYTES = 5_578_872  # a T=2 rank's parameter and moment bytes (phase 22)
+COMP_ASYNC = dict(model="resnet18", dataset="synthetic", world_size=1, sampler="scoretable",
+                  fused_input=True, refresh_mode="async", scorer_workers=1, snapshot_every=4,
+                  fsdp_parallel=MESH_N)
+# Kernel launches a step of the async step: nll_fwd [32, C], nll_bwd,
+# table_refresh_draw at R=1, augment_normalize [32] with rows.
+ASYNC_STEP = {"nll_fwd": 1, "nll_bwd": 1, "score_and_draw": 0, "table_refresh_draw": 1,
+              "augment_normalize": 1}
+COMP_RESTORED_STEPS = 3
+COMP_RESTORE_RTOL = 1e-5  # (c) T=2 against T=1 after the restore, float32
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -706,6 +747,8 @@ def main() -> int:
     sequence = run_phase("sequence family", sequence_family_phase, torch, card)
     experts = run_phase("experts and chunks", experts_chunks_phase, torch, card)
     mesh = run_phase("mesh", mesh_phase, torch, card, main_path)
+    compositions = run_phase("mesh compositions", mesh_compositions_phase, torch, card,
+                             main_path)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -725,7 +768,8 @@ def main() -> int:
                    "image_models": image["launches"][k["name"]],
                    "sequence_models": sequence["launches"][k["name"]],
                    "experts_and_chunks": experts["launches"][k["name"]],
-                   "mesh": mesh["launches"][k["name"]]}
+                   "mesh": mesh["launches"][k["name"]],
+                   "mesh_compositions": compositions["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -744,7 +788,8 @@ def main() -> int:
          "supervised_runtime": supervised["summary"],
          "observability": observed["summary"], "image_family": image["summary"],
          "sequence_family": sequence["summary"],
-         "experts_and_chunks": experts["summary"], "mesh": mesh["summary"]},
+         "experts_and_chunks": experts["summary"], "mesh": mesh["summary"],
+         "mesh_compositions": compositions["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5623,17 +5668,22 @@ def observability_phase(torch, card: str, main_path) -> dict:
 
 
 # ----------------------------------------------------------------- phase 19
-def record_kernel_inputs(mk):
-    """Wrap the pool step's three kernels to keep a copy of the inputs of
-    each launch (the wrappers still launch and count); returns the dict of
-    lists and the undo."""
-    names = ("nll_fwd_kernel", "nll_bwd_kernel", "score_and_draw_kernel")
+def record_kernel_inputs(mk, names=("nll_fwd_kernel", "nll_bwd_kernel",
+                                    "score_and_draw_kernel")):
+    """Wrap the kernels ``names`` (default: the pool step's three) to keep a
+    copy of the inputs of each launch the step makes (on the training
+    thread or autograd's; not a scorer's threads; the wrappers still
+    launch and count); returns the dict of lists and the undo."""
+    import threading
+
     launches = {n: getattr(mk, n) for n in names}
     seen = {n: [] for n in names}
 
     def recorder(name):
         def recorded(*args):
-            seen[name].append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+            if not threading.current_thread().name.startswith("mercury-scorer"):
+                seen[name].append(tuple(a.clone() if hasattr(a, "clone") else a
+                                        for a in args))
             return launches[name](*args)
         return recorded
 
@@ -6212,8 +6262,8 @@ def experts_chunks_phase(torch, card: str) -> dict:
 def counting_by_group(torch, mesh):
     """Record each ``torch.distributed`` collective of :data:`MESH_KINDS`
     with its group's name in ``mesh`` (``data`` or the second axis's),
-    the bytes handed in and its host seconds (gloo returns when done);
-    returns the list and the undo."""
+    the bytes handed in, their dtype and its host seconds (gloo returns
+    when done); returns the list and the undo."""
     import torch.distributed as dist
 
     names = {}
@@ -6228,7 +6278,8 @@ def counting_by_group(torch, mesh):
             t0 = time.perf_counter()
             out = originals[kind](*args, **kwargs)
             calls.append((kind, names.get(id(group), "data"),
-                          sent.numel() * sent.element_size(), time.perf_counter() - t0))
+                          sent.numel() * sent.element_size(), time.perf_counter() - t0,
+                          str(sent.dtype).replace("torch.", "")))
             return out
         return counted
 
@@ -6286,16 +6337,20 @@ def state_bytes(torch, trainer) -> dict:
         whole.values()), "local_parameters": predicted // 12, "step_counter_bytes": counters}
 
 
-def mesh_arm(torch, mk, config, per_step, label: str) -> dict:
-    """One arm of phase 22 on this rank: 3 warm-up and MESH_STEPS timed
-    steps with the launches and the collectives counted, the kernels on
-    one step's inputs against their plain versions, a kernel step against
-    a plain step (retries agreed across every rank), then the state's
-    bytes. Prints nothing."""
+def mesh_arm(torch, mk, config, per_step, label: str, steps: int = MESH_STEPS,
+             save: str = "") -> dict:
+    """One arm of phases 22 and 23 on this rank: 3 warm-up and ``steps``
+    timed steps with the launches and the collectives counted (by kind,
+    group and dtype), the digests of the whole model gathered after them,
+    the kernels on one step's inputs against their plain versions, a
+    kernel step against a plain step (retries agreed across every rank),
+    a save into ``save`` if given, then the state's bytes. Prints
+    nothing."""
     import torch.distributed as dist
 
     from mercury_tpu_torch import Trainer
     from mercury_tpu_torch.parallel.collectives import allreduce_sum
+    from mercury_tpu_torch.parallel.mesh import full_state_dict
 
     t0 = time.perf_counter()
     trainer = Trainer(config)
@@ -6307,25 +6362,26 @@ def mesh_arm(torch, mk, config, per_step, label: str) -> dict:
     first = [trainer.train_step() for _ in range(WARMUP_STEPS)]
     calls, undo = counting_by_group(torch, mesh)
     try:
-        dt, counts, losses, metrics = timed_steps(torch, mk, trainer, MESH_STEPS)
+        dt, counts, losses, metrics = timed_steps(torch, mk, trainer, steps)
     finally:
         undo()
-    want = {k: v * MESH_STEPS for k, v in per_step.items()}
+    want = {k: v * steps for k, v in per_step.items()}
     check(counts == want, f"{label} rank {mesh.rank}: launch counts {counts}, expected {want}")
     selected = torch.stack([m["sampler/selected"] for m in metrics]).cpu()
     # Every step's (warm-up and timed) held series and selections.
     series = {k: torch.stack([m[k] for m in first + metrics]).float().cpu().tolist()
-              for k in MESH_SERIES}
+              for k in MESH_SERIES + ("train/sparse_rate",)}
     every_selected = torch.stack([m["sampler/selected"] for m in first + metrics]).cpu()
     del first, metrics
     by_group = {}
-    for kind, group, nbytes, secs in calls:
-        row = by_group.setdefault(f"{kind}/{group}", [0, 0, 0.0])
+    for kind, group, nbytes, secs, dtype in calls:
+        row = by_group.setdefault(f"{kind}/{group}/{dtype}", [0, 0, 0.0])
         row[0] += 1
         row[1] += nbytes
         row[2] += secs
-    by_group = {k: {"calls": c / MESH_STEPS, "bytes": b / MESH_STEPS,
-                    "host_ms": s / MESH_STEPS * 1e3} for k, (c, b, s) in by_group.items()}
+    by_group = {k: {"calls": c / steps, "bytes": b / steps,
+                    "host_ms": s / steps * 1e3} for k, (c, b, s) in by_group.items()}
+    full = {k: digest(v) for k, v in full_state_dict(trainer.state.model).items()}
     kernels = step_kernels_vs_plain(torch, mk, trainer, f"{label} rank {mesh.rank}")
 
     def any_rank(flag: bool) -> bool:
@@ -6334,6 +6390,8 @@ def mesh_arm(torch, mk, config, per_step, label: str) -> dict:
         return bool(allreduce_sum(torch.tensor(float(flag), device=trainer.device)) > 0)
 
     step_err = kernel_vs_plain_step(torch, trainer, config, any_rank=any_rank, quiet=True)
+    if save:
+        trainer.save(save)
     torch.cuda.synchronize()
     nbytes = state_bytes(torch, trainer)
     check(nbytes["whole_parameters"] == PARAMETERS[config.model, classes],
@@ -6347,8 +6405,8 @@ def mesh_arm(torch, mk, config, per_step, label: str) -> dict:
     torch.cuda.empty_cache()
     return {"rank": mesh.rank, "data_rank": mesh.data_rank, "model_rank": mesh.model_rank,
             "mesh": dict(mesh.shape), "build_s": build_s, "seconds": dt,
-            "steps_per_s": MESH_STEPS / dt, "launches": counts, "losses": losses.tolist(),
-            "series": series, "every_selected": every_selected,
+            "steps_per_s": steps / dt, "launches": counts, "losses": losses.tolist(),
+            "series": series, "every_selected": every_selected, "full": full,
             "selected": selected, "collectives": by_group, "kernels": kernels,
             "kernel_vs_plain": step_err, "bytes": nbytes}
 
@@ -6490,6 +6548,303 @@ def mesh_phase(torch, card: str, main_path) -> dict:
     summary = {name: [{k: v for k, v in r.items() if k not in ("selected", "every_selected")}
                       for r in ranks] for name, ranks in arms.items()}
     summary.update(seconds=seconds, loss_rel_err=errs, steps_per_s=rate, card=card)
+    return {"launches": launches, "summary": summary}
+
+
+# ------------------------------------------------------------------ phase 23
+def wires_body(per_step, directory):
+    """One gloo rank of phase 23 (a) (run by ``spawn``): each gradient
+    wire's arm of the Transformer at W=2 × T=2, the "none" arm saved into
+    ``directory``."""
+    import torch
+
+    from mercury_tpu_torch import TrainConfig
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    undo = deterministic_cudnn(torch)
+    try:
+        return [mesh_arm(torch, mk, TrainConfig(**dict(
+            MESH_TP, tensor_parallel=MESH_N, grad_compression=wire)), per_step,
+            f"W=2 × T=2 {wire}", steps=COMP_STEPS, save=directory if wire == "none" else "")
+            for wire in COMP_WIRES]
+    finally:
+        undo()
+
+
+def async_fsdp_arm(torch, mk) -> dict:
+    """Phase 23 (b) on this rank: ResNet-18 at W=1 × F=2 on the fused
+    scoretable under async refresh (the host fleet, one worker, on the
+    model group's first rank): 3 warm-up and COMP_STEPS timed steps with
+    the launches counted, each step's table kept, the chunks applied and
+    their ages, one more step with its launches' shapes, the scorer's own
+    launches and threads."""
+    import threading
+
+    from mercury_tpu_torch import TrainConfig, Trainer
+
+    trainer = Trainer(TrainConfig(**COMP_ASYNC))
+    fleet = trainer._scorer_fleet
+    applied = []
+    apply = trainer._apply_chunks
+
+    def recorded(chunks, step):
+        applied.extend((step, c.step) for c in chunks)
+        apply(chunks, step)
+
+    trainer._apply_chunks = recorded
+    warm(trainer)
+    scorer_before = None if fleet is None else dict(fleet.launch_counts)
+    mk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables, losses = [], []
+    for _ in range(COMP_STEPS):
+        m = trainer.train_step()
+        tables.append(trainer.state.scoretable.scores.clone())
+        losses.append(m["train/loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(mk.launch_counts)
+    seen, undo = record_kernel_inputs(mk, ("nll_fwd_kernel", "table_refresh_draw_kernel",
+                                           "augment_normalize_kernel"))
+    try:
+        trainer.train_step()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    # nll_fwd's logits, the table and its refresh slots, the ingest's crops
+    # and its rows.
+    shapes = ([("nll_fwd_kernel", list(z.shape)) for z, _ in seen["nll_fwd_kernel"]]
+              + [("table_refresh_draw_kernel", [a[0].numel(), a[1].numel()])
+                 for a in seen["table_refresh_draw_kernel"]]
+              + [("augment_normalize_kernel", [a[3].shape[0], a[7] is not None])
+                 for a in seen["augment_normalize_kernel"]])
+    scorer = (None if fleet is None else
+              {k: v - scorer_before[k] for k, v in fleet.launch_counts.items()})
+    out = {"rank": trainer.mesh.rank, "model_rank": trainer.mesh.model_rank,
+           "seconds": dt, "steps_per_s": COMP_STEPS / dt, "launches": counts,
+           "tables": [digest(t) for t in tables],
+           "losses": torch.stack(losses).float().cpu().tolist(), "applied": applied,
+           "shapes": shapes, "scorer_launches": scorer,
+           "scorer_threads": sorted(t.name for t in threading.enumerate()
+                                    if t.name.startswith("mercury-scorer")),
+           "fleet": None if fleet is None else fleet.summary()}
+    trainer.close()
+    return out
+
+
+def elastic_tp_arm(torch, mk, directory: str, tp: int) -> dict:
+    """Phase 23 (c) on this rank (``tp=1``: in the script's process): phase
+    22's Transformer at W=1 × T=``tp`` restores ``directory``'s W=2 × T=2
+    file elastically, gathers the whole model and Adam state (digests) and
+    the EMA, then takes COMP_RESTORED_STEPS steps with the launches
+    counted."""
+    from mercury_tpu_torch import TrainConfig, Trainer
+    from mercury_tpu_torch.parallel.mesh import full_optimizer_state, full_state_dict
+
+    config = dict(MESH_TP, world_size=1)
+    if tp > 1:
+        config["tensor_parallel"] = tp
+    trainer = Trainer(TrainConfig(**config))
+    step = trainer.restore_elastic(directory)
+    state = trainer.state
+    adam = full_optimizer_state(state.model, state.optimizer.state_dict())["state"]
+    out = {"rank": trainer.mesh.rank, "step": step,
+           "model": {k: digest(v) for k, v in full_state_dict(state.model).items()},
+           "adam": {f"{i}.{k}": digest(v) for i, st in adam.items() for k, v in st.items()
+                    if torch.is_tensor(v)},
+           "ema": (float(state.ema.value), int(state.ema.count))}
+    dt, counts, losses, metrics = timed_steps(torch, mk, trainer, COMP_RESTORED_STEPS)
+    out.update(launches=counts, losses=losses.tolist(),
+               selected=torch.stack([m["sampler/selected"] for m in metrics]).cpu())
+    trainer.close()
+    return out
+
+
+def compositions_body(directory):
+    """One gloo rank of phase 23 (b) and (c) (run by ``spawn``)."""
+    import torch
+
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+
+    undo = deterministic_cudnn(torch)
+    try:
+        return [async_fsdp_arm(torch, mk), elastic_tp_arm(torch, mk, directory, MESH_N)]
+    finally:
+        undo()
+
+
+def file_digests(torch, directory: str) -> dict:
+    """The digests of the newest checkpoint's model and Adam state, and
+    its rank rows' EMAs."""
+    from mercury_tpu_torch.train import checkpoint
+
+    raw = torch.load(os.path.join(directory, f"ckpt_{checkpoint.latest_step(directory)}.pt"),
+                     weights_only=False, map_location="cpu")
+    return {"model": {k: digest(v) for k, v in raw["model"].items()},
+            "adam": {f"{i}.{k}": digest(v) for i, st in raw["optimizer"]["state"].items()
+                     for k, v in st.items() if torch.is_tensor(v)},
+            "ema": [(float(r["ema_value"]), int(r["ema_count"])) for r in raw["ranks"]],
+            "step": raw["step"]}
+
+
+def wire_arms_checks(torch, arms, card: str) -> dict:
+    """Phase 23 (a)'s checks across ranks and arms; prints each rank's
+    line and returns the steps/s a rank by wire."""
+    rate = {}
+    for i, wire in enumerate(COMP_WIRES):
+        ranks = [r[i] for r in arms]
+        first = ranks[0]
+        for r in ranks:
+            lead = ranks[r["data_rank"] * MESH_N]
+            check(torch.equal(r["every_selected"], lead["every_selected"]),
+                  f"{wire}: rank {r['rank']} selected other indices than rank {lead['rank']}")
+            check(r["full"] == first["full"], f"{wire}: rank {r['rank']}'s whole parameters "
+                  f"differ from rank 0's after the steps")
+            b = r["bytes"]
+            check(b["freed"] == b["predicted"] == COMP_TP_BYTES,
+                  f"{wire} rank {r['rank']}: {b['freed']} parameter and moment bytes, the "
+                  f"layout predicts {b['predicted']}, phase 22 read {COMP_TP_BYTES}")
+            data = {k: v for k, v in r["collectives"].items() if k.split("/")[1] == "data"}
+            kinds = {k.split("/")[0] + "/" + k.split("/")[2]: v["calls"] for k, v in data.items()}
+            if wire == "int8":
+                want = {"all_to_all_single/int8": 1, "all_to_all_single/float32": 1,
+                        "all_gather_into_tensor/int8": 1, "all_gather_into_tensor/float32": 1}
+                check(all(kinds.get(k) == v for k, v in want.items()),
+                      f"int8 rank {r['rank']}: the data group's collectives a step {kinds}")
+            else:
+                check(not [k for k in kinds if not k.startswith("all_reduce/float32")],
+                      f"{wire} rank {r['rank']}: the data group's collectives a step {kinds}")
+            rates = r["series"]["train/sparse_rate"]
+            check((wire == "stochastic") == all(x < 1.0 for x in rates),
+                  f"{wire} rank {r['rank']}: train/sparse_rate {rates}")
+            e = r["kernel_vs_plain"]
+            print(f"compositions (a) {wire} rank {r['rank']} (worker {r['data_rank']}, shard "
+                  f"{r['model_rank']}): {COMP_STEPS} steps in {r['seconds']:.3f} s = "
+                  f"{r['steps_per_s']:.2f} steps/s [{card}]; losses first "
+                  f"{r['losses'][0]:.6f}, last {r['losses'][-1]:.6f}; sparse rate last "
+                  f"{rates[-1]:.6f}; launches {r['launches']}; kernel step vs plain step "
+                  f"|d loss| {e['train/loss']:.2e}; bytes {b['freed']}")
+            print("  collectives a step: " + "; ".join(
+                f"{k} {v['calls']:g} calls, {v['bytes'] / 1e6:.6f} MB, {v['host_ms']:.2f} ms"
+                for k, v in sorted(r["collectives"].items())))
+        rate[wire] = statistics.mean(r["steps_per_s"] for r in ranks)
+    return rate
+
+
+def mesh_compositions_phase(torch, card: str, main_path) -> dict:
+    """Phase 23: what a second axis runs since the mesh's slice (see the
+    module docstring). Two gloo process groups on card 0: four ranks for
+    (a), two for (b) and (c); (c)'s W=1 restore runs here."""
+    import tempfile
+
+    import numpy as np
+
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.distributed import spawn
+
+    per_step = {k: v // MAIN_STEPS for k, v in main_path["launches"].items()}
+    seconds = {}
+    directory = tempfile.mkdtemp(prefix="mesh_compositions_")
+    undo = deterministic_cudnn(torch)
+    try:
+        t0 = time.perf_counter()
+        wires = spawn(wires_body, 2 * MESH_N, "gloo", per_step, directory,
+                      devices=[0] * 2 * MESH_N, timeout_s=600)
+        seconds["wires"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pair = spawn(compositions_body, MESH_N, "gloo", directory, devices=[0] * MESH_N,
+                     timeout_s=600)
+        seconds["async_elastic"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = elastic_tp_arm(torch, mk, directory, 1)
+        seconds["elastic_w1"] = time.perf_counter() - t0
+        saved = file_digests(torch, directory)
+    finally:
+        undo()
+        shutil.rmtree(directory, ignore_errors=True)
+    launches = {k: 0 for k in mk.KERNELS}
+    for rank in wires:
+        for arm in rank:
+            want = {k: v * COMP_STEPS for k, v in per_step.items()}
+            check(arm["launches"] == want, f"compositions (a) rank {arm['rank']}: launches "
+                  f"{arm['launches']}, expected {want}")
+            for k, v in arm["launches"].items():
+                launches[k] += v
+    rate = wire_arms_checks(torch, wires, card)
+    # (b) async under FSDP.
+    asyncs = [r[0] for r in pair]
+    lead, other = asyncs
+    want = {k: v * COMP_STEPS for k, v in ASYNC_STEP.items()}
+    classes = 10
+    for r in asyncs:
+        check(r["launches"] == want, f"compositions (b) rank {r['rank']}: launches "
+              f"{r['launches']}, expected {want}")
+        shapes = sorted(r["shapes"])
+        check(shapes == sorted([("augment_normalize_kernel", [32, True]),
+                                ("nll_fwd_kernel", [32, classes]),
+                                ("table_refresh_draw_kernel", [5000, 1])]),
+              f"compositions (b) rank {r['rank']}: a step's launches {shapes}")
+        for k, v in r["launches"].items():
+            launches[k] += v
+    check(lead["tables"] == other["tables"], "compositions (b): the two ranks' score "
+          "tables differ after a step")
+    check(lead["losses"] == other["losses"] and lead["applied"] == other["applied"],
+          "compositions (b): the two ranks' losses or applied chunks differ")
+    check(lead["scorer_launches"] is not None and other["scorer_launches"] is None
+          and not other["scorer_threads"] and lead["scorer_threads"],
+          f"compositions (b): scorer threads {lead['scorer_threads']} and "
+          f"{other['scorer_threads']}")
+    check(lead["applied"], "compositions (b): no chunk applied in 3 + 11 steps")
+    ages = [step - chunk for step, chunk in lead["applied"]]
+    print(f"compositions (b) async under FSDP (W=1 × F=2, ResNet-18, fused scoretable): "
+          f"{COMP_STEPS} steps in {lead['seconds']:.3f} | {other['seconds']:.3f} s = "
+          f"{lead['steps_per_s']:.2f} | {other['steps_per_s']:.2f} steps/s a rank [{card}]; "
+          f"launches a rank {lead['launches']}; a step's shapes {sorted(lead['shapes'])}; "
+          f"tables bit-equal at all {COMP_STEPS} steps; {len(lead['applied'])} chunks "
+          f"applied (tick step, snapshot step) {lead['applied']}, ages {ages}; the "
+          f"scorer's own launches {lead['scorer_launches']} on rank 0 alone, threads "
+          f"{lead['scorer_threads']} | {other['scorer_threads']}")
+    # (c) restore_elastic into TP.
+    restored = [r[1] for r in pair]
+    ema_want = (float(np.mean(np.asarray([e for e, _ in saved["ema"]], np.float32))),
+                max(c for _, c in saved["ema"]))
+    for r in restored + [one]:
+        check(r["step"] == saved["step"] and r["model"] == saved["model"]
+              and r["adam"] == saved["adam"], f"compositions (c) rank {r['rank']}: the "
+              f"gathered state differs from the file's")
+        check(r["ema"] == ema_want, f"compositions (c): EMA {r['ema']}, the rows' mean "
+              f"{ema_want}")
+        want = {k: v * COMP_RESTORED_STEPS for k, v in per_step.items()}
+        check(r["launches"] == want, f"compositions (c): launches {r['launches']}, "
+              f"expected {want}")
+    for k, v in restored[0]["launches"].items():
+        launches[k] += v + restored[1]["launches"][k]
+    check(torch.equal(restored[0]["selected"], restored[1]["selected"]),
+          "compositions (c): the model group's ranks selected other indices")
+    err = max(abs(a - b) / abs(b) for r in restored for a, b in zip(r["losses"], one["losses"]))
+    check(err <= COMP_RESTORE_RTOL, f"compositions (c): losses rel {err:.2e} against the "
+          f"W=1 restore, rtol {COMP_RESTORE_RTOL}")
+    print(f"compositions (c) restore_elastic of the W=2 × T=2 file (step {saved['step']}, "
+          f"{len(saved['ema'])} rows) at W=1 × T=2: {len(saved['model'])} model and "
+          f"{len(saved['adam'])} Adam tensors equal the file's by sha256 on both ranks and "
+          f"at W=1; EMA {restored[0]['ema']} (the rows' mean); {COMP_RESTORED_STEPS} losses "
+          f"{restored[0]['losses']} against W=1 {one['losses']}, max rel {err:.2e}")
+    check(all(launches[k] > 0 for k in mk.KERNELS if k != "score_and_draw")
+          and launches["score_and_draw"] > 0,
+          f"compositions: a kernel of the paths never launched: {launches}")
+    print(f"compositions steps/s a rank (mean over ranks), one turn each: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in rate.items()) + f"; int8/none "
+          f"{rate['int8'] / rate['none']:.3f}, stochastic/none "
+          f"{rate['stochastic'] / rate['none']:.3f} [{card}]")
+    print("compositions seconds by part " + ", ".join(f"{k} {v:.1f}"
+                                                    for k, v in seconds.items()))
+    summary = {"wires": [[{k: v for k, v in a.items() if k not in ("selected", "every_selected")}
+                          for a in rank] for rank in wires],
+               "async": asyncs, "elastic": [{k: v for k, v in r.items() if k != "selected"}
+                                            for r in restored],
+               "elastic_w1_losses": one["losses"], "loss_rel_err": err,
+               "steps_per_s": rate, "seconds": seconds, "card": card}
     return {"launches": launches, "summary": summary}
 
 

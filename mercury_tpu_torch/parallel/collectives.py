@@ -15,7 +15,9 @@ scale a row, ``max(max|row|, 1e-30)/127``, and stochastic rounding
 as an argument. Gloo takes CUDA tensors in ``all_to_all_single``,
 ``all_gather_into_tensor`` and ``reduce_scatter_tensor``, int8 included
 (torch 2.11 on the H100, ``chip_smoke.py`` phase 12), so every backend
-issues the same calls.
+issues the same calls. Under a second mesh axis the wire is per leaf
+(:func:`compressed_pmean_tree_sharded`, below), its arithmetic that of
+the compiled JAX step.
 """
 
 from __future__ import annotations
@@ -176,9 +178,10 @@ def compressed_all_gather(chunk: torch.Tensor, u: torch.Tensor, group=None) -> t
 
 
 def allreduce_quantizes(group=None) -> bool:
-    """Whether :func:`compressed_allreduce_mean` quantizes: across ranks
-    only, as in the JAX package; at one rank it is the identity (ZeRO's two
-    halves quantize there all the same)."""
+    """Whether :func:`compressed_allreduce_mean` and the per-leaf wire
+    quantize over ``group`` (the data group under a second mesh axis):
+    across ranks only, as in the JAX package; at one rank they are the
+    identity (ZeRO's two halves quantize there all the same)."""
     return world(group) > 1
 
 
@@ -194,6 +197,173 @@ def compressed_allreduce_mean(vec: torch.Tensor, u1: torch.Tensor, u2: torch.Ten
     w = world(group)
     mine = compressed_psum_scatter_mean(pad_to_chunks(vec, w), u1, group)
     return compressed_all_gather(mine, u2, group)[:vec.numel()]
+
+
+# ------------------------------------------------- the per-leaf int8 wire
+# The int8 wire that composes with a second mesh axis (JAX's
+# ``compressed_pmean_nd`` and ``compressed_pmean_tree_sharded``): a leaf
+# keeps its shape, and only its chunk dim — one the sharding does not
+# claim — is cut into W wire chunks, so a rank sends its own shard. A wire
+# chunk's scale is max|x| over the chunk of the whole logical leaf: on a
+# leaf split over the model group, a MAX all-reduce over that group, one a
+# phase for every split leaf at once. The leaves' int8 payloads and scales
+# each ride one collective a phase on the data group.
+
+
+def wire_chunk_dim(shape: Tuple[int, ...], spec) -> Optional[int]:
+    """JAX's ``wire_chunk_dim``: the largest dim of ``shape`` that
+    ``spec`` (a sequence of a mesh axis name or None a dim, or None for a
+    replicated leaf) does not claim, the first of equal ones; None when
+    every dim is claimed (the leaf takes the plain mean); 0 for a scalar.
+    ``shape`` is the leaf's layout in the JAX package (Flax's)."""
+    if not shape:
+        return 0
+    banned = {i for i, entry in enumerate(spec or ()) if entry is not None}
+    free = [i for i in range(len(shape)) if i not in banned]
+    if not free:
+        return None
+    return max(free, key=lambda i: shape[i])
+
+
+def _wire_rows(x: torch.Tensor, dim: int, w: int) -> torch.Tensor:
+    """``x`` with ``dim`` moved first, zero-padded to ``w·c`` and cut into
+    ``[w, c, *rest]``."""
+    g = torch.movedim(x.to(torch.float32), dim, 0)
+    c = -(-g.shape[0] // w)
+    pad = c * w - g.shape[0]
+    if pad:
+        g = torch.cat([g, g.new_zeros((pad, *g.shape[1:]))])
+    return g.reshape(w, c, *g.shape[1:])
+
+
+# The float32 nearest 1/127. XLA folds the JAX wire's ``max(…, 1e-30) /
+# 127.0`` into a multiply by the constant's reciprocal, so the compiled
+# JAX step's chunk scales are on this product's grid, one ulp off the
+# quotient for about one scale in twenty.
+_INV_127 = float(torch.tensor(1.0, dtype=torch.float32) / 127.0)
+
+
+def _chunk_scales(amax: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(amax, min=1e-30) * _INV_127
+
+
+def _dequantized_mean(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``mean(q·scale, axis=0)`` of ``[W, …]`` int8 rows and their scales
+    as XLA compiles JAX's: a running fused multiply-add from the first row
+    (float64 holds an int8·float32 product and its sum exactly), times the
+    float32 nearest 1/W."""
+    acc = q[0].to(torch.float32) * scale[0]
+    for w in range(1, q.shape[0]):
+        acc = (q[w].to(torch.float64) * scale[w].to(torch.float64)
+               + acc.to(torch.float64)).to(torch.float32)
+    return acc * float(torch.tensor(1.0, dtype=torch.float32) / q.shape[0])
+
+
+def model_group_max_(amax: torch.Tensor, split: Sequence[bool], model) -> None:
+    """Each row of ``amax`` ``[n, k]`` whose leaf is ``split`` replaced by
+    its MAX over ``model``'s ranks (a ``GroupRef``): one all-reduce."""
+    rows = [i for i, s in enumerate(split) if s]
+    if model is None or model.size == 1 or not rows:
+        return
+    part = amax[rows].contiguous()
+    dist.all_reduce(part, op=dist.ReduceOp.MAX, group=model.group)
+    amax[rows] = part
+
+
+def _pmean_leaves(leaves: Sequence[torch.Tensor], dims: Sequence[int],
+                  split: Sequence[bool], u1s: Sequence[torch.Tensor],
+                  u2s: Sequence[torch.Tensor], group, model) -> List[torch.Tensor]:
+    """:func:`compressed_pmean_nd` of several leaves at once (at least one,
+    over a group of more than one rank): each phase's scales, the model
+    group's MAX of them, and its int8 payloads and scales in one
+    collective each."""
+    w = world(group)
+    rows = [_wire_rows(x, d, w) for x, d in zip(leaves, dims)]
+    # Phase 1, the reduce-scatter: worker j receives every worker's chunk j.
+    amax = torch.stack([r.abs().amax(dim=tuple(range(1, r.dim()))) for r in rows])
+    model_group_max_(amax, split, model)
+    scales = _chunk_scales(amax)                                   # [n, w]
+    qs = [stochastic_round(u, r / s.view(w, *[1] * (r.dim() - 1)))
+          for r, s, u in zip(rows, scales, u1s)]
+    sizes = [q[0].numel() for q in qs]
+    q_all = torch.empty((w, sum(sizes)), dtype=torch.int8, device=qs[0].device)
+    s_all = torch.empty_like(scales.T.contiguous())
+    dist.all_to_all_single(q_all, torch.cat([q.reshape(w, -1) for q in qs], dim=1),
+                           group=group)
+    dist.all_to_all_single(s_all, scales.T.contiguous(), group=group)
+    mine = [_dequantized_mean(q.reshape(r.shape), s.reshape(w, *[1] * (r.dim() - 1)))
+            for q, s, r in zip(q_all.split(sizes, dim=1), s_all.T, rows)]
+    # Phase 2, the all-gather of the reduced chunks.
+    amax2 = torch.stack([m.abs().amax() for m in mine])[:, None]
+    model_group_max_(amax2, split, model)
+    scales2 = _chunk_scales(amax2)[:, 0]                           # [n]
+    q2 = [stochastic_round(u, m[None] / s.reshape([1] * (m.dim() + 1)))
+          for m, s, u in zip(mine, scales2, u2s)]
+    gq = torch.empty((w, sum(sizes)), dtype=torch.int8, device=q2[0].device)
+    gs = torch.empty((w, len(leaves)), dtype=torch.float32, device=q2[0].device)
+    # Gloo wants the input [1, N] of an output [W, N].
+    dist.all_gather_into_tensor(gq, torch.cat([q.reshape(1, -1) for q in q2], dim=1),
+                                group=group)
+    dist.all_gather_into_tensor(gs, scales2[None].contiguous(), group=group)
+    out = []
+    for x, d, r, q, s in zip(leaves, dims, rows, gq.split(sizes, dim=1), gs.T):
+        full = q.reshape(r.shape).to(torch.float32) * s.reshape(w, *[1] * (r.dim() - 1))
+        full = full.reshape(-1, *r.shape[2:])[:x.shape[d]]
+        out.append(torch.movedim(full, 0, d))
+    return out
+
+
+def compressed_pmean_nd(x: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, dim: int = 0,
+                        group=None, model=None) -> torch.Tensor:
+    """JAX's ``compressed_pmean_nd``: the mean over ``group``'s ranks of
+    ``x``, int8 on both phases of the wire, chunked along ``dim`` without
+    flattening. ``x`` is this rank's part of the leaf: its shard along a
+    dim other than ``dim`` when ``model`` (a ``GroupRef``) splits it, the
+    whole leaf otherwise. ``u1`` ``[W, c, *rest]`` and ``u2`` ``[1, c,
+    *rest]`` are the two roundings' uniforms of this rank's part (``c =
+    ceil(x.shape[dim] / W)``, ``rest`` the other dims in order). Float32
+    in ``x``'s shape; ``x`` at one rank, the plain mean for a scalar."""
+    if not allreduce_quantizes(group):
+        return x
+    if x.dim() == 0:
+        return allreduce_mean_([x.clone()], group)[0]
+    return _pmean_leaves([x], [dim], [model is not None], [u1], [u2], group, model)[0]
+
+
+def compressed_pmean_tree_sharded(leaves: Sequence[torch.Tensor],
+                                  u1s: Sequence[Optional[torch.Tensor]],
+                                  u2s: Sequence[Optional[torch.Tensor]],
+                                  specs: Optional[Sequence[Any]] = None, group=None,
+                                  model=None) -> List[torch.Tensor]:
+    """JAX's ``compressed_pmean_tree_sharded`` over a list of leaves (each
+    a rank's part, in the JAX package's layout): :func:`compressed_pmean_nd`
+    of each along :func:`wire_chunk_dim` of its shape and ``specs`` entry
+    (the dims the second axis claims; None: none), with its uniforms
+    (None for a leaf every dim of which is claimed). Such a leaf takes the
+    plain float32 mean over ``group`` (one bucket for them all). A leaf
+    with a claimed dim is split over ``model`` and its scales are the model
+    group's. The inputs at one rank."""
+    if not allreduce_quantizes(group):
+        return list(leaves)
+    specs = [None] * len(leaves) if specs is None else list(specs)
+    if len(specs) != len(leaves):
+        raise ValueError(f"specs has {len(specs)} entries for {len(leaves)} leaves")
+    dims = [wire_chunk_dim(tuple(x.shape), sp) for x, sp in zip(leaves, specs)]
+    plain = [i for i, d in enumerate(dims) if d is None or leaves[i].dim() == 0]
+    out = list(leaves)
+    if plain:
+        means = allreduce_mean_([leaves[i].to(torch.float32).clone() for i in plain], group)
+        for i, m in zip(plain, means):
+            out[i] = m
+    wire = [i for i in range(len(leaves)) if i not in set(plain)]
+    if wire:
+        split = [any(e is not None for e in (specs[i] or ())) for i in wire]
+        got = _pmean_leaves([leaves[i] for i in wire], [dims[i] for i in wire], split,
+                            [u1s[i] for i in wire], [u2s[i] for i in wire], group,
+                            model if any(split) else None)
+        for i, g in zip(wire, got):
+            out[i] = g
+    return out
 
 
 def psum_scatter_mean(rows: torch.Tensor, group=None) -> torch.Tensor:
@@ -275,3 +445,18 @@ def allreduce_max_ints(values: Sequence[int], group=None) -> List[int]:
         return t
 
     return [int(v) for v in _host_collective(values, torch.int64, run, group)]
+
+
+def broadcast_from_first(values: Sequence[float], dtype: torch.dtype, group=None) -> List:
+    """The group's first rank's ``values`` on every rank of ``group``, by
+    one broadcast of ``dtype`` (the other ranks pass placeholders of the
+    same length); ``values`` at one rank."""
+    if world(group) == 1:
+        return list(values)
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+
+    def run(t: torch.Tensor) -> torch.Tensor:
+        dist.broadcast(t, src=src, group=group)
+        return t
+
+    return _host_collective(values, dtype, run, group)

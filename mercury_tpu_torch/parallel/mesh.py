@@ -230,12 +230,13 @@ def local_optimizer_state(model: torch.nn.Module, state: Dict[str, Any]) -> Dict
     if sh is None:
         return state
     dims = param_dims(model)
-    full_shapes = _full_shapes(model, sh)
+    shapes = full_shapes(model)
+    whole = [shapes[name] for name, _ in model.named_parameters()]
     out = {}
     for i, st in state["state"].items():
         d = dims[i]
         out[i] = {k: shard_of(v, d, sh.rank, sh.size)
-                  if d is not None and torch.is_tensor(v) and v.shape == full_shapes[i] else v
+                  if d is not None and torch.is_tensor(v) and v.shape == whole[i] else v
                   for k, v in st.items()}
     return {"state": out, "param_groups": state["param_groups"]}
 
@@ -262,17 +263,20 @@ def full_like_params(model: torch.nn.Module, tensors: Sequence[torch.Tensor]
             for t, d in zip(tensors, param_dims(model))]
 
 
-def _full_shapes(model: torch.nn.Module, sh: ParamSharding) -> List[torch.Size]:
-    shapes = []
-    for name, p in model.named_parameters():
-        shape = list(p.shape)
-        if name in sh.dims:
+def full_shapes(model: torch.nn.Module) -> Dict[str, torch.Size]:
+    """The unsharded shape of every entry of ``model.state_dict()`` (a
+    parameter's split dimension times the group's size), by name."""
+    sh = sharding_of(model)
+    out = {}
+    for name, t in model.state_dict().items():
+        shape = list(t.shape)
+        if sh is not None and name in sh.dims:
             shape[sh.dims[name]] *= sh.size
-        shapes.append(torch.Size(shape))
-    return shapes
+        out[name] = torch.Size(shape)
+    return out
 
 
 __all__ = ["GroupRef", "Mesh", "ParamSharding", "make_mesh", "make_tp_mesh", "sharding_of",
            "shard_of", "gather_dim", "local_state_dict", "load_full_state_dict",
-           "full_state_dict", "param_dims", "full_optimizer_state", "local_optimizer_state",
-           "local_like_params", "full_like_params"]
+           "full_state_dict", "full_shapes", "param_dims", "full_optimizer_state",
+           "local_optimizer_state", "local_like_params", "full_like_params"]

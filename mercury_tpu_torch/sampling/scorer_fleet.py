@@ -36,7 +36,10 @@ window are :class:`ChunkScorer`'s, which the scorer service
 and the lockstep at W>1) shares, so a chunk of either is the same bits.
 
 The fleet is one process's (the host backend at ``world_size=1``): its
-chunk stream has no protocol across processes. A worker that raises is
+chunk stream has no protocol across processes. Under a second mesh axis
+one fleet serves a model group, on its first rank, scoring an unsharded
+copy of the model against the whole parameters the group gathers at each
+snapshot; the Trainer broadcasts the chunks it applies to the group. A worker that raises is
 reported at the next :meth:`ScorerFleet.drain`, unless the supervisor
 (``runtime/supervisor.py``) finds it dead first and calls
 :meth:`ScorerFleet.restart_workers`.
@@ -49,7 +52,7 @@ import copy
 import queue
 import threading
 import time
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -226,15 +229,18 @@ class ChunkScorer:
         return (host.to(self.scorer_device, non_blocking=True),
                 self._y[self._shard_row[slots]].to(self.scorer_device))
 
-    def snapshot(self, model: torch.nn.Module, step: int) -> Snapshot:
-        """Copy the model's parameters and buffers: one ``cat`` on the
+    def snapshot(self, model, step: int) -> Snapshot:
+        """Copy the model's parameters and buffers (``model``: a module, or
+        its tensors by name, as ``parallel/mesh.full_state_dict`` gathers
+        a sharded one): one ``cat`` on the
         trainer's stream (the tensors are views of it), copied on to a
         spare scorer card, and an event after it; the caller does not
         wait. A copy between cards runs on the source's current stream and
         the destination's current stream waits for it (PyTorch's ordering),
         so the source ``cat`` is freed in stream order after the copy has
         read it, and the event on the destination covers the copy."""
-        named = [*model.named_parameters(), *model.named_buffers()]
+        named = (list(model.items()) if isinstance(model, Mapping)
+                 else [*model.named_parameters(), *model.named_buffers()])
         flat = torch.cat([t.detach().reshape(-1) for _, t in named])
         if self.scorer_device != self.device:
             flat = flat.to(self.scorer_device)
@@ -409,10 +415,10 @@ class ScorerFleet:
             _log.warning("scorer worker %d died: %s: %s", idx, type(exc).__name__, exc)
 
     # ----------------------------------------------------------- lifecycle
-    def snapshot(self, model: torch.nn.Module, step: int) -> None:
-        """Copy the model's parameters and buffers for the chunks scored
-        from now on (:meth:`ChunkScorer.snapshot`); the caller does not
-        wait."""
+    def snapshot(self, model, step: int) -> None:
+        """Copy the model's parameters and buffers (a module, or its
+        tensors by name) for the chunks scored from now on
+        (:meth:`ChunkScorer.snapshot`); the caller does not wait."""
         snap = self._scorer.snapshot(model, step)
         with self._lock:
             self._snap = snap

@@ -137,18 +137,21 @@ class ScorerService:
     """The multi-tenant scorer (module docstring): ``config.scorer_workers``
     daemon threads ``mercury-scorer-svc-<i>`` over ``config.scorer_tenants``
     queues. ``device`` is the training device; the device backend on the
-    card scores on the card ``reserve_scorer_device`` gives, anything else
-    on ``device``. ``faults`` arms the ``scorer_*`` hooks; ``journal``
+    card scores on the card ``reserve_scorer_device`` gives (from the
+    cards ``in_use``, which the Trainer gathers on every rank; by default
+    ``cards_in_use``, a collective of every rank), anything else on
+    ``device``. ``faults`` arms the ``scorer_*`` hooks; ``journal``
     records the service's decisions."""
 
     def __init__(self, dataset: ShardedDataset, model: torch.nn.Module,
                  config: TrainConfig, device, faults=None, journal=None,
-                 tracer=None) -> None:
+                 tracer=None, in_use: Optional[List[int]] = None) -> None:
         device = with_index(torch.device(device))
         self._backend = config.scorer_backend
         scorer_device = device
         if self._backend == "device" and device.type == "cuda":
-            scorer_device = reserve_scorer_device(device, cards_in_use(device))
+            scorer_device = reserve_scorer_device(
+                device, cards_in_use(device) if in_use is None else in_use)
         self._scorer = ChunkScorer(dataset, model, config, device, self._backend,
                                    scorer_device)
         self._L, self._R = self._scorer.L, self._scorer.R
@@ -349,8 +352,9 @@ class ScorerService:
         self._ls_done.set()
 
     # ----------------------------------------------------------- lifecycle
-    def snapshot(self, model: torch.nn.Module, step: int) -> None:
-        """Install a copy of the parameters for every tenant and open a
+    def snapshot(self, model, step: int) -> None:
+        """Install a copy of the parameters (``model``: a module, or its
+        tensors by name) for every tenant and open a
         pacing epoch; the caller does not wait for the copy. In lockstep
         this is also the delivery barrier: the previous epoch's chunk is
         collected (waiting for this rank's scorer) and queued before the

@@ -29,6 +29,15 @@ What carries over, and what the new run derives afresh:
   restored step)`` (the JAX package folds the step into its keys), so a
   resumed run never replays the draws of step 0.
 
+Under ``tensor_parallel`` or ``fsdp_parallel`` the file's rows are data
+workers, as the checkpoint writes them: ``w_old`` is the file's row count
+and ``w_new`` the new run's ``world_size``, each rank's generator and
+carried sampler state are its data rank's (a model group draws alike),
+and each rank loads its slices of the whole model, moments and
+accumulator (``parallel/mesh.load_full_state_dict``,
+``local_optimizer_state``); the file may come from any layout. ZeRO
+cannot be on under a second axis.
+
 A different model, another ``zero_sharding`` or another
 ``grad_accum_steps`` raises ``ValueError`` naming the field. With the
 Trainer's event journal the restore is journaled as
@@ -45,6 +54,12 @@ import torch.nn.functional as F
 
 from mercury_tpu_torch.data.partition import partition_data
 from mercury_tpu_torch.data.pipeline import ShardStream
+from mercury_tpu_torch.parallel.mesh import (
+    full_shapes,
+    load_full_state_dict,
+    local_like_params,
+    local_optimizer_state,
+)
 from mercury_tpu_torch.sampling.importance import EMAState
 from mercury_tpu_torch.sampling.scoretable import ScoreTableState
 from mercury_tpu_torch.train import checkpoint as ckpt
@@ -191,9 +206,11 @@ def _carry_streamed_state(trainer, rows: Sequence[Dict[str, Any]], w_old: int,
     return extra
 
 
-def _check_same(old: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor], what: str
+def _check_same(old: Dict[str, torch.Tensor], new: Dict[str, torch.Size], what: str
                 ) -> None:
-    bad = sorted(set(old) ^ set(new)) or [k for k in new if old[k].shape != new[k].shape]
+    """The file's tensors ``old`` against this run's whole shapes ``new``
+    (by name)."""
+    bad = sorted(set(old) ^ set(new)) or [k for k in new if old[k].shape != new[k]]
     if bad:
         raise ValueError(f"{what} differs from the checkpoint's at {bad[:3]}: an elastic "
                          "resume needs the same model and optimizer")
@@ -230,8 +247,8 @@ def elastic_restore(directory: str, trainer, step: Optional[int] = None,
                     "l_new": (None if state.scoretable is None
                               else int(state.scoretable.scores.numel())),
                     "directory": directory})
-    model_sd = state.model.state_dict()
-    _check_same(raw["model"], model_sd, "model")
+    # A sharded model is held to the file's whole shapes.
+    _check_same(raw["model"], full_shapes(state.model), "model")
     if config.zero_sharding:
         n = sum(p.numel() for p in state.model.parameters())
         old_opt = [row["optimizer"] for row in rows]
@@ -247,9 +264,13 @@ def elastic_restore(directory: str, trainer, step: Optional[int] = None,
     if groups != [sorted(g) for g in state.optimizer.state_dict()["param_groups"]]:
         raise ValueError(f"optimizer differs from the checkpoint's (param groups {groups}): "
                          "an elastic resume needs the same model and optimizer")
-    state.model.load_state_dict(raw["model"])
-    state.optimizer.load_state_dict(own)
+    # Under a second axis each rank takes its slices of the whole model,
+    # moments and accumulator.
+    load_full_state_dict(state.model, raw["model"])
+    state.optimizer.load_state_dict(local_optimizer_state(state.model, own))
     if state.accum is not None:
+        if not config.zero_sharding:
+            accum = local_like_params(state.model, accum)
         for acc, saved in zip(state.accum, accum):
             acc.copy_(saved)
     state.step, state.updates, state.mini_step = raw["step"], raw["updates"], raw["mini_step"]

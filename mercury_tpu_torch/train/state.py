@@ -52,8 +52,9 @@ import numpy as np
 import torch
 
 from mercury_tpu_torch.data.pipeline import ShardStream, init_shard_streams
-from mercury_tpu_torch.models.convert import jax_flat_order
+from mercury_tpu_torch.models.convert import flax_leaves, jax_flat_order
 from mercury_tpu_torch.parallel import collectives
+from mercury_tpu_torch.parallel.mesh import sharding_of
 from mercury_tpu_torch.sampling.groupwise import GroupwiseState, init_groupwise
 from mercury_tpu_torch.sampling.importance import EMAState, init_ema
 from mercury_tpu_torch.sampling.scoretable import ScoreTableState, init_score_table
@@ -84,7 +85,11 @@ class Draws(NamedTuple):
     uniform a gradient element under ``grad_compression="stochastic"`` (the
     JAX step's ``split(fold_in(rng, 0x71), n_leaves)``), ``wire_u1`` and
     ``wire_u2`` the int8 wire's two roundings (``split(fold_in(rng,
-    0x72))``)."""
+    0x72))``). Under ``tensor_parallel`` or ``fsdp_parallel`` they are the
+    whole leaves' (the same on every rank of a model group, each rank
+    taking its shard's part), and the int8 wire's are ``wire_leaves``, a
+    pair a leaf (JAX's ``split(fold_in(rng, 0x72), n_leaves)``, each key
+    split in two)."""
 
     perm: Optional[torch.Tensor]  # [L] reshuffle permutation; read only if the stream wraps
     aug: Optional[Augment]        # P or R images (None on a cadence step that reuses its pool)
@@ -95,6 +100,10 @@ class Draws(NamedTuple):
     grad_uniforms: Optional[Tuple[torch.Tensor, ...]] = None
     wire_u1: Optional[torch.Tensor] = None  # [W, chunk] the gradient rows, JAX order
     wire_u2: Optional[torch.Tensor] = None  # [chunk] the gathered chunk
+    # Under a second mesh axis, the per-leaf int8 wire's: a (u1, u2) pair a
+    # parameter in model.parameters() order, the whole leaf's (LeafWire's
+    # shapes), or None for a leaf that takes the plain mean
+    wire_leaves: Optional[Tuple[Optional[Tuple[torch.Tensor, torch.Tensor]], ...]] = None
 
 
 class FlatLayout(NamedTuple):
@@ -114,6 +123,34 @@ class FlatLayout(NamedTuple):
     @property
     def chunk(self) -> int:
         return zero_chunk_size(self.n, self.world)
+
+
+class LeafWire(NamedTuple):
+    """One parameter on the per-leaf int8 wire of a second mesh axis
+    (``parallel/collectives.compressed_pmean_tree_sharded``), in the JAX
+    package's layout (Flax's): where the wire cuts it and which part of
+    the whole leaf's uniforms this rank's shard takes."""
+
+    path: Tuple[str, ...]             # its Flax path (the JAX leaf order)
+    axes: Tuple[int, ...]             # Flax dim i is torch dim axes[i]
+    shape: Tuple[int, ...]            # the whole leaf's Flax shape
+    spec: Tuple[Optional[str], ...]   # the second axis's name at its split dim
+    dim: Optional[int]                # the wire's chunk dim; None: the plain mean
+    split: Optional[int]              # the Flax dim split over the model group
+
+    def uniform_shapes(self, w: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """The two roundings' uniforms of the whole leaf at ``w`` data
+        ranks: ``[w, c, *rest]`` and ``[1, c, *rest]``."""
+        rest = tuple(n for i, n in enumerate(self.shape) if i != self.dim)
+        c = -(-self.shape[self.dim] // w)
+        return (w, c, *rest), (1, c, *rest)
+
+    def local(self, u: torch.Tensor, rank: int, size: int) -> torch.Tensor:
+        """This shard's part of the whole leaf's uniforms ``u``."""
+        if self.split is None:
+            return u
+        at = 2 + (self.split if self.split < self.dim else self.split - 1)
+        return u.chunk(size, at)[rank]
 
 
 class PendingBatch(NamedTuple):
@@ -311,6 +348,9 @@ class MercuryState:
     # the rank's place in the mesh (None: a data-only run over the default
     # group); clones share it
     mesh: Any = None
+    # under a second mesh axis, the per-leaf int8 wire's layout, built by
+    # wire_layout() on first use (clones share it)
+    wire: Optional[Tuple[LeafWire, ...]] = None
 
     def clone(self) -> "MercuryState":
         """An independent copy: the model and its optimizer are copied
@@ -424,3 +464,28 @@ def flat_layout(state: MercuryState) -> FlatLayout:
         state.flat = FlatLayout(*jax_flat_order(state.model),
                                world=collectives.world(), rank=collectives.rank())
     return state.flat
+
+
+def wire_layout(state: MercuryState) -> Tuple[LeafWire, ...]:
+    """The state's :class:`LeafWire` a parameter, in
+    ``model.parameters()`` order, built from the model and its sharding
+    the first time the per-leaf int8 wire asks for it and kept on the
+    state: each leaf's chunk dim is JAX's ``wire_chunk_dim`` of its whole
+    Flax shape, avoiding the dim the second axis splits."""
+    if state.wire is None:
+        model = state.model
+        sh = sharding_of(model)
+        params = dict(model.named_parameters())
+        axis = state.mesh.axis_names[1] if state.mesh is not None and state.mesh.second > 1 \
+            else "model"
+        wire = []
+        for name, path, axes in flax_leaves(model):
+            local = params[name].shape
+            split_torch = None if sh is None else sh.dims.get(name)
+            shape = tuple(local[a] * (sh.size if a == split_torch else 1) for a in axes)
+            split = None if split_torch is None else axes.index(split_torch)
+            spec = tuple(axis if i == split else None for i in range(len(shape)))
+            wire.append(LeafWire(path, tuple(axes), shape, spec,
+                                 collectives.wire_chunk_dim(shape, spec), split))
+        state.wire = tuple(wire)
+    return state.wire

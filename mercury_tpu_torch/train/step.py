@@ -121,6 +121,13 @@ reduce-scatter), all-gathers the chunk's update (compressed under
 accumulated, and a microstep that applies nothing still gathers its zero
 update, as the JAX step does. Under ZeRO the two halves (int8 or not) run
 at W=1 too, where they issue no collective but the int8 ones quantize.
+Under a second mesh axis (no ZeRO there) the int8 wire is the JAX step's
+per-leaf path: each gradient leaf in its Flax layout through
+``compressed_pmean_tree_sharded`` on the data group, chunked along a dim
+its sharding does not claim, with this shard's part of the whole leaf's
+uniforms (``Draws.wire_leaves``); ``"stochastic"`` quantizes each shard
+with the whole leaf's ``max|g|`` and counts the sparse rate over whole
+leaves (:func:`_quantize_sharded`).
 
 With ``config.telemetry`` (the default, as in the JAX package) the step
 also returns the sampler's health (``obs/``): ``sampler/ess``,
@@ -248,11 +255,14 @@ from mercury_tpu_torch.parallel.collectives import (
     allreduce_sum,
     compressed_all_gather,
     compressed_allreduce_mean,
+    compressed_pmean_tree_sharded,
     compressed_psum_scatter_mean,
+    model_group_max_,
     psum_scatter_mean,
 )
+from mercury_tpu_torch.parallel.collectives import world as collectives_world
 from mercury_tpu_torch.parallel.distributed import require_world
-from mercury_tpu_torch.parallel.mesh import Mesh, sharding_of
+from mercury_tpu_torch.parallel.mesh import Mesh, full_shapes, sharding_of
 from mercury_tpu_torch.sampling.groupwise import draw as groupwise_draw
 from mercury_tpu_torch.sampling.groupwise import update_importance, window_indices
 from mercury_tpu_torch.sampling.importance import (
@@ -282,8 +292,9 @@ from mercury_tpu_torch.train.state import (
     PendingBatch,
     PendingSelection,
     flat_layout,
+    wire_layout,
 )
-from mercury_tpu_torch.utils.quantize import sparsity, stochastic_quantize
+from mercury_tpu_torch.utils.quantize import nonzeros, sparsity, stochastic_quantize
 from mercury_tpu_torch.utils.tree import pad_to_chunks
 
 CROP_PAD = 4
@@ -310,19 +321,42 @@ def pool_size(config: TrainConfig) -> int:
 def make_draws(state: MercuryState, config: TrainConfig) -> Draws:
     """One step's draws from the state's generator, on its device: the
     sampler's, then the gradient quantizers' where their option is on (so
-    with both off the generator's sequence is the step's without them)."""
+    with both off the generator's sequence is the step's without them).
+    Under a second mesh axis the quantizers' uniforms are the whole
+    leaves', so a model group's ranks, which share the worker's
+    generator, draw what one unsharded rank draws; the per-leaf int8
+    wire's in the JAX leaf order, ``u1`` then ``u2`` a leaf."""
     draws = _sampler_draws(state, config)
     gen = state.generator
     dev = gen.device
+    group = data_group(state)
     if config.grad_compression == "stochastic":
+        shapes = full_shapes(state.model)
         draws = draws._replace(grad_uniforms=tuple(
-            torch.rand(p.shape, generator=gen, device=dev) for p in state.model.parameters()))
-    elif _int8_wire(config):
+            torch.rand(shapes[name], generator=gen, device=dev)
+            for name, _ in state.model.named_parameters()))
+    elif _int8_wire(config, group) and group is not None:
+        wire = wire_layout(state)
+        pairs = [None] * len(wire)
+        w = collectives_world(group)
+        for i in sorted(range(len(wire)), key=lambda i: wire[i].path):
+            if wire[i].dim is not None:
+                s1, s2 = wire[i].uniform_shapes(w)
+                pairs[i] = (torch.rand(s1, generator=gen, device=dev),
+                            torch.rand(s2, generator=gen, device=dev))
+        draws = draws._replace(wire_leaves=tuple(pairs))
+    elif _int8_wire(config, group):
         flat = flat_layout(state)
         draws = draws._replace(
             wire_u1=torch.rand((flat.world, flat.chunk), generator=gen, device=dev),
             wire_u2=torch.rand(flat.chunk, generator=gen, device=dev))
     return draws
+
+
+def data_group(state: MercuryState):
+    """The group of the step's data-parallel collectives: the mesh's data
+    group under a second axis, else None (the default group)."""
+    return None if state.mesh is None else state.mesh.data_group
 
 
 def draw_augment(gen: torch.Generator, n: int, config: TrainConfig) -> Augment:
@@ -494,19 +528,25 @@ def sync_and_step(state: MercuryState, config: TrainConfig, draws: Draws,
     axis), and a sharded model's norm sums its shards' squares over the
     model group (:func:`grad_norm_of`)."""
     params = list(state.model.parameters())
+    sh = sharding_of(state.model)
     sparse_rate = grad_norm = None
     if config.grad_compression == "stochastic":
-        grads = [stochastic_quantize(u, p.grad)
-                 for u, p in zip(_need(draws.grad_uniforms, "grad_uniforms"), params)]
-        total = float(sum(g.numel() for g in grads))
-        sparse_rate = torch.stack([sparsity(g) * (g.numel() / total) for g in grads]).sum()
-        for p, g in zip(params, grads):
-            p.grad = g
+        uniforms = _need(draws.grad_uniforms, "grad_uniforms")
+        if sh is not None:
+            sparse_rate = _quantize_sharded(state.model, sh, uniforms)
+        else:
+            grads = [stochastic_quantize(u, p.grad) for u, p in zip(uniforms, params)]
+            total = float(sum(g.numel() for g in grads))
+            sparse_rate = torch.stack([sparsity(g) * (g.numel() / total) for g in grads]).sum()
+            for p, g in zip(params, grads):
+                p.grad = g
     if config.zero_sharding:
         return _zero_step(state, config, draws, params, telemetry), sparse_rate
     grads = [p.grad for p in params if p.grad is not None]
     with scope("mercury_grad_sync"):
-        if _int8_wire(config):
+        if _int8_wire(config, group) and sh is not None:
+            _leaf_wire_sync(state, sh, _need(draws.wire_leaves, "wire_leaves"), group)
+        elif _int8_wire(config, group):
             flat = flat_layout(state)
             vec = torch.cat([g.reshape(-1) for g in grads])[flat.order]
             vec = compressed_allreduce_mean(vec, _need(draws.wire_u1, "wire_u1"),
@@ -521,6 +561,55 @@ def sync_and_step(state: MercuryState, config: TrainConfig, draws: Draws,
     with scope("mercury_optimizer"):
         apply_update(state, config.grad_accum_steps)
     return grad_norm, sparse_rate
+
+
+def _quantize_sharded(model: torch.nn.Module, sh, uniforms: Sequence[torch.Tensor]
+                      ) -> torch.Tensor:
+    """``"stochastic"`` on a sharded model's gradient, in place: each
+    shard quantized with its part of the whole leaf's uniforms and the
+    whole leaf's ``max|g|`` (one MAX all-reduce over the model group for
+    the split leaves), as GSPMD quantizes JAX's logical leaves. Returns the
+    sparse rate over whole leaves: the split leaves' nonzeros summed over
+    the group (one all-reduce), each leaf's share weighted by its whole
+    size."""
+    named = [(name, p) for name, p in model.named_parameters()]
+    dims = [sh.dims.get(name) for name, _ in named]
+    split = [d is not None for d in dims]
+    local_u = [u if d is None else u.chunk(sh.size, d)[sh.rank] for u, d in zip(uniforms, dims)]
+    amax = torch.stack([p.grad.abs().max() for _, p in named])[:, None]
+    model_group_max_(amax, split, sh.group)
+    grads = [stochastic_quantize(u, p.grad, m[0]) for u, (_, p), m in zip(local_u, named, amax)]
+    counts = torch.stack([nonzeros(g) for g in grads])
+    rows = [i for i, s in enumerate(split) if s]
+    if rows:
+        counts[rows] = allreduce_sum(counts[rows].contiguous(), sh.group.group)
+    sizes = [g.numel() * (sh.size if s else 1) for g, s in zip(grads, split)]
+    total = float(sum(sizes))
+    sparse_rate = torch.stack([(c / n) * (n / total) for c, n in zip(counts, sizes)]).sum()
+    for (_, p), g in zip(named, grads):
+        p.grad = g
+    return sparse_rate
+
+
+def _leaf_wire_sync(state: MercuryState, sh, pairs, group) -> None:
+    """The int8 wire of a sharded model's gradient, in place: each leaf in
+    its Flax layout through ``compressed_pmean_tree_sharded`` on the data
+    group, chunked along a dim its sharding does not claim, with this
+    shard's part of the whole leaf's uniforms (JAX's per-leaf path)."""
+    wire = wire_layout(state)
+    grads = [p.grad for p in state.model.parameters()]
+    keep = [i for i, g in enumerate(grads) if g is not None]
+    xs = [grads[i].permute(wire[i].axes) for i in keep]
+    u1s, u2s = [], []
+    for i in keep:
+        pair = pairs[i]
+        u1s.append(None if pair is None else wire[i].local(pair[0], sh.rank, sh.size))
+        u2s.append(None if pair is None else wire[i].local(pair[1], sh.rank, sh.size))
+    out = compressed_pmean_tree_sharded(xs, u1s, u2s, [wire[i].spec for i in keep], group,
+                                        sh.group)
+    for i, o in zip(keep, out):
+        inverse = sorted(range(len(wire[i].axes)), key=lambda t: wire[i].axes[t])
+        grads[i].copy_(o.permute(*inverse))
 
 
 def grad_norm_of(model: torch.nn.Module) -> torch.Tensor:
@@ -1206,10 +1295,6 @@ def make_train_step(
     return hs_step_fn
 
 
-SECOND_AXIS_NOT_PORTED = ("is not ported under tensor_parallel or fsdp_parallel: "
-                          "ROADMAP.md, Queue 1 item 7b")
-
-
 def second_ranks(config: TrainConfig) -> Optional[Tuple[str, int]]:
     """``("tensor_parallel", T)`` or ``("fsdp_parallel", F)`` for
     ``require_world``; None on a data-only mesh."""
@@ -1221,8 +1306,7 @@ def second_ranks(config: TrainConfig) -> Optional[Tuple[str, int]]:
 
 def refuse_on_second_axis(config: TrainConfig) -> None:
     """What a step with a second mesh axis does not run: ZeRO and
-    host_stream (the JAX step's refusals, with its messages), and the
-    gradient wires and async refresh (not ported: ``NotImplementedError``)."""
+    host_stream (the JAX step's refusals, with its messages)."""
     if config.zero_sharding:
         raise ValueError(
             "zero_sharding flattens params to a vector, which would force "
@@ -1232,14 +1316,6 @@ def refuse_on_second_axis(config: TrainConfig) -> None:
         raise ValueError(
             "host_stream requires a data-only mesh (no tensor/fsdp "
             "axis); drop tensor_parallel/fsdp_parallel")
-    if config.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={config.grad_compression!r} {SECOND_AXIS_NOT_PORTED} (the "
-            "int8 wire's per-leaf path, compressed_pmean_tree_sharded)")
-    if config.use_async:
-        raise NotImplementedError(
-            f"refresh_mode='async' {SECOND_AXIS_NOT_PORTED} (the scorer's snapshots of a "
-            "sharded model)")
 
 
 def uniform_slots(uniforms: torch.Tensor, n: int) -> torch.Tensor:
@@ -1297,10 +1373,12 @@ def _perm(draws: Draws) -> torch.Tensor:
     return draws.perm
 
 
-def _int8_wire(config: TrainConfig) -> bool:
+def _int8_wire(config: TrainConfig, group=None) -> bool:
     """The int8 collectives quantize: ZeRO's two halves at any world size,
-    the all-reduce where :func:`allreduce_quantizes` says."""
-    return config.grad_compression == "int8" and (config.zero_sharding or allreduce_quantizes())
+    the all-reduce (or the per-leaf wire) where :func:`allreduce_quantizes`
+    says of the data-parallel ``group``."""
+    return config.grad_compression == "int8" and (config.zero_sharding
+                                                  or allreduce_quantizes(group))
 
 
 def _need(value: Optional[torch.Tensor], name: str) -> torch.Tensor:

@@ -29,8 +29,10 @@ step's collectives run over the data group. Every rank calls ``fit``,
 of each model group writes its worker's log shards, and global rank 0
 the run's manifest, records and journal. A checkpoint holds the whole
 model and moments, so it restores into another layout at the same
-``world_size``; ``restore_elastic``, async refresh and the gradient wires
-are not ported under a second axis (``NotImplementedError``).
+``world_size``, and ``restore_elastic`` into any. Under async refresh one
+scorer serves a model group, on its first rank, which broadcasts the
+chunks it applies to the group (:meth:`Trainer._shared_chunks`); the
+supervisor's ladder is agreed over every rank.
 
 Beyond training: ``save``/``restore`` (``train/checkpoint.py``; ``fit``
 saves every ``checkpoint_every`` steps and at its end when
@@ -140,6 +142,7 @@ prefetch worker, then drains and closes the writer and the journal.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import inspect
@@ -197,14 +200,16 @@ from mercury_tpu_torch.obs.writer import (
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
 from mercury_tpu_torch.parallel import distributed
 from mercury_tpu_torch.parallel.fsdp import shard_model_fsdp
-from mercury_tpu_torch.parallel.mesh import Mesh, make_mesh, make_tp_mesh
+from mercury_tpu_torch.parallel.mesh import Mesh, full_state_dict, make_mesh, make_tp_mesh
 from mercury_tpu_torch.parallel.tensor import shard_model_tp
 from mercury_tpu_torch.parallel.collectives import (
     allgather_floats,
     allreduce_max_ints,
+    broadcast_from_first,
     gather_to_rank0,
     host_flag_device,
 )
+from mercury_tpu_torch.parallel.distributed import cards_in_use
 from mercury_tpu_torch.runtime.supervisor import HostSupervisor
 from mercury_tpu_torch.sampling.scoretable import apply_async_chunk
 from mercury_tpu_torch.sampling.scorer_fleet import ScoreChunk, ScorerFleet
@@ -213,7 +218,6 @@ from mercury_tpu_torch.train import checkpoint, elastic
 from mercury_tpu_torch.train.profile import ProfilerWindow
 from mercury_tpu_torch.train.state import MercuryState, create_state
 from mercury_tpu_torch.train.step import (
-    SECOND_AXIS_NOT_PORTED,
     Draws,
     make_train_step,
     prime_host_stream,
@@ -225,6 +229,8 @@ from mercury_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
 EVAL_BATCH = 256
+# The status of a model group's chunk broadcast (Trainer._shared_chunks).
+_CHUNKS_TAKEN, _CHUNKS_NONE, _CHUNKS_FAILED = 0, 1, 2
 
 
 def resolve_device(device=None) -> torch.device:
@@ -393,6 +399,15 @@ class Trainer:
             # init's sample does: the dataset's, before any augmentation.
             model = create_model(config.model, self.dataset.num_classes, gen, sample_shape,
                                  remat=config.remat, moe_experts=config.moe_experts)
+        # Under async refresh with a second axis, the model group's scorer
+        # (on its first rank) scores with an unsharded copy: a shard's
+        # forward would call the group's collectives from the scorer's
+        # threads.
+        scorer_model = None
+        if config.use_async and self.mesh.model is not None and self._leads:
+            scorer_model = copy.deepcopy(model).to(self.device)
+            if self.device.type == "cuda":
+                scorer_model = scorer_model.to(memory_format=torch.channels_last)
         # Under a second axis: this rank's shards (the whole model arrives,
         # the same on every rank, and each keeps its slices).
         if config.tensor_parallel > 1:
@@ -457,8 +472,11 @@ class Trainer:
                 probe_every=config.supervisor_probe_every,
                 poll_s=config.supervisor_poll_s,
                 anomaly=self.anomaly, journal=self._journal,
-                # At W>1 the ranks agree the ladder's level every tick.
-                agree=_on_group(allreduce_max_ints, dgroup) if config.world_size > 1 else None)
+                # At W>1 the ranks agree the ladder's level every tick; under
+                # a second axis every rank does, at W=1 too, since a model
+                # group's ranks share one scorer.
+                agree=(allreduce_max_ints if self.mesh.world_size * self.mesh.second > 1
+                       else None))
         # The ladder level the refresh path last acted on (3: flattened).
         self._actuated_level = 0
         # host_stream: prime the ring with steps 0 … depth−1 and put their
@@ -525,7 +543,10 @@ class Trainer:
         self._host_steps = 0
         # refresh_mode="async": the scorer and its first snapshot. Built
         # before auto_resume: a restore resets it.
+        self._async = config.use_async
         self._scorer_fleet: Optional[Union[ScorerFleet, ScorerService]] = None
+        # The ladder's revival, which the probe after it runs (_revive_scorer).
+        self._revive_due = False
         self._chunks_rejected = 0
         # Chunks whose copy to the device may still read their pinned
         # buffers, each with the event after its copy.
@@ -538,28 +559,36 @@ class Trainer:
                                or config.scorer_tenants > 1
                                or config.slo_score_staleness_max > 0
                                or config.scorer_queue_highwater > 0)
-                if use_service:
+                in_use = None
+                if use_service and config.scorer_backend == "device" and \
+                        self.device.type == "cuda":
+                    # A collective of every rank, before the scorers are built.
+                    in_use = cards_in_use(self.device)
+                # One scorer a model group, on its first rank (every rank
+                # without a second axis).
+                scored = self.state.model if scorer_model is None else scorer_model
+                if use_service and self._leads:
                     self._scorer_fleet = ScorerService(
-                        self.dataset, self.state.model, config, self.device,
-                        faults=self._faults, journal=self._journal, tracer=self.tracer)
-                else:
-                    self._scorer_fleet = ScorerFleet(self.dataset, self.state.model, config,
+                        self.dataset, scored, config, self.device, faults=self._faults,
+                        journal=self._journal, tracer=self.tracer, in_use=in_use)
+                elif self._leads:
+                    self._scorer_fleet = ScorerFleet(self.dataset, scored, config,
                                                      self.device, faults=self._faults,
                                                      tracer=self.tracer)
-                self._scorer_fleet.snapshot(self.state.model, self.state.step)
+                self._snapshot(self.state.step)
                 if self.supervisor is not None:
                     # Past its budget the ladder takes over: the table can be
                     # refreshed on this thread, frozen or flattened, and
                     # training goes on either way.
-                    self.supervisor.register_unit(
-                        "scorer_service" if use_service else "scorer",
-                        alive=lambda: self._scorer_fleet.alive(),
-                        restart=lambda: self._scorer_fleet.restart_workers(),
-                        escalates=True, cause=lambda: self._scorer_fleet.death_event())
-                    self.supervisor.set_ladder(
-                        probe=self._probe_scoring,
-                        revive=lambda: self._scorer_fleet.restart_workers())
-                    if use_service:
+                    if self._scorer_fleet is not None:
+                        self.supervisor.register_unit(
+                            "scorer_service" if use_service else "scorer",
+                            alive=lambda: self._scorer_fleet.alive(),
+                            restart=lambda: self._scorer_fleet.restart_workers(),
+                            escalates=True, cause=lambda: self._scorer_fleet.death_event())
+                    self.supervisor.set_ladder(probe=self._probe_scoring,
+                                               revive=self._revive_scorer)
+                    if use_service and self._scorer_fleet is not None:
                         # A wedged tenant or an undrained queue walks the
                         # ladder as a death does.
                         self.supervisor.register_slo(
@@ -633,7 +662,7 @@ class Trainer:
             with self.tracer.span("trainer/dispatch", cat="trainer"):
                 metrics = self._step_fn(self.state, draws, use_kernels)
             self._dispatch_s += time.perf_counter() - t0
-        if self._scorer_fleet is not None:
+        if self._async:
             self._refresh_tick(self.state.step)
         return metrics
 
@@ -649,7 +678,7 @@ class Trainer:
         with self.tracer.span("trainer/dispatch", cat="trainer", steps=self.scan_steps):
             metrics = self._chunk_fn(self.state, draws, use_kernels)
         self._dispatch_s += time.perf_counter() - t0
-        if self._scorer_fleet is not None:
+        if self._async:
             self._refresh_tick(self.state.step, advanced=self.scan_steps)
         return metrics
 
@@ -678,29 +707,84 @@ class Trainer:
                 copied = torch.cuda.Event()
                 copied.record()
                 self._chunks_in_copy.append((copied, chunk))
-            self._scorer_fleet.note_applied(age)
+            if self._scorer_fleet is not None:
+                self._scorer_fleet.note_applied(age)
+
+    def _snapshot(self, step: int) -> None:
+        """The scorer's snapshot of the parameters at ``step``. Under a
+        second mesh axis it is of the whole model, gathered over the model
+        group (every rank of the group calls this), for the scorer on the
+        group's first rank."""
+        model = self.state.model
+        source = model if self.mesh.model is None else full_state_dict(model)
+        if self._scorer_fleet is not None:
+            self._scorer_fleet.snapshot(source, step)
+
+    def _shared_chunks(self, take) -> Optional[List[ScoreChunk]]:
+        """The chunks ``take()`` returns on the rank that holds the scorer
+        (None: none this tick, and no snapshot). Under a second mesh axis
+        the model group's first rank runs ``take`` and broadcasts what it
+        got to the group — a status and a count, then each chunk's slots,
+        scores and snapshot step — so every rank of the group applies the
+        same chunks at the same step; an exception of ``take`` raises on
+        every rank of the group."""
+        model = self.mesh.model
+        if model is None:
+            return take()
+        group = model.group
+        if self._scorer_fleet is not None:
+            try:
+                chunks = take()
+            except BaseException:
+                broadcast_from_first([_CHUNKS_FAILED, 0], torch.int64, group)
+                raise
+            broadcast_from_first([_CHUNKS_NONE if chunks is None else _CHUNKS_TAKEN,
+                                  len(chunks or ())], torch.int64, group)
+            if chunks:
+                broadcast_from_first([v for c in chunks for v in (
+                    *c.slots.tolist(), *c.scores.tolist(), c.step)], torch.float64, group)
+            return chunks
+        status, n = broadcast_from_first([0, 0], torch.int64, group)
+        if status == _CHUNKS_FAILED:
+            raise RuntimeError("the scorer of this rank's model group failed on the "
+                               "group's first rank")
+        if status == _CHUNKS_NONE:
+            return None
+        if n == 0:
+            return []
+        r = int(self.config.refresh_size)
+        rows = torch.tensor(broadcast_from_first([0.0] * (n * (2 * r + 1)), torch.float64,
+                                                 group), dtype=torch.float64).view(n, 2 * r + 1)
+        return [ScoreChunk(slots=row[:r].to(torch.int64), scores=row[r:2 * r].to(torch.float32),
+                           step=int(row[2 * r])) for row in rows]
 
     def _async_refresh_tick(self, step: int, advanced: int = 1) -> None:
         """After a step under async refresh: apply the ready chunks, and
         snapshot the parameters when the step crossed a multiple of
-        ``snapshot_every``. Host numbers only: no device sync."""
+        ``snapshot_every``. Host numbers only: no device sync (under a
+        second axis, one small broadcast over the model group, and the
+        snapshot's gather)."""
         fleet = self._scorer_fleet
-        if fleet is None:
+
+        def take() -> Optional[List[ScoreChunk]]:
+            if self.supervisor is not None and not fleet.alive():
+                # A worker died: the supervisor's tick restarts it or walks
+                # the ladder (drain would raise); the queued chunks wait.
+                return None
+            # The service's drain also advances every tenant's staleness and
+            # empties the other tenants' queues into their accounting.
+            return (fleet.drain_for_step(step) if isinstance(fleet, ScorerService)
+                    else fleet.drain())
+
+        chunks = self._shared_chunks(take)
+        if chunks is None:
             return
-        if self.supervisor is not None and not fleet.alive():
-            # A worker died: the supervisor's tick restarts it or walks the
-            # ladder (drain would raise); the queued chunks wait.
-            return
-        # The service's drain also advances every tenant's staleness and
-        # empties the other tenants' queues into their accounting.
-        chunks = (fleet.drain_for_step(step) if isinstance(fleet, ScorerService)
-                  else fleet.drain())
         if chunks:
             with self.tracer.span("trainer/apply_refresh", cat="trainer", chunks=len(chunks)):
                 self._apply_chunks(chunks, step)
         every = self.config.snapshot_every
         if step // every > (step - advanced) // every:
-            fleet.snapshot(self.state.model, step)
+            self._snapshot(step)
 
     def _sync_refresh_tick(self, step: int, advanced: int = 1) -> None:
         """Ladder level 1: the training thread scores one window every
@@ -713,13 +797,13 @@ class Trainer:
             return
         try:
             with self.tracer.span("trainer/sync_refresh", cat="trainer"):
-                fleet.snapshot(self.state.model, step)
-                chunk = fleet.score_once()
+                self._snapshot(step)
+                chunks = self._shared_chunks(lambda: [fleet.score_once()])
         except Exception as exc:
             self.supervisor.report_failure("sync refresh", step, exc,
                                            parent=getattr(exc, "event_id", None))
             return
-        self._apply_chunks([chunk], step)
+        self._apply_chunks(chunks, step)
 
     def _refresh_tick(self, step: int, advanced: int = 1) -> None:
         """After each step under async refresh, by the ladder's level: 0
@@ -759,14 +843,32 @@ class Trainer:
         non-finite score (the chunk's pinned host scores: no device
         sync)."""
         fleet = self._scorer_fleet
-        if fleet is None:
+        if not self._async:
             raise RuntimeError("no scorer fleet to probe")
         step = self.state.step
-        fleet.snapshot(self.state.model, step)
-        chunk = fleet.score_once()
-        if not bool(torch.isfinite(chunk.scores).all()):
-            raise RuntimeError("probe chunk contains non-finite scores")
-        self._apply_chunks([chunk], step)
+        self._snapshot(step)
+
+        def take() -> List[ScoreChunk]:
+            if self._revive_due:
+                fleet.restart_workers()
+            chunk = fleet.score_once()
+            if not bool(torch.isfinite(chunk.scores).all()):
+                raise RuntimeError("probe chunk contains non-finite scores")
+            return [chunk]
+
+        try:
+            chunks = self._shared_chunks(take)
+        finally:
+            self._revive_due = False
+        self._apply_chunks(chunks, step)
+
+    def _revive_scorer(self) -> None:
+        """The ladder's revival before the climb to async: the probe that
+        follows restarts the scorer's workers, after its snapshot (so they
+        start from it) and, under a second mesh axis, on the group's first
+        rank, where a failure reaches every rank of the group (through
+        :meth:`_shared_chunks`)."""
+        self._revive_due = True
 
     def scorer_stats(self) -> Dict[str, float]:
         """The scorer's ``stats()`` since the previous call and the count
@@ -1217,19 +1319,19 @@ class Trainer:
         cursors carried under ``stream_checkpoint_cursor``, the generator
         re-seeded from the restored step (``train/elastic.py``); ``raw`` is
         a payload already read at ``step``. Every rank calls it. Under
-        host_stream the ring is primed anew for the new shards. Not under
-        tensor_parallel or fsdp_parallel (``NotImplementedError``)."""
-        if self.config.second_axis is not None:
-            raise NotImplementedError(f"restore_elastic {SECOND_AXIS_NOT_PORTED}")
+        host_stream the ring is primed anew for the new shards. Under
+        tensor_parallel or fsdp_parallel each rank loads its slices of the
+        whole model and moments, and the file's rows are data workers."""
         step = elastic.elastic_restore(self._directory(directory), self, step, raw=raw)
         self._after_restore()
         return step
 
     def _after_restore(self) -> None:
         self._refill_stream_pipe()
-        if self._scorer_fleet is not None:
-            self._scorer_fleet.reset()
-            self._scorer_fleet.snapshot(self.state.model, self.state.step)
+        if self._async:
+            if self._scorer_fleet is not None:
+                self._scorer_fleet.reset()
+            self._snapshot(self.state.step)
 
     def _auto_resume(self) -> None:
         """The newest checkpoint's world size decides between

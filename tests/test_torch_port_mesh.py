@@ -8,7 +8,10 @@ the step splits it; the Pallas kernels in interpret mode, so the draw is
 the inverse CDF of the same uniforms). The port against itself: the
 Transformer at d_model 32, 2 heads and 2 blocks, T=2 against T=1 at one
 worker; the collectives a step, by group; a checkpoint carried T=2 → T=1 →
-T=2. Then the refusals, with the JAX Trainer's messages.
+T=2. Then the refusals, with the JAX Trainer's messages (the gradient wires,
+async refresh and ``restore_elastic`` under a second axis are held in
+``test_torch_port_mesh_wires*.py``, ``test_torch_port_mesh_stochastic.py``
+and ``test_torch_port_mesh_async.py``).
 
 Tolerances. Against JAX, as the JAX package's own test holds its sharded
 step to its unsharded one (``tests/test_tensor_parallel.py:168-176``):
@@ -342,13 +345,6 @@ def test_refusals_carry_jax_messages():
     _refused(ValueError, "host_stream requires a data-only mesh (no tensor/fsdp axis); "
              "drop tensor_parallel/fsdp_parallel", tensor_parallel=2,
              data_placement="host_stream")
-
-
-@pytest.mark.parametrize("kw", [dict(grad_compression="int8"),
-                                dict(grad_compression="stochastic"),
-                                dict(sampler="scoretable", refresh_mode="async", world_size=1)])
-def test_unported_compositions_name_item_7b(kw):
-    _refused(NotImplementedError, "Queue 1 item 7b", tensor_parallel=2, **kw)
 
 
 def test_second_axis_needs_world_times_n_ranks():

@@ -354,7 +354,7 @@ def test_refusals_are_jax_s():
                        r"\(model='transformer'\|'vit'\), got 'bilstm_attention'"):
         Trainer(TrainConfig(model="bilstm_attention", dataset="synthetic_seq", world_size=1,
                             augmentation="none", moe_experts=4), device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="Queue 1 item 8"):
         MoEMLP(4, 8, ep_axis="expert")
     cfg = TrainConfig()
     assert (cfg.moe_experts, cfg.moe_aux_weight) == (None, 0.01)

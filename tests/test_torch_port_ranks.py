@@ -19,6 +19,7 @@ tensors and numbers.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 import torch.distributed as dist
@@ -62,10 +63,12 @@ def counting_all_reduces(groups: bool = False):
 
 @contextlib.contextmanager
 def counting_collectives(kinds=("all_reduce", "all_gather_into_tensor",
-                                "reduce_scatter_tensor"), groups: bool = True):
+                                "reduce_scatter_tensor", "all_to_all_single"),
+                         groups: bool = True):
     """Record the ``torch.distributed`` collectives of ``kinds`` made
-    inside: with ``groups`` each as ``(kind, shape, ranks of its group)``
-    (``all_reduce`` alone without ``kind``), else its input's shape."""
+    inside: with ``groups`` each as ``(kind, shape, ranks of its group,
+    dtype)`` (``all_reduce`` alone as ``(shape, ranks)``), else its input's
+    shape."""
     calls = []
     originals = {kind: getattr(dist, kind) for kind in kinds}
 
@@ -78,7 +81,8 @@ def counting_collectives(kinds=("all_reduce", "all_gather_into_tensor",
             if groups:
                 group = kwargs.get("group")
                 entry = (shape, group_ranks(group))
-                calls.append(entry if kinds == ("all_reduce",) else (kind, *entry))
+                calls.append(entry if kinds == ("all_reduce",)
+                             else (kind, *entry, tensor.dtype))
             else:
                 calls.append(shape)
             return originals[kind](*args, **kwargs)
@@ -669,20 +673,35 @@ def ladder_rank(config_kw, data, steps, die_rank, die_step):
         trainer.close()
 
 
+def restored_state(state) -> dict:
+    """Copies of the gathered whole model and Adam state, and the EMA."""
+    from mercury_tpu_torch.parallel.mesh import full_optimizer_state, full_state_dict
+
+    adam = full_optimizer_state(state.model, state.optimizer.state_dict())["state"]
+    return dict(full={k: v.clone() for k, v in full_state_dict(state.model).items()},
+                adam={i: {k: v.clone() if torch.is_tensor(v) else v for k, v in st.items()}
+                      for i, st in adam.items()},
+                ema=(float(state.ema.value), int(state.ema.count)))
+
+
 def mesh_rank(jobs):
     """Each job one ``Trainer`` of a ``world_size × N`` mesh on the CPU
     (``job``: ``config`` keywords; ``model``, None for the Trainer's own, a
     ``create_model`` keyword dict with its ``name``, or ``{"tiny_resnet":
     width}``; ``steps``; optionally ``params`` an unsharded state dict to
     load, ``workers`` each worker's JAX stream permutation and EMA,
-    ``draws`` each worker's ``Draws`` a step, ``save`` a directory saved
-    into after ``save_at`` steps, ``restore`` a directory restored from
-    first, ``evaluate`` to evaluate and predict at the end). Under
-    ``scan_steps=K`` a step is a chunk of K. Returns, a job each: the
-    rank's place in the mesh and its groups, its shards before and after
-    the steps, Adam's local moments, each step's loss, selection, gradient
-    norm and collectives, the EMA's count and the gathered unsharded state
-    at the end."""
+    ``draws`` each worker's ``Draws`` a step, ``synced`` an unsharded
+    state dict a step loaded after it (the JAX step's parameters; the
+    gathered state before the load is kept a step), ``save`` a directory
+    saved into after ``save_at`` steps, ``restore`` a directory restored
+    from first, ``restore_elastic`` one restored elastically, ``evaluate``
+    to evaluate and predict at the end). Under ``scan_steps=K`` a step is a
+    chunk of K. Returns, a job each: the rank's place in the mesh and its
+    groups, its shards before and after the steps, Adam's local moments,
+    each step's loss, sparse rate, selection, gradient norm and
+    collectives, the EMA's count and the gathered unsharded state at the
+    end (and after each step under ``synced``), the gathered Adam state,
+    and the score table."""
     from mercury_tpu_torch.parallel.mesh import full_state_dict, load_full_state_dict
     from mercury_tpu_torch.parallel.mesh import full_optimizer_state
 
@@ -690,18 +709,12 @@ def mesh_rank(jobs):
         torch.set_num_threads(1)
     out = []
     for job in jobs:
-        config = TrainConfig(**job["config"])
-        spec, model = job.get("model"), None
-        if spec is not None and "tiny_resnet" in spec:
-            model = tiny_resnet(seed=0, width=spec["tiny_resnet"])
-        elif spec is not None:
-            kw = dict(spec)
-            model = create_model(kw.pop("name"), 10, torch.Generator().manual_seed(0),
-                                 tuple(kw.pop("sample_shape")), **kw)
-        trainer = Trainer(config, device="cpu", model=model)
-        mesh, state = trainer.mesh, trainer.state
+        trainer = _mesh_trainer(job)
+        config, mesh, state = trainer.config, trainer.mesh, trainer.state
         if job.get("restore"):
             trainer.restore(job["restore"])
+        if job.get("restore_elastic"):
+            trainer.restore_elastic(job["restore_elastic"])
         if job.get("params") is not None:
             load_full_state_dict(state.model, job["params"])
         if job.get("workers") is not None:
@@ -714,7 +727,9 @@ def mesh_rank(jobs):
                       model_ranks=None if mesh.model is None else group_ranks(mesh.model.group),
                       step0=state.step,
                       local0={k: v.detach().clone() for k, v in state.model.state_dict().items()},
-                      losses=[], selected=[], grad_norms=[], calls=[])
+                      restored=restored_state(state) if job.get("restore_elastic") else None,
+                      losses=[], sparse_rates=[], selected=[], grad_norms=[], calls=[],
+                      full_steps=[])
         for i in range(job["steps"]):
             draws = None if job.get("draws") is None else job["draws"][trainer.rank][i]
             with counting_collectives() as calls:
@@ -722,10 +737,15 @@ def mesh_rank(jobs):
                 m = (trainer.train_chunk() if config.scan_steps > 1
                      else trainer.train_step(draws))
             result["losses"].extend(m["train/loss"].reshape(-1).tolist())
+            result["sparse_rates"].extend(m["train/sparse_rate"].reshape(-1).tolist())
             result["selected"].append(m["sampler/selected"].clone())
             if "train/grad_norm" in m:
                 result["grad_norms"].extend(m["train/grad_norm"].reshape(-1).tolist())
             result["calls"].append(calls)
+            if job.get("synced") is not None:
+                result["full_steps"].append({k: v.clone() for k, v in
+                                             full_state_dict(state.model).items()})
+                load_full_state_dict(state.model, job["synced"][i])
             if job.get("save") and job.get("save_at") == i + 1:
                 trainer.save(job["save"])
         adam = state.optimizer.state_dict()["state"]
@@ -743,3 +763,153 @@ def mesh_rank(jobs):
         trainer.close()
         out.append(result)
     return out
+
+
+def wire_rank(leaves, specs, uniforms, n):
+    """The per-leaf int8 wire on a ``W × n`` mesh (``world_size`` ranks
+    /n workers): each leaf ``leaves[w][i]`` is worker w's whole leaf,
+    which this rank cuts to its shard along the dim ``specs[i]`` claims;
+    ``uniforms[w][i]`` its whole ``(u1, u2)`` (None where the leaf takes
+    the plain mean). Returns the tree's results and ``compressed_pmean_nd``
+    of leaf 0 alone (with its split, dim 0), gathered back to the whole
+    leaves over the model group."""
+    from mercury_tpu_torch.parallel.collectives import (
+        compressed_pmean_nd,
+        compressed_pmean_tree_sharded,
+        wire_chunk_dim,
+    )
+    from mercury_tpu_torch.parallel.mesh import gather_dim, make_tp_mesh
+
+    torch.set_num_threads(1)
+    w_size = collectives.world() // n
+    mesh = make_tp_mesh(w_size, n)
+    w, m = mesh.data_rank, mesh.model_rank
+    xs, u1s, u2s, splits = [], [], [], []
+    for x, spec, pair in zip(leaves[w], specs, uniforms[w]):
+        x = torch.as_tensor(x)
+        split = next((d for d, e in enumerate(spec or ()) if e is not None), None)
+        dim = wire_chunk_dim(tuple(x.shape), spec)
+        splits.append(split)
+        xs.append(x if split is None else x.chunk(n, split)[m].clone())
+        if pair is None:
+            u1s.append(None)
+            u2s.append(None)
+            continue
+        at = None if split is None else 2 + (split if split < dim else split - 1)
+        u1s.append(torch.as_tensor(pair[0]) if at is None else
+                   torch.as_tensor(pair[0]).chunk(n, at)[m])
+        u2s.append(torch.as_tensor(pair[1]) if at is None else
+                   torch.as_tensor(pair[1]).chunk(n, at)[m])
+    out = compressed_pmean_tree_sharded(xs, u1s, u2s, specs, mesh.data_group, mesh.model)
+    nd = compressed_pmean_nd(xs[0], u1s[0], u2s[0], wire_chunk_dim(tuple(xs[0].shape),
+                                                                   specs[0]),
+                             mesh.data_group, None if splits[0] is None else mesh.model)
+    whole = [o if s is None else gather_dim(o, s, mesh.model) for o, s in zip(out, splits)]
+    nd = nd if splits[0] is None else gather_dim(nd, splits[0], mesh.model)
+    return dict(rank=collectives.rank(), worker=w, tree=whole, nd=nd)
+
+
+@contextlib.contextmanager
+def no_fleet_workers():
+    """Scorer fleets built inside start no worker thread: their chunks
+    come only from ``score_once``, so a run is deterministic."""
+    spawn_workers = scorer_fleet.ScorerFleet._spawn_workers
+
+    def idle(self):
+        self._stop, self._threads = threading.Event(), []
+
+    scorer_fleet.ScorerFleet._spawn_workers = idle
+    try:
+        yield
+    finally:
+        scorer_fleet.ScorerFleet._spawn_workers = spawn_workers
+
+
+def _mesh_trainer(job):
+    spec, model = job.get("model"), None
+    if spec is not None and "tiny_resnet" in spec:
+        model = tiny_resnet(seed=0, width=spec["tiny_resnet"])
+    elif spec is not None:
+        kw = dict(spec)
+        model = create_model(kw.pop("name"), 10, torch.Generator().manual_seed(0),
+                             tuple(kw.pop("sample_shape")), **kw)
+    return Trainer(TrainConfig(**job["config"]), device="cpu", model=model)
+
+
+def async_steps(job):
+    """Async refresh with the chunks given: before step t the scorer's
+    rank queues one ``score_once`` chunk made to be ``ages[t]`` steps old
+    at the step's tick (None: none), then every rank steps. Returns each
+    step's table, loss and selection, the chunks applied ``(tick step,
+    chunk step)``, whether this rank holds a scorer and the scorer threads
+    alive."""
+    with no_fleet_workers():
+        trainer = _mesh_trainer(job)
+    fleet = trainer._scorer_fleet
+    applied = []
+    apply = trainer._apply_chunks
+
+    def recorded(chunks, step):
+        applied.extend((step, c.step) for c in chunks)
+        apply(chunks, step)
+
+    trainer._apply_chunks = recorded
+    out = dict(rank=collectives.rank(), model_rank=trainer.mesh.model_rank,
+               has_scorer=fleet is not None, tables=[], losses=[], selected=[])
+    try:
+        for age in job["ages"]:
+            if fleet is not None and age is not None:
+                chunk = fleet.score_once()
+                fleet._ready.put(chunk._replace(step=trainer.state.step + 1 - age))
+            m = trainer.train_step()
+            out["tables"].append(trainer.state.scoretable.scores.clone())
+            out["losses"].append(float(m["train/loss"]))
+            out["selected"].append(m["sampler/selected"].clone())
+        out.update(applied=applied, threads=sorted(
+            t.name for t in threading.enumerate() if t.name.startswith("mercury-scorer")))
+    finally:
+        trainer.close()
+    return out
+
+
+def ladder_steps(job):
+    """The supervised async ladder under a second axis with live workers:
+    ``fit`` of ``job["steps"]`` steps, the scorer's fault in the config.
+    Returns each tick's level, the table after every refresh tick, the
+    chunks applied and the supervisor's transitions."""
+    trainer = _mesh_trainer(job)
+    sup = trainer.supervisor
+    levels, tables, applied = [], [], []
+    tick, refresh, apply = sup.tick, trainer._refresh_tick, trainer._apply_chunks
+
+    def ticked(step):
+        tick(step)
+        levels.append((step, sup.level()))
+
+    def refreshed(step, advanced=1):
+        refresh(step, advanced)
+        tables.append(trainer.state.scoretable.scores.clone())
+
+    def recorded(chunks, step):
+        applied.extend((step, c.step) for c in chunks)
+        apply(chunks, step)
+
+    sup.tick, trainer._refresh_tick, trainer._apply_chunks = ticked, refreshed, recorded
+    try:
+        trainer.fit(steps=job["steps"])
+        return dict(rank=collectives.rank(), levels=levels, tables=tables, applied=applied,
+                    has_scorer=trainer._scorer_fleet is not None,
+                    transitions=sup.summary()["transitions"])
+    finally:
+        trainer.close()
+
+
+def mesh_async_rank(jobs):
+    """Each job ``(kind, job)``: ``"async"`` :func:`async_steps`,
+    ``"ladder"`` :func:`ladder_steps`, ``"mesh"`` :func:`mesh_rank` of the
+    one job."""
+    if dist.is_initialized():
+        torch.set_num_threads(1)
+    bodies = {"async": async_steps, "ladder": ladder_steps,
+              "mesh": lambda job: mesh_rank([job])[0]}
+    return [bodies[kind](job) for kind, job in jobs]

@@ -305,7 +305,7 @@ def test_initial_distributions_are_flax():
 
 @pytest.mark.parametrize("kw,item", [(dict(sp_axis="seq"), "item 8"),
                                      (dict(sp_impl="zigzag"), "item 8"),
-                                     (dict(moe_experts=4, moe_ep_axis="expert"), "item 7")])
+                                     (dict(moe_experts=4, moe_ep_axis="expert"), "item 8")])
 def test_unported_transformer_options_raise(kw, item):
     with pytest.raises(ValueError, match=item):
         create_model("transformer", 10, None, (8, 4), **kw)
