@@ -140,7 +140,7 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    alone), the sentinel and ``table_refresh_draw`` at R=1 against the plain
    versions at L=5000 and 50,000; (b) phase 5's config with the plain and
    the fused ingest: the sync step, the async step with a live fleet and
-   one with ``scorer_throttle_s=0.005``, 20 steps a turn in turns (1
+   one with ``scorer_throttle_s=0.005``, 10 steps a turn in turns (1
    nll_fwd a step against sync's 2; chunks applied and rejected, the
    staleness, the fleet's rows/s and launches, a snapshot's ms); (c) phase
    10 (b)'s streamed scoretable under async (32 rows streamed a step
@@ -152,7 +152,7 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    fleet's, its ``nll_fwd`` counted apart on its own stream, tenant 1's
    chunk from ``chunk_seed(seed, 0x100000)`` against the plain NLL; (b)
    phase 5's config, plain and fused ingest: sync, async with the host
-   fleet and async with ``scorer_backend="device"``, 20 steps a turn in
+   fleet and async with ``scorer_backend="device"``, 10 steps a turn in
    six turns (chunks scored and applied a step, staleness, the scorer's
    launches a step; the device arm picks at most 2 chunks a snapshot
    epoch); (c) two tenants at "3,1" on the host backend against one, in
@@ -203,7 +203,7 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    ``refresh_mode="async"`` with a ``log_dir``: (a) ``scorer_die@step=5``
    restarted once within the budget (``mercury-scorer-0-r1``, level 0,
    the restart's journal parent the ``fault/fired``), then unsupervised,
-   supervised and supervised-without-journal fits of 30 steps in six turns
+   supervised and supervised-without-journal fits of 15 steps in six turns
    (steps/s, host µs a step, the tick's host µs); (b) budget 0, a probe
    and a sync refresh every step, two every-step ``scorer_die`` and
    ``host_slow``: ``fit`` ends green at level 3 with ``sampler/is_active``
@@ -332,7 +332,24 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    and at ``world_size=1`` (this process): the gathered model and Adam
    state equal the file's by sha256, the EMA the rows' mean, 3 steps with
    the selections bit-equal in the model group and the losses within rel
-   1e-5 of W=1's.
+   1e-5 of W=1's;
+24. sequence parallelism (``train/sp_step.py``), gloo ranks on card 0
+   under deterministic cuDNN, phase 20's Transformer (662,410 parameters)
+   on ``synthetic_seq`` in float32, batch 32, a pool of 320, Adam: (a)
+   ``make_dp_sp_mercury_step`` at W=1 × S=2 under ``ring``, ``zigzag``
+   (causal) and ``ulysses``, 3 + 10 steps each on two ranks, against S=1
+   in this process from the same weights and draws (non-causal, and
+   causal for zigzag): step 1's loss within rel 1e-5 and its selections
+   equal (the step where they first part printed), the two ranks'
+   selections and losses equal at every step, 2/1/1 launches a step on
+   every rank at [320, 10] and [32, 10], the collectives a step by group,
+   kind and bytes; (b) ``ring`` at W=2 × S=2 on four ranks, 3 + 10 steps:
+   the EMA equal on all four, each seq group's selections and losses
+   equal, the collectives a step; (c) the attentions alone at B=2,
+   L=4096, H=4, D=32 in float32, ``ring`` and ``ulysses`` and causal
+   ``zigzag`` at S=2 against ``dense_attention`` here: the output's and
+   the gradients' largest errors, each rank's forward peak memory (below
+   dense's), and the forward's and backward's ms.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -503,13 +520,13 @@ GRAD_RESUME = 4           # steps live and restored after a save (ZeRO arms)
 # sync step in turns, and with the fleet throttled; phase 10 (b)'s
 # streamed scoretable under async.
 ASYNC_TABLE = dict(SCORETABLE, refresh_mode="async")
-ASYNC_STEPS = 20
+ASYNC_STEPS = 10
 ASYNC_TURNS = ("sync", "async", "throttled", "throttled", "async", "sync")
 ASYNC_THROTTLE_S = 0.005
 # Phase 14, the scorer service: (b) sync, the async host fleet and the
 # async device backend in turns; (c) two tenants at "3,1" against one, in
 # turns; (d) the device backend's lockstep at W=2 over gloo, run twice.
-SERVICE_STEPS = 20
+SERVICE_STEPS = 10
 SERVICE_TURNS = ("sync", "host", "device", "device", "host", "sync")
 TENANT_STEPS = 20
 TENANT_TURNS = ("one", "two", "two", "one")
@@ -522,7 +539,7 @@ LOCKSTEP_STEPS = 16
 CLI_ARGS = ["--model", "resnet18", "--dataset", "synthetic", "--world-size", "1"]
 CLI_FIT_STEPS = 40
 CLI_LOG_EVERY = 10
-CLI_RATE_STEPS = 30
+CLI_RATE_STEPS = 15
 CLI_RATE_TURNS = ("none", "records", "log_dir", "log_dir", "records", "none")
 CLI_RATE_ARMS = {"none": dict(log_every=0, heartbeat_every=0),
                  "records": dict(log_every=CLI_LOG_EVERY, heartbeat_every=0),
@@ -547,7 +564,7 @@ STALL_STEPS = 10          # (f)
 SUPERVISED = dict(ASYNC_TABLE, supervise=True, supervisor_backoff_s=0.0, eval_every=0,
                   log_every=10, heartbeat_every=0)
 SUP_FIT = 20              # (a) steps after the warm-up; the death at step 5
-SUP_RATE = 30             # (a) steps a turn of the rates
+SUP_RATE = 15             # (a) steps a turn of the rates
 SUP_TURNS = ("plain", "supervised", "journal_off", "journal_off", "supervised", "plain")
 CHAOS = ("scorer_die@step=1,every=1;scorer_die@step=1,every=1;"
          "host_slow@step=1,every=1,secs=0.02")
@@ -564,7 +581,7 @@ OBS = dict(model="resnet18", dataset="synthetic", world_size=1, eval_every=0, lo
 OBS_STEPS = 30            # (a) steps of each fit
 OBS_NAN_STEP = 12         # (a) the injected NaN: the tick at step 20 opens the window
 OBS_WINDOW = 3            # (a) steps of the profiler window
-OBS_TURN = 30             # (a) steps a turn of the rates
+OBS_TURN = 15             # (a) steps a turn of the rates
 # The arms of the rates: the tracer on, and the status server scraped once
 # a second (a fast prober) or ten times a second (30 scrapes a second).
 OBS_TURNS = ("off", "trace", "serve10", "serve1", "serve1", "serve10", "trace", "off")
@@ -646,6 +663,21 @@ ASYNC_STEP = {"nll_fwd": 1, "nll_bwd": 1, "score_and_draw": 0, "table_refresh_dr
               "augment_normalize": 1}
 COMP_RESTORED_STEPS = 3
 COMP_RESTORE_RTOL = 1e-5  # (c) T=2 against T=1 after the restore, float32
+# Phase 24, sequence parallelism, gloo ranks on card 0: (a) phase 20's
+# Transformer on synthetic_seq at W=1 × S=2 under each sp_impl against S=1
+# in this process; (b) the ring at W=2 × S=2; (c) the attentions alone at
+# a long length against dense attention.
+SP_ARMS = {"ring": dict(sp_impl="ring"), "zigzag": dict(sp_impl="zigzag", causal=True),
+           "ulysses": dict(sp_impl="ulysses")}
+SP_S = 2                  # the seq axis
+SP_STEPS = 10             # timed steps after the warm-up
+SP_BATCH, SP_PRESAMPLE = 32, 10
+SP_LR = 1e-3              # Adam
+SP_LONG = (2, 4096, 4, 32)  # (c): B, L, H, D
+SP_LONG_IMPLS = (("ring", False), ("ulysses", False), ("zigzag", True))
+SP_LONG_REPEATS = 3       # timed forwards and backwards after one untimed
+SP_LONG_ATOL = 1e-4       # (c): the output against dense attention
+SP_LONG_GRAD_RTOL = 1e-3  # (c): the gradients, of max(|g|, 1)
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -749,6 +781,7 @@ def main() -> int:
     mesh = run_phase("mesh", mesh_phase, torch, card, main_path)
     compositions = run_phase("mesh compositions", mesh_compositions_phase, torch, card,
                              main_path)
+    sp = run_phase("sequence parallelism", sequence_parallel_phase, torch, card)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -769,7 +802,8 @@ def main() -> int:
                    "sequence_models": sequence["launches"][k["name"]],
                    "experts_and_chunks": experts["launches"][k["name"]],
                    "mesh": mesh["launches"][k["name"]],
-                   "mesh_compositions": compositions["launches"][k["name"]]}
+                   "mesh_compositions": compositions["launches"][k["name"]],
+                   "sequence_parallel": sp["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -789,7 +823,8 @@ def main() -> int:
          "observability": observed["summary"], "image_family": image["summary"],
          "sequence_family": sequence["summary"],
          "experts_and_chunks": experts["summary"], "mesh": mesh["summary"],
-         "mesh_compositions": compositions["summary"]},
+         "mesh_compositions": compositions["summary"],
+         "sequence_parallel": sp["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6259,14 +6294,15 @@ def experts_chunks_phase(torch, card: str) -> dict:
 
 
 # ------------------------------------------------------------------ phase 22
-def counting_by_group(torch, mesh):
+def counting_by_group(torch, mesh, world: str = "data"):
     """Record each ``torch.distributed`` collective of :data:`MESH_KINDS`
-    with its group's name in ``mesh`` (``data`` or the second axis's),
-    the bytes handed in, their dtype and its host seconds (gloo returns
-    when done); returns the list and the undo."""
+    with its group's name in ``mesh`` (``data``, the second axis's, or
+    ``world`` for the default group), the bytes handed in, their dtype and
+    its host seconds (gloo returns when done); returns the list and the
+    undo."""
     import torch.distributed as dist
 
-    names = {}
+    names = {id(None): world}
     if mesh.model is not None:
         names[id(mesh.model.group)] = mesh.axis_names[1]
     calls, originals = [], {k: getattr(dist, k) for k in MESH_KINDS}
@@ -6847,6 +6883,387 @@ def mesh_compositions_phase(torch, card: str, main_path) -> dict:
                "steps_per_s": rate, "seconds": seconds, "card": card}
     return {"launches": launches, "summary": summary}
 
+
+# ------------------------------------------------------------------ phase 24
+def sp_model(torch, kw: dict, sp: bool):
+    """Phase 20's Transformer (d_model 128, 4 heads, 2 blocks) on
+    ``synthetic_seq``'s [32, 16] samples from seed 0, with ``kw``'s
+    ``sp_impl`` and ``causal``, built with ``sp_axis="seq"`` if ``sp``."""
+    from mercury_tpu_torch.models import create_model
+
+    kw = dict(kw)
+    impl = kw.pop("sp_impl")
+    model = create_model("transformer", 10, torch.Generator().manual_seed(0), (32, 16),
+                         sp_axis="seq" if sp else None, sp_impl=impl, **kw)
+    n = sum(p.numel() for p in model.parameters())
+    check(n == PARAMETERS["transformer", 10], f"sequence parallelism: {n} parameters")
+    return model
+
+
+def sp_data(torch, dev):
+    """``synthetic_seq``'s train split on ``dev``: [5000, 32, 16] float32
+    and int32 labels."""
+    from mercury_tpu_torch.data.cifar import synthetic_sequences
+
+    (x, y), _ = synthetic_sequences(10, 5000, 1000, seed=0)
+    return (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev, dtype=torch.int32))
+
+
+def sp_arm(torch, mk, mesh, kw: dict, sp: bool, label: str) -> dict:
+    """One arm of phase 24 on this rank of ``mesh``: the Mercury step of
+    ``train/sp_step.py`` (telemetry on, Adam at lr 1e-3, batch 32, a pool of
+    320) for 3 warm-up and ``SP_STEPS`` timed steps with the launches and
+    the collectives (by kind, group and dtype) counted over the timed
+    steps; the first step's kernel shapes recorded. Returns every step's
+    losses and selections, the EMA, the launches, the collectives a step
+    and the seconds."""
+    from mercury_tpu_torch.parallel.distributed import device
+    from mercury_tpu_torch.train.sp_step import init_sp_mercury_state, make_dp_sp_mercury_step
+
+    dev = device()
+    x, y = sp_data(torch, dev)
+    model = sp_model(torch, kw, sp)
+    opt = torch.optim.Adam(model.parameters(), lr=SP_LR)
+    state = init_sp_mercury_state(model, opt, mesh, x.shape[0], seed=0, device=dev)
+    step = make_dp_sp_mercury_step(model, mesh, SP_BATCH, SP_PRESAMPLE, telemetry=True)
+    seen, undo = record_kernel_inputs(mk)
+    try:
+        metrics = [step(state, x, y)[1]]
+    finally:
+        undo()
+    shapes = {k: sorted(list(a[0].shape) if k != "score_and_draw_kernel"
+                        else [a[0].numel(), a[2].numel()] for a in v) for k, v in seen.items()}
+    want = {"nll_fwd_kernel": [[32, 10], [320, 10]], "nll_bwd_kernel": [[32, 10]],
+            "score_and_draw_kernel": [[320, 32]]}
+    check(shapes == want, f"{label} rank {mesh.rank}: a step's kernel shapes {shapes}")
+    metrics += [step(state, x, y)[1] for _ in range(WARMUP_STEPS - 1)]
+    calls, undo = counting_by_group(torch, mesh, world="world")
+    try:
+        mk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics += [step(state, x, y)[1] for _ in range(SP_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(mk.launch_counts)
+    finally:
+        undo()
+    want = {k: v * SP_STEPS for k, v in POOL_STEP.items()}
+    check(counts == want, f"{label} rank {mesh.rank}: launches {counts}, expected {want}")
+    losses = torch.stack([m["train/loss"] for m in metrics]).cpu()
+    check(bool(torch.isfinite(losses).all()), f"{label}: losses {losses.tolist()}")
+    for m in metrics:
+        check(0.0 < float(m["sampler/ess"]) <= 1.0 and math.isfinite(float(
+            m["train/grad_norm"])), f"{label}: telemetry {m}")
+    by_group = {}
+    for kind, group, nbytes, _, dtype in calls:
+        row = by_group.setdefault(f"{kind}/{group}/{dtype}", [0, 0])
+        row[0] += 1
+        row[1] += nbytes
+    return {"rank": mesh.rank, "data_rank": mesh.data_rank, "seq_rank": mesh.model_rank,
+            "losses": losses.tolist(), "selected": torch.stack(
+                [m["sampler/selected"] for m in metrics]).cpu(),
+            "ema": state.ema.value.item(), "launches": counts, "seconds": dt,
+            "collectives": {k: {"calls": c / SP_STEPS, "bytes": b / SP_STEPS}
+                            for k, (c, b) in by_group.items()}}
+
+
+def sp_long_inputs(torch, causal_zigzag: bool):
+    """(c)'s q, k, v and the cotangent, [2, 4096, 4, 32] float32 on the
+    host from seed 24, in the zigzag layout of S=2 if asked."""
+    from mercury_tpu_torch.parallel.sequence import zigzag_order
+
+    b, l, h, d = SP_LONG
+    gen = torch.Generator().manual_seed(24)
+    ts = [torch.randn((b, l, h, d), generator=gen) for _ in range(4)]
+    if causal_zigzag:
+        perm = torch.as_tensor(zigzag_order(l, SP_S))
+        ts = [t[:, perm] for t in ts]
+    return ts
+
+
+def sp_long(torch, impl: str, causal: bool, group) -> dict:
+    """(c) on this rank (or with ``group`` None, dense attention on the
+    whole sequence): the forward's peak memory above what was allocated
+    before it (``max_memory_allocated``), the median of ``SP_LONG_REPEATS``
+    forwards and backwards (host clock around synchronized work), and the
+    output and gradients on the host."""
+    from mercury_tpu_torch.parallel.distributed import device
+    from mercury_tpu_torch.parallel.sequence import attention, dense_attention
+
+    dev = device()
+    q, k, v, ct = sp_long_inputs(torch, impl == "zigzag")
+    if group is not None:
+        q, k, v, ct = (t.chunk(SP_S, dim=1)[group.rank].contiguous() for t in (q, k, v, ct))
+    q, k, v, ct = (t.to(dev) for t in (q, k, v, ct))
+
+    def forward(q, k, v):
+        if group is None:
+            return dense_attention(q, k, v, causal=causal)
+        return attention(q, k, v, causal=causal, sp_axis="seq", sp_impl=impl, group=group)
+
+    fwd, bwd, peak = [], [], []
+    for _ in range(SP_LONG_REPEATS + 1):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = forward(*leaves)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        peak.append(torch.cuda.max_memory_allocated() - base)
+        (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        fwd.append((t1 - t0) * 1e3)
+        bwd.append((time.perf_counter() - t1) * 1e3)
+    out_cpu = out.detach().cpu()
+    grads = [t.grad.cpu() for t in leaves]
+    del out, leaves
+    torch.cuda.empty_cache()
+    # The first round builds the caches; the medians are the others'.
+    return {"impl": impl, "causal": causal, "forward_peak_bytes": max(peak[1:]),
+            "forward_ms": statistics.median(fwd[1:]), "backward_ms": statistics.median(bwd[1:]),
+            "out": out_cpu, "grads": grads}
+
+
+def sp_body(arms):
+    """One gloo rank of phase 24 (a) and (c) (run by ``spawn``): the
+    W=1 × S=2 mesh, each arm of ``arms`` under deterministic cuDNN, then
+    each attention of (c) at L=4096."""
+    import torch
+
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.mesh import make_tp_mesh
+
+    mesh = make_tp_mesh(1, SP_S, "data", "seq")
+    undo = deterministic_cudnn(torch)
+    try:
+        out = {name: sp_arm(torch, mk, mesh, SP_ARMS[name], True, f"sp (a) {name}")
+               for name in arms}
+    finally:
+        undo()
+    out["long"] = [sp_long(torch, impl, causal, mesh.model) for impl, causal in SP_LONG_IMPLS]
+    return out
+
+
+def sp_grid_body():
+    """One gloo rank of phase 24 (b): the ring at W=2 × S=2."""
+    import torch
+
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.mesh import make_tp_mesh
+
+    mesh = make_tp_mesh(2, SP_S, "data", "seq")
+    undo = deterministic_cudnn(torch)
+    try:
+        return sp_arm(torch, mk, mesh, SP_ARMS["ring"], True, "sp (b) ring W=2 × S=2")
+    finally:
+        undo()
+
+
+def sequence_parallel_phase(torch, card: str) -> dict:
+    """Phase 24: sequence parallelism (see the module docstring). Two gloo
+    process groups on card 0: two ranks for (a)'s three arms and (c), four
+    for (b); (a)'s S=1 arms and (c)'s dense attention run here."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.distributed import spawn
+    from mercury_tpu_torch.parallel.mesh import make_tp_mesh
+    from mercury_tpu_torch.parallel.sequence import zigzag_inverse
+
+    seconds = {}
+    t0 = time.perf_counter()
+    pair = spawn(sp_body, SP_S, "gloo", tuple(SP_ARMS), devices=[0] * SP_S, timeout_s=600)
+    seconds["s2_and_long"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = spawn(sp_grid_body, 2 * SP_S, "gloo", devices=[0] * 2 * SP_S, timeout_s=600)
+    seconds["w2_s2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one_mesh = make_tp_mesh(1, 1, "data", "seq")
+    undo = deterministic_cudnn(torch)
+    try:
+        one = {c: sp_arm(torch, mk, one_mesh, dict(sp_impl="ring", causal=c), False,
+                         f"sp S=1 {'causal' if c else 'full'}") for c in (False, True)}
+    finally:
+        undo()
+    dense = {c: sp_long(torch, "dense", c, None) for c in (False, True)}
+    seconds["s1_and_dense"] = time.perf_counter() - t0
+    launches = {k: 0 for k in mk.KERNELS}
+    for r in [a for rank in pair for name, a in rank.items() if name != "long"] + grid \
+            + list(one.values()):
+        for k, v in r["launches"].items():
+            launches[k] += v
+    # (a) S=2 against S=1 from the same weights and draws.
+    rows = {}
+    for name, kw in SP_ARMS.items():
+        base = one[bool(kw.get("causal"))]
+        for rank in pair:
+            a = rank[name]
+            rel = abs(a["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
+            check(rel <= 1e-5, f"sp (a) {name} rank {a['rank']}: step 1's loss "
+                  f"{a['losses'][0]} against S=1's {base['losses'][0]}, rel {rel:.2e}")
+            check(torch.equal(a["selected"][0], base["selected"][0]),
+                  f"sp (a) {name} rank {a['rank']}: step 1 selected other indices than S=1")
+        a0, a1 = pair[0][name], pair[1][name]
+        check(torch.equal(a0["selected"], a1["selected"]) and a0["losses"] == a1["losses"],
+              f"sp (a) {name}: the two seq ranks drew or trained apart")
+        steps = len(base["losses"])
+        apart = next((i for i in range(steps) if not torch.equal(a0["selected"][i],
+                                                                 base["selected"][i])), steps)
+        rows[name] = {"first_rel": abs(a0["losses"][0] - base["losses"][0])
+                      / abs(base["losses"][0]), "parts_at_step": apart + 1 if apart < steps
+                      else None, "losses": a0["losses"], "s1_losses": base["losses"],
+                      "steps_per_s": [SP_STEPS / r[name]["seconds"] for r in pair],
+                      "collectives": a0["collectives"]}
+        print(f"sp (a) {name} ({'causal' if kw.get('causal') else 'full'}) W=1 × S=2 against "
+              f"S=1: step 1 loss rel {rows[name]['first_rel']:.2e}, selections "
+              + (f"first part at step {apart + 1} of {steps}" if apart < steps else
+                 f"equal at all {steps} steps")
+              + f"; losses first {a0['losses'][0]:.6f} last {a0['losses'][-1]:.6f} (S=1 "
+              f"{base['losses'][-1]:.6f}); launches a rank {a0['launches']}; "
+              f"{rows[name]['steps_per_s'][0]:.2f} steps/s a rank (S=1 "
+              f"{SP_STEPS / base['seconds']:.2f}) [{card}]")
+        print("  collectives a step a rank: " + "; ".join(
+            f"{k} {v['calls']:g} calls, {v['bytes']:,.0f} bytes"
+            for k, v in sorted(a0["collectives"].items())))
+    # (b) W=2 × S=2: one EMA, and each seq group's ranks drawing alike.
+    check(len({r["ema"] for r in grid}) == 1, f"sp (b): EMAs {[r['ema'] for r in grid]}")
+    for r in grid:
+        peer = grid[r["data_rank"] * SP_S]
+        check(torch.equal(r["selected"], peer["selected"]) and r["losses"] == peer["losses"],
+              f"sp (b): rank {r['rank']} drew or trained apart from rank {peer['rank']}")
+    check(not torch.equal(grid[0]["selected"], grid[SP_S]["selected"]),
+          "sp (b): the two workers drew the same indices")
+    print(f"sp (b) ring W=2 × S=2: EMA {grid[0]['ema']:.6f} on all four ranks, each seq "
+          f"group's selections equal at all {WARMUP_STEPS + SP_STEPS} steps; losses first "
+          f"{grid[0]['losses'][0]:.6f} last {grid[0]['losses'][-1]:.6f}; "
+          + ", ".join(f"rank {r['rank']} {SP_STEPS / r['seconds']:.2f} steps/s" for r in grid)
+          + f" [{card}]")
+    print("  collectives a step a rank: " + "; ".join(
+        f"{k} {v['calls']:g} calls, {v['bytes']:,.0f} bytes"
+        for k, v in sorted(grid[0]["collectives"].items())))
+    # (c) the attentions alone at L=4096 against dense attention.
+    long_rows = []
+    inv = torch.as_tensor(zigzag_inverse(SP_LONG[1], SP_S))
+    for i, (impl, causal) in enumerate(SP_LONG_IMPLS):
+        parts = [rank["long"][i] for rank in pair]
+        want = dense[causal]
+        out = torch.cat([p["out"] for p in parts], dim=1)
+        grads = [torch.cat([p["grads"][j] for p in parts], dim=1) for j in range(3)]
+        if impl == "zigzag":
+            out, grads = out[:, inv], [g[:, inv] for g in grads]
+        err = float((out - want["out"]).abs().max())
+        gerr = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1.0)
+                   for g, w in zip(grads, want["grads"]))
+        check(err <= SP_LONG_ATOL, f"sp (c) {impl}: output max |err| {err:.2e} against "
+              f"dense, atol {SP_LONG_ATOL}")
+        check(gerr <= SP_LONG_GRAD_RTOL, f"sp (c) {impl}: gradients max |err| {gerr:.2e} "
+              f"of max(|g|, 1), bound {SP_LONG_GRAD_RTOL}")
+        for p in parts:
+            check(p["forward_peak_bytes"] < want["forward_peak_bytes"],
+                  f"sp (c) {impl}: a rank's forward peak {p['forward_peak_bytes']} bytes, "
+                  f"dense's {want['forward_peak_bytes']}")
+        long_rows.append({"impl": impl, "causal": causal, "max_abs_err": err,
+                          "grad_rel_err": gerr,
+                          "forward_peak_bytes": [p["forward_peak_bytes"] for p in parts],
+                          "forward_ms": [p["forward_ms"] for p in parts],
+                          "backward_ms": [p["backward_ms"] for p in parts],
+                          "dense": {k: want[k] for k in ("forward_peak_bytes", "forward_ms",
+                                                         "backward_ms")}})
+        print(f"sp (c) {impl} ({'causal' if causal else 'full'}) S=2 at B, L, H, D = "
+              f"{SP_LONG}: max |err| {err:.2e}, gradients {gerr:.2e} against dense; "
+              f"forward peak a rank " + " | ".join(
+                  f"{p['forward_peak_bytes'] / 1e6:.1f}" for p in parts)
+              + f" MB (dense {want['forward_peak_bytes'] / 1e6:.1f} MB); forward "
+              + " | ".join(f"{p['forward_ms']:.2f}" for p in parts)
+              + f" ms, backward " + " | ".join(f"{p['backward_ms']:.2f}" for p in parts)
+              + f" ms (dense {want['forward_ms']:.2f} and {want['backward_ms']:.2f} ms) "
+              f"[{card}]")
+    check(all(launches[k] > 0 for k in ("nll_fwd", "nll_bwd", "score_and_draw")),
+          f"sp: a kernel of the path never launched: {launches}")
+    print("sp seconds by part " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    summary = {"arms": rows, "grid": [{k: v for k, v in r.items() if k != "selected"}
+                                      for r in grid],
+               "long": long_rows, "seconds": seconds, "card": card}
+    return {"launches": launches, "summary": summary}
+
+
+def shift_forms_body(form: str):
+    """One rank of :func:`shift_forms` (run by ``spawn``). ``form="ring"``:
+    the ring's shift of a [2, 1024] block in the port's form
+    (``ring_shift``: one ``all_to_all_single`` whose splits send to the
+    next rank), ``works`` or ``wrong block``, then the causal ring
+    attention of a [2, 64, 4, 8] sequence over the ranks, its output and
+    gradients. ``form="p2p"``: the same shift as ``batch_isend_irecv``."""
+    import torch
+    import torch.distributed as dist
+
+    from mercury_tpu_torch.parallel.distributed import device
+    from mercury_tpu_torch.parallel.mesh import GroupRef
+    from mercury_tpu_torch.parallel.sequence import ring_attention, ring_shift
+
+    w, r = dist.get_world_size(), dist.get_rank()
+    dev = device()
+    group = GroupRef(dist.group.WORLD, w, r)
+    x = torch.full((2, 1024), float(r), device=dev)
+
+    def verdict(y) -> str:
+        torch.cuda.synchronize()
+        return "works" if bool((y == float((r - 1) % w)).all()) else "wrong block"
+
+    if form == "p2p":
+        y = torch.empty_like(x)
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, (r + 1) % w),
+                                           dist.P2POp(dist.irecv, y, (r - 1) % w)]):
+            req.wait()
+        return {"form": verdict(y)}
+    gen = torch.Generator().manual_seed(3)
+    qkv = [torch.randn((2, 64, 4, 8), generator=gen).chunk(w, dim=1)[r].to(dev)
+           .requires_grad_() for _ in range(3)]
+    out = ring_attention(*qkv, group, causal=True)
+    out.square().sum().backward()
+    return {"form": verdict(ring_shift(x, group)), "out": out.detach().cpu(),
+            "grads": [t.grad.cpu() for t in qkv]}
+
+
+def shift_forms(torch, card: str) -> dict:
+    """Not a phase of the default run: which form of the ring's shift each
+    backend takes with CUDA tensors. Two gloo ranks on card 0, and, where
+    a second card is visible, two NCCL ranks on cards 0 and 1 (NCCL
+    refuses two ranks on one card): the port's form with the causal ring
+    attention, whose output and gradients must be bit-equal across the
+    backends, then ``batch_isend_irecv`` in a launch of its own (a rank
+    that fails it may abort). Run alone: ``python3 -c "import torch,
+    chip_smoke as c; c.shift_forms(torch, c.device_phase(torch))"`` (on
+    four cards for NCCL)."""
+    from mercury_tpu_torch.parallel.distributed import spawn
+
+    backends = {"gloo": [0, 0]}
+    if torch.cuda.device_count() >= 2:
+        backends["nccl"] = [0, 1]
+    else:
+        print(f"shift forms: one card visible, NCCL not run [{card}]")
+    found, rings = {}, {}
+    for backend, devices in backends.items():
+        rings[backend] = spawn(shift_forms_body, 2, backend, "ring", devices=devices,
+                               timeout_s=120)
+        check(all(r["form"] == "works" for r in rings[backend]),
+              f"shift forms: the port's form under {backend}: {rings[backend]}")
+        try:
+            p2p = [r["form"] for r in spawn(shift_forms_body, 2, backend, "p2p",
+                                            devices=devices, timeout_s=120)]
+        except Exception as e:  # the probe's answer: how the form failed
+            p2p = f"failed: {type(e).__name__}: {str(e).strip().splitlines()[-1][:200]}"
+        found[backend] = {"all_to_all_single": "works", "batch_isend_irecv": p2p}
+        print(f"shift forms under {backend} (cards {devices}): {found[backend]} [{card}]")
+    if "nccl" in rings:
+        same = all(torch.equal(a["out"], b["out"]) and all(
+            torch.equal(x, y) for x, y in zip(a["grads"], b["grads"]))
+            for a, b in zip(rings["gloo"], rings["nccl"]))
+        print(f"shift forms: the causal ring attention's output and gradients under nccl "
+              f"bit-equal to gloo's: {same}")
+        check(same, "shift forms: the ring attention differs between gloo and nccl")
+    return found
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):
     """Device busy share, kernel launches a step and device time by kernel

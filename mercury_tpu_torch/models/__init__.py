@@ -54,7 +54,9 @@ def create_model(name: str, num_classes: int = 10,
     ``cifar_stem``, ``hidden_dim``, ``d_model``, ...); ``vit`` defaults to
     ``patch_size=4``, ``num_layers=4`` and ``max_len=(32 // p)**2``, as the
     JAX package's. ``remat`` and ``moe_experts`` (None: the dense MLP) are
-    for the transformer family only."""
+    for the transformer family only, as are ``sp_axis`` and ``sp_impl``
+    (sequence parallelism, once ``parallel.sequence.bind_sequence_group``
+    hands the model its group)."""
     key = name.lower()
     channels = sample_shape[-1]
     remat = kwargs.pop("remat", False)

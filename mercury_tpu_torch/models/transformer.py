@@ -26,8 +26,26 @@ a ``1/T`` slice of ``fc1``'s outputs and of ``fc2``'s inputs. The block
 then runs ``f`` before each column-parallel product and ``g`` after each
 row-parallel one, whose bias is added after the all-reduce.
 
-Not ported yet: sequence parallelism (``sp_axis``, the zigzag layout) and
-expert parallelism (``moe_ep_axis``); each raises ``ValueError``.
+With ``sp_axis`` (sequence parallelism, ``parallel/sequence.py``) the
+model takes this rank's block ``[B, T/S, F]`` of a sequence split over a
+group of S ranks, bound by ``parallel.sequence.bind_sequence_group`` as
+``sp`` on the model and its blocks (unbound, the forward raises). Every
+attention then runs over the group as ``sp_impl`` says (``"ring"``,
+``"zigzag"``, ``"ulysses"``), the positional embedding is the block's
+global positions (rank i's slice, or under ``"zigzag"`` the chunks ``(i,
+2S−1−i)``), the global length ``T/S · S`` is held to ``max_len``, and the
+mean pool is completed over the group by ``collectives.AllReduceMean``,
+whose backward is the ranks' gradients summed and divided by S: as every
+rank's copy of the loss sends the same gradient back, a rank's gradient
+comes out S times the share of its tokens, as the JAX step's ``pmean``
+transposes with its replication checks off (``train/sp_step.py`` divides
+once). With experts
+each rank routes its own tokens, and the load-balancing loss is the mean
+of the ranks' (JAX's ``lax.pmean`` over the sequence axis), by the same
+all-reduce. The parameters do not change with ``sp_axis``.
+
+Not ported yet: expert parallelism (``moe_ep_axis``); it raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -40,7 +58,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mercury_tpu_torch.models.moe import MoEMLP
-from mercury_tpu_torch.parallel.sequence import SP_NOT_PORTED, attention
+from mercury_tpu_torch.parallel.collectives import all_reduce_mean
+from mercury_tpu_torch.parallel.sequence import attention
 from mercury_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
@@ -63,15 +82,19 @@ class TransformerBlock(nn.Module):
     ``LayerNorm_0/1`` and ``Dense_0/1``. ``forward`` returns the output and
     the experts' load-balancing loss (None without experts). ``tp``, the
     model group under tensor parallelism, is set by
-    ``parallel.tensor.shard_model_tp``."""
+    ``parallel.tensor.shard_model_tp``; ``sp``, the sequence's group under
+    ``sp_axis``, by ``parallel.sequence.bind_sequence_group``."""
 
     tp = None
+    sp = None
 
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: int = 4,
                  causal: bool = False, moe_experts: Optional[int] = None,
-                 moe_capacity_factor: float = 1.25, moe_ep_axis: Optional[str] = None):
+                 moe_capacity_factor: float = 1.25, moe_ep_axis: Optional[str] = None,
+                 sp_axis: Optional[str] = None, sp_impl: str = "ring"):
         super().__init__()
         self.num_heads, self.causal = num_heads, causal
+        self.sp_axis, self.sp_impl = sp_axis, sp_impl
         self.ln1 = LayerNorm(d_model)
         self.query = nn.Linear(d_model, d_model)
         self.key = nn.Linear(d_model, d_model)
@@ -91,7 +114,8 @@ class TransformerBlock(nn.Module):
         heads = self.num_heads // (1 if self.tp is None else self.tp.size)
         shape = (b, t, heads, d // self.num_heads)
         out = attention(self.query(h).view(shape), self.key(h).view(shape),
-                        self.value(h).view(shape), causal=self.causal)
+                        self.value(h).view(shape), causal=self.causal,
+                        sp_axis=self.sp_axis, sp_impl=self.sp_impl, group=self.sp)
         x = x + self._row(self.proj, out.reshape(b, t, -1))
         if hasattr(self, "moe"):
             h, aux = self.moe(self.ln2(x))
@@ -115,7 +139,10 @@ class TransformerBlock(nn.Module):
 class TransformerClassifier(nn.Module):
     """Encoder stack over ``[B, T, F]`` (or, with ``patch_size``, NCHW
     images), mean-pooled into a linear head; float32 logits.
-    ``in_features`` is F, or the image's channels in vision mode."""
+    ``in_features`` is F, or the image's channels in vision mode. ``sp``
+    is the sequence's group under ``sp_axis`` (module docstring)."""
+
+    sp = None
 
     def __init__(self, num_classes: int = 10, in_features: int = 16, d_model: int = 128,
                  num_heads: int = 4, num_layers: int = 2, mlp_ratio: int = 4,
@@ -125,15 +152,14 @@ class TransformerClassifier(nn.Module):
                  moe_capacity_factor: float = 1.25, moe_ep_axis: Optional[str] = None,
                  remat: bool = False):
         super().__init__()
-        if sp_axis is not None or sp_impl == "zigzag":
-            raise ValueError(f"{SP_NOT_PORTED} (sp_axis={sp_axis!r}, sp_impl={sp_impl!r})")
         self.patch_size, self.max_len, self.remat = patch_size, max_len, remat
+        self.sp_axis, self.sp_impl, self.moe_experts = sp_axis, sp_impl, moe_experts
         token = in_features * patch_size ** 2 if patch_size else in_features
         self.embed = nn.Linear(token, d_model)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
         self.blocks = nn.ModuleList(
             TransformerBlock(d_model, num_heads, mlp_ratio, causal, moe_experts,
-                             moe_capacity_factor, moe_ep_axis)
+                             moe_capacity_factor, moe_ep_axis, sp_axis, sp_impl)
             for _ in range(num_layers))
         self.norm = LayerNorm(d_model)
         self.head = nn.Linear(d_model, num_classes)
@@ -161,12 +187,13 @@ class TransformerClassifier(nn.Module):
         the blocks' load-balancing losses beside them. ``train`` and
         ``keep_stats`` change nothing (no batch norm)."""
         if x.dim() == 4:
+            if self.patch_size is not None and self.sp_axis is not None:
+                raise ValueError(
+                    "sequence parallelism over raw images is unsupported: "
+                    "patchify first, then shard the token sequence")
             x = self.patchify(x)
-        t = x.shape[1]
-        if t > self.max_len:
-            raise ValueError(f"sequence length {t} exceeds max_len={self.max_len}")
         x = self.embed(x)
-        x = x + self.pos_embed[:t].to(x.dtype)
+        x = x + self.positions(x.shape[1]).to(x.dtype)
         aux = None
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
@@ -175,7 +202,39 @@ class TransformerClassifier(nn.Module):
                 x, block_aux = block(x)
             if block_aux is not None:
                 aux = block_aux.float() if aux is None else aux + block_aux.float()
-        logits = self.head(self.norm(x).mean(dim=1)).float()
+        # The mean pool, completed over the sequence's group.
+        logits = self.head(self.seq_mean(self.norm(x).mean(dim=1))).float()
         if not return_aux:
             return logits
-        return logits, (torch.zeros((), device=logits.device) if aux is None else aux)
+        if aux is None:
+            return logits, torch.zeros((), device=logits.device)
+        return logits, self.seq_mean(aux)
+
+    def seq_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s mean over the sequence's group under ``sp_axis`` (the
+        backward as the module docstring says); ``x`` otherwise."""
+        if self.sp_axis is None or self.sp.size == 1:
+            return x
+        return all_reduce_mean(x, self.sp.group)
+
+    def positions(self, t: int) -> torch.Tensor:
+        """The positional embedding of a block of ``t`` tokens: the first
+        ``t`` rows, or under ``sp_axis`` this rank's global positions."""
+        if self.sp_axis is None:
+            if t > self.max_len:
+                raise ValueError(f"sequence length {t} exceeds max_len={self.max_len}")
+            return self.pos_embed[:t]
+        if self.sp is None:
+            raise ValueError(f"sp_axis={self.sp_axis!r} needs its sequence group bound "
+                             "(parallel.sequence.bind_sequence_group)")
+        w, i = self.sp.size, self.sp.rank
+        if t * w > self.max_len:
+            raise ValueError(f"sequence length {t * w} exceeds max_len={self.max_len}")
+        if self.sp_impl != "zigzag":
+            return self.pos_embed[i * t:(i + 1) * t]
+        # The zigzag layout: rank i's block is global chunks (i, 2W−1−i).
+        if t % 2 != 0:
+            raise ValueError(f"zigzag layout needs an even local length, got {t}")
+        c = t // 2
+        j = 2 * w - 1 - i
+        return torch.cat([self.pos_embed[i * c:(i + 1) * c], self.pos_embed[j * c:(j + 1) * c]])

@@ -9,15 +9,17 @@ the identity there, except the two halves of the int8 wire, which quantize
 at one rank as the JAX functions do. Ranks must call them in the same
 order, as they do when they run the same step.
 
-The int8 wire (``grad_compression="int8"``) holds the JAX arithmetic: one
-scale a row, ``max(max|row|, 1e-30)/127``, and stochastic rounding
+The int8 wire (``grad_compression="int8"``) holds the arithmetic of the
+compiled JAX step: one scale a row, ``max(max|row|, 1e-30)·fl32(1/127)``
+(XLA folds the JAX wire's ``÷127`` into that multiply), stochastic rounding
 ``clip(floor(y) + (u < y − floor(y)), −127, 127)`` with the uniforms ``u``
-as an argument. Gloo takes CUDA tensors in ``all_to_all_single``,
-``all_gather_into_tensor`` and ``reduce_scatter_tensor``, int8 included
-(torch 2.11 on the H100, ``chip_smoke.py`` phase 12), so every backend
-issues the same calls. Under a second mesh axis the wire is per leaf
-(:func:`compressed_pmean_tree_sharded`, below), its arithmetic that of
-the compiled JAX step.
+as an argument, and the reduce-scatter's mean a running fused multiply-add
+over the rows times ``fl32(1/W)``, flat and per leaf alike. Gloo takes
+CUDA tensors in ``all_to_all_single``, ``all_gather_into_tensor`` and
+``reduce_scatter_tensor``, int8 included (torch 2.11 on the H100,
+``chip_smoke.py`` phase 12), so every backend issues the same calls.
+Under a second mesh axis the wire is per leaf
+(:func:`compressed_pmean_tree_sharded`, below).
 """
 
 from __future__ import annotations
@@ -138,11 +140,34 @@ def stochastic_round(u: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(lo + (u < y - lo).to(y.dtype), -127, 127).to(torch.int8)
 
 
+# The float32 nearest 1/127. XLA folds the JAX wire's ``max(…, 1e-30) /
+# 127.0`` into a multiply by the constant's reciprocal, so the compiled
+# JAX step's chunk scales are on this product's grid, one ulp off the
+# quotient for about one scale in twenty.
+_INV_127 = float(torch.tensor(1.0, dtype=torch.float32) / 127.0)
+
+
+def _chunk_scales(amax: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(amax, min=1e-30) * _INV_127
+
+
+def _dequantized_mean(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``mean(q·scale, axis=0)`` of ``[W, …]`` int8 rows and their scales
+    as XLA compiles JAX's: a running fused multiply-add from the first row
+    (float64 holds an int8·float32 product and its sum exactly), times the
+    float32 nearest 1/W."""
+    acc = q[0].to(torch.float32) * scale[0]
+    for w in range(1, q.shape[0]):
+        acc = (q[w].to(torch.float64) * scale[w].to(torch.float64)
+               + acc.to(torch.float64)).to(torch.float32)
+    return acc * float(torch.tensor(1.0, dtype=torch.float32) / q.shape[0])
+
+
 def quantize_rows(u: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """int8 of ``x`` ``[R, ...]`` with one scale a leading row, and the
-    ``[R, 1, …]`` float32 scales."""
+    ``[R, 1, …]`` float32 scales (:func:`_chunk_scales`)."""
     dims = tuple(range(1, x.dim()))
-    scale = torch.clamp(x.abs().amax(dim=dims, keepdim=True), min=1e-30) / 127.0
+    scale = _chunk_scales(x.abs().amax(dim=dims, keepdim=True))
     return stochastic_round(u, x / scale), scale
 
 
@@ -151,14 +176,15 @@ def compressed_psum_scatter_mean(rows: torch.Tensor, u: torch.Tensor, group=None
     """The mean over the ranks of this rank's row of ``rows`` ``[W, C]``,
     int8 on the wire: each row quantized (``u`` ``[W, C]``), two
     ``all_to_all_single`` (the int8 rows, then the scales), the mean in
-    float32. ``[C]`` float32; at one rank the dequantized row."""
+    float32 (:func:`_dequantized_mean`). ``[C]`` float32; at one rank the
+    dequantized row."""
     q, scale = quantize_rows(u, rows)
     if world(group) > 1:
         q_all, s_all = torch.empty_like(q), torch.empty_like(scale)
         dist.all_to_all_single(q_all, q, group=group)
         dist.all_to_all_single(s_all, scale, group=group)
         q, scale = q_all, s_all
-    return (q.to(torch.float32) * scale).mean(dim=0)
+    return _dequantized_mean(q, scale)
 
 
 def compressed_all_gather(chunk: torch.Tensor, u: torch.Tensor, group=None) -> torch.Tensor:
@@ -234,29 +260,6 @@ def _wire_rows(x: torch.Tensor, dim: int, w: int) -> torch.Tensor:
     if pad:
         g = torch.cat([g, g.new_zeros((pad, *g.shape[1:]))])
     return g.reshape(w, c, *g.shape[1:])
-
-
-# The float32 nearest 1/127. XLA folds the JAX wire's ``max(…, 1e-30) /
-# 127.0`` into a multiply by the constant's reciprocal, so the compiled
-# JAX step's chunk scales are on this product's grid, one ulp off the
-# quotient for about one scale in twenty.
-_INV_127 = float(torch.tensor(1.0, dtype=torch.float32) / 127.0)
-
-
-def _chunk_scales(amax: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(amax, min=1e-30) * _INV_127
-
-
-def _dequantized_mean(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``mean(q·scale, axis=0)`` of ``[W, …]`` int8 rows and their scales
-    as XLA compiles JAX's: a running fused multiply-add from the first row
-    (float64 holds an int8·float32 product and its sum exactly), times the
-    float32 nearest 1/W."""
-    acc = q[0].to(torch.float32) * scale[0]
-    for w in range(1, q.shape[0]):
-        acc = (q[w].to(torch.float64) * scale[w].to(torch.float64)
-               + acc.to(torch.float64)).to(torch.float32)
-    return acc * float(torch.tensor(1.0, dtype=torch.float32) / q.shape[0])
 
 
 def model_group_max_(amax: torch.Tensor, split: Sequence[bool], model) -> None:

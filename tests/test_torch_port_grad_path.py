@@ -288,14 +288,15 @@ def test_jax_flat_order_is_ravel_pytree(stages, jblock, tblock):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_int8_quantizer_is_jax_bit_for_bit(seed):
     """``quantize_rows`` and ``stochastic_round`` given JAX's uniforms:
-    the int8 values and the scales equal ``_quantize_rows``' and
-    ``_stochastic_round``'s, across rows of very different ranges, an
-    all-zero row (scale 1e-30/127) and values past the clip."""
+    the int8 values and the scales equal the compiled ``_quantize_rows``'
+    (as the jitted step runs it) and ``_stochastic_round``'s, across rows
+    of very different ranges, an all-zero row (scale 1e-30/127) and values
+    past the clip."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((4, 777)).astype(np.float32)
     x *= np.array([[1.0], [3e-4], [0.0], [250.0]], np.float32)
     key = jax.random.key(seed)
-    q, scale = jcoll._quantize_rows(key, jnp.asarray(x))
+    q, scale = jax.jit(jcoll._quantize_rows)(key, jnp.asarray(x))
     u = torch.tensor(np.asarray(jax.random.uniform(key, x.shape, jnp.float32)))
     tq, tscale = tcoll.quantize_rows(u, torch.tensor(x))
     assert tq.dtype == torch.int8 and tuple(tscale.shape) == (4, 1)

@@ -4,8 +4,10 @@
 ``test_torch_port_grad_path``, ``test_torch_port_scorer_service_dist``,
 ``test_torch_port_elastic``, ``test_torch_port_durable_checkpoint``,
 ``test_torch_port_aggregate``, ``test_torch_port_supervisor``,
-``test_torch_port_sequence_step``, ``test_torch_port_mesh`` and
-``test_torch_port_fsdp``); this file holds no tests.
+``test_torch_port_sequence_step``, ``test_torch_port_mesh``,
+``test_torch_port_fsdp``, ``test_torch_port_int8_flat``,
+``test_torch_port_sp_attention``, ``test_torch_port_sp_step`` and
+``test_torch_port_sp_train_step``); this file holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
 process of its own, one a rank, in a gloo process group, and pickles the
@@ -913,3 +915,97 @@ def mesh_async_rank(jobs):
     bodies = {"async": async_steps, "ladder": ladder_steps,
               "mesh": lambda job: mesh_rank([job])[0]}
     return [bodies[kind](job) for kind, job in jobs]
+
+
+def flat_wire_rank(steps):
+    """The flat int8 wire at W ranks: ``steps[t][w]`` is worker w's
+    ``(vec, u1, u2)`` of step t; returns this rank's
+    ``compressed_allreduce_mean`` of each step."""
+    torch.set_num_threads(1)
+    w = collectives.rank()
+    return [collectives.compressed_allreduce_mean(*(torch.as_tensor(a) for a in step[w]))
+            for step in steps]
+
+
+def sp_attention_rank(cases, long_len):
+    """The sequence-parallel attentions on this rank's block of each case
+    ``(impl, causal, q, k, v, cotangent)`` (global ``[B, L, H, D]`` numpy
+    arrays, in the layout the impl reads): the output block and the
+    gradients of ``sum(out · cotangent)`` with respect to this rank's q, k
+    and v blocks. Then a ring forward at ``long_len`` (``[1, L, 1, 8]``)
+    with every tensor autograd saves recorded: their shapes."""
+    from mercury_tpu_torch.parallel.mesh import GroupRef
+    from mercury_tpu_torch.parallel.sequence import attention
+
+    torch.set_num_threads(1)
+    w, r = collectives.world(), collectives.rank()
+    group = GroupRef(dist.group.WORLD, w, r)
+
+    def block(a):
+        return torch.as_tensor(a).chunk(w, dim=1)[r].clone()
+
+    out = []
+    for impl, causal, *arrays in cases:
+        q, k, v, ct = (block(a) for a in arrays)
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        o = attention(q, k, v, causal=causal, sp_axis="seq", sp_impl=impl, group=group)
+        (o.float() * ct.float()).sum().backward()
+        out.append(dict(out=o.detach(), grads=[t.grad for t in (q, k, v)]))
+    saved = []
+    x = torch.zeros((1, long_len // w, 1, 8), requires_grad=True)
+
+    def pack(t):
+        saved.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        attention(x, x, x, sp_axis="seq", sp_impl="ring", group=group).sum()
+    return dict(cases=out, saved=saved)
+
+
+def sp_step_rank(jobs, x, y):
+    """Each job on this rank of a ``2 × 2`` data × seq mesh: the
+    Transformer ``TransformerClassifier(**job["model"])`` from the JAX
+    weights ``job["state_dict"]`` under SGD at ``job["lr"]``; a
+    ``"mercury"`` job runs ``make_dp_sp_mercury_step`` (telemetry on)
+    for ``len(job["uniforms"])`` steps from each worker's JAX stream
+    ``job["perms"][w]`` with the draws ``job["uniforms"][t][w]``, a
+    ``"train"`` job one ``make_dp_sp_train_step`` on ``job["batch"]``.
+    Returns each step's metrics and the parameters after the first."""
+    from mercury_tpu_torch.models.transformer import TransformerClassifier
+    from mercury_tpu_torch.parallel.mesh import make_tp_mesh
+    from mercury_tpu_torch.train.sp_step import (
+        init_sp_mercury_state,
+        make_dp_sp_mercury_step,
+        make_dp_sp_train_step,
+    )
+    from mercury_tpu_torch.train.state import Draws
+
+    torch.set_num_threads(1)
+    mesh = make_tp_mesh(2, 2, "data", "seq")
+    x, y = torch.as_tensor(x), torch.as_tensor(y)
+    out = []
+    for job in jobs:
+        model = TransformerClassifier(**job["model"])
+        model.load_state_dict(job["state_dict"])
+        opt = torch.optim.SGD(model.parameters(), lr=job["lr"])
+        if job["kind"] == "train":
+            step = make_dp_sp_train_step(model, opt, mesh, device="cpu")
+            loss = step(*(torch.as_tensor(a) for a in job["batch"]))
+            out.append(dict(metrics=[{"train/loss": loss}], params=model.state_dict()))
+            continue
+        state = init_sp_mercury_state(model, opt, mesh, x.shape[0], device="cpu")
+        state.stream = ShardStream(perm=torch.as_tensor(job["perms"][mesh.data_rank]).long(),
+                                   cursor=0)
+        step = make_dp_sp_mercury_step(model, mesh, 4, 2, moe_aux_weight=job["aux_weight"],
+                                       telemetry=True)
+        metrics, params = [], None
+        for row in job["uniforms"]:
+            _, m = step(state, x, y, Draws(perm=None, aug=None,
+                                           uniforms=torch.as_tensor(row[mesh.data_rank])))
+            metrics.append({k: v.detach().clone() for k, v in m.items()})
+            if params is None:
+                params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        out.append(dict(metrics=metrics, params=params, ema=state.ema.value.item()))
+    return dict(rank=collectives.rank(), data_rank=mesh.data_rank, seq_rank=mesh.model_rank,
+                jobs=out)

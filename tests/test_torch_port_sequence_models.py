@@ -4,7 +4,8 @@ CPU: forwards in float32 (eval and train mode, with and without
 ``lengths``), the loss's gradients, bf16 autocast against the JAX
 package's ``compute_dtype="bfloat16"``, ``remat``, the parameter counts at
 full width, the flat order of the ZeRO and int8 wires, Flax's initial
-distributions and the refusals of what is not ported. Small widths (8-32)
+distributions, the refusals of what is not ported and the sequence-
+parallel refusals, with the JAX package's messages. Small widths (8-32)
 and a few layers."""
 
 import numpy as np
@@ -303,12 +304,82 @@ def test_initial_distributions_are_flax():
             assert bool((mod.weight == 1).all()) and not mod.bias.any()
 
 
-@pytest.mark.parametrize("kw,item", [(dict(sp_axis="seq"), "item 8"),
-                                     (dict(sp_impl="zigzag"), "item 8"),
-                                     (dict(moe_experts=4, moe_ep_axis="expert"), "item 8")])
+@pytest.mark.parametrize("kw,item", [(dict(moe_experts=4, moe_ep_axis="expert"), "item 8")])
 def test_unported_transformer_options_raise(kw, item):
     with pytest.raises(ValueError, match=item):
         create_model("transformer", 10, None, (8, 4), **kw)
+
+
+def _sp_refusal(case):
+    """The call that must refuse in each sequence-parallel refusal case,
+    on a sequence group of two that is never reached (each raises before
+    any collective)."""
+    from mercury_tpu_torch.parallel import sequence as tseq
+    from mercury_tpu_torch.parallel.mesh import GroupRef, Mesh
+    from mercury_tpu_torch.train.sp_step import init_sp_mercury_state, make_dp_sp_mercury_step
+
+    pair = GroupRef(None, 2, 0)
+    q = torch.zeros((1, 4, 2, 4))
+
+    def model(**kw):
+        m = TransformerClassifier(10, 4, d_model=8, num_heads=2, num_layers=1,
+                                  **{"max_len": 16, "sp_axis": "seq", **kw})
+        return m if kw.get("patch_size") else tseq.bind_sequence_group(m, pair)
+
+    if case == "raw_images":
+        return lambda: model(patch_size=4)(torch.zeros((1, 4, 8, 8)))
+    if case == "odd_zigzag_length":
+        return lambda: model(sp_impl="zigzag")(torch.zeros((1, 3, 4)))
+    if case == "ulysses_heads":
+        return lambda: tseq.ulysses_attention(q, q, q, GroupRef(None, 4, 0))
+    if case == "global_length":
+        return lambda: model(max_len=8)(torch.zeros((1, 5, 4)))
+    if case == "zigzag_order":
+        return lambda: tseq.zigzag_order(10, 2)
+    if case == "unknown_sp_impl":
+        return lambda: tseq.attention(q, q, q, sp_axis="seq", sp_impl="flash", group=pair)
+    if case == "unbound_group":
+        return lambda: TransformerClassifier(10, 4, d_model=8, num_heads=2, num_layers=1,
+                                             sp_axis="seq")(torch.zeros((1, 4, 4)))
+    # The step: 65 tokens on a sequence axis of 2.
+    mesh = Mesh(("data", "seq"), {"data": 1, "seq": 2}, data_rank=0, model_rank=0,
+                model=pair)
+    m = model()
+    state = init_sp_mercury_state(m, torch.optim.SGD(m.parameters(), lr=0.1), mesh, 16,
+                                  device="cpu")
+    step = make_dp_sp_mercury_step(m, mesh, 2, 2)
+    return lambda: step(state, torch.zeros((16, 65, 4)), torch.zeros(16, dtype=torch.int32))
+
+
+# The JAX package's messages (mercury_tpu/models/transformer.py,
+# parallel/sequence.py, train/sp_step.py), and the port's own for a model
+# whose sequence group was never bound.
+SP_REFUSALS = {
+    "raw_images": "sequence parallelism over raw images is unsupported: patchify first, "
+                  "then shard the token sequence",
+    "odd_zigzag_length": "zigzag layout needs an even local length, got 3",
+    "ulysses_heads": "ulysses attention needs num_heads (2) divisible by the 'seq' axis size "
+                     "(4); use ring attention otherwise",
+    "global_length": "sequence length 10 exceeds max_len=8",
+    "zigzag_order": "zigzag layout needs sequence length (10) divisible by 2 x axis size (4)",
+    "unknown_sp_impl": "unknown sp_impl 'flash' (expected 'ring', 'zigzag', or 'ulysses')",
+    "step_length": "sequence length 65 must divide by the 'seq' axis size 2",
+    "unbound_group": "sp_axis='seq' needs its sequence group bound "
+                     "(parallel.sequence.bind_sequence_group)",
+}
+
+
+@pytest.mark.parametrize("case", list(SP_REFUSALS))
+def test_sequence_parallel_refusals_are_jax_s(case):
+    with pytest.raises(ValueError) as err:
+        _sp_refusal(case)()
+    assert str(err.value) == SP_REFUSALS[case]
+    if case == "zigzag_order":
+        from mercury_tpu.parallel.sequence import zigzag_order
+
+        with pytest.raises(ValueError) as jerr:
+            zigzag_order(10, 2)
+        assert str(jerr.value) == str(err.value)
 
 
 def test_remat_refused_outside_the_transformer_family():
