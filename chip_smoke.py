@@ -349,7 +349,20 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    L=4096, H=4, D=32 in float32, ``ring`` and ``ulysses`` and causal
    ``zigzag`` at S=2 against ``dense_attention`` here: the output's and
    the gradients' largest errors, each rank's forward peak memory (below
-   dense's), and the forward's and backward's ms.
+   dense's), and the forward's and backward's ms;
+25. pipeline parallelism (``parallel/pipeline.py``, ``train/pp_step.py``),
+   gloo ranks on card 0 under deterministic cuDNN, float32, Adam, batch 32,
+   a pool of 320: (a) ViT at full width (phase 20's, 809,098 parameters)
+   on ``synthetic`` images at S=2, M=2 (two ranks) and S=4, M=4 (four
+   ranks), 3 + 10 steps; (b) the Transformer with 8 experts a block (phase
+   21's, 2,508,442) on ``synthetic_seq`` at S=2, M=2, 3 + 5 steps; each
+   against S=1 at the same M in this process from the same weights: step
+   1's loss (and router loss) within rel 1e-5 and its selections equal
+   (the step where they first part printed), the selections and losses
+   equal on every stage, 2/1/1 launches a step on every rank at [320, 10]
+   and [32, 10], each rank's parameter and Adam-moment bytes exactly 12 ×
+   its stage's parameters, the collectives a step by group, kind and
+   bytes, and steps/s a rank.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -678,6 +691,19 @@ SP_LONG_IMPLS = (("ring", False), ("ulysses", False), ("zigzag", True))
 SP_LONG_REPEATS = 3       # timed forwards and backwards after one untimed
 SP_LONG_ATOL = 1e-4       # (c): the output against dense attention
 SP_LONG_GRAD_RTOL = 1e-3  # (c): the gradients, of max(|g|, 1)
+# Phase 25, pipeline parallelism, gloo ranks on card 0: (a) phase 20's ViT
+# on synthetic through train/pp_step.py at S=2, M=2 and S=4, M=4, (b) phase
+# 21's Transformer with 8 experts at S=2, M=2, each against S=1 at its M in
+# this process; (name, microbatches, timed steps) by S.
+PP_ARMS = {1: (("vit", 2, 10), ("vit", 4, 10), ("moe", 2, 5)),
+           2: (("vit", 2, 10), ("moe", 2, 5)),
+           4: (("vit", 4, 10),)}
+PP_RTOL = 1e-5            # step 1's loss and router loss against S=1, float32
+# A rank's parameter and Adam-moment bytes, 12 an element: ViT's blocks hold
+# 198,272 parameters each and the rest 16,010; the experts' 1,121,288 and
+# 265,866.
+PP_BYTES = {("vit", 1): 9_709_176, ("vit", 2): 4_950_648, ("vit", 4): 2_571_384,
+            ("moe", 1): 30_101_304, ("moe", 2): 16_645_848}
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -782,6 +808,7 @@ def main() -> int:
     compositions = run_phase("mesh compositions", mesh_compositions_phase, torch, card,
                              main_path)
     sp = run_phase("sequence parallelism", sequence_parallel_phase, torch, card)
+    pp = run_phase("pipeline parallelism", pipeline_parallel_phase, torch, card)
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -803,7 +830,8 @@ def main() -> int:
                    "experts_and_chunks": experts["launches"][k["name"]],
                    "mesh": mesh["launches"][k["name"]],
                    "mesh_compositions": compositions["launches"][k["name"]],
-                   "sequence_parallel": sp["launches"][k["name"]]}
+                   "sequence_parallel": sp["launches"][k["name"]],
+                   "pipeline_parallel": pp["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -824,7 +852,7 @@ def main() -> int:
          "sequence_family": sequence["summary"],
          "experts_and_chunks": experts["summary"], "mesh": mesh["summary"],
          "mesh_compositions": compositions["summary"],
-         "sequence_parallel": sp["summary"]},
+         "sequence_parallel": sp["summary"], "pipeline_parallel": pp["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6333,18 +6361,17 @@ def requested_bytes(torch) -> int:
     return torch.cuda.memory_stats()["requested_bytes.all.current"]
 
 
-def state_bytes(torch, trainer) -> dict:
+def state_bytes(torch, model, opt) -> dict:
     """A rank's parameter and Adam-moment bytes: what the layout predicts
     (float32 parameters, ``exp_avg`` and ``exp_avg_sq`` of each rank's
     shard: 12 bytes an element, from the unsharded shapes and the split
     dimensions), against the ``requested_bytes`` freed when the rank drops
-    its parameters and optimizer state (the gradients dropped first; the
-    Trainer is unusable after)."""
+    ``model``'s parameters and ``opt``'s state (the gradients dropped
+    first; both are unusable after)."""
     import gc
 
     from mercury_tpu_torch.parallel.mesh import sharding_of
 
-    model, opt = trainer.state.model, trainer.state.optimizer
     sh = sharding_of(model)
     n, dims = (1, {}) if sh is None else (sh.size, sh.dims)
     whole = {k: p.numel() * (n if k in dims else 1) for k, p in model.named_parameters()}
@@ -6429,7 +6456,7 @@ def mesh_arm(torch, mk, config, per_step, label: str, steps: int = MESH_STEPS,
     if save:
         trainer.save(save)
     torch.cuda.synchronize()
-    nbytes = state_bytes(torch, trainer)
+    nbytes = state_bytes(torch, trainer.state.model, trainer.state.optimizer)
     check(nbytes["whole_parameters"] == PARAMETERS[config.model, classes],
           f"{label}: {nbytes['whole_parameters']} parameters unsharded, expected "
           f"{PARAMETERS[config.model, classes]}")
@@ -6909,26 +6936,17 @@ def sp_data(torch, dev):
     return (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev, dtype=torch.int32))
 
 
-def sp_arm(torch, mk, mesh, kw: dict, sp: bool, label: str) -> dict:
-    """One arm of phase 24 on this rank of ``mesh``: the Mercury step of
-    ``train/sp_step.py`` (telemetry on, Adam at lr 1e-3, batch 32, a pool of
-    320) for 3 warm-up and ``SP_STEPS`` timed steps with the launches and
-    the collectives (by kind, group and dtype) counted over the timed
-    steps; the first step's kernel shapes recorded. Returns every step's
-    losses and selections, the EMA, the launches, the collectives a step
-    and the seconds."""
-    from mercury_tpu_torch.parallel.distributed import device
-    from mercury_tpu_torch.train.sp_step import init_sp_mercury_state, make_dp_sp_mercury_step
-
-    dev = device()
-    x, y = sp_data(torch, dev)
-    model = sp_model(torch, kw, sp)
-    opt = torch.optim.Adam(model.parameters(), lr=SP_LR)
-    state = init_sp_mercury_state(model, opt, mesh, x.shape[0], seed=0, device=dev)
-    step = make_dp_sp_mercury_step(model, mesh, SP_BATCH, SP_PRESAMPLE, telemetry=True)
+def counted_steps(torch, mk, mesh, step, steps: int, label: str):
+    """``step()`` (one Mercury step at batch 32 and a pool of 320,
+    returning its metrics) on this rank of ``mesh``: once with the kernels'
+    inputs recorded and their shapes held to the pool step's, then
+    ``WARMUP_STEPS − 1`` more and ``steps`` timed steps with the launches
+    (held to 2/1/1 a step) and the collectives (by kind, group and dtype)
+    counted. Returns every step's metrics, the launches, the collectives a
+    step and the seconds. Phases 24 and 25."""
     seen, undo = record_kernel_inputs(mk)
     try:
-        metrics = [step(state, x, y)[1]]
+        metrics = [step()]
     finally:
         undo()
     shapes = {k: sorted(list(a[0].shape) if k != "score_and_draw_kernel"
@@ -6936,19 +6954,19 @@ def sp_arm(torch, mk, mesh, kw: dict, sp: bool, label: str) -> dict:
     want = {"nll_fwd_kernel": [[32, 10], [320, 10]], "nll_bwd_kernel": [[32, 10]],
             "score_and_draw_kernel": [[320, 32]]}
     check(shapes == want, f"{label} rank {mesh.rank}: a step's kernel shapes {shapes}")
-    metrics += [step(state, x, y)[1] for _ in range(WARMUP_STEPS - 1)]
+    metrics += [step() for _ in range(WARMUP_STEPS - 1)]
     calls, undo = counting_by_group(torch, mesh, world="world")
     try:
         mk.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics += [step(state, x, y)[1] for _ in range(SP_STEPS)]
+        metrics += [step() for _ in range(steps)]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = dict(mk.launch_counts)
     finally:
         undo()
-    want = {k: v * SP_STEPS for k, v in POOL_STEP.items()}
+    want = {k: v * steps for k, v in POOL_STEP.items()}
     check(counts == want, f"{label} rank {mesh.rank}: launches {counts}, expected {want}")
     losses = torch.stack([m["train/loss"] for m in metrics]).cpu()
     check(bool(torch.isfinite(losses).all()), f"{label}: losses {losses.tolist()}")
@@ -6960,12 +6978,32 @@ def sp_arm(torch, mk, mesh, kw: dict, sp: bool, label: str) -> dict:
         row = by_group.setdefault(f"{kind}/{group}/{dtype}", [0, 0])
         row[0] += 1
         row[1] += nbytes
+    return metrics, counts, {k: {"calls": c / steps, "bytes": b / steps}
+                             for k, (c, b) in by_group.items()}, dt
+
+
+def sp_arm(torch, mk, mesh, kw: dict, sp: bool, label: str) -> dict:
+    """One arm of phase 24 on this rank of ``mesh``: the Mercury step of
+    ``train/sp_step.py`` (telemetry on, Adam at lr 1e-3, batch 32, a pool of
+    320) for 3 warm-up and ``SP_STEPS`` timed steps (:func:`counted_steps`).
+    Returns every step's losses and selections, the EMA, the launches, the
+    collectives a step and the seconds."""
+    from mercury_tpu_torch.parallel.distributed import device
+    from mercury_tpu_torch.train.sp_step import init_sp_mercury_state, make_dp_sp_mercury_step
+
+    dev = device()
+    x, y = sp_data(torch, dev)
+    model = sp_model(torch, kw, sp)
+    opt = torch.optim.Adam(model.parameters(), lr=SP_LR)
+    state = init_sp_mercury_state(model, opt, mesh, x.shape[0], seed=0, device=dev)
+    step = make_dp_sp_mercury_step(model, mesh, SP_BATCH, SP_PRESAMPLE, telemetry=True)
+    metrics, counts, collectives, dt = counted_steps(
+        torch, mk, mesh, lambda: step(state, x, y)[1], SP_STEPS, label)
     return {"rank": mesh.rank, "data_rank": mesh.data_rank, "seq_rank": mesh.model_rank,
-            "losses": losses.tolist(), "selected": torch.stack(
-                [m["sampler/selected"] for m in metrics]).cpu(),
+            "losses": torch.stack([m["train/loss"] for m in metrics]).cpu().tolist(),
+            "selected": torch.stack([m["sampler/selected"] for m in metrics]).cpu(),
             "ema": state.ema.value.item(), "launches": counts, "seconds": dt,
-            "collectives": {k: {"calls": c / SP_STEPS, "bytes": b / SP_STEPS}
-                            for k, (c, b) in by_group.items()}}
+            "collectives": collectives}
 
 
 def sp_long_inputs(torch, causal_zigzag: bool):
@@ -7264,6 +7302,174 @@ def shift_forms(torch, card: str) -> dict:
               f"bit-equal to gloo's: {same}")
         check(same, "shift forms: the ring attention differs between gloo and nccl")
     return found
+
+
+# ------------------------------------------------------------------ phase 25
+def pp_model(torch, name: str):
+    """(a)'s ViT (phase 20's: patch 4, 4 blocks, d_model 128, 4 heads) or
+    (b)'s Transformer with 8 experts a block (phase 21's, 2 blocks), from
+    seed 0, with its parameter count held."""
+    from mercury_tpu_torch.models import create_model
+
+    gen = torch.Generator().manual_seed(0)
+    if name == "vit":
+        model, want = create_model("vit", 10, gen, (32, 32, 3)), PARAMETERS["vit", 10]
+    else:
+        model = create_model("transformer", 10, gen, (32, 16), moe_experts=8)
+        want = MOE_PARAMETERS["transformer", 10]
+    n = sum(p.numel() for p in model.parameters())
+    check(n == want, f"pipeline parallelism: {name} has {n} parameters, expected {want}")
+    return model
+
+
+def pp_data(torch, name: str, dev):
+    """``synthetic``'s 5000 train images from seed 0 as model-ready NCHW
+    float32 (CIFAR-10's normalization) for the ViT, ``synthetic_seq``'s
+    sequences for the experts; int32 labels."""
+    if name != "vit":
+        return sp_data(torch, dev)
+    from mercury_tpu_torch.data.cifar import CIFAR10_MEAN, CIFAR10_STD, synthetic_cifar
+    from mercury_tpu_torch.data.pipeline import normalize_images
+
+    (x, y), _ = synthetic_cifar(10, 5000, 1000, seed=0)
+    x = normalize_images(torch.as_tensor(x, device=dev), CIFAR10_MEAN, CIFAR10_STD)
+    return (x.permute(0, 3, 1, 2).contiguous(),
+            torch.as_tensor(y, device=dev, dtype=torch.int32))
+
+
+def pp_arm(torch, mk, mesh, name: str, m: int, steps: int) -> dict:
+    """One arm of phase 25 on this rank of ``mesh``: ``name``'s model cut
+    to the rank's stage, the Mercury step of ``train/pp_step.py`` (telemetry
+    on, Adam at lr 1e-3, batch 32, a pool of 320, ``m`` microbatches) for 3
+    warm-up and ``steps`` timed steps (:func:`counted_steps`), then the
+    rank's parameter and Adam-moment bytes (the model unusable after).
+    Returns every step's losses, router losses and selections, the
+    launches, the collectives a step, the seconds and the bytes."""
+    from mercury_tpu_torch.parallel.distributed import device
+    from mercury_tpu_torch.parallel.pipeline import shard_stacked_blocks
+    from mercury_tpu_torch.train.pp_step import create_pp_state, make_pp_mercury_step
+
+    dev = device()
+    label = f"pp (S={mesh.second}) {name} M={m}"
+    x, y = pp_data(torch, name, dev)
+    model = shard_stacked_blocks(pp_model(torch, name), mesh)
+    opt = torch.optim.Adam(model.parameters(), lr=SP_LR)
+    state = create_pp_state(model, opt, mesh, x.shape[0], seed=0, device=dev)
+    step = make_pp_mercury_step(model, mesh, SP_BATCH, SP_PRESAMPLE, m, telemetry=True)
+    metrics, counts, collectives, dt = counted_steps(
+        torch, mk, mesh, lambda: step(state, x, y)[1], steps, label)
+    aux = torch.stack([m["train/moe_aux"] for m in metrics]).cpu()
+    check(bool(torch.isfinite(aux).all()) and (name == "vit") == bool((aux == 0).all()),
+          f"{label}: router losses {aux.tolist()}")
+    torch.cuda.synchronize()
+    nbytes = state_bytes(torch, model, opt)
+    check(nbytes["freed"] == nbytes["predicted"] == PP_BYTES[name, mesh.second],
+          f"{label} rank {mesh.rank}: {nbytes['freed']} parameter and moment bytes freed, "
+          f"the stage predicts {nbytes['predicted']}, the counts {PP_BYTES[name, mesh.second]}")
+    return {"rank": mesh.rank, "stages": mesh.second,
+            "losses": torch.stack([m["train/loss"] for m in metrics]).cpu().tolist(),
+            "aux": aux.tolist(), "selected": torch.stack(
+                [m["sampler/selected"] for m in metrics]).cpu(),
+            "launches": counts, "steps": steps, "seconds": dt, "collectives": collectives,
+            "bytes": nbytes["freed"]}
+
+
+def pp_body():
+    """Phase 25's arms on this rank, under deterministic cuDNN, by ``(S,
+    name, M)``: at one rank (here) those of S=1; on four gloo ranks (run by
+    ``spawn``) those of S=2 on ranks 0 and 1, the first pipe group of
+    ``make_tp_mesh(2, 2, "data", "pipe")`` (ranks 2 and 3 go on to wait in
+    S=4's first collective), then those of S=4 on all four."""
+    import torch
+
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.collectives import world
+    from mercury_tpu_torch.parallel.mesh import make_tp_mesh
+
+    sizes = (1,) if world() == 1 else (2, 4)
+    meshes = {s: make_tp_mesh(world() // s, s, "data", "pipe") for s in sizes}
+    undo = deterministic_cudnn(torch)
+    try:
+        return {(s, name, m): pp_arm(torch, mk, mesh, name, m, steps)
+                for s, mesh in meshes.items() if mesh.data_rank == 0
+                for name, m, steps in PP_ARMS[s]}
+    finally:
+        undo()
+
+
+def pipeline_parallel_phase(torch, card: str) -> dict:
+    """Phase 25: pipeline parallelism (see the module docstring). One gloo
+    process group of four ranks on card 0 for S=2 and S=4
+    (:func:`pp_body`); the S=1 arms run here."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.distributed import spawn
+
+    seconds = {}
+    t0 = time.perf_counter()
+    four = spawn(pp_body, 4, "gloo", devices=[0] * 4, timeout_s=600)
+    seconds["s2_and_s4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = pp_body()
+    seconds["s1"] = time.perf_counter() - t0
+    launches = {k: 0 for k in mk.KERNELS}
+    for arms in four + [one]:
+        for a in arms.values():
+            for k, v in a["launches"].items():
+                launches[k] += v
+    rows = {}
+    for s, name, m in four[0]:
+        base = one[1, name, m]
+        ranks = [r[s, name, m] for r in four if (s, name, m) in r]
+        for a in ranks[1:]:
+            check(torch.equal(a["selected"], ranks[0]["selected"])
+                  and a["losses"] == ranks[0]["losses"],
+                  f"pp S={s} {name} M={m}: rank {a['rank']} drew or trained apart")
+        a = ranks[0]
+        rel = abs(a["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
+        check(rel <= PP_RTOL, f"pp S={s} {name} M={m}: step 1's loss {a['losses'][0]} "
+              f"against S=1's {base['losses'][0]}, rel {rel:.2e}")
+        check(torch.equal(a["selected"][0], base["selected"][0]),
+              f"pp S={s} {name} M={m}: step 1 selected other indices than S=1")
+        aux_rel = (abs(a["aux"][0] - base["aux"][0]) / abs(base["aux"][0])
+                   if name != "vit" else 0.0)
+        check(aux_rel <= PP_RTOL, f"pp S={s} {name} M={m}: step 1's router loss "
+              f"{a['aux'][0]} against S=1's {base['aux'][0]}, rel {aux_rel:.2e}")
+        steps = len(base["losses"])
+        apart = next((i for i in range(steps) if not torch.equal(
+            a["selected"][i], base["selected"][i])), steps)
+        rows[f"{name} S={s} M={m}"] = {
+            "first_rel": rel, "aux_first_rel": aux_rel,
+            "parts_at_step": apart + 1 if apart < steps else None,
+            "losses": a["losses"], "s1_losses": base["losses"], "aux": a["aux"],
+            "s1_aux": base["aux"], "bytes": [r["bytes"] for r in ranks],
+            "s1_bytes": base["bytes"],
+            "steps_per_s": [r["steps"] / r["seconds"] for r in ranks],
+            "s1_steps_per_s": base["steps"] / base["seconds"],
+            "collectives": a["collectives"]}
+        row = rows[f"{name} S={s} M={m}"]
+        print(f"pp {name} S={s} M={m} against S=1 M={m}: step 1 loss rel {rel:.2e}"
+              + (f", router loss {a['aux'][0]:.6f} (S=1 {base['aux'][0]:.6f}, rel "
+                 f"{aux_rel:.2e})" if name != "vit" else "")
+              + ", selections equal on the stages, "
+              + (f"first part from S=1's at step {apart + 1} of {steps}" if apart < steps
+                 else f"S=1's at all {steps} steps")
+              + f"; losses first {a['losses'][0]:.6f} last {a['losses'][-1]:.6f} (S=1 "
+              f"{base['losses'][-1]:.6f}); launches a rank {a['launches']}; parameter "
+              f"and moment bytes a rank {row['bytes']} (S=1 {base['bytes']}); "
+              + ", ".join(f"{v:.2f}" for v in row["steps_per_s"])
+              + f" steps/s a rank (S=1 {row['s1_steps_per_s']:.2f}; gloo ranks sharing "
+              f"one card: no speed-up is measured) [{card}]")
+        print("  collectives a step a rank: " + "; ".join(
+            f"{k} {v['calls']:g} calls, {v['bytes']:,.0f} bytes"
+            for k, v in sorted(a["collectives"].items())))
+    check(all(launches[k] > 0 for k in ("nll_fwd", "nll_bwd", "score_and_draw")),
+          f"pp: a kernel of the path never launched: {launches}")
+    print("pp seconds by part " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return {"launches": launches,
+            "summary": {"arms": rows, "s1_bytes": {f"{n} M={m}": a["bytes"]
+                                                    for (_, n, m), a in one.items()},
+                        "seconds": seconds, "card": card}}
+
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):
     """Device busy share, kernel launches a step and device time by kernel

@@ -32,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 EP_NOT_PORTED = ("expert parallelism (moe_ep_axis) is not ported: ROADMAP.md, "
-                 "Queue 1 item 8")
+                 "Queue 1 item 8c")
 
 
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:

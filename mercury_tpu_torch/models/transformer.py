@@ -44,6 +44,13 @@ each rank routes its own tokens, and the load-balancing loss is the mean
 of the ranks' (JAX's ``lax.pmean`` over the sequence axis), by the same
 all-reduce. The parameters do not change with ``sp_axis``.
 
+``forward`` is three public pieces in a row, as the Flax model's
+``embed``, blocks and ``head``: :meth:`TransformerClassifier.embed_tokens`,
+``run_blocks`` (each block built by ``make_block``) and ``pool_head``.
+Pipeline parallelism (``parallel/pipeline.py``) runs the same pieces
+through its schedule, on a model that ``shard_stacked_blocks`` has cut to
+one stage's blocks; such a model's ``forward`` raises.
+
 Not ported yet: expert parallelism (``moe_ep_axis``); it raises
 ``ValueError``.
 """
@@ -154,15 +161,23 @@ class TransformerClassifier(nn.Module):
         super().__init__()
         self.patch_size, self.max_len, self.remat = patch_size, max_len, remat
         self.sp_axis, self.sp_impl, self.moe_experts = sp_axis, sp_impl, moe_experts
+        self.d_model, self.num_heads, self.num_layers = d_model, num_heads, num_layers
+        self.mlp_ratio, self.causal = mlp_ratio, causal
+        self.moe_capacity_factor, self.moe_ep_axis = moe_capacity_factor, moe_ep_axis
         token = in_features * patch_size ** 2 if patch_size else in_features
         self.embed = nn.Linear(token, d_model)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
-        self.blocks = nn.ModuleList(
-            TransformerBlock(d_model, num_heads, mlp_ratio, causal, moe_experts,
-                             moe_capacity_factor, moe_ep_axis, sp_axis, sp_impl)
-            for _ in range(num_layers))
+        self.blocks = nn.ModuleList(self.make_block() for _ in range(num_layers))
         self.norm = LayerNorm(d_model)
         self.head = nn.Linear(d_model, num_classes)
+
+    def make_block(self) -> TransformerBlock:
+        """One encoder block of this model's configuration: the blocks of
+        ``__init__`` and the pipeline's stages (``parallel/pipeline.py``)
+        are built by it alone."""
+        return TransformerBlock(self.d_model, self.num_heads, self.mlp_ratio, self.causal,
+                                self.moe_experts, self.moe_capacity_factor, self.moe_ep_axis,
+                                self.sp_axis, self.sp_impl)
 
     @torch.no_grad()
     def flax_init(self, generator: Optional[torch.Generator]) -> None:
@@ -186,6 +201,22 @@ class TransformerClassifier(nn.Module):
         """The float32 logits, and with ``return_aux`` the float32 sum of
         the blocks' load-balancing losses beside them. ``train`` and
         ``keep_stats`` change nothing (no batch norm)."""
+        if len(self.blocks) != self.num_layers:
+            raise ValueError(f"this model holds {len(self.blocks)} of its {self.num_layers} "
+                             "blocks (a pipeline stage): run it through "
+                             "parallel.pipeline.make_pp_apply")
+        x, aux = self.run_blocks(self.embed_tokens(x))
+        logits = self.pool_head(x)
+        if not return_aux:
+            return logits
+        if aux is None:
+            return logits, torch.zeros((), device=logits.device)
+        return logits, self.seq_mean(aux)
+
+    def embed_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks' input: ``[B, T, F]`` features (or NCHW images,
+        patchified) through ``embed``, plus the positional embedding (Flax's
+        ``embed`` method)."""
         if x.dim() == 4:
             if self.patch_size is not None and self.sp_axis is not None:
                 raise ValueError(
@@ -193,7 +224,12 @@ class TransformerClassifier(nn.Module):
                     "patchify first, then shard the token sequence")
             x = self.patchify(x)
         x = self.embed(x)
-        x = x + self.positions(x.shape[1]).to(x.dtype)
+        return x + self.positions(x.shape[1]).to(x.dtype)
+
+    def run_blocks(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``x`` through the blocks this model holds, each recomputed in the
+        backward under ``remat``: the output and the float32 sum of the
+        blocks' load-balancing losses (None without experts)."""
         aux = None
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
@@ -202,13 +238,13 @@ class TransformerClassifier(nn.Module):
                 x, block_aux = block(x)
             if block_aux is not None:
                 aux = block_aux.float() if aux is None else aux + block_aux.float()
-        # The mean pool, completed over the sequence's group.
-        logits = self.head(self.seq_mean(self.norm(x).mean(dim=1))).float()
-        if not return_aux:
-            return logits
-        if aux is None:
-            return logits, torch.zeros((), device=logits.device)
-        return logits, self.seq_mean(aux)
+        return x, aux
+
+    def pool_head(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks' output ``[B, T, D]`` → float32 logits: the final
+        norm, the mean pool (completed over the sequence's group) and
+        ``head`` (Flax's ``head`` method)."""
+        return self.head(self.seq_mean(self.norm(x).mean(dim=1))).float()
 
     def seq_mean(self, x: torch.Tensor) -> torch.Tensor:
         """``x``'s mean over the sequence's group under ``sp_axis`` (the

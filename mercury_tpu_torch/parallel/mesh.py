@@ -97,6 +97,12 @@ class Mesh:
         return self.model_rank == 0
 
 
+def model_group(mesh: Mesh) -> GroupRef:
+    """The mesh's second axis's group, or a group of one on a data-only
+    mesh."""
+    return mesh.model if mesh.model is not None else GroupRef(None, 1, 0)
+
+
 def make_mesh(world_size: int, axis_name: str = "data") -> Mesh:
     """The data-only mesh: every rank a worker, the default group."""
     r = group_rank()
@@ -276,7 +282,7 @@ def full_shapes(model: torch.nn.Module) -> Dict[str, torch.Size]:
     return out
 
 
-__all__ = ["GroupRef", "Mesh", "ParamSharding", "make_mesh", "make_tp_mesh", "sharding_of",
-           "shard_of", "gather_dim", "local_state_dict", "load_full_state_dict",
+__all__ = ["GroupRef", "Mesh", "ParamSharding", "make_mesh", "make_tp_mesh", "model_group",
+           "sharding_of", "shard_of", "gather_dim", "local_state_dict", "load_full_state_dict",
            "full_state_dict", "full_shapes", "param_dims", "full_optimizer_state",
            "local_optimizer_state", "local_like_params", "full_like_params"]

@@ -66,7 +66,7 @@ from mercury_tpu_torch.obs.diagnostics import (
 from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll, score_and_draw
 from mercury_tpu_torch.parallel.collectives import allreduce_mean_
 from mercury_tpu_torch.parallel.distributed import device as rank_device
-from mercury_tpu_torch.parallel.mesh import GroupRef, Mesh
+from mercury_tpu_torch.parallel.mesh import GroupRef, Mesh, model_group
 from mercury_tpu_torch.parallel.sequence import bind_sequence_group, zigzag_order
 from mercury_tpu_torch.sampling.importance import (
     EMAState,
@@ -78,16 +78,11 @@ from mercury_tpu_torch.sampling.importance import (
 from mercury_tpu_torch.train.state import Draws, rank_seed
 
 
-def seq_group(mesh: Mesh) -> GroupRef:
-    """The mesh's sequence group: its second axis's, or a group of one on
-    a data-only mesh."""
-    return mesh.model if mesh.model is not None else GroupRef(None, 1, 0)
-
-
 def _bound(model: torch.nn.Module, mesh: Mesh) -> GroupRef:
-    """Bind the mesh's sequence group to ``model`` and return it (a model
-    without ``sp_axis`` must run on a mesh of one window)."""
-    group = seq_group(mesh)
+    """Bind the mesh's sequence group (its second axis's, or a group of one
+    on a data-only mesh) to ``model`` and return it (a model without
+    ``sp_axis`` must run on a mesh of one window)."""
+    group = model_group(mesh)
     if getattr(model, "sp_axis", None) is not None:
         bind_sequence_group(model, group)
     elif group.size > 1:
@@ -287,4 +282,4 @@ def make_dp_sp_mercury_step(model: torch.nn.Module, mesh: Mesh, batch_size: int,
 
 
 __all__ = ["SpMercuryState", "init_sp_mercury_state", "make_dp_sp_mercury_step",
-           "make_dp_sp_train_step", "seq_group", "sp_draws"]
+           "make_dp_sp_train_step", "sp_draws"]

@@ -6,8 +6,10 @@
 ``test_torch_port_aggregate``, ``test_torch_port_supervisor``,
 ``test_torch_port_sequence_step``, ``test_torch_port_mesh``,
 ``test_torch_port_fsdp``, ``test_torch_port_int8_flat``,
-``test_torch_port_sp_attention``, ``test_torch_port_sp_step`` and
-``test_torch_port_sp_train_step``); this file holds no tests.
+``test_torch_port_sp_attention``, ``test_torch_port_sp_step``,
+``test_torch_port_sp_train_step``, ``test_torch_port_pipeline``,
+``test_torch_port_pp_step`` and ``test_torch_port_pp_moe``); this file
+holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
 process of its own, one a rank, in a gloo process group, and pickles the
@@ -1009,3 +1011,68 @@ def sp_step_rank(jobs, x, y):
         out.append(dict(metrics=metrics, params=params, ema=state.ema.value.item()))
     return dict(rank=collectives.rank(), data_rank=mesh.data_rank, seq_rank=mesh.model_rank,
                 jobs=out)
+
+
+def pipeline_rank(jobs, sizes):
+    """Each job on this rank of a pipe mesh of ``job["stages"]`` ranks (one
+    of ``sizes``; a pipe of fewer ranks than the process group is
+    ``make_tp_mesh(world // S, S, "data", "pipe")``, a pipeline a pair of
+    data ranks): the Transformer ``TransformerClassifier(**job["model"])``
+    with this stage's weights ``job["staged"][stage]`` (SGD at
+    ``job["lr"]``). An ``"apply"`` job runs ``make_pp_apply`` at
+    ``job["microbatches"]`` (``remat``, ``with_aux``) on ``job["x"]`` and
+    the backward of the mean NLL of ``job["y"]`` plus
+    ``job["aux_weight"]`` times the router loss, then
+    ``reduce_replicated_grads``: the logits, the loss, the router loss and
+    the gradients. A ``"step"`` job runs ``make_pp_mercury_step`` (batch
+    ``job["batch"]``, presample ``job["presample"]``, telemetry on) from the
+    JAX stream ``job["perm"]`` with the draws ``job["uniforms"][t]``: each
+    step's metrics and the stage's parameters after the first."""
+    from mercury_tpu_torch.models.transformer import TransformerClassifier
+    from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
+    from mercury_tpu_torch.parallel.mesh import make_tp_mesh
+    from mercury_tpu_torch.parallel.pipeline import (
+        make_pp_apply,
+        reduce_replicated_grads,
+        shard_stacked_blocks,
+    )
+    from mercury_tpu_torch.train.pp_step import create_pp_state, make_pp_mercury_step
+    from mercury_tpu_torch.train.state import Draws
+
+    torch.set_num_threads(1)
+    w = collectives.world()
+    meshes = {s: make_tp_mesh(w // s, s, "data", "pipe") for s in sorted(sizes)}
+    out = []
+    for job in jobs:
+        mesh = meshes[job["stages"]]
+        stage = mesh.model_rank
+        model = shard_stacked_blocks(TransformerClassifier(**job["model"]), mesh)
+        model.load_state_dict(job["staged"][stage])
+        opt = torch.optim.SGD(model.parameters(), lr=job.get("lr", 0.0))
+        if job["kind"] == "apply":
+            apply = make_pp_apply(model, mesh, job["microbatches"], remat=job.get("remat", False),
+                                  with_aux=job.get("with_aux", False))
+            res = apply(torch.as_tensor(job["x"]))
+            logits, aux = res if job.get("with_aux") else (res, torch.zeros(()))
+            loss = per_sample_nll(logits, torch.as_tensor(job["y"])).mean()
+            total = loss + job.get("aux_weight", 0.0) * aux
+            total.backward()
+            reduce_replicated_grads(model, mesh)
+            out.append(dict(stage=stage, blocks=len(model.blocks), logits=logits.detach(),
+                            loss=total.item(), aux=aux.item(),
+                            grads={k: p.grad.clone() for k, p in model.named_parameters()}))
+            continue
+        state = create_pp_state(model, opt, mesh, job["n"], device="cpu")
+        state.stream = ShardStream(perm=torch.as_tensor(job["perm"]).long(), cursor=0)
+        step = make_pp_mercury_step(model, mesh, job["batch"], job["presample"],
+                                    job["microbatches"], moe_aux_weight=job["aux_weight"],
+                                    telemetry=True)
+        x, y = torch.as_tensor(job["x"]), torch.as_tensor(job["y"])
+        metrics, params = [], None
+        for row in job["uniforms"]:
+            _, m = step(state, x, y, Draws(perm=None, aug=None, uniforms=torch.as_tensor(row)))
+            metrics.append({k: v.detach().clone() for k, v in m.items()})
+            if params is None:
+                params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        out.append(dict(stage=stage, metrics=metrics, params=params, ema=state.ema.value.item()))
+    return dict(rank=collectives.rank(), jobs=out)
