@@ -121,8 +121,8 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
 12. the gradient path's options at ``world_size=2`` (two gloo ranks on
    the one card, as phase 6), the default pool config at full width: (a)
    ``zero_sharding=True``, (b) ``grad_compression="int8"``, (c) both, (d)
-   ``grad_compression="stochastic"``, each 3 warm steps, then 10 timed
-   steps a turn after 10 of the plain W=2 step. Every window's launches
+   ``grad_compression="stochastic"``, each 3 warm steps, then 5 timed
+   steps a turn after 5 of the plain W=2 step. Every window's launches
    are the pool step's; after every window the replicas' parameters and
    BN statistics are bit-equal (sha256); a kernel step matches a plain
    step with the same draws on each rank; ``train/sparse_rate`` is in
@@ -294,7 +294,7 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    ``world_size=2`` (two); (b) FSDP, full-width ResNet-18 (11,173,962) on
    ``synthetic`` in bf16 at ``world_size=1, fsdp_parallel=2`` (two ranks)
    and at ``world_size=1`` (this process, before and after). Each arm: 3 warm-up
-   and 20 timed steps on every rank, 2/1/1 launches a step (phase 4's),
+   and 10 timed steps on every rank, 2/1/1 launches a step (phase 4's),
    each kernel on one step's inputs against its plain version and a
    kernel step against a plain step on every rank, the selections
    bit-equal across each model group, the collectives a step by group
@@ -362,7 +362,24 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``. In order:
    equal on every stage, 2/1/1 launches a step on every rank at [320, 10]
    and [32, 10], each rank's parameter and Adam-moment bytes exactly 12 ×
    its stage's parameters, the collectives a step by group, kind and
-   bytes, and steps/s a rank.
+   bytes, and steps/s a rank;
+26. two model axes (``parallel/mesh.make_pp_mesh``, expert parallelism in
+   ``models/moe.py``), on phase 25's process group of four gloo ranks on
+   card 0 after its arms (one spawn for both phases), under deterministic
+   cuDNN, float32, Adam, batch 32, a pool of 320, M=2:
+   (a) phase 20's Transformer at pipe 2 × seq 2 under ring attention, 3 +
+   10 steps; (b) phase 21's Transformer with 8 experts a block at capacity
+   factor 8 at pipe 2 × expert 2, each rank scoring 160 pool rows and
+   training 16 batch rows, 3 + 5 steps; each against S=1 at M=2 in this
+   process from the same weights and draws ((b)'s S=1 batch in the expert
+   ranks' microbatch grouping): step 1's loss (and router loss) within rel
+   1e-5 and its selections equal (the step where they first part
+   printed), the selections and losses equal on all four ranks, 2/1/1
+   launches a step on every rank ([320, 10] and [32, 10]; (b) [160, 10]
+   and [16, 10]), each kernel against its plain version on one step's
+   inputs, each rank's parameter and Adam-moment bytes exactly 12 × the
+   parameters it holds, the collectives a step by group, kind and bytes,
+   and steps/s a rank.
 
 ``--profile`` adds a ``torch.profiler`` window over a few steps of each
 path and the step rates of the importance-sampled pool step, the uniform
@@ -526,7 +543,7 @@ GRAD_ARMS = {"zero": dict(zero_sharding=True),
              "int8": dict(grad_compression="int8"),
              "zero_int8": dict(zero_sharding=True, grad_compression="int8"),
              "stochastic": dict(grad_compression="stochastic")}
-GRAD_STEPS = 10
+GRAD_STEPS = 5
 GRAD_RESUME = 4           # steps live and restored after a save (ZeRO arms)
 # Phase 13, async scoring: phase 5's scoretable config with
 # refresh_mode="async" (its fused ingest, and the plain one), against the
@@ -655,7 +672,7 @@ SCAN_TURNS = (1, SCAN_K, SCAN_K, 1)
 MESH_TP = dict(SEQUENCE, model="transformer", world_size=2, compute_dtype="float32")
 MESH_FSDP = dict(model="resnet18", dataset="synthetic", world_size=1)
 MESH_N = 2                # T and F
-MESH_STEPS = 20           # timed steps of each arm
+MESH_STEPS = 10           # timed steps of each arm
 MESH_KINDS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
               "all_to_all_single")
 MESH_SERIES = ("train/pool_loss", "train/loss", "train/grad_norm")
@@ -704,6 +721,24 @@ PP_RTOL = 1e-5            # step 1's loss and router loss against S=1, float32
 # 265,866.
 PP_BYTES = {("vit", 1): 9_709_176, ("vit", 2): 4_950_648, ("vit", 4): 2_571_384,
             ("moe", 1): 30_101_304, ("moe", 2): 16_645_848}
+# Phase 26, two model axes, on phase 25's process group of four gloo ranks:
+# (a) phase 20's Transformer at pipe 2 × seq 2 (ring attention), (b) phase
+# 21's Transformer with 8 experts a block at pipe 2 × expert 2, capacity
+# factor 8 (every token admitted), each at M=2 against S=1 at M=2 in this
+# process; keywords by arm, timed steps after the warm-up, and a rank's
+# parameter and Adam-moment bytes (12 an element: one block of 198,272
+# parameters, or 66,560 + 1,032 + 4 of the 8 experts' 131,712 each, and the
+# 265,866 outside the blocks).
+PP2D_ARMS = {"seq": dict(sp_impl="ring"), "expert": dict(moe_experts=8,
+                                                         moe_capacity_factor=8.0)}
+PP2D_STEPS = {"seq": 10, "expert": 5}
+PP2D_M = 2
+PP2D_BYTES = {"seq": 5_569_656, "expert": 10_323_672}
+PP2D_RTOL = 1e-5          # step 1's loss and router loss against S=1, float32
+# (b)'s S=1 batch in the grouping of the expert ranks' microbatches: its
+# microbatch t of 16 rows is rows e·16 + [t·8, (t+1)·8) of the drawn batch
+# for e = 0, 1 (JAX's group_perm in tests/test_expert_parallel.py).
+PP2D_GROUP_ORDER = [e * 16 + t * 8 + j for t in range(2) for e in range(2) for j in range(8)]
 # The torch.distributed calls whose bytes phase 12 counts: the tensor
 # handed in (all_reduce's buffer, the input of the others), and what a
 # rank of W sends for it in a bandwidth-optimal algorithm, as a multiple
@@ -809,6 +844,7 @@ def main() -> int:
                              main_path)
     sp = run_phase("sequence parallelism", sequence_parallel_phase, torch, card)
     pp = run_phase("pipeline parallelism", pipeline_parallel_phase, torch, card)
+    pp2d = run_phase("two model axes", two_model_axes_phase, torch, card, pp["pp2d_ranks"])
     for k in kernels:
         by_path = {"pool": main_path["launches"][k["name"]],
                    "scoretable": table_path["launches"][k["name"]],
@@ -831,7 +867,8 @@ def main() -> int:
                    "mesh": mesh["launches"][k["name"]],
                    "mesh_compositions": compositions["launches"][k["name"]],
                    "sequence_parallel": sp["launches"][k["name"]],
-                   "pipeline_parallel": pp["launches"][k["name"]]}
+                   "pipeline_parallel": pp["launches"][k["name"]],
+                   "two_model_axes": pp2d["launches"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     if "--profile" in sys.argv:
@@ -839,7 +876,8 @@ def main() -> int:
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_s": build_s, "kernels": kernels, "cases": cases,
+        {"card": card, "build_s": build_s, "phase_seconds": PHASE_SECONDS,
+         "kernels": kernels, "cases": cases,
          "main_path": main_path["summary"], "scoretable_path": table_path["summary"],
          "two_ranks": two_ranks["summary"], "accum_resume": accum["summary"],
          "telemetry": telemetry, "config_surface": surface["summary"],
@@ -852,7 +890,8 @@ def main() -> int:
          "sequence_family": sequence["summary"],
          "experts_and_chunks": experts["summary"], "mesh": mesh["summary"],
          "mesh_compositions": compositions["summary"],
-         "sequence_parallel": sp["summary"], "pipeline_parallel": pp["summary"]},
+         "sequence_parallel": sp["summary"], "pipeline_parallel": pp["summary"],
+         "two_model_axes": pp2d["summary"]},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -861,11 +900,16 @@ def main() -> int:
     return 0
 
 
+# Each phase's seconds, by name, in the order run (written to chip_smoke.json).
+PHASE_SECONDS: dict = {}
+
+
 def run_phase(name, fn, *args):
     print(f"== {name}", flush=True)
     t0 = time.perf_counter()
     out = fn(*args)
-    print(f"   {name}: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    print(f"   {name}: passed in {PHASE_SECONDS[name]:.1f} s", flush=True)
     return out
 
 
@@ -5767,14 +5811,28 @@ def step_kernels_vs_plain(torch, mk, trainer, name: str) -> dict:
     C]); nll_bwd as :func:`check_bwd` ([32, C]); score_and_draw's probs
     rtol 1e-5 and its draws as :func:`check_draws`. Returns the shapes and
     the largest errors."""
-    from mercury_tpu_torch.ops import reference
-
     seen, undo = record_kernel_inputs(mk)
     try:
         trainer.train_step()
         torch.cuda.synchronize()
     finally:
         undo()
+    out = kernels_vs_plain(torch, mk, seen, name)
+    shapes = {k: [c["shape"] for c in v] for k, v in out.items()}
+    classes = trainer.dataset.num_classes
+    want = {"nll_fwd": [[320, classes], [32, classes]], "nll_bwd": [[32, classes]],
+            "score_and_draw": [[320, 32]]}
+    check(shapes == want, f"{name}: the step's kernel shapes {shapes}, expected {want}")
+    return out
+
+
+def kernels_vs_plain(torch, mk, seen: dict, name: str) -> dict:
+    """Each kernel launched again on the inputs ``seen`` recorded
+    (:func:`record_kernel_inputs`) against its plain version, to the
+    kernel phase's tolerances (:func:`step_kernels_vs_plain`); the shapes
+    and the largest errors by kernel."""
+    from mercury_tpu_torch.ops import reference
+
     out = {"nll_fwd": [], "nll_bwd": [], "score_and_draw": []}
     for z, y in seen["nll_fwd_kernel"]:
         err = within(mk.nll_fwd_kernel(z, y), reference.nll_forward(z, y),
@@ -5796,11 +5854,6 @@ def step_kernels_vs_plain(torch, mk, trainer, name: str) -> dict:
         err = max(err, within(scaled[same], c_ref[same], rtol=1e-5, atol=0.0))
         out["score_and_draw"].append({"shape": [losses.numel(), u.numel()],
                                       "max_abs_err": err, "mismatches": int(differ.sum())})
-    shapes = {k: [c["shape"] for c in v] for k, v in out.items()}
-    classes = trainer.dataset.num_classes
-    want = {"nll_fwd": [[320, classes], [32, classes]], "nll_bwd": [[32, classes]],
-            "score_and_draw": [[320, 32]]}
-    check(shapes == want, f"{name}: the step's kernel shapes {shapes}, expected {want}")
     return out
 
 
@@ -6333,6 +6386,8 @@ def counting_by_group(torch, mesh, world: str = "data"):
     names = {id(None): world}
     if mesh.model is not None:
         names[id(mesh.model.group)] = mesh.axis_names[1]
+    if mesh.inner is not None:
+        names[id(mesh.inner.group)] = mesh.inner_axis
     calls, originals = [], {k: getattr(dist, k) for k in MESH_KINDS}
 
     def counter(kind):
@@ -6936,14 +6991,16 @@ def sp_data(torch, dev):
     return (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev, dtype=torch.int32))
 
 
-def counted_steps(torch, mk, mesh, step, steps: int, label: str):
+def counted_steps(torch, mk, mesh, step, steps: int, label: str, rows: int = 32):
     """``step()`` (one Mercury step at batch 32 and a pool of 320,
     returning its metrics) on this rank of ``mesh``: once with the kernels'
-    inputs recorded and their shapes held to the pool step's, then
+    inputs recorded, their shapes held to the pool step's (the NLL's on
+    ``rows`` of the batch and ten times as many of the pool) and each kernel
+    held to its plain version on them (:func:`kernels_vs_plain`), then
     ``WARMUP_STEPS − 1`` more and ``steps`` timed steps with the launches
     (held to 2/1/1 a step) and the collectives (by kind, group and dtype)
     counted. Returns every step's metrics, the launches, the collectives a
-    step and the seconds. Phases 24 and 25."""
+    step and the seconds. Phases 24-26."""
     seen, undo = record_kernel_inputs(mk)
     try:
         metrics = [step()]
@@ -6951,9 +7008,10 @@ def counted_steps(torch, mk, mesh, step, steps: int, label: str):
         undo()
     shapes = {k: sorted(list(a[0].shape) if k != "score_and_draw_kernel"
                         else [a[0].numel(), a[2].numel()] for a in v) for k, v in seen.items()}
-    want = {"nll_fwd_kernel": [[32, 10], [320, 10]], "nll_bwd_kernel": [[32, 10]],
+    want = {"nll_fwd_kernel": [[rows, 10], [10 * rows, 10]], "nll_bwd_kernel": [[rows, 10]],
             "score_and_draw_kernel": [[320, 32]]}
     check(shapes == want, f"{label} rank {mesh.rank}: a step's kernel shapes {shapes}")
+    kernels_vs_plain(torch, mk, seen, f"{label} rank {mesh.rank}")
     metrics += [step() for _ in range(WARMUP_STEPS - 1)]
     calls, undo = counting_by_group(torch, mesh, world="world")
     try:
@@ -7397,17 +7455,26 @@ def pp_body():
         undo()
 
 
+def pipeline_ranks_body():
+    """Phases 25 and 26's four-rank arms on this rank, one process group
+    for both (a spawn costs tens of seconds): :func:`pp_body`'s, then
+    :func:`pp2d_body`'s."""
+    return {"pp": pp_body(), "pp2d": pp2d_body()}
+
+
 def pipeline_parallel_phase(torch, card: str) -> dict:
     """Phase 25: pipeline parallelism (see the module docstring). One gloo
-    process group of four ranks on card 0 for S=2 and S=4
-    (:func:`pp_body`); the S=1 arms run here."""
+    process group of four ranks on card 0 for S=2 and S=4, which runs
+    phase 26's arms after them (:func:`pipeline_ranks_body`; their results
+    are returned as ``pp2d_ranks``); the S=1 arms run here."""
     from mercury_tpu_torch.ops import mercury_kernels as mk
     from mercury_tpu_torch.parallel.distributed import spawn
 
     seconds = {}
     t0 = time.perf_counter()
-    four = spawn(pp_body, 4, "gloo", devices=[0] * 4, timeout_s=600)
-    seconds["s2_and_s4"] = time.perf_counter() - t0
+    pool = spawn(pipeline_ranks_body, 4, "gloo", devices=[0] * 4, timeout_s=900)
+    four = [r["pp"] for r in pool]
+    seconds["four_ranks_with_phase_26"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     one = pp_body()
     seconds["s1"] = time.perf_counter() - t0
@@ -7465,10 +7532,181 @@ def pipeline_parallel_phase(torch, card: str) -> dict:
     check(all(launches[k] > 0 for k in ("nll_fwd", "nll_bwd", "score_and_draw")),
           f"pp: a kernel of the path never launched: {launches}")
     print("pp seconds by part " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    return {"launches": launches,
+    return {"launches": launches, "pp2d_ranks": [r["pp2d"] for r in pool],
             "summary": {"arms": rows, "s1_bytes": {f"{n} M={m}": a["bytes"]
                                                     for (_, n, m), a in one.items()},
                         "seconds": seconds, "card": card}}
+
+
+# ------------------------------------------------------------------ phase 26
+def pp2d_model(torch, name: str, two_axes: bool):
+    """(a)'s Transformer (phase 20's) or (b)'s with 8 experts at capacity
+    factor 8 (phase 21's), from seed 0, built with its second model axis
+    if ``two_axes``, its parameter count held."""
+    from mercury_tpu_torch.models import create_model
+
+    kw = dict(PP2D_ARMS[name])
+    if two_axes:
+        kw["sp_axis" if name == "seq" else "moe_ep_axis"] = name
+    model = create_model("transformer", 10, torch.Generator().manual_seed(0), (32, 16), **kw)
+    want = (PARAMETERS if name == "seq" else MOE_PARAMETERS)["transformer", 10]
+    n = sum(p.numel() for p in model.parameters())
+    check(n == want, f"two model axes: {name} has {n} parameters, expected {want}")
+    return model
+
+
+def pp2d_arm(torch, mk, mesh, name: str) -> dict:
+    """One arm of phase 26 on this rank: on a pipe × ``name`` mesh the
+    model with its second axis, staged (and under expert its experts cut)
+    by ``shard_stacked_blocks``, else the model whole at S=1; the Mercury
+    step of ``train/pp_step.py`` (telemetry on, Adam at lr 1e-3, batch 32,
+    a pool of 320, M=2) for 3 warm-up and ``PP2D_STEPS[name]`` timed steps
+    (:func:`counted_steps`; at S=1 under expert every step's draws in the
+    expert ranks' grouping, ``PP2D_GROUP_ORDER``), then the rank's
+    parameter and Adam-moment bytes (the model unusable after). Returns
+    every step's losses, router losses and selections (at S=1 under expert
+    in the expert ranks' order), the launches, the collectives a step, the
+    seconds and the bytes."""
+    from mercury_tpu_torch.parallel.distributed import device
+    from mercury_tpu_torch.parallel.pipeline import shard_stacked_blocks
+    from mercury_tpu_torch.train.pp_step import create_pp_state, make_pp_mercury_step, pp_draws
+
+    dev = device()
+    two_axes = mesh.inner is not None
+    label = f"pp2d {name} " + (f"S=2 × {mesh.inner.size}" if two_axes else "S=1")
+    x, y = sp_data(torch, dev)
+    model = shard_stacked_blocks(pp2d_model(torch, name, two_axes), mesh)
+    opt = torch.optim.Adam(model.parameters(), lr=SP_LR)
+    state = create_pp_state(model, opt, mesh, x.shape[0], seed=0, device=dev)
+    step = make_pp_mercury_step(model, mesh, SP_BATCH, SP_PRESAMPLE, PP2D_M, telemetry=True)
+    regroup = name == "expert" and not two_axes
+    order = torch.as_tensor(PP2D_GROUP_ORDER, device=dev)
+
+    def one():
+        draws = pp_draws(state, SP_BATCH * SP_PRESAMPLE, SP_BATCH)
+        if regroup:
+            draws = draws._replace(uniforms=draws.uniforms[:, order])
+        m = step(state, x, y, draws)[1]
+        if regroup:
+            # Back to the expert ranks' order: position order[k] drew k.
+            m["sampler/selected"] = m["sampler/selected"][order.argsort()]
+        return m
+
+    rows = SP_BATCH // mesh.inner.size if name == "expert" and two_axes else SP_BATCH
+    metrics, counts, collectives, dt = counted_steps(torch, mk, mesh, one, PP2D_STEPS[name],
+                                                     label, rows)
+    aux = torch.stack([m["train/moe_aux"] for m in metrics]).cpu()
+    check(bool(torch.isfinite(aux).all()) and (name == "seq") == bool((aux == 0).all()),
+          f"{label}: router losses {aux.tolist()}")
+    torch.cuda.synchronize()
+    nbytes = state_bytes(torch, model, opt)
+    if two_axes:
+        check(nbytes["freed"] == nbytes["predicted"] == PP2D_BYTES[name],
+              f"{label} rank {mesh.rank}: {nbytes['freed']} parameter and moment bytes "
+              f"freed, the rank predicts {nbytes['predicted']}, the counts "
+              f"{PP2D_BYTES[name]}")
+    return {"rank": mesh.rank, "losses": torch.stack([m["train/loss"] for m in metrics])
+            .cpu().tolist(), "aux": aux.tolist(),
+            "selected": torch.stack([m["sampler/selected"] for m in metrics]).cpu(),
+            "launches": counts, "steps": PP2D_STEPS[name], "seconds": dt,
+            "collectives": collectives, "bytes": nbytes["freed"]}
+
+
+def pp2d_body():
+    """Phase 26's arms on this rank, under deterministic cuDNN: at one rank
+    (here) both at S=1; on four gloo ranks (run by ``spawn``) (a) on
+    ``make_pp_mesh(2, 2, "seq")`` and (b) on ``make_pp_mesh(2, 2,
+    "expert")``, both meshes made first on every rank."""
+    import torch
+
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.collectives import world
+    from mercury_tpu_torch.parallel.mesh import make_pp_mesh, make_tp_mesh
+
+    if world() == 1:
+        meshes = dict.fromkeys(PP2D_ARMS, make_tp_mesh(1, 1, "data", "pipe"))
+    else:
+        meshes = {name: make_pp_mesh(2, 2, name) for name in PP2D_ARMS}
+    undo = deterministic_cudnn(torch)
+    try:
+        return {name: pp2d_arm(torch, mk, mesh, name) for name, mesh in meshes.items()}
+    finally:
+        undo()
+
+
+def two_model_axes_phase(torch, card: str, four=None) -> dict:
+    """Phase 26: the pipeline on two model axes (see the module docstring).
+    Both arms on one gloo process group of four ranks on card 0
+    (:func:`pp2d_body`): ``four``, the ranks' results from phase 25's
+    process group, or, without it, a spawn of its own; the S=1 arms run
+    here."""
+    from mercury_tpu_torch.ops import mercury_kernels as mk
+    from mercury_tpu_torch.parallel.distributed import spawn
+
+    seconds = {}
+    t0 = time.perf_counter()
+    if four is None:
+        four = spawn(pp2d_body, 4, "gloo", devices=[0] * 4, timeout_s=600)
+        seconds["four_ranks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = pp2d_body()
+    seconds["s1"] = time.perf_counter() - t0
+    launches = {k: 0 for k in mk.KERNELS}
+    for arms in four + [one]:
+        for a in arms.values():
+            for k, v in a["launches"].items():
+                launches[k] += v
+    rows = {}
+    for name in PP2D_ARMS:
+        base, ranks = one[name], [r[name] for r in four]
+        for a in ranks[1:]:
+            check(torch.equal(a["selected"], ranks[0]["selected"])
+                  and a["losses"] == ranks[0]["losses"] and a["aux"] == ranks[0]["aux"],
+                  f"pp2d {name}: rank {a['rank']} drew or trained apart")
+        a = ranks[0]
+        rel = abs(a["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
+        check(rel <= PP2D_RTOL, f"pp2d {name}: step 1's loss {a['losses'][0]} against "
+              f"S=1's {base['losses'][0]}, rel {rel:.2e}")
+        check(torch.equal(a["selected"][0], base["selected"][0]),
+              f"pp2d {name}: step 1 selected other indices than S=1")
+        aux_rel = (abs(a["aux"][0] - base["aux"][0]) / abs(base["aux"][0])
+                   if name == "expert" else 0.0)
+        check(aux_rel <= PP2D_RTOL, f"pp2d {name}: step 1's router loss {a['aux'][0]} "
+              f"against S=1's {base['aux'][0]}, rel {aux_rel:.2e}")
+        steps = len(base["losses"])
+        apart = next((i for i in range(steps) if not torch.equal(
+            a["selected"][i], base["selected"][i])), steps)
+        row = rows[name] = {
+            "first_rel": rel, "aux_first_rel": aux_rel,
+            "parts_at_step": apart + 1 if apart < steps else None,
+            "losses": a["losses"], "s1_losses": base["losses"], "aux": a["aux"],
+            "s1_aux": base["aux"], "bytes": [r["bytes"] for r in ranks],
+            "s1_bytes": base["bytes"],
+            "steps_per_s": [r["steps"] / r["seconds"] for r in ranks],
+            "s1_steps_per_s": base["steps"] / base["seconds"],
+            "collectives": [r["collectives"] for r in ranks]}
+        print(f"pp2d {name} S=2 × 2 M={PP2D_M} against S=1 M={PP2D_M}: step 1 loss rel "
+              f"{rel:.2e}"
+              + (f", router loss {a['aux'][0]:.6f} (S=1 {base['aux'][0]:.6f}, rel "
+                 f"{aux_rel:.2e})" if name == "expert" else "")
+              + ", selections equal on the four ranks, "
+              + (f"first part from S=1's at step {apart + 1} of {steps}" if apart < steps
+                 else f"S=1's at all {steps} steps")
+              + f"; losses first {a['losses'][0]:.6f} last {a['losses'][-1]:.6f} (S=1 "
+              f"{base['losses'][-1]:.6f}); launches a rank {a['launches']}; parameter "
+              f"and moment bytes a rank {row['bytes']} (S=1 {base['bytes']}); "
+              + ", ".join(f"{v:.2f}" for v in row["steps_per_s"])
+              + f" steps/s a rank (S=1 {row['s1_steps_per_s']:.2f}; gloo ranks sharing "
+              f"one card: no speed-up is measured) [{card}]")
+        for r in ranks:
+            print(f"  rank {r['rank']} collectives a step: " + "; ".join(
+                f"{k} {v['calls']:g} calls, {v['bytes']:,.0f} bytes"
+                for k, v in sorted(r["collectives"].items())))
+    check(all(launches[k] > 0 for k in ("nll_fwd", "nll_bwd", "score_and_draw")),
+          f"pp2d: a kernel of the path never launched: {launches}")
+    print("pp2d seconds by part " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return {"launches": launches,
+            "summary": {"arms": rows, "seconds": seconds, "card": card}}
 
 
 def profile_window(torch, trainer, step_us: float, steps: int = 10):

@@ -6,7 +6,8 @@ arrays under Flax's names (``Conv_0``, ``BatchNorm_0``, ``BasicBlock_3``,
 ``block1/query``, ``pos_embed``, the experts' ``block0/moe/w_up``, …) —
 onto the state dict of the unsharded port model of the same family
 (``parallel/mesh.load_full_state_dict`` cuts it to a sharded rank's
-slices, ``full_state_dict`` gathers them back). Conv kernels
+slices, ``full_state_dict`` gathers them back; ``expert_shard`` cuts the
+experts to an expert-parallel rank's). Conv kernels
 go HWIO → OIHW (a depthwise ``[3, 3, 1, C]`` to ``[C, 1, 3, 3]``), Dense
 kernels ``[in, out]`` → ``[out, in]``, BatchNorm ``scale/bias/mean/var``
 → ``weight/bias/running_mean/running_var``, LayerNorm ``scale/bias`` →
@@ -180,6 +181,26 @@ def params_from_flax(params: Mapping[str, Any],
             stats = stats.get(name, {})
         _layer(out, _translate("/".join(path), FLAX_NAMES[family], 1), layer_params, stats)
     return out
+
+
+def expert_shard(state: Mapping[str, torch.Tensor], rank: int, size: int
+                 ) -> Dict[str, torch.Tensor]:
+    """``state`` (the state dict of a whole model or of a pipeline's
+    stage) with each MoE layer's stacked expert leaves (``….moe.w_up``,
+    ``b_up``, ``w_down``, ``b_down``) cut to the experts of rank ``rank``
+    of an expert group of ``size``, ``[rank·E/size, (rank+1)·E/size)``:
+    what ``models.moe.bind_expert_group`` leaves the rank (JAX's
+    ``P(ep)`` on the expert axis of the leaves it names by their place in
+    a ``moe`` module)."""
+    from mercury_tpu_torch.models.moe import EXPERT_LEAVES, expert_slice
+
+    def cut(name: str, v: torch.Tensor) -> torch.Tensor:
+        module, _, leaf = name.rpartition(".")
+        if module.rpartition(".")[2] == "moe" and leaf in EXPERT_LEAVES:
+            return expert_slice(v, rank, size)
+        return v
+
+    return {k: cut(k, v) for k, v in state.items()}
 
 
 def _family(model: torch.nn.Module) -> str:

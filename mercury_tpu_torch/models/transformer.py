@@ -51,8 +51,14 @@ Pipeline parallelism (``parallel/pipeline.py``) runs the same pieces
 through its schedule, on a model that ``shard_stacked_blocks`` has cut to
 one stage's blocks; such a model's ``forward`` raises.
 
-Not ported yet: expert parallelism (``moe_ep_axis``); it raises
-``ValueError``.
+With ``moe_ep_axis`` (expert parallelism, ``models/moe.py``) the model
+takes this rank's slice of the batch, and
+``models.moe.bind_expert_group`` hands each block's experts the expert
+group (unbound, the forward raises) and keeps the rank's ``E/W`` of them;
+the router loss is the same on every rank of the group. After the
+backward, the caller sums every gradient but the experts'
+(``models.moe.expert_leaf_names``) over the group
+(``parallel.collectives.sum_grads_``).
 """
 
 from __future__ import annotations

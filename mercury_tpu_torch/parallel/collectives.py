@@ -24,12 +24,15 @@ Under a second mesh axis the wire is per leaf
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from mercury_tpu_torch.utils.tree import pad_to_chunks
+
+if TYPE_CHECKING:  # parallel/mesh.py imports this module
+    from mercury_tpu_torch.parallel.mesh import GroupRef
 
 
 def world(group=None) -> int:
@@ -131,6 +134,64 @@ def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     if world(group) == 1:
         return x
     return AllReduceMean.apply(x, group)
+
+
+class ShardSum(torch.autograd.Function):
+    """JAX's ``psum`` of each rank's share into a value every rank then
+    holds alike: the sum over the ranks. Everything after it is computed
+    alike on every rank, so each rank's copy of the loss sends the same
+    gradient, and the exact transpose hands it to each rank's share
+    unchanged: the backward issues no collective."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group=None) -> torch.Tensor:
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+class ShardMean(torch.autograd.Function):
+    """JAX's ``pmean`` of the ranks' shares into a value every rank then
+    holds alike: ``SUM/W``; its gradient, the same on every rank, divided
+    by W into each share (the exact transpose, no collective; compare
+    :class:`AllReduceMean`, whose backward sums the ranks' gradients)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group=None) -> torch.Tensor:
+        ctx.w = world(group)
+        return _summed(x, group).div_(ctx.w)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad / ctx.w, None
+
+
+def sum_grads_(params: Sequence[torch.Tensor], ref: GroupRef) -> None:
+    """Sum the gradients of ``params`` over the ranks of ``ref``, in one
+    flat all-reduce: a missing gradient counts as zeros, and every
+    parameter ends with the sum set as its ``grad``. Nothing in a group of
+    one."""
+    if ref.size == 1:
+        return
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    dist.all_reduce(flat, group=ref.group)
+    for p, part in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = part.view_as(p)
+
+
+def shard_sum(x: torch.Tensor, ref: GroupRef) -> torch.Tensor:
+    """:class:`ShardSum` of ``x`` over the ranks of ``ref``; ``x`` itself
+    in a group of one."""
+    return x if ref.size == 1 else ShardSum.apply(x, ref.group)
+
+
+def shard_mean(x: torch.Tensor, ref: GroupRef) -> torch.Tensor:
+    """:class:`ShardMean` of ``x`` over the ranks of ``ref``; ``x`` itself
+    in a group of one."""
+    return x if ref.size == 1 else ShardMean.apply(x, ref.group)
 
 
 def stochastic_round(u: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,14 @@ Every rank creates every group, in the same order (``dist.new_group``
 needs that). A rank of a model group is the same data worker as its
 peers: the same shard row, sampler row and draws.
 
+A pipeline's mesh may carry a second model axis (:func:`make_pp_mesh`,
+JAX's ``Mesh(devices.reshape(S, N), ("pipe", inner))``): one data worker,
+``S × N`` ranks, the inner axis (``"seq"`` or ``"expert"``) innermost, so
+global rank ``r`` is stage ``r // N`` and rank ``r % N`` of its inner
+group. The pipe group (the ranks with the same ``r % N``) is the mesh's
+``model``, as on the one-axis pipe mesh, and the inner group its
+``inner``.
+
 :class:`ParamSharding` is a model's layout over its model group (which
 parameter is split along which dimension), and the functions below slice a
 full state dict into a rank's shards and gather the shards back, for
@@ -63,10 +71,12 @@ class GroupRef:
 class Mesh:
     """This rank's place in a ``data × second`` mesh.
 
-    ``axis_names`` is ``(data,)`` or ``(data, second)``; ``shape`` maps
+    ``axis_names`` is ``(data,)``, ``(data, second)`` or, on a pipeline's
+    mesh with a second model axis, ``(data, pipe, inner)``; ``shape`` maps
     each name to its size. ``data_group`` is None on a data-only mesh (the
-    default group: every rank a worker); ``model`` is the second axis's
-    group, None without one."""
+    default group: every rank a worker) and on :func:`make_pp_mesh`'s (one
+    worker); ``model`` is the second axis's group, None without one;
+    ``inner`` the third axis's, None without one."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
@@ -74,6 +84,7 @@ class Mesh:
     model_rank: int
     data_group: Any = None
     model: Optional[GroupRef] = None
+    inner: Optional[GroupRef] = None
 
     @property
     def world_size(self) -> int:
@@ -86,9 +97,15 @@ class Mesh:
         return self.shape[self.axis_names[1]] if len(self.axis_names) > 1 else 1
 
     @property
+    def inner_axis(self) -> Optional[str]:
+        """The third axis's name, None without one."""
+        return self.axis_names[2] if len(self.axis_names) > 2 else None
+
+    @property
     def rank(self) -> int:
         """The global rank."""
-        return self.data_rank * self.second + self.model_rank
+        n, i = (1, 0) if self.inner is None else (self.inner.size, self.inner.rank)
+        return (self.data_rank * self.second + self.model_rank) * n + i
 
     @property
     def leads(self) -> bool:
@@ -101,6 +118,11 @@ def model_group(mesh: Mesh) -> GroupRef:
     """The mesh's second axis's group, or a group of one on a data-only
     mesh."""
     return mesh.model if mesh.model is not None else GroupRef(None, 1, 0)
+
+
+def inner_group(mesh: Mesh) -> GroupRef:
+    """The mesh's third axis's group, or a group of one without one."""
+    return mesh.inner if mesh.inner is not None else GroupRef(None, 1, 0)
 
 
 def make_mesh(world_size: int, axis_name: str = "data") -> Mesh:
@@ -134,6 +156,29 @@ def make_tp_mesh(world_size: int, n: int, data_axis: str = "data",
     return Mesh((data_axis, model_axis), {data_axis: world_size, model_axis: n},
                 data_rank=data_rank, model_rank=model_rank, data_group=data_group,
                 model=GroupRef(model_group, n, model_rank))
+
+
+def make_pp_mesh(stages: int, n: int, inner_axis: str) -> Mesh:
+    """One worker's ``stages × n`` mesh with two model axes: ``"pipe"``
+    and ``inner_axis`` (``"seq"`` or ``"expert"``), innermost. Needs a
+    process group of ``stages·n`` ranks, and every rank must call it."""
+    need = stages * n
+    if world() != need:
+        raise ValueError(f"a {stages}×{n} mesh needs {need} ranks, "
+                         f"the process group has {world()}")
+    stage, i = divmod(group_rank(), n)
+    pipe = inner = None
+    for m in range(n):
+        g = dist.new_group([s * n + m for s in range(stages)])
+        if m == i:
+            pipe = g
+    for s in range(stages):
+        g = dist.new_group([s * n + m for m in range(n)])
+        if s == stage:
+            inner = g
+    return Mesh(("data", "pipe", inner_axis), {"data": 1, "pipe": stages, inner_axis: n},
+                data_rank=0, model_rank=stage, model=GroupRef(pipe, stages, stage),
+                inner=GroupRef(inner, n, i))
 
 
 @dataclasses.dataclass
@@ -282,7 +327,8 @@ def full_shapes(model: torch.nn.Module) -> Dict[str, torch.Size]:
     return out
 
 
-__all__ = ["GroupRef", "Mesh", "ParamSharding", "make_mesh", "make_tp_mesh", "model_group",
+__all__ = ["GroupRef", "Mesh", "ParamSharding", "inner_group", "make_mesh", "make_pp_mesh",
+           "make_tp_mesh", "model_group",
            "sharding_of", "shard_of", "gather_dim", "local_state_dict", "load_full_state_dict",
            "full_state_dict", "full_shapes", "param_dims", "full_optimizer_state",
            "local_optimizer_state", "local_like_params", "full_like_params"]

@@ -43,31 +43,62 @@ S shares of theirs, one a rank (the embedding's on stage 0 alone), and
 
 ``remat=True`` recomputes each tick's stage in the backward
 (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint`` of the stage.
-A model built with ``sp_axis`` or ``moe_ep_axis`` (the pipe × seq and pipe
-× expert meshes) is refused: the port's mesh has one model axis.
+
+Two model axes (``parallel/mesh.make_pp_mesh``: pipe × ``inner``, the
+inner axis innermost), as JAX composes them:
+
+- **pipe × seq** (a model built with ``sp_axis``, the inner axis its
+  name): ``x`` arrives as this rank's window of the sequence and each
+  stage's blocks run the bound attention (ring, zigzag or Ulysses) over
+  the seq group; the pooled mean is completed over it, so the logits are
+  whole on every rank. The logits' ``pmean`` spans pipe × seq (the
+  gradient ÷ S·N), and the router loss is also averaged over the seq group
+  (``collectives.shard_mean``). A block's gradient then holds its seq
+  rank's share of the tokens, and :func:`reduce_replicated_grads` sums it
+  over the seq group, the replicated parameters' over both groups.
+- **pipe × expert** (a model built with ``moe_experts`` and
+  ``moe_ep_axis``): ``x`` arrives as this rank's slice of the batch and the
+  logits come back for that slice; each stage's experts are split over the
+  expert group (:func:`shard_stacked_blocks` cuts them) and dispatched by
+  its all-to-all. The router loss is already the same on every rank of
+  the group (the layer averages its statistics there), which JAX's
+  ``pmean`` over the expert axis leaves as it is. Every gradient but the
+  experts' holds the rank's batch share and is summed over the expert
+  group; the replicated parameters' over the pipe group as well; the
+  experts' is whole through the all-to-all's backward.
+
+Within a stage the inner group's ranks run the same ticks, bubble ticks
+included, so they issue the same collectives in the same order: the
+experts' two all-to-alls and the router's all-reduce on bubble zeros too.
+A model with both (pipe × expert × seq, JAX's ``x`` spec ``P(ep, sp)``) is
+refused: :data:`PP_NOT_PORTED`.
 
 JAX's ``SHARDING_CONTRACT`` and ``_stacked_block_specs`` (placements of a
-stacked tree) have no torch role: a rank holds its stage's blocks as
-modules.
+stacked tree) have no torch role: a rank holds its stage's blocks, and its
+experts of them, as modules.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from mercury_tpu_torch.parallel.collectives import allreduce_sum
-from mercury_tpu_torch.parallel.mesh import GroupRef, Mesh, model_group
-from mercury_tpu_torch.parallel.sequence import ring_shift
+from mercury_tpu_torch.models.moe import bind_expert_group, expert_leaf_names
+from mercury_tpu_torch.parallel.collectives import (
+    allreduce_sum,
+    shard_mean,
+    shard_sum,
+    sum_grads_,
+)
+from mercury_tpu_torch.parallel.mesh import GroupRef, Mesh, inner_group, model_group
+from mercury_tpu_torch.parallel.sequence import bind_sequence_group, ring_shift
 
-PP_NOT_PORTED = ("pipeline parallelism over a second model axis (sp_axis: the pipe × seq "
-                 "mesh; moe_ep_axis: the pipe × expert mesh) is not ported: ROADMAP.md, "
-                 "Queue 1 item 8c")
+PP_NOT_PORTED = ("pipeline parallelism over three axes (pipe × expert × seq: a model with "
+                 "both sp_axis and moe_ep_axis) is not ported: ROADMAP.md, Queue 1 item 8d")
 
 
 # ------------------------------------------------------------- the weights
@@ -121,13 +152,16 @@ def unstack_block_params(stacked: Mapping[str, Any], rest: Mapping[str, Any]) ->
 
 
 def staged_from_flax(stacked: Mapping[str, Any], rest: Mapping[str, Any], stage: int,
-                     stages: int) -> Dict[str, torch.Tensor]:
+                     stages: int, expert: int = 0, experts: int = 1
+                     ) -> Dict[str, torch.Tensor]:
     """Stage ``stage``'s state dict (of ``stages``) from the JAX package's
     ``(stacked, rest)`` numpy trees, as its ``create_pp_state`` makes them:
     unstacked, through ``params_from_flax``, then cut to the replicated
     entries and the stage's blocks numbered from 0 (what
-    :func:`shard_stacked_blocks` leaves in ``model.blocks``)."""
-    from mercury_tpu_torch.models.convert import params_from_flax
+    :func:`shard_stacked_blocks` leaves in ``model.blocks``), and on a pipe
+    × expert mesh to the experts of rank ``expert`` of an expert group of
+    ``experts`` (``models.convert.expert_shard``)."""
+    from mercury_tpu_torch.models.convert import expert_shard, params_from_flax
 
     full = params_from_flax(unstack_block_params(stacked, rest), {})
     per = _per_stage(_first_leaf(stacked).shape[0], stages)
@@ -139,7 +173,7 @@ def staged_from_flax(stacked: Mapping[str, Any], rest: Mapping[str, Any], stage:
         _, i, leaf = k.split(".", 2)
         if stage * per <= int(i) < (stage + 1) * per:
             out[f"blocks.{int(i) - stage * per}.{leaf}"] = v
-    return out
+    return expert_shard(out, expert, experts)
 
 
 def _per_stage(num_layers: int, stages: int) -> int:
@@ -148,24 +182,56 @@ def _per_stage(num_layers: int, stages: int) -> int:
     return num_layers // stages
 
 
+def model_axes(model: nn.Module, mesh: Mesh) -> Tuple[Optional[str], Optional[str]]:
+    """The model's sequence and expert axes ``(sp, ep)`` (None where it has
+    none), each held to the mesh's axes with JAX's message; a model with
+    both is refused (:data:`PP_NOT_PORTED`)."""
+    sp = model.sp_axis
+    ep = model.moe_ep_axis if model.moe_experts is not None else None
+    if sp is not None and ep is not None:
+        raise ValueError(f"{PP_NOT_PORTED} (sp_axis={sp!r}, moe_ep_axis={ep!r})")
+    if sp is not None and sp not in mesh.axis_names:
+        raise ValueError(f"model.sp_axis={sp!r} needs that axis in the mesh; "
+                         f"mesh axes: {mesh.axis_names}")
+    if ep is not None and ep not in mesh.axis_names:
+        raise ValueError(f"model.moe_ep_axis={ep!r} needs that axis in the mesh; "
+                         f"mesh axes: {mesh.axis_names}")
+    inner = mesh.inner_axis
+    if inner is not None and inner not in (sp, ep):
+        raise ValueError(f"a {mesh.shape} mesh needs a model built with sp_axis or "
+                         f"moe_ep_axis {inner!r}")
+    return sp, ep
+
+
 def shard_stacked_blocks(model: nn.Module, mesh: Mesh) -> nn.Module:
     """Cut ``model`` to this rank's stage of the mesh's pipe group: keep
     blocks ``[stage·L/S, (stage+1)·L/S)`` in ``model.blocks`` and drop the
-    others, whose memory goes with them (build the optimizer after).
-    Returns the model."""
+    others, whose memory goes with them (build the optimizer after). On a
+    pipe × seq mesh the model takes the seq group
+    (``bind_sequence_group``); on a pipe × expert mesh its experts take
+    the expert group and are cut to this rank's ``E/W``
+    (``bind_expert_group``). Returns the model."""
+    sp, ep = model_axes(model, mesh)
     group = model_group(mesh)
     per = _per_stage(model.num_layers, group.size)
     if len(model.blocks) != model.num_layers:
         raise ValueError(f"the model holds {len(model.blocks)} of its {model.num_layers} "
                          "blocks: it is staged already")
+    if ep is not None:
+        # num_experts % W is refused before any block is dropped.
+        bind_expert_group(model, inner_group(mesh))
     lo = group.rank * per
     model.blocks = nn.ModuleList(list(model.blocks)[lo:lo + per])
+    if sp is not None:
+        bind_sequence_group(model, inner_group(mesh))
     return model
 
 
 def check_staged(model: nn.Module, mesh: Mesh) -> GroupRef:
     """The mesh's pipe group, once ``model`` is known to hold one stage's
-    blocks of it (``L % S`` refused with JAX's message)."""
+    blocks of it (``L % S`` refused with JAX's message), its axes the
+    mesh's (:func:`model_axes`)."""
+    model_axes(model, mesh)
     group = model_group(mesh)
     per = _per_stage(model.num_layers, group.size)
     if len(model.blocks) != per:
@@ -206,32 +272,20 @@ class _ReplicaMean(torch.autograd.Function):
         return grad / ctx.size, None
 
 
-class _PipeSum(torch.autograd.Function):
-    """JAX's ``psum`` of the router loss over the pipe axis: the sum on
-    every rank, its gradient passed unchanged to each rank's share."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, group: GroupRef) -> torch.Tensor:
-        return allreduce_sum(x, group.group)
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        return grad, None
-
-
 def reduce_replicated_grads(model: nn.Module, mesh: Mesh) -> None:
-    """Sum the replicated parameters' gradients (every parameter outside
-    ``model.blocks``) over the pipe group, one all-reduce; a rank's missing
+    """Complete the gradients after the schedule's backward, as JAX's
+    ``shard_map`` sums the cotangents of what an axis replicates: on a
+    mesh with an inner axis, every gradient but the expert-parallel
+    leaves' (``models.moe.expert_leaf_names``) summed over the inner group
+    (a rank's share of its tokens); then the replicated parameters' (every
+    parameter outside ``model.blocks``) over the pipe group, one
+    all-reduce each (``collectives.sum_grads_``). A rank's missing
     gradient counts as zeros, and every rank ends with the sum set."""
-    group = model_group(mesh)
-    if group.size == 1:
-        return
-    rest = [p for name, p in model.named_parameters() if not name.startswith("blocks.")]
-    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                      for p in rest])
-    dist.all_reduce(flat, group=group.group)
-    for p, part in zip(rest, flat.split([p.numel() for p in rest])):
-        p.grad = part.view_as(p)
+    experts = expert_leaf_names(model)
+    sum_grads_([p for name, p in model.named_parameters() if name not in experts],
+               inner_group(mesh))
+    sum_grads_([p for name, p in model.named_parameters() if not name.startswith("blocks.")],
+               model_group(mesh))
 
 
 # -------------------------------------------------------------- the schedule
@@ -242,19 +296,22 @@ def make_pp_apply(model: nn.Module, mesh: Mesh, num_microbatches: int, remat: bo
     staged by :func:`shard_stacked_blocks` over the mesh's pipe group, in
     ``num_microbatches`` microbatches (module docstring). ``x`` ``[B, T,
     F]`` (or NCHW images under ``patch_size``) is the whole batch on every
-    rank, ``B`` divisible by ``M``; the float32 logits come back on every
-    rank. Differentiable: after ``backward``, :func:`reduce_replicated_grads`
-    completes the gradient. Refused as JAX refuses: experts without
-    ``with_aux``, ``L % S``; and ``sp_axis`` or ``moe_ep_axis``
-    (:data:`PP_NOT_PORTED`)."""
-    if model.sp_axis is not None or model.moe_ep_axis is not None:
-        raise ValueError(f"{PP_NOT_PORTED} (sp_axis={model.sp_axis!r}, "
-                         f"moe_ep_axis={model.moe_ep_axis!r})")
+    rank, ``B`` divisible by ``M``; on a pipe × seq mesh this rank's window
+    of the tokens, on a pipe × expert mesh this rank's rows. The float32
+    logits come back on every rank, for the rows it was given.
+    Differentiable: after ``backward``, :func:`reduce_replicated_grads`
+    completes the gradient. Refused as JAX refuses: a model axis the mesh
+    lacks, experts without ``with_aux``, ``L % S``; and a model with both
+    ``sp_axis`` and ``moe_ep_axis`` (:data:`PP_NOT_PORTED`)."""
+    sp, _ = model_axes(model, mesh)
     if model.moe_experts is not None and not with_aux:
         raise ValueError("MoE blocks sow a router aux loss: call with with_aux=True "
                          "and add it to the training loss")
     group = check_staged(model, mesh)
     s, idx, m = group.size, group.rank, num_microbatches
+    seq = inner_group(mesh) if sp is not None else GroupRef(None, 1, 0)
+    # The logits are alike on the pipe ranks, and under sp on the seq ranks.
+    replicas = s * seq.size
 
     def stage(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         h, aux = model.run_blocks(h)
@@ -284,15 +341,16 @@ def make_pp_apply(model: nn.Module, mesh: Mesh, num_microbatches: int, remat: bo
         if s > 1:
             h_out = _FromLastStage.apply(h_out, group)
         logits = model.pool_head(h_out.reshape(bsz, t, d))
-        if s > 1:
-            logits = _ReplicaMean.apply(logits, s)
+        if replicas > 1:
+            logits = _ReplicaMean.apply(logits, replicas)
         if not with_aux:
             return logits
-        return logits, (_PipeSum.apply(aux, group) if s > 1 else aux) / m
+        return logits, shard_mean(shard_sum(aux, group) / m, seq)
 
     return apply
 
 
-__all__ = ["PP_NOT_PORTED", "check_staged", "make_pp_apply", "reduce_replicated_grads",
+__all__ = ["PP_NOT_PORTED", "check_staged", "make_pp_apply", "model_axes",
+           "reduce_replicated_grads",
            "shard_stacked_blocks", "stack_block_params", "staged_from_flax",
            "unstack_block_params"]

@@ -90,7 +90,7 @@ def _bound(model: torch.nn.Module, mesh: Mesh) -> GroupRef:
     return group
 
 
-def _window(t: int, group: GroupRef, zigzag: bool, device) -> torch.Tensor:
+def token_window(t: int, group: GroupRef, zigzag: bool, device) -> torch.Tensor:
     """This rank's token positions of a ``T``-token sequence: window
     ``rank`` of S, of the ``zigzag_order`` layout under zigzag."""
     s = group.size
@@ -144,7 +144,7 @@ def make_dp_sp_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimiz
         if b % wd != 0:
             raise ValueError(f"batch {b} must divide by the 'data' axis size {wd}")
         rows = slice(mesh.data_rank * (b // wd), (mesh.data_rank + 1) * (b // wd))
-        cols = _window(x.shape[1], group, zigzag, x.device)
+        cols = token_window(x.shape[1], group, zigzag, x.device)
         loss = _objective(model, x[rows][:, cols], y[rows], moe_aux_weight)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -215,7 +215,7 @@ def make_dp_sp_mercury_step(model: torch.nn.Module, mesh: Mesh, batch_size: int,
 
     Per step, on every rank of a worker alike: the next ``P = presample ×
     B`` rows of the stream, this rank's token window of each
-    (:func:`_window`); a no-grad scoring forward and per-sample NLL (the
+    (:func:`token_window`); a no-grad scoring forward and per-sample NLL (the
     ``nll_fwd`` kernel); the EMA of the pool mean over the **data** group;
     the draw (``score_and_draw`` kernel); the reweighted loss ``mean(l /
     (P·p))`` of the drawn rows (``nll_fwd``, and ``nll_bwd`` in the
@@ -236,7 +236,7 @@ def make_dp_sp_mercury_step(model: torch.nn.Module, mesh: Mesh, batch_size: int,
              draws: Optional[Draws] = None) -> Tuple[SpMercuryState, Dict[str, torch.Tensor]]:
         if state.model is not model:
             raise ValueError("the state's model is not the step's")
-        cols = _window(x_train.shape[1], group, zigzag, x_train.device)
+        cols = token_window(x_train.shape[1], group, zigzag, x_train.device)
         if draws is None:
             draws = sp_draws(state, pool, batch_size)
 
@@ -282,4 +282,4 @@ def make_dp_sp_mercury_step(model: torch.nn.Module, mesh: Mesh, batch_size: int,
 
 
 __all__ = ["SpMercuryState", "init_sp_mercury_state", "make_dp_sp_mercury_step",
-           "make_dp_sp_train_step", "sp_draws"]
+           "make_dp_sp_train_step", "sp_draws", "token_window"]

@@ -33,6 +33,7 @@ from mercury_tpu_torch.data.pipeline import make_sharded_dataset  # noqa: E402
 from mercury_tpu_torch.models import MoEMLP, create_model  # noqa: E402
 from mercury_tpu_torch.models.convert import jax_flat_order, params_from_flax  # noqa: E402
 from mercury_tpu_torch.models.layers import init_weights  # noqa: E402
+from mercury_tpu_torch.parallel.mesh import GroupRef  # noqa: E402
 
 LOGITS_ATOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
@@ -354,7 +355,7 @@ def test_refusals_are_jax_s():
                        r"\(model='transformer'\|'vit'\), got 'bilstm_attention'"):
         Trainer(TrainConfig(model="bilstm_attention", dataset="synthetic_seq", world_size=1,
                             augmentation="none", moe_experts=4), device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
-        MoEMLP(4, 8, ep_axis="expert")
+    with pytest.raises(ValueError, match="^num_experts 4 not divisible by axis size 3$"):
+        MoEMLP(4, 8, ep_axis="expert").bind(GroupRef(None, 3, 0))
     cfg = TrainConfig()
     assert (cfg.moe_experts, cfg.moe_aux_weight) == (None, 0.01)

@@ -223,20 +223,35 @@ def _fake_mesh(stages, rank=0):
                  model=GroupRef(None, stages, rank))
 
 
+def _fake_mesh_2d(inner, n, rank=0):
+    """A pipe of 2 × ``inner`` of ``n`` mesh whose groups are never
+    reached."""
+    return TMesh(("data", "pipe", inner), {"data": 1, "pipe": 2, inner: n}, data_rank=0,
+                 model_rank=rank, model=GroupRef(None, 2, rank), inner=GroupRef(None, n, 0))
+
+
 def _refusal(case):
     from mercury_tpu_torch.train.pp_step import create_pp_state, make_pp_mercury_step
 
     mesh = _fake_mesh(2)
 
-    def staged_model(**kw):
-        return tpp.shard_stacked_blocks(TransformerClassifier(**port_kw(**kw)), mesh)
+    def staged_model(on=mesh, **kw):
+        return tpp.shard_stacked_blocks(TransformerClassifier(**port_kw(**kw)), on)
 
+    experts = dict(moe_experts=2, moe_ep_axis="expert")
     if case == "sp_axis":
         return lambda: tpp.make_pp_apply(staged_model(sp_axis="seq"), mesh, 2)
     if case == "moe_ep_axis":
-        return lambda: tpp.make_pp_apply(staged_model(moe_ep_axis="expert"), mesh, 2)
+        return lambda: tpp.make_pp_apply(staged_model(**experts), mesh, 2, with_aux=True)
     if case == "experts_ep_axis":
-        return lambda: staged_model(moe_experts=2, moe_ep_axis="expert")
+        return lambda: staged_model(_fake_mesh_2d("expert", 3), **experts)
+    if case == "three_axes":
+        return lambda: staged_model(_fake_mesh_2d("expert", 2), sp_axis="seq", **experts)
+    if case == "unused_inner_axis":
+        return lambda: staged_model(_fake_mesh_2d("seq", 2))
+    if case == "step_expert_batch":
+        on = _fake_mesh_2d("expert", 2)
+        return lambda: make_pp_mercury_step(staged_model(on, **experts), on, batch_size=6)
     if case == "layers":
         return lambda: tpp.shard_stacked_blocks(TransformerClassifier(**port_kw()),
                                                 _fake_mesh(3))
@@ -259,8 +274,15 @@ def _refusal(case):
     raise AssertionError(case)
 
 
-REFUSALS = {"sp_axis": "Queue 1 item 8c", "moe_ep_axis": "Queue 1 item 8c",
-            "experts_ep_axis": "Queue 1 item 8c",
+REFUSALS = {"sp_axis": r"^model.sp_axis='seq' needs that axis in the mesh; mesh axes: "
+                       r"\('data', 'pipe'\)$",
+            "moe_ep_axis": r"^model.moe_ep_axis='expert' needs that axis in the mesh; mesh "
+                           r"axes: \('data', 'pipe'\)$",
+            "experts_ep_axis": "^num_experts 2 not divisible by axis size 3$",
+            "three_axes": "Queue 1 item 8d",
+            "unused_inner_axis": "needs a model built with sp_axis or moe_ep_axis 'seq'",
+            "step_expert_batch": r"^pool \(60\) and batch \(6\) must divide by the "
+                                 r"'expert' axis size × num_microbatches \(2×2\)$",
             "layers": "^num_layers 4 not divisible by pipe axis size 3$",
             "batch": "batch must divide into microbatches",
             "with_aux": "with_aux=True",
@@ -272,10 +294,12 @@ REFUSALS = {"sp_axis": "Queue 1 item 8c", "moe_ep_axis": "Queue 1 item 8c",
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_refusals(case):
     """What JAX refuses (``L % S`` with its message, a batch ``M`` does not
-    divide, experts without ``with_aux``, the step's microbatches), the
-    meshes of item 8c (``sp_axis``, ``moe_ep_axis``, the experts' own
-    ``EP_NOT_PORTED``), and a model used unstaged, staged twice, run whole
-    when staged, or staged after its optimizer was built."""
+    divide, experts without ``with_aux``, the step's microbatches, a model
+    axis the mesh lacks with its message, ``num_experts % W`` with its
+    message), the three-axis mesh of item 8d, a 2-D mesh whose inner axis
+    the model does not use, a pipe × expert batch ``W·M`` does not divide,
+    and a model used unstaged, staged twice, run whole when staged, or
+    staged after its optimizer was built."""
     with pytest.raises(ValueError, match=REFUSALS[case]):
         _refusal(case)()
 

@@ -58,17 +58,20 @@ def data():
             jax.random.randint(k2, (N,), 0, C))
 
 
-def jax_steps(model, x, y, steps, aux_weight=0.01):
-    """JAX's pipelined Mercury step: its initial stages, stream and each
-    step's draws as uniforms, its metrics and selections, the whole
-    parameters after the first step (a port state dict) and the EMA."""
+def jax_steps(model, x, y, steps, aux_weight=0.01, mesh=None, init=None):
+    """JAX's pipelined Mercury step (on ``mesh``, by default a pipe of
+    STAGES, its state made by ``init``, by default ``model``): its initial
+    stages and their numpy trees, stream and each step's draws as
+    uniforms, its metrics and selections, the whole parameters after the
+    first step (a port state dict) and the EMA."""
     import optax
 
     from mercury_tpu.train.pp_step import create_pp_state, make_pp_mercury_step
 
     tx = optax.sgd(LR)
-    mesh = jax_mesh(STAGES)
-    state = create_pp_state(jax.random.key(7), model, tx, x[:1], shard_len=N, mesh=mesh)
+    mesh = jax_mesh(STAGES) if mesh is None else mesh
+    state = create_pp_state(jax.random.key(7), model if init is None else init, tx, x[:1],
+                            shard_len=N, mesh=mesh)
     stacked, rest = np_tree(state.stacked), np_tree(state.rest)
     staged = [tpp.staged_from_flax(stacked, rest, i, STAGES) for i in range(STAGES)]
     step = make_pp_mercury_step(model, tx, mesh, batch_size=B, presample_batches=PRESAMPLE,
@@ -101,8 +104,8 @@ def jax_steps(model, x, y, steps, aux_weight=0.01):
                     np_tree(state.stacked), np_tree(state.rest)), {})
     finally:
         jimp.draw_with_replacement = original
-    return dict(staged=staged, perm=perm, uniforms=uniforms, metrics=metrics,
-                selected=selected, params=params, ema=float(state.ema.value))
+    return dict(staged=staged, stacked=stacked, rest=rest, perm=perm, uniforms=uniforms,
+                metrics=metrics, selected=selected, params=params, ema=float(state.ema.value))
 
 
 def step_job(ref, x, y, aux_weight=0.01, **model):

@@ -8,8 +8,9 @@
 ``test_torch_port_fsdp``, ``test_torch_port_int8_flat``,
 ``test_torch_port_sp_attention``, ``test_torch_port_sp_step``,
 ``test_torch_port_sp_train_step``, ``test_torch_port_pipeline``,
-``test_torch_port_pp_step`` and ``test_torch_port_pp_moe``); this file
-holds no tests.
+``test_torch_port_pp_step``, ``test_torch_port_pp_moe``,
+``test_torch_port_ep``, ``test_torch_port_pp_2d`` and
+``test_torch_port_pp_2d_step``); this file holds no tests.
 
 ``mercury_tpu_torch.parallel.distributed.spawn`` runs each body in a
 process of its own, one a rank, in a gloo process group, and pickles the
@@ -1075,4 +1076,139 @@ def pipeline_rank(jobs, sizes):
             if params is None:
                 params = {k: v.detach().clone() for k, v in model.state_dict().items()}
         out.append(dict(stage=stage, metrics=metrics, params=params, ema=state.ema.value.item()))
+    return dict(rank=collectives.rank(), jobs=out)
+
+
+def moe_from_flax(params) -> dict:
+    """The state dict of a lone ``MoEMLP`` from its Flax ``params`` (numpy):
+    the gate's Dense transposed, the stacked arrays as they are."""
+    return {"gate.weight": torch.as_tensor(params["gate"]["kernel"]).T.contiguous(),
+            "gate.bias": torch.as_tensor(params["gate"]["bias"]),
+            **{k: torch.as_tensor(params[k]) for k in ("w_up", "b_up", "w_down", "b_down")}}
+
+
+def ep_rank(jobs):
+    """Each job on this rank of an expert group of ``job["w"]`` ranks (4:
+    the whole group; 2: the model groups of ``make_tp_mesh(2, 2, "data",
+    "expert")``, two pairs fed alike), on its slice ``e`` of the batch
+    ``job["x"]``. A ``"moe"`` job: the layer ``MoEMLP`` built whole from
+    the Flax ``job["params"]`` with ``ep_axis``, its experts cut by
+    ``bind``; the loss ``Σ y²`` over the group (``shard_sum``) plus
+    ``job["aux_weight"]`` × the router loss. A ``"classifier"`` job: the
+    Transformer ``TransformerClassifier(**job["model"])`` from the Flax
+    ``job["params"]``, ``bind_expert_group``; the loss the batch's mean NLL
+    of ``job["y"]`` plus ``job["aux_weight"]`` × the router loss. Both:
+    the backward, every gradient but the experts' (``expert_leaf_names``)
+    summed over the group (``sum_grads_``); the rank's output rows, the
+    router loss, the loss and the gradients (the experts the rank's)."""
+    from mercury_tpu_torch.models.convert import params_from_flax
+    from mercury_tpu_torch.models.moe import MoEMLP, bind_expert_group, expert_leaf_names
+    from mercury_tpu_torch.models.transformer import TransformerClassifier
+    from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
+    from mercury_tpu_torch.parallel.mesh import GroupRef, make_tp_mesh
+
+    torch.set_num_threads(1)
+    w, r = collectives.world(), collectives.rank()
+    groups = {w: GroupRef(dist.group.WORLD, w, r), 2: make_tp_mesh(w // 2, 2, "data",
+                                                                   "expert").model}
+    out = []
+    for job in jobs:
+        group = groups[job["w"]]
+        x = torch.as_tensor(job["x"]).chunk(group.size)[group.rank]
+        if job["kind"] == "moe":
+            e, d = job["params"]["w_up"].shape[:2]
+            model = MoEMLP(e, d, capacity_factor=job["cf"], ep_axis="expert")
+            model.load_state_dict(moe_from_flax(job["params"]))
+            model.bind(group)
+            y, aux = model(x)
+            total = collectives.shard_sum((y * y).sum(), group)
+        else:
+            model = TransformerClassifier(**job["model"])
+            model.load_state_dict(params_from_flax(job["params"], {}))
+            bind_expert_group(model, group)
+            y, aux = model(x, return_aux=True)
+            labels = torch.as_tensor(job["y"]).chunk(group.size)[group.rank]
+            nll = per_sample_nll(y, labels).sum() / job["x"].shape[0]
+            total = collectives.shard_sum(nll, group)
+        total = total + job["aux_weight"] * aux
+        total.backward()
+        experts = expert_leaf_names(model)
+        collectives.sum_grads_([p for k, p in model.named_parameters() if k not in experts],
+                               group)
+        out.append(dict(e=group.rank, out=y.detach(), aux=aux.item(), loss=total.item(),
+                        grads={k: p.grad.clone() for k, p in model.named_parameters()}))
+    return dict(rank=r, jobs=out)
+
+
+def pp_2d_rank(jobs):
+    """Each job on this rank of a 2 × 2 pipe × ``job["inner"]`` mesh
+    (``make_pp_mesh``; ``"seq"`` or ``"expert"``): the Transformer
+    ``TransformerClassifier(**job["model"])`` staged by
+    ``shard_stacked_blocks``, with its stage's (and expert rank's) weights
+    from the JAX trees ``job["stacked"]``, ``job["rest"]``. An ``"apply"``
+    job runs ``make_pp_apply`` at ``job["microbatches"]`` on this rank's
+    part of ``job["x"]`` (its token window, or its batch rows) and the
+    backward of the batch's mean NLL of ``job["y"]`` plus
+    ``job["aux_weight"]`` × the router loss, then
+    ``reduce_replicated_grads``: the logits, the loss, the router loss and
+    the gradients. A ``"step"`` job runs ``make_pp_mercury_step`` (SGD at
+    ``job["lr"]``, batch ``job["batch"]``, presample ``job["presample"]``,
+    telemetry on) from the JAX stream ``job["perm"]`` with the draws
+    ``job["uniforms"][t]``: each step's metrics and the rank's parameters
+    after the first."""
+    from mercury_tpu_torch.models.transformer import TransformerClassifier
+    from mercury_tpu_torch.ops.mercury_kernels import per_sample_nll
+    from mercury_tpu_torch.parallel.mesh import make_pp_mesh
+    from mercury_tpu_torch.parallel.pipeline import (
+        make_pp_apply,
+        reduce_replicated_grads,
+        shard_stacked_blocks,
+        staged_from_flax,
+    )
+    from mercury_tpu_torch.train.pp_step import create_pp_state, make_pp_mercury_step
+    from mercury_tpu_torch.train.state import Draws
+
+    torch.set_num_threads(1)
+    meshes = {inner: make_pp_mesh(2, 2, inner) for inner in ("seq", "expert")}
+    out = []
+    for job in jobs:
+        mesh = meshes[job["inner"]]
+        stage, i = mesh.model_rank, mesh.inner.rank
+        ep = job["inner"] == "expert"
+        model = shard_stacked_blocks(TransformerClassifier(**job["model"]), mesh)
+        model.load_state_dict(staged_from_flax(job["stacked"], job["rest"], stage, 2,
+                                               i if ep else 0, 2 if ep else 1))
+        opt = torch.optim.SGD(model.parameters(), lr=job.get("lr", 0.0))
+        x, y = torch.as_tensor(job["x"]), torch.as_tensor(job["y"])
+        if job["kind"] == "apply":
+            apply = make_pp_apply(model, mesh, job["microbatches"],
+                                  with_aux=job.get("with_aux", False))
+            if ep:
+                x, y = x.chunk(2)[i], y.chunk(2)[i]
+            else:
+                x = x.chunk(2, dim=1)[i]
+            res = apply(x)
+            logits, aux = res if job.get("with_aux") else (res, torch.zeros(()))
+            nll = per_sample_nll(logits, y).sum() / job["x"].shape[0]
+            total = (collectives.shard_sum(nll, mesh.inner) if ep else nll)
+            total = total + job.get("aux_weight", 0.0) * aux
+            total.backward()
+            reduce_replicated_grads(model, mesh)
+            out.append(dict(stage=stage, inner=i, logits=logits.detach(), loss=total.item(),
+                            aux=aux.item(),
+                            grads={k: p.grad.clone() for k, p in model.named_parameters()}))
+            continue
+        state = create_pp_state(model, opt, mesh, job["n"], device="cpu")
+        state.stream = ShardStream(perm=torch.as_tensor(job["perm"]).long(), cursor=0)
+        step = make_pp_mercury_step(model, mesh, job["batch"], job["presample"],
+                                    job["microbatches"], moe_aux_weight=job["aux_weight"],
+                                    telemetry=True)
+        metrics, params = [], None
+        for row in job["uniforms"]:
+            _, m = step(state, x, y, Draws(perm=None, aug=None, uniforms=torch.as_tensor(row)))
+            metrics.append({k: v.detach().clone() for k, v in m.items()})
+            if params is None:
+                params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        out.append(dict(stage=stage, inner=i, metrics=metrics, params=params,
+                        ema=state.ema.value.item()))
     return dict(rank=collectives.rank(), jobs=out)

@@ -304,10 +304,19 @@ def test_initial_distributions_are_flax():
             assert bool((mod.weight == 1).all()) and not mod.bias.any()
 
 
-@pytest.mark.parametrize("kw,item", [(dict(moe_experts=4, moe_ep_axis="expert"), "item 8")])
+@pytest.mark.parametrize("kw,item", [(dict(moe_experts=4, moe_ep_axis="expert", sp_axis="seq"),
+                                      "item 8")])
 def test_unported_transformer_options_raise(kw, item):
+    """Experts and sequences split together (a pipe × expert × seq mesh)
+    are not ported: ``make_pp_apply`` names ROADMAP's item 8d."""
+    from mercury_tpu_torch.parallel.mesh import GroupRef, Mesh
+    from mercury_tpu_torch.parallel.pipeline import make_pp_apply
+
+    mesh = Mesh(("data", "pipe", "expert"), {"data": 1, "pipe": 1, "expert": 2}, data_rank=0,
+                model_rank=0, model=GroupRef(None, 1, 0), inner=GroupRef(None, 2, 0))
+    model = create_model("transformer", 10, None, (8, 4), **kw)
     with pytest.raises(ValueError, match=item):
-        create_model("transformer", 10, None, (8, 4), **kw)
+        make_pp_apply(model, mesh, 2, with_aux=True)
 
 
 def _sp_refusal(case):
